@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Builds the CUDA kernels from ``kmers_anno_tpu_torch/csrc``, holds each
-against its plain-PyTorch version at full size, then drives the ``kmers``
-command end to end on a 2.94 Mb genome with 3500 planted genes and 10
-close genomes (the "realistic" projection workload of bench.py, seed 0) and
-checks every close genome's counts against the single-core C++ hot loop
-(``ProjectionBaseline``).
+Builds the CUDA kernels from ``kmers_anno_tpu_torch/csrc`` and holds each
+against its plain-PyTorch version on made-up inputs at full size (k = 8
+and 12, many hits).  Then drives the ``kmers`` command end to end on a
+2.94 Mb genome with 3500 planted genes and 10 close genomes (the
+"realistic" projection workload of bench.py, seed 0), checks every close
+genome's counts against the single-core C++ hot loop
+(``ProjectionBaseline``), and holds each kernel against its plain version
+again on the inputs that path gives it: the genome's padded window stream
+and the ten close-genome tables.  Those last comparisons give the
+``kernels`` line's times and errors.
 
 Usage, from the repository root:  python3 chip_smoke.py
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is non-zero and no result line
-is printed; so does a machine without CUDA.  Never imports jax.
+is printed; so does a machine without CUDA.  Imports only torch, numpy
+and the port (``kmers_anno_tpu_torch``), never jax.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ N_QUERIES = 7_400_000
 N_GENES = 3500
 N_CLOSE = 10
 REPS = 5
+WARM_RUNS = 5
 
 
 def require(cond: bool, what: str) -> None:
@@ -46,16 +52,21 @@ def require(cond: bool, what: str) -> None:
 
 
 def timed(fn, reps: int = REPS) -> tuple[float, object]:
-    """Median wall milliseconds of ``fn()`` over ``reps`` runs, each
-    bracketed by device synchronisation, after one warm-up run."""
+    """Median milliseconds of ``fn()`` over ``reps`` runs after one
+    warm-up run, each timed by CUDA events recorded on the current stream
+    before and after it (the stream's time from the first to the last
+    launch, host gaps between launches included)."""
     out = fn()
     times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        start.record()
         out = fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
     return statistics.median(times), out
 
 
@@ -76,7 +87,7 @@ def card_line() -> str:
 # kernel A: contig scanner
 # ---------------------------------------------------------------------------
 
-def check_contig_scan(dev) -> dict:
+def check_contig_scan(dev) -> None:
     from kmers_anno_tpu_torch.ops.contig_scan import (scan_stream,
                                                       scan_stream_plain)
     from kmers_anno_tpu_torch.ops.translate import codon_lut
@@ -86,7 +97,6 @@ def check_contig_scan(dev) -> dict:
     codes[rng.random(STREAM_BASES) < 0.01] = 4           # ~1% ambiguous
     stream = torch.from_numpy(codes).to(dev)
     lut = codon_lut(11)
-    result = {}
     for k in (8, 12):
         ms, got = timed(lambda: scan_stream(stream, k, lut))
         plain_ms, want = timed(lambda: scan_stream_plain(stream, k, lut))
@@ -98,15 +108,13 @@ def check_contig_scan(dev) -> dict:
         print(f"contig_scan k={k}: {STREAM_BASES} bases, exact over "
               f"[0, {n_out}), max_abs_err {err}, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms", flush=True)
-        result[k] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
-    return result[K]
 
 
 # ---------------------------------------------------------------------------
 # kernel B: wide-table probe
 # ---------------------------------------------------------------------------
 
-def check_probe_wide(dev) -> dict:
+def check_probe_wide(dev) -> None:
     from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
     from kmers_anno_tpu_torch.ops.widetable import (build_wide_table,
                                                     probe_wide,
@@ -144,7 +152,6 @@ def check_probe_wide(dev) -> dict:
           f"(host build {build_s:.2f} s, max_probes {max_probes}), "
           f"{N_QUERIES} queries, {n_hit} hits, exact, max_abs_err {err}, "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -154,8 +161,8 @@ def check_probe_wide(dev) -> dict:
 def make_projection_workload(rng, n_genes, n_close, lo_cod=60, hi_cod=500):
     """Synthetic genome with planted clean ORFs + close genomes carrying
     the source proteins (the generator of bench.py's projection bench)."""
-    from kmers_anno_tpu.genome.dna import DnaTranslator, reverse_complement
-    from kmers_anno_tpu.genome.gto import Genome
+    from kmers_anno_tpu_torch.host import (DnaTranslator, Genome,
+                                           reverse_complement)
 
     xl = DnaTranslator(11)
     parts = ["".join("acgt"[c] for c in rng.integers(0, 4, 50))]
@@ -225,14 +232,67 @@ def port_counts(messages: list[str]) -> list[tuple[int, int, int]]:
     return [tuple(c) for c in out]
 
 
-def run_main_path(dev, tmp: str) -> dict:
-    from kmers_anno_tpu import native
-    from kmers_anno_tpu.genome.gto import Genome
-    from kmers_anno_tpu.ops.encode import encode_dna
+def check_kernels_on_main_path(dev, genome, annot) -> dict:
+    """Each kernel against its plain version on the inputs the main path
+    gives it: the contig scanner on the genome's padded window stream, the
+    probe on that stream's window keys against every cached close-genome
+    table.  Exact equality over every output; CUDA-event times."""
+    from kmers_anno_tpu_torch.engine.projection import StreamWindowIndex
+    from kmers_anno_tpu_torch.ops.contig_scan import (scan_stream,
+                                                      scan_stream_plain)
+    from kmers_anno_tpu_torch.ops.translate import codon_lut
+    from kmers_anno_tpu_torch.ops.widetable import (probe_wide,
+                                                    probe_wide_plain)
+
+    codes, _ = StreamWindowIndex.window_stream(genome, K)
+    stream = torch.from_numpy(codes).to(dev)
+    lut = codon_lut(genome.genetic_code)
+    ms, got = timed(lambda: scan_stream(stream, K, lut))
+    plain_ms, want = timed(lambda: scan_stream_plain(stream, K, lut))
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "contig_scan differs from its plain version on the main path")
+    index = StreamWindowIndex.build(genome, K, False, dev)
+    require(torch.equal(index.d_lo, got[0]) and torch.equal(index.d_hi,
+                                                            got[1]),
+            "the index's window keys are not the kernel's")
+    scan = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs_err(
+        zip(got, want)))
+    print(f"main path contig_scan k={K}: {stream.numel()} bases "
+          f"({len(genome.contigs)} contig, both strands, padded), exact, "
+          f"max_abs_err {scan['max_abs_err']}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+
+    kernel_ms, plain_ms, errs, n_hits = [], [], [], 0
+    n_valid = int(index.d_valid.sum())
+    for table, max_probes, salt, _, _ in annot._table_cache.values():
+        args = (table, index.d_lo, index.d_hi, index.d_valid, salt,
+                max_probes)
+        t_k, got = timed(lambda: probe_wide(*args))
+        t_p, want = timed(lambda: probe_wide_plain(*args))
+        require(torch.equal(got, want),
+                "probe_wide differs from its plain version on the main path")
+        kernel_ms.append(t_k)
+        plain_ms.append(t_p)
+        errs.append(max_abs_err([(got, want)]))
+        n_hits += int((got >= 0).sum())
+    require(len(kernel_ms) == N_CLOSE, "a close genome's table is missing")
+    probe = dict(ms=statistics.median(kernel_ms),
+                 plain_ms=statistics.median(plain_ms), max_abs_err=max(errs))
+    print(f"main path probe_wide: {N_CLOSE} tables x {index.d_lo.numel()} "
+          f"windows ({n_valid} valid), {n_hits} hits in all, exact, "
+          f"max_abs_err {probe['max_abs_err']}; kernel ms per table "
+          f"{', '.join(f'{t:.4f}' for t in kernel_ms)} (median "
+          f"{probe['ms']:.4f}); plain {', '.join(f'{t:.4f}' for t in plain_ms)}"
+          f" (median {probe['plain_ms']:.4f})", flush=True)
+    return {"contig_scan": scan, "probe_wide": probe}
+
+
+def run_main_path(dev, tmp: str) -> tuple[dict, dict]:
     from kmers_anno_tpu_torch.commands.app import main
     from kmers_anno_tpu_torch.engine.projection import (ProjectionAnnotator,
                                                         StreamWindowIndex,
                                                         probe_hits)
+    from kmers_anno_tpu_torch.host import Genome, encode_dna, native
     from kmers_anno_tpu_torch.ops.contig_scan import scan_stream
     from kmers_anno_tpu_torch.ops.translate import codon_lut
     from kmers_anno_tpu_torch.ops.widetable import probe_wide
@@ -289,7 +349,7 @@ def run_main_path(dev, tmp: str) -> dict:
     annot = ProjectionAnnotator(device=dev)
     annot.annotate_genome(Genome.load(new_path), olds.get)   # warm tables
     times = []
-    for _ in range(3):
+    for _ in range(WARM_RUNS):
         genome = Genome.load(new_path)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -299,8 +359,8 @@ def run_main_path(dev, tmp: str) -> dict:
     require(stats["pegs"] == n_pegs, "warm run pegs differ from the CLI's")
     s_per_genome = statistics.median(times)
     print(f"warm annotate_genome: {s_per_genome:.4f} s/genome (median of "
-          f"3: {', '.join(f'{t:.4f}' for t in times)}), stats {stats}",
-          flush=True)
+          f"{WARM_RUNS}: {', '.join(f'{t:.4f}' for t in times)}), "
+          f"stats {stats}", flush=True)
 
     # where the warm time goes: the device-side stages, timed alone
     genome = Genome.load(new_path)
@@ -318,7 +378,7 @@ def run_main_path(dev, tmp: str) -> dict:
           f"compaction and pull ({n_hits} hits) {t_probe:.4f} s; host "
           f"window scan, proposals and features (the rest) "
           f"{s_per_genome - t_index - t_probe:.4f} s", flush=True)
-    return launches
+    return launches, check_kernels_on_main_path(dev, genome, annot)
 
 
 def main() -> None:
@@ -343,21 +403,21 @@ def main() -> None:
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip(), flush=True)
 
-    scan = check_contig_scan(dev)
-    probe = check_probe_wide(dev)
+    check_contig_scan(dev)
+    check_probe_wide(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = run_main_path(dev, tmp)
+        launches, measured = run_main_path(dev, tmp)
     require("jax" not in sys.modules, "jax was imported")
 
     rows = [
         dict(name="contig_scan", route="cuda",
              source="kmers_anno_tpu_torch/csrc/contig_scan.cu",
              replaces="kmers_anno_tpu/ops/pallas_contig.py:103",
-             launches=launches["contig_scan"], **scan),
+             launches=launches["contig_scan"], **measured["contig_scan"]),
         dict(name="probe_wide", route="cuda",
              source="kmers_anno_tpu_torch/csrc/probe_wide.cu",
              replaces="kmers_anno_tpu/ops/widetable.py:199",
-             launches=launches["probe_wide"], **probe),
+             launches=launches["probe_wide"], **measured["probe_wide"]),
     ]
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

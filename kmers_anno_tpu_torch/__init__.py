@@ -11,8 +11,8 @@ tensor on the CPU.
 Ported so far: the ORF-projection engine (``kmers`` / ``batch``) through
 the stream-window index and the per-close-genome probe.  Host-only modules
 of the reference (GTO model, locations, ORF scans, the C++ host runtime)
-load without jax and are imported from ``kmers_anno_tpu`` as they are.
-This package never imports jax.
+load without jax; the port takes them from ``kmers_anno_tpu`` as they are,
+all through ``host``.  This package never imports jax.
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,7 @@ from __future__ import annotations
 import sys
 from typing import Callable, Sequence
 
-from kmers_anno_tpu.commands.app import COMMANDS as REFERENCE_COMMANDS
+from ..host import REFERENCE_COMMANDS
 
 PROG = "kmers_anno_tpu_torch"
 

@@ -13,13 +13,9 @@ import os
 import sys
 import time
 
-from kmers_anno_tpu.commands.base import (BaseProcessor,
-                                          ParseFailureException)
-from kmers_anno_tpu.genome.gto import Genome
-from kmers_anno_tpu.genome.sources import PatricGenomeSource
-from kmers_anno_tpu.utils.io import TabbedLineReader
-
 from ..engine.projection import ProjectionAnnotator
+from ..host import (BaseProcessor, Genome, ParseFailureException,
+                    PatricGenomeSource, Prefetcher, TabbedLineReader)
 
 log = logging.getLogger(__name__)
 
@@ -151,8 +147,6 @@ class BatchKmerProcessor(KmerProcessorBase):
                 "--data-parallel > 1 is not yet ported")
 
     def run_command(self) -> None:
-        from kmers_anno_tpu.utils.prefetch import Prefetcher
-
         start = time.time()
         base_dir = os.path.dirname(os.path.abspath(self.in_file))
         log.info("Reading GTO names from %s in directory %s.",

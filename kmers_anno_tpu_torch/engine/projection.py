@@ -33,15 +33,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from kmers_anno_tpu import native
-from kmers_anno_tpu.genome.dna import DnaTranslator
-from kmers_anno_tpu.genome.gto import Feature, Genome
-from kmers_anno_tpu.genome.locations import Location
-from kmers_anno_tpu.ops.encode import (DNA_AMBIG, PROT_PAD, PROT_X,
-                                       encode_dna, encode_protein,
-                                       reverse_complement_codes)
-
 from ..device import resolve_device
+from ..host import (DNA_AMBIG, PROT_PAD, PROT_X, DnaTranslator, Feature,
+                    Genome, Location, encode_dna, encode_protein, native,
+                    reverse_complement_codes)
 from ..ops.contig_scan import scan_stream
 from ..ops.kmers import pack_kmer_windows, pack_kmers_np, window_any
 from ..ops.translate import codon_lut
@@ -140,11 +135,13 @@ class StreamWindowIndex:
     contig_ids: list
     n_windows: int
 
-    @classmethod
-    def build(cls, genome: Genome, k: int, strict: bool,
-              device: torch.device) -> "StreamWindowIndex":
-        k3 = 3 * k
-        gap = k3                          # >= 3k-1: no window crosses
+    @staticmethod
+    def window_stream(genome: Genome, k: int) -> tuple[np.ndarray, list]:
+        """Both strands of every contig as one host DNA code stream, each
+        segment followed by 3k ambiguity codes so no window crosses into
+        the next, padded to whole blocks.  Returns the (L,) uint8 stream
+        and one (contig idx, strand, offset, length) tuple per segment."""
+        gap = 3 * k
         parts, meta = [], []
         pos = 0
         for ci, contig in enumerate(genome.contigs):
@@ -159,7 +156,14 @@ class StreamWindowIndex:
         n_blocks = _bucket_blocks(-(-max(pos, 1) // _STREAM_BLOCK))
         parts.append(np.full(n_blocks * _STREAM_BLOCK - pos, DNA_AMBIG,
                              np.uint8))
-        stream = torch.from_numpy(np.concatenate(parts)).to(device)
+        return np.concatenate(parts), meta
+
+    @classmethod
+    def build(cls, genome: Genome, k: int, strict: bool,
+              device: torch.device) -> "StreamWindowIndex":
+        k3 = 3 * k
+        codes, meta = cls.window_stream(genome, k)
+        stream = torch.from_numpy(codes).to(device)
         d_lo, d_hi, d_bad = scan_stream(stream, k,
                                         codon_lut(genome.genetic_code))
         seg_start = np.array([m[2] for m in meta], np.int64)

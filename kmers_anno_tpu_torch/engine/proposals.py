@@ -4,8 +4,8 @@ PegProposalList.java:20-142).
 Semantics preserved exactly (SURVEY.md §2c Q7):
 
 * a proposal's identity is (contig, end, strand) — one proposal per ORF;
-* ``create`` extends the location to a start/stop codon via
-  ``Location.extend``, returning None when impossible;
+* a candidate location is extended to a start/stop codon
+  (``ops.orf.OrfExtender``), and is rejected when that is impossible;
 * strength = evidence / extended length; filters run in the order
   invalid → weak (strength < min) → small (evidence < minEvidence);
 * a duplicate ORF keeps the better proposal (more evidence, tie → longer)
@@ -13,8 +13,10 @@ Semantics preserved exactly (SURVEY.md §2c Q7):
 * iteration order is (contig, left edge, length) — the peg numbering order
   (PegProposal.compareTo, PegProposal.java:85-99).
 
-Host NumPy, copied from ``kmers_anno_tpu/engine/proposals.py`` with only
-its imports made absolute: that package's ``engine/__init__`` imports jax.
+Host NumPy, the batch path of ``kmers_anno_tpu/engine/proposals.py``
+copied as it is (that package's ``engine/__init__`` imports jax).  The
+reference's scalar ``propose`` and the fused branch's ``replay_stored``
+are not copied: no ported path calls them.
 """
 
 from __future__ import annotations
@@ -23,10 +25,10 @@ from typing import TYPE_CHECKING, Iterator
 
 import numpy as np
 
-from kmers_anno_tpu.genome.locations import Location
+from ..host import Location, OrfExtender
 
 if TYPE_CHECKING:  # pragma: no cover
-    from kmers_anno_tpu.genome.gto import Genome
+    from ..host import Genome
 
 
 class PegProposal:
@@ -39,23 +41,9 @@ class PegProposal:
         self.function = function
         self.evidence = evidence
 
-    @staticmethod
-    def create(genome: "Genome", loc: Location, function: str,
-               evidence: int) -> "PegProposal | None":
-        real = loc.extend(genome)
-        if real is None:
-            return None
-        return PegProposal(real, function, evidence)
-
     @property
     def strength(self) -> float:
         return self.evidence / self.loc.length
-
-    def better_than(self, other: "PegProposal") -> bool:
-        if self.evidence > other.evidence:
-            return True
-        return (self.evidence == other.evidence
-                and self.loc.length > other.loc.length)
 
     def merge(self, other: "PegProposal") -> None:
         """Overwrite with the better proposal's data; the ORF end stays."""
@@ -90,46 +78,15 @@ class PegProposalList:
         self._by_orf: dict[tuple, PegProposal] = {}
         self._extender = None
 
-    def propose(self, loc: Location, function: str,
-                evidence: int) -> PegProposal | None:
-        self.made += 1
-        # O(1) precomputed-scan extension (ops.orf); identical semantics to
-        # PegProposal.create's per-codon walk, ~20x faster at 40k calls/genome
-        if self._extender is None:
-            from kmers_anno_tpu.ops.orf import OrfExtender
-            self._extender = OrfExtender(self.genome)
-        ext = self._extender.extend(loc)
-        if ext is None:
-            self.rejected += 1
-            return None
-        new = PegProposal(Location(loc.contig_id, loc.strand, *ext),
-                          function, evidence)
-        if new.strength < self.min_strength:
-            self.weak += 1
-            return None
-        if evidence < self.min_evidence:
-            self.small += 1
-            return None
-        key = new.orf_key()
-        old = self._by_orf.get(key)
-        if old is None:
-            self._by_orf[key] = new
-            return new
-        if new.better_than(old):
-            old.merge(new)
-            self.merged += 1
-            return old
-        return None
-
     def propose_batch(self, contig_idx: np.ndarray, contig_ids: list,
                       strands: np.ndarray, lefts: np.ndarray,
                       rights: np.ndarray, evidence: np.ndarray,
                       func_idx: np.ndarray, functions: list[str]
                       ) -> list[tuple[int, "PegProposal"]]:
-        """Vectorized ``propose`` over candidate arrays, in candidate order.
+        """Propose every candidate of the arrays, in candidate order.
 
-        Counter-identical and result-identical to calling ``propose``
-        element by element (tests drive both): extension, the
+        Counter-identical and result-identical to the reference's scalar
+        ``propose`` called element by element: extension, the
         invalid→weak→small filter order, ORF dedup with better_than
         merging against both in-batch predecessors AND incumbents from
         earlier batches, and the ``merged`` running-improvement count all
@@ -149,7 +106,6 @@ class PegProposalList:
         if m == 0:
             return []
         if self._extender is None:
-            from kmers_anno_tpu.ops.orf import OrfExtender
             self._extender = OrfExtender(self.genome)
         ext_l, ext_r, ok = self._extender.extend_batch(
             contig_idx, contig_ids, strands, lefts, rights)
@@ -226,46 +182,6 @@ class PegProposalList:
                 new = old
             out.append((int(ci), new))
         out.sort(key=lambda t: t[0])
-        return out
-
-    def replay_stored(self, rows: np.ndarray, contig_ids: list,
-                      functions: list[str], made: int, rejected: int,
-                      weak: int, small: int
-                      ) -> list[tuple[int, "PegProposal"]]:
-        """Apply DEVICE-decided stored events (the fused projection
-        path, engine/projection._scan_genomes).
-
-        The device replicates propose_batch's whole decision chain —
-        extension, float64-exact weak/small filters, Q7 dedup against
-        both in-batch predecessors and cross-genome incumbents (carried
-        in the lax.scan) — and emits only the events that insert or win
-        a merge, in candidate order.  This applies them to the dict:
-        every row whose ORF key is already present is by construction a
-        winning merge (the device's eff-prev test saw the same
-        incumbent), so counters reproduce the sequential semantics.
-
-        rows: (n, 8) int — [contig, strand, ext_l, ext_r, evidence,
-              func_idx, left, best_edge]
-        returns [(row_index, stored_proposal), …] for --trace parity.
-        """
-        self.made += made
-        self.rejected += rejected
-        self.weak += weak
-        self.small += small
-        out = []
-        for i, (c, s, el, er, ev, fx, _l, _b) in enumerate(rows):
-            loc = Location(contig_ids[int(c)], "+" if s == 0 else "-",
-                           int(el), int(er))
-            key = (loc.contig_id, loc.end, loc.strand)
-            old = self._by_orf.get(key)
-            new = PegProposal(loc, functions[int(fx)], int(ev))
-            if old is None:
-                self._by_orf[key] = new
-                out.append((i, new))
-            else:
-                old.merge(new)
-                self.merged += 1
-                out.append((i, old))
         return out
 
     @property

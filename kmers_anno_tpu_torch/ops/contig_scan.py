@@ -20,9 +20,8 @@ import ctypes
 import numpy as np
 import torch
 
-from kmers_anno_tpu.ops.encode import DNA_AMBIG, PROT_PAD, PROT_STOP, PROT_X
-
 from .. import kernels
+from ..host import DNA_AMBIG, PROT_PAD, PROT_STOP, PROT_X
 from .kmers import MAX_K
 from .translate import sliding_translate
 

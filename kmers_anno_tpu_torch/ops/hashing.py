@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from kmers_anno_tpu.ops.hashing import _M1, _M2
+from ..host import M1, M2
 
 MASK32 = 0xFFFFFFFF
 
@@ -26,9 +26,9 @@ def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
 def fmix32(x: torch.Tensor) -> torch.Tensor:
     """Murmur3 finalizer on int64 tensors holding uint32 values."""
     x = x ^ (x >> 16)
-    x = _mul32(x, _M1)
+    x = _mul32(x, M1)
     x = x ^ (x >> 13)
-    x = _mul32(x, _M2)
+    x = _mul32(x, M2)
     return x ^ (x >> 16)
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kmers_anno_tpu.ops.encode import PROT_PAD
+from ..host import PROT_PAD
 
 MAX_K = 12
 

@@ -11,8 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kmers_anno_tpu.genome.dna import GeneticCode
-from kmers_anno_tpu.ops.encode import encode_protein
+from ..host import GeneticCode, encode_protein
 
 _LUT_CACHE: dict[int, np.ndarray] = {}
 

@@ -22,10 +22,8 @@ import logging
 import numpy as np
 import torch
 
-from kmers_anno_tpu.ops.hashing import mix_kmer_salted as mix_kmer_salted_np
-from kmers_anno_tpu.ops.hashing import salt_sequence
-
 from .. import kernels
+from ..host import mix_kmer_salted_np, salt_sequence
 from .hashing import mix_kmer_salted
 
 log = logging.getLogger(__name__)
