@@ -3,16 +3,35 @@
 
 Builds the CUDA kernels from ``kmers_anno_tpu_torch/csrc`` and holds each
 against its plain-PyTorch version on made-up inputs at full size (k = 8
-and 12, many hits).  Then drives the ``kmers`` command end to end on a
-2.94 Mb genome with 3500 planted genes and 10 close genomes (the
-"realistic" projection workload of bench.py, seed 0), checks every close
-genome's counts against the single-core C++ hot loop
-(``ProjectionBaseline``), and holds each kernel against its plain version
-again on the inputs that path gives it: the genome's padded window stream
-and the ten close-genome tables.  Those last comparisons give the
-``kernels`` line's times and errors.
+and 12, many hits).  Then drives the projection engine's three routes, one
+after another, on a 2.94 Mb genome with 3500 planted genes and 10 close
+genomes (the "realistic" projection workload of bench.py, seed 0):
 
-Usage, from the repository root:  python3 chip_smoke.py
+1. ``kmers`` through the CLI, which must take the fused route (union
+   probe + per-genome device window scan);
+2. the RLE route, forced as the reference's tests force it
+   (``_close_set`` gives None);
+3. the host contig index route (``engine="host"``), whose per-strand
+   extraction runs the contig scanner once per strand.
+
+Each route's per-close-genome counts must equal the single-core C++ hot
+loop (``ProjectionBaseline``), and all three must give the same stats and
+features; each reports its warm seconds per genome (median and range of
+five runs; one run for the slow host-index route).  Every kernel
+wrapper's launch count is set to 0 before each route and read after it.
+Last, each kernel is held against its plain version again on the inputs
+those routes give it: the genome's padded window stream and its two
+strands (contig scanner), the union table and the ten close-genome tables
+of both stream routes (probe).  Those comparisons give the ``kernels``
+line's times and errors.
+
+Usage, from the repository root:  python3 chip_smoke.py [--profile]
+
+``--profile`` also traces three warm fused-route genomes with
+``torch.profiler`` (device activity only) and reports, within that one
+traced run, the device's busy share (the union of its kernel and copy
+intervals over the run's wall time) and the kernels that take the most
+device time; then a ``cProfile`` of one more warm genome on the host.
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -23,6 +42,7 @@ and the port (``kmers_anno_tpu_torch``), never jax.
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import os
@@ -44,6 +64,8 @@ N_GENES = 3500
 N_CLOSE = 10
 REPS = 5
 WARM_RUNS = 5
+HOST_WARM_RUNS = 1               # the host-index route takes ~8 s a genome
+PROFILED_GENOMES = 3
 
 
 def require(cond: bool, what: str) -> None:
@@ -232,19 +254,120 @@ def port_counts(messages: list[str]) -> list[tuple[int, int, int]]:
     return [tuple(c) for c in out]
 
 
-def check_kernels_on_main_path(dev, genome, annot) -> dict:
+class _Launches:
+    """Every kernel wrapper's launch count, and which projection route
+    ran, over one ``with`` block: the counts are set to 0 on entry and
+    read on exit."""
+
+    def __init__(self):
+        from kmers_anno_tpu_torch.engine import projection
+        from kmers_anno_tpu_torch.ops.contig_scan import scan_stream
+        from kmers_anno_tpu_torch.ops.widetable import probe_wide
+
+        self.wrappers = {"contig_scan": scan_stream,
+                         "probe_wide": probe_wide}
+        self.projection = projection
+        self.counts: dict = {}
+        self.fused_calls = 0
+
+    def __enter__(self):
+        for w in self.wrappers.values():
+            w.launches = 0
+        self.lines = _Lines()
+        logging.getLogger(self.projection.__name__).addHandler(self.lines)
+        self._orig = self.projection._scan_genomes
+
+        def spy(*a, **kw):
+            self.fused_calls += 1
+            return self._orig(*a, **kw)
+
+        self.fused_calls = 0
+        self.projection._scan_genomes = spy
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.projection._scan_genomes = self._orig
+        logging.getLogger(self.projection.__name__).removeHandler(self.lines)
+        self.counts = {n: w.launches for n, w in self.wrappers.items()}
+        return False
+
+
+def features_of(genome) -> list:
+    return [(f.id, f.function, f.location.contig_id, f.location.strand,
+             f.location.left, f.location.right, f.protein_translation)
+            for f in genome.features]
+
+
+def warm_runs(annot, new_path, olds, n_runs: int) -> tuple[list, dict]:
+    """Host-clock seconds of ``n_runs`` warm annotate_genome calls, each
+    ending in a synchronise; returns the times and the last stats."""
+    from kmers_anno_tpu_torch.host import Genome
+
+    times = []
+    for _ in range(n_runs):
+        genome = Genome.load(new_path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = annot.annotate_genome(genome, olds.get)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, stats
+
+
+def summary(times: list) -> str:
+    return (f"{statistics.median(times):.4f} s/genome (median of "
+            f"{len(times)}, range {min(times):.4f}-{max(times):.4f}: "
+            f"{', '.join(f'{t:.4f}' for t in times)})")
+
+
+def check_strand_scan(dev, genome) -> dict:
+    """The per-strand route's scanner against its plain version on the
+    genome's two strands, as ``extract_contig_kmers`` feeds it."""
+    from kmers_anno_tpu_torch.host import encode_dna
+    from kmers_anno_tpu_torch.ops.contig_scan import (scan_stream,
+                                                      scan_stream_plain)
+    from kmers_anno_tpu_torch.ops.translate import codon_lut
+
+    lut = codon_lut(genome.genetic_code)
+    codes = encode_dna(genome.contigs[0].sequence)
+    rc = np.where(codes < 4, codes ^ 2, codes)[::-1].copy()
+    ms, plain_ms, errs = [], [], []
+    for seq in (codes, rc):
+        stream = torch.from_numpy(seq).to(dev)
+        t_k, got = timed(lambda: scan_stream(stream, K, lut))
+        t_p, want = timed(lambda: scan_stream_plain(stream, K, lut))
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                "contig_scan differs from its plain version on a strand")
+        ms.append(t_k)
+        plain_ms.append(t_p)
+        errs.append(max_abs_err(zip(got, want)))
+    out = dict(ms=sum(ms), plain_ms=sum(plain_ms), max_abs_err=max(errs))
+    print(f"main path contig_scan per strand k={K}: {len(codes)} bases x 2 "
+          f"strands, exact, max_abs_err {out['max_abs_err']}, kernel "
+          f"{ms[0]:.4f} + {ms[1]:.4f} ms, plain {plain_ms[0]:.4f} + "
+          f"{plain_ms[1]:.4f} ms", flush=True)
+    return out
+
+
+def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
     """Each kernel against its plain version on the inputs the main path
-    gives it: the contig scanner on the genome's padded window stream, the
-    probe on that stream's window keys against every cached close-genome
-    table.  Exact equality over every output; CUDA-event times."""
-    from kmers_anno_tpu_torch.engine.projection import StreamWindowIndex
+    gives it: the contig scanner on the genome's padded window stream and
+    on its two strands; the probe on that stream against the union table
+    and every RLE close-genome table, and on the compacted union hits
+    against every fused close-genome table.  Exact equality over every
+    output; CUDA-event times."""
+    from kmers_anno_tpu_torch.engine.projection import (StreamWindowIndex,
+                                                        _union_compact)
+    from kmers_anno_tpu_torch.host import encode_dna
     from kmers_anno_tpu_torch.ops.contig_scan import (scan_stream,
                                                       scan_stream_plain)
     from kmers_anno_tpu_torch.ops.translate import codon_lut
     from kmers_anno_tpu_torch.ops.widetable import (probe_wide,
                                                     probe_wide_plain)
 
-    codes, _ = StreamWindowIndex.window_stream(genome, K)
+    codes, _ = StreamWindowIndex.window_stream(
+        [encode_dna(c.sequence) for c in genome.contigs], K)
     stream = torch.from_numpy(codes).to(dev)
     lut = codon_lut(genome.genetic_code)
     ms, got = timed(lambda: scan_stream(stream, K, lut))
@@ -262,40 +385,157 @@ def check_kernels_on_main_path(dev, genome, annot) -> dict:
           f"max_abs_err {scan['max_abs_err']}, kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms", flush=True)
 
-    kernel_ms, plain_ms, errs, n_hits = [], [], [], 0
-    n_valid = int(index.d_valid.sum())
-    for table, max_probes, salt, _, _ in annot._table_cache.values():
-        args = (table, index.d_lo, index.d_hi, index.d_valid, salt,
-                max_probes)
+    def probe_check(what, table, lo, hi, valid, salt, max_probes):
+        args = (table, lo, hi, valid, salt, max_probes)
         t_k, got = timed(lambda: probe_wide(*args))
         t_p, want = timed(lambda: probe_wide_plain(*args))
         require(torch.equal(got, want),
-                "probe_wide differs from its plain version on the main path")
-        kernel_ms.append(t_k)
-        plain_ms.append(t_p)
-        errs.append(max_abs_err([(got, want)]))
-        n_hits += int((got >= 0).sum())
-    require(len(kernel_ms) == N_CLOSE, "a close genome's table is missing")
-    probe = dict(ms=statistics.median(kernel_ms),
-                 plain_ms=statistics.median(plain_ms), max_abs_err=max(errs))
-    print(f"main path probe_wide: {N_CLOSE} tables x {index.d_lo.numel()} "
-          f"windows ({n_valid} valid), {n_hits} hits in all, exact, "
-          f"max_abs_err {probe['max_abs_err']}; kernel ms per table "
-          f"{', '.join(f'{t:.4f}' for t in kernel_ms)} (median "
-          f"{probe['ms']:.4f}); plain {', '.join(f'{t:.4f}' for t in plain_ms)}"
-          f" (median {probe['plain_ms']:.4f})", flush=True)
-    return {"contig_scan": scan, "probe_wide": probe}
+                f"probe_wide differs from its plain version on {what}")
+        return t_k, t_p, max_abs_err([(got, want)]), int((got >= 0).sum())
+
+    require(len(fused._closeset_cache) == 1, "no fused close set")
+    cs = next(iter(fused._closeset_cache.values()))
+    stream_args = (index.d_lo, index.d_hi, index.d_valid)
+    u_ms, u_plain, u_err, n_union = probe_check(
+        "the union table", cs.union_table, *stream_args, cs.union_salt,
+        cs.union_mp)
+    lo_c, hi_c = _union_compact(cs.union_table, cs.union_salt, cs.union_mp,
+                                index)[:2]
+    ones = torch.ones_like(lo_c, dtype=torch.bool)
+    close = [probe_check("a fused close-genome table", t, lo_c, hi_c, ones,
+                         salt, mp)
+             for t, salt, mp in zip(cs.tables, cs.salts, cs.mps)]
+    rle_tables = [e for e in rle._table_cache.values() if e[0] is not None]
+    require(len(close) == len(rle_tables) == N_CLOSE,
+            "a close genome's table is missing")
+    per = [probe_check("an RLE close-genome table", t, *stream_args, salt,
+                       mp) for t, mp, salt, _, _ in rle_tables]
+    errs = [u_err] + [c[2] for c in close + per]
+    probe = dict(ms=u_ms, plain_ms=u_plain, max_abs_err=max(errs),
+                 close_ms=statistics.median(c[0] for c in close),
+                 close_plain_ms=statistics.median(c[1] for c in close),
+                 rle_ms=statistics.median(c[0] for c in per),
+                 rle_plain_ms=statistics.median(c[1] for c in per))
+    print(f"main path probe_wide, union table ({cs.n_union_keys} keys, "
+          f"{cs.union_table.shape[0]} rows) x {index.d_lo.numel()} "
+          f"windows: {n_union} hits, exact, kernel {u_ms:.4f} ms, plain "
+          f"{u_plain:.4f} ms", flush=True)
+    print(f"main path probe_wide, {N_CLOSE} fused close tables x "
+          f"{lo_c.numel()} union hits: {sum(c[3] for c in close)} hits in "
+          f"all, exact; kernel ms {', '.join(f'{c[0]:.4f}' for c in close)}"
+          f" (median {probe['close_ms']:.4f}); plain median "
+          f"{probe['close_plain_ms']:.4f}", flush=True)
+    print(f"RLE route probe_wide, {N_CLOSE} close tables x "
+          f"{index.d_lo.numel()} windows: {sum(c[3] for c in per)} hits in "
+          f"all, exact; kernel ms {', '.join(f'{c[0]:.4f}' for c in per)} "
+          f"(median {probe['rle_ms']:.4f}); plain median "
+          f"{probe['rle_plain_ms']:.4f}; max_abs_err over every probe "
+          f"{probe['max_abs_err']}", flush=True)
+    return {"contig_scan": scan, "probe_wide": probe,
+            "contig_scan_strand": check_strand_scan(dev, genome)}
 
 
-def run_main_path(dev, tmp: str) -> tuple[dict, dict]:
+def fused_breakdown(dev, annot, new_path, olds, s_per_genome) -> None:
+    """Where one warm fused-route genome's time goes, stage by stage."""
+    from kmers_anno_tpu_torch.engine.projection import (StreamWindowIndex,
+                                                        _scan_genomes,
+                                                        _union_compact)
+    from kmers_anno_tpu_torch.host import Genome
+
+    genome = Genome.load(new_path)
+    cs = next(iter(annot._closeset_cache.values()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = StreamWindowIndex.build(genome, K, False, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    u = _union_compact(cs.union_table, cs.union_salt, cs.union_mp, index)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    orf = index.orf_state()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    got = _scan_genomes(cs.tables, cs.salts, cs.mps, cs.pinfo, u, orf,
+                        annot._minev_for(index), annot.min_evidence, K)
+    t4 = time.perf_counter()
+    n_stored = sum(s[8] for _, s in got)
+    print(f"fused breakdown of {s_per_genome:.4f} s: stream index "
+          f"{t1 - t0:.4f} s; union probe + compaction ({u[0].numel()} hits)"
+          f" {t2 - t1:.4f} s; ORF scans {t3 - t2:.4f} s; {len(got)} "
+          f"per-genome scans with the pull of {n_stored} stored rows "
+          f"{t4 - t3:.4f} s; host replay, features and the rest "
+          f"{s_per_genome - (t4 - t0):.4f} s", flush=True)
+
+
+def busy_seconds(spans: list) -> float:
+    """Length of the union of (start, end) intervals, in their unit."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile_fused(annot, new_path, olds, s_per_genome) -> None:
+    """Device busy share and top device entries over warm fused genomes,
+    measured within one traced run; then a host cProfile of one more."""
+    import cProfile
+    import pstats
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmers_anno_tpu_torch.host import Genome
+
+    genomes = [Genome.load(new_path) for _ in range(PROFILED_GENOMES)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for genome in genomes:
+            annot.annotate_genome(genome, olds.get)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    require(device, "the profiler saw no device activity")
+    busy = busy_seconds([(e.time_range.start, e.time_range.end)
+                         for e in device]) / 1e6
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    summed = sum(v[0] for v in by_name.values())
+    print(f"profile: {PROFILED_GENOMES} warm fused genomes traced (device "
+          f"activity only) in {wall:.4f} s ({wall / PROFILED_GENOMES:.4f} "
+          f"s/genome; untraced median {s_per_genome:.4f}); device busy "
+          f"{busy:.4f} s (union of {len(device)} kernel and copy "
+          f"intervals), busy share {busy / wall:.4f}; summed device time "
+          f"{summed:.3f} ms", flush=True)
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:12]:
+        print(f"  device {ms:9.3f} ms {100 * ms / summed:5.1f}% "
+              f"{n:5d} x {name[:90]}", flush=True)
+    genome = Genome.load(new_path)
+    host = cProfile.Profile()
+    host.enable()
+    annot.annotate_genome(genome, olds.get)
+    torch.cuda.synchronize()
+    host.disable()
+    stats = pstats.Stats(host)
+    print(f"profile: cProfile of one warm fused genome, "
+          f"{stats.total_tt:.4f} s in all; top by own time:", flush=True)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:12]
+    for (path, line, func), (_, ncalls, tottime, cumtime, _) in rows:
+        print(f"  host own {tottime:.4f} s, cum {cumtime:.4f} s, {ncalls:6d}"
+              f" x {os.path.basename(path)}:{line}({func})", flush=True)
+
+
+def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
     from kmers_anno_tpu_torch.commands.app import main
-    from kmers_anno_tpu_torch.engine.projection import (ProjectionAnnotator,
-                                                        StreamWindowIndex,
-                                                        probe_hits)
+    from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
     from kmers_anno_tpu_torch.host import Genome, encode_dna, native
-    from kmers_anno_tpu_torch.ops.contig_scan import scan_stream
     from kmers_anno_tpu_torch.ops.translate import codon_lut
-    from kmers_anno_tpu_torch.ops.widetable import probe_wide
 
     t0 = time.perf_counter()
     dna, olds, new = make_projection_workload(
@@ -310,29 +550,6 @@ def run_main_path(dev, tmp: str) -> tuple[dict, dict]:
     print(f"workload: {len(dna)} bases, {N_GENES} planted genes, "
           f"{len(olds)} close genomes, written in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-    lines = _Lines()
-    engine_log = logging.getLogger("kmers_anno_tpu_torch.engine.projection")
-    engine_log.addHandler(lines)
-    scan_stream.launches = 0
-    probe_wide.launches = 0
-    t0 = time.perf_counter()
-    rc = main(["kmers", "--cache", cache, "-i", new_path, "-o", out_path,
-               "--device", str(dev)])
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = {"contig_scan": scan_stream.launches,
-                "probe_wide": probe_wide.launches}
-    engine_log.removeHandler(lines)
-    require(rc == 0, f"kmers exited with {rc}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the path never launched: {launches}")
-    n_pegs = len(Genome.load(out_path).pegs)
-    require(n_pegs > 0, "out.gto holds no pegs")
-    print(f"kmers (cold, tables built): rc {rc}, {n_pegs} pegs, "
-          f"{cold_s:.2f} s, launches {launches}", flush=True)
-
-    got = port_counts(lines.messages)
     base = native.ProjectionBaseline(
         [encode_dna(c.sequence) for c in new.contigs],
         np.asarray(codon_lut(11), np.uint8), K)
@@ -340,48 +557,94 @@ def run_main_path(dev, tmp: str) -> tuple[dict, dict]:
                         if f.protein_translation], 0.50, 1.5, 0.8)
             for og in olds.values()]
     base.close()
-    require(len(got) == N_CLOSE, f"{len(got)} close genomes probed")
-    require(got == want, f"port counts {got} != baseline {want}")
-    print(f"independent check: per close genome (matching kmers, peg/frame "
-          f"pairs, proposals made) = {got[0]} x {len(got)}, equal to "
-          "ProjectionBaseline", flush=True)
 
-    annot = ProjectionAnnotator(device=dev)
-    annot.annotate_genome(Genome.load(new_path), olds.get)   # warm tables
-    times = []
-    for _ in range(WARM_RUNS):
+    def check_counts(route, launches):
+        got = port_counts(launches.lines.messages)
+        require(len(got) == N_CLOSE, f"{route}: {len(got)} close genomes "
+                "probed")
+        require(got == want, f"{route}: port counts {got} != baseline "
+                f"{want}")
+        print(f"independent check, {route} route: per close genome "
+              f"(matching kmers, peg/frame pairs, proposals made) = "
+              f"{got[0]} x {len(got)}, equal to ProjectionBaseline",
+              flush=True)
+
+    # -- route 1, the main path: kmers through the CLI, fused route --
+    t0 = time.perf_counter()
+    with _Launches() as fused_run:
+        rc = main(["kmers", "--cache", cache, "-i", new_path, "-o",
+                   out_path, "--device", str(dev)])
+    cold_s = time.perf_counter() - t0
+    require(rc == 0, f"kmers exited with {rc}")
+    require(fused_run.fused_calls == 1, "kmers did not take the fused route")
+    require(fused_run.counts["contig_scan"] > 0
+            and fused_run.counts["probe_wide"] > 0,
+            f"a kernel of the path never launched: {fused_run.counts}")
+    want_feats = features_of(Genome.load(out_path))
+    n_pegs = len(want_feats)
+    require(n_pegs > 0, "out.gto holds no pegs")
+    print(f"kmers, fused route (cold, tables built): rc {rc}, {n_pegs} "
+          f"pegs, {cold_s:.2f} s, launches {fused_run.counts}", flush=True)
+    check_counts("fused", fused_run)
+
+    fused = ProjectionAnnotator(device=dev)
+    fused.annotate_genome(Genome.load(new_path), olds.get)  # warm tables
+    times, want_stats = warm_runs(fused, new_path, olds, WARM_RUNS)
+    require(want_stats["pegs"] == n_pegs, "warm pegs differ from the CLI's")
+    print(f"fused route, warm annotate_genome: {summary(times)}, stats "
+          f"{want_stats}", flush=True)
+    fused_breakdown(dev, fused, new_path, olds, statistics.median(times))
+    if profile:
+        profile_fused(fused, new_path, olds, statistics.median(times))
+    routes = {"fused": dict(launches=fused_run.counts, times=times)}
+
+    # -- route 2, RLE, forced as the reference's tests force it --
+    rle = ProjectionAnnotator(device=dev)
+    rle._close_set = lambda olds_: None
+    # -- route 3, the host contig index --
+    host = ProjectionAnnotator(device=dev, engine="host")
+    for name, annot in (("rle", rle), ("host", host)):
         genome = Genome.load(new_path)
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = annot.annotate_genome(genome, olds.get)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    require(stats["pegs"] == n_pegs, "warm run pegs differ from the CLI's")
-    s_per_genome = statistics.median(times)
-    print(f"warm annotate_genome: {s_per_genome:.4f} s/genome (median of "
-          f"{WARM_RUNS}: {', '.join(f'{t:.4f}' for t in times)}), "
-          f"stats {stats}", flush=True)
-
-    # where the warm time goes: the device-side stages, timed alone
-    genome = Genome.load(new_path)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index = StreamWindowIndex.build(genome, K, False, dev)
-    torch.cuda.synchronize()
-    t_index = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    n_hits = sum(len(probe_hits(t, salt, mp, index)[0])
-                 for t, mp, salt, _, _ in annot._table_cache.values())
-    t_probe = time.perf_counter() - t0
-    print(f"breakdown of {s_per_genome:.4f} s: stream index (scan kernel, "
-          f"masks, upload) {t_index:.4f} s; {N_CLOSE} probes with hit "
-          f"compaction and pull ({n_hits} hits) {t_probe:.4f} s; host "
-          f"window scan, proposals and features (the rest) "
-          f"{s_per_genome - t_index - t_probe:.4f} s", flush=True)
-    return launches, check_kernels_on_main_path(dev, genome, annot)
+        with _Launches() as run:
+            stats = annot.annotate_genome(genome, olds.get)
+        cold_s = time.perf_counter() - t0
+        require(run.fused_calls == 0, f"{name} took the fused route")
+        if name == "host":
+            # no stream index: every scanner launch is a per-strand one
+            require(run.counts["contig_scan"] == 2 * len(genome.contigs)
+                    and run.counts["probe_wide"] == 0,
+                    f"host: not one scanner launch per strand: "
+                    f"{run.counts}")
+        else:
+            require(run.counts["contig_scan"] > 0
+                    and run.counts["probe_wide"] > 0,
+                    f"{name}: a kernel of the route never launched: "
+                    f"{run.counts}")
+        require(stats == want_stats, f"{name} stats {stats} != fused "
+                f"{want_stats}")
+        require(features_of(genome) == want_feats,
+                f"{name} features differ from the fused route's")
+        print(f"{name} route (cold, tables built): {cold_s:.2f} s, stats "
+              f"and {n_pegs} features equal to the fused route's, launches "
+              f"{run.counts}", flush=True)
+        check_counts(name, run)
+        times, stats = warm_runs(annot, new_path, olds,
+                                 HOST_WARM_RUNS if name == "host"
+                                 else WARM_RUNS)
+        require(stats == want_stats, f"{name} warm stats differ")
+        print(f"{name} route, warm annotate_genome: {summary(times)}",
+              flush=True)
+        routes[name] = dict(launches=run.counts, times=times)
+    return routes, check_kernels_on_main_path(dev, Genome.load(new_path),
+                                              fused, rle)
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also trace warm fused-route genomes")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; no result")
     os.environ["KMERS_ANNO_LOG"] = "off"     # no log file in the checkout
@@ -406,19 +669,30 @@ def main() -> None:
     check_contig_scan(dev)
     check_probe_wide(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, measured = run_main_path(dev, tmp)
+        routes, measured = run_main_path(dev, tmp, args.profile)
     require("jax" not in sys.modules, "jax was imported")
 
+    def row(name, counter, source, replaces, main_route, of_routes):
+        by_route = {r: routes[r]["launches"][counter] for r in of_routes}
+        return dict(name=name, route="cuda",
+                    source=f"kmers_anno_tpu_torch/{source}",
+                    replaces=f"kmers_anno_tpu/{replaces}",
+                    launches=by_route[main_route],
+                    launches_by_route=by_route, **measured[name])
+
     rows = [
-        dict(name="contig_scan", route="cuda",
-             source="kmers_anno_tpu_torch/csrc/contig_scan.cu",
-             replaces="kmers_anno_tpu/ops/pallas_contig.py:103",
-             launches=launches["contig_scan"], **measured["contig_scan"]),
-        dict(name="probe_wide", route="cuda",
-             source="kmers_anno_tpu_torch/csrc/probe_wide.cu",
-             replaces="kmers_anno_tpu/ops/widetable.py:199",
-             launches=launches["probe_wide"], **measured["probe_wide"]),
+        row("contig_scan", "contig_scan", "csrc/contig_scan.cu",
+            "ops/pallas_contig.py:103", "fused", ("fused", "rle")),
+        row("probe_wide", "probe_wide", "csrc/probe_wide.cu",
+            "ops/widetable.py:199", "fused", ("fused", "rle", "host")),
+        # the host route builds no stream index: its scanner launches are
+        # the per-strand ones
+        row("contig_scan_strand", "contig_scan", "csrc/contig_scan.cu",
+            "ops/pallas_contig.py:161", "host", ("host",)),
     ]
+    for r, v in routes.items():
+        print(f"warm s/genome, {r} route: {summary(v['times'])}",
+              flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ path is a CUDA C++ kernel written for Hopper (``csrc/``), built with
 keeps a plain-PyTorch version beside it, which a wrapper takes only for a
 tensor on the CPU.
 
-Ported so far: the ORF-projection engine (``kmers`` / ``batch``) through
-the stream-window index and the per-close-genome probe.  Host-only modules
+Ported so far: the ORF-projection engine (``kmers`` / ``batch``) with its
+three routes: the fused union probe + device window scan (the default),
+the per-close-genome RLE probe, and the host contig index
+(``engine="host"``).  Host-only modules
 of the reference (GTO model, locations, ORF scans, the C++ host runtime)
 load without jax; the port takes them from ``kmers_anno_tpu`` as they are,
 all through ``host``.  This package never imports jax.

@@ -13,8 +13,9 @@ import torch
 
 def wide_table_from_numpy(table: np.ndarray,
                           device: torch.device) -> torch.Tensor:
-    """A ``(rows, 72)`` uint32 wide-bucket table → an int32 tensor of the
-    same bits on ``device`` (``EMPTY`` reads as -1)."""
+    """A uint32 hash table (wide-bucket ``(rows, 72)`` or 8-slot
+    ``(buckets, 24)``) → an int32 tensor of the same bits on ``device``
+    (``EMPTY`` reads as -1)."""
     words = np.ascontiguousarray(table, np.uint32)
     return torch.from_numpy(words.view(np.int32).copy()).to(device)
 
@@ -23,8 +24,8 @@ def stream_index_from_jax(index, device: torch.device):
     """A reference ``StreamWindowIndex`` → the port's, on ``device``.
 
     The window keys and validity come across as they are (the reference's
-    padded stream length included); the segment metadata is host NumPy
-    in both packages.
+    padded stream length included); the segment metadata and the
+    per-contig codes are host NumPy in both packages.
     """
     from .projection import StreamWindowIndex
 
@@ -41,4 +42,5 @@ def stream_index_from_jax(index, device: torch.device):
         seg_strand=np.array(index.seg_strand, np.int8),
         seg_len=np.array(index.seg_len, np.int64),
         contig_ids=list(index.contig_ids),
-        n_windows=index.n_windows)
+        n_windows=index.n_windows,
+        contig_codes=[np.array(c, np.uint8) for c in index.contig_codes])

@@ -1,26 +1,36 @@
 """ORF-projection annotation engine (the ``kmers``/``batch`` path,
 KmerProcessor.annotateGenome — KmerProcessor.java:166-287), in PyTorch.
 
-Counterpart of ``kmers_anno_tpu/engine/projection.py`` in its stream-window
-configuration with the per-close-genome probe (the reference's RLE branch,
-``_project_all_stream_rle``):
+Counterpart of ``kmers_anno_tpu/engine/projection.py``, with its three
+routes:
 
-1. **Stream window index** (hot loop #1): both strands of every contig go
-   into one DNA code stream on the device; the contig scanner kernel
-   (``ops.contig_scan``) translates it and packs a kmer at every base, and
-   the Q1 drop-last and STRICT masks run as tensor code.
-2. **Peg singleton kmers** per close genome (hot loop #2): host NumPy pack
-   plus the C++ group-by (a torch sort when the native library is absent);
-   the singletons become a wide-bucket table on the device, cached by
-   close-genome id across the genomes of a batch.
-3. **Matching** (hot loop #3): the wide-table probe kernel
-   (``ops.widetable.probe_wide``) looks every stream window up in each
-   close genome's table; a hit IS a (peg, location) pair.
-4. **Window scan** (hot loop #4) and proposals (Q6/Q7) on the host, as in
-   the reference; features are emitted in numbering order (Q8).
+* **Fused stream route** (``engine="auto"`` or ``"device"``, the default):
+  both strands of every contig go into one DNA code stream on the device
+  and the contig scanner kernel (``ops.contig_scan``) packs a kmer at every
+  base (hot loop #1).  The stream is probed ONCE against the union of all
+  close genomes' singleton kmers (the ``probe_wide`` kernel) and the hits
+  are compacted (``_union_compact``); then per close genome, in order,
+  ``_scan_genome`` probes the compacted keys against that genome's table,
+  runs the Q6 window scan, the ORF extension, the exact weak/small filters
+  and the Q7 dedup on the device against incumbents carried from genome to
+  genome, and returns only the stored events, which the host replays
+  (``PegProposalList.replay_stored``).
+* **RLE stream route** (``_project_all_stream_rle``), the reference's
+  fallback when a close-genome set exceeds the fused route's packed-key
+  field widths or the wide-table capacity: the stream is probed against
+  each close genome's table (wide-bucket, or 8-slot for a huge singleton
+  set) and the hits go through the host window scan and ``propose_batch``.
+* **Host index route** (``engine="host"``): ``ContigKmerIndex`` extracts
+  each contig's kmers strand by strand through the same scanner
+  (``ops.contig_kmers``), groups them on the host into an 8-slot table
+  over a location CSR, and each close genome's singletons are probed into
+  it (``_match_host_index``) before the same host window scan.
 
-Stats, features and ``--trace`` lines equal the reference's on both of its
-branches.
+Peg singleton kmers (hot loop #2) are a host NumPy pack plus the C++
+group-by (a torch sort when the native library is absent), cached by
+close-genome id across the genomes of a batch.  Features are emitted in
+numbering order (Q8).  Stats, features and ``--trace`` lines equal the
+reference's on every route.
 """
 
 from __future__ import annotations
@@ -35,9 +45,12 @@ import torch
 
 from ..device import resolve_device
 from ..host import (DNA_AMBIG, PROT_PAD, PROT_X, DnaTranslator, Feature,
-                    Genome, Location, encode_dna, encode_protein, native,
-                    reverse_complement_codes)
+                    GeneticCode, Genome, Location, encode_dna,
+                    encode_protein, native, reverse_complement_codes)
+from ..ops.contig_kmers import extract_contig_kmers
 from ..ops.contig_scan import scan_stream
+from ..ops.hashing import MASK32
+from ..ops.hashtable import build_table, device_table_buckets, probe_table
 from ..ops.kmers import pack_kmer_windows, pack_kmers_np, window_any
 from ..ops.translate import codon_lut
 from ..ops.widetable import build_wide_table, probe_wide, wide_rows_for
@@ -67,6 +80,93 @@ def _bucket_blocks(n: int) -> int:
     if p * 3 // 4 >= n:
         return p * 3 // 4
     return p
+
+
+def _host_u32(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host uint32 key words (< 2^31) → an int32 tensor on ``device``."""
+    return torch.from_numpy(np.asarray(x).astype(np.int32)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# the host contig kmer index (engine="host")
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ContigKmerIndex:
+    """Probed kmer → location-list index over a genome's contigs.
+
+    CSR layout: unique keys (in the 8-slot probe table, value = rank) own
+    the location range locs[starts[rank] : starts[rank] + counts[rank]].
+    """
+
+    k: int
+    table: torch.Tensor         # (B, 24) int32 probe table (key → rank)
+    max_probes: int
+    ukey_lo: np.ndarray         # (U,) uint32 — unique packed keys
+    ukey_hi: np.ndarray         # (U,) uint32
+    starts: np.ndarray          # (U,) int64
+    counts: np.ndarray          # (U,) int32
+    loc_contig: np.ndarray      # (N,) int32  — contig index
+    loc_strand: np.ndarray      # (N,) int8   — 0='+', 1='-'
+    loc_left: np.ndarray        # (N,) int32  — 1-based left edge
+    contig_ids: list            # contig index → id
+    n_unique: int
+
+    @classmethod
+    def build(cls, genome: Genome, k: int, strict: bool,
+              device: torch.device) -> "ContigKmerIndex":
+        parts = []
+        contig_ids = []
+        for ci, contig in enumerate(genome.contigs):
+            got = extract_contig_kmers(contig.sequence, k,
+                                       genome.genetic_code, device)
+            got["contig"] = np.full(len(got["lo"]), ci, np.int32)
+            parts.append(got)
+            contig_ids.append(contig.id)
+        n = sum(len(p["lo"]) for p in parts)
+        if n == 0:
+            raise ValueError("genome has no contig kmers")
+        lo = np.concatenate([p["lo"] for p in parts])
+        hi = np.concatenate([p["hi"] for p in parts])
+        left = np.concatenate([p["left"] for p in parts])
+        strand = np.concatenate([p["strand"] for p in parts])
+        contig = np.concatenate([p["contig"] for p in parts])
+
+        got = native.groupby(lo, hi)
+        if got is not None:
+            # host C++ group-by (kan_groupby): one stable sort
+            sidx, ustarts = got
+            starts_all = ustarts
+            ukey_lo = lo[sidx[ustarts]]
+            ukey_hi = hi[sidx[ustarts]]
+            ucounts = np.diff(np.append(ustarts, n)).astype(np.int32)
+        else:
+            # one stable sort of the packed key (hi << 32 | lo) on the
+            # device; the permutation is the payload (original row index)
+            key = torch.from_numpy((hi.astype(np.int64) << 32)
+                                   | lo.astype(np.int64)).to(device)
+            skey, perm = torch.sort(key, stable=True)
+            ukey, counts = torch.unique_consecutive(skey, return_counts=True)
+            sidx = perm.cpu().numpy()
+            ucounts = counts.cpu().numpy().astype(np.int32)
+            starts_all = np.cumsum(ucounts, dtype=np.int64) - ucounts
+            ukey = ukey.cpu().numpy()
+            ukey_lo = (ukey & MASK32).astype(np.uint32)
+            ukey_hi = (ukey >> 32).astype(np.uint32)
+        if strict:
+            keep = ucounts == 1                      # STRICT: unique only
+            ukey_lo, ukey_hi = ukey_lo[keep], ukey_hi[keep]
+            starts_all, ucounts = starts_all[keep], ucounts[keep]
+        table, max_probes = build_table(
+            ukey_lo, ukey_hi, np.arange(len(ukey_lo), dtype=np.uint32))
+        return cls(
+            k=k, table=wide_table_from_numpy(table, device),
+            max_probes=max_probes, ukey_lo=ukey_lo, ukey_hi=ukey_hi,
+            starts=starts_all.astype(np.int64),
+            counts=ucounts.astype(np.int32),
+            loc_contig=contig[sidx], loc_strand=strand[sidx],
+            loc_left=left[sidx], contig_ids=contig_ids,
+            n_unique=len(ukey_lo))
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +213,70 @@ def _strict_window_mask(d_lo: torch.Tensor, d_hi: torch.Tensor,
     return out
 
 
+# --- device ORF extension state (ops/orf.py semantics as gathers) -------
+
+_ORF_GAP = 4            # separator width between contigs (code 6 blocks)
+_ORF_SEP = np.uint8(6)  # reserved code: forces stop=True / start=False
+
+
+def _next_true_dev(mask: torch.Tensor) -> torch.Tensor:
+    """Per phase, the smallest q >= p with q ≡ p (mod 3) and mask[q];
+    -1 when none (ops/orf.py ``_next_true``).  len(mask) % 3 == 0."""
+    n = mask.numel()
+    pos = torch.arange(n, dtype=torch.int64, device=mask.device)
+    big = 1 << 30
+    res = torch.zeros(n, dtype=torch.int64, device=mask.device)
+    for ph in range(3):
+        v = torch.where(mask[ph::3], pos[ph::3], big)
+        m = torch.flip(torch.cummin(torch.flip(v, [0]), 0).values, [0])
+        res[ph::3] = torch.where(m < big, m, -1)
+    return res
+
+
+def _prev_true_dev(mask: torch.Tensor) -> torch.Tensor:
+    """Per phase, the largest q <= p with q ≡ p (mod 3) and mask[q];
+    -1 when none."""
+    n = mask.numel()
+    pos = torch.arange(n, dtype=torch.int64, device=mask.device)
+    res = torch.zeros(n, dtype=torch.int64, device=mask.device)
+    for ph in range(3):
+        v = torch.where(mask[ph::3], pos[ph::3], -1)
+        res[ph::3] = torch.cummax(v, 0).values
+    return res
+
+
+def _build_orf_scans(codes: torch.Tensor, start_lut: torch.Tensor,
+                     stop_lut: torch.Tensor) -> tuple:
+    """ContigOrfScan for a whole genome in ONE padded code stream.
+
+    codes: (N,) uint8 — contigs separated by >= _ORF_GAP _ORF_SEP codes
+    (leading + trailing gaps included; N ≡ 2 mod 3 so each phase slices
+    evenly).  start_lut/stop_lut: (65,) bool by codon index.  Separator
+    codons are forced stop=True/start=False, which BLOCKS every scan at
+    contig boundaries: a walk that would leave its contig lands on a
+    separator and fails the local-range/start checks — the same outcome
+    as the host scans' -1 sentinels.
+
+    returns (next_stop_p, prev_event_p, prev_stop_m, next_event_m) int64
+    and (p_start, m_start) bool, each of length N - 2.
+    """
+    c0, c1, c2 = codes[:-2], codes[1:-1], codes[2:]
+    ok = (c0 < 4) & (c1 < 4) & (c2 < 4)
+    gap = (c0 >= _ORF_SEP) | (c1 >= _ORF_SEP) | (c2 >= _ORF_SEP)
+    i0 = c0.to(torch.int64)
+    i1 = c1.to(torch.int64)
+    i2 = c2.to(torch.int64)
+    pid = torch.where(ok, i0 * 16 + i1 * 4 + i2, 64)
+    mid = torch.where(ok, (i2 ^ 2) * 16 + (i1 ^ 2) * 4 + (i0 ^ 2), 64)
+    p_start = start_lut[pid] & ~gap
+    p_stop = stop_lut[pid] | gap
+    m_start = start_lut[mid] & ~gap
+    m_stop = stop_lut[mid] | gap
+    return (_next_true_dev(p_stop), _prev_true_dev(p_start | p_stop),
+            _prev_true_dev(m_stop), _next_true_dev(m_start | m_stop),
+            p_start, m_start)
+
+
 @dataclass
 class StreamWindowIndex:
     """Device-resident contig window keys (base-major stream order).
@@ -134,9 +298,47 @@ class StreamWindowIndex:
     seg_len: np.ndarray         # (S,) int64 contig length
     contig_ids: list
     n_windows: int
+    contig_codes: list = None   # per-contig uint8 codes (lazy ORF state)
+    _orf: tuple = None          # cached device ORF-extension state
+
+    def orf_state(self) -> tuple:
+        """Device ORF-extension state (lazy): the _build_orf_scans
+        arrays + per-contig (offset, length) int64 tensors in the padded
+        code stream, reused by every close genome."""
+        if self._orf is not None:
+            return self._orf
+        dev = self.d_lo.device
+        parts = [np.full(_ORF_GAP, _ORF_SEP, np.uint8)]
+        offs = []
+        pos = _ORF_GAP
+        for codes in self.contig_codes:
+            offs.append(pos)
+            parts.append(codes)
+            parts.append(np.full(_ORF_GAP, _ORF_SEP, np.uint8))
+            pos += len(codes) + _ORF_GAP
+        want = _bucket(pos + 4, 4096)
+        want += (2 - want % 3) % 3          # ≡ 2 mod 3: phases slice even
+        parts.append(np.full(want - pos, _ORF_SEP, np.uint8))
+        stream = np.concatenate(parts)
+        code = GeneticCode.get(self.gc)
+        order = {"t": 0, "c": 1, "a": 2, "g": 3}
+
+        def lut65(codons):
+            out = np.zeros(65, bool)
+            for c in codons:
+                out[order[c[0]] * 16 + order[c[1]] * 4 + order[c[2]]] = 1
+            return torch.from_numpy(out).to(dev)
+
+        scans = _build_orf_scans(torch.from_numpy(stream).to(dev),
+                                 lut65(code.starts), lut65(code.stops))
+        self._orf = (scans,
+                     torch.tensor(offs, dtype=torch.int64, device=dev),
+                     torch.tensor([len(c) for c in self.contig_codes],
+                                  dtype=torch.int64, device=dev))
+        return self._orf
 
     @staticmethod
-    def window_stream(genome: Genome, k: int) -> tuple[np.ndarray, list]:
+    def window_stream(contig_codes: list, k: int) -> tuple[np.ndarray, list]:
         """Both strands of every contig as one host DNA code stream, each
         segment followed by 3k ambiguity codes so no window crosses into
         the next, padded to whole blocks.  Returns the (L,) uint8 stream
@@ -144,8 +346,7 @@ class StreamWindowIndex:
         gap = 3 * k
         parts, meta = [], []
         pos = 0
-        for ci, contig in enumerate(genome.contigs):
-            codes = encode_dna(contig.sequence)
+        for ci, codes in enumerate(contig_codes):
             length = len(codes)
             for strand, arr in ((0, codes),
                                 (1, reverse_complement_codes(codes))):
@@ -162,7 +363,8 @@ class StreamWindowIndex:
     def build(cls, genome: Genome, k: int, strict: bool,
               device: torch.device) -> "StreamWindowIndex":
         k3 = 3 * k
-        codes, meta = cls.window_stream(genome, k)
+        contig_codes = [encode_dna(c.sequence) for c in genome.contigs]
+        codes, meta = cls.window_stream(contig_codes, k)
         stream = torch.from_numpy(codes).to(device)
         d_lo, d_hi, d_bad = scan_stream(stream, k,
                                         codon_lut(genome.genetic_code))
@@ -186,7 +388,7 @@ class StreamWindowIndex:
             seg_contig=np.array([m[0] for m in meta], np.int32),
             seg_strand=np.array([m[1] for m in meta], np.int8),
             seg_len=seg_len, contig_ids=[c.id for c in genome.contigs],
-            n_windows=n_windows)
+            n_windows=n_windows, contig_codes=contig_codes)
 
     def locate(self, pos: np.ndarray):
         """Stream positions → (contig idx, strand, 1-based left edge)."""
@@ -201,11 +403,12 @@ class StreamWindowIndex:
                 left.astype(np.int32))
 
 
-def probe_hits(table: torch.Tensor, salt: int, max_probes: int,
+def probe_hits(table: torch.Tensor, salt: int | None, max_probes: int,
                index: StreamWindowIndex) -> tuple[np.ndarray, np.ndarray]:
     """Probe the whole window stream against one singleton table and
     return the hits as host arrays (stream positions int64, pegs int32),
-    in stream order.
+    in stream order.  ``salt`` None means the 8-slot layout
+    (``probe_table``), as in the reference's ``_chunked_pay``.
 
     The reference (``_probe_rle_multi`` / ``_rle_body``) run-length
     encodes the hits under a cap with a retry loop, only to shrink the
@@ -213,10 +416,288 @@ def probe_hits(table: torch.Tensor, salt: int, max_probes: int,
     exactly these two arrays (its ``_project_all_stream_rle``).  Here the
     hits are compacted with one ``torch.nonzero``.
     """
-    pay = probe_wide(table, index.d_lo, index.d_hi, index.d_valid, salt,
-                     max_probes)
+    if salt is None:
+        pay = probe_table(table, index.d_lo, index.d_hi, index.d_valid,
+                          max_probes)
+    else:
+        pay = probe_wide(table, index.d_lo, index.d_hi, index.d_valid,
+                         salt, max_probes)
     pos = torch.nonzero(pay >= 0).squeeze(1)
     return pos.cpu().numpy(), pay[pos].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# fused union probe + device window scan (the default route)
+# ---------------------------------------------------------------------------
+#
+# Packed candidate key, fixed field widths as in the reference:
+#   khi = frame(3) | peg(20) | contig_hi(6),  klo = contig_lo(4) | left(28)
+# held as one int64 ``khi << 32 | klo`` (khi < 2^29), so every multi-key
+# sort of the reference is one int64 sort.  _project_all_stream validates
+# the widths and takes the RLE route when a genome exceeds them.
+
+_LEFT_BITS = 28
+_CONTIG_BITS = 10
+_PEG_BITS = 20
+_LMASK = (1 << _LEFT_BITS) - 1
+_PEG_SHIFT = _CONTIG_BITS - 4               # peg sits above contig_hi
+_FRAME_SHIFT = _PEG_BITS + _PEG_SHIFT
+
+
+def _min_ev_table(min_strength: float, max_len: int) -> np.ndarray:
+    """minev[L] = smallest integer ev with NOT (ev / L < min_strength),
+    under float64 division — so the device's integer compare reproduces
+    propose_batch's `evidence / length < min_strength` bit-exactly."""
+    L = np.arange(max_len + 1, dtype=np.int64)
+    L[0] = 1
+    ev = np.ceil(min_strength * L).astype(np.int64)
+    ev = np.maximum(ev, 0)
+    ev = np.where((ev - 1) >= 0, np.where((ev - 1) / L >= min_strength,
+                                          ev - 1, ev), ev)
+    ev = np.where(ev / L < min_strength, ev + 1, ev)
+    bad = (ev / L < min_strength) | ((ev - 1) / L >= min_strength)
+    bad &= ev - 1 >= 0
+    if bad.any():  # pragma: no cover - construction is provably 1 step
+        raise AssertionError("min_ev_table failed to converge")
+    return ev.astype(np.int32)
+
+
+def _union_compact(table: torch.Tensor, salt: int, max_probes: int,
+                   index: StreamWindowIndex) -> tuple:
+    """Probe the stream against the union table and compact the hits in
+    stream order, then locate each on the device.
+
+    returns (lo_c, hi_c — (n_union,) int32 compacted window keys,
+             klo — int64 contig_lo|left candidate-key half,
+             base — int64 frame|contig_hi candidate-key half (peg 0))
+    """
+    pay = probe_wide(table, index.d_lo, index.d_hi, index.d_valid, salt,
+                     max_probes)
+    pos = torch.nonzero(pay >= 0).squeeze(1)        # stream order
+    dev = pos.device
+
+    def meta(a):
+        return torch.from_numpy(a.astype(np.int64)).to(dev)
+
+    seg_start = meta(index.seg_start)
+    seg = torch.searchsorted(seg_start, pos, right=True) - 1
+    local = pos - seg_start[seg]
+    strand = meta(index.seg_strand)[seg]
+    length = meta(index.seg_len)[seg]
+    contig = meta(index.seg_contig)[seg]
+    k3 = 3 * index.k
+    left = torch.where(strand == 0, local + 1, (length - k3 + 1) - local)
+    right = left + k3 - 1
+    frame = torch.where(strand == 0, 3 + left % 3, right % 3)
+    klo = ((contig & 15) << _LEFT_BITS) | left
+    base = (frame << _FRAME_SHIFT) | (contig >> 4)
+    return index.d_lo[pos], index.d_hi[pos], klo, base
+
+
+def _first_flags(key: torch.Tensor) -> torch.Tensor:
+    """True where a sorted key differs from its predecessor (and at 0)."""
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    return first
+
+
+def _scan_genome(table: torch.Tensor, salt: int, max_probes: int,
+                 pinfo: torch.Tensor, u: tuple, orf: tuple,
+                 minev: torch.Tensor, min_evidence: int, k: int,
+                 inc: torch.Tensor) -> tuple[torch.Tensor, list]:
+    """One close genome of the reference's ``_scan_genomes`` lax.scan
+    body: probe + Q6 window scan + ORF extension + exact weak/small
+    filters + Q7 dedup.  Every stage is sized by its count.
+
+    table/salt/max_probes: the genome's wide singleton table
+    pinfo:  (3, P) int64 — per peg [maxlen3, minlen3, minkmers], host f64
+            rounding (so the fuzz thresholds match NumPy bit-for-bit)
+    u:      _union_compact's output
+    orf:    StreamWindowIndex.orf_state()
+    minev:  (Lmax+1,) int64 — _min_ev_table(min_strength)
+    inc:    (2 * ospan,) int64 incumbent scores per ORF address, updated
+            in place: the carry from genome to genome, in the role of the
+            reference's lax.scan carry.  A score packs the lexicographic
+            (evidence, length) of better_than as (ev + 1) << 28 | len.
+
+    returns (rows, stats): rows (n_stored, 8) int64 STORED events
+    [contig, strand, ext_l, ext_r, evidence, peg, left, best_edge] in
+    candidate order; stats [n_hits, n_groups, low_kmer, too_short,
+    n_live, rejected, weak, small, n_stored, n_cand] as ints.
+    """
+    lo_c, hi_c, klo, base = u
+    dev = lo_c.device
+    k3 = 3 * k
+    stats = [0] * 10
+    empty = torch.zeros((0, 8), dtype=torch.int64, device=dev)
+    pay = probe_wide(table, lo_c, hi_c,
+                     torch.ones_like(lo_c, dtype=torch.bool), salt,
+                     max_probes)
+    # the reference sorts misses last under a sentinel key; here they are
+    # dropped first, so no sentinel reaches the packed key
+    hits = torch.nonzero(pay >= 0).squeeze(1)
+    nh = hits.numel()
+    if nh == 0:
+        return empty, stats
+    khi = base[hits] | (pay[hits].to(torch.int64) << _PEG_SHIFT)
+    skey = torch.sort((khi << 32) | klo[hits]).values     # keys are unique
+    khi_s = skey >> 32
+    klo_s = skey & MASK32
+    left_s = klo_s & _LMASK
+    contig_s = (klo_s >> _LEFT_BITS) | ((khi_s & ((1 << _PEG_SHIFT) - 1))
+                                        << 4)
+    peg_s = (khi_s >> _PEG_SHIFT) & ((1 << _PEG_BITS) - 1)
+    frame_s = khi_s >> _FRAME_SHIFT
+    # groups = (frame, peg); runs = (frame, peg, contig)
+    gfirst = _first_flags(khi_s >> _PEG_SHIFT)
+    rid = torch.cumsum(_first_flags(skey >> _LEFT_BITS), 0) - 1
+    gid = torch.cumsum(gfirst, 0) - 1
+    gstarts = torch.nonzero(gfirst).squeeze(1)
+    gsizes = torch.diff(gstarts, append=gstarts.new_tensor([nh]))
+    size = gsizes[gid]
+    i_local = torch.arange(nh, device=dev) - gstarts[gid]
+    maxlen3, minlen3, minkm = pinfo[0][peg_s], pinfo[1][peg_s], pinfo[2][peg_s]
+    group_ok = minkm <= size
+    cc = torch.nonzero(group_ok & (i_local <= size - minkm)).squeeze(1)
+    n_cand = cc.numel()
+    stats[:3] = [nh, gstarts.numel(), int((gfirst & ~group_ok).sum())]
+    stats[9] = n_cand
+
+    # ---- Q6 evidence ----
+    # host reference: ub = searchsorted(run-prefixed rights, left +
+    # maxlen3); here right ≡ left + 3K-1, so the query is the candidate
+    # key with left += delta (never carries past the left field —
+    # _project_all_stream validates).  The reference's merged-rank pass
+    # counts the keys strictly below each query (Q-before-B tie order);
+    # a left-sided searchsorted on the sorted int64 keys is that count.
+    delta = (maxlen3[cc] - (k3 - 1)).clamp(min=0)
+    ub = torch.searchsorted(skey, skey[cc] + delta)
+    evidence = (ub - cc - 1).clamp(min=0) + 1
+    # best edge: B[ub-1] (clamped to the element itself, host semantics
+    # s_right[max(ub-1, i)]); the run guard handles ub pointing before
+    # this element's run
+    bi = (ub - 1).clamp(0, nh - 1)
+    bestleft = torch.where((ub >= 1) & (rid[bi] == rid[cc]), left_s[bi], -1)
+    c_left0 = left_s[cc]
+    best_edge = torch.maximum(bestleft, c_left0) + (k3 - 1)
+    live = torch.nonzero(best_edge >= c_left0 + minlen3[cc]).squeeze(1)
+    n_live = live.numel()
+    stats[3:5] = [n_cand - n_live, n_live]
+    if n_live == 0:
+        return empty, stats
+    cc2 = cc[live]
+    c_contig = contig_s[cc2]
+    c_strand = torch.where(frame_s[cc2] >= 3, 0, 1)
+    c_left = c_left0[live]
+    c_peg = peg_s[cc2]
+    c_bedge = best_edge[live]
+    c_ev = evidence[live]
+
+    # ---- device Location.extend (ops/orf.py semantics) ----
+    (next_stop_p, prev_event_p, prev_stop_m, next_event_m,
+     p_start, m_start), orf_off, contig_len = orf
+    n2_all = next_stop_p.numel()
+    ci = c_contig.clamp(0, orf_off.numel() - 1)
+    off = orf_off[ci]
+    n2c = contig_len[ci] - 2
+    plus = c_strand == 0
+
+    def gat(arr, local, valid):
+        gi = (off + torch.minimum(local.clamp(min=0), n2c - 1)).clamp(
+            0, n2_all - 1)
+        return torch.where(valid & (n2c > 0), arr[gi], -1)
+
+    def at_start(arr, q):
+        return torch.where(q >= 0, arr[q.clamp(0, n2_all - 1)], False)
+
+    # '+': stop downstream of right, start-or-stop upstream of left
+    posp = c_bedge                      # 1-based right ≡ 0-based next
+    qp = gat(next_stop_p, posp, plus & (posp < n2c))
+    qp_l = qp - off
+    p0p = c_left - 1
+    p0p = torch.where(p0p >= n2c, p0p - 3 * ((p0p - (n2c - 1) + 2) // 3),
+                      p0p)
+    ep = gat(prev_event_p, p0p, plus)
+    ep_l = ep - off
+    ok_p = (plus & (posp < n2c) & (qp >= 0) & (qp_l < n2c) & (ep >= 0)
+            & (ep_l >= 0) & (ep_l < n2c) & at_start(p_start, ep))
+    # '-': stop upstream below left, start-or-stop downstream of right
+    posm = c_left - 4
+    posm = torch.where(posm >= n2c,
+                       posm - 3 * ((posm - (n2c - 1) + 2) // 3), posm)
+    qm = gat(prev_stop_m, posm, ~plus & (posm >= 0))
+    qm_l = qm - off
+    p0m = c_bedge - 3
+    p0m = torch.where(p0m < 0, p0m + 3 * ((-p0m + 2) // 3), p0m)
+    em = gat(next_event_m, p0m, ~plus & (p0m < n2c))
+    em_l = em - off
+    ok_m = (~plus & (posm >= 0) & (qm >= 0) & (qm_l >= 0) & (em >= 0)
+            & (em_l < n2c) & at_start(m_start, em))
+    len_ok = ((c_bedge - c_left + 1) % 3) == 0
+    ok_ext = len_ok & torch.where(plus, ok_p, ok_m)
+    ext_l = torch.where(plus, ep_l + 1, qm_l + 1)
+    ext_r = torch.where(plus, qp_l + 3, em_l + 3)
+
+    # ---- exact weak/small filters (propose_batch order) ----
+    elen = torch.where(ok_ext, ext_r - ext_l + 1, 1)
+    thr = minev[elen.clamp(0, minev.numel() - 1)]
+    weak = ok_ext & (c_ev < thr)
+    small = ok_ext & ~weak & (c_ev < min_evidence)
+    fin = ok_ext & ~weak & ~small
+    stats[5:8] = [n_live - int(ok_ext.sum()), int(weak.sum()),
+                  int(small.sum())]
+
+    # ---- Q7 ORF dedup with exact stored/merged decisions ----
+    ospan = n2_all + 4                  # ORF address space per strand
+    orf_end = torch.where(plus, ext_r, ext_l)
+    addr = torch.where(fin, off + orf_end + c_strand * ospan, 2 * ospan)
+    a_s, i_s = torch.sort(addr, stable=True)
+    fin_s = a_s < 2 * ospan
+    score_s = torch.where(fin_s, ((c_ev[i_s] + 1) << _LEFT_BITS)
+                          | elen[i_s], 0)
+    first = _first_flags(a_s)
+    # segmented running max of the score: rank-compress the scores so
+    # one int64 key (segment id above rank) runs under torch.cummax
+    uniq, rank = torch.unique(score_s, return_inverse=True)
+    seg_base = (torch.cumsum(first, 0) - 1) * uniq.numel()
+    m_score = uniq[torch.cummax(seg_base + rank, 0).values - seg_base]
+    # exclusive within-segment prefix max
+    x_score = torch.where(first, 0, torch.roll(m_score, 1))
+    g_score = torch.where(fin_s, inc[a_s.clamp(0, 2 * ospan - 1)], 0)
+    stored_s = fin_s & (score_s > torch.maximum(g_score, x_score))
+    # incumbent update: segment-inclusive max vs incumbent, at each last
+    last = torch.roll(first, -1) & fin_s
+    inc[a_s[last]] = torch.maximum(g_score, m_score)[last]
+
+    # stored rows back in candidate order
+    stored = torch.zeros_like(stored_s)
+    stored[i_s] = stored_s
+    si = torch.nonzero(stored).squeeze(1)
+    stats[8] = si.numel()
+    rows = torch.stack([c_contig, c_strand, ext_l, ext_r, c_ev, c_peg,
+                        c_left, c_bedge], 1)[si]
+    return rows, stats
+
+
+def _scan_genomes(tables: list, salts: list, mps: list, pinfo: list,
+                  u: tuple, orf: tuple, minev: torch.Tensor,
+                  min_evidence: int, k: int
+                  ) -> list[tuple[np.ndarray, list]]:
+    """All close genomes in order (the reference's lax.scan): one
+    ``_scan_genome`` each, the incumbent scores carried from one to the
+    next, so stored/merged decisions are exactly propose_batch's.
+
+    returns per genome (rows (n_stored, 8) int64 host array, stats).
+    """
+    n2_all = orf[0][0].numel()
+    inc = torch.zeros(2 * (n2_all + 4), dtype=torch.int64,
+                      device=orf[1].device)
+    out = []
+    for table, salt, mp, pi in zip(tables, salts, mps, pinfo):
+        rows, stats = _scan_genome(table, salt, mp, pi, u, orf, minev,
+                                   min_evidence, k, inc)
+        out.append((rows.cpu().numpy(), stats))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +759,7 @@ def peg_singleton_kmers(genome: Genome, k: int, device: torch.device):
     starts = torch.cumsum(counts, 0) - counts
     single = starts[counts == 1]
     key1 = skey[single].cpu().numpy()
-    return ((key1 & 0xFFFFFFFF).astype(np.uint32),
+    return ((key1 & MASK32).astype(np.uint32),
             (key1 >> 32).astype(np.uint32),
             d_peg[perm[single]].cpu().numpy().astype(np.int32), pegs)
 
@@ -289,22 +770,48 @@ def peg_singleton_kmers(genome: Genome, k: int, device: torch.device):
 
 class _PegInfo(NamedTuple):
     """The slice of a close-genome Feature the window scan needs (kept
-    in the table cache instead of whole Genome objects)."""
+    in the table caches instead of whole Genome objects)."""
 
     id: str
     function: str
     protein_length: int
 
 
+@dataclass
+class _CloseSet:
+    """Device state for one ordered set of close genomes (the fused
+    route): per live genome a wide singleton table and per-peg threshold
+    arrays, plus the union table; cached across the new genomes of a
+    batch run."""
+
+    tables: list                 # per live genome: (rows, 72) int32
+    salts: list                  # per live genome: int
+    mps: list                    # per live genome: max_probes
+    pinfo: list                  # per live genome: (3, P) int64
+    union_table: torch.Tensor    # (Ru, 72) int32
+    union_salt: int
+    union_mp: int
+    peg_infos: list              # per live genome: list[_PegInfo]
+    n_singles: list              # per INPUT genome (zeros included)
+    n_union_keys: int
+    max_delta: int               # max maxlen3 across genomes
+
+
 class ProjectionAnnotator:
-    """Annotates genomes by projecting close-genome proteins onto ORFs."""
+    """Annotates genomes by projecting close-genome proteins onto ORFs.
+
+    engine: "auto" or "device" take the stream routes (fused, else RLE);
+    "host" takes the host contig index route.
+    """
 
     def __init__(self, min_strength: float = 0.50, max_fuzz: float = 1.5,
                  min_fuzz: float = 0.8, max_genomes: int = 10,
                  min_evidence: int = 10, k: int = 8,
                  algorithm: str = "AGGRESSIVE",
-                 trace_function: str | None = None, *,
-                 device: str | torch.device):
+                 trace_function: str | None = None, engine: str = "auto",
+                 *, device: str | torch.device):
+        if engine not in ("auto", "device", "host"):
+            raise ValueError(f"unknown projection engine {engine!r}")
         if min_strength >= 1.0:
             raise ValueError("Minimum strength must be less than 1.")
         if max_fuzz <= 1.0:
@@ -320,8 +827,24 @@ class ProjectionAnnotator:
         self.k = k
         self.strict = algorithm.upper() == "STRICT"
         self.trace_function = trace_function
+        self.engine = engine
         self.device = resolve_device(device)
         self._table_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._singleton_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._closeset_cache: "OrderedDict[tuple, _CloseSet]" = OrderedDict()
+        self._minev_cache: dict[int, torch.Tensor] = {}
+
+    def _minev_for(self, index: StreamWindowIndex) -> torch.Tensor:
+        """Device weak-filter threshold table covering this genome's
+        longest possible extended ORF (float64-exact — _min_ev_table)."""
+        size = _bucket(int(index.seg_len.max(initial=1)) + 2, 1 << 16)
+        got = self._minev_cache.get(size)
+        if got is None:
+            got = torch.from_numpy(_min_ev_table(
+                self.min_strength / 3, size).astype(np.int64)).to(
+                    self.device)
+            self._minev_cache[size] = got
+        return got
 
     def annotate_genome(self, genome: Genome, close_loader) -> dict:
         """Annotate in place; close_loader(genome_id) → Genome | None.
@@ -333,8 +856,14 @@ class ProjectionAnnotator:
         real_strength = self.min_strength / 3          # Q3
         proposals = PegProposalList(genome, real_strength,
                                     self.min_evidence)
-        index = StreamWindowIndex.build(genome, k, self.strict, self.device)
-        log.info("%d kmer windows found in genome.", index.n_windows)
+        if self.engine != "host":
+            index = StreamWindowIndex.build(genome, k, self.strict,
+                                            self.device)
+            log.info("%d kmer windows found in genome.", index.n_windows)
+        else:
+            index = ContigKmerIndex.build(genome, k, self.strict,
+                                          self.device)
+            log.info("%d kmers found in genome.", index.n_unique)
         close = genome.close_genomes
         log.info("%d close genomes available from input.", len(close))
         i_genome = 1
@@ -350,7 +879,11 @@ class ProjectionAnnotator:
                 continue
             i_genome += 1
             loaded.append(old_genome)
-        self._project_all(loaded, index, proposals)
+        if isinstance(index, StreamWindowIndex):
+            self._project_all_stream(loaded, index, proposals)
+        else:
+            for old_genome in loaded:
+                self._project_from(old_genome, index, proposals)
         log.info("%d proposals made, %d merged, %d rejected, %d too weak, "
                  "%d too little evidence, %d kept.", proposals.made,
                  proposals.merged, proposals.rejected, proposals.weak,
@@ -372,8 +905,9 @@ class ProjectionAnnotator:
     # ----- close-genome singleton tables (device-resident, cached) -----
 
     def _close_table(self, old_genome: Genome):
-        """Device singleton table for one close genome, LRU-cached by
-        (genome id, k): (table | None, max_probes, salt, n_keys, pegs).
+        """Device singleton table for one close genome (the RLE route),
+        LRU-cached by (genome id, k): (table | None, max_probes, salt,
+        n_keys, pegs); salt None marks the 8-slot layout.
 
         A batch run reuses the same close genomes for every input genome,
         so the table depends only on the close genome and is built once
@@ -384,24 +918,22 @@ class ProjectionAnnotator:
         if got is not None:
             self._table_cache.move_to_end(key)
             return got
-        lo, hi, peg_idx, pegs = peg_singleton_kmers(old_genome, self.k,
-                                                    self.device)
-        peg_info = [_PegInfo(f.id, f.function, f.protein_length)
-                    for f in pegs]
+        lo, hi, peg_idx, peg_info = self._singletons(old_genome)
         n = len(lo)
         if n == 0:
             got = (None, 0, None, 0, peg_info)
-        else:
-            n_rows = wide_rows_for(n)
-            if n_rows is None:
-                raise NotImplementedError(
-                    f"close genome {old_genome.id} has {n} singleton "
-                    "kmers, more than one wide-bucket table holds; the "
-                    "8-slot table for such genomes is not ported yet")
-            table, salt, max_probes = build_wide_table(
-                lo, hi, peg_idx.astype(np.uint32), n_rows=n_rows)
+        elif wide_rows_for(_bucket(n, 4096)) is not None:
+            table, salt, max_probes = build_wide_table(lo, hi, peg_idx)
             got = (wide_table_from_numpy(table, self.device), max_probes,
                    salt, n, peg_info)
+        else:
+            # huge singleton set: the 8-slot bucketed table, at the
+            # reference's device-build size (load factor 1/8)
+            table, max_probes = build_table(
+                lo, hi, peg_idx,
+                n_buckets=device_table_buckets(_bucket(n, 4096)))
+            got = (wide_table_from_numpy(table, self.device), max_probes,
+                   None, n, peg_info)
         self._table_cache[key] = got
         total = sum(e[0].nbytes for e in self._table_cache.values()
                     if e[0] is not None)
@@ -411,8 +943,129 @@ class ProjectionAnnotator:
                 total -= e[0].nbytes
         return got
 
-    def _project_all(self, olds: list, index: StreamWindowIndex,
-                     proposals: PegProposalList) -> None:
+    def _singletons(self, genome: Genome):
+        """Host singleton kmers of a close genome, LRU-cached by id."""
+        key = (genome.id, self.k)
+        got = self._singleton_cache.get(key)
+        if got is not None:
+            self._singleton_cache.move_to_end(key)
+            return got
+        lo, hi, peg_idx, pegs = peg_singleton_kmers(genome, self.k,
+                                                    self.device)
+        peg_info = [_PegInfo(f.id, f.function, f.protein_length)
+                    for f in pegs]
+        got = (lo, hi, np.asarray(peg_idx, np.uint32), peg_info)
+        self._singleton_cache[key] = got
+        while len(self._singleton_cache) > 64:
+            self._singleton_cache.popitem(last=False)
+        return got
+
+    def _close_set(self, olds: list) -> "_CloseSet | None":
+        """Build (or fetch) the fused route's device state for this
+        ordered close-genome set; None when any genome exceeds the
+        packed-key field widths or the wide-table capacity (RLE
+        route)."""
+        key = (tuple(og.id for og in olds), self.k)
+        cs = self._closeset_cache.get(key)
+        if cs is not None:
+            self._closeset_cache.move_to_end(key)
+            return cs
+        singles = [self._singletons(og) for og in olds]
+        n_singles = [len(s[0]) for s in singles]
+        live = [(i, s) for i, s in enumerate(singles) if len(s[0])]
+        if not live:
+            return None
+        for _, s in live:
+            if len(s[3]) > (1 << _PEG_BITS):
+                return None
+            if wide_rows_for(_bucket(len(s[0]), 4096)) is None:
+                return None                     # huge singleton set
+        # union of all singleton kmers across the set
+        keys64 = np.unique(np.concatenate(
+            [(s[1].astype(np.uint64) << np.uint64(32))
+             | s[0].astype(np.uint64) for _, s in live]))
+        if wide_rows_for(len(keys64)) is None:
+            return None
+        u_lo = (keys64 & np.uint64(MASK32)).astype(np.uint32)
+        u_hi = (keys64 >> np.uint64(32)).astype(np.uint32)
+        utab, usalt, ump = build_wide_table(
+            u_lo, u_hi, np.zeros(len(u_lo), np.uint32))
+        tables, salts, mps, pinfo = [], [], [], []
+        max_delta = 0
+        for _, s in live:
+            lo, hi, peg_idx, pegs = s
+            table, salt, mp = build_wide_table(lo, hi, peg_idx)
+            tables.append(wide_table_from_numpy(table, self.device))
+            salts.append(salt)
+            mps.append(mp)
+            plen3 = np.fromiter((p.protein_length for p in pegs),
+                                np.int64, len(pegs)) * 3
+            maxlen3 = (plen3 * self.max_fuzz + 1).astype(np.int64)
+            pinfo.append(torch.from_numpy(np.stack([
+                maxlen3, (plen3 * self.min_fuzz).astype(np.int64),
+                (plen3 * (self.min_strength / 3)).astype(np.int64)])).to(
+                    self.device))
+            if len(maxlen3):
+                max_delta = max(max_delta, int(maxlen3.max()))
+        cs = _CloseSet(
+            tables=tables, salts=salts, mps=mps, pinfo=pinfo,
+            union_table=wide_table_from_numpy(utab, self.device),
+            union_salt=usalt, union_mp=ump,
+            peg_infos=[s[3] for _, s in live], n_singles=n_singles,
+            n_union_keys=len(keys64), max_delta=max_delta)
+        self._closeset_cache[key] = cs
+        while len(self._closeset_cache) > 4:
+            self._closeset_cache.popitem(last=False)
+        return cs
+
+    def _project_all_stream(self, olds: list, index: StreamWindowIndex,
+                            proposals: PegProposalList) -> None:
+        """Fused union probe + device window scan; the RLE route when the
+        packed-key fields or the wide-table capacity don't fit."""
+        if not olds:
+            return
+        cs = self._close_set(olds)
+        if (cs is None
+                or len(index.contig_ids) > (1 << _CONTIG_BITS)
+                or (int(index.seg_len.max(initial=0)) + cs.max_delta
+                    + 3 * self.k) >= (1 << _LEFT_BITS)):
+            return self._project_all_stream_rle(olds, index, proposals)
+        for og, n in zip(olds, cs.n_singles):
+            log.info("%d unique peg kmers in %s.", n, og.id)
+        u = _union_compact(cs.union_table, cs.union_salt, cs.union_mp,
+                           index)
+        results = _scan_genomes(cs.tables, cs.salts, cs.mps, cs.pinfo, u,
+                                index.orf_state(), self._minev_for(index),
+                                self.min_evidence, self.k)
+        for peg_info, (rows, stats) in zip(cs.peg_infos, results):
+            (n_hits, n_groups, low_kmer, too_short, n_live,
+             n_rej, n_weak, n_small, _n_stored, _n_cand) = stats
+            log.info("%d matching kmers found.", n_hits)
+            if n_hits == 0:
+                continue
+            funcs = [p.function for p in peg_info]
+            stored = proposals.replay_stored(
+                rows, index.contig_ids, funcs, made=n_live,
+                rejected=n_rej, weak=n_weak, small=n_small)
+            if self.trace_function is not None:
+                for ci, prop in stored:
+                    if prop.function != self.trace_function:
+                        continue
+                    peg = peg_info[int(rows[ci, 5])]
+                    whole = Location(
+                        index.contig_ids[int(rows[ci, 0])],
+                        "+" if rows[ci, 1] == 0 else "-",
+                        int(rows[ci, 6]), int(rows[ci, 7]))
+                    log.info("Proposal stored using %s at location %s "
+                             "with evidence %d and strength %s.", peg.id,
+                             whole, int(rows[ci, 4]), prop.strength)
+            log.info("%d peg/frame pairs examined, %d had too few kmers, "
+                     "%d were too short, %d proposals were made.",
+                     n_groups, low_kmer, too_short, n_live)
+
+    def _project_all_stream_rle(self, olds: list,
+                                index: StreamWindowIndex,
+                                proposals: PegProposalList) -> None:
         """Probe the stream against every close genome's table and
         scan/propose per genome in order — proposal insertion order
         matches the sequential reference loop (KmerProcessor.java:183-270)
@@ -430,6 +1083,44 @@ class ProjectionAnnotator:
             l_contig, l_strand, l_left = index.locate(pos)
             self._scan_and_propose(l_contig, l_strand, l_left, pair_peg,
                                    peg_info, index.contig_ids, proposals)
+
+    def _project_from(self, old_genome: Genome, index: ContigKmerIndex,
+                      proposals: PegProposalList) -> None:
+        lo, hi, peg_idx, pegs = peg_singleton_kmers(old_genome, self.k,
+                                                    self.device)
+        log.info("%d unique peg kmers in %s.", len(lo), old_genome.id)
+        if not len(lo):
+            return
+        got = self._match_host_index(index, lo, hi, peg_idx)
+        if got is None:
+            return
+        l_contig, l_strand, l_left, pair_peg = got
+        log.info("%d matching kmers found.", len(l_left))
+        self._scan_and_propose(l_contig, l_strand, l_left, pair_peg,
+                               pegs, index.contig_ids, proposals)
+
+    def _match_host_index(self, index: ContigKmerIndex, lo, hi, peg_idx):
+        """Probe singletons into the host contig index + CSR expansion."""
+        dev = index.table.device
+        ranks = probe_table(
+            index.table, _host_u32(lo, dev), _host_u32(hi, dev),
+            torch.ones(len(lo), dtype=torch.bool, device=dev),
+            index.max_probes).cpu().numpy()
+        hit = ranks >= 0
+        ranks = ranks[hit]
+        peg_hit = peg_idx[hit]
+        if not len(ranks):
+            return None
+        # CSR expansion: each (peg, rank) pair fans out to counts[rank] locs
+        counts = index.counts[ranks]
+        starts = index.starts[ranks]
+        total = int(counts.sum())
+        offs = np.arange(total) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+        loc_idx = np.repeat(starts, counts) + offs
+        pair_peg = np.repeat(peg_hit, counts)
+        return (index.loc_contig[loc_idx], index.loc_strand[loc_idx],
+                index.loc_left[loc_idx], pair_peg)
 
     def _scan_and_propose(self, l_contig, l_strand, l_left, pair_peg,
                           pegs, contig_ids, proposals) -> None:

@@ -13,10 +13,10 @@ Semantics preserved exactly (SURVEY.md §2c Q7):
 * iteration order is (contig, left edge, length) — the peg numbering order
   (PegProposal.compareTo, PegProposal.java:85-99).
 
-Host NumPy, the batch path of ``kmers_anno_tpu/engine/proposals.py``
-copied as it is (that package's ``engine/__init__`` imports jax).  The
-reference's scalar ``propose`` and the fused branch's ``replay_stored``
-are not copied: no ported path calls them.
+Host NumPy: ``propose_batch`` and ``replay_stored`` of
+``kmers_anno_tpu/engine/proposals.py`` copied as they are (that package's
+``engine/__init__`` imports jax).  The reference's scalar ``propose`` is
+not copied: no ported path calls it.
 """
 
 from __future__ import annotations
@@ -182,6 +182,46 @@ class PegProposalList:
                 new = old
             out.append((int(ci), new))
         out.sort(key=lambda t: t[0])
+        return out
+
+    def replay_stored(self, rows: np.ndarray, contig_ids: list,
+                      functions: list[str], made: int, rejected: int,
+                      weak: int, small: int
+                      ) -> list[tuple[int, "PegProposal"]]:
+        """Apply DEVICE-decided stored events (the fused projection
+        route, engine/projection._scan_genome).
+
+        The device replicates propose_batch's whole decision chain —
+        extension, float64-exact weak/small filters, Q7 dedup against
+        both in-batch predecessors and cross-genome incumbents (carried
+        from genome to genome) — and emits only the events that insert or
+        win a merge, in candidate order.  This applies them to the dict:
+        every row whose ORF key is already present is by construction a
+        winning merge (the device's eff-prev test saw the same
+        incumbent), so counters reproduce the sequential semantics.
+
+        rows: (n, 8) int — [contig, strand, ext_l, ext_r, evidence,
+              func_idx, left, best_edge]
+        returns [(row_index, stored_proposal), …] for --trace parity.
+        """
+        self.made += made
+        self.rejected += rejected
+        self.weak += weak
+        self.small += small
+        out = []
+        for i, (c, s, el, er, ev, fx, _l, _b) in enumerate(rows):
+            loc = Location(contig_ids[int(c)], "+" if s == 0 else "-",
+                           int(el), int(er))
+            key = (loc.contig_id, loc.end, loc.strand)
+            old = self._by_orf.get(key)
+            new = PegProposal(loc, functions[int(fx)], int(ev))
+            if old is None:
+                self._by_orf[key] = new
+                out.append((i, new))
+            else:
+                old.merge(new)
+                self.merged += 1
+                out.append((i, old))
         return out
 
     @property

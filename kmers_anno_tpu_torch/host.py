@@ -26,6 +26,8 @@ from kmers_anno_tpu.ops.encode import (DNA_AMBIG, PROT_PAD, PROT_STOP, PROT_X,
                                        reverse_complement_codes)
 from kmers_anno_tpu.ops.hashing import _M1 as M1
 from kmers_anno_tpu.ops.hashing import _M2 as M2
+from kmers_anno_tpu.ops.hashing import GOLDEN
+from kmers_anno_tpu.ops.hashing import mix_kmer as mix_kmer_np
 from kmers_anno_tpu.ops.hashing import mix_kmer_salted as mix_kmer_salted_np
 from kmers_anno_tpu.ops.hashing import salt_sequence
 from kmers_anno_tpu.ops.orf import OrfExtender
@@ -37,6 +39,7 @@ __all__ = [
     "DnaTranslator", "GeneticCode", "reverse_complement", "Feature",
     "Genome", "Location", "PatricGenomeSource", "DNA_AMBIG", "PROT_PAD",
     "PROT_STOP", "PROT_X", "encode_dna", "encode_protein",
-    "reverse_complement_codes", "M1", "M2", "mix_kmer_salted_np",
+    "reverse_complement_codes", "M1", "M2", "GOLDEN", "mix_kmer_np",
+    "mix_kmer_salted_np",
     "salt_sequence", "OrfExtender", "TabbedLineReader", "Prefetcher",
 ]

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..host import M1, M2
+from ..host import GOLDEN, M1, M2
 
 MASK32 = 0xFFFFFFFF
 
@@ -43,3 +43,8 @@ def mix_kmer_salted(lo: torch.Tensor, hi: torch.Tensor,
     lo = as_u32(lo)
     hi = as_u32(hi)
     return fmix32(lo ^ fmix32(hi ^ (int(salt) & MASK32)))
+
+
+def mix_kmer(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Salt-free kmer hash (hashing.py:28-31): the salted mix at GOLDEN."""
+    return mix_kmer_salted(lo, hi, GOLDEN)

@@ -129,25 +129,31 @@ def build_wide_table(key_lo, key_hi, values, n_rows: int | None = None,
     return table, salt, max_probes
 
 
-def _check_args(table, key_lo, key_hi, valid, max_probes) -> None:
+def check_probe_args(what: str, width: int, table, key_lo, key_hi, valid,
+                     max_probes) -> None:
+    """Validate a probe's arguments: an int32 ``(rows, width)`` table with
+    a power-of-two row count, int32 keys and a bool mask of one shape, all
+    on one device.  Shared by the wide and the 8-slot probes."""
     n_rows = table.shape[0]
-    if table.dim() != 2 or table.shape[1] != 3 * SLOTS:
-        raise ValueError(f"table must be (rows, {3 * SLOTS})")
+    if table.dim() != 2 or table.shape[1] != width:
+        raise ValueError(f"{what}: table must be (rows, {width})")
     if table.dtype != torch.int32:
-        raise ValueError("table must be int32 (the uint32 bits)")
+        raise ValueError(f"{what}: table must be int32 (the uint32 bits)")
     if n_rows < 1 or n_rows & (n_rows - 1):
-        raise ValueError(f"table rows must be a power of two, got {n_rows}")
+        raise ValueError(
+            f"{what}: table rows must be a power of two, got {n_rows}")
     if key_lo.dtype != torch.int32 or key_hi.dtype != torch.int32:
-        raise ValueError("query keys must be int32")
+        raise ValueError(f"{what}: query keys must be int32")
     if valid.dtype != torch.bool:
-        raise ValueError("valid must be a bool tensor")
+        raise ValueError(f"{what}: valid must be a bool tensor")
     if not key_lo.shape == key_hi.shape == valid.shape:
-        raise ValueError("key_lo, key_hi and valid must have one shape")
+        raise ValueError(
+            f"{what}: key_lo, key_hi and valid must have one shape")
     if max_probes < 1:
-        raise ValueError("max_probes must be >= 1")
+        raise ValueError(f"{what}: max_probes must be >= 1")
     devs = {t.device for t in (table, key_lo, key_hi, valid)}
     if len(devs) != 1:
-        raise ValueError(f"probe_wide arguments span devices {devs}")
+        raise ValueError(f"{what}: arguments span devices {devs}")
 
 
 def probe_wide_plain(table: torch.Tensor, key_lo: torch.Tensor,
@@ -158,7 +164,8 @@ def probe_wide_plain(table: torch.Tensor, key_lo: torch.Tensor,
     Works in PROBE_CHUNK query slices, like the reference's
     ``_chunked_pay``, so the gathered (chunk, 72) row buffer stays bounded.
     """
-    _check_args(table, key_lo, key_hi, valid, max_probes)
+    check_probe_args("probe_wide", 3 * SLOTS, table, key_lo, key_hi, valid,
+                     max_probes)
     n_rows = table.shape[0]
     lo_f = key_lo.reshape(-1)
     hi_f = key_hi.reshape(-1)
@@ -199,7 +206,8 @@ def probe_wide(table: torch.Tensor, key_lo: torch.Tensor,
     A CPU tensor takes :func:`probe_wide_plain`; a CUDA tensor launches
     the kernel (``csrc/probe_wide.cu``) or raises.
     """
-    _check_args(table, key_lo, key_hi, valid, max_probes)
+    check_probe_args("probe_wide", 3 * SLOTS, table, key_lo, key_hi, valid,
+                     max_probes)
     if table.device.type == "cpu":
         return probe_wide_plain(table, key_lo, key_hi, valid, salt,
                                 max_probes)

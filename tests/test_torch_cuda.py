@@ -15,10 +15,13 @@ import pytest
 import torch
 
 from chip_smoke import make_projection_workload
+from kmers_anno_tpu_torch.engine import projection
 from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
 from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
 from kmers_anno_tpu_torch.host import Genome
+from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
 from kmers_anno_tpu_torch.ops.contig_scan import scan_stream, scan_stream_plain
+from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
 from kmers_anno_tpu_torch.ops.translate import codon_lut
 from kmers_anno_tpu_torch.ops.widetable import (build_wide_table, probe_wide,
                                                 probe_wide_plain)
@@ -97,6 +100,44 @@ def test_probe_wide_empty_query_launches_nothing(cuda):
     assert out.shape == (0,) and probe_wide.launches == before
 
 
+@pytest.mark.parametrize("n,kw", [(5000, {}), (60, dict(n_buckets=8))])
+def test_probe_table_on_cuda_matches_cpu(cuda, n, kw):
+    """The 8-slot probe (plain torch on both devices), on hits, misses,
+    invalid queries and, in the second case, multi-bucket walks."""
+    rng = np.random.default_rng(n + 1)
+    keys = rng.permutation(np.unique(rng.integers(0, 1 << 60, 4 * n,
+                                                  dtype=np.int64)))
+    mask30 = (1 << 30) - 1
+    table, mp = build_table(keys[:n] & mask30, keys[:n] >> 30,
+                            np.arange(n, dtype=np.uint32), **kw)
+    q = rng.permutation(keys[: 2 * n + 1])
+    args = [wide_table_from_numpy(table, torch.device("cpu")),
+            torch.from_numpy((q & mask30).astype(np.int32)),
+            torch.from_numpy((q >> 30).astype(np.int32)),
+            torch.from_numpy(rng.random(len(q)) >= 0.08)]
+    want = probe_table(*args, mp)
+    got = probe_table(*(a.to(cuda) for a in args), mp)
+    assert got.device == cuda and torch.equal(got.cpu(), want)
+    assert (want >= 0).any() and (want < 0).any()
+
+
+@pytest.mark.parametrize("k", [8, 12])
+@pytest.mark.parametrize("n", [3 * 8 - 1, 3 * 12 + 3, 301, 100_003])
+def test_strand_route_on_cuda_matches_cpu(cuda, k, n):
+    """extract_contig_kmers: one scanner launch per strand on the card,
+    the same host arrays as the CPU's plain version."""
+    rng = np.random.default_rng(n * k)
+    seq = "".join(np.array(list("acgtn"))[rng.choice(
+        5, n, p=[0.245, 0.245, 0.245, 0.245, 0.02])])
+    before = scan_stream.launches
+    got = extract_contig_kmers(seq, k, 11, cuda)
+    assert scan_stream.launches == before + 2 * (n >= 3 * k)
+    want = extract_contig_kmers(seq, k, 11, torch.device("cpu"))
+    for key in want:
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
+
+
 def _bench_case():
     _, olds, new_g = make_projection_workload(np.random.default_rng(3), 12, 2)
     return new_g, olds
@@ -141,13 +182,19 @@ ANNOTATOR_CASES = {
 LOGGER = "kmers_anno_tpu_torch.engine.projection"
 
 
-def _annotate(make, params, dev, caplog):
+ROUTES = ("fused", "rle", "host")
+
+
+def _annotate(make, params, route, dev, caplog):
     new_g, olds = make()
+    annot = ProjectionAnnotator(
+        k=8, device=dev, trace_function="Projected role number 3",
+        engine="host" if route == "host" else "auto", **params)
+    if route == "rle":
+        annot._close_set = lambda olds_: None
     with caplog.at_level(logging.INFO, logger=LOGGER):
         caplog.clear()
-        stats = ProjectionAnnotator(
-            k=8, device=dev, trace_function="Projected role number 3",
-            **params).annotate_genome(new_g, olds.get)
+        stats = annot.annotate_genome(new_g, olds.get)
     lines = [r.getMessage() for r in caplog.records if r.name == LOGGER]
     features = [(f.id, f.function, f.location.contig_id, f.location.strand,
                  f.location.left, f.location.right, f.protein_translation,
@@ -156,16 +203,27 @@ def _annotate(make, params, dev, caplog):
     return stats, features, lines
 
 
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("case", list(ANNOTATOR_CASES))
-def test_annotator_on_cuda_matches_cpu(cuda, case, caplog):
+def test_annotator_on_cuda_matches_cpu(cuda, case, route, caplog,
+                                       monkeypatch):
     """Stats, features and log and --trace lines on the card equal the
-    CPU's (which the CPU tests hold equal to the JAX reference)."""
+    CPU's (which the CPU tests hold equal to the JAX reference), on each
+    of the three projection routes."""
     make, params = ANNOTATOR_CASES[case]
+    fused_calls = []
+    orig = projection._scan_genomes
+    monkeypatch.setattr(projection, "_scan_genomes", lambda *a: (
+        fused_calls.append(1), orig(*a))[1])
     before = (scan_stream.launches, probe_wide.launches)
-    got = _annotate(make, params, cuda, caplog)
+    got = _annotate(make, params, route, cuda, caplog)
     assert scan_stream.launches > before[0]
-    assert probe_wide.launches > before[1]
-    want = _annotate(make, params, "cpu", caplog)
+    if route == "host":
+        assert probe_wide.launches == before[1]
+    else:
+        assert probe_wide.launches > before[1]
+    assert bool(fused_calls) == (route == "fused")
+    want = _annotate(make, params, route, "cpu", caplog)
     assert got == want
     assert got[0]["pegs"] > 0
     if case == "varied_weak_small":

@@ -216,13 +216,22 @@ def test_annotator_matches_jax(case, caplog):
 
 
 def test_annotator_table_cache_reused_across_genomes():
-    annot = port.ProjectionAnnotator(k=8, device="cpu")
-    new_g, olds = _workload()
-    first = annot.annotate_genome(new_g, olds.get)
-    cached = {k: v[0] for k, v in annot._table_cache.items()}
-    new_g2, _ = _workload()
-    assert annot.annotate_genome(new_g2, olds.get) == first
-    assert all(annot._table_cache[k][0] is t for k, t in cached.items())
+    """The close-genome tables are built once and reused by the next
+    genome: the fused route's close set, and the RLE route's tables."""
+    for route in ("fused", "rle"):
+        annot = port.ProjectionAnnotator(k=8, device="cpu")
+        if route == "rle":
+            annot._close_set = lambda olds_: None
+        cache = (annot._closeset_cache if route == "fused"
+                 else annot._table_cache)
+        new_g, olds = _workload()
+        first = annot.annotate_genome(new_g, olds.get)
+        cached = dict(cache)
+        assert len(cached) == (1 if route == "fused" else 3)
+        new_g2, _ = _workload()
+        assert annot.annotate_genome(new_g2, olds.get) == first
+        assert cache.keys() == cached.keys()
+        assert all(cache[k] is v for k, v in cached.items())
 
 
 def test_annotator_rejects_bad_parameters():
