@@ -22,8 +22,20 @@ wrapper's launch count is set to 0 before each route and read after it.
 Last, each kernel is held against its plain version again on the inputs
 those routes give it: the genome's padded window stream and its two
 strands (contig scanner), the union table and the ten close-genome tables
-of both stream routes (probe).  Those comparisons give the ``kernels``
-line's times and errors.
+of both stream routes (probe).
+
+Then the signature slice.  ``build`` and ``apply`` (VERIFY, then APPLY)
+run through the CLI on four synthetic genomes whose table holds about 1M
+kmers; the build's torch group-by on the card must equal the C++ builder,
+and every call must equal the single-core string-keyed C++ baseline
+(``JavaDataflowBaseline``).  Last, the apply benchmark's shape (bench.py's
+generator: a 1M-key table, 32 batches of 8192 proteins of 300 aa) runs
+through ``KmerApplyEngine.call_proteins``, with roles against
+``native.apply_baseline`` and proteins/s over five runs; the fused apply
+kernel, its plain version and the unfused composition are timed on those
+batches, and the weighted path is held against its CPU run.  The main-path
+comparisons give the ``kernels`` line's times and errors; ``apply_rows``
+is also checked on made-up rows (k = 8, and k = 12 with lookups that walk).
 
 Usage, from the repository root:  python3 chip_smoke.py [--profile]
 
@@ -66,6 +78,25 @@ REPS = 5
 WARM_RUNS = 5
 HOST_WARM_RUNS = 1               # the host-index route takes ~8 s a genome
 PROFILED_GENOMES = 3
+AA = "ACDEFGHIKLMNPQRSTVWY"
+# build + apply on synthetic genomes: each carries a ~3% substitution
+# variant of every role prototype, hypothetical proteins (the kill list)
+# and a few two-role pegs; sized so the table holds about 1M kmers
+SIG_GENOMES = 4
+SIG_ROLES = 2000
+SIG_HYPOTHETICAL = 2000
+SIG_MULTI = 20
+SIG_SUBSTITUTION = 0.03
+MIN_HITS = 5
+# the apply benchmark's shape (bench.py:59-69, seed 7): a 1M-key table of
+# 2000 roles, 32 batches of 8192 proteins x 300 aa
+BENCH_SEED = 7
+BENCH_KEYS = 1_000_000
+BENCH_PROTEINS = 8192
+BENCH_BATCHES = 32
+PROT_LEN = 300
+BENCH_WIDTH = 320                # PROT_LEN in the engine's width buckets
+WEIGHTED_SAMPLE = 512            # proteins the weighted CPU run checks
 
 
 def require(cond: bool, what: str) -> None:
@@ -90,6 +121,15 @@ def timed(fn, reps: int = REPS) -> tuple[float, object]:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times), out
+
+
+def host_seconds(fn) -> tuple[float, object]:
+    """Host-clock seconds of ``fn()``, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
 
 
 def max_abs_err(pairs) -> int:
@@ -261,11 +301,13 @@ class _Launches:
 
     def __init__(self):
         from kmers_anno_tpu_torch.engine import projection
+        from kmers_anno_tpu_torch.ops.apply_rows import apply_rows
         from kmers_anno_tpu_torch.ops.contig_scan import scan_stream
         from kmers_anno_tpu_torch.ops.widetable import probe_wide
 
         self.wrappers = {"contig_scan": scan_stream,
-                         "probe_wide": probe_wide}
+                         "probe_wide": probe_wide,
+                         "apply_rows": apply_rows}
         self.projection = projection
         self.counts: dict = {}
         self.fused_calls = 0
@@ -640,6 +682,422 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
                                               fused, rle)
 
 
+# ---------------------------------------------------------------------------
+# kernel C: the fused apply step
+# ---------------------------------------------------------------------------
+
+def made_up_rows(rng, k, n_rows, width, n_keys, table_rows=None):
+    """Protein rows of random residues (1% X, lengths from width/2 to
+    width, PROT_PAD after) and a wide table of ``n_keys`` of their valid
+    windows, each with its row's role (one in 200 another role, so that
+    some rows conflict).
+    ``table_rows`` squeezes the keys into that many table rows with one
+    salt, so that lookups walk (max_probes > 1)."""
+    from kmers_anno_tpu_torch.host import PROT_PAD, PROT_X
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+    from kmers_anno_tpu_torch.ops.widetable import build_wide_table
+
+    lengths = rng.integers(width // 2, width + 1, n_rows)
+    codes = rng.integers(0, 20, (n_rows, width)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = PROT_X
+    pos = np.arange(width)
+    codes[pos[None, :] >= lengths[:, None]] = PROT_PAD
+    valid = pos[None, :] <= (lengths - k)[:, None]
+    lo, hi = pack_kmers_np(codes.reshape(-1), k)
+    windows = np.flatnonzero(valid.reshape(-1)[: len(lo)])
+    take = rng.choice(windows, n_keys, replace=False)
+    key, first = np.unique(hi[take].astype(np.int64) << 32 | lo[take],
+                           return_index=True)
+    role = (take[first] // width % SIG_ROLES).astype(np.uint32)
+    flip = rng.random(len(key)) < 0.005
+    role[flip] = (role[flip] + 1) % SIG_ROLES
+    kw = dict(n_rows=table_rows, max_salts=1) if table_rows else {}
+    table, salt, mp = build_wide_table(key & 0xFFFFFFFF, key >> 32, role,
+                                       **kw)
+    return codes, valid, table, salt, mp
+
+
+def check_apply_rows(dev) -> None:
+    """The fused apply kernel against its plain version on made-up rows:
+    k = 8 on a 1M-key table, k = 12 on a table squeezed so that lookups
+    walk.  Exact equality; CUDA-event times."""
+    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+    from kmers_anno_tpu_torch.ops.apply_rows import (apply_rows,
+                                                     apply_rows_plain)
+
+    rng = np.random.default_rng(SEED + 2)
+    walk_keys = 3 * BENCH_KEYS // 5
+    walk_rows = 1 << (-(-walk_keys // 20) - 1).bit_length()  # ~18 keys/row
+    for k, n_keys, table_rows in ((8, BENCH_KEYS, None),
+                                  (12, walk_keys, walk_rows)):
+        codes, valid, table, salt, mp = made_up_rows(
+            rng, k, BENCH_PROTEINS, BENCH_WIDTH, n_keys, table_rows)
+        args = (wide_table_from_numpy(table, dev), salt,
+                torch.from_numpy(codes).to(dev),
+                torch.from_numpy(valid).to(dev), MIN_HITS, k, mp)
+        ms, got = timed(lambda: apply_rows(*args))
+        plain_ms, want = timed(lambda: apply_rows_plain(*args))
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"apply_rows k={k} differs from its plain version")
+        require(table_rows is None or mp > 1, "the k=12 table does not walk")
+        n_called = int((got[0] >= 0).sum())
+        require(0 < n_called < BENCH_PROTEINS, "apply_rows call count")
+        print(f"apply_rows k={k}: {BENCH_PROTEINS} rows x {BENCH_WIDTH}, "
+              f"{len(table) * 24} slots for {n_keys} keys, max_probes {mp},"
+              f" {n_called} rows called, exact, max_abs_err "
+              f"{max_abs_err(zip(got, want))}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# build + apply through the CLI on synthetic genomes
+# ---------------------------------------------------------------------------
+
+def make_signature_genomes(rng, n_genomes, n_roles, n_hypothetical,
+                           n_multi, plen=PROT_LEN,
+                           substitution=SIG_SUBSTITUTION):
+    """Genomes for ``build`` and ``apply``, and their role map.
+
+    Each genome has one peg per role, a ``substitution``-rate variant of
+    that role's prototype; ``n_hypothetical`` "hypothetical protein" pegs,
+    the kill list, one in ten carrying 30 residues of a prototype (whose
+    kmers are killed); and ``n_multi`` pegs whose function names two roles
+    (build skips them).  Prototypes 2i and 2i+1 share 24 residues for the
+    first tenth of the roles, so those kmers are seen under two roles and
+    pruned."""
+    from kmers_anno_tpu_torch.host import Genome, Role, RoleMap
+
+    aa = np.frombuffer(AA.encode(), np.uint8)
+    protos = rng.integers(0, 20, (n_roles, plen))
+    for r in range(0, n_roles // 10, 2):
+        protos[r + 1, 50:74] = protos[r, 50:74]
+    names = [f"Synthetic signature protein {r}" for r in range(n_roles)]
+    role_map = RoleMap()
+    for r, name in enumerate(names):
+        role_map.put(Role(f"SynRole{r}", name))
+    genomes = []
+    for g in range(n_genomes):
+        gid = f"900{g}.1"
+        variants = protos.copy()
+        hit = rng.random(variants.shape) < substitution
+        variants[hit] = rng.integers(0, 20, int(hit.sum()))
+        hypo = rng.integers(0, 20, (n_hypothetical, plen))
+        src = rng.integers(0, n_roles, n_hypothetical)
+        hypo[::10, 100:130] = protos[src[::10], 100:130]
+        multi = rng.integers(0, 20, (n_multi, plen))
+        prots = [*variants, *hypo, *multi]
+        funcs = (names + ["hypothetical protein"] * n_hypothetical
+                 + [f"{names[2 * i]} / {names[2 * i + 1]}"
+                    for i in range(n_multi)])
+        feats = [{"id": f"fig|{gid}.peg.{i + 1}", "type": "CDS",
+                  "function": f,
+                  "location": [["c1", str(100 * i + 1), "+", 3 * plen]],
+                  "protein_translation": aa[p].tobytes().decode(),
+                  "annotations": [], "aliases": []}
+                 for i, (p, f) in enumerate(zip(prots, funcs))]
+        genomes.append(Genome({
+            "id": gid, "scientific_name": f"Synthetica {g}",
+            "genetic_code": 11, "domain": "Bacteria", "features": feats,
+            "contigs": [{"id": "c1", "dna": "acgt" * 25}],
+            "close_genomes": [], "subsystems": []}))
+    return genomes, role_map
+
+
+def run_signature_path(dev, tmp: str) -> dict:
+    """``build`` then ``apply`` (VERIFY, then APPLY) through the CLI on
+    synthetic genomes; the device group-by against the C++ builder; every
+    call against the single-core string-keyed baseline; cold and warm
+    seconds per genome.  Returns each run's launch counts."""
+    from kmers_anno_tpu_torch.commands.app import main
+    from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
+    from kmers_anno_tpu_torch.engine.signature import (SignatureTable,
+                                                       build_signatures)
+    from kmers_anno_tpu_torch.host import Genome, GenomeDirectory, native
+
+    t0 = time.perf_counter()
+    genomes, role_map = make_signature_genomes(
+        np.random.default_rng(SEED), SIG_GENOMES, SIG_ROLES,
+        SIG_HYPOTHETICAL, SIG_MULTI)
+    gto_dir = os.path.join(tmp, "gtos")
+    os.makedirs(gto_dir)
+    for g in genomes:
+        g.save(os.path.join(gto_dir, f"{g.id}.gto"))
+    role_file = os.path.join(tmp, "roles.in.subsystems")
+    use_file = os.path.join(tmp, "roles.to.use")
+    role_map.save(role_file)
+    with open(use_file, "w") as fh:
+        fh.writelines(f"{rid}\n" for rid in role_map.ids())
+    n_pegs = sum(len(g.pegs) for g in genomes)
+    print(f"signature workload: {SIG_GENOMES} genomes x {n_pegs // SIG_GENOMES}"
+          f" pegs ({SIG_ROLES} role variants at {SIG_SUBSTITUTION:.0%} "
+          f"substitution, {SIG_HYPOTHETICAL} hypothetical, {SIG_MULTI} "
+          f"two-role) of {PROT_LEN} aa, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    db = os.path.join(tmp, "kmerdb.tbl")
+    t0 = time.perf_counter()
+    with _Launches() as build_run:
+        rc = main(["build", "-K", str(K), "--device", str(dev), "-o", db,
+                   role_file, use_file, gto_dir])
+    build_s = time.perf_counter() - t0
+    require(rc == 0, f"build exited with {rc}")
+    table = SignatureTable.load(db)
+    native_s, want = host_seconds(lambda: build_signatures(
+        GenomeDirectory(gto_dir), role_map, set(role_map.ids()), k=K,
+        progress=False, device=dev))
+    device_s, got = host_seconds(lambda: build_signatures(
+        GenomeDirectory(gto_dir), role_map, set(role_map.ids()), k=K,
+        progress=False, backend="device", device=dev))
+    for name in ("key_lo", "key_hi", "role_idx"):
+        require(np.array_equal(getattr(got, name), getattr(want, name)),
+                f"device group-by {name} differs from the C++ builder's")
+    require(got.stats == want.stats and got.role_ids == want.role_ids,
+            f"device group-by stats {got.stats} != C++ {want.stats}")
+    require(table.kmer_texts() == want.kmer_texts(),
+            "the CLI's table differs from the library build")
+    stats = want.stats
+    require(stats["pruned"] > 0 and stats["killed"] > 0,
+            f"the build neither pruned nor killed: {stats}")
+    print(f"build (CLI, C++ group-by): {len(table)} kmers of "
+          f"{len(table.role_ids)} roles, stats {stats}, {build_s:.2f} s "
+          f"(GTO load included); library build: C++ {native_s:.2f} s, "
+          f"torch group-by on {dev} {device_s:.2f} s, equal arrays and "
+          f"stats; launches {build_run.counts}", flush=True)
+
+    verify = os.path.join(tmp, "verify.tbl")
+    train = os.path.join(tmp, "train.tbl")
+    runs = {}
+    for route, fmt, out in (("apply", "VERIFY", verify),
+                            ("apply_train", "APPLY", train)):
+        t0 = time.perf_counter()
+        with _Launches() as run:
+            rc = main(["apply", "--format", fmt, "-m", str(MIN_HITS),
+                       "--device", str(dev), "-o", out, db, use_file,
+                       gto_dir])
+        cold_s = time.perf_counter() - t0
+        require(rc == 0, f"apply --format {fmt} exited with {rc}")
+        require(run.counts["apply_rows"] > 0,
+                f"apply --format {fmt} never launched apply_rows: "
+                f"{run.counts}")
+        runs[route] = dict(launches=run.counts)
+        print(f"apply --format {fmt} (CLI, cold: table load and build, GTO "
+              f"load): {cold_s:.2f} s, {cold_s / SIG_GENOMES:.3f} s/genome, "
+              f"launches {run.counts}", flush=True)
+
+    lines = open(verify).read().splitlines()
+    require(lines[0] == "genome_id\tpeg_id\trole\thits\tfunction",
+            "VERIFY header")
+    calls = [tuple(line.split("\t")[:3]) for line in lines[1:]]
+    counts = {}
+    for gid, _, _ in calls:
+        counts[gid] = counts.get(gid, 0) + 1
+    trained = [line.split("\t") for line in open(train).read().splitlines()]
+    require(len(trained) == SIG_GENOMES and all(
+        sum(map(int, row[1:])) == counts.get(row[0], 0) for row in trained),
+        "the APPLY report's role counts differ from the VERIFY calls")
+
+    baseline = native.JavaDataflowBaseline(table.kmer_texts(),
+                                           table.role_idx, K)
+    want_calls = []
+    for g in sorted(genomes, key=lambda g: g.id):
+        pegs = [f for f in g.pegs if f.protein_translation]
+        roles = baseline.apply([f.protein_translation for f in pegs], K,
+                               MIN_HITS)
+        want_calls += [(g.id, f.id, table.role_ids[r])
+                       for f, r in zip(pegs, roles) if r >= 0]
+    baseline.close()
+    require(calls == want_calls, f"apply's {len(calls)} calls differ from "
+            f"JavaDataflowBaseline's {len(want_calls)}")
+    print(f"independent check: {len(calls)} called (peg, role) pairs "
+          f"(of {n_pegs} pegs) equal to JavaDataflowBaseline", flush=True)
+
+    engine_s, engine = host_seconds(
+        lambda: KmerApplyEngine(table, min_hits=MIN_HITS, device=dev))
+    loaded = [Genome.load(os.path.join(gto_dir, f"{g.id}.gto"))
+              for g in genomes]
+    cold = [host_seconds(lambda: engine.call_genome(g))[0]
+            for g in loaded[:1]]
+    warm = [host_seconds(lambda: engine.call_genome(g))[0]
+            for _ in range(WARM_RUNS) for g in loaded]
+    print(f"apply engine: wide table built and uploaded in {engine_s:.3f} "
+          f"s; first genome {cold[0]:.4f} s; warm call_genome "
+          f"{summary(warm)}", flush=True)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# the apply benchmark's shape
+# ---------------------------------------------------------------------------
+
+def make_bench_proteins(rng, protos, n, which):
+    """``bench.make_proteins``: random proteins with a planted 120-residue
+    role segment."""
+    proteins = rng.integers(0, 20, size=(n, PROT_LEN)).astype(np.uint8)
+    proteins[:, 100:220] = protos[which]
+    return proteins
+
+
+def make_bench_workload(rng):
+    """``bench.make_workload``: the kmers of 2000 role prototypes plus
+    random fill up to 1M keys, first occurrence kept."""
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+
+    protos = rng.integers(0, 20, size=(SIG_ROLES, 120)).astype(np.uint8)
+    lo_all, hi_all, role_all = [], [], []
+    for r in range(SIG_ROLES):
+        lo, hi = pack_kmers_np(protos[r], K)
+        lo_all.append(lo)
+        hi_all.append(hi)
+        role_all.append(np.full(len(lo), r, np.int32))
+    n_proto = sum(len(x) for x in lo_all)
+    n_fill = max(0, BENCH_KEYS - n_proto)
+    fill = rng.integers(0, 20, size=(n_fill + K - 1,)).astype(np.uint8)
+    flo, fhi = pack_kmers_np(fill, K)
+    lo_all.append(flo)
+    hi_all.append(fhi)
+    role_all.append(rng.integers(0, SIG_ROLES, size=len(flo)).astype(
+        np.int32))
+    lo = np.concatenate(lo_all)
+    hi = np.concatenate(hi_all)
+    role = np.concatenate(role_all)
+    _, idx = np.unique(np.stack([hi, lo], 1), axis=0, return_index=True)
+    idx = np.sort(idx)
+    return protos, lo[idx], hi[idx], role[idx]
+
+
+def run_bench_shape(dev) -> tuple[dict, dict]:
+    """32 batches of 8192 proteins through ``KmerApplyEngine.call_proteins``
+    (roles against ``native.apply_baseline`` on the 8-slot table); the
+    apply step on those batches three ways; the weighted path with a
+    uniform-weight table against its CPU run."""
+    from kmers_anno_tpu_torch.engine.apply_engine import (KmerApplyEngine,
+                                                          make_row_batches)
+    from kmers_anno_tpu_torch.engine.signature import SignatureTable
+    from kmers_anno_tpu_torch.host import PROT_PAD, decode_protein, native
+    from kmers_anno_tpu_torch.ops.apply_rows import (apply_rows,
+                                                     apply_rows_plain)
+    from kmers_anno_tpu_torch.ops.hashtable import build_table
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+    from kmers_anno_tpu_torch.ops.vote import unanimous_vote
+    from kmers_anno_tpu_torch.ops.widetable import probe_wide
+
+    rng = np.random.default_rng(BENCH_SEED)
+    protos, key_lo, key_hi, roles = make_bench_workload(rng)
+    batches = [make_bench_proteins(rng, protos, BENCH_PROTEINS,
+                                   rng.integers(0, SIG_ROLES,
+                                                size=BENCH_PROTEINS))
+               for _ in range(BENCH_BATCHES)]
+    codes = np.concatenate(batches)
+    prots = [decode_protein(p) for p in codes]
+    n = len(prots)
+    role_ids = [f"Role{r}" for r in range(SIG_ROLES)]
+    table = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
+                           role_idx=roles, role_ids=role_ids)
+    engine = KmerApplyEngine(table, min_hits=MIN_HITS, device=dev)
+    runs = {}
+    with _Launches() as run:
+        got = engine.call_proteins(prots)
+    runs["bench"] = dict(launches=run.counts)
+    require(run.counts["apply_rows"] > 0, "the bench shape never launched "
+            "apply_rows")
+    index = {rid: i for i, rid in enumerate(role_ids)}
+    got_roles = np.array([index[c[0]] if c else -1 for c in got], np.int32)
+    table8, mp8 = build_table(key_lo, key_hi, roles.astype(np.uint32))
+    want_roles = native.apply_baseline(codes, table8, mp8, K, MIN_HITS)
+    require(np.array_equal(got_roles, want_roles),
+            f"{int((got_roles != want_roles).sum())} roles differ from "
+            "native.apply_baseline")
+    n_called = int((got_roles >= 0).sum())
+    print(f"bench shape: {len(key_lo)} keys, {n} proteins "
+          f"({BENCH_BATCHES} x {BENCH_PROTEINS} x {PROT_LEN} aa), "
+          f"{n_called} called, roles equal to native.apply_baseline "
+          f"(8-slot table, max_probes {mp8}); launches {run.counts}",
+          flush=True)
+
+    times = [host_seconds(lambda: engine.call_proteins(prots))[0]
+             for _ in range(REPS)]
+    rates = sorted(n / t for t in times)
+    host_s, prepared = host_seconds(lambda: make_row_batches(prots, K))
+    device_s, _ = host_seconds(lambda: engine._call_batches(n, prepared))
+    print(f"bench shape call_proteins: {statistics.median(rates):.1f} "
+          f"proteins/s (median of {REPS}, range {rates[0]:.1f}-"
+          f"{rates[-1]:.1f}; s per run {', '.join(f'{t:.4f}' for t in times)}"
+          f"); split of one more run: host row batches {host_s:.4f} s, "
+          f"device steps with copies {device_s:.4f} s ({len(prepared)} "
+          f"batches)", flush=True)
+
+    padded = np.full((BENCH_BATCHES, BENCH_PROTEINS, BENCH_WIDTH), PROT_PAD,
+                     np.uint8)
+    padded[:, :, :PROT_LEN] = np.stack(batches)
+    valid_np = np.zeros((BENCH_PROTEINS, BENCH_WIDTH), bool)
+    valid_np[:, : PROT_LEN - K + 1] = True
+    d_codes = torch.from_numpy(padded).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    args = (engine.table, engine.salt)
+
+    def kernel():
+        return [apply_rows(*args, c, valid, MIN_HITS, K, engine.max_probes)
+                for c in d_codes]
+
+    def plain():
+        return [apply_rows_plain(*args, c, valid, MIN_HITS, K,
+                                 engine.max_probes) for c in d_codes]
+
+    def unfused():
+        out = []
+        for c in d_codes:
+            lo, hi = pack_kmer_windows(c, K)
+            r = probe_wide(engine.table, lo, hi, valid, engine.salt,
+                           engine.max_probes)
+            out.append(unanimous_vote(r, valid, MIN_HITS))
+        return out
+
+    ms, got_k = timed(kernel)
+    plain_ms, got_p = timed(plain)
+    unfused_ms, got_u = timed(unfused)
+    pairs = [(g, w) for a, b in zip(got_k, got_p) for g, w in zip(a, b)]
+    require(all(torch.equal(g, w) for g, w in pairs),
+            "apply_rows differs from its plain version on the bench batches")
+    require(all(torch.equal(g, w) for a, b in zip(got_k, got_u)
+                for g, w in zip(a, b)),
+            "apply_rows differs from the unfused composition")
+    first = got_k[0][0].cpu().numpy()[:BENCH_PROTEINS]
+    require(np.array_equal(first, want_roles[:BENCH_PROTEINS]),
+            "the padded batch's roles differ from the baseline")
+    measured = dict(ms=ms / BENCH_BATCHES, plain_ms=plain_ms / BENCH_BATCHES,
+                    unfused_ms=unfused_ms / BENCH_BATCHES,
+                    max_abs_err=max_abs_err(pairs))
+    print(f"bench shape apply_rows per {BENCH_PROTEINS} x {BENCH_WIDTH} "
+          f"batch (median of {REPS} runs over {BENCH_BATCHES} batches), "
+          f"exact: kernel {measured['ms']:.4f} ms, plain "
+          f"{measured['plain_ms']:.4f} ms, unfused (torch pack + probe_wide "
+          f"kernel + torch vote) {measured['unfused_ms']:.4f} ms", flush=True)
+
+    weighted = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
+                              role_idx=roles, role_ids=role_ids,
+                              weights=np.ones(len(key_lo), np.float32))
+    w_engine = KmerApplyEngine(weighted, min_hits=MIN_HITS, weighted=True,
+                               device=dev)
+    with _Launches() as run:
+        w_got = w_engine.call_proteins(prots)
+    runs["weighted_apply"] = dict(launches=run.counts)
+    require(run.counts["probe_wide"] > 0 and run.counts["apply_rows"] == 0,
+            f"the weighted path's launches: {run.counts}")
+    w_s = [host_seconds(lambda: w_engine.call_proteins(prots))[0]
+           for _ in range(3)]
+    sample = list(range(0, n, n // WEIGHTED_SAMPLE))
+    cpu = KmerApplyEngine(weighted, min_hits=MIN_HITS, weighted=True,
+                          device="cpu")
+    want_w = cpu.call_proteins([prots[i] for i in sample])
+    require([w_got[i] for i in sample] == want_w,
+            "the weighted path on the card differs from its CPU run")
+    print(f"bench shape weighted (uniform weights): "
+          f"{sum(c is not None for c in w_got)} called, equal to the CPU run "
+          f"on {len(sample)} proteins; {n / statistics.median(w_s):.1f} "
+          f"proteins/s (median of 3); launches {run.counts}", flush=True)
+    return runs, measured
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -668,8 +1126,13 @@ def main() -> None:
 
     check_contig_scan(dev)
     check_probe_wide(dev)
+    check_apply_rows(dev)
     with tempfile.TemporaryDirectory() as tmp:
         routes, measured = run_main_path(dev, tmp, args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        routes.update(run_signature_path(dev, tmp))
+    bench_routes, measured["apply_rows"] = run_bench_shape(dev)
+    routes.update(bench_routes)
     require("jax" not in sys.modules, "jax was imported")
 
     def row(name, counter, source, replaces, main_route, of_routes):
@@ -684,15 +1147,22 @@ def main() -> None:
         row("contig_scan", "contig_scan", "csrc/contig_scan.cu",
             "ops/pallas_contig.py:103", "fused", ("fused", "rle")),
         row("probe_wide", "probe_wide", "csrc/probe_wide.cu",
-            "ops/widetable.py:199", "fused", ("fused", "rle", "host")),
+            "ops/widetable.py:199", "fused",
+            ("fused", "rle", "host", "weighted_apply")),
         # the host route builds no stream index: its scanner launches are
         # the per-strand ones
         row("contig_scan_strand", "contig_scan", "csrc/contig_scan.cu",
             "ops/pallas_contig.py:161", "host", ("host",)),
+        # the apply path: CLI apply in both formats, the bench shape and
+        # the weighted path (which launches the probe, not apply_rows)
+        row("apply_rows", "apply_rows", "csrc/apply_rows.cu",
+            "engine/apply_engine.py:184", "apply",
+            ("apply", "apply_train", "bench", "weighted_apply")),
     ]
     for r, v in routes.items():
-        print(f"warm s/genome, {r} route: {summary(v['times'])}",
-              flush=True)
+        if "times" in v:
+            print(f"warm s/genome, {r} route: {summary(v['times'])}",
+                  flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,8 @@ def _lazy(module: str, cls: str) -> Callable:
 
 
 _PORTED = {
+    "build": _lazy("build_cmd", "BuildKmerProcessor"),
+    "apply": _lazy("apply_cmd", "ApplyKmerProcessor"),
     "kmers": _lazy("kmers_cmd", "GenomeKmerProcessor"),
     "batch": _lazy("kmers_cmd", "BatchKmerProcessor"),
 }

@@ -1,0 +1,130 @@
+"""``apply`` — apply a discriminating-kmer database to genomes
+(ApplyKmerProcessor.java:45-157).
+
+The options are the reference's (``kmers_anno_tpu/commands/apply_cmd.py``)
+plus ``--device``.  Protein tables run on one device; ``--mesh`` and DNA
+tables are not yet ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+from ..device import resolve_device
+from ..engine.apply_engine import KmerApplyEngine
+from ..engine.protein_kmers import set_drop_last
+from ..engine.signature import SignatureTable
+from ..host import (ApplyKmerReporter, BaseProcessor, Genome,
+                    GenomeDirectory, ParseFailureException, prefetch_map)
+
+log = logging.getLogger(__name__)
+
+
+class ApplyKmerProcessor(BaseProcessor):
+
+    HELP = ("apply a discriminating-kmer database to genomes to create a "
+            "role-count file")
+
+    def add_options(self, parser: argparse.ArgumentParser) -> None:
+        parser.add_argument(
+            "--format", default="APPLY", choices=["APPLY", "VERIFY"],
+            help="reporting format (default APPLY)")
+        parser.add_argument(
+            "-m", "--min", dest="min_hits", type=int, default=5,
+            metavar="10", help="minimum number of hits to call a role")
+        parser.add_argument(
+            "-o", "--output", metavar="outFile", default=None,
+            help="report output file (default: stdout)")
+        parser.add_argument(
+            "--mesh", metavar="DATAxTABLE", default=None,
+            help="run on a device mesh (not yet ported)")
+        parser.add_argument(
+            "--table-mode", default="auto",
+            choices=["auto", "replicated", "pmax", "routed"],
+            help="sharded-table merge strategy of --mesh (not yet ported)")
+        parser.add_argument(
+            "--capacity-factor", type=float, default=None, metavar="2.0",
+            help="routing-buffer slack per shard of --mesh (not yet "
+                 "ported)")
+        parser.add_argument(
+            "--max-gap", type=int, default=500, metavar="500",
+            help="DNA mode: max window-start gap between same-role hits "
+                 "merged into one called region (DNA mode is not yet "
+                 "ported)")
+        parser.add_argument(
+            "--weighted", action="store_true",
+            help="weighted best-tally voting instead of reference "
+                 "unanimity; uses the table's weight column (1.0 when "
+                 "absent)")
+        parser.add_argument(
+            "--min-weight", type=float, default=None, metavar="5.0",
+            help="minimum winning tally to call a role in --weighted "
+                 "mode (default: the -m value)")
+        parser.add_argument(
+            "--dropLast", action="store_true", dest="drop_last",
+            help="drop the final kmer window of every protein (see "
+                 "engine/protein_kmers.py)")
+        parser.add_argument(
+            "--device", default="cuda",
+            help="torch device to run on: cuda (default), cuda:N or cpu")
+        parser.add_argument("kmerDbFile", metavar="kmerdb.tbl",
+                            help="discriminating kmer database")
+        parser.add_argument("goodRoleFile", metavar="roles.in.use",
+                            help="list of roles in use")
+        parser.add_argument("inDir", metavar="gtoDir",
+                            help="input genome directory")
+
+    def validate_parms(self) -> None:
+        if self.mesh:
+            raise ParseFailureException(
+                "apply --mesh is not yet ported to kmers_anno_tpu_torch "
+                "(ROADMAP queue 1, item 11)")
+        if self.drop_last:
+            set_drop_last(True)
+        self.require_dir(self.inDir, "Input directory")
+        self.require_file(self.kmerDbFile, "Kmer database file")
+        self.require_file(self.goodRoleFile, "Roles-to-use file")
+        if self.min_hits < 1:
+            raise ParseFailureException("Min-hits must be positive.")
+        try:
+            self.device = resolve_device(self.device)
+        except RuntimeError as exc:     # the device does not exist here
+            raise ParseFailureException(str(exc)) from exc
+
+    def run_command(self) -> None:
+        out = open(self.output, "w") if self.output else sys.stdout
+        try:
+            reporter = ApplyKmerReporter.create(self.format, out)
+            reporter.init_report(self.goodRoleFile)
+            log.info("Loading kmer database from %s.", self.kmerDbFile)
+            signatures = SignatureTable.load(self.kmerDbFile)
+            log.info("Kmer size is %d.", signatures.k)
+            genomes = GenomeDirectory(self.inDir)
+            log.info("%d genomes found in input directory.", len(genomes))
+            self._run_single(signatures, genomes, reporter)
+            reporter.close_report()
+        finally:
+            if self.output:
+                out.close()
+
+    def _run_single(self, signatures, genomes, reporter) -> None:
+        engine = KmerApplyEngine(signatures, min_hits=self.min_hits,
+                                 weighted=self.weighted,
+                                 min_weight=self.min_weight,
+                                 device=self.device)
+
+        def load(name: str):
+            genome = Genome.load(os.path.join(self.inDir, name))
+            return genome, engine.prepare(genome)
+
+        # host load + encode of genome i+1 overlaps the device step of
+        # genome i (prefetch_map keeps input order)
+        for genome, (pegs, batch) in prefetch_map(genomes.files, load):
+            log.info("Processing genome %s.", genome)
+            reporter.open_genome(genome)
+            for feat, role, count in engine.call_prepared(pegs, batch):
+                reporter.record_feature(feat, role, count)
+            reporter.close_genome()

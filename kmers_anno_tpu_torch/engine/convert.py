@@ -20,6 +20,22 @@ def wide_table_from_numpy(table: np.ndarray,
     return torch.from_numpy(words.view(np.int32).copy()).to(device)
 
 
+def signature_table_from_reference(table):
+    """A reference ``SignatureTable`` (host NumPy arrays, role ids,
+    weights) → the port's, so that both packages apply one table."""
+    from .signature import SignatureTable
+
+    return SignatureTable(
+        k=int(table.k),
+        key_lo=np.array(table.key_lo, np.uint32),
+        key_hi=np.array(table.key_hi, np.uint32),
+        role_idx=np.array(table.role_idx, np.int32),
+        role_ids=list(table.role_ids), alphabet=table.alphabet,
+        weights=(None if table.weights is None
+                 else np.array(table.weights, np.float32)),
+        stats=dict(table.stats))
+
+
 def stream_index_from_jax(index, device: torch.device):
     """A reference ``StreamWindowIndex`` → the port's, on ``device``.
 

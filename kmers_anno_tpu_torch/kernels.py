@@ -30,9 +30,20 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def _sources() -> list[str]:
+def _files(*suffixes: str) -> list[str]:
     return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
-                  if f.endswith(".cu"))
+                  if f.endswith(suffixes))
+
+
+def _sources() -> list[str]:
+    """The translation units nvcc compiles (the ``.cu`` files)."""
+    return _files(".cu")
+
+
+def _inputs() -> list[str]:
+    """Every file the library is built from: the sources and the
+    ``.cuh`` headers they include."""
+    return _files(".cu", ".cuh")
 
 
 def _nvcc() -> str:
@@ -49,27 +60,41 @@ def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in _sources())
+    return any(os.path.getmtime(s) > built for s in _inputs())
 
 
 def build() -> str:
     """Compile ``csrc/*.cu`` into the shared library if it is missing or
-    older than a source.  Returns nvcc's output (with ptxas's register and
-    shared-memory report), empty when the library was up to date.  Raises
-    on failure."""
+    older than a source or header: one nvcc per source, all started
+    together, then one link.  Returns nvcc's output (with ptxas's register
+    and shared-memory report), empty when the library was up to date.
+    Raises on failure."""
     if not _stale():
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    output = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{output}")
-    os.replace(tmp, LIB_PATH)       # atomic: no reader sees a partial .so
+    nvcc = _nvcc()
+    sources = _sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                for s in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        output = "".join(p.communicate()[0] for p in procs)
+        failed = [os.path.basename(s)
+                  for s, p in zip(sources, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{output}")
+        lib_tmp = os.path.join(tmp, os.path.basename(LIB_PATH))
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp,
+                               *objs], capture_output=True, text=True)
+        output += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{output}")
+        os.replace(lib_tmp, LIB_PATH)   # atomic: no reader sees a partial .so
     return output
 
 
@@ -89,6 +114,10 @@ def lib() -> ctypes.CDLL:
         handle.kan_probe_wide.restype = ctypes.c_int
         handle.kan_probe_wide.argtypes = [
             p, i64, p, p, p, i64, ctypes.c_uint32, i32, p, p]
+        handle.kan_apply_rows.restype = ctypes.c_int
+        handle.kan_apply_rows.argtypes = [
+            p, i64, p, p, i64, i64, i32, i32, ctypes.c_uint32, i32, i32,
+            p, p, p]
         handle.kan_cuda_error_string.restype = ctypes.c_char_p
         handle.kan_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = handle

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import PROT_PAD
+from ..host import PROT_PAD, PROT_STOP, PROT_X
 
 MAX_K = 12
 
@@ -68,6 +68,18 @@ def pack_kmer_windows(codes: torch.Tensor,
     return lo, hi
 
 
+def unpack_kmer_np(lo: np.ndarray, hi: np.ndarray, k: int) -> np.ndarray:
+    """Inverse of :func:`pack_kmers_np`: (N,) lo/hi -> (N, k) uint8 codes."""
+    lo = np.asarray(lo, np.uint32)
+    hi = np.asarray(hi, np.uint32)
+    out = np.zeros((len(lo), k), np.uint8)
+    for j in range(k):
+        word = lo if j < 6 else hi
+        shift = 5 * j if j < 6 else 5 * (j - 6)
+        out[:, j] = (word >> np.uint32(shift)) & np.uint32(31)
+    return out
+
+
 def window_any(flags: torch.Tensor, k: int) -> torch.Tensor:
     """OR-reduce each length-k window: out[i] = any(flags[i : i+k])."""
     length = flags.shape[-1]
@@ -78,3 +90,24 @@ def window_any(flags: torch.Tensor, k: int) -> torch.Tensor:
     for j in range(k):
         out |= fp[..., j: j + length]
     return out
+
+
+def kmer_valid_mask(codes: torch.Tensor, lengths: torch.Tensor, k: int,
+                    reject_stop: bool, drop_last: bool) -> torch.Tensor:
+    """Validity of each kmer start position (``ops/kmers.py:62-81``).
+
+    codes:   (..., L) uint8 protein codes
+    lengths: (...,) int true sequence lengths
+    reject_stop: True for the contig path ('X' and '*' rejected), False
+                 for the peg path ('X' only)
+    drop_last:   True for the in-repo extractors (the last kmer dropped)
+    """
+    length = codes.shape[-1]
+    bad = (codes == PROT_X) | (codes >= PROT_PAD)
+    if reject_stop:
+        bad |= codes == PROT_STOP
+    has_bad = window_any(bad, k)
+    pos = torch.arange(length, dtype=torch.int64, device=codes.device)
+    limit = lengths.to(torch.int64)[..., None] - k
+    in_range = pos < limit if drop_last else pos <= limit
+    return in_range & ~has_bad

@@ -48,6 +48,11 @@ def wide_rows_for(n_keys: int) -> int | None:
     return rows
 
 
+def fits_wide(n_keys: int) -> bool:
+    """Whether ``n_keys`` keys fit one wide table (``widetable.py:66-67``)."""
+    return wide_rows_for(n_keys) is not None
+
+
 def build_wide_table(key_lo, key_hi, values, n_rows: int | None = None,
                      max_salts: int = 32):
     """Build the wide-bucket table from unique keys (host, vectorized).
@@ -129,11 +134,9 @@ def build_wide_table(key_lo, key_hi, values, n_rows: int | None = None,
     return table, salt, max_probes
 
 
-def check_probe_args(what: str, width: int, table, key_lo, key_hi, valid,
-                     max_probes) -> None:
-    """Validate a probe's arguments: an int32 ``(rows, width)`` table with
-    a power-of-two row count, int32 keys and a bool mask of one shape, all
-    on one device.  Shared by the wide and the 8-slot probes."""
+def check_table(what: str, width: int, table, max_probes) -> None:
+    """Validate a hash table: an int32 ``(rows, width)`` tensor with a
+    power-of-two row count, and a probe bound of at least 1."""
     n_rows = table.shape[0]
     if table.dim() != 2 or table.shape[1] != width:
         raise ValueError(f"{what}: table must be (rows, {width})")
@@ -142,6 +145,16 @@ def check_probe_args(what: str, width: int, table, key_lo, key_hi, valid,
     if n_rows < 1 or n_rows & (n_rows - 1):
         raise ValueError(
             f"{what}: table rows must be a power of two, got {n_rows}")
+    if max_probes < 1:
+        raise ValueError(f"{what}: max_probes must be >= 1")
+
+
+def check_probe_args(what: str, width: int, table, key_lo, key_hi, valid,
+                     max_probes) -> None:
+    """Validate a probe's arguments: the table (:func:`check_table`),
+    int32 keys and a bool mask of one shape, all on one device.  Shared by
+    the wide and the 8-slot probes."""
+    check_table(what, width, table, max_probes)
     if key_lo.dtype != torch.int32 or key_hi.dtype != torch.int32:
         raise ValueError(f"{what}: query keys must be int32")
     if valid.dtype != torch.bool:
@@ -149,8 +162,6 @@ def check_probe_args(what: str, width: int, table, key_lo, key_hi, valid,
     if not key_lo.shape == key_hi.shape == valid.shape:
         raise ValueError(
             f"{what}: key_lo, key_hi and valid must have one shape")
-    if max_probes < 1:
-        raise ValueError(f"{what}: max_probes must be >= 1")
     devs = {t.device for t in (table, key_lo, key_hi, valid)}
     if len(devs) != 1:
         raise ValueError(f"{what}: arguments span devices {devs}")

@@ -1,6 +1,7 @@
 """The port's CLI against the reference CLI: ``kmers`` and ``batch`` write
-the same GTOs (annotation timestamps normalised), and the commands not yet
-ported answer so with a non-zero exit."""
+the same GTOs (annotation timestamps normalised), ``build`` the same kmer
+database and ``apply`` the same reports, byte for byte; the commands and
+options not yet ported answer so with a non-zero exit."""
 
 import json
 import os
@@ -11,9 +12,12 @@ import pytest
 import torch
 
 from kmers_anno_tpu.commands.app import main as ref_main
+from kmers_anno_tpu.engine import protein_kmers as ref_pk
 from kmers_anno_tpu_torch.commands.app import main as port_main
 from kmers_anno_tpu_torch.device import resolve_device
-from tests.fixtures import make_projection_pair
+from kmers_anno_tpu_torch.engine import protein_kmers as port_pk
+from tests.fixtures import (make_genome, make_projection_pair,
+                            random_protein, write_role_files)
 from tests.test_fused_scan import _workload
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,7 +100,8 @@ def test_batch_data_parallel_is_not_yet_ported(tmp_path, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("command", ["apply", "build", "hashAnno", "merge"])
+@pytest.mark.parametrize("command", ["genes", "funApply", "hashAnno",
+                                     "merge"])
 def test_unported_command_says_so(command, capsys):
     assert port_main([command]) != 0
     assert "not yet ported" in capsys.readouterr().err
@@ -124,3 +129,94 @@ def test_cuda_without_cuda_raises(monkeypatch, tmp_path, capsys):
     assert rc != 0
     assert "CUDA is not available" in capsys.readouterr().err
     assert not (tmp_path / "out.gto").exists()
+
+
+def _signature_setup(tmp_path):
+    """Three genomes (one carries a protein under two roles, so kmers are
+    pruned; every genome has kill-list pegs) and the role files."""
+    import random
+
+    shared = random_protein(random.Random(999), 70)
+    gto_dir = tmp_path / "gtos"
+    gto_dir.mkdir()
+    for i in range(3):
+        make_genome(f"100{i}.1", seed=i,
+                    shared_protein=shared if i == 0 else None).save(
+                        str(gto_dir / f"100{i}.1.gto"))
+    role_file, use_file = write_role_files(tmp_path)
+    return str(gto_dir), role_file, use_file
+
+
+BUILD_APPLY_CASES = {
+    "apply": ([], ["-m", "1"]),
+    "verify": ([], ["--format", "VERIFY", "-m", "5"]),
+    "verify_k12_binary": (["-K", "12"], ["--format", "VERIFY", "-m", "2"]),
+    "weighted": (["--weights", "balance"],
+                 ["--weighted", "--format", "VERIFY", "--min-weight", "2"]),
+    "drop_last": (["--dropLast"], ["--dropLast", "--format", "VERIFY",
+                                   "-m", "3"]),
+}
+
+
+@pytest.mark.parametrize("case", list(BUILD_APPLY_CASES))
+def test_build_apply_cli_matches_reference(tmp_path, case):
+    """build, then apply, through both CLIs: the kmer databases and the
+    reports are byte-identical."""
+    gto_dir, role_file, use_file = _signature_setup(tmp_path)
+    build_opts, apply_opts = BUILD_APPLY_CASES[case]
+    suffix = ".kdb" if case.endswith("binary") else ".tbl"
+    try:
+        outs = {}
+        for name, main, extra in (("ref", ref_main, []),
+                                  ("port", port_main, ["--device", "cpu"])):
+            db = str(tmp_path / f"{name}{suffix}")
+            report = str(tmp_path / f"{name}.report")
+            assert main(["build", *build_opts, *extra, "-o", db, role_file,
+                         use_file, gto_dir]) == 0
+            assert main(["apply", *apply_opts, *extra, "-o", report, db,
+                         use_file, gto_dir]) == 0
+            outs[name] = (open(db, "rb").read(), open(report, "rb").read())
+    finally:
+        ref_pk.set_drop_last(False)
+        port_pk.set_drop_last(False)
+    if suffix == ".tbl":
+        assert outs["port"][0] == outs["ref"][0]
+        assert len(outs["ref"][0].splitlines()) > 100
+    assert outs["port"][1] == outs["ref"][1]
+    lines = outs["ref"][1].decode().splitlines()
+    if case == "apply":
+        assert len(lines) == 3 and any(
+            int(c) for line in lines for c in line.split("\t")[1:])
+    else:
+        assert lines[0].startswith("genome_id") and len(lines) > 3
+
+
+@pytest.mark.parametrize("command,args,message", [
+    ("apply", ["--mesh", "2x1"], "item 11"),
+    ("build", ["--dna"], "item 10"),
+])
+def test_unported_options_say_so(tmp_path, capsys, command, args, message):
+    gto_dir, role_file, use_file = _signature_setup(tmp_path)
+    db = tmp_path / "db.tbl"
+    db.write_text("ACDEFGHI\tRoleA\n")
+    files = ([str(db), use_file] if command == "apply"
+             else [role_file, use_file])
+    assert port_main([command, *args, "--device", "cpu", *files,
+                      gto_dir]) != 0
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and message in err
+
+
+@pytest.mark.parametrize("command", ["build", "apply"])
+def test_build_apply_default_cuda_without_cuda(monkeypatch, tmp_path,
+                                               capsys, command):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gto_dir, role_file, use_file = _signature_setup(tmp_path)
+    db = tmp_path / "db.tbl"
+    db.write_text("ACDEFGHI\tRoleA\n")
+    out = tmp_path / "out"
+    files = ([str(db), use_file] if command == "apply"
+             else [role_file, use_file])
+    assert port_main([command, "-o", str(out), *files, gto_dir]) != 0
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert not out.exists()

@@ -14,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_projection_workload
+from chip_smoke import (made_up_rows, make_projection_workload,
+                        make_signature_genomes)
 from kmers_anno_tpu_torch.engine import projection
+from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
+from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
+                                                   build_signatures)
 from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
 from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
 from kmers_anno_tpu_torch.host import Genome
+from kmers_anno_tpu_torch.ops.apply_rows import apply_rows, apply_rows_plain
 from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
 from kmers_anno_tpu_torch.ops.contig_scan import scan_stream, scan_stream_plain
 from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
@@ -232,3 +237,128 @@ def test_annotator_on_cuda_matches_cpu(cuda, case, route, caplog,
         assert got[0]["merged"] > 0 and got[0]["rejected"] > 0
         assert any("not found" in line for line in got[2])
         assert any("Proposal stored" in line for line in got[2])
+
+
+APPLY_EDGES = {
+    "k3": dict(k=3, n_rows=37, width=64, n_keys=800),
+    "k8_bench_width": dict(k=8, n_rows=1000, width=320, n_keys=50_000),
+    "k8_odd_width": dict(k=8, n_rows=77, width=37, n_keys=600),
+    "k12_walk": dict(k=12, n_rows=300, width=101, n_keys=6000,
+                     table_rows=256),
+    "wider_than_16384": dict(k=8, n_rows=8, width=18_432, n_keys=600),
+}
+
+
+@pytest.mark.parametrize("min_hits", [1, 5])
+@pytest.mark.parametrize("case", list(APPLY_EDGES))
+def test_apply_rows_kernel_matches_plain(cuda, case, min_hits):
+    """The fused kernel against its plain version: k from 3 to 12, odd
+    widths, rows wider than the last width bucket, lookups that walk
+    (max_probes > 1), and every seventh row with no valid window."""
+    params = dict(APPLY_EDGES[case])
+    rng = np.random.default_rng(len(case) * 7 + min_hits)
+    codes, valid, table, salt, mp = made_up_rows(rng, **params)
+    valid[::7] = False
+    if "table_rows" in params:
+        assert mp > 1
+    args = (wide_table_from_numpy(table, cuda), salt,
+            torch.from_numpy(codes).to(cuda),
+            torch.from_numpy(valid).to(cuda), min_hits, params["k"], mp)
+    before = apply_rows.launches
+    got = apply_rows(*args)
+    torch.cuda.synchronize()
+    assert apply_rows.launches == before + 1
+    want = apply_rows_plain(*args)
+    for g, w in zip(got, want):
+        assert g.device == args[2].device and torch.equal(g, w)
+    role, count = (g.cpu().numpy() for g in got)
+    assert (role[::7] == -1).all() and (count[::7] == 0).all()
+    assert (role >= 0).any()
+
+
+def test_apply_rows_kernel_edge_shapes(cuda):
+    """Width 1 (no window fits k = 5), an empty batch (no launch), and the
+    checks the wrapper makes before a launch."""
+    rng = np.random.default_rng(11)
+    _, _, table, salt, mp = made_up_rows(rng, 5, 8, 40, 100)
+    d_table = wide_table_from_numpy(table, cuda)
+    codes = torch.from_numpy(rng.integers(0, 20, (9, 1)).astype(
+        np.uint8)).to(cuda)
+    valid = torch.zeros((9, 1), dtype=torch.bool, device=cuda)
+    role, count = apply_rows(d_table, salt, codes, valid, 1, 5, mp)
+    assert (role.cpu() == -1).all() and (count.cpu() == 0).all()
+    before = apply_rows.launches
+    empty = apply_rows(d_table, salt, codes[:0], valid[:0], 1, 5, mp)
+    assert [t.shape for t in empty] == [(0,), (0,)]
+    assert apply_rows.launches == before
+    wide_codes = torch.zeros((4, 10), dtype=torch.uint8, device=cuda)
+    wide_valid = torch.zeros((4, 10), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        apply_rows(d_table, salt, wide_codes[:, ::2], wide_valid[:, ::2],
+                   1, 5, mp)
+    with pytest.raises(ValueError, match="one device"):
+        apply_rows(d_table, salt, wide_codes.cpu(), wide_valid, 1, 5, mp)
+
+
+def _signature_case():
+    genomes, role_map = make_signature_genomes(
+        np.random.default_rng(5), 2, 60, 40, 3)
+    return genomes, role_map, set(role_map.ids())
+
+
+@pytest.mark.parametrize("weights", ["none", "uniform"])
+def test_apply_engine_on_cuda_matches_cpu(cuda, weights):
+    """The whole engine on the card against the CPU (which the CPU tests
+    hold equal to the JAX reference): unweighted through the fused kernel,
+    uniform-weighted through the probe kernel and the torch vote."""
+    genomes, role_map, good = _signature_case()
+    table = build_signatures(genomes, role_map, good, k=8, progress=False,
+                             weight_mode=weights)
+    weighted = weights != "none"
+    prots = [f.protein_translation for g in genomes for f in g.pegs]
+    prots += [prots[0][:150] + prots[1][150:], "MKV", "A" * 20_000]
+    before = (apply_rows.launches, probe_wide.launches)
+    got = KmerApplyEngine(table, min_hits=5, weighted=weighted,
+                          device=cuda).call_proteins(prots)
+    if weighted:
+        assert apply_rows.launches == before[0]
+        assert probe_wide.launches > before[1]
+    else:
+        assert apply_rows.launches > before[0]
+    want = KmerApplyEngine(table, min_hits=5, weighted=weighted,
+                           device="cpu").call_proteins(prots)
+    assert got == want
+    assert sum(c is not None for c in got) > 60
+
+
+def test_device_groupby_on_cuda_matches_native(cuda):
+    """The torch group-bys on the card (several flushes, kill pass)
+    against the C++ merge builder, then a whole build on both."""
+    rng = np.random.default_rng(8)
+    chunks = [(rng.integers(0, 1 << 30, 4000).astype(np.uint32),
+               rng.integers(0, 1 << 10, 4000).astype(np.uint32),
+               rng.integers(0, 30, 4000).astype(np.int32))
+              for _ in range(4)]
+    lo0, hi0, r0 = chunks[0]
+    chunks.append((lo0[:600], hi0[:600], (r0[:600] + 1) % 30))
+    kills = (lo0[700:900], hi0[700:900])
+    outs = []
+    for b in (StreamingTableBuilder(backend="native"),
+              StreamingTableBuilder(chunk_entries=2048, backend="device",
+                                    device=cuda)):
+        for chunk in chunks:
+            b.add_candidates(*chunk)
+        b.add_kills(*kills)
+        outs.append(b.finish())
+    for w, g in zip(outs[0][:3], outs[1][:3]):
+        np.testing.assert_array_equal(g, w)
+    assert outs[1][3] == outs[0][3] and outs[1][3]["killed"] > 0
+    genomes, role_map, good = _signature_case()
+    want = build_signatures(genomes, role_map, good, k=8, progress=False)
+    got = build_signatures(genomes, role_map, good, k=8, progress=False,
+                           backend="device", device=cuda)
+    for name in ("key_lo", "key_hi", "role_idx"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name))
+    assert got.stats == want.stats
+    assert got.stats["pruned"] > 0 and got.stats["killed"] > 0
