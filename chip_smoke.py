@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Builds the CUDA kernels from ``kmers_anno_tpu_torch/csrc`` and holds each
-against its plain-PyTorch version on made-up inputs at full size (k = 8
-and 12, many hits).  Then drives the projection engine's three routes, one
+Requires the port's C++ host library (``kmers_anno_tpu_torch/native``) to
+build.  Builds the CUDA kernels from ``kmers_anno_tpu_torch/csrc`` and
+holds each against its plain-PyTorch version on made-up inputs at full
+size (k = 8 and 12, many hits), and both lookup kernels on tables built to
+hold several keys of one lo word in a row and to walk from the last row
+to row 0 (query counts and row widths off multiples of 32, all-invalid
+queries, rows with no valid window).  Then drives the projection engine's three routes, one
 after another, on a 2.94 Mb genome with 3500 planted genes and 10 close
 genomes (the "realistic" projection workload of bench.py, seed 0):
 
@@ -36,14 +40,28 @@ kernel, its plain version and the unfused composition are timed on those
 batches, and the weighted path is held against its CPU run.  The main-path
 comparisons give the ``kernels`` line's times and errors; ``apply_rows``
 is also checked on made-up rows (k = 8, and k = 12 with lookups that walk).
+Each kernel's row also gives its bound (``bound_ms``): the larger of the
+bytes its work needs over the card's memory rate (inputs read once,
+outputs written once, and of a table the lo-key block of each row the
+lookups read plus a hit's hi and payload words) and its integer
+operations over the card's 32-bit rate, with ``bound_share`` = bound / time.
 
-Usage, from the repository root:  python3 chip_smoke.py [--profile]
+Usage, from the repository root:
+    python3 chip_smoke.py [--profile] [--compare [DIR]] [--variant N=M ...]
 
 ``--profile`` also traces three warm fused-route genomes with
 ``torch.profiler`` (device activity only) and reports, within that one
 traced run, the device's busy share (the union of its kernel and copy
 intervals over the run's wall time) and the kernels that take the most
 device time; then a ``cProfile`` of one more warm genome on the host.
+
+``--compare [DIR]`` also times the lookup kernels (``probe_wide`` on the
+union table and on the fused close tables, ``apply_rows`` on the bench
+batches) of this tree's build against its ``--variant`` builds (the same
+sources with other ``-D`` macros, e.g. ``g8=KAN_PROBE_GROUP=8``) and,
+given DIR (the root of another checkout, such as the parent commit's),
+against that tree's build: in turns (A B C C B A), each output equal to
+this build's.
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -137,6 +155,185 @@ def max_abs_err(pairs) -> int:
                for a, b in pairs)
 
 
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+INT_OPS_PER_S = 67e12           # the data sheet's float32 rate outside the
+                                # tensor cores, taken for 32-bit int ops
+LOOKUP_OPS = 40                 # a lookup: two fmix32, masks, 24 compares
+ROW_LO_BYTES = 96               # a table row's 24 lo keys
+HIT_BYTES = 8                   # a hit's hi key and payload words
+LANE_GROUP_BUILDS = ["g8=KAN_PROBE_GROUP=8", "g16=KAN_PROBE_GROUP=16"]
+LIBRARY_NOTE = ("none: no single PyTorch call computes a hash-table probe "
+                "or a codon-scan pack")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float, ms: float) -> dict:
+    """``bound_ms``, the larger of bytes over the memory rate and
+    operations over the integer rate, with what bounds it and its share of
+    the measured ``ms``; ``library_ms`` is null (``LIBRARY_NOTE``)."""
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * n_ops / INT_OPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    return dict(bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_share=bound_ms / ms, bound_bytes=int(n_bytes),
+                bound_ops=int(n_ops), library_ms=None, library=LIBRARY_NOTE)
+
+
+def table_reads(table, lo, hi, valid, salt, max_probes) -> tuple[int, int,
+                                                                  int]:
+    """What this run's lookups need from a wide table: (distinct rows whose
+    lo keys they read, row reads, hits).  A key walks from its home row
+    until its row is found or ``max_probes`` rows are read."""
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer_salted
+    from kmers_anno_tpu_torch.ops.widetable import SLOTS
+
+    mask = table.shape[0] - 1
+    seen = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+    reads = hits = 0
+    lo, hi, valid = lo.reshape(-1), hi.reshape(-1), valid.reshape(-1)
+    for s in range(0, lo.numel(), 1 << 20):
+        v = valid[s: s + (1 << 20)]
+        qlo, qhi = lo[s: s + (1 << 20)][v], hi[s: s + (1 << 20)][v]
+        row = mix_kmer_salted(qlo, qhi, salt) & mask
+        for _ in range(max_probes):
+            if not row.numel():
+                break
+            seen[row] = True
+            reads += row.numel()
+            rows = table[row]
+            hit = ((rows[:, :SLOTS] == qlo[:, None])
+                   & (rows[:, SLOTS: 2 * SLOTS] == qhi[:, None])).any(1)
+            hits += int(hit.sum())
+            qlo, qhi, row = qlo[~hit], qhi[~hit], (row[~hit] + 1) & mask
+    return int(seen.sum()), reads, hits
+
+
+def probe_bound(table, lo, hi, valid, salt, max_probes, ms) -> dict:
+    """probe_wide's bound: each query's keys and flag read once and its
+    payload written once; the lo-key block of every row the lookups read,
+    and a hit's hi and payload words."""
+    rows, reads, hits = table_reads(table, lo, hi, valid, salt, max_probes)
+    n_bytes = (nbytes(lo, hi, valid) + 4 * lo.numel() + ROW_LO_BYTES * rows
+               + HIT_BYTES * hits)
+    return bound(n_bytes, LOOKUP_OPS * reads, ms)
+
+
+def apply_bound(table, salt, codes, valid, k, max_probes, ms) -> dict:
+    """apply_rows's bound for one batch: codes and mask read once, role and
+    count written once, and the table as for the probe; operations: each
+    valid window's pack (2 per residue) and lookups."""
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+
+    lo, hi = pack_kmer_windows(codes, k)
+    rows, reads, hits = table_reads(table, lo, hi, valid, salt, max_probes)
+    n_bytes = (nbytes(codes, valid) + 8 * codes.shape[0]
+               + ROW_LO_BYTES * rows + HIT_BYTES * hits)
+    n_ops = 2 * k * int(valid.sum()) + LOOKUP_OPS * reads
+    return bound(n_bytes, n_ops, ms)
+
+
+def scan_bound(streams, outputs, k, ms) -> dict:
+    """contig_scan's bound: each base read once, its (lo, hi, bad) written
+    once; operations: k codon lookups and packs (4 each) per base."""
+    n_bytes = sum(nbytes(s) for s in streams) + sum(
+        nbytes(*out) for out in outputs)
+    return bound(n_bytes, 4 * k * sum(s.numel() for s in streams), ms)
+
+
+# ---------------------------------------------------------------------------
+# another build of the lookup kernels, timed in turns with this one
+# ---------------------------------------------------------------------------
+
+def launch_probe(lib, table, lo, hi, valid, salt, max_probes):
+    """probe_wide through a kernel library's C entry point (uncounted)."""
+    out = torch.empty(lo.shape, dtype=torch.int32, device=lo.device)
+    err = lib.kan_probe_wide(
+        table.data_ptr(), table.shape[0], lo.data_ptr(), hi.data_ptr(),
+        valid.data_ptr(), lo.numel(), int(salt) & 0xFFFFFFFF, max_probes,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_probe_wide returned CUDA error {err}")
+    return out
+
+
+def launch_apply(lib, table, salt, codes, valid, min_hits, k, max_probes):
+    """apply_rows through a kernel library's C entry point (uncounted)."""
+    from kmers_anno_tpu_torch.ops.encode import PROT_PAD
+
+    n = codes.shape[0]
+    role = torch.empty(n, dtype=torch.int32, device=codes.device)
+    count = torch.empty(n, dtype=torch.int32, device=codes.device)
+    err = lib.kan_apply_rows(
+        table.data_ptr(), table.shape[0], codes.data_ptr(), valid.data_ptr(),
+        n, codes.shape[1], k, PROT_PAD, int(salt) & 0xFFFFFFFF, max_probes,
+        int(min_hits), role.data_ptr(), count.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_apply_rows returned CUDA error {err}")
+    return role, count
+
+
+def build_contenders(other: str | None, variants: list[str],
+                     tmp: str) -> dict:
+    """Kernel libraries to time in turns: this tree's build ("this"); this
+    tree built with other macros, one library per ``NAME=MACRO[,MACRO]``
+    of ``variants``; and, given ``other`` (the root of another checkout),
+    that tree's build ("other")."""
+    from kmers_anno_tpu_torch import kernels
+
+    builds = {}
+    for spec in variants:
+        name, _, macros = spec.partition("=")
+        builds[name] = (kernels.SRC_DIR, tuple(macros.split(",")))
+    if other:
+        builds["other"] = (os.path.join(other, "kmers_anno_tpu_torch",
+                                        "csrc"), ())
+    libs = {"this": kernels.lib()}
+    for name, (src, defines) in builds.items():
+        path = os.path.join(tmp, name, "libkan_cuda.so")
+        out = kernels.build(src, path, defines)
+        for line in out.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"  ptxas ({name}):", line.strip(), flush=True)
+        libs[name] = kernels.load(path)
+    return libs
+
+
+def compare_contenders(libs: dict, cases: dict) -> dict:
+    """Each case's kernel under every library, in turns (A B C C B A), CUDA
+    events, median of ``REPS`` per turn; outputs must agree.  Returns
+    {case: {library: mean of its two turns' ms}}."""
+    names = list(libs)
+    order = names + names[::-1]
+    out = {}
+    for case, (launch, arg_sets) in cases.items():
+        def run(lib):
+            return [launch(lib, *a) for a in arg_sets]
+        want = run(libs["this"])
+        times = {n: [] for n in names}
+        for n in order:
+            ms, got = timed(lambda: run(libs[n]))
+            flat_g = [t for g in got for t in (g if isinstance(g, tuple)
+                                               else (g,))]
+            flat_w = [t for w in want for t in (w if isinstance(w, tuple)
+                                                else (w,))]
+            require(all(torch.equal(g, w) for g, w in zip(flat_g, flat_w)),
+                    f"{n} differs from this build on {case}")
+            times[n].append(ms / len(arg_sets))
+        out[case] = {n: statistics.mean(t) for n, t in times.items()}
+        print(f"lookup builds on {case} (ms per launch, turns "
+              f"{' '.join(order)}): " + ", ".join(
+                  f"{n} {statistics.mean(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
+                  for n, t in times.items()), flush=True)
+    return out
+
+
 def card_line() -> str:
     got = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -223,8 +420,9 @@ def check_probe_wide(dev) -> None:
 def make_projection_workload(rng, n_genes, n_close, lo_cod=60, hi_cod=500):
     """Synthetic genome with planted clean ORFs + close genomes carrying
     the source proteins (the generator of bench.py's projection bench)."""
-    from kmers_anno_tpu_torch.host import (DnaTranslator, Genome,
-                                           reverse_complement)
+    from kmers_anno_tpu_torch.genome.dna import (DnaTranslator,
+                                                 reverse_complement)
+    from kmers_anno_tpu_torch.genome.gto import Genome
 
     xl = DnaTranslator(11)
     parts = ["".join("acgt"[c] for c in rng.integers(0, 4, 50))]
@@ -344,7 +542,7 @@ def features_of(genome) -> list:
 def warm_runs(annot, new_path, olds, n_runs: int) -> tuple[list, dict]:
     """Host-clock seconds of ``n_runs`` warm annotate_genome calls, each
     ending in a synchronise; returns the times and the last stats."""
-    from kmers_anno_tpu_torch.host import Genome
+    from kmers_anno_tpu_torch.genome.gto import Genome
 
     times = []
     for _ in range(n_runs):
@@ -366,7 +564,7 @@ def summary(times: list) -> str:
 def check_strand_scan(dev, genome) -> dict:
     """The per-strand route's scanner against its plain version on the
     genome's two strands, as ``extract_contig_kmers`` feeds it."""
-    from kmers_anno_tpu_torch.host import encode_dna
+    from kmers_anno_tpu_torch.ops.encode import encode_dna
     from kmers_anno_tpu_torch.ops.contig_scan import (scan_stream,
                                                       scan_stream_plain)
     from kmers_anno_tpu_torch.ops.translate import codon_lut
@@ -374,7 +572,7 @@ def check_strand_scan(dev, genome) -> dict:
     lut = codon_lut(genome.genetic_code)
     codes = encode_dna(genome.contigs[0].sequence)
     rc = np.where(codes < 4, codes ^ 2, codes)[::-1].copy()
-    ms, plain_ms, errs = [], [], []
+    ms, plain_ms, errs, streams, outs = [], [], [], [], []
     for seq in (codes, rc):
         stream = torch.from_numpy(seq).to(dev)
         t_k, got = timed(lambda: scan_stream(stream, K, lut))
@@ -384,11 +582,16 @@ def check_strand_scan(dev, genome) -> dict:
         ms.append(t_k)
         plain_ms.append(t_p)
         errs.append(max_abs_err(zip(got, want)))
-    out = dict(ms=sum(ms), plain_ms=sum(plain_ms), max_abs_err=max(errs))
+        streams.append(stream)
+        outs.append(got)
+    out = dict(ms=sum(ms), plain_ms=sum(plain_ms), max_abs_err=max(errs),
+               **scan_bound(streams, outs, K, sum(ms)))
     print(f"main path contig_scan per strand k={K}: {len(codes)} bases x 2 "
           f"strands, exact, max_abs_err {out['max_abs_err']}, kernel "
           f"{ms[0]:.4f} + {ms[1]:.4f} ms, plain {plain_ms[0]:.4f} + "
-          f"{plain_ms[1]:.4f} ms", flush=True)
+          f"{plain_ms[1]:.4f} ms; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}, {out['bound_bytes']} bytes), share "
+          f"{out['bound_share']:.3f}", flush=True)
     return out
 
 
@@ -401,7 +604,7 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
     output; CUDA-event times."""
     from kmers_anno_tpu_torch.engine.projection import (StreamWindowIndex,
                                                         _union_compact)
-    from kmers_anno_tpu_torch.host import encode_dna
+    from kmers_anno_tpu_torch.ops.encode import encode_dna
     from kmers_anno_tpu_torch.ops.contig_scan import (scan_stream,
                                                       scan_stream_plain)
     from kmers_anno_tpu_torch.ops.translate import codon_lut
@@ -421,11 +624,13 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
                                                             got[1]),
             "the index's window keys are not the kernel's")
     scan = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs_err(
-        zip(got, want)))
+        zip(got, want)), **scan_bound([stream], [got], K, ms))
     print(f"main path contig_scan k={K}: {stream.numel()} bases "
           f"({len(genome.contigs)} contig, both strands, padded), exact, "
           f"max_abs_err {scan['max_abs_err']}, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms", flush=True)
+          f"{plain_ms:.4f} ms; bound {scan['bound_ms']:.4f} ms "
+          f"({scan['bound_by']}, {scan['bound_bytes']} bytes), share "
+          f"{scan['bound_share']:.3f}", flush=True)
 
     def probe_check(what, table, lo, hi, valid, salt, max_probes):
         args = (table, lo, hi, valid, salt, max_probes)
@@ -433,14 +638,15 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
         t_p, want = timed(lambda: probe_wide_plain(*args))
         require(torch.equal(got, want),
                 f"probe_wide differs from its plain version on {what}")
-        return t_k, t_p, max_abs_err([(got, want)]), int((got >= 0).sum())
+        return (t_k, t_p, max_abs_err([(got, want)]), int((got >= 0).sum()),
+                probe_bound(*args, t_k))
 
     require(len(fused._closeset_cache) == 1, "no fused close set")
     cs = next(iter(fused._closeset_cache.values()))
     stream_args = (index.d_lo, index.d_hi, index.d_valid)
-    u_ms, u_plain, u_err, n_union = probe_check(
-        "the union table", cs.union_table, *stream_args, cs.union_salt,
-        cs.union_mp)
+    union = probe_check("the union table", cs.union_table, *stream_args,
+                        cs.union_salt, cs.union_mp)
+    u_ms, u_plain, u_err, n_union = union[:4]
     lo_c, hi_c = _union_compact(cs.union_table, cs.union_salt, cs.union_mp,
                                 index)[:2]
     ones = torch.ones_like(lo_c, dtype=torch.bool)
@@ -453,28 +659,43 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
     per = [probe_check("an RLE close-genome table", t, *stream_args, salt,
                        mp) for t, mp, salt, _, _ in rle_tables]
     errs = [u_err] + [c[2] for c in close + per]
+    u_bound = union[4]
     probe = dict(ms=u_ms, plain_ms=u_plain, max_abs_err=max(errs),
                  close_ms=statistics.median(c[0] for c in close),
                  close_plain_ms=statistics.median(c[1] for c in close),
+                 close_bound_ms=statistics.median(
+                     c[4]["bound_ms"] for c in close),
                  rle_ms=statistics.median(c[0] for c in per),
-                 rle_plain_ms=statistics.median(c[1] for c in per))
+                 rle_plain_ms=statistics.median(c[1] for c in per),
+                 rle_bound_ms=statistics.median(
+                     c[4]["bound_ms"] for c in per), **u_bound)
     print(f"main path probe_wide, union table ({cs.n_union_keys} keys, "
           f"{cs.union_table.shape[0]} rows) x {index.d_lo.numel()} "
           f"windows: {n_union} hits, exact, kernel {u_ms:.4f} ms, plain "
-          f"{u_plain:.4f} ms", flush=True)
+          f"{u_plain:.4f} ms; bound {u_bound['bound_ms']:.4f} ms "
+          f"({u_bound['bound_by']}, {u_bound['bound_bytes']} bytes), share "
+          f"{u_bound['bound_share']:.3f}", flush=True)
     print(f"main path probe_wide, {N_CLOSE} fused close tables x "
           f"{lo_c.numel()} union hits: {sum(c[3] for c in close)} hits in "
           f"all, exact; kernel ms {', '.join(f'{c[0]:.4f}' for c in close)}"
           f" (median {probe['close_ms']:.4f}); plain median "
-          f"{probe['close_plain_ms']:.4f}", flush=True)
+          f"{probe['close_plain_ms']:.4f}; bound median "
+          f"{probe['close_bound_ms']:.4f} ms", flush=True)
     print(f"RLE route probe_wide, {N_CLOSE} close tables x "
           f"{index.d_lo.numel()} windows: {sum(c[3] for c in per)} hits in "
           f"all, exact; kernel ms {', '.join(f'{c[0]:.4f}' for c in per)} "
           f"(median {probe['rle_ms']:.4f}); plain median "
-          f"{probe['rle_plain_ms']:.4f}; max_abs_err over every probe "
+          f"{probe['rle_plain_ms']:.4f}; bound median "
+          f"{probe['rle_bound_ms']:.4f} ms; max_abs_err over every probe "
           f"{probe['max_abs_err']}", flush=True)
+    cases = {
+        "the union table": (launch_probe, [(cs.union_table, *stream_args,
+                                            cs.union_salt, cs.union_mp)]),
+        "the fused close tables": (launch_probe, [
+            (t, lo_c, hi_c, ones, salt, mp)
+            for t, salt, mp in zip(cs.tables, cs.salts, cs.mps)])}
     return {"contig_scan": scan, "probe_wide": probe,
-            "contig_scan_strand": check_strand_scan(dev, genome)}
+            "contig_scan_strand": check_strand_scan(dev, genome)}, cases
 
 
 def fused_breakdown(dev, annot, new_path, olds, s_per_genome) -> None:
@@ -482,7 +703,7 @@ def fused_breakdown(dev, annot, new_path, olds, s_per_genome) -> None:
     from kmers_anno_tpu_torch.engine.projection import (StreamWindowIndex,
                                                         _scan_genomes,
                                                         _union_compact)
-    from kmers_anno_tpu_torch.host import Genome
+    from kmers_anno_tpu_torch.genome.gto import Genome
 
     genome = Genome.load(new_path)
     cs = next(iter(annot._closeset_cache.values()))
@@ -529,7 +750,7 @@ def profile_fused(annot, new_path, olds, s_per_genome) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kmers_anno_tpu_torch.host import Genome
+    from kmers_anno_tpu_torch.genome.gto import Genome
 
     genomes = [Genome.load(new_path) for _ in range(PROFILED_GENOMES)]
     torch.cuda.synchronize()
@@ -576,7 +797,9 @@ def profile_fused(annot, new_path, olds, s_per_genome) -> None:
 def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
     from kmers_anno_tpu_torch.commands.app import main
     from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
-    from kmers_anno_tpu_torch.host import Genome, encode_dna, native
+    from kmers_anno_tpu_torch import native
+    from kmers_anno_tpu_torch.genome.gto import Genome
+    from kmers_anno_tpu_torch.ops.encode import encode_dna
     from kmers_anno_tpu_torch.ops.translate import codon_lut
 
     t0 = time.perf_counter()
@@ -693,7 +916,7 @@ def made_up_rows(rng, k, n_rows, width, n_keys, table_rows=None):
     some rows conflict).
     ``table_rows`` squeezes the keys into that many table rows with one
     salt, so that lookups walk (max_probes > 1)."""
-    from kmers_anno_tpu_torch.host import PROT_PAD, PROT_X
+    from kmers_anno_tpu_torch.ops.encode import PROT_PAD, PROT_X
     from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
     from kmers_anno_tpu_torch.ops.widetable import build_wide_table
 
@@ -715,6 +938,147 @@ def made_up_rows(rng, k, n_rows, width, n_keys, table_rows=None):
     table, salt, mp = build_wide_table(key & 0xFFFFFFFF, key >> 32, role,
                                        **kw)
     return codes, valid, table, salt, mp
+
+
+def collision_keys(rng, lo, hi, n_rows, n_keys, n_last):
+    """Indices of ``n_keys`` distinct candidate keys for an ``n_rows``
+    wide table: ``n_last`` of them have the last row as their home under
+    the first salt, so that row overflows and its keys wrap to row 0."""
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer_np
+
+    key = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    _, first = np.unique(key, return_index=True)
+    first = rng.permutation(first)
+    home = mix_kmer_np(lo[first], hi[first]) & np.uint32(n_rows - 1)
+    last = first[home == n_rows - 1][:n_last]
+    rest = first[home != n_rows - 1][: n_keys - n_last]
+    require(len(last) == n_last and len(rest) == n_keys - n_last,
+            "too few candidate keys for the collision table")
+    return rng.permutation(np.concatenate([last, rest]))
+
+
+def check_collisions_and_wrap(table, salt, mp) -> None:
+    """The table holds a row with two keys of one lo word, and a key whose
+    home is the last row in a row before it: its walk wrapped to row 0."""
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer_salted_np
+    from kmers_anno_tpu_torch.ops.widetable import EMPTY, SLOTS
+
+    lo_keys = table[:, :SLOTS]
+    require(any(len(set(r[r != EMPTY])) < int((r != EMPTY).sum())
+                for r in lo_keys), "no row holds two keys of one lo word")
+    used = lo_keys != EMPTY
+    home = mix_kmer_salted_np(lo_keys[used], table[:, SLOTS: 2 * SLOTS][used],
+                              salt) & np.uint32(len(table) - 1)
+    stored = np.nonzero(used)[0]
+    require(mp >= 2 and ((home == len(table) - 1)
+                         & (stored < len(table) - 1)).any(),
+            "no key's walk wraps from the last row to row 0")
+
+
+def collision_table(rng, n_queries, valid_mode="mixed", n_rows=8,
+                    n_keys=150, n_last=30):
+    """A wide table whose keys share six lo words, so that its rows hold
+    several keys with one lo and different hi, with a walk that wraps from
+    the last row to row 0 (``collision_keys``); and ``n_queries`` queries
+    drawn from its keys, keys of those lo words that it lacks, and random
+    keys, all valid, 70% valid ("mixed") or none.
+    Returns (table, salt, max_probes, (key lo, hi, payloads),
+    (query lo, hi, valid))."""
+    from kmers_anno_tpu_torch.ops.widetable import build_wide_table
+
+    los = rng.integers(0, 1 << 30, 6).astype(np.uint32)
+    lo = rng.choice(los, 40 * n_keys)
+    hi = rng.integers(0, 1 << 30, 40 * n_keys).astype(np.uint32)
+    pick = collision_keys(rng, lo, hi, n_rows, n_keys, n_last)
+    vals = rng.integers(0, 1 << 31, n_keys).astype(np.uint32)
+    table, salt, mp = build_wide_table(lo[pick], hi[pick], vals,
+                                       n_rows=n_rows, max_salts=1)
+    check_collisions_and_wrap(table, salt, mp)
+    spare = np.ones(len(lo), bool)
+    spare[pick] = False
+    n_rand = max(n_queries, 200)
+    qlo = np.concatenate([np.tile(lo[pick], 1 + n_queries // n_keys),
+                          lo[spare],
+                          rng.integers(0, 1 << 30, n_rand).astype(np.uint32)])
+    qhi = np.concatenate([np.tile(hi[pick], 1 + n_queries // n_keys),
+                          hi[spare],
+                          rng.integers(0, 1 << 30, n_rand).astype(np.uint32)])
+    order = rng.permutation(len(qlo))[:n_queries]
+    valid = {"all_valid": np.ones(n_queries, bool),
+             "mixed": rng.random(n_queries) < 0.7,
+             "all_invalid": np.zeros(n_queries, bool)}[valid_mode]
+    return (table, salt, mp, (lo[pick], hi[pick], vals),
+            (qlo[order], qhi[order], valid))
+
+
+def collision_rows(rng, k, width, n_rows):
+    """Protein rows over a two-residue alphabet, so that many windows share
+    a lo word, and an 8-row table of 150 keys of that alphabet, 26 of them
+    homed on the last row so that the walk wraps to row 0
+    (``collision_keys``).  Every fourth row has no valid window."""
+    from kmers_anno_tpu_torch.ops.encode import PROT_PAD
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+    from kmers_anno_tpu_torch.ops.widetable import build_wide_table
+
+    codes = rng.integers(0, 2, (n_rows, width)).astype(np.uint8)
+    lengths = rng.integers(0, width + 1, n_rows)
+    lengths[0] = width
+    codes[np.arange(width)[None, :] >= lengths[:, None]] = PROT_PAD
+    valid = np.arange(width)[None, :] <= (lengths - k)[:, None]
+    valid[::4] = False
+    # candidate keys: the rows' windows, then more of the same alphabet
+    flat = np.concatenate([codes.reshape(-1),
+                           rng.integers(0, 2, 4000).astype(np.uint8)])
+    lo, hi = pack_kmers_np(flat, k)
+    pick = collision_keys(rng, lo, hi, 8, 150, 26)
+    vals = rng.integers(0, 4, len(pick)).astype(np.uint32)
+    table, salt, mp = build_wide_table(lo[pick], hi[pick], vals, n_rows=8,
+                                       max_salts=1)
+    check_collisions_and_wrap(table, salt, mp)
+    return codes, valid, table, salt, mp
+
+
+def check_collisions(dev) -> None:
+    """Both lookup kernels against their plain versions on tables that
+    hold keys of one lo word and another hi in one row and whose walks
+    wrap from the last row to row 0; query counts and row widths off
+    multiples of 32 and of the lane groups; all-invalid queries and rows
+    with no valid window.  Exact equality."""
+    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+    from kmers_anno_tpu_torch.ops.apply_rows import (apply_rows,
+                                                     apply_rows_plain)
+    from kmers_anno_tpu_torch.ops.widetable import (probe_wide,
+                                                    probe_wide_plain)
+
+    rng = np.random.default_rng(SEED + 3)
+    n_probe = 0
+    for n in (1, 7, 31, 33, 1001, 100_003):
+        for mode in ("all_valid", "mixed", "all_invalid"):
+            table, salt, mp, _, (qlo, qhi, valid) = collision_table(
+                rng, n, mode)
+            args = (wide_table_from_numpy(table, dev),
+                    torch.from_numpy(qlo.view(np.int32)).to(dev),
+                    torch.from_numpy(qhi.view(np.int32)).to(dev),
+                    torch.from_numpy(valid).to(dev), salt, mp)
+            got, want = probe_wide(*args), probe_wide_plain(*args)
+            require(torch.equal(got, want), f"probe_wide differs from its "
+                    f"plain version on a collision table ({n}, {mode})")
+            n_probe += 1
+    n_apply = 0
+    for k, width, n_rows in ((12, 45, 21), (12, 100, 40), (12, 320, 333),
+                             (8, 33, 17), (8, 1, 5), (8, 257, 64)):
+        codes, valid, table, salt, mp = collision_rows(rng, k, width, n_rows)
+        for min_hits in (1, 3):
+            args = (wide_table_from_numpy(table, dev), salt,
+                    torch.from_numpy(codes).to(dev),
+                    torch.from_numpy(valid).to(dev), min_hits, k, mp)
+            got, want = apply_rows(*args), apply_rows_plain(*args)
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"apply_rows differs from its plain version on "
+                    f"collision rows (k={k}, width {width})")
+            n_apply += 1
+    print(f"collision and wrap tables: {n_probe} probe_wide and {n_apply} "
+          f"apply_rows cases equal to their plain versions", flush=True)
 
 
 def check_apply_rows(dev) -> None:
@@ -765,7 +1129,8 @@ def make_signature_genomes(rng, n_genomes, n_roles, n_hypothetical,
     (build skips them).  Prototypes 2i and 2i+1 share 24 residues for the
     first tenth of the roles, so those kmers are seen under two roles and
     pruned."""
-    from kmers_anno_tpu_torch.host import Genome, Role, RoleMap
+    from kmers_anno_tpu_torch.genome.gto import Genome
+    from kmers_anno_tpu_torch.genome.roles import Role, RoleMap
 
     aa = np.frombuffer(AA.encode(), np.uint8)
     protos = rng.integers(0, 20, (n_roles, plen))
@@ -812,7 +1177,8 @@ def run_signature_path(dev, tmp: str) -> dict:
     from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
     from kmers_anno_tpu_torch.engine.signature import (SignatureTable,
                                                        build_signatures)
-    from kmers_anno_tpu_torch.host import Genome, GenomeDirectory, native
+    from kmers_anno_tpu_torch import native
+    from kmers_anno_tpu_torch.genome.gto import Genome, GenomeDirectory
 
     t0 = time.perf_counter()
     genomes, role_map = make_signature_genomes(
@@ -973,7 +1339,8 @@ def run_bench_shape(dev) -> tuple[dict, dict]:
     from kmers_anno_tpu_torch.engine.apply_engine import (KmerApplyEngine,
                                                           make_row_batches)
     from kmers_anno_tpu_torch.engine.signature import SignatureTable
-    from kmers_anno_tpu_torch.host import PROT_PAD, decode_protein, native
+    from kmers_anno_tpu_torch import native
+    from kmers_anno_tpu_torch.ops.encode import PROT_PAD, decode_protein
     from kmers_anno_tpu_torch.ops.apply_rows import (apply_rows,
                                                      apply_rows_plain)
     from kmers_anno_tpu_torch.ops.hashtable import build_table
@@ -1067,11 +1434,19 @@ def run_bench_shape(dev) -> tuple[dict, dict]:
     measured = dict(ms=ms / BENCH_BATCHES, plain_ms=plain_ms / BENCH_BATCHES,
                     unfused_ms=unfused_ms / BENCH_BATCHES,
                     max_abs_err=max_abs_err(pairs))
+    measured.update(apply_bound(engine.table, engine.salt, d_codes[0], valid,
+                                K, engine.max_probes, measured["ms"]))
     print(f"bench shape apply_rows per {BENCH_PROTEINS} x {BENCH_WIDTH} "
           f"batch (median of {REPS} runs over {BENCH_BATCHES} batches), "
           f"exact: kernel {measured['ms']:.4f} ms, plain "
           f"{measured['plain_ms']:.4f} ms, unfused (torch pack + probe_wide "
-          f"kernel + torch vote) {measured['unfused_ms']:.4f} ms", flush=True)
+          f"kernel + torch vote) {measured['unfused_ms']:.4f} ms; bound "
+          f"(first batch) {measured['bound_ms']:.4f} ms "
+          f"({measured['bound_by']}, {measured['bound_bytes']} bytes), "
+          f"share {measured['bound_share']:.3f}", flush=True)
+    cases = {"the bench batches": (launch_apply, [
+        (engine.table, engine.salt, c, valid, MIN_HITS, K, engine.max_probes)
+        for c in d_codes])}
 
     weighted = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
                               role_idx=roles, role_ids=role_ids,
@@ -1095,13 +1470,25 @@ def run_bench_shape(dev) -> tuple[dict, dict]:
           f"{sum(c is not None for c in w_got)} called, equal to the CPU run "
           f"on {len(sample)} proteins; {n / statistics.median(w_s):.1f} "
           f"proteins/s (median of 3); launches {run.counts}", flush=True)
-    return runs, measured
+    return runs, measured, cases
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also trace warm fused-route genomes")
+    parser.add_argument(
+        "--compare", metavar="DIR", nargs="?", const="", default=None,
+        help="also time the lookup kernels of this tree against its "
+             "--variant builds and, given DIR (the root of another "
+             "checkout), against that tree's build, in turns on the main "
+             "path's inputs")
+    parser.add_argument(
+        "--variant", metavar="NAME=MACRO[,MACRO]", action="append",
+        default=None,
+        help="a build of this tree with extra -D macros for --compare "
+             "(default: the lane-group lookups, g8=KAN_PROBE_GROUP=8 and "
+             "g16=KAN_PROBE_GROUP=16); repeatable")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; no result")
@@ -1113,8 +1500,9 @@ def main() -> None:
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda, flush=True)
 
-    from kmers_anno_tpu_torch import kernels
+    from kmers_anno_tpu_torch import kernels, native
 
+    require(native.available(), "the C++ host library did not build")
     t0 = time.perf_counter()
     nvcc_output = kernels.build()
     kernels.lib()
@@ -1127,13 +1515,22 @@ def main() -> None:
     check_contig_scan(dev)
     check_probe_wide(dev)
     check_apply_rows(dev)
+    check_collisions(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        routes, measured = run_main_path(dev, tmp, args.profile)
+        routes, (measured, cases) = run_main_path(dev, tmp, args.profile)
     with tempfile.TemporaryDirectory() as tmp:
         routes.update(run_signature_path(dev, tmp))
-    bench_routes, measured["apply_rows"] = run_bench_shape(dev)
+    bench_routes, measured["apply_rows"], bench_cases = run_bench_shape(dev)
     routes.update(bench_routes)
+    cases.update(bench_cases)
+    if args.compare is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            compare_contenders(build_contenders(
+                args.compare or None,
+                args.variant or LANE_GROUP_BUILDS, tmp), cases)
     require("jax" not in sys.modules, "jax was imported")
+    require(not any(m.split(".")[0] == "kmers_anno_tpu" for m in sys.modules),
+            "the JAX package was imported")
 
     def row(name, counter, source, replaces, main_route, of_routes):
         by_route = {r: routes[r]["launches"][counter] for r in of_routes}

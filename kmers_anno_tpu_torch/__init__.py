@@ -9,12 +9,38 @@ keeps a plain-PyTorch version beside it, which a wrapper takes only for a
 tensor on the CPU.
 
 Ported so far: the ORF-projection engine (``kmers`` / ``batch``) with its
-three routes: the fused union probe + device window scan (the default),
-the per-close-genome RLE probe, and the host contig index
-(``engine="host"``).  Host-only modules
-of the reference (GTO model, locations, ORF scans, the C++ host runtime)
-load without jax; the port takes them from ``kmers_anno_tpu`` as they are,
-all through ``host``.  This package never imports jax.
+three routes (the fused union probe + device window scan, the default; the
+per-close-genome RLE probe; the host contig index, ``engine="host"``), and
+``build`` / ``apply`` for protein signature tables.  The host side keeps
+its own copies of the reference's host modules, in the reference's layout:
+``genome/`` (GTO model, locations, DNA translation, roles, sources),
+``ops/encode``, ``ops/orf``, ``ops/hashing``, ``commands/base``,
+``reports/``, ``utils/`` and ``native/`` (the C++ host library).  This
+package imports neither jax nor ``kmers_anno_tpu``.
 """
 
 __version__ = "0.1.0"
+
+
+def _tune_malloc() -> None:
+    """Keep large allocations on the heap instead of per-call mmap/munmap.
+
+    The pipelines cycle many multi-MB NumPy buffers (row batches, probe
+    tables, flat token streams).  glibc serves those via mmap and unmaps
+    them on free, so every cycle refaults every page.  Raising
+    M_MMAP_THRESHOLD/M_TRIM_THRESHOLD makes the heap retain the pages (a
+    one-time cost).
+    """
+    import ctypes
+    import sys
+    if not sys.platform.startswith("linux"):
+        return
+    try:
+        libc = ctypes.CDLL(None)
+        libc.mallopt(-3, 1 << 30)   # M_MMAP_THRESHOLD
+        libc.mallopt(-1, 1 << 30)   # M_TRIM_THRESHOLD
+    except (OSError, AttributeError):
+        pass
+
+
+_tune_malloc()

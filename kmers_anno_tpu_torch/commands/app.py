@@ -1,16 +1,14 @@
 """Command dispatcher of the port (App.java:29-85): the first argument
 selects the subcommand, the rest go to its processor.
 
-The table lists every command of the reference; only the ported ones have
-a processor, and the others answer "not yet ported".
+The table lists every command of the reference with its description; only
+the ported ones have a processor, and the others answer "not yet ported".
 """
 
 from __future__ import annotations
 
 import sys
 from typing import Callable, Sequence
-
-from ..host import REFERENCE_COMMANDS
 
 PROG = "kmers_anno_tpu_torch"
 
@@ -22,17 +20,39 @@ def _lazy(module: str, cls: str) -> Callable:
     return factory
 
 
-_PORTED = {
-    "build": _lazy("build_cmd", "BuildKmerProcessor"),
-    "apply": _lazy("apply_cmd", "ApplyKmerProcessor"),
-    "kmers": _lazy("kmers_cmd", "GenomeKmerProcessor"),
-    "batch": _lazy("kmers_cmd", "BatchKmerProcessor"),
-}
-
-# command name → (factory or None when not yet ported, description)
+# command name → (factory, or None when not yet ported; description),
+# the reference's table (App.java:32-49)
 COMMANDS: dict[str, tuple[Callable | None, str]] = {
-    name: (_PORTED.get(name), desc)
-    for name, (_, desc) in REFERENCE_COMMANDS.items()
+    "kmers": (_lazy("kmers_cmd", "GenomeKmerProcessor"),
+              "annotate a genome using kmer comparison"),
+    "batch": (_lazy("kmers_cmd", "BatchKmerProcessor"),
+              "annotate multiple genomes using kmer comparison"),
+    "build": (_lazy("build_cmd", "BuildKmerProcessor"),
+              "build a discriminating-kmer database for a specified list of roles"),
+    "apply": (_lazy("apply_cmd", "ApplyKmerProcessor"),
+              "apply a discriminating-kmer database to genomes to create a role-count file"),
+    "merge": (None,
+              "merge the testing set and the training set into a single file"),
+    "funMap": (None,
+               "map functions between genomes annotated using an old system and newly-annotated genomes"),
+    "funApply": (None, "apply a function mapping to one or more genomes"),
+    "compare": (None,
+                "compare functional assignments between new and old genomes"),
+    "seqCheck": (None,
+                 "verify that proteins in genomes are consistently annotated"),
+    "genes": (None,
+              "copy gene names from one genome to a close genome without gene names"),
+    "hashAnno": (None,
+                 "use a protein kmer hash to annotate features in a PATRIC dump directory"),
+    "applyAnno": (None,
+                  "apply annotations produced by the hash annotator"),
+    "checkAnno": (None,
+                  "examine hash-annotator results and write statistics"),
+    "listAnno": (None,
+                 "list annotation changes between identical genomes"),
+    "updateJson": (None, "update annotations in JSON genome files"),
+    "buildGtos": (None,
+                  "build GTOs from PATRIC data and annotation update files"),
 }
 
 

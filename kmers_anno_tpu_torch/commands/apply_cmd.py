@@ -17,8 +17,10 @@ from ..device import resolve_device
 from ..engine.apply_engine import KmerApplyEngine
 from ..engine.protein_kmers import set_drop_last
 from ..engine.signature import SignatureTable
-from ..host import (ApplyKmerReporter, BaseProcessor, Genome,
-                    GenomeDirectory, ParseFailureException, prefetch_map)
+from ..genome.gto import Genome, GenomeDirectory
+from ..reports.apply_reports import ApplyKmerReporter
+from ..utils.prefetch import prefetch_map
+from .base import BaseProcessor, ParseFailureException
 
 log = logging.getLogger(__name__)
 

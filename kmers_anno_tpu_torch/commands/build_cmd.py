@@ -14,8 +14,10 @@ import sys
 from ..device import resolve_device
 from ..engine.protein_kmers import set_drop_last
 from ..engine.signature import NOT_PORTED_DNA, build_signatures
-from ..host import (BaseProcessor, GenomeDirectory, LineReader,
-                    ParseFailureException, RoleMap, read_set)
+from ..genome.gto import GenomeDirectory
+from ..genome.roles import RoleMap
+from ..utils.io import LineReader, read_set
+from .base import BaseProcessor, ParseFailureException
 
 
 class BuildKmerProcessor(BaseProcessor):

@@ -14,8 +14,11 @@ import sys
 import time
 
 from ..engine.projection import ProjectionAnnotator
-from ..host import (BaseProcessor, Genome, ParseFailureException,
-                    PatricGenomeSource, Prefetcher, TabbedLineReader)
+from ..genome.gto import Genome
+from ..genome.sources import PatricGenomeSource
+from ..utils.io import TabbedLineReader
+from ..utils.prefetch import Prefetcher
+from .base import BaseProcessor, ParseFailureException
 
 log = logging.getLogger(__name__)
 

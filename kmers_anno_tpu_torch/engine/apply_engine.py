@@ -25,9 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
-from ..host import PROT_PAD, Feature, Genome, encode_protein, native
+from ..genome.gto import Feature, Genome
 from ..ops.apply_rows import apply_rows   # the unweighted apply step
+from ..ops.encode import PROT_PAD, encode_protein
 from ..ops.kmers import pack_kmer_windows
 from ..ops.vote import split_packed_payload, weighted_vote_rows
 from ..ops.widetable import probe_wide

@@ -43,10 +43,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
-from ..host import (DNA_AMBIG, PROT_PAD, PROT_X, DnaTranslator, Feature,
-                    GeneticCode, Genome, Location, encode_dna,
-                    encode_protein, native, reverse_complement_codes)
+from ..genome.dna import DnaTranslator, GeneticCode
+from ..genome.gto import Feature, Genome
+from ..genome.locations import Location
+from ..ops.encode import (DNA_AMBIG, PROT_PAD, PROT_X, encode_dna,
+                          encode_protein, reverse_complement_codes)
 from ..ops.contig_kmers import extract_contig_kmers
 from ..ops.contig_scan import scan_stream
 from ..ops.hashing import MASK32

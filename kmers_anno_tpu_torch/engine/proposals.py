@@ -25,10 +25,11 @@ from typing import TYPE_CHECKING, Iterator
 
 import numpy as np
 
-from ..host import Location, OrfExtender
+from ..genome.locations import Location
+from ..ops.orf import OrfExtender
 
 if TYPE_CHECKING:  # pragma: no cover
-    from ..host import Genome
+    from ..genome.gto import Genome
 
 
 class PegProposal:

@@ -32,11 +32,15 @@ from typing import IO, Iterable, Sequence
 import numpy as np
 import torch
 
-from ..host import (CountMap, Genome, RoleMap, decode_protein,
-                    encode_protein, native)
+from .. import native
+from ..device import resolve_device
+from ..genome.gto import Genome
+from ..genome.roles import RoleMap
+from ..ops.encode import decode_protein, encode_protein
 from ..ops.hashtable import build_table, probe_table
 from ..ops.kmers import pack_kmers_np, unpack_kmer_np
 from ..ops.widetable import build_wide_table, fits_wide
+from ..utils.counters import CountMap
 from .convert import wide_table_from_numpy
 from .protein_kmers import apply_drop_last
 
@@ -118,11 +122,11 @@ class StreamingTableBuilder:
     """
 
     def __init__(self, chunk_entries: int = 1 << 23, backend: str = "auto",
-                 device: str | torch.device = "cpu"):
+                 *, device: str | torch.device):
         if backend not in ("auto", "native", "device"):
             raise ValueError(f"unknown builder backend {backend!r}")
         self.chunk_entries = chunk_entries
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._native = (native.make_builder()
                         if backend in ("auto", "native") else None)
         if backend == "native" and self._native is None:
@@ -399,8 +403,8 @@ class SignatureTable:
 
     # ----- device tables -----
 
-    def device_wide_table(self, packed_weights: bool = False,
-                          device: str | torch.device = "cpu"):
+    def device_wide_table(self, packed_weights: bool = False, *,
+                          device: str | torch.device):
         """The wide-bucket table (``ops.widetable``), resident on
         ``device`` so the hot path never uploads it again.
 
@@ -415,7 +419,7 @@ class SignatureTable:
             return None
         table, salt, max_probes = build_wide_table(
             self.key_lo, self.key_hi, self._payloads(packed_weights))
-        return (wide_table_from_numpy(table, torch.device(device)), salt,
+        return (wide_table_from_numpy(table, resolve_device(device)), salt,
                 max_probes)
 
     def device_table(self, *args, **kwargs):
@@ -516,8 +520,8 @@ def build_signatures(genomes: Iterable[Genome], role_map: RoleMap,
                      progress: bool = True,
                      alphabet: str = "prot",
                      weight_mode: str = "none",
-                     backend: str = "auto",
-                     device: str | torch.device = "cpu") -> SignatureTable:
+                     backend: str = "auto", *,
+                     device: str | torch.device) -> SignatureTable:
     """Build the discriminating-kmer table (``build`` command semantics,
     ``signature.py:644-761``).
 

@@ -1,0 +1,167 @@
+"""Genetic-code aware DNA translation (host reference implementation).
+
+Implements the contract of the reference's external ``DnaTranslator``
+(sequence jar), inferred from call sites (SURVEY.md §2b):
+
+* ``DnaTranslator(gc)``                  — KmerReference.java:160
+* ``translate(seq, frame1based, len)``   — KmerReference.java:184
+* ``translate(dna)``                     — AppTest.java:135
+* ``pegTranslate(dna, 1, len-3)``        — KmerProcessor.java:304-305 (start-codon
+  aware: an alternative start codon in position 1 translates as 'M')
+
+Codon tables are the NCBI translation tables; table 11 (bacteria) shares its
+amino-acid assignments with table 1.  Start codons follow the reference's
+test oracle (AppTest.java:169: ``CodonSet("ttg", "ctg", "atg")``).
+
+Any codon containing a non-ACGT character translates to ``X``; stop codons
+translate to ``*``.  These two symbols drive the ambiguity filters of the
+k-mer extractors (KmerReference.java:139, 190 — SURVEY.md §2c Q2).
+
+The device-side equivalent (vectorized codon LUT over uint8 tensors) lives
+in ``kmers_anno_tpu_torch.ops.translate``; its LUTs are generated from this
+module so host and device can never disagree.  A copy of the reference
+package's ``genome/dna.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# Base ordering used for codon indexing: t=0, c=1, a=2, g=3 (NCBI convention).
+BASES = "tcag"
+BASE_INDEX = {b: i for i, b in enumerate(BASES)}
+BASE_INDEX.update({b.upper(): i for i, b in enumerate(BASES)})
+
+# NCBI translation table 1 (standard) amino acids, codon order TTT..GGG with
+# bases ordered t, c, a, g.
+_AA_TABLE_1 = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+
+
+def _codon_index(codon: str) -> int:
+    return (BASE_INDEX[codon[0]] * 16 + BASE_INDEX[codon[1]] * 4
+            + BASE_INDEX[codon[2]])
+
+
+def _table_with(base: str, **overrides: str) -> str:
+    aas = list(base)
+    for codon, aa in overrides.items():
+        aas[_codon_index(codon)] = aa
+    return "".join(aas)
+
+
+# Amino-acid strings per supported genetic code.  Table 11 == table 1 for
+# amino acids (they differ only in permitted starts).
+_GC_AAS = {
+    1: _AA_TABLE_1,
+    2: _table_with(_AA_TABLE_1, aga="*", agg="*", ata="M", tga="W"),
+    3: _table_with(_AA_TABLE_1, ata="M", ctt="T", ctc="T", cta="T", ctg="T",
+                   tga="W"),
+    4: _table_with(_AA_TABLE_1, tga="W"),
+    11: _AA_TABLE_1,
+}
+
+# Start codons.  The reference's own test oracle asserts extension snaps the
+# begin to one of ttg/ctg/atg (AppTest.java:169,183-184), so that is the set
+# used for Location.extend and pegTranslate start-awareness.
+_GC_STARTS = {
+    1: ("ttg", "ctg", "atg"),
+    2: ("att", "atc", "ata", "atg", "gtg"),
+    3: ("ata", "atg", "gtg"),
+    4: ("ttg", "ctg", "atg"),
+    11: ("ttg", "ctg", "atg"),
+}
+
+_COMPLEMENT = str.maketrans("acgtumrwsykvhdbnACGTUMRWSYKVHDBN",
+                            "tgcaakywsrmbdhvnTGCAAKYWSRMBDHVN")
+
+
+def reverse_complement(dna: str) -> str:
+    """Reverse complement with IUPAC ambiguity support (Contig.getRSequence)."""
+    return dna.translate(_COMPLEMENT)[::-1]
+
+
+class GeneticCode:
+    """A single genetic code: 64-entry codon→AA map plus start/stop sets."""
+
+    _cache: dict[int, "GeneticCode"] = {}
+
+    def __init__(self, gc: int):
+        # Unknown codes fail loudly: silently translating with table 1
+        # would miscall proteins for e.g. mycoplasma (gc 4 tga=W) inputs
+        # declaring a code we never implemented (r2 VERDICT rot).
+        if gc not in _GC_AAS:
+            raise ValueError(
+                f"unsupported genetic code {gc}; supported: "
+                f"{sorted(_GC_AAS)}")
+        aas = _GC_AAS[gc]
+        self.gc = gc
+        self.aa_string = aas
+        self.starts = frozenset(_GC_STARTS.get(gc, _GC_STARTS[11]))
+        self.stops = frozenset(
+            BASES[i // 16] + BASES[(i // 4) % 4] + BASES[i % 4]
+            for i, aa in enumerate(aas) if aa == "*")
+        # codon text (lowercase) -> amino acid
+        self.codon_map = {
+            BASES[i // 16] + BASES[(i // 4) % 4] + BASES[i % 4]: aa
+            for i, aa in enumerate(aas)}
+
+    @classmethod
+    def get(cls, gc: int) -> "GeneticCode":
+        if gc not in cls._cache:
+            cls._cache[gc] = cls(gc)
+        return cls._cache[gc]
+
+    def aa_lut(self) -> np.ndarray:
+        """65-entry uint8 LUT: index = b0*16+b1*4+b2 (t,c,a,g = 0..3);
+        index 64 = ambiguous codon -> 'X'.  Consumed by ops.translate."""
+        lut = np.frombuffer(self.aa_string.encode("ascii"), dtype=np.uint8)
+        return np.concatenate([lut, np.array([ord("X")], dtype=np.uint8)])
+
+
+class DnaTranslator:
+    """Host reference translator matching the external DnaTranslator contract."""
+
+    def __init__(self, gc: int = 11):
+        self.code = GeneticCode.get(gc)
+
+    def translate(self, dna: str, frame: int = 1, length: int | None = None) -> str:
+        """Translate ``length`` base pairs starting at 1-based offset ``frame``.
+
+        Mirrors ``xlator.translate(sequence, frame, sequence.length())`` at
+        KmerReference.java:184: the translated region is clipped to the
+        sequence end and truncated to whole codons.
+        """
+        if length is None:
+            length = len(dna) - frame + 1
+        start = frame - 1
+        end = min(start + length, len(dna))
+        region = dna[start:end].lower()
+        n_codons = len(region) // 3
+        if n_codons >= 24 and "u" not in region:
+            # vectorized path: codes → codon ids → AA LUT (identical
+            # output; ambiguous bases → 'X' like the codon_map miss,
+            # and 'u' — which encode_dna folds to 't' but codon_map
+            # treats as unknown — falls back to the scalar path)
+            from ..ops.encode import encode_dna
+            codes = encode_dna(region[: 3 * n_codons]).astype(
+                np.int64).reshape(n_codons, 3)
+            ok = (codes < 4).all(axis=1)
+            ids = np.where(
+                ok, codes[:, 0] * 16 + codes[:, 1] * 4 + codes[:, 2], 64)
+            return self.code.aa_lut()[ids].tobytes().decode("ascii")
+        cmap = self.code.codon_map
+        out = []
+        for i in range(n_codons):
+            codon = region[3 * i: 3 * i + 3]
+            out.append(cmap.get(codon, "X"))
+        return "".join(out)
+
+    def peg_translate(self, dna: str, frame: int = 1, length: int | None = None) -> str:
+        """Start-codon-aware translation (KmerProcessor.java:304-305): the
+        first codon translates to 'M' when it is a permitted start codon."""
+        prot = self.translate(dna, frame, length)
+        if prot:
+            first = dna[frame - 1: frame + 2].lower()
+            if first in self.code.starts:
+                prot = "M" + prot[1:]
+        return prot

@@ -1,0 +1,73 @@
+"""The PATRIC/BV-BRC genome source (GenomeSource contract: ``ids()``,
+``get(id)``).  A copy of the reference package's ``genome/sources.py``,
+holding the source the port uses.
+
+The source (P3Genome.load, KmerProcessor.java:189) is cache-first:
+genomes are looked up as ``<cache>/<id>.gto`` before any network attempt,
+and downloaded GTOs are written back to the cache.  In a network-isolated
+deployment the cache is the only backing store; fetch failures warn and
+return None exactly like the reference tool's not-found path
+(KmerProcessor.java:190-191).
+"""
+
+from __future__ import annotations
+
+import os
+
+from .gto import Genome
+
+
+class PatricGenomeSource:
+    """BV-BRC genomes (GenomeSource.Type.PATRIC contract,
+    GtoBuildProcessor.java:100).
+
+    ``path`` selects the enumeration mode:
+
+    * a FILE of genome IDs (one per line; a ``genome_id`` header line is
+      skipped).  IDs enumerate the file; ``get`` loads cache-first then
+      fetches via the data-api client (genome.p3api).
+    * a DIRECTORY: cache-only mode.  IDs enumerate the cached
+      ``<id>.gto`` files, and the directory doubles as the fetch cache.
+
+    In a network-isolated deployment every fetch miss warns loudly and
+    returns None (KmerProcessor.java:190-191).
+    """
+
+    def __init__(self, path: str | None, cache: str | None = None):
+        self.cache = cache
+        self._id_list: list[str] | None = None
+        if path is None:
+            pass
+        elif os.path.isdir(path):
+            self.cache = path if cache is None else cache
+        elif os.path.isfile(path):
+            ids = []
+            with open(path) as fh:
+                for line in fh:
+                    gid = line.split("\t")[0].strip()
+                    if gid and gid != "genome_id":
+                        ids.append(gid)
+            self._id_list = ids
+        else:
+            raise FileNotFoundError(
+                f"PATRIC source {path} is neither a genome-ID file nor "
+                "a cache directory")
+
+    def ids(self) -> list[str]:
+        if self._id_list is not None:
+            return list(self._id_list)
+        if self.cache is None:
+            # enumerating PATRIC remotely is not possible without a
+            # network; a silent [] would make every downstream command a
+            # quiet no-op, so fail loudly instead
+            raise RuntimeError(
+                "PATRIC source cannot enumerate genomes remotely in "
+                "this deployment: give it a genome-ID file or a cache "
+                "directory")
+        return sorted(f[:-4] for f in os.listdir(self.cache)
+                      if f.endswith(".gto"))
+
+    def get(self, genome_id: str) -> Genome | None:
+        from .p3api import Details, P3Connection, P3Genome
+        return P3Genome.load(P3Connection(), genome_id,
+                             Details.FULL, self.cache)

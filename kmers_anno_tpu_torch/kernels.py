@@ -2,11 +2,13 @@
 
 The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
 library with a plain C interface, ``_build/libkan_cuda.so``, at first use;
-``ctypes`` loads it, the way ``kmers_anno_tpu/native`` builds and loads
-its host library.  No PyTorch header is compiled, so a build takes
+``ctypes`` loads it, the way the port's ``native`` package builds and
+loads its host library.  No PyTorch header is compiled, so a build takes
 seconds.  Every C entry point takes raw device pointers and the CUDA
 stream as ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check`
-turns a non-zero code into an exception.
+turns a non-zero code into an exception.  ``build`` and ``load`` also
+take another source tree or ``-D`` macros, so that a measurement can
+load a second build beside this one.
 
 A build or load failure raises: there is no fallback.
 """
@@ -30,20 +32,20 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def _files(*suffixes: str) -> list[str]:
-    return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+def _files(src_dir: str, *suffixes: str) -> list[str]:
+    return sorted(os.path.join(src_dir, f) for f in os.listdir(src_dir)
                   if f.endswith(suffixes))
 
 
-def _sources() -> list[str]:
+def _sources(src_dir: str | None = None) -> list[str]:
     """The translation units nvcc compiles (the ``.cu`` files)."""
-    return _files(".cu")
+    return _files(src_dir or SRC_DIR, ".cu")
 
 
-def _inputs() -> list[str]:
+def _inputs(src_dir: str | None = None) -> list[str]:
     """Every file the library is built from: the sources and the
     ``.cuh`` headers they include."""
-    return _files(".cu", ".cuh")
+    return _files(src_dir or SRC_DIR, ".cu", ".cuh")
 
 
 def _nvcc() -> str:
@@ -56,30 +58,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
+def _stale(src_dir: str | None = None, lib_path: str | None = None) -> bool:
+    lib_path = lib_path or LIB_PATH
+    if not os.path.exists(lib_path):
         return True
-    built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in _inputs())
+    built = os.path.getmtime(lib_path)
+    return any(os.path.getmtime(s) > built for s in _inputs(src_dir))
 
 
-def build() -> str:
-    """Compile ``csrc/*.cu`` into the shared library if it is missing or
-    older than a source or header: one nvcc per source, all started
-    together, then one link.  Returns nvcc's output (with ptxas's register
-    and shared-memory report), empty when the library was up to date.
-    Raises on failure."""
-    if not _stale():
+def build(src_dir: str | None = None, lib_path: str | None = None,
+          defines: tuple[str, ...] = ()) -> str:
+    """Compile ``src_dir/*.cu`` into the shared library ``lib_path`` if it
+    is missing or older than a source or header: one nvcc per source, all
+    started together, then one link.  ``defines`` are extra ``-D`` macros
+    (a build variant; give it its own ``lib_path``).  Returns nvcc's
+    output (with ptxas's register and shared-memory report), empty when
+    the library was up to date.  Raises on failure."""
+    src_dir, lib_path = src_dir or SRC_DIR, lib_path or LIB_PATH
+    if not _stale(src_dir, lib_path):
         return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    build_dir = os.path.dirname(lib_path)
+    os.makedirs(build_dir, exist_ok=True)
     nvcc = _nvcc()
-    sources = _sources()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    sources = _sources(src_dir)
+    flags = [f"-D{d}" for d in defines]
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs = [os.path.join(tmp, os.path.basename(s) + ".o")
                 for s in sources]
         procs = [subprocess.Popen(
-            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-c", "-o", obj, src],
+            [nvcc, *ARCH_FLAGS, *flags, "-std=c++17", "-O3", "-Xcompiler",
+             "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(sources, objs)]
         output = "".join(p.communicate()[0] for p in procs)
@@ -87,15 +95,33 @@ def build() -> str:
                   for s, p in zip(sources, procs) if p.returncode]
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{output}")
-        lib_tmp = os.path.join(tmp, os.path.basename(LIB_PATH))
+        lib_tmp = os.path.join(tmp, os.path.basename(lib_path))
         proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp,
                                *objs], capture_output=True, text=True)
         output += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc link failed ({proc.returncode}):\n{output}")
-        os.replace(lib_tmp, LIB_PATH)   # atomic: no reader sees a partial .so
+        os.replace(lib_tmp, lib_path)   # atomic: no reader sees a partial .so
     return output
+
+
+def load(lib_path: str) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points."""
+    handle = ctypes.CDLL(lib_path)
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    handle.kan_contig_scan.restype = ctypes.c_int
+    handle.kan_contig_scan.argtypes = [p, i64, p, i32, p, p, p, p]
+    handle.kan_probe_wide.restype = ctypes.c_int
+    handle.kan_probe_wide.argtypes = [
+        p, i64, p, p, p, i64, ctypes.c_uint32, i32, p, p]
+    handle.kan_apply_rows.restype = ctypes.c_int
+    handle.kan_apply_rows.argtypes = [
+        p, i64, p, p, i64, i64, i32, i32, ctypes.c_uint32, i32, i32,
+        p, p, p]
+    handle.kan_cuda_error_string.restype = ctypes.c_char_p
+    handle.kan_cuda_error_string.argtypes = [ctypes.c_int]
+    return handle
 
 
 def lib() -> ctypes.CDLL:
@@ -107,20 +133,7 @@ def lib() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         build()
-        handle = ctypes.CDLL(LIB_PATH)
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        handle.kan_contig_scan.restype = ctypes.c_int
-        handle.kan_contig_scan.argtypes = [p, i64, p, i32, p, p, p, p]
-        handle.kan_probe_wide.restype = ctypes.c_int
-        handle.kan_probe_wide.argtypes = [
-            p, i64, p, p, p, i64, ctypes.c_uint32, i32, p, p]
-        handle.kan_apply_rows.restype = ctypes.c_int
-        handle.kan_apply_rows.argtypes = [
-            p, i64, p, p, i64, i64, i32, i32, ctypes.c_uint32, i32, i32,
-            p, p, p]
-        handle.kan_cuda_error_string.restype = ctypes.c_char_p
-        handle.kan_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib = handle
+        _lib = load(LIB_PATH)
         return _lib
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..host import PROT_PAD
+from .encode import PROT_PAD
 from .kmers import MAX_K, pack_kmer_windows
 from .vote import unanimous_vote
 from .widetable import SLOTS, check_table, probe_wide_plain

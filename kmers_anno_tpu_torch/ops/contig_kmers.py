@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import encode_dna
+from .encode import encode_dna
 from .contig_scan import scan_stream
 from .translate import codon_lut
 

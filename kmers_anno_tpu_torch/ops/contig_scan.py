@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..host import DNA_AMBIG, PROT_PAD, PROT_STOP, PROT_X
+from .encode import DNA_AMBIG, PROT_PAD, PROT_STOP, PROT_X
 from .kmers import MAX_K
 from .translate import sliding_translate
 

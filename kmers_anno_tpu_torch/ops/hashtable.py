@@ -24,8 +24,7 @@ import threading
 import numpy as np
 import torch
 
-from ..host import mix_kmer_np
-from .hashing import mix_kmer
+from .hashing import mix_kmer, mix_kmer_np
 from .widetable import PROBE_CHUNK, check_probe_args
 
 EMPTY = np.uint32(0xFFFFFFFF)
@@ -77,7 +76,7 @@ def build_table(key_lo, key_hi, values, n_buckets: int | None = None,
         # slot fill: pos[k] = max(pos[k-1] + 1, 8*home[k]), a running
         # maximum.  The probe invariant holds: a key landing in bucket
         # B > home implies every bucket home..B-1 was already full.
-        home = (mix_kmer_np(key_lo, key_hi, np) & mask).astype(np.int64)
+        home = (mix_kmer_np(key_lo, key_hi) & mask).astype(np.int64)
         order = np.argsort(home, kind="stable")
         hb = home[order]
         ar = np.arange(n, dtype=np.int64)

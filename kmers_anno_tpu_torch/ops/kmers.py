@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import PROT_PAD, PROT_STOP, PROT_X
+from .encode import PROT_PAD, PROT_STOP, PROT_X
 
 MAX_K = 12
 

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import GeneticCode, encode_protein
+from ..genome.dna import GeneticCode
+from .encode import encode_protein
 
 _LUT_CACHE: dict[int, np.ndarray] = {}
 

@@ -23,8 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..host import mix_kmer_salted_np, salt_sequence
-from .hashing import mix_kmer_salted
+from .hashing import mix_kmer_salted, mix_kmer_salted_np, salt_sequence
 
 log = logging.getLogger(__name__)
 
@@ -80,7 +79,7 @@ def build_wide_table(key_lo, key_hi, values, n_rows: int | None = None,
 
     best = None  # (overflow_count, salt, home)
     for salt in salt_sequence(max_salts):
-        home = (mix_kmer_salted_np(key_lo, key_hi, np.uint32(salt), np)
+        home = (mix_kmer_salted_np(key_lo, key_hi, salt)
                 & mask).astype(np.int64)
         over = int(np.maximum(
             np.bincount(home, minlength=n_rows) - SLOTS, 0).sum())

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import collision_rows
 from kmers_anno_tpu.engine import apply_engine as ref_engine
 from kmers_anno_tpu.engine import protein_kmers as ref_pk
 from kmers_anno_tpu.engine import signature as ref_sig
@@ -357,7 +358,7 @@ def test_engine_drop_last(genomes, drop_last_both):
     want_t = ref_sig.build_signatures(genomes, make_role_map(), GOOD, k=K,
                                       progress=False)
     got_t = port_sig.build_signatures(genomes, make_role_map(), GOOD, k=K,
-                                      progress=False)
+                                      progress=False, device=CPU)
     np.testing.assert_array_equal(got_t.key_lo, want_t.key_lo)
     np.testing.assert_array_equal(got_t.key_hi, want_t.key_hi)
     prots = [f.protein_translation for g in genomes for f in g.pegs
@@ -404,3 +405,27 @@ def test_engine_big_table_is_not_yet_ported(ref_table, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 9"):
         port_engine.KmerApplyEngine(
             signature_table_from_reference(ref_table), device=CPU)
+
+
+@pytest.mark.parametrize("k,width,n_rows", [(12, 45, 21), (12, 100, 40),
+                                            (8, 33, 17), (8, 1, 5)])
+@pytest.mark.parametrize("min_hits", [1, 3])
+def test_apply_rows_collisions_and_wrap_match_reference(k, width, n_rows,
+                                                        min_hits):
+    """apply_rows_plain on equal-lo keys and a wrapping walk, widths off
+    multiples of 32 and of the kernel's lane groups, rows with no valid
+    window."""
+    codes, valid, table, salt, mp = collision_rows(
+        np.random.default_rng(k * width), k, width, n_rows)
+    want = ref_engine.apply_rows(
+        jnp.asarray(table), jnp.uint32(salt), jnp.asarray(codes),
+        jnp.asarray(valid), jnp.int32(min_hits), k=k, max_probes=mp)
+    got = port_ar.apply_rows_plain(
+        wide_table_from_numpy(table, CPU), salt, torch.from_numpy(codes),
+        torch.from_numpy(valid), min_hits, k, mp)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), _np(w))
+    role, count = (g.numpy() for g in got)
+    assert (role[::4] == -1).all() and (count[::4] == 0).all()
+    if width > 1:
+        assert (count > 0).any()

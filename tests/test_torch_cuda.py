@@ -14,15 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (made_up_rows, make_projection_workload,
+from chip_smoke import (collision_rows, collision_table, launch_apply,
+                        launch_probe, made_up_rows, make_projection_workload,
                         make_signature_genomes)
+from kmers_anno_tpu_torch import kernels
 from kmers_anno_tpu_torch.engine import projection
 from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
 from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
                                                    build_signatures)
 from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
 from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
-from kmers_anno_tpu_torch.host import Genome
+from kmers_anno_tpu_torch.genome.gto import Genome
 from kmers_anno_tpu_torch.ops.apply_rows import apply_rows, apply_rows_plain
 from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
 from kmers_anno_tpu_torch.ops.contig_scan import scan_stream, scan_stream_plain
@@ -300,6 +302,79 @@ def test_apply_rows_kernel_edge_shapes(cuda):
         apply_rows(d_table, salt, wide_codes.cpu(), wide_valid, 1, 5, mp)
 
 
+@pytest.mark.parametrize("n", [1, 7, 31, 33, 1001, 100_003])
+@pytest.mark.parametrize("mode", ["all_valid", "mixed", "all_invalid"])
+def test_probe_wide_kernel_collisions_and_wrap(cuda, n, mode):
+    """The probe kernel against its plain version on a table with keys of
+    one lo word and another hi in one row and a walk that wraps from the
+    last row to row 0; query counts off multiples of 32 and of the lane
+    groups; all, some or none of the queries valid."""
+    table, salt, mp, _, (qlo, qhi, valid) = collision_table(
+        np.random.default_rng(n), n, mode)
+    args = (wide_table_from_numpy(table, cuda),
+            torch.from_numpy(qlo.view(np.int32)).to(cuda),
+            torch.from_numpy(qhi.view(np.int32)).to(cuda),
+            torch.from_numpy(valid).to(cuda), salt, mp)
+    before = probe_wide.launches
+    got = probe_wide(*args)
+    torch.cuda.synchronize()
+    assert probe_wide.launches == before + 1
+    assert torch.equal(got, probe_wide_plain(*args))
+    if mode == "all_invalid":
+        assert (got.cpu() == -1).all()
+
+
+@pytest.mark.parametrize("min_hits", [1, 3])
+@pytest.mark.parametrize("k,width,n_rows", [(12, 45, 21), (12, 100, 40),
+                                            (12, 320, 333), (8, 33, 17),
+                                            (8, 1, 5), (8, 257, 64)])
+def test_apply_rows_kernel_collisions_and_wrap(cuda, k, width, n_rows,
+                                               min_hits):
+    """The fused kernel against its plain version on rows whose windows
+    share lo words, against a table whose walk wraps to row 0; widths off
+    multiples of 32; every fourth row with no valid window."""
+    codes, valid, table, salt, mp = collision_rows(
+        np.random.default_rng(k * width), k, width, n_rows)
+    args = (wide_table_from_numpy(table, cuda), salt,
+            torch.from_numpy(codes).to(cuda),
+            torch.from_numpy(valid).to(cuda), min_hits, k, mp)
+    got = apply_rows(*args)
+    torch.cuda.synchronize()
+    want = apply_rows_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    role, count = (g.cpu().numpy() for g in got)
+    assert (role[::4] == -1).all() and (count[::4] == 0).all()
+
+
+@pytest.mark.parametrize("group", [8, 16])
+def test_lane_group_builds_match_plain(cuda, group, tmp_path):
+    """The lane-group lookups (the KAN_PROBE_GROUP=8 and 16 builds, kept
+    as measured alternatives) against the plain versions on the collision
+    and wrap tables, through the library's C entry points."""
+    path = str(tmp_path / "lib.so")
+    kernels.build(kernels.SRC_DIR, path, (f"KAN_PROBE_GROUP={group}",))
+    lib = kernels.load(path)
+    rng = np.random.default_rng(group)
+    for n in (1, 33, 1001, 100_003):
+        for mode in ("all_valid", "mixed", "all_invalid"):
+            table, salt, mp, _, (qlo, qhi, valid) = collision_table(
+                rng, n, mode)
+            args = (wide_table_from_numpy(table, cuda),
+                    torch.from_numpy(qlo.view(np.int32)).to(cuda),
+                    torch.from_numpy(qhi.view(np.int32)).to(cuda),
+                    torch.from_numpy(valid).to(cuda), salt, mp)
+            assert torch.equal(launch_probe(lib, *args),
+                               probe_wide_plain(*args))
+    for k, width, n_rows in ((12, 45, 21), (12, 320, 333), (8, 257, 64)):
+        codes, valid, table, salt, mp = collision_rows(rng, k, width, n_rows)
+        args = (wide_table_from_numpy(table, cuda), salt,
+                torch.from_numpy(codes).to(cuda),
+                torch.from_numpy(valid).to(cuda), 2, k, mp)
+        got, want = launch_apply(lib, *args), apply_rows_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def _signature_case():
     genomes, role_map = make_signature_genomes(
         np.random.default_rng(5), 2, 60, 40, 3)
@@ -313,7 +388,7 @@ def test_apply_engine_on_cuda_matches_cpu(cuda, weights):
     uniform-weighted through the probe kernel and the torch vote."""
     genomes, role_map, good = _signature_case()
     table = build_signatures(genomes, role_map, good, k=8, progress=False,
-                             weight_mode=weights)
+                             weight_mode=weights, device="cpu")
     weighted = weights != "none"
     prots = [f.protein_translation for g in genomes for f in g.pegs]
     prots += [prots[0][:150] + prots[1][150:], "MKV", "A" * 20_000]
@@ -343,7 +418,7 @@ def test_device_groupby_on_cuda_matches_native(cuda):
     chunks.append((lo0[:600], hi0[:600], (r0[:600] + 1) % 30))
     kills = (lo0[700:900], hi0[700:900])
     outs = []
-    for b in (StreamingTableBuilder(backend="native"),
+    for b in (StreamingTableBuilder(backend="native", device="cpu"),
               StreamingTableBuilder(chunk_entries=2048, backend="device",
                                     device=cuda)):
         for chunk in chunks:
@@ -354,7 +429,8 @@ def test_device_groupby_on_cuda_matches_native(cuda):
         np.testing.assert_array_equal(g, w)
     assert outs[1][3] == outs[0][3] and outs[1][3]["killed"] > 0
     genomes, role_map, good = _signature_case()
-    want = build_signatures(genomes, role_map, good, k=8, progress=False)
+    want = build_signatures(genomes, role_map, good, k=8, progress=False,
+                            device="cpu")
     got = build_signatures(genomes, role_map, good, k=8, progress=False,
                            backend="device", device=cuda)
     for name in ("key_lo", "key_hi", "role_idx"):

@@ -1,10 +1,9 @@
-"""The port never imports jax: every module of ``kmers_anno_tpu_torch``
-imports with ``import jax`` blocked.  Runs in a subprocess, because the
-test session itself has imported jax (tests/conftest.py).
-
-The port reaches the reference package's jax-free host modules only
-through ``kmers_anno_tpu_torch/host.py``, and ``chip_smoke.py`` imports
-nothing of the reference package at all.
+"""The port stands alone: no module of ``kmers_anno_tpu_torch`` and not
+``chip_smoke.py`` imports jax or anything of the JAX package
+(``kmers_anno_tpu``), not even its jax-free host modules; the port keeps
+its own copies of those.  Every module of the port imports with all three
+blocked; that runs in a subprocess, because the test session itself has
+imported jax (tests/conftest.py).
 """
 
 import ast
@@ -16,36 +15,45 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("kmers_anno_tpu", "jax", "jaxlib")
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
 
-class BlockJax:
+BLOCKED = %r
+
+class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"import of {name} is blocked")
         return None
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, Block())
 import kmers_anno_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     kmers_anno_tpu_torch.__path__, "kmers_anno_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(len(names))
-"""
+""" % (BLOCKED,)
 
 
-def test_port_imports_without_jax():
+def _run(script):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
-    got = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    return subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_without_jax():
+    """Every module of the port imports with jax, jaxlib and the JAX
+    package blocked."""
+    got = _run(SCRIPT)
     assert got.returncode == 0, got.stderr
-    assert int(got.stdout.split()[-1]) >= 15   # every module was imported
+    assert int(got.stdout.split()[-1]) >= 40   # every module was imported
 
 
 def _imported_modules(path):
@@ -57,28 +65,42 @@ def _imported_modules(path):
             yield node.module
 
 
-def _names_reference(module):
-    return module.split(".")[0] in ("kmers_anno_tpu", "jax", "jaxlib")
-
-
 PORT_FILES = sorted(
     os.path.relpath(p, ROOT) for p in glob.glob(
         os.path.join(ROOT, "kmers_anno_tpu_torch", "**", "*.py"),
-        recursive=True)
-    if not p.endswith(os.path.join("kmers_anno_tpu_torch", "host.py")))
+        recursive=True))
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py"] + PORT_FILES)
 def test_only_the_host_module_names_the_reference(path):
+    """No file of the port names the JAX package or jax: the host modules
+    the port needs are its own copies, under its own package."""
     named = [m for m in _imported_modules(os.path.join(ROOT, path))
-             if _names_reference(m)]
+             if m.split(".")[0] in BLOCKED]
     assert not named, f"{path} imports {named}"
 
 
-def test_host_module_imports_only_the_reference():
-    """host.py names reference modules and nothing else; that they load
-    without jax is what test_port_imports_without_jax shows."""
-    host = os.path.join(ROOT, "kmers_anno_tpu_torch", "host.py")
-    modules = list(_imported_modules(host))
-    assert modules
-    assert all(m.split(".")[0] == "kmers_anno_tpu" for m in modules)
+def test_tune_malloc_runs_on_import():
+    """Importing the port raises glibc's mmap and trim thresholds, as
+    importing the JAX package does (kmers_anno_tpu/__init__.py), so the
+    host row batches keep their pages without the reference imported."""
+    script = SCRIPT.replace("import kmers_anno_tpu_torch\n", r'''
+import ctypes
+calls = []
+_CDLL = ctypes.CDLL
+
+class Libc:
+    def mallopt(self, param, value):
+        calls.append((param, value))
+        return 1
+
+def fake_cdll(name, *a, **kw):
+    return Libc() if name is None else _CDLL(name, *a, **kw)
+
+ctypes.CDLL = fake_cdll
+import kmers_anno_tpu_torch
+ctypes.CDLL = _CDLL
+assert calls == [(-3, 1 << 30), (-1, 1 << 30)], calls
+''', 1)
+    got = _run(script)
+    assert got.returncode == 0, got.stderr

@@ -122,3 +122,25 @@ def test_build_compiles_each_source_in_parallel_then_links(
     assert all("-c" in c and not any(a.endswith(".cuh") for a in c)
                for c in compiled)
     assert os.listdir(build_dir) in ([], ["lib.so"])   # objects removed
+
+
+def test_build_variant_passes_defines_and_its_own_paths(tmp_path,
+                                                        monkeypatch):
+    """A variant build compiles another tree with extra macros into its
+    own library and leaves the default one alone."""
+    fake = _FakeNvcc()
+    monkeypatch.setattr(kernels, "LIB_PATH", str(tmp_path / "default.so"))
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kernels.subprocess, "Popen", fake.popen)
+    monkeypatch.setattr(kernels.subprocess, "run", fake.run)
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "x.cu").write_text("// source\n")
+    lib = tmp_path / "variant" / "lib.so"
+    kernels.build(str(src), str(lib), ("KAN_PROBE_GROUP=16",))
+    compiled = [e[1] for e in fake.events if e[0] == "start"]
+    assert [c[-1] for c in compiled] == [str(src / "x.cu")]
+    assert "-DKAN_PROBE_GROUP=16" in compiled[0]
+    assert lib.read_text() == "built"
+    assert not (tmp_path / "default.so").exists()
+    assert kernels.build(str(src), str(lib)) == ""       # up to date

@@ -63,7 +63,7 @@ def test_pack_unpack_round_trip(k):
     np.testing.assert_array_equal(hi, rhi)
     back = port_kmers.unpack_kmer_np(lo, hi, k)
     np.testing.assert_array_equal(back, ref.unpack_kmer_np(rlo, rhi, k))
-    from kmers_anno_tpu_torch.host import decode_protein
+    from kmers_anno_tpu_torch.ops.encode import decode_protein
     assert [decode_protein(r) for r in back] == protein_kmers(prot, k)
 
 
@@ -207,7 +207,7 @@ def test_streaming_builder_matches_reference(backend):
 
 
 def test_builder_rejects_wide_keys():
-    b = port.StreamingTableBuilder(backend="device")
+    b = port.StreamingTableBuilder(backend="device", device=CPU)
     with pytest.raises(ValueError):
         b.add_candidates(np.zeros(1, np.uint32),
                          np.full(1, 1 << 31, np.uint32),
@@ -255,7 +255,8 @@ def test_tsv_save_load_byte_identical(genomes, tmp_path, mode):
     want = ref.build_signatures(genomes, make_role_map(), GOOD, k=K,
                                 progress=False, weight_mode=mode)
     got = port.build_signatures(genomes, make_role_map(), GOOD, k=K,
-                                progress=False, weight_mode=mode)
+                                progress=False, weight_mode=mode,
+                                device=CPU)
     ref_path, port_path = tmp_path / "ref.tbl", tmp_path / "port.tbl"
     want.save(str(ref_path))
     got.save(str(port_path))
@@ -350,7 +351,7 @@ def test_load_rejects_a_short_kmer(tmp_path):
 def test_dna_tables_are_not_yet_ported(genomes, tmp_path):
     with pytest.raises(NotImplementedError, match="item 10"):
         port.build_signatures(genomes, make_role_map(), GOOD, k=K,
-                              alphabet="dna")
+                              alphabet="dna", device=CPU)
     path = tmp_path / "dna.tbl"
     path.write_text("acgtacgtacgtacg\tRoleA\n")
     with pytest.raises(NotImplementedError, match="not yet ported"):

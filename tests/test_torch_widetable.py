@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import collision_table
 from kmers_anno_tpu.ops import hashing as ref_hashing
 from kmers_anno_tpu.ops import widetable as ref
 from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
@@ -158,3 +159,34 @@ def test_wide_table_from_numpy_keeps_bits():
     assert t.numpy().view(np.uint32).tobytes() == table.tobytes()
     empty = table == ref.EMPTY
     assert empty.any() and (t.numpy()[empty] == -1).all()
+
+
+# ---------------------------------------------------------------------------
+# the lookup's edge cases: equal lo keys in one row, a walk that wraps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_queries", [1, 7, 31, 33, 1001])
+@pytest.mark.parametrize("valid_mode", ["all_valid", "mixed", "all_invalid"])
+def test_probe_collisions_and_wrap_match_jax(n_queries, valid_mode):
+    """Keys of one lo word and another hi in one row, misses that share a
+    table key's lo, a walk wrapping from the last row to row 0; query
+    counts off multiples of 32 and of the kernel's lane groups."""
+    table, salt, mp, (klo, khi, vals), (qlo, qhi, valid) = collision_table(
+        np.random.default_rng(n_queries), n_queries, valid_mode)
+    assert mp >= 2
+    want = np.asarray(ref.probe_wide(
+        jnp.asarray(table), jnp.asarray(qlo), jnp.asarray(qhi),
+        jnp.asarray(valid), jnp.uint32(salt), max_probes=mp))
+    got = port.probe_wide(
+        wide_table_from_numpy(table, CPU),
+        torch.from_numpy(qlo.view(np.int32)),
+        torch.from_numpy(qhi.view(np.int32)),
+        torch.from_numpy(valid), salt, mp)
+    np.testing.assert_array_equal(got.numpy(), want)
+    stored = dict(zip(((khi.astype(np.int64) << 32) | klo).tolist(),
+                      vals.astype(np.int64).tolist()))
+    expect = [stored.get(int(h) << 32 | int(lo), -1) if v else -1
+              for lo, h, v in zip(qlo, qhi, valid)]
+    np.testing.assert_array_equal(got.numpy(), expect)
+    if valid_mode == "all_valid" and n_queries == 1001:
+        assert (got.numpy() >= 0).any() and (got.numpy() < 0).any()
