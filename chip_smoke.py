@@ -47,7 +47,7 @@ lookups read plus a hit's hi and payload words) and its integer
 operations over the card's 32-bit rate, with ``bound_share`` = bound / time.
 
 Usage, from the repository root:
-    python3 chip_smoke.py [--profile] [--compare [DIR]] [--variant N=M ...]
+    python3 chip_smoke.py [--profile] [--compare DIR]
 
 ``--profile`` also traces three warm fused-route genomes with
 ``torch.profiler`` (device activity only) and reports, within that one
@@ -55,13 +55,11 @@ traced run, the device's busy share (the union of its kernel and copy
 intervals over the run's wall time) and the kernels that take the most
 device time; then a ``cProfile`` of one more warm genome on the host.
 
-``--compare [DIR]`` also times the lookup kernels (``probe_wide`` on the
+``--compare DIR`` also times the lookup kernels (``probe_wide`` on the
 union table and on the fused close tables, ``apply_rows`` on the bench
-batches) of this tree's build against its ``--variant`` builds (the same
-sources with other ``-D`` macros, e.g. ``g8=KAN_PROBE_GROUP=8``) and,
-given DIR (the root of another checkout, such as the parent commit's),
-against that tree's build: in turns (A B C C B A), each output equal to
-this build's.
+batches) of this tree's build against the build of the tree at DIR (the
+root of another checkout, such as the parent commit's): in turns (A B B
+A), each output equal to this build's.
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -160,12 +158,13 @@ def max_abs_err(pairs) -> int:
 # ---------------------------------------------------------------------------
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-INT_OPS_PER_S = 67e12           # the data sheet's float32 rate outside the
-                                # tensor cores, taken for 32-bit int ops
+# 32-bit integer operations: 64 INT32 lanes an SM (half the 128 float32
+# lanes behind the data sheet's 67 TFLOP/s, which counts an FMA as two),
+# 132 SMs at the 1.98 GHz boost clock
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 LOOKUP_OPS = 40                 # a lookup: two fmix32, masks, 24 compares
 ROW_LO_BYTES = 96               # a table row's 24 lo keys
 HIT_BYTES = 8                   # a hit's hi key and payload words
-LANE_GROUP_BUILDS = ["g8=KAN_PROBE_GROUP=8", "g16=KAN_PROBE_GROUP=16"]
 LIBRARY_NOTE = ("none: no single PyTorch call computes a hash-table probe "
                 "or a codon-scan pack")
 
@@ -226,18 +225,22 @@ def probe_bound(table, lo, hi, valid, salt, max_probes, ms) -> dict:
     return bound(n_bytes, LOOKUP_OPS * reads, ms)
 
 
-def apply_bound(table, salt, codes, valid, k, max_probes, ms) -> dict:
-    """apply_rows's bound for one batch: codes and mask read once, role and
-    count written once, and the table as for the probe; operations: each
-    valid window's pack (2 per residue) and lookups."""
+def apply_bound(table, salt, batches, valid, k, max_probes, ms) -> dict:
+    """apply_rows's bound for one launch, the mean over ``batches`` (one
+    launch each, timed together as ``ms`` a launch): codes and mask read
+    once, role and count written once, and the table as for the probe;
+    operations: each valid window's pack (2 per residue) and lookups."""
     from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
 
-    lo, hi = pack_kmer_windows(codes, k)
-    rows, reads, hits = table_reads(table, lo, hi, valid, salt, max_probes)
-    n_bytes = (nbytes(codes, valid) + 8 * codes.shape[0]
-               + ROW_LO_BYTES * rows + HIT_BYTES * hits)
-    n_ops = 2 * k * int(valid.sum()) + LOOKUP_OPS * reads
-    return bound(n_bytes, n_ops, ms)
+    n_bytes = n_ops = 0
+    for codes in batches:
+        lo, hi = pack_kmer_windows(codes, k)
+        rows, reads, hits = table_reads(table, lo, hi, valid, salt,
+                                        max_probes)
+        n_bytes += (nbytes(codes, valid) + 8 * codes.shape[0]
+                    + ROW_LO_BYTES * rows + HIT_BYTES * hits)
+        n_ops += 2 * k * int(valid.sum()) + LOOKUP_OPS * reads
+    return bound(n_bytes / len(batches), n_ops / len(batches), ms)
 
 
 def scan_bound(streams, outputs, k, ms) -> dict:
@@ -279,30 +282,18 @@ def launch_apply(lib, table, salt, codes, valid, min_hits, k, max_probes):
     return role, count
 
 
-def build_contenders(other: str | None, variants: list[str],
-                     tmp: str) -> dict:
-    """Kernel libraries to time in turns: this tree's build ("this"); this
-    tree built with other macros, one library per ``NAME=MACRO[,MACRO]``
-    of ``variants``; and, given ``other`` (the root of another checkout),
-    that tree's build ("other")."""
+def build_contenders(other: str, tmp: str) -> dict:
+    """Kernel libraries to time in turns: this tree's build ("this") and
+    the build of the tree rooted at ``other`` ("other")."""
     from kmers_anno_tpu_torch import kernels
 
-    builds = {}
-    for spec in variants:
-        name, _, macros = spec.partition("=")
-        builds[name] = (kernels.SRC_DIR, tuple(macros.split(",")))
-    if other:
-        builds["other"] = (os.path.join(other, "kmers_anno_tpu_torch",
-                                        "csrc"), ())
-    libs = {"this": kernels.lib()}
-    for name, (src, defines) in builds.items():
-        path = os.path.join(tmp, name, "libkan_cuda.so")
-        out = kernels.build(src, path, defines)
-        for line in out.splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                print(f"  ptxas ({name}):", line.strip(), flush=True)
-        libs[name] = kernels.load(path)
-    return libs
+    path = os.path.join(tmp, "other", "libkan_cuda.so")
+    out = kernels.build(os.path.join(other, "kmers_anno_tpu_torch", "csrc"),
+                        path)
+    for line in out.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print("  ptxas (other):", line.strip(), flush=True)
+    return {"this": kernels.lib(), "other": kernels.load(path)}
 
 
 def compare_contenders(libs: dict, cases: dict) -> dict:
@@ -1042,7 +1033,7 @@ def check_collisions(dev) -> None:
     """Both lookup kernels against their plain versions on tables that
     hold keys of one lo word and another hi in one row and whose walks
     wrap from the last row to row 0; query counts and row widths off
-    multiples of 32 and of the lane groups; all-invalid queries and rows
+    multiples of 32; all-invalid queries and rows
     with no valid window.  Exact equality."""
     from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
     from kmers_anno_tpu_torch.ops.apply_rows import (apply_rows,
@@ -1434,14 +1425,14 @@ def run_bench_shape(dev) -> tuple[dict, dict]:
     measured = dict(ms=ms / BENCH_BATCHES, plain_ms=plain_ms / BENCH_BATCHES,
                     unfused_ms=unfused_ms / BENCH_BATCHES,
                     max_abs_err=max_abs_err(pairs))
-    measured.update(apply_bound(engine.table, engine.salt, d_codes[0], valid,
+    measured.update(apply_bound(engine.table, engine.salt, d_codes, valid,
                                 K, engine.max_probes, measured["ms"]))
     print(f"bench shape apply_rows per {BENCH_PROTEINS} x {BENCH_WIDTH} "
           f"batch (median of {REPS} runs over {BENCH_BATCHES} batches), "
           f"exact: kernel {measured['ms']:.4f} ms, plain "
           f"{measured['plain_ms']:.4f} ms, unfused (torch pack + probe_wide "
           f"kernel + torch vote) {measured['unfused_ms']:.4f} ms; bound "
-          f"(first batch) {measured['bound_ms']:.4f} ms "
+          f"(mean of the batches) {measured['bound_ms']:.4f} ms "
           f"({measured['bound_by']}, {measured['bound_bytes']} bytes), "
           f"share {measured['bound_share']:.3f}", flush=True)
     cases = {"the bench batches": (launch_apply, [
@@ -1478,17 +1469,10 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="also trace warm fused-route genomes")
     parser.add_argument(
-        "--compare", metavar="DIR", nargs="?", const="", default=None,
-        help="also time the lookup kernels of this tree against its "
-             "--variant builds and, given DIR (the root of another "
-             "checkout), against that tree's build, in turns on the main "
-             "path's inputs")
-    parser.add_argument(
-        "--variant", metavar="NAME=MACRO[,MACRO]", action="append",
-        default=None,
-        help="a build of this tree with extra -D macros for --compare "
-             "(default: the lane-group lookups, g8=KAN_PROBE_GROUP=8 and "
-             "g16=KAN_PROBE_GROUP=16); repeatable")
+        "--compare", metavar="DIR", default=None,
+        help="also time the lookup kernels of this tree against the build "
+             "of the tree at DIR (the root of another checkout), in turns "
+             "on the main path's inputs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; no result")
@@ -1523,11 +1507,9 @@ def main() -> None:
     bench_routes, measured["apply_rows"], bench_cases = run_bench_shape(dev)
     routes.update(bench_routes)
     cases.update(bench_cases)
-    if args.compare is not None:
+    if args.compare:
         with tempfile.TemporaryDirectory() as tmp:
-            compare_contenders(build_contenders(
-                args.compare or None,
-                args.variant or LANE_GROUP_BUILDS, tmp), cases)
+            compare_contenders(build_contenders(args.compare, tmp), cases)
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "kmers_anno_tpu" for m in sys.modules),
             "the JAX package was imported")

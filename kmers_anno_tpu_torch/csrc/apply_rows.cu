@@ -17,14 +17,12 @@
 // the (rows, width) lo, hi and role arrays, which this kernel keeps in
 // registers.
 //
-// Design: one warp per protein row.  The warp steps over the row's window
-// positions 32 at a time; a lane packs its window from the codes (coalesced
-// byte loads), and the warp calls kan::warp_probe for the step's windows
-// together (an invalid window costs no row read).  Each lane keeps (hits,
-// min role, max role); three warp reductions give the row's totals and lane
-// 0 writes them.  Any width works (a window reaching past the row end reads
-// the pad code, as the plain version does); a row with no valid window gets
-// role -1 and count 0.
+// Design: one warp per row.  The lanes stride over the row's window
+// positions; a lane packs its window from the codes, probes only when the
+// window is valid, and keeps (hits, min role, max role).  Three warp
+// reductions give the row's totals and lane 0 writes them.  Any width works
+// (a window reaching past the row end reads the pad code, as the plain
+// version does); a row with no valid window gets role -1 and count 0.
 
 #include <climits>
 #include <cstdint>
@@ -36,6 +34,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 __global__ void __launch_bounds__(kThreads)
 apply_rows_kernel(const uint32_t* __restrict__ table, uint32_t row_mask,
@@ -54,30 +53,27 @@ apply_rows_kernel(const uint32_t* __restrict__ table, uint32_t row_mask,
   int hits = 0;
   int rmin = INT_MAX;
   int rmax = -1;
-  for (int64_t step = 0; step < width; step += 32) {   // warp-uniform
-    const int64_t p = step + lane;
-    const bool ok = p < width && __ldg(v + p);
+  for (int64_t p = lane; p < width; p += 32) {
+    if (!__ldg(v + p)) continue;
     uint32_t lo = 0, hi = 0;
-    if (ok) {
-      for (int j = 0; j < k; ++j) {
-        const uint32_t code = p + j < width ? __ldg(c + p + j) : pad;
-        if (j < 6)
-          lo |= code << (5 * j);
-        else
-          hi |= code << (5 * (j - 6));
-      }
+    for (int j = 0; j < k; ++j) {
+      const uint32_t code = p + j < width ? __ldg(c + p + j) : pad;
+      if (j < 6)
+        lo |= code << (5 * j);
+      else
+        hi |= code << (5 * (j - 6));
     }
     const int32_t r =
-        kan::warp_probe(table, row_mask, lo, hi, ok, salt, max_probes);
+        kan::probe_wide_key(table, row_mask, lo, hi, salt, max_probes);
     if (r >= 0) {
       ++hits;
       rmin = min(rmin, r);
       rmax = max(rmax, r);
     }
   }
-  hits = __reduce_add_sync(kan::kFullMask, hits);
-  rmin = __reduce_min_sync(kan::kFullMask, rmin);
-  rmax = __reduce_max_sync(kan::kFullMask, rmax);
+  hits = __reduce_add_sync(kFullMask, hits);
+  rmin = __reduce_min_sync(kFullMask, rmin);
+  rmax = __reduce_max_sync(kFullMask, rmax);
   if (lane == 0) {
     const bool unanimous = hits > 0 && rmin == rmax;
     role_out[row] = unanimous && hits >= min_hits ? rmax : -1;

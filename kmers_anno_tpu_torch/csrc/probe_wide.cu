@@ -7,10 +7,8 @@
 // writes 4 (from and to device memory, coalesced), and its lookup reads its
 // row's three 32-byte sectors of lo keys from L2, where the main path's
 // tables (37.7 MB or less) stay; the rate is the lookups' reads in flight
-// against L2's latency (wide_probe.cuh).  Design: one warp per 32 queries;
-// lanes read their query's lo, hi and valid flag coalesced and call
-// kan::warp_probe together, and each lane writes its own output.  An
-// invalid query writes -1 and touches no table row.  The TPU's lane-major
+// against L2's latency (wide_probe.cuh).  Design: one thread per query; an
+// invalid query writes -1 without touching the table.  The TPU's lane-major
 // (Q/128, 72, 128) retile of gathered rows is a VPU trick with no
 // counterpart here, and no (Q, 72) row buffer is ever materialised in
 // device memory, which the plain version must do.
@@ -32,12 +30,10 @@ probe_wide_kernel(const uint32_t* __restrict__ table, uint32_t row_mask,
                   uint32_t salt, int max_probes,
                   int32_t* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i - (threadIdx.x & 31) >= q) return;  // warp-uniform: whole warps leave
-  const bool in = i < q;
-  const bool ok = in && valid[i];
-  const int32_t r = kan::warp_probe(table, row_mask, ok ? q_lo[i] : 0u,
-                                    ok ? q_hi[i] : 0u, ok, salt, max_probes);
-  if (in) out[i] = r;
+  if (i >= q) return;
+  out[i] = valid[i] ? kan::probe_wide_key(table, row_mask, q_lo[i], q_hi[i],
+                                          salt, max_probes)
+                    : -1;
 }
 
 }  // namespace

@@ -1,63 +1,39 @@
-// The wide-table lookup shared by probe_wide.cu and apply_rows.cu.
+// One lookup in the wide-bucket table, shared by probe_wide.cu and
+// apply_rows.cu.
 //
 // Table layout, as built by build_wide_table: rows of 72 uint32 words,
 // [24 lo keys | 24 hi keys | 24 payloads], EMPTY = 0xFFFFFFFF; the home row
 // of a key is fmix32(lo ^ fmix32(hi ^ salt)) & (rows - 1) and a key that
 // overflowed its home row sits in one of the next max_probes - 1 rows
-// (wrapping from the last row to row 0).  Keys are unique, but a row may
-// hold several keys with one lo and different hi words.  Rows are 288 bytes,
-// so a row's 96 bytes of lo keys are exactly three 32-byte sectors.
+// (wrapping from the last row to row 0).  Keys are unique, so at most one
+// slot matches, but a row may hold several keys with one lo and different
+// hi words: every slot whose lo matches has its hi checked.
 //
-// What bounds a lookup on this card: the L2 cache.  The main path's tables
-// (37.7 MB or less) stay in the 50 MB L2, and every lookup reads its row's
-// three lo-key sectors from there, whatever the number of load instructions
-// that fetch them; so the rate is set by how many of those reads are in
-// flight per SM against L2's latency, and by L2's bandwidth.  The one-thread
-// lookup keeps six independent 16-byte loads in flight per key with few
-// registers a thread, so an SM holds many warps of them.
+// What bounds a lookup on this card: the L2 cache.  Rows are 288 bytes, so
+// a row's 96 bytes of lo keys are exactly three 32-byte sectors; the main
+// path's tables (37.7 MB or less) stay in the 50 MB L2, and every lookup
+// reads its row's three lo-key sectors from there, whatever the number of
+// load instructions that fetch them.  The rate is set by how many of those
+// sector reads are in flight per SM against L2's latency.
 //
-// Design: warp_probe is called by all lanes of a warp together, each with
-// its own key.  The default build (KAN_PROBE_GROUP=1) looks each key up in
-// its own thread (probe_key).  The builds with KAN_PROBE_GROUP=8 or 16 read
-// a row with a group of lanes, one contiguous 16-byte piece each, so one
-// load instruction fetches the rows of 32 / group keys: with 8, six lanes
-// hold the 24 lo keys and a lane whose lo words match reads that slot's hi
-// key and payload (several lo matches are all checked); with 16, twelve
-// lanes also hold the 24 hi keys and a shuffle pairs each lo piece with its
-// hi piece.  The warp compacts its active keys (__ballot_sync / __popc) and
-// looks them up KAN_PROBE_KEYS_IN_FLIGHT at a time, with all their row loads
-// issued together; a __ballot_sync picks each hit and __shfl_sync returns
-// every payload to its own lane.  They read the same sectors with fewer
-// instructions but hold fewer bytes in flight (56-104 registers a thread)
-// and were slower on the main path's inputs (PERF.md, PR 4), so they stay
-// as measured alternatives: chip_smoke.py --compare --variant
-// g8=KAN_PROBE_GROUP=8 times them against this build.
+// Design: one thread per key.  The 24 lo keys are read as six independent
+// 16-byte loads through the read-only cache (every row starts 16-byte
+// aligned when the table does); the hi and payload words are read only for
+// a slot whose lo matches.  At about 30 registers a thread an SM holds
+// many warps of such loads in flight.  Lookups that read a row with a group
+// of 8 or 16 lanes (one 16-byte piece a lane, a ballot to find the match)
+// read the same sectors with fewer instructions but need 54-106 registers
+// a thread, hold fewer reads in flight, and were measured 1.5-3.3x slower
+// on the union table and the apply batches (the 8-lane form tied on the
+// close tables; PERF.md, Findings).
 #pragma once
 
 #include <cstdint>
-
-#ifndef KAN_PROBE_GROUP
-#define KAN_PROBE_GROUP 1
-#endif
-#ifndef KAN_PROBE_KEYS_IN_FLIGHT
-#define KAN_PROBE_KEYS_IN_FLIGHT 16
-#endif
 
 namespace kan {
 
 constexpr int kSlots = 24;
 constexpr int kRowWords = 3 * kSlots;
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr uint32_t kEmpty = 0xFFFFFFFFu;
-
-constexpr int kGroup = KAN_PROBE_GROUP;       // lanes reading one row
-static_assert(kGroup == 1 || kGroup == 8 || kGroup == 16,
-              "KAN_PROBE_GROUP is 1, 8 or 16");
-constexpr int kGroups = 32 / kGroup;          // keys looked up per round
-constexpr int kLoLanes = kSlots / 4;          // lanes holding the lo keys
-constexpr int kLoadLanes = kGroup == 16 ? 2 * kLoLanes : kLoLanes;
-// rounds whose row loads are in flight together
-constexpr int kBatch = kGroup == 1 ? 1 : KAN_PROBE_KEYS_IN_FLIGHT / kGroups;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -68,31 +44,16 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-// Position of the n-th (0-based) set bit of m; n < __popc(m).
-__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
-  int pos = 0;
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    const int below = __popc(m & ((1u << s) - 1));
-    if (n >= below) {
-      n -= below;
-      m >>= s;
-      pos += s;
-    }
-  }
-  return pos;
+__device__ __forceinline__ void match_slot(uint32_t key_lo, uint32_t slot_lo,
+                                           uint32_t key_hi,
+                                           const uint32_t* row, int slot,
+                                           int32_t& res) {
+  if (slot_lo == key_lo && __ldg(row + kSlots + slot) == key_hi)
+    res = static_cast<int32_t>(__ldg(row + 2 * kSlots + slot));
 }
 
-// Bit c set when word c of w equals key.
-__device__ __forceinline__ unsigned match4(uint4 w, uint32_t key) {
-  return (w.x == key) | (w.y == key) << 1 | (w.z == key) << 2 |
-         (w.w == key) << 3;
-}
-
-// One thread's lookup of one key: the 24 lo keys as six 16-byte loads
-// through the read-only cache, then the hi key and payload of each slot
-// whose lo matches.
-__device__ __forceinline__ int32_t probe_key(
+// The payload stored under (lo, hi), or -1 when the key is absent.
+__device__ __forceinline__ int32_t probe_wide_key(
     const uint32_t* __restrict__ table, uint32_t row_mask, uint32_t lo,
     uint32_t hi, uint32_t salt, int max_probes) {
   uint32_t b = fmix32(lo ^ fmix32(hi ^ salt)) & row_mask;
@@ -103,137 +64,14 @@ __device__ __forceinline__ int32_t probe_key(
 #pragma unroll
     for (int v = 0; v < kSlots / 4; ++v) {
       const uint4 w = __ldg(row4 + v);
-      const uint32_t lw[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (lw[c] == lo && __ldg(row + kSlots + 4 * v + c) == hi)
-          res = static_cast<int32_t>(__ldg(row + 2 * kSlots + 4 * v + c));
+      match_slot(lo, w.x, hi, row, 4 * v + 0, res);
+      match_slot(lo, w.y, hi, row, 4 * v + 1, res);
+      match_slot(lo, w.z, hi, row, 4 * v + 2, res);
+      match_slot(lo, w.w, hi, row, 4 * v + 3, res);
     }
     b = (b + 1) & row_mask;
   }
   return res;
-}
-
-// The lane-group lookup (KAN_PROBE_GROUP=8 or 16) of warp_probe.
-__device__ __forceinline__ int32_t group_probe(
-    const uint32_t* __restrict__ table, uint32_t row_mask, uint32_t lo,
-    uint32_t hi, bool active, uint32_t salt, int max_probes) {
-  const int lane = threadIdx.x & 31;
-  const int group = lane / kGroup;    // this lane's group: one key a round
-  const int sub = lane % kGroup;      // this lane's 16-byte piece of a row
-  const unsigned group_bits = ((1ull << kGroup) - 1) << (group * kGroup);
-  const unsigned keys = __ballot_sync(kFullMask, active);
-  const int n_keys = __popc(keys);
-  const int rank = __popc(keys & ((1u << lane) - 1));  // own key's rank
-  const uint32_t home = fmix32(lo ^ fmix32(hi ^ salt)) & row_mask;
-  int32_t mine = -1;
-
-  for (int round0 = 0; round0 * kGroups < n_keys; round0 += kBatch) {
-    uint32_t q_lo[kBatch], q_hi[kBatch], row[kBatch];
-    int32_t res[kBatch];
-    bool live[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      // the key of rank (round0 + j) * kGroups + group, from its lane
-      const int q = (round0 + j) * kGroups + group;
-      live[j] = q < n_keys;
-      const int src = keys == kFullMask ? q & 31
-                      : live[j]         ? nth_set_bit(keys, q)
-                                        : lane;
-      q_lo[j] = __shfl_sync(kFullMask, lo, src);
-      q_hi[j] = __shfl_sync(kFullMask, hi, src);
-      row[j] = __shfl_sync(kFullMask, home, src);
-      res[j] = -1;
-    }
-    for (int probe = 0; probe < max_probes; ++probe) {
-      bool any_live = false;
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) any_live |= live[j];
-      if (!__any_sync(kFullMask, any_live)) break;
-      uint4 w[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {   // all the rows' loads first
-        w[j] = make_uint4(kEmpty, kEmpty, kEmpty, kEmpty);
-        if (live[j] && sub < kLoadLanes)
-          w[j] = __ldg(reinterpret_cast<const uint4*>(
-                           table + static_cast<size_t>(row[j]) * kRowWords) +
-                       sub);
-      }
-      unsigned cand[kBatch];
-      uint32_t got_hi[kBatch], got_pay[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {   // then the dependent loads
-        const uint32_t* r = table + static_cast<size_t>(row[j]) * kRowWords;
-        if constexpr (kGroup == 16) {
-          // lanes 0-5 compare lo pieces, lanes 6-11 the matching hi pieces
-          const unsigned bits = match4(w[j], sub < kLoLanes ? q_lo[j]
-                                                            : q_hi[j]);
-          const unsigned hi_bits = __shfl_down_sync(kFullMask, bits,
-                                                    kLoLanes);
-          cand[j] = sub < kLoLanes ? bits & hi_bits : 0u;
-          got_hi[j] = q_hi[j];
-        } else {
-          cand[j] = sub < kLoLanes ? match4(w[j], q_lo[j]) : 0u;
-          got_hi[j] = ~q_hi[j];
-          if (cand[j]) {
-            const int slot = 4 * sub + __ffs(cand[j]) - 1;
-            got_hi[j] = __ldg(r + kSlots + slot);
-          }
-        }
-        got_pay[j] = 0;
-        if (cand[j])
-          got_pay[j] = __ldg(r + 2 * kSlots + 4 * sub + __ffs(cand[j]) - 1);
-      }
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        bool hit = cand[j] && got_hi[j] == q_hi[j];
-        if constexpr (kGroup == 8) {
-          // a further lo match in this piece: rare, checked in turn
-          unsigned rest = cand[j] & (cand[j] - 1);
-          const uint32_t* r = table + static_cast<size_t>(row[j]) * kRowWords;
-          while (!hit && rest) {
-            const int slot = 4 * sub + __ffs(rest) - 1;
-            rest &= rest - 1;
-            if (__ldg(r + kSlots + slot) == q_hi[j]) {
-              hit = true;
-              got_pay[j] = __ldg(r + 2 * kSlots + slot);
-            }
-          }
-        }
-        const unsigned hits = __ballot_sync(kFullMask, hit) & group_bits;
-        const int src = hits ? __ffs(hits) - 1 : lane;
-        const int32_t pay = static_cast<int32_t>(
-            __shfl_sync(kFullMask, got_pay[j], src));
-        if (live[j] && hits) {
-          res[j] = pay;
-          live[j] = false;
-        }
-        row[j] = (row[j] + 1) & row_mask;
-      }
-    }
-    // the key of rank q was looked up by group q % kGroups in round
-    // q / kGroups; its lane takes the payload from that group's first lane
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      const int32_t got = __shfl_sync(kFullMask, res[j],
-                                      (rank % kGroups) * kGroup);
-      if (active && rank / kGroups == round0 + j) mine = got;
-    }
-  }
-  return mine;
-}
-
-// Every lane of the warp calls this together.  Looks up (lo, hi) for each
-// lane whose `active` is set and returns that lane's payload, or -1 when the
-// key is absent; an inactive lane gets -1 and costs no row read.
-__device__ __forceinline__ int32_t warp_probe(
-    const uint32_t* __restrict__ table, uint32_t row_mask, uint32_t lo,
-    uint32_t hi, bool active, uint32_t salt, int max_probes) {
-  if constexpr (kGroup == 1)
-    return active ? probe_key(table, row_mask, lo, hi, salt, max_probes)
-                  : -1;
-  else
-    return group_probe(table, row_mask, lo, hi, active, salt, max_probes);
 }
 
 }  // namespace kan

@@ -7,8 +7,8 @@ loads its host library.  No PyTorch header is compiled, so a build takes
 seconds.  Every C entry point takes raw device pointers and the CUDA
 stream as ``c_void_p`` and returns ``cudaGetLastError()``; :func:`check`
 turns a non-zero code into an exception.  ``build`` and ``load`` also
-take another source tree or ``-D`` macros, so that a measurement can
-load a second build beside this one.
+take another source tree and library path, so that a measurement can
+load a second build (another commit's) beside this one.
 
 A build or load failure raises: there is no fallback.
 """
@@ -66,14 +66,12 @@ def _stale(src_dir: str | None = None, lib_path: str | None = None) -> bool:
     return any(os.path.getmtime(s) > built for s in _inputs(src_dir))
 
 
-def build(src_dir: str | None = None, lib_path: str | None = None,
-          defines: tuple[str, ...] = ()) -> str:
+def build(src_dir: str | None = None, lib_path: str | None = None) -> str:
     """Compile ``src_dir/*.cu`` into the shared library ``lib_path`` if it
     is missing or older than a source or header: one nvcc per source, all
-    started together, then one link.  ``defines`` are extra ``-D`` macros
-    (a build variant; give it its own ``lib_path``).  Returns nvcc's
-    output (with ptxas's register and shared-memory report), empty when
-    the library was up to date.  Raises on failure."""
+    started together, then one link.  Returns nvcc's output (with ptxas's
+    register and shared-memory report), empty when the library was up to
+    date.  Raises on failure."""
     src_dir, lib_path = src_dir or SRC_DIR, lib_path or LIB_PATH
     if not _stale(src_dir, lib_path):
         return ""
@@ -81,13 +79,12 @@ def build(src_dir: str | None = None, lib_path: str | None = None,
     os.makedirs(build_dir, exist_ok=True)
     nvcc = _nvcc()
     sources = _sources(src_dir)
-    flags = [f"-D{d}" for d in defines]
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs = [os.path.join(tmp, os.path.basename(s) + ".o")
                 for s in sources]
         procs = [subprocess.Popen(
-            [nvcc, *ARCH_FLAGS, *flags, "-std=c++17", "-O3", "-Xcompiler",
-             "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, src],
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(sources, objs)]
         output = "".join(p.communicate()[0] for p in procs)

@@ -413,8 +413,7 @@ def test_engine_big_table_is_not_yet_ported(ref_table, monkeypatch):
 def test_apply_rows_collisions_and_wrap_match_reference(k, width, n_rows,
                                                         min_hits):
     """apply_rows_plain on equal-lo keys and a wrapping walk, widths off
-    multiples of 32 and of the kernel's lane groups, rows with no valid
-    window."""
+    multiples of 32, rows with no valid window."""
     codes, valid, table, salt, mp = collision_rows(
         np.random.default_rng(k * width), k, width, n_rows)
     want = ref_engine.apply_rows(

@@ -14,10 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (collision_rows, collision_table, launch_apply,
-                        launch_probe, made_up_rows, make_projection_workload,
-                        make_signature_genomes)
-from kmers_anno_tpu_torch import kernels
+from chip_smoke import (collision_rows, collision_table, made_up_rows,
+                        make_projection_workload, make_signature_genomes)
 from kmers_anno_tpu_torch.engine import projection
 from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
 from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
@@ -307,8 +305,8 @@ def test_apply_rows_kernel_edge_shapes(cuda):
 def test_probe_wide_kernel_collisions_and_wrap(cuda, n, mode):
     """The probe kernel against its plain version on a table with keys of
     one lo word and another hi in one row and a walk that wraps from the
-    last row to row 0; query counts off multiples of 32 and of the lane
-    groups; all, some or none of the queries valid."""
+    last row to row 0; query counts off multiples of 32; all, some or none
+    of the queries valid."""
     table, salt, mp, _, (qlo, qhi, valid) = collision_table(
         np.random.default_rng(n), n, mode)
     args = (wide_table_from_numpy(table, cuda),
@@ -345,34 +343,6 @@ def test_apply_rows_kernel_collisions_and_wrap(cuda, k, width, n_rows,
         assert torch.equal(g, w)
     role, count = (g.cpu().numpy() for g in got)
     assert (role[::4] == -1).all() and (count[::4] == 0).all()
-
-
-@pytest.mark.parametrize("group", [8, 16])
-def test_lane_group_builds_match_plain(cuda, group, tmp_path):
-    """The lane-group lookups (the KAN_PROBE_GROUP=8 and 16 builds, kept
-    as measured alternatives) against the plain versions on the collision
-    and wrap tables, through the library's C entry points."""
-    path = str(tmp_path / "lib.so")
-    kernels.build(kernels.SRC_DIR, path, (f"KAN_PROBE_GROUP={group}",))
-    lib = kernels.load(path)
-    rng = np.random.default_rng(group)
-    for n in (1, 33, 1001, 100_003):
-        for mode in ("all_valid", "mixed", "all_invalid"):
-            table, salt, mp, _, (qlo, qhi, valid) = collision_table(
-                rng, n, mode)
-            args = (wide_table_from_numpy(table, cuda),
-                    torch.from_numpy(qlo.view(np.int32)).to(cuda),
-                    torch.from_numpy(qhi.view(np.int32)).to(cuda),
-                    torch.from_numpy(valid).to(cuda), salt, mp)
-            assert torch.equal(launch_probe(lib, *args),
-                               probe_wide_plain(*args))
-    for k, width, n_rows in ((12, 45, 21), (12, 320, 333), (8, 257, 64)):
-        codes, valid, table, salt, mp = collision_rows(rng, k, width, n_rows)
-        args = (wide_table_from_numpy(table, cuda), salt,
-                torch.from_numpy(codes).to(cuda),
-                torch.from_numpy(valid).to(cuda), 2, k, mp)
-        got, want = launch_apply(lib, *args), apply_rows_plain(*args)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def _signature_case():

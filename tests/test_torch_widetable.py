@@ -170,7 +170,7 @@ def test_wide_table_from_numpy_keeps_bits():
 def test_probe_collisions_and_wrap_match_jax(n_queries, valid_mode):
     """Keys of one lo word and another hi in one row, misses that share a
     table key's lo, a walk wrapping from the last row to row 0; query
-    counts off multiples of 32 and of the kernel's lane groups."""
+    counts off multiples of 32."""
     table, salt, mp, (klo, khi, vals), (qlo, qhi, valid) = collision_table(
         np.random.default_rng(n_queries), n_queries, valid_mode)
     assert mp >= 2
