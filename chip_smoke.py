@@ -4,9 +4,10 @@
 Requires the port's C++ host library (``kmers_anno_tpu_torch/native``) to
 build.  Builds the CUDA kernels from ``kmers_anno_tpu_torch/csrc`` and
 holds each against its plain-PyTorch version on made-up inputs at full
-size (k = 8 and 12, many hits), and both lookup kernels on tables built to
-hold several keys of one lo word in a row and to walk from the last row
-to row 0 (query counts and row widths off multiples of 32, all-invalid
+size (k = 8 and 12, many hits; the scanner also on a slice that starts
+off a 16-byte boundary, with an odd length), and both lookup kernels on
+tables built to hold several keys of one lo word in a row and to walk
+from the last row to row 0 (query counts and row widths off multiples of 32, all-invalid
 queries, rows with no valid window).  Then drives the projection engine's three routes, one
 after another, on a 2.94 Mb genome with 3500 planted genes and 10 close
 genomes (the "realistic" projection workload of bench.py, seed 0):
@@ -44,7 +45,11 @@ Each kernel's row also gives its bound (``bound_ms``): the larger of the
 bytes its work needs over the card's memory rate (inputs read once,
 outputs written once, and of a table the lo-key block of each row the
 lookups read plus a hit's hi and payload words) and its integer
-operations over the card's 32-bit rate, with ``bound_share`` = bound / time.
+operations over the card's 32-bit rate, with ``bound_share`` = bound / time;
+``launch_ms`` is the kernel alone, the mean of ``LAUNCH_REPS`` launches
+back to back through its C entry point between one pair of CUDA events
+(``ms`` is one call of the wrapper between its own pair, host set-up
+included), with ``launch_share`` = bound / ``launch_ms``.
 
 Usage, from the repository root:
     python3 chip_smoke.py [--profile] [--compare DIR]
@@ -55,11 +60,13 @@ traced run, the device's busy share (the union of its kernel and copy
 intervals over the run's wall time) and the kernels that take the most
 device time; then a ``cProfile`` of one more warm genome on the host.
 
-``--compare DIR`` also times the lookup kernels (``probe_wide`` on the
-union table and on the fused close tables, ``apply_rows`` on the bench
-batches) of this tree's build against the build of the tree at DIR (the
-root of another checkout, such as the parent commit's): in turns (A B B
-A), each output equal to this build's.
+``--compare DIR`` also times the kernels (``contig_scan`` on the padded
+window stream and on the two strands, ``probe_wide`` on the union table
+and on the fused close tables, ``apply_rows`` on the bench batches) of
+this tree's build against the build of the tree at DIR (the root of
+another checkout, such as the parent commit's) through their C entry
+points: in turns (A B B A), each turn ``LAUNCH_REPS`` passes back to back,
+each output equal to this build's.
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -91,6 +98,8 @@ N_QUERIES = 7_400_000
 N_GENES = 3500
 N_CLOSE = 10
 REPS = 5
+LAUNCH_REPS = 20                 # launches back to back in a launch_ms
+SPIN_CYCLES_PER_S = 1.98e9       # the boost clock: a spin lasts at least this
 WARM_RUNS = 5
 HOST_WARM_RUNS = 1               # the host-index route takes ~8 s a genome
 PROFILED_GENOMES = 3
@@ -252,8 +261,68 @@ def scan_bound(streams, outputs, k, ms) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# another build of the lookup kernels, timed in turns with this one
+# the kernels through their C entry points: back-to-back times, and another
+# build of the kernels timed in turns with this one
 # ---------------------------------------------------------------------------
+
+def launch_scan(lib, stream, k, lut, outs):
+    """contig_scan through a kernel library's C entry point into the
+    outputs ``outs`` = (lo, hi, bad) it is given (uncounted)."""
+    lo, hi, bad = outs
+    err = lib.kan_contig_scan(
+        stream.data_ptr(), stream.numel(), lut.tobytes(), k, lo.data_ptr(),
+        hi.data_ptr(), bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_contig_scan returned CUDA error {err}")
+    return outs
+
+
+def scan_outputs(stream):
+    """Empty (lo, hi, bad) for ``launch_scan`` on ``stream``."""
+    lo = torch.empty(stream.numel(), dtype=torch.int32, device=stream.device)
+    return lo, torch.empty_like(lo), torch.empty(
+        stream.numel(), dtype=torch.uint8, device=stream.device)
+
+
+def launch_ms(launch, arg_sets, lib=None, reps: int = LAUNCH_REPS) -> float:
+    """Milliseconds of one pass of ``launch(lib, *args)`` over ``arg_sets``:
+    after a warm-up pass, ``reps`` passes back to back between one pair of
+    CUDA events, the mean a pass.  A spin kernel holds the stream while the
+    host enqueues the passes, so that the launches run with no host gaps
+    between them; the spin is lengthened until it outlasts the enqueue.
+    ``lib`` defaults to this tree's build."""
+    from kmers_anno_tpu_torch import kernels
+
+    lib = lib or kernels.lib()
+
+    def run():
+        return [launch(lib, *a) for a in arg_sets]
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    spin_s = 2 * reps * (time.perf_counter() - t0) + 1e-3
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        start.record()
+        for _ in range(reps):
+            run()
+        stop.record()
+        held = not start.query()           # still spinning: no host gaps
+        stop.synchronize()
+        if held:
+            return start.elapsed_time(stop) / reps
+        spin_s *= 4
+    raise RuntimeError("chip_smoke: the spin never outlasted the enqueue")
+
+
+def with_launch(row: dict, ms: float) -> dict:
+    """``row`` with ``launch_ms`` and its ``launch_share`` of the bound."""
+    return dict(row, launch_ms=ms, launch_share=row["bound_ms"] / ms)
+
 
 def launch_probe(lib, table, lo, hi, valid, salt, max_probes):
     """probe_wide through a kernel library's C entry point (uncounted)."""
@@ -297,28 +366,31 @@ def build_contenders(other: str, tmp: str) -> dict:
 
 
 def compare_contenders(libs: dict, cases: dict) -> dict:
-    """Each case's kernel under every library, in turns (A B C C B A), CUDA
-    events, median of ``REPS`` per turn; outputs must agree.  Returns
-    {case: {library: mean of its two turns' ms}}."""
+    """Each case's kernel under every library, in turns (A B C C B A); a
+    turn is ``launch_ms`` (``LAUNCH_REPS`` passes back to back), and its
+    outputs must equal this build's.  Returns {case: {library: mean of its
+    two turns' ms per launch}}."""
+    def flat(outs):
+        return [t for o in outs for t in (o if isinstance(o, tuple)
+                                          else (o,))]
+
     names = list(libs)
     order = names + names[::-1]
     out = {}
     for case, (launch, arg_sets) in cases.items():
         def run(lib):
             return [launch(lib, *a) for a in arg_sets]
-        want = run(libs["this"])
+        # a copy: a launch may write into outputs it is given
+        want = [t.clone() for t in flat(run(libs["this"]))]
         times = {n: [] for n in names}
         for n in order:
-            ms, got = timed(lambda: run(libs[n]))
-            flat_g = [t for g in got for t in (g if isinstance(g, tuple)
-                                               else (g,))]
-            flat_w = [t for w in want for t in (w if isinstance(w, tuple)
-                                                else (w,))]
-            require(all(torch.equal(g, w) for g, w in zip(flat_g, flat_w)),
+            ms = launch_ms(launch, arg_sets, libs[n])
+            got = flat(run(libs[n]))
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
                     f"{n} differs from this build on {case}")
             times[n].append(ms / len(arg_sets))
         out[case] = {n: statistics.mean(t) for n, t in times.items()}
-        print(f"lookup builds on {case} (ms per launch, turns "
+        print(f"kernel builds on {case} (ms per launch, turns "
               f"{' '.join(order)}): " + ", ".join(
                   f"{n} {statistics.mean(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
                   for n, t in times.items()), flush=True)
@@ -358,6 +430,18 @@ def check_contig_scan(dev) -> None:
         print(f"contig_scan k={k}: {STREAM_BASES} bases, exact over "
               f"[0, {n_out}), max_abs_err {err}, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms", flush=True)
+    # a slice that starts off a 16-byte boundary, with an odd length
+    offset, n = 7, STREAM_BASES - 9
+    sliced = stream[offset: offset + n]
+    got = scan_stream(sliced, K, lut)
+    want = scan_stream_plain(sliced, K, lut)
+    require(sliced.data_ptr() % 16 == offset % 16
+            and all(torch.equal(g, w) for g, w in zip(got, want)),
+            "contig_scan differs from its plain version on a misaligned "
+            "slice")
+    print(f"contig_scan k={K}: {n} bases from byte {offset} of the stream "
+          f"(misaligned, odd length), exact over all {n} outputs",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -552,9 +636,10 @@ def summary(times: list) -> str:
             f"{', '.join(f'{t:.4f}' for t in times)})")
 
 
-def check_strand_scan(dev, genome) -> dict:
+def check_strand_scan(dev, genome) -> tuple[dict, list]:
     """The per-strand route's scanner against its plain version on the
-    genome's two strands, as ``extract_contig_kmers`` feeds it."""
+    genome's two strands, as ``extract_contig_kmers`` feeds it.  Returns
+    the row and the two strands' ``launch_scan`` arguments."""
     from kmers_anno_tpu_torch.ops.encode import encode_dna
     from kmers_anno_tpu_torch.ops.contig_scan import (scan_stream,
                                                       scan_stream_plain)
@@ -575,15 +660,23 @@ def check_strand_scan(dev, genome) -> dict:
         errs.append(max_abs_err(zip(got, want)))
         streams.append(stream)
         outs.append(got)
-    out = dict(ms=sum(ms), plain_ms=sum(plain_ms), max_abs_err=max(errs),
-               **scan_bound(streams, outs, K, sum(ms)))
+    args = [(s, K, lut, scan_outputs(s)) for s in streams]
+    out = with_launch(dict(ms=sum(ms), plain_ms=sum(plain_ms),
+                           max_abs_err=max(errs),
+                           **scan_bound(streams, outs, K, sum(ms))),
+                      launch_ms(launch_scan, args))
+    require(all(torch.equal(g, w) for a, want in zip(args, outs)
+                for g, w in zip(a[3], want)),
+            "launch_scan's outputs differ from the wrapper's on a strand")
     print(f"main path contig_scan per strand k={K}: {len(codes)} bases x 2 "
           f"strands, exact, max_abs_err {out['max_abs_err']}, kernel "
-          f"{ms[0]:.4f} + {ms[1]:.4f} ms, plain {plain_ms[0]:.4f} + "
-          f"{plain_ms[1]:.4f} ms; bound {out['bound_ms']:.4f} ms "
-          f"({out['bound_by']}, {out['bound_bytes']} bytes), share "
-          f"{out['bound_share']:.3f}", flush=True)
-    return out
+          f"{ms[0]:.4f} + {ms[1]:.4f} ms through the wrapper, "
+          f"{out['launch_ms']:.4f} ms for both back to back, plain "
+          f"{plain_ms[0]:.4f} + {plain_ms[1]:.4f} ms; bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}, "
+          f"{out['bound_bytes']} bytes), share {out['bound_share']:.3f}, "
+          f"back to back {out['launch_share']:.3f}", flush=True)
+    return out, args
 
 
 def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
@@ -614,14 +707,20 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
     require(torch.equal(index.d_lo, got[0]) and torch.equal(index.d_hi,
                                                             got[1]),
             "the index's window keys are not the kernel's")
-    scan = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs_err(
-        zip(got, want)), **scan_bound([stream], [got], K, ms))
+    scan_args = [(stream, K, lut, scan_outputs(stream))]
+    scan = with_launch(dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs_err(
+        zip(got, want)), **scan_bound([stream], [got], K, ms)),
+        launch_ms(launch_scan, scan_args))
+    require(all(torch.equal(g, w) for g, w in zip(scan_args[0][3], want)),
+            "launch_scan's outputs differ from the plain version's")
     print(f"main path contig_scan k={K}: {stream.numel()} bases "
           f"({len(genome.contigs)} contig, both strands, padded), exact, "
-          f"max_abs_err {scan['max_abs_err']}, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; bound {scan['bound_ms']:.4f} ms "
+          f"max_abs_err {scan['max_abs_err']}, kernel {ms:.4f} ms through "
+          f"the wrapper, {scan['launch_ms']:.4f} ms a launch back to back, "
+          f"plain {plain_ms:.4f} ms; bound {scan['bound_ms']:.4f} ms "
           f"({scan['bound_by']}, {scan['bound_bytes']} bytes), share "
-          f"{scan['bound_share']:.3f}", flush=True)
+          f"{scan['bound_share']:.3f}, back to back "
+          f"{scan['launch_share']:.3f}", flush=True)
 
     def probe_check(what, table, lo, hi, valid, salt, max_probes):
         args = (table, lo, hi, valid, salt, max_probes)
@@ -650,7 +749,8 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
     per = [probe_check("an RLE close-genome table", t, *stream_args, salt,
                        mp) for t, mp, salt, _, _ in rle_tables]
     errs = [u_err] + [c[2] for c in close + per]
-    u_bound = union[4]
+    u_bound = with_launch(union[4], launch_ms(launch_probe, [(
+        cs.union_table, *stream_args, cs.union_salt, cs.union_mp)]))
     probe = dict(ms=u_ms, plain_ms=u_plain, max_abs_err=max(errs),
                  close_ms=statistics.median(c[0] for c in close),
                  close_plain_ms=statistics.median(c[1] for c in close),
@@ -662,10 +762,12 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
                      c[4]["bound_ms"] for c in per), **u_bound)
     print(f"main path probe_wide, union table ({cs.n_union_keys} keys, "
           f"{cs.union_table.shape[0]} rows) x {index.d_lo.numel()} "
-          f"windows: {n_union} hits, exact, kernel {u_ms:.4f} ms, plain "
+          f"windows: {n_union} hits, exact, kernel {u_ms:.4f} ms, "
+          f"{u_bound['launch_ms']:.4f} ms a launch back to back, plain "
           f"{u_plain:.4f} ms; bound {u_bound['bound_ms']:.4f} ms "
           f"({u_bound['bound_by']}, {u_bound['bound_bytes']} bytes), share "
-          f"{u_bound['bound_share']:.3f}", flush=True)
+          f"{u_bound['bound_share']:.3f}, back to back "
+          f"{u_bound['launch_share']:.3f}", flush=True)
     print(f"main path probe_wide, {N_CLOSE} fused close tables x "
           f"{lo_c.numel()} union hits: {sum(c[3] for c in close)} hits in "
           f"all, exact; kernel ms {', '.join(f'{c[0]:.4f}' for c in close)}"
@@ -679,14 +781,17 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
           f"{probe['rle_plain_ms']:.4f}; bound median "
           f"{probe['rle_bound_ms']:.4f} ms; max_abs_err over every probe "
           f"{probe['max_abs_err']}", flush=True)
+    strand, strand_args = check_strand_scan(dev, genome)
     cases = {
+        "the padded window stream": (launch_scan, scan_args),
+        "the two strands": (launch_scan, strand_args),
         "the union table": (launch_probe, [(cs.union_table, *stream_args,
                                             cs.union_salt, cs.union_mp)]),
         "the fused close tables": (launch_probe, [
             (t, lo_c, hi_c, ones, salt, mp)
             for t, salt, mp in zip(cs.tables, cs.salts, cs.mps)])}
     return {"contig_scan": scan, "probe_wide": probe,
-            "contig_scan_strand": check_strand_scan(dev, genome)}, cases
+            "contig_scan_strand": strand}, cases
 
 
 def fused_breakdown(dev, annot, new_path, olds, s_per_genome) -> None:
@@ -1427,17 +1532,21 @@ def run_bench_shape(dev) -> tuple[dict, dict]:
                     max_abs_err=max_abs_err(pairs))
     measured.update(apply_bound(engine.table, engine.salt, d_codes, valid,
                                 K, engine.max_probes, measured["ms"]))
+    apply_args = [(engine.table, engine.salt, c, valid, MIN_HITS, K,
+                   engine.max_probes) for c in d_codes]
+    measured = with_launch(measured, launch_ms(launch_apply, apply_args)
+                           / BENCH_BATCHES)
     print(f"bench shape apply_rows per {BENCH_PROTEINS} x {BENCH_WIDTH} "
           f"batch (median of {REPS} runs over {BENCH_BATCHES} batches), "
-          f"exact: kernel {measured['ms']:.4f} ms, plain "
+          f"exact: kernel {measured['ms']:.4f} ms ("
+          f"{measured['launch_ms']:.4f} ms a launch back to back), plain "
           f"{measured['plain_ms']:.4f} ms, unfused (torch pack + probe_wide "
           f"kernel + torch vote) {measured['unfused_ms']:.4f} ms; bound "
           f"(mean of the batches) {measured['bound_ms']:.4f} ms "
           f"({measured['bound_by']}, {measured['bound_bytes']} bytes), "
-          f"share {measured['bound_share']:.3f}", flush=True)
-    cases = {"the bench batches": (launch_apply, [
-        (engine.table, engine.salt, c, valid, MIN_HITS, K, engine.max_probes)
-        for c in d_codes])}
+          f"share {measured['bound_share']:.3f}, back to back "
+          f"{measured['launch_share']:.3f}", flush=True)
+    cases = {"the bench batches": (launch_apply, apply_args)}
 
     weighted = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
                               role_idx=roles, role_ids=role_ids,
@@ -1470,9 +1579,9 @@ def main() -> None:
                         help="also trace warm fused-route genomes")
     parser.add_argument(
         "--compare", metavar="DIR", default=None,
-        help="also time the lookup kernels of this tree against the build "
-             "of the tree at DIR (the root of another checkout), in turns "
-             "on the main path's inputs")
+        help="also time the kernels of this tree against the build of the "
+             "tree at DIR (the root of another checkout), in turns on the "
+             "main path's inputs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; no result")

@@ -15,8 +15,6 @@ with the caller, as in the reference.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -24,6 +22,9 @@ from .. import kernels
 from .encode import DNA_AMBIG, PROT_PAD, PROT_STOP, PROT_X
 from .kmers import MAX_K
 from .translate import sliding_translate
+
+# outputs one block of the kernel covers (``kTile`` in csrc/contig_scan.cu)
+KERNEL_TILE = 4096
 
 
 def _check_args(stream: torch.Tensor, k: int, lut: np.ndarray) -> None:
@@ -35,6 +36,8 @@ def _check_args(stream: torch.Tensor, k: int, lut: np.ndarray) -> None:
         raise ValueError("contig scan of an empty stream")
     if np.asarray(lut).shape != (65,):
         raise ValueError("lut must hold the 65 codon entries")
+    if int(np.max(lut)) > PROT_PAD:
+        raise ValueError("lut entries must be 5-bit residue codes")
 
 
 def scan_stream_plain(stream: torch.Tensor, k: int, lut: np.ndarray
@@ -67,13 +70,17 @@ def scan_stream(stream: torch.Tensor, k: int, lut: np.ndarray
             Segments should be separated by >= 3k-1 ambiguity codes so no
             window crosses one.
     k:      kmer length, 1..12
-    lut:    (65,) uint8 codon LUT (``ops.translate.codon_lut``)
+    lut:    (65,) uint8 codon LUT (``ops.translate.codon_lut``), entries
+            <= PROT_PAD
     returns (lo, hi, bad): (L,) int32, int32, uint8.  Reads past the end
             see ambiguous codes, so positions p >= L - 3k + 1 have
             bad == 1; the caller masks them.
 
     A CPU tensor takes :func:`scan_stream_plain`; a CUDA tensor launches
-    the kernel (``csrc/contig_scan.cu``) or raises.
+    the kernel (``csrc/contig_scan.cu``) or raises.  The stream may start
+    at any byte (a slice of a larger tensor); the kernel takes the LUT by
+    value, so launches on several CUDA streams with different genetic
+    codes do not disturb each other.
     """
     _check_args(stream, k, lut)
     if stream.device.type == "cpu":
@@ -85,11 +92,9 @@ def scan_stream(stream: torch.Tensor, k: int, lut: np.ndarray
     lo = torch.empty(n, dtype=torch.int32, device=stream.device)
     hi = torch.empty_like(lo)
     bad = torch.empty(n, dtype=torch.uint8, device=stream.device)
-    lut_host = np.ascontiguousarray(lut, np.uint8)
     with torch.cuda.device(stream.device):
         err = kernels.lib().kan_contig_scan(
-            stream.data_ptr(), n,
-            lut_host.ctypes.data_as(ctypes.c_void_p), k,
+            stream.data_ptr(), n, np.asarray(lut, np.uint8).tobytes(), k,
             lo.data_ptr(), hi.data_ptr(), bad.data_ptr(),
             kernels.stream_of(stream))
     kernels.check(err, "contig_scan kernel")

@@ -2,6 +2,8 @@
 in interpret mode on the CPU (as tests/test_pallas_contig.py runs it).
 Every comparison is exact: the outputs are integers."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -11,8 +13,10 @@ import jax.numpy as jnp
 from kmers_anno_tpu.ops import kmers as ref_kmers
 from kmers_anno_tpu.ops import translate as ref_translate
 from kmers_anno_tpu.ops.pallas_contig import scan_stream_device
+from kmers_anno_tpu_torch import kernels
 from kmers_anno_tpu_torch.ops import kmers
-from kmers_anno_tpu_torch.ops.contig_scan import scan_stream, scan_stream_plain
+from kmers_anno_tpu_torch.ops.contig_scan import (KERNEL_TILE, scan_stream,
+                                                  scan_stream_plain)
 from kmers_anno_tpu_torch.ops.translate import codon_lut, sliding_translate
 
 
@@ -23,12 +27,17 @@ def _stream(seed: int, n: int, p_amb: float) -> np.ndarray:
     return codes
 
 
-@pytest.mark.parametrize("k", [8, 12])
+# Genetic codes 1, 2 and 3 are the supported ones besides 11 and 4; both
+# packages refuse others (such as 25).
+@pytest.mark.parametrize("k", [1, 6, 8, 12])
 @pytest.mark.parametrize("n,p_amb,gc", [
     (2001, 0.0, 11),        # random, odd length
     (4097, 0.02, 11),       # ambiguous bases, one past a power of two
     (977, 0.3, 11),         # mostly ambiguous windows
     (1501, 0.01, 4),        # another genetic code (TGA = W)
+    (1203, 0.01, 1),        # the standard code
+    (1999, 0.02, 2),        # vertebrate mitochondrial (AGA, AGG = stop)
+    (1100, 0.01, 3),        # yeast mitochondrial (CTN = T)
 ])
 def test_plain_matches_pallas(k, n, p_amb, gc):
     codes = _stream(n + k, n, p_amb)
@@ -60,6 +69,21 @@ def test_rejects_empty_and_wrong_dtype():
         scan_stream(torch.zeros(0, dtype=torch.uint8), 8, codon_lut(11))
     with pytest.raises(ValueError):
         scan_stream(torch.zeros(100, dtype=torch.int32), 8, codon_lut(11))
+
+
+def test_rejects_lut_entries_past_five_bits():
+    lut = codon_lut(11).copy()
+    lut[10] = 32
+    with pytest.raises(ValueError, match="5-bit"):
+        scan_stream(torch.zeros(100, dtype=torch.uint8), 8, lut)
+
+
+def test_kernel_tile_is_the_sources():
+    """The card tests probe the kernel's tile edges at KERNEL_TILE."""
+    src = os.path.join(os.path.dirname(kernels.__file__), "csrc",
+                       "contig_scan.cu")
+    with open(src, encoding="utf-8") as fh:
+        assert f"constexpr int kTile = {KERNEL_TILE};" in fh.read()
 
 
 def test_cpu_tensor_takes_plain_version_without_launch():

@@ -25,7 +25,8 @@ from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
 from kmers_anno_tpu_torch.genome.gto import Genome
 from kmers_anno_tpu_torch.ops.apply_rows import apply_rows, apply_rows_plain
 from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
-from kmers_anno_tpu_torch.ops.contig_scan import scan_stream, scan_stream_plain
+from kmers_anno_tpu_torch.ops.contig_scan import (KERNEL_TILE, scan_stream,
+                                                  scan_stream_plain)
 from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
 from kmers_anno_tpu_torch.ops.translate import codon_lut
 from kmers_anno_tpu_torch.ops.widetable import (build_wide_table, probe_wide,
@@ -67,6 +68,87 @@ def test_contig_scan_genetic_codes_do_not_leak(cuda):
     assert torch.equal(a[0], scan_stream_plain(stream, 8, codon_lut(11))[0])
     assert torch.equal(b[0], scan_stream_plain(stream, 8, codon_lut(4))[0])
     assert not torch.equal(a[2], b[2])      # TGA is a stop only in code 11
+
+
+def _assert_scan_matches_plain(stream, k, gc=11):
+    before = scan_stream.launches
+    got = scan_stream(stream, k, codon_lut(gc))
+    torch.cuda.synchronize()
+    assert scan_stream.launches == before + 1
+    want = scan_stream_plain(stream, k, codon_lut(gc))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 6, 8, 12])
+@pytest.mark.parametrize("edge", ["tile-1", "tile", "tile+1", "tile+halo"])
+def test_contig_scan_kernel_tile_edges(cuda, k, edge):
+    """Stream lengths at the kernel's tile (KERNEL_TILE outputs a block)
+    and one tile plus the 3k-1 halo the last window reaches into."""
+    n = {"tile-1": KERNEL_TILE - 1, "tile": KERNEL_TILE,
+         "tile+1": KERNEL_TILE + 1,
+         "tile+halo": KERNEL_TILE + 3 * k - 1}[edge]
+    rng = np.random.default_rng(n + 31 * k)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    codes[rng.random(n) < 0.02] = 4
+    _assert_scan_matches_plain(torch.from_numpy(codes).to(cuda), k)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_contig_scan_kernel_misaligned_slice(cuda, offset):
+    """A stream that starts at byte ``offset`` past a 16-byte boundary (a
+    slice of a larger tensor), over several tiles, with an odd length."""
+    rng = np.random.default_rng(offset)
+    n = 2 * KERNEL_TILE + 37
+    base = torch.from_numpy(rng.integers(0, 5, n + 32).astype(np.uint8)
+                            ).to(cuda)
+    stream = base[offset: offset + n]
+    assert stream.data_ptr() % 16 == offset
+    _assert_scan_matches_plain(stream, 8)
+
+
+@pytest.mark.parametrize("k", range(1, 13))
+def test_contig_scan_kernel_every_k(cuda, k):
+    rng = np.random.default_rng(100 + k)
+    codes = rng.integers(0, 4, 3 * KERNEL_TILE + 5).astype(np.uint8)
+    codes[rng.random(len(codes)) < 0.01] = rng.integers(4, 256)
+    _assert_scan_matches_plain(torch.from_numpy(codes).to(cuda), k)
+
+
+def test_contig_scan_kernel_all_ambiguous(cuda):
+    rng = np.random.default_rng(7)
+    codes = rng.integers(4, 256, KERNEL_TILE + 101).astype(np.uint8)
+    stream = torch.from_numpy(codes).to(cuda)
+    _assert_scan_matches_plain(stream, 8)
+    assert bool((scan_stream(stream, 8, codon_lut(11))[2] == 1).all())
+
+
+@pytest.mark.parametrize("gc", [1, 2, 3])
+def test_contig_scan_kernel_genetic_codes(cuda, gc):
+    rng = np.random.default_rng(gc)
+    codes = rng.integers(0, 5, 50_001).astype(np.uint8)
+    _assert_scan_matches_plain(torch.from_numpy(codes).to(cuda), 8, gc)
+
+
+def test_contig_scan_two_streams_at_once(cuda):
+    """Two CUDA streams scan the same codes with the LUTs of codes 11 and
+    4 at the same time; each result equals its own plain version."""
+    rng = np.random.default_rng(2)
+    stream = torch.from_numpy(rng.integers(0, 4, 4_000_000).astype(np.uint8)
+                              ).to(cuda)
+    sides = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    got = {}
+    for side in sides:
+        side.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(3):
+        for gc, side in zip((11, 4), sides):
+            with torch.cuda.stream(side):
+                got[gc] = scan_stream(stream, 8, codon_lut(gc))
+    torch.cuda.synchronize()
+    for gc in (11, 4):
+        want = scan_stream_plain(stream, 8, codon_lut(gc))
+        assert all(torch.equal(g, w) for g, w in zip(got[gc], want))
+    assert not torch.equal(got[11][2], got[4][2])
 
 
 @pytest.mark.parametrize("n,kw", [(5000, {}), (48, dict(n_rows=2,
