@@ -21,8 +21,10 @@ genomes (the "realistic" projection workload of bench.py, seed 0):
 
 Each route's per-close-genome counts must equal the single-core C++ hot
 loop (``ProjectionBaseline``), and all three must give the same stats and
-features; each reports its warm seconds per genome (median and range of
-five runs; one run for the slow host-index route).  Every kernel
+features; each reports its seconds per genome (the fused route's median
+and range of five warm runs, the RLE route's of three; the host-index
+route, which builds its index on every call, its one cold run).  The
+last lines before the results give each phase's seconds.  Every kernel
 wrapper's launch count is set to 0 before each route and read after it.
 Last, each kernel is held against its plain version again on the inputs
 those routes give it: the genome's padded window stream and its two
@@ -38,9 +40,27 @@ generator: a 1M-key table, 32 batches of 8192 proteins of 300 aa) runs
 through ``KmerApplyEngine.call_proteins``, with roles against
 ``native.apply_baseline`` and proteins/s over five runs; the fused apply
 kernel, its plain version and the unfused composition are timed on those
-batches, and the weighted path is held against its CPU run.  The main-path
+batches, and the weighted path is held against its CPU run, with uniform
+weights and with fractional fp16 weights (roles and float32 tallies bit
+for bit).  The main-path
 comparisons give the ``kernels`` line's times and errors; ``apply_rows``
 is also checked on made-up rows (k = 8, and k = 12 with lookups that walk).
+
+Then hashAnno.  Both chunk kernels (``hash_commons``, ``hash_best``) are
+held against their plain versions on made-up chunks (k = 8 and 12, a
+table whose lookups walk, owner rows at the cap, chunk and protein counts
+off powers of two).  bench.py's hashAnno shape (4 genomes x 1,500
+proteins of 250 aa, 32,768 prototypes; generator copied, seed 7) runs
+through one combined ``GenomeProteinKmers``: every protein's best
+similarity and winning prototype must equal ``native.HashAnnoBaseline``
+(one hash a genome); it reports prototype-genome pairs/s over five warm
+runs and a split of one run, and times both kernels on its first chunk
+beside their plain versions, the unfused torch scatter and one
+``torch.bincount`` (``library_ms``).  Last, ``hashAnno --batch 4`` runs
+twice (cold, warm) through the CLI on the four signature genomes with a
+32,832-row annotation file; every row of every ``<gid>.anno.tbl`` must
+equal the baseline's best similarity (``repr``) and winner, the engine
+must take its fast route, and each kernel launches once a chunk.
 Each kernel's row also gives its bound (``bound_ms``): the larger of the
 bytes its work needs over the card's memory rate (inputs read once,
 outputs written once, and of a table the lo-key block of each row the
@@ -62,11 +82,13 @@ device time; then a ``cProfile`` of one more warm genome on the host.
 
 ``--compare DIR`` also times the kernels (``contig_scan`` on the padded
 window stream and on the two strands, ``probe_wide`` on the union table
-and on the fused close tables, ``apply_rows`` on the bench batches) of
+and on the fused close tables, ``apply_rows`` on the bench batches, and
+``hash_commons`` and ``hash_best`` on the hashAnno bench chunk) of
 this tree's build against the build of the tree at DIR (the root of
 another checkout, such as the parent commit's) through their C entry
 points: in turns (A B B A), each turn ``LAUNCH_REPS`` passes back to back,
-each output equal to this build's.
+each output equal to this build's; a build that lacks a kernel sits that
+case out.
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -101,7 +123,7 @@ REPS = 5
 LAUNCH_REPS = 20                 # launches back to back in a launch_ms
 SPIN_CYCLES_PER_S = 1.98e9       # the boost clock: a spin lasts at least this
 WARM_RUNS = 5
-HOST_WARM_RUNS = 1               # the host-index route takes ~8 s a genome
+RLE_WARM_RUNS = 3                # the RLE route takes ~2 s a genome
 PROFILED_GENOMES = 3
 AA = "ACDEFGHIKLMNPQRSTVWY"
 # build + apply on synthetic genomes: each carries a ~3% substitution
@@ -122,6 +144,16 @@ BENCH_BATCHES = 32
 PROT_LEN = 300
 BENCH_WIDTH = 320                # PROT_LEN in the engine's width buckets
 WEIGHTED_SAMPLE = 512            # proteins the weighted CPU run checks
+# hashAnno, bench.py's shape (bench.py:651-675; seed 7, drawn fresh): 4
+# genomes x 1500 proteins of 250 aa, 32,768 prototypes, min score 0.0125
+HASH_SEED = 7
+HASH_GENOMES = 4
+HASH_PROTEINS = 1500
+HASH_LEN = 250
+HASH_PROTOTYPES = 32768
+HASH_MIN_SCORE = 0.0125
+HASH_CHUNK = 4096                # the engine's default chunk
+HASH_CONFIRM = 64                # peg copies in the CLI's annotation file
 
 
 def require(cond: bool, what: str) -> None:
@@ -129,16 +161,22 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def timed(fn, reps: int = REPS) -> tuple[float, object]:
+def timed(fn, reps: int = REPS, setup=None) -> tuple[float, object]:
     """Median milliseconds of ``fn()`` over ``reps`` runs after one
     warm-up run, each timed by CUDA events recorded on the current stream
     before and after it (the stream's time from the first to the last
-    launch, host gaps between launches included)."""
+    launch, host gaps between launches included).  ``setup()``, if given,
+    runs before every run, outside the event pair (to restore inputs that
+    ``fn`` consumes)."""
+    if setup:
+        setup()
     out = fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if setup:
+            setup()
         torch.cuda.synchronize()
         start.record()
         out = fn()
@@ -351,6 +389,50 @@ def launch_apply(lib, table, salt, codes, valid, min_hits, k, max_probes):
     return role, count
 
 
+def launch_hash_commons(lib, table, max_probes, owner_mat, lo, hi, proto,
+                        valid, n_rows, n_pad, out):
+    """hash_commons through a kernel library's C entry point, adding into
+    ``out`` (uncounted; repeated launches keep adding, which changes no
+    work)."""
+    err = lib.kan_hash_commons(
+        table.data_ptr(), table.shape[0], max_probes, owner_mat.data_ptr(),
+        owner_mat.shape[1], lo.data_ptr(), hi.data_ptr(), proto.data_ptr(),
+        valid.data_ptr(), lo.numel(), n_rows, n_pad, out.data_ptr(), None,
+        torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_hash_commons returned CUDA error {err}")
+    return out
+
+
+def launch_hash_commons_fresh(lib, *args):
+    """``launch_hash_commons`` into its buffer zeroed first, so that every
+    pass gives the same counts (``--compare``)."""
+    args[-1].zero_()
+    return launch_hash_commons(lib, *args)
+
+
+def launch_hash_best(lib, common, n_rows, n1, n2, minc, state, base):
+    """hash_best through a kernel library's C entry point (uncounted).  It
+    clears the counts it reads, so a pass after the first reads a zero
+    matrix: the same bytes, without the clearing writes and the floor
+    tests of the non-zero cells, and the state no longer improves."""
+    sc, su, si, sm = state
+    err = lib.kan_hash_best(
+        common.data_ptr(), n_rows, common.shape[1], n1.data_ptr(),
+        n2.data_ptr(), minc.data_ptr(), minc.shape[0], sc.data_ptr(),
+        su.data_ptr(), si.data_ptr(), sm.data_ptr(), base,
+        torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_hash_best returned CUDA error {err}")
+    return state
+
+
+launch_scan.entry = "kan_contig_scan"
+launch_probe.entry = "kan_probe_wide"
+launch_apply.entry = "kan_apply_rows"
+launch_hash_commons.entry = launch_hash_commons_fresh.entry = (
+    "kan_hash_commons")
+launch_hash_best.entry = "kan_hash_best"
+
+
 def build_contenders(other: str, tmp: str) -> dict:
     """Kernel libraries to time in turns: this tree's build ("this") and
     the build of the tree rooted at ``other`` ("other")."""
@@ -374,10 +456,12 @@ def compare_contenders(libs: dict, cases: dict) -> dict:
         return [t for o in outs for t in (o if isinstance(o, tuple)
                                           else (o,))]
 
-    names = list(libs)
-    order = names + names[::-1]
     out = {}
     for case, (launch, arg_sets) in cases.items():
+        # a build of an older tree may lack this kernel: it sits out
+        names = [n for n in libs if hasattr(libs[n], launch.entry)]
+        order = names + names[::-1]
+
         def run(lib):
             return [launch(lib, *a) for a in arg_sets]
         # a copy: a launch may write into outputs it is given
@@ -576,11 +660,15 @@ class _Launches:
         from kmers_anno_tpu_torch.engine import projection
         from kmers_anno_tpu_torch.ops.apply_rows import apply_rows
         from kmers_anno_tpu_torch.ops.contig_scan import scan_stream
+        from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best,
+                                                         hash_commons)
         from kmers_anno_tpu_torch.ops.widetable import probe_wide
 
         self.wrappers = {"contig_scan": scan_stream,
                          "probe_wide": probe_wide,
-                         "apply_rows": apply_rows}
+                         "apply_rows": apply_rows,
+                         "hash_commons": hash_commons,
+                         "hash_best": hash_best}
         self.projection = projection
         self.counts: dict = {}
         self.fused_calls = 0
@@ -990,12 +1078,15 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
               f"and {n_pegs} features equal to the fused route's, launches "
               f"{run.counts}", flush=True)
         check_counts(name, run)
-        times, stats = warm_runs(annot, new_path, olds,
-                                 HOST_WARM_RUNS if name == "host"
-                                 else WARM_RUNS)
-        require(stats == want_stats, f"{name} warm stats differ")
-        print(f"{name} route, warm annotate_genome: {summary(times)}",
-              flush=True)
+        if name == "host":
+            # the host route builds its contig index and close tables on
+            # every call (~8 s), so its cold run is its only run
+            times = [cold_s]
+        else:
+            times, stats = warm_runs(annot, new_path, olds, RLE_WARM_RUNS)
+            require(stats == want_stats, f"{name} warm stats differ")
+            print(f"{name} route, warm annotate_genome: {summary(times)}",
+                  flush=True)
         routes[name] = dict(launches=run.counts, times=times)
     return routes, check_kernels_on_main_path(dev, Genome.load(new_path),
                                               fused, rle)
@@ -1570,7 +1661,701 @@ def run_bench_shape(dev) -> tuple[dict, dict]:
           f"{sum(c is not None for c in w_got)} called, equal to the CPU run "
           f"on {len(sample)} proteins; {n / statistics.median(w_s):.1f} "
           f"proteins/s (median of 3); launches {run.counts}", flush=True)
+
+    # non-integer weights, cast through fp16 as the build packs them: the
+    # card's tallies must equal the CPU's bit for bit (order-free sums)
+    w_rng = np.random.default_rng(BENCH_SEED)
+    real = w_rng.uniform(0.05, 3.0, len(key_lo)).astype(np.float16).astype(
+        np.float32)
+    fractional = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
+                                role_idx=roles, role_ids=role_ids,
+                                weights=real)
+    engines = [KmerApplyEngine(fractional, min_hits=MIN_HITS, weighted=True,
+                               device=d) for d in (dev, "cpu")]
+    picked = [prots[i] for i in sample]
+    got_f = engines[0].call_proteins(prots)
+    require([got_f[i] for i in sample] == engines[1].call_proteins(picked),
+            "the weighted path with fractional weights differs from its "
+            "CPU run")
+    raw = [e._call_batches(len(picked), make_row_batches(picked, K))
+           for e in engines]
+    require(np.array_equal(raw[0][0], raw[1][0])
+            and np.array_equal(raw[0][1].view(np.int32),
+                               raw[1][1].view(np.int32)),
+            "fractional-weight tallies on the card differ from the CPU's "
+            "in their bits")
+    called = raw[0][0] >= 0
+    frac = raw[0][1][called]
+    require(called.any() and (frac != np.round(frac)).any(),
+            "the fractional-weight check saw no fractional tally")
+    print(f"bench shape weighted (fp16 weights from U[0.05, 3.0], seed "
+          f"{BENCH_SEED}): {sum(c is not None for c in got_f)} called; on "
+          f"{len(sample)} proteins the card's roles and float32 tallies "
+          f"equal the CPU's bit for bit ({int(called.sum())} called, "
+          f"{int((frac != np.round(frac)).sum())} fractional tallies)",
+          flush=True)
     return runs, measured, cases
+
+
+# ---------------------------------------------------------------------------
+# kernels D and E: hashAnno's chunk step
+# ---------------------------------------------------------------------------
+
+def _variant(rng, seq: np.ndarray, n_sub: int) -> np.ndarray:
+    out = seq.copy()
+    pos = rng.integers(0, len(out), n_sub)
+    out[pos] = rng.integers(0, 20, n_sub)
+    return out
+
+
+def made_up_chunk(rng, k, n_prot, n_rows, plen=90, family=1, squeeze=False,
+                  exact_cols=False, min_score=0.0125):
+    """A genome batch's protein index and one chunk of prototypes, as the
+    hashAnno engine builds them (on the CPU), for the chunk kernels.
+
+    ``n_prot`` proteins come in families of ``family`` three-substitution
+    variants of one sequence (a kmer of a family has up to ``family``
+    owners; past ``OWNER_CAP`` the owner rows are full); ``n_rows``
+    prototypes are 0-7-substitution variants of random proteins, one in
+    eight random.  ``squeeze`` rebuilds the 8-slot table with one bucket
+    per 7 keys, so lookups walk; ``exact_cols`` gives ``n_pad`` =
+    ``n_prot`` (columns off any power of two) instead of the engine's
+    bucket.  Returns a dict of CPU tensors and ints: table, max_probes,
+    owner_mat, lo, hi, proto, valid (the chunk's kmers), n_rows, n_pad,
+    n1, n2, minc."""
+    from kmers_anno_tpu_torch.engine.hashanno import (GenomeProteinKmers,
+                                                      Prototype, PrototypeSet)
+    from kmers_anno_tpu_torch.engine.projection import _min_ev_table
+    from kmers_anno_tpu_torch.ops.hashtable import BUCKET, EMPTY, build_table
+
+    aa = np.frombuffer(AA.encode(), np.uint8)
+    pool = rng.integers(0, 20, (max(n_prot // family, 1), plen))
+    seqs = [_variant(rng, pool[i % len(pool)], 3) for i in range(n_prot)]
+    gk = GenomeProteinKmers(k, min_score, device="cpu")
+    for i, s in enumerate(seqs):
+        gk.add_protein(f"p{i}", aa[s].tobytes().decode(), "old")
+    gk._build()
+    protos = []
+    for i in range(n_rows):
+        src = (rng.integers(0, 20, plen) if i % 8 == 7
+               else _variant(rng, seqs[int(rng.integers(0, n_prot))],
+                             int(rng.integers(0, 8))))
+        protos.append(Prototype(aa[src].tobytes().decode(), f"a{i}"))
+    lo, hi, proto, valid, _, _, _, n2 = PrototypeSet(protos, k).chunks(
+        n_rows, "cpu")[0]
+    table = gk.table.numpy().view(np.uint32)
+    max_probes = gk.max_probes
+    if squeeze:
+        used = table[:, :BUCKET] != EMPTY
+        keys = (table[:, :BUCKET][used], table[:, BUCKET: 2 * BUCKET][used],
+                table[:, 2 * BUCKET:][used])
+        n_buckets = 1 << (-(-len(keys[0]) // 7) - 1).bit_length()
+        table, max_probes = build_table(*keys, n_buckets=n_buckets)
+    n_pad = len(seqs) if exact_cols else gk.n_pad
+    n1 = np.zeros(n_pad, np.int32)
+    n1[:n_prot] = gk.protein_kmer_counts
+    return dict(
+        table=torch.from_numpy(table.view(np.int32).copy()),
+        max_probes=max_probes, owner_mat=gk.owner_mat, lo=lo, hi=hi,
+        proto=proto, valid=valid, n_rows=n_rows, n_pad=n_pad,
+        n1=torch.from_numpy(n1), n2=n2,
+        minc=torch.from_numpy(_min_ev_table(min_score, 4 * plen + 1024)))
+
+
+def carried_state(rng, n_pad, device="cpu"):
+    """A best-proposal state (c, u, index, improvements) as earlier chunks
+    leave it: a third of the proteins carry a best c / u."""
+    c = rng.integers(1, 40, n_pad).astype(np.int32)
+    u = c + rng.integers(0, 300, n_pad).astype(np.int32)
+    none = rng.random(n_pad) < 2 / 3
+    c[none], u[none] = 0, 1
+    i = np.where(none, -1, rng.integers(0, 5000, n_pad)).astype(np.int32)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (c, u, i, np.array([17], np.int32)))
+
+
+def bucket_reads(table, lo, hi, valid, max_probes) -> tuple[int, int, int]:
+    """What this run's lookups need from an 8-slot table: (distinct
+    buckets whose lo keys they read, bucket reads, hits).  A key walks
+    from its home bucket until its bucket is found, a bucket has a free
+    slot, or ``max_probes`` buckets are read."""
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer
+    from kmers_anno_tpu_torch.ops.hashtable import BUCKET, EMPTY
+
+    empty = int(EMPTY.view(np.int32))
+    mask = table.shape[0] - 1
+    seen = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+    qlo, qhi = lo[valid], hi[valid]
+    b = mix_kmer(qlo, qhi) & mask
+    reads = hits = 0
+    for _ in range(max_probes):
+        if not b.numel():
+            break
+        seen[b] = True
+        reads += b.numel()
+        rows = table[b]
+        hit = ((rows[:, :BUCKET] == qlo[:, None])
+               & (rows[:, BUCKET: 2 * BUCKET] == qhi[:, None])).any(1)
+        hits += int(hit.sum())
+        go = ~hit & (rows[:, :BUCKET] != empty).all(1)
+        qlo, qhi, b = qlo[go], qhi[go], (b[go] + 1) & mask
+    return int(seen.sum()), reads, hits
+
+
+HASH_KEY_OPS = 14               # a key's two fmix32 and the mask
+HASH_BUCKET_OPS = 16            # 8 lo compares and 8 free-slot tests
+HASH_OWNER_OPS = 2              # an owner's bound test and its atomic add
+HASH_CELL_OPS = 2               # a count's load and zero test
+HASH_COUNT_OPS = 10             # a non-zero count's floor and compare
+
+
+def hash_commons_bound(c, ranks, n_touched, ms) -> dict:
+    """hash_commons's bound, each input read once: 13 B a chunk kmer (lo,
+    hi, prototype, flag), the 32 B of lo keys of every distinct bucket the
+    lookups read, a hit's hi and payload words (8 B), 4 B an owner slot of
+    every distinct owner row the hits name (``ranks``, the probed rank of
+    each chunk kmer), and 4 B a count-matrix cell this chunk's data writes
+    (``n_touched``, the non-zero cells: the buffer comes zeroed, so no
+    other cell need be written); the operations above, per lookup."""
+    buckets, reads, hits = bucket_reads(c["table"], c["lo"], c["hi"],
+                                        c["valid"], c["max_probes"])
+    cap = c["owner_mat"].shape[1]
+    owner_rows = int(torch.unique(ranks[ranks >= 0]).numel())
+    n_bytes = (13 * c["lo"].numel() + 32 * buckets + HIT_BYTES * hits
+               + 4 * cap * owner_rows + 4 * n_touched)
+    n_ops = (HASH_KEY_OPS * int(c["valid"].sum()) + HASH_BUCKET_OPS * reads
+             + HASH_OWNER_OPS * cap * hits)
+    return dict(bound(n_bytes, n_ops, ms), buckets=buckets,
+                bucket_reads=reads, hits=hits, owner_rows=owner_rows)
+
+
+def hash_best_bound(c, n_nonzero, ms) -> dict:
+    """hash_best's bound: each count read once (4 B a cell) and each
+    non-zero count cleared (4 B), n1, n2 and the minc table read once, the
+    state (c, u, index) read and written once; the operations above."""
+    n_pad, n_rows = c["n_pad"], c["n_rows"]
+    n_bytes = (4 * n_rows * n_pad + 4 * n_nonzero + 4 * n_pad + 4 * n_rows
+               + nbytes(c["minc"]) + 2 * 12 * n_pad)
+    n_ops = HASH_CELL_OPS * n_rows * n_pad + HASH_COUNT_OPS * n_nonzero
+    return bound(n_bytes, n_ops, ms)
+
+
+def hash_chunk_args(c):
+    return (c["table"], c["max_probes"], c["owner_mat"], c["lo"], c["hi"],
+            c["proto"], c["valid"], c["n_rows"], c["n_pad"])
+
+
+def check_hash_pair(c, state, base=0) -> tuple[int, int]:
+    """Both chunk kernels against their plain versions on chunk ``c``
+    (tensors on the card): counts and ranks equal, then the state from
+    ``state`` bit-equal and the counts cleared.  Returns (total count,
+    improvements)."""
+    from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best,
+                                                     hash_best_plain,
+                                                     hash_commons,
+                                                     hash_commons_plain)
+
+    args = hash_chunk_args(c)
+    got, ranks = hash_commons(*args, with_ranks=True)
+    want, want_ranks = hash_commons_plain(*args, with_ranks=True)
+    require(torch.equal(got, want) and torch.equal(ranks, want_ranks),
+            "hash_commons differs from its plain version")
+    total = int(got.sum())
+    got_state = tuple(t.clone() for t in state)
+    want_state = tuple(t.clone() for t in state)
+    hash_best(got, c["n_rows"], c["n1"], c["n2"], c["minc"], got_state, base)
+    hash_best_plain(want, c["n_rows"], c["n1"], c["n2"], c["minc"],
+                    want_state, base)
+    require(all(torch.equal(g, w) for g, w in zip(got_state, want_state)),
+            "hash_best's state differs from its plain version's")
+    require(not got.any(), "hash_best left counts behind")
+    return total, int(got_state[3][0]) - int(state[3][0])
+
+
+def on_device(c: dict, dev) -> dict:
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in c.items()}
+
+
+def check_hash_chunk(dev) -> None:
+    """The chunk kernels against their plain versions on made-up chunks:
+    k = 8 and 12, a table whose lookups walk, owner rows at the cap, chunk
+    and protein counts off powers of two and off multiples of 256."""
+    rng = np.random.default_rng(SEED + 4)
+    for what, params in (
+            ("k=8", dict(k=8, n_prot=3001, n_rows=1001)),
+            ("k=12, walking buckets", dict(k=12, n_prot=2000, n_rows=999,
+                                           squeeze=True)),
+            ("k=8, owners at the cap", dict(k=8, n_prot=1000, n_rows=257,
+                                            family=40)),
+            ("k=8, n_pad = 5,000 proteins", dict(k=8, n_prot=5000,
+                                                 n_rows=4093,
+                                                 exact_cols=True))):
+        c = on_device(made_up_chunk(rng, **params), dev)
+        require(not params.get("squeeze") or c["max_probes"] > 1,
+                "the squeezed table does not walk")
+        total, improved = check_hash_pair(c, carried_state(rng, c["n_pad"],
+                                                           dev), 99)
+        require(total > 0 and improved > 0, f"hash chunk {what}: no counts")
+        print(f"hash_commons + hash_best, {what}: {c['lo'].numel()} chunk "
+              f"kmers x {c['n_rows']} prototypes x {c['n_pad']} columns, "
+              f"cap {c['owner_mat'].shape[1]}, max_probes "
+              f"{c['max_probes']}: {total} counts, {improved} improvements, "
+              f"equal to the plain versions", flush=True)
+
+
+def make_hash_bench(rng):
+    """bench.py:651-675: 4 genomes, each a three-point-mutation copy of a
+    pool of 1,500 proteins of 250 aa; 32,768 prototypes, each a
+    0-7-substitution variant of a pool protein."""
+    from kmers_anno_tpu_torch.engine.hashanno import Prototype
+
+    aa = np.frombuffer(AA.encode(), np.uint8)
+    pool = ["".join(chr(c) for c in aa[rng.integers(0, len(aa), HASH_LEN)])
+            for _ in range(HASH_PROTEINS)]
+    genomes = []
+    for _ in range(HASH_GENOMES):
+        prots = []
+        for p in pool:
+            b = list(p)
+            for _ in range(3):
+                b[int(rng.integers(0, len(b)))] = AA[
+                    int(rng.integers(0, len(AA)))]
+            prots.append("".join(b))
+        genomes.append(prots)
+    protos = []
+    for i in range(HASH_PROTOTYPES):
+        b = list(pool[int(rng.integers(0, len(pool)))])
+        for _ in range(int(rng.integers(0, 8))):
+            b[int(rng.integers(0, len(b)))] = AA[
+                int(rng.integers(0, len(AA)))]
+        protos.append(Prototype("".join(b), f"Role {i}"))
+    return genomes, protos
+
+
+def hash_baselines(per_genome: list[list[str]], protos: list[str],
+                   min_score: float) -> tuple[list, float, float]:
+    """``native.HashAnnoBaseline`` per genome (one hash a genome, as the
+    reference tool's per-genome threads build), one thread each: returns
+    [(best sim, winning prototype) per genome], the wall seconds and the
+    sum of the per-genome seconds (each single-core)."""
+    import threading
+
+    from kmers_anno_tpu_torch import native
+
+    out = [None] * len(per_genome)
+    secs = [0.0] * len(per_genome)
+
+    def one(i):
+        t0 = time.perf_counter()
+        hb = native.HashAnnoBaseline(per_genome[i], K, min_score)
+        hb.score(protos)
+        out[i] = hb.best()
+        hb.close()
+        secs[i] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(per_genome))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    require(all(o is not None for o in out), "a hash baseline failed")
+    return out, time.perf_counter() - t0, sum(secs)
+
+
+def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
+    """bench.py's hashAnno shape through one combined GenomeProteinKmers on
+    the card: every protein's best similarity and winner against
+    ``HashAnnoBaseline``, prototype-genome pairs/s over five warm runs, a
+    split of one run; then both chunk kernels on the first chunk against
+    their plain versions, timed beside the plain versions, the unfused
+    torch scatter and one ``torch.bincount``."""
+    from kmers_anno_tpu_torch.engine.hashanno import (GenomeProteinKmers,
+                                                      PrototypeSet,
+                                                      _distinct_kmers_flat,
+                                                      _emit_rows)
+    from kmers_anno_tpu_torch.genome.gto import Genome, protein_md5
+    from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best,
+                                                     hash_best_plain,
+                                                     hash_commons,
+                                                     hash_commons_plain)
+    from kmers_anno_tpu_torch.ops.hashtable import probe_table
+
+    t0 = time.perf_counter()
+    genomes, protos = make_hash_bench(np.random.default_rng(HASH_SEED))
+    pset = PrototypeSet(protos, K)
+    pset.chunks(HASH_CHUNK, dev)            # pack once (cached, as in a run)
+    print(f"hash bench shape: {HASH_GENOMES} genomes x {HASH_PROTEINS} "
+          f"proteins of {HASH_LEN} aa, {HASH_PROTOTYPES} prototypes, "
+          f"generated and packed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def index():
+        gk = GenomeProteinKmers(K, HASH_MIN_SCORE, device=dev)
+        for gi, prots in enumerate(genomes):
+            for i, p in enumerate(prots):
+                gk.add_protein(f"fig|{gi}.peg.{i}", p, "hypothetical protein")
+        return gk
+
+    with _Launches() as run:
+        gk = index()
+        gk.process_proposals(pset, chunk=HASH_CHUNK)
+    chunk = min(HASH_CHUNK, (1 << 26) // (gk.n_pad + 1) - 1)
+    n_chunks = -(-HASH_PROTOTYPES // chunk)
+    require(run.counts["hash_commons"] == run.counts["hash_best"]
+            == n_chunks, f"hash bench shape: {n_chunks} chunks of {chunk} "
+            f"(n_pad {gk.n_pad}), launches {run.counts}")
+    routes = {"hash_bench": dict(launches=run.counts)}
+    want, base_wall, base_sum = hash_baselines(
+        genomes, [p.protein for p in protos], HASH_MIN_SCORE)
+    n_called = 0
+    for prots, (sim, winner) in zip(genomes, want):
+        idx = np.array([gk._md5_of[protein_md5(p)] for p in prots])
+        require(np.array_equal(gk.best_sim[idx], sim),
+                "hash bench shape: a best similarity differs from "
+                "HashAnnoBaseline")
+        got_anno = [gk.best_anno[i] for i in idx]
+        require(all(a == protos[w].annotation for a, s_, w in zip(
+            got_anno, sim, winner) if s_ > 0),
+            "hash bench shape: a winning prototype differs from "
+            "HashAnnoBaseline")
+        n_called += int((sim > 0).sum())
+    print(f"hash bench shape: {len(gk._proteins)} distinct proteins (n_pad "
+          f"{gk.n_pad}), {gk.n_kmers} kmers, {n_chunks} chunks of "
+          f"{chunk}; {n_called} proteins with a proposal; best sim and "
+          f"winner of every protein equal to HashAnnoBaseline (one run, one "
+          f"thread a genome: {base_wall:.2f} s wall, {base_sum:.2f} s "
+          f"single-core in all); launches {run.counts}", flush=True)
+
+    def full():
+        g = index()
+        g.process_proposals(pset, chunk=HASH_CHUNK)
+        return g
+
+    times = [host_seconds(full)[0] for _ in range(WARM_RUNS)]
+    pairs = HASH_PROTOTYPES * HASH_GENOMES
+    rates = sorted(pairs / t for t in times)
+    # the split of one more run
+    gk = index()
+    flat_s, _ = host_seconds(lambda: _distinct_kmers_flat(gk._proteins, K))
+    build_s, _ = host_seconds(gk._build)
+    chunks = pset.chunks(chunk, dev)
+    max_len = max(max(map(len, gk._proteins)),
+                  max(len(p.protein) for p in protos))
+    dev_run = gk._device_run(chunks, max_len)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    gk._score_chunks(chunks, dev_run)
+    stop.record()
+    stop.synchronize()
+    steps_host_s = time.perf_counter() - t0
+    steps_ms = start.elapsed_time(stop)
+    gtos = [Genome({"id": f"9{gi}.1", "scientific_name": "Hashus",
+                    "features": [{"id": f"fig|{gi}.peg.{i}", "type": "CDS",
+                                  "function": "hypothetical protein",
+                                  "protein_translation": p}
+                                 for i, p in enumerate(prots)]})
+            for gi, prots in enumerate(genomes)]
+    pull_s, _ = host_seconds(lambda: (gk._pull_best(dev_run, protos),
+                                      [_emit_rows(g, gk) for g in gtos]))
+    print(f"hash bench shape process_proposals: "
+          f"{statistics.median(rates):.1f} prototype-genome pairs/s (median "
+          f"of {WARM_RUNS}, range {rates[0]:.1f}-{rates[-1]:.1f}; s per run "
+          f"{', '.join(f'{t:.4f}' for t in times)}); split of one more run: "
+          f"host _distinct_kmers_flat of the proteins {flat_s:.4f} s, _build "
+          f"(that flat pass, owner matrix, 8-slot table, upload) "
+          f"{build_s:.4f} s, device chunk steps {steps_ms:.4f} ms by CUDA "
+          f"events ({steps_host_s:.4f} s host), final pull and _emit_rows "
+          f"{pull_s:.4f} s", flush=True)
+
+    # the kernels on the first chunk, at full size
+    d_lo, d_hi, d_proto, d_valid, _, sub, _, d_n2 = chunks[0]
+    c = dict(table=gk.table, max_probes=gk.max_probes,
+             owner_mat=gk.owner_mat, lo=d_lo, hi=d_hi, proto=d_proto,
+             valid=d_valid, n_rows=len(sub), n_pad=gk.n_pad,
+             n1=dev_run[1], n2=d_n2, minc=dev_run[0])
+    fresh = (torch.zeros(gk.n_pad, dtype=torch.int32, device=dev),
+             torch.ones(gk.n_pad, dtype=torch.int32, device=dev),
+             torch.full((gk.n_pad,), -1, dtype=torch.int32, device=dev),
+             torch.zeros(1, dtype=torch.int32, device=dev))
+    total, improved = check_hash_pair(c, fresh)
+    args = hash_chunk_args(c)
+    buf = torch.zeros((c["n_rows"], c["n_pad"]), dtype=torch.int32,
+                      device=dev)
+    ms, _ = timed(lambda: hash_commons(*args, out=buf))
+    plain_ms, want = timed(lambda: hash_commons_plain(*args), reps=1)
+    ranks = probe_table(c["table"], c["lo"], c["hi"], c["valid"],
+                        c["max_probes"])
+
+    def unfused():
+        # the reference's composition with an in-place int32 scatter:
+        # probe, owner gather, then index_add_ of ones
+        r = probe_table(c["table"], c["lo"], c["hi"], c["valid"],
+                        c["max_probes"])
+        own = c["owner_mat"][torch.clamp(r, min=0).long()]
+        keep = (r >= 0)[:, None] & (own < c["n_pad"])
+        idx = (c["proto"].long()[:, None] * c["n_pad"] + own.long())[keep]
+        out = torch.zeros(c["n_rows"] * c["n_pad"], dtype=torch.int32,
+                          device=dev)
+        out.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+        return out.view(c["n_rows"], c["n_pad"])
+
+    unfused_ms, got_u = timed(unfused, reps=1)
+    require(torch.equal(got_u, want), "the unfused scatter differs from "
+            "the plain version")
+    own = c["owner_mat"][torch.clamp(ranks, min=0).long()]
+    keep = (ranks >= 0)[:, None] & (own < c["n_pad"])
+    pair_idx = (c["proto"].long()[:, None] * c["n_pad"] + own.long())[keep]
+    library_ms, counted = timed(lambda: torch.bincount(
+        pair_idx, minlength=c["n_rows"] * c["n_pad"]), reps=1)
+    require(torch.equal(counted.view(c["n_rows"], c["n_pad"]).to(
+        torch.int32), want), "torch.bincount differs from the plain version")
+    commons = with_launch(dict(
+        ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, max_abs_err=0,
+        **hash_commons_bound(c, ranks, int((want != 0).sum()), ms)),
+        launch_ms(launch_hash_commons, [(*args, buf)]))
+    commons.update(library_ms=library_ms, library=(
+        "torch.bincount over the chunk's (prototype, owner) pair indices: "
+        "the scatter only, without the probe and the owner gather"))
+
+    # hash_best on the same counts, which it clears: each timed pass gets
+    # them and the fresh state back outside its event pair
+    n_nonzero = int((want != 0).sum())
+    state = tuple(t.clone() for t in fresh)
+    plain_state = tuple(t.clone() for t in fresh)
+    best_args = (buf, c["n_rows"], c["n1"], c["n2"], c["minc"], state, 0)
+
+    def restore(st):
+        buf.copy_(want)
+        for t, f in zip(st, fresh):
+            t.copy_(f)
+
+    b_ms, _ = timed(lambda: hash_best(*best_args), setup=lambda:
+                    restore(state))
+    require(not buf.any(), "hash_best left counts behind")
+    b_plain_ms, _ = timed(lambda: hash_best_plain(
+        buf, c["n_rows"], c["n1"], c["n2"], c["minc"], plain_state, 0),
+        reps=1, setup=lambda: restore(plain_state))
+    require(all(torch.equal(a, b) for a, b in zip(state, plain_state)),
+            "hash_best's timed passes differ from the plain version's")
+    restore(state)
+    best = with_launch(dict(ms=b_ms, plain_ms=b_plain_ms,
+                            unfused_ms=b_plain_ms, max_abs_err=0,
+                            **hash_best_bound(c, n_nonzero, b_ms)),
+                       launch_ms(launch_hash_best, [best_args]))
+    best.update(library="none: no single PyTorch call computes the "
+                "floored first-max tournament and its state update")
+    print(f"hash_commons on chunk 0 of the bench shape ({c['lo'].numel()} "
+          f"chunk kmers, {commons['hits']} hits, {commons['bucket_reads']} "
+          f"bucket reads, cap {c['owner_mat'].shape[1]}, {total} counts into "
+          f"{c['n_rows']} x {c['n_pad']}; {commons['buckets']} distinct "
+          f"buckets, {commons['owner_rows']} distinct owner rows), exact: "
+          f"kernel {ms:.4f} ms "
+          f"({commons['launch_ms']:.4f} ms a launch back to back), plain "
+          f"{plain_ms:.4f} ms, unfused (probe_table + gather + index_add_) "
+          f"{unfused_ms:.4f} ms, torch.bincount of the pairs "
+          f"{library_ms:.4f} ms; bound {commons['bound_ms']:.4f} ms "
+          f"({commons['bound_by']}, {commons['bound_bytes']} bytes, "
+          f"{commons['bound_ops']} int ops), share "
+          f"{commons['bound_share']:.3f}, back to back "
+          f"{commons['launch_share']:.3f}", flush=True)
+    print(f"hash_best on chunk 0 ({n_nonzero} non-zero of "
+          f"{c['n_rows'] * c['n_pad']} cells, {improved} improvements), "
+          f"state equal: kernel {b_ms:.4f} ms ({best['launch_ms']:.4f} ms a "
+          f"launch back to back), plain tournament {b_plain_ms:.4f} ms; "
+          f"bound {best['bound_ms']:.4f} ms ({best['bound_by']}, "
+          f"{best['bound_bytes']} bytes), share {best['bound_share']:.3f}, "
+          f"back to back {best['launch_share']:.3f}", flush=True)
+    cases = {"the bench chunk (hash_commons)": (
+                 launch_hash_commons_fresh, [(*args, buf)]),
+             "the bench chunk (hash_best)": (launch_hash_best, [best_args])}
+    return routes, {"hash_commons": commons, "hash_best": best}, cases
+
+
+def make_hash_annotations(rng, genomes, path: str) -> list[str]:
+    """The CLI's role annotation file: copies of ``HASH_CONFIRM`` pegs
+    with each peg's own function (so some annotations are confirmed), then
+    ``HASH_PROTOTYPES`` prototypes, each a 0-7-substitution variant of a
+    random peg under a new annotation.  Returns the prototypes' proteins
+    in file order."""
+    pegs = [f for g in genomes for f in g.pegs]
+    rows = []
+    for i in rng.choice(len(pegs), HASH_CONFIRM, replace=False):
+        rows.append((pegs[i].protein_translation, pegs[i].function))
+    for i in range(HASH_PROTOTYPES):
+        b = list(pegs[int(rng.integers(0, len(pegs)))].protein_translation)
+        for _ in range(int(rng.integers(0, 8))):
+            b[int(rng.integers(0, len(b)))] = AA[
+                int(rng.integers(0, len(AA)))]
+        rows.append(("".join(b), f"Hash role {i}"))
+    with open(path, "w") as fh:
+        fh.write("protein\tannotation\n")
+        fh.writelines(f"{p}\t{a}\n" for p, a in rows)
+    return rows
+
+
+class _CheckedChunks:
+    """Over one ``with`` block, every chunk step of the hashAnno engine
+    held against the plain versions on its own inputs: each
+    ``hash_commons`` call's counts, and each ``hash_best`` call's state
+    and cleared counts, bit-equal.  The engine's calls launch the kernels
+    once each, as they would unchecked."""
+
+    def __init__(self):
+        from kmers_anno_tpu_torch.engine import hashanno
+
+        self.hashanno = hashanno
+        self.chunks = []            # (rows, columns, non-zero counts)
+
+    def commons(self, *a, out=None, **kw):
+        from kmers_anno_tpu_torch.ops.hash_chunk import hash_commons_plain
+
+        before = None if out is None else out[: a[7]].clone()
+        got = self._commons(*a, out=out, **kw)
+        want = hash_commons_plain(*a, out=before, **kw)
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                "hash_commons differs from its plain version on an engine "
+                "chunk")
+        return got if len(got) > 1 else got[0]
+
+    def best(self, common, n_rows, n1, n2, minc, state, base):
+        from kmers_anno_tpu_torch.ops.hash_chunk import hash_best_plain
+
+        counts = common[:n_rows].clone()
+        n_nonzero = int(counts.count_nonzero())
+        want = tuple(t.clone() for t in state)
+        self._best(common, n_rows, n1, n2, minc, state, base)
+        hash_best_plain(counts, n_rows, n1, n2, minc, want, base)
+        require(all(torch.equal(g, w) for g, w in zip(state, want))
+                and not common[:n_rows].any(),
+                "hash_best differs from its plain version on an engine "
+                "chunk")
+        self.chunks.append((n_rows, common.shape[1], n_nonzero))
+
+    def __enter__(self):
+        self._commons = self.hashanno.hash_commons
+        self._best = self.hashanno.hash_best
+        self.hashanno.hash_commons = self.commons
+        self.hashanno.hash_best = self.best
+        return self
+
+    def __exit__(self, *exc):
+        self.hashanno.hash_commons = self._commons
+        self.hashanno.hash_best = self._best
+        return False
+
+
+def run_hash_cli(dev, tmp: str) -> dict:
+    """``hashAnno --batch 4`` through the CLI on the signature genomes
+    (four genomes of 4,020 pegs of 300 aa) with a 32,832-row annotation
+    file, twice (cold, warm).  Every row of every ``<gid>.anno.tbl``
+    against ``HashAnnoBaseline``; the fast route, one launch of each chunk
+    kernel a chunk.  A third, untimed run holds both chunk kernels against
+    their plain versions on every chunk of this shape."""
+    from kmers_anno_tpu_torch.commands.app import main
+    from kmers_anno_tpu_torch.engine import hashanno
+    from kmers_anno_tpu_torch.genome.gto import protein_md5
+
+    t0 = time.perf_counter()
+    genomes, _ = make_signature_genomes(
+        np.random.default_rng(SEED), SIG_GENOMES, SIG_ROLES,
+        SIG_HYPOTHETICAL, SIG_MULTI)
+    gto_dir = os.path.join(tmp, "hash_gtos")
+    os.makedirs(gto_dir)
+    for g in genomes:
+        g.save(os.path.join(gto_dir, f"{g.id}.gto"))
+    anno_file = os.path.join(tmp, "hash_annos.tbl")
+    rows = make_hash_annotations(np.random.default_rng(SEED + 5), genomes,
+                                 anno_file)
+    n_pegs = sum(len(g.pegs) for g in genomes)
+    print(f"hashAnno CLI workload: {SIG_GENOMES} genomes x "
+          f"{n_pegs // SIG_GENOMES} pegs of {PROT_LEN} aa, {len(rows)} "
+          f"annotation rows, written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    fast_only = []
+    orig = hashanno.GenomeProteinKmers._process_chunk
+    hashanno.GenomeProteinKmers._process_chunk = (
+        lambda self, p: (fast_only.append(1), orig(self, p))[1])
+    runs, secs = [], []
+    try:
+        for name in ("cold", "warm"):
+            out_dir = os.path.join(tmp, f"hash_{name}")
+            t0 = time.perf_counter()
+            with _Launches() as run:
+                rc = main(["hashAnno", "--batch", "4", "--device",
+                           str(dev), "-D", out_dir, anno_file, gto_dir])
+            secs.append(time.perf_counter() - t0)
+            require(rc == 0, f"hashAnno exited with {rc}")
+            runs.append(run.counts)
+        with _CheckedChunks() as checked:
+            rc = main(["hashAnno", "--batch", "4", "--device", str(dev),
+                       "-D", os.path.join(tmp, "hash_checked"), anno_file,
+                       gto_dir])
+        require(rc == 0, f"hashAnno (checked) exited with {rc}")
+    finally:
+        hashanno.GenomeProteinKmers._process_chunk = orig
+    n_prot = len({protein_md5(f.protein_translation) for g in genomes
+                  for f in g.pegs})
+    n_pad = 1 << (max(n_prot, 256) - 1).bit_length()
+    chunk = min(HASH_CHUNK, (1 << 26) // (n_pad + 1) - 1)
+    n_chunks = -(-len(rows) // chunk)
+    require(not fast_only, "hashAnno took the host-float64 route")
+    require(all(r["hash_commons"] == r["hash_best"] == n_chunks
+                for r in runs), f"hashAnno launches {runs}, expected "
+            f"{n_chunks} chunks of {chunk} (n_pad {n_pad})")
+    require(len(checked.chunks) == n_chunks
+            and all(r <= chunk and cols == n_pad
+                    for r, cols, _ in checked.chunks),
+            f"checked chunks {checked.chunks}, expected {n_chunks} of "
+            f"<= {chunk} x {n_pad}")
+    print(f"hashAnno --batch 4 (CLI, checked run): hash_commons and "
+          f"hash_best equal to their plain versions on all {n_chunks} "
+          f"chunks of {checked.chunks[0][0]} x {n_pad} (non-zero counts a "
+          f"chunk: {[c[2] for c in checked.chunks]})", flush=True)
+    want, base_wall, base_sum = hash_baselines(
+        [[f.protein_translation for f in g.features] for g in genomes],
+        [p for p, _ in rows], HASH_MIN_SCORE)
+    classes = dict(defaulted=0, confirmed=0, changed=0)
+    for g, (sim, winner) in zip(genomes, want):
+        for name in ("cold", "warm", "checked"):
+            lines = open(os.path.join(tmp, f"hash_{name}",
+                                      f"{g.id}.anno.tbl")).read().splitlines()
+            require(lines[0] == "fid\tscore\tnew_annotation\told_annotation"
+                    and len(lines) == len(g.features) + 1,
+                    f"{g.id}.anno.tbl has {len(lines)} lines")
+            first: dict[str, str] = {}
+            for f in g.features:
+                first.setdefault(protein_md5(f.protein_translation),
+                                 f.peg_function)
+            for line, f, s_, w in zip(lines[1:], g.features, sim, winner):
+                old = f.peg_function
+                new = (rows[w][1] if s_ > 0
+                       else first[protein_md5(f.protein_translation)])
+                score = repr(float(s_)) if s_ else "0.0"
+                require(line == "\t".join((f.id, score, new, old)),
+                        f"{g.id}: row {line!r} != baseline's "
+                        f"{(f.id, score, new, old)}")
+                if name == "cold":
+                    key = ("defaulted" if not s_ else
+                           "confirmed" if new == old else "changed")
+                    classes[key] += 1
+    require(all(classes.values()), f"an output class never occurs: {classes}")
+    print(f"hashAnno --batch 4 (CLI): n_pad {n_pad}, {n_chunks} chunks of "
+          f"{chunk}, the fast route; every row of the {SIG_GENOMES} "
+          f".anno.tbl files (both runs) equal to HashAnnoBaseline's best sim "
+          f"(repr) and winner ({classes}); baseline one run, one thread a "
+          f"genome: {base_wall:.2f} s wall, {base_sum:.2f} s single-core in "
+          f"all; cold {secs[0]:.2f} s, warm {secs[1]:.2f} s for the "
+          f"4-genome batch (GTO load included); launches {runs[0]}",
+          flush=True)
+    return {"hash_cli": dict(launches=runs[0])}
 
 
 def main() -> None:
@@ -1605,20 +2390,41 @@ def main() -> None:
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip(), flush=True)
 
-    check_contig_scan(dev)
-    check_probe_wide(dev)
-    check_apply_rows(dev)
-    check_collisions(dev)
+    phases = []
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phases.append((name, time.perf_counter() - t0))
+        return out
+
+    phase("kernel checks", lambda: (check_contig_scan(dev),
+                                    check_probe_wide(dev),
+                                    check_apply_rows(dev),
+                                    check_collisions(dev)))
     with tempfile.TemporaryDirectory() as tmp:
-        routes, (measured, cases) = run_main_path(dev, tmp, args.profile)
+        routes, (measured, cases) = phase("projection", run_main_path, dev,
+                                          tmp, args.profile)
     with tempfile.TemporaryDirectory() as tmp:
-        routes.update(run_signature_path(dev, tmp))
-    bench_routes, measured["apply_rows"], bench_cases = run_bench_shape(dev)
+        routes.update(phase("build + apply", run_signature_path, dev, tmp))
+    bench_routes, measured["apply_rows"], bench_cases = phase(
+        "apply bench shape", run_bench_shape, dev)
     routes.update(bench_routes)
     cases.update(bench_cases)
+    phase("hash kernel checks", check_hash_chunk, dev)
+    hash_routes, hash_measured, hash_cases = phase(
+        "hashAnno bench shape", run_hash_bench_shape, dev)
+    routes.update(hash_routes)
+    measured.update(hash_measured)
+    cases.update(hash_cases)
+    with tempfile.TemporaryDirectory() as tmp:
+        routes.update(phase("hashAnno CLI", run_hash_cli, dev, tmp))
     if args.compare:
         with tempfile.TemporaryDirectory() as tmp:
-            compare_contenders(build_contenders(args.compare, tmp), cases)
+            phase("compare", lambda: compare_contenders(
+                build_contenders(args.compare, tmp), cases))
+    print("seconds by phase: " + ", ".join(f"{n} {t:.1f}"
+                                           for n, t in phases), flush=True)
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "kmers_anno_tpu" for m in sys.modules),
             "the JAX package was imported")
@@ -1646,10 +2452,17 @@ def main() -> None:
         row("apply_rows", "apply_rows", "csrc/apply_rows.cu",
             "engine/apply_engine.py:184", "apply",
             ("apply", "apply_train", "bench", "weighted_apply")),
+        # hashAnno: the CLI batch and the library bench shape, a launch of
+        # each a chunk
+        row("hash_commons", "hash_commons", "csrc/hash_chunk.cu",
+            "engine/hashanno.py:122", "hash_cli", ("hash_cli", "hash_bench")),
+        row("hash_best", "hash_best", "csrc/hash_chunk.cu",
+            "engine/hashanno.py:71", "hash_cli", ("hash_cli", "hash_bench")),
     ]
     for r, v in routes.items():
         if "times" in v:
-            print(f"warm s/genome, {r} route: {summary(v['times'])}",
+            kind = "cold" if r == "host" else "warm"
+            print(f"{kind} s/genome, {r} route: {summary(v['times'])}",
                   flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -42,7 +42,7 @@ COMMANDS: dict[str, tuple[Callable | None, str]] = {
                  "verify that proteins in genomes are consistently annotated"),
     "genes": (None,
               "copy gene names from one genome to a close genome without gene names"),
-    "hashAnno": (None,
+    "hashAnno": (_lazy("hash_anno_cmd", "HashAnnotationProcessor"),
                  "use a protein kmer hash to annotate features in a PATRIC dump directory"),
     "applyAnno": (None,
                   "apply annotations produced by the hash annotator"),

@@ -92,3 +92,34 @@ class BaseProcessor:
     def require_dir(path: str, what: str) -> None:
         if not os.path.isdir(path):
             raise FileNotFoundError(f"{what} {path} not found or invalid.")
+
+
+class BaseMultiReportProcessor(BaseProcessor):
+    """Adds the multi-file output-directory options ``-D`` and ``--clear``
+    (BaseMultiReportProcessor contract, HashAnnotationProcessor.java:
+    131-134, 201)."""
+
+    def add_options(self, parser: argparse.ArgumentParser) -> None:
+        parser.add_argument(
+            "-D", "--outDir", metavar="outDir",
+            default=self.default_out_dir(),
+            help="output directory for report files")
+        parser.add_argument(
+            "--clear", action="store_true",
+            help="erase the output directory before processing")
+
+    def default_out_dir(self) -> str:
+        return os.getcwd()
+
+    def prepare_out_dir(self) -> None:
+        if os.path.isdir(self.outDir):
+            if self.clear:
+                for name in os.listdir(self.outDir):
+                    p = os.path.join(self.outDir, name)
+                    if os.path.isfile(p):
+                        os.unlink(p)
+        else:
+            os.makedirs(self.outDir)
+
+    def out_file(self, name: str) -> str:
+        return os.path.join(self.outDir, name)

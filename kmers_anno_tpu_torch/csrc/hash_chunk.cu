@@ -1,0 +1,225 @@
+// hashAnno's chunk step: the common-kmer count matrix of one prototype chunk
+// and the exact first-max best-proposal update.
+//
+// Replaces kmers_anno_tpu/engine/hashanno.py · _chunk_commons_body (:122,
+// with the ops/hashtable.probe_table call before it, :423) and the floor,
+// tournament and state update of _chunk_best (:71-119), XLA kernels on the
+// TPU.  Plain versions: ops/hash_chunk.py.
+//
+// kan_hash_commons: one thread a chunk kmer (lo, hi, prototype row, valid).
+// It walks the 8-slot table ((B, 24) words, [8 lo | 8 hi | 8 payloads] a
+// bucket, home bucket = mix_kmer(lo, hi) & (B - 1), the unsalted murmur3
+// mix of ops/hashing.py; at most max_probes buckets, stopping at the first
+// bucket with a free slot), and on a hit reads the kmer's owner row
+// owner_mat[rank, :cap] and adds one to common[row, owner] for each owner
+// below n_pad (the padding value, never written).  Integer atomics are
+// order-free, so the counts are exact whatever the schedule.  What bounds
+// it: the table's 32-byte sectors from L2 (the bench shape's table is 12
+// MB) and the atomics, about four a hit there, spread over the matrix
+// because the chunk's kmers come key-major, not prototype by prototype.
+//
+// kan_hash_best: one thread a (protein column, row slice).  A block is 32
+// columns (one warp's lanes: each row read is one coalesced 128-byte line)
+// by 16 row slices (one warp each, a contiguous range of rows).  A thread
+// walks its rows in order and keeps the first strict maximum of c / u
+// (compared as c1 * u2 > c2 * u1 in int32: c, u < 2^15 under the engine's
+// length guard), after the min-score floor c >= minc[clamp(u, 1, M - 1)];
+// a zero count never wins.  Slice 0 then folds the 16 slices in order with
+// the same strict compare, which keeps the first maximum of the whole
+// column (the winner of the reference's log2 tournament, where ties go to
+// the lower row), and applies the state update.  Each non-zero cell is
+// cleared as it is read, so the next chunk needs no memset; the matrix is
+// sparse (a prototype shares kmers with a few proteins), so the clearing
+// writes little.  What bounds it: reading the (rows, n_pad) count matrix
+// once from device memory; eight rows' loads are issued before any is
+// used, to keep enough bytes in flight.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "wide_probe.cuh"
+
+namespace {
+
+constexpr int kBucket = 8;
+constexpr int kBucketWords = 3 * kBucket;
+constexpr uint32_t kEmpty = 0xFFFFFFFFu;
+constexpr uint32_t kGolden = 0x9E3779B9u;
+constexpr int kCommonsThreads = 256;
+constexpr int kCols = 32;
+constexpr int kSlices = 16;
+constexpr int kUnroll = 8;
+
+// The payload stored under (lo, hi) in an 8-slot table, or -1.
+__device__ __forceinline__ int32_t probe_bucket_key(
+    const uint32_t* __restrict__ table, uint32_t mask, uint32_t lo,
+    uint32_t hi, int max_probes) {
+  uint32_t b = kan::fmix32(lo ^ kan::fmix32(hi ^ kGolden)) & mask;
+  for (int probe = 0; probe < max_probes; ++probe) {
+    const uint32_t* row = table + static_cast<size_t>(b) * kBucketWords;
+    const uint4* row4 = reinterpret_cast<const uint4*>(row);
+    const uint4 a = __ldg(row4);
+    const uint4 c = __ldg(row4 + 1);
+    const uint32_t keys[kBucket] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+    bool full = true;
+#pragma unroll
+    for (int s = 0; s < kBucket; ++s) {
+      if (keys[s] == lo && __ldg(row + kBucket + s) == hi)
+        return static_cast<int32_t>(__ldg(row + 2 * kBucket + s));
+      full &= keys[s] != kEmpty;
+    }
+    if (!full) return -1;
+    b = (b + 1) & mask;
+  }
+  return -1;
+}
+
+__global__ void __launch_bounds__(kCommonsThreads)
+hash_commons_kernel(const uint32_t* __restrict__ table, uint32_t mask,
+                    int max_probes, const int32_t* __restrict__ owner_mat,
+                    int cap, const uint32_t* __restrict__ q_lo,
+                    const uint32_t* __restrict__ q_hi,
+                    const int32_t* __restrict__ proto,
+                    const uint8_t* __restrict__ valid, int64_t h,
+                    int32_t n_rows, int32_t n_pad, int32_t* common,
+                    int32_t* ranks) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * kCommonsThreads + threadIdx.x;
+  if (i >= h) return;
+  const int32_t rank =
+      valid[i] ? probe_bucket_key(table, mask, q_lo[i], q_hi[i], max_probes)
+               : -1;
+  if (ranks) ranks[i] = rank;
+  const int32_t p = proto[i];
+  if (rank < 0 || p < 0 || p >= n_rows) return;
+  const int32_t* own = owner_mat + static_cast<int64_t>(rank) * cap;
+  int32_t* row = common + static_cast<int64_t>(p) * n_pad;
+  for (int j = 0; j < cap; ++j) {
+    const uint32_t o = static_cast<uint32_t>(__ldg(own + j));
+    if (o < static_cast<uint32_t>(n_pad)) atomicAdd(row + o, 1);
+  }
+}
+
+struct Best {
+  int32_t c, u, r;
+};
+
+// Row r of a column with count c: keep it if it clears the floor and beats
+// the running best strictly.
+__device__ __forceinline__ void consider(Best& best, int32_t c, int32_t r,
+                                         int32_t n1p,
+                                         const int32_t* __restrict__ n2,
+                                         const int32_t* __restrict__ minc,
+                                         int32_t n_minc) {
+  const int32_t u = n1p + __ldg(n2 + r) - c;
+  const int32_t uc = min(max(u, 1), n_minc - 1);
+  if (c < __ldg(minc + uc)) return;
+  if (c * best.u > best.c * u) best = Best{c, u, r};
+}
+
+__global__ void __launch_bounds__(kCols * kSlices)
+hash_best_kernel(int32_t* common, int32_t n_rows, int32_t n_pad,
+                 const int32_t* __restrict__ n1,
+                 const int32_t* __restrict__ n2,
+                 const int32_t* __restrict__ minc, int32_t n_minc,
+                 int32_t* state_c, int32_t* state_u, int32_t* state_i,
+                 int32_t* state_m, int32_t chunk_base) {
+  __shared__ Best part[kSlices][kCols];
+  const int lane = threadIdx.x;
+  const int slice = threadIdx.y;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kCols + lane;
+  const bool live = p < n_pad;
+  const int32_t per = (n_rows + kSlices - 1) / kSlices;
+  const int32_t r0 = min(slice * per, n_rows);
+  const int32_t r1 = min(r0 + per, n_rows);
+  Best best{0, 1, 0};
+  if (live) {
+    const int32_t n1p = n1[p];
+    int32_t* col = common + p;
+    int32_t r = r0;
+    for (; r + kUnroll <= r1; r += kUnroll) {
+      int32_t c[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j)
+        c[j] = col[static_cast<int64_t>(r + j) * n_pad];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        if (c[j]) {
+          col[static_cast<int64_t>(r + j) * n_pad] = 0;
+          consider(best, c[j], r + j, n1p, n2, minc, n_minc);
+        }
+      }
+    }
+    for (; r < r1; ++r) {
+      const int32_t c = col[static_cast<int64_t>(r) * n_pad];
+      if (c) {
+        col[static_cast<int64_t>(r) * n_pad] = 0;
+        consider(best, c, r, n1p, n2, minc, n_minc);
+      }
+    }
+  }
+  part[slice][lane] = best;
+  __syncthreads();
+  if (slice != 0) return;
+  for (int s = 1; s < kSlices; ++s) {
+    const Best b = part[s][lane];
+    if (b.c * best.u > best.c * b.u) best = b;
+  }
+  bool improved = false;
+  if (live) {
+    const int32_t oc = state_c[p];
+    const int32_t ou = state_u[p];
+    improved = best.c > 0 && best.c * ou > oc * best.u;
+    if (improved) {
+      state_c[p] = best.c;
+      state_u[p] = best.u;
+      state_i[p] = chunk_base + best.r;
+    }
+  }
+  const int32_t n_improved = __reduce_add_sync(0xFFFFFFFFu, improved ? 1 : 0);
+  if (lane == 0 && n_improved) atomicAdd(state_m, n_improved);
+}
+
+}  // namespace
+
+// table: (n_buckets, 24) 32-bit words, n_buckets a power of two, 16-byte
+// aligned; owner_mat: (U, cap) int32; q_lo / q_hi / proto: (h,) int32,
+// valid: (h,) bytes; common: (>= n_rows, n_pad) int32, added into; ranks:
+// (h,) int32 or null.
+extern "C" int kan_hash_commons(const int32_t* table, int64_t n_buckets,
+                                int max_probes, const int32_t* owner_mat,
+                                int64_t cap, const int32_t* q_lo,
+                                const int32_t* q_hi, const int32_t* proto,
+                                const uint8_t* valid, int64_t h,
+                                int64_t n_rows, int64_t n_pad,
+                                int32_t* common, int32_t* ranks,
+                                void* stream) {
+  const int64_t blocks = (h + kCommonsThreads - 1) / kCommonsThreads;
+  hash_commons_kernel<<<static_cast<unsigned>(blocks), kCommonsThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const uint32_t*>(table),
+      static_cast<uint32_t>(n_buckets - 1), max_probes, owner_mat,
+      static_cast<int>(cap), reinterpret_cast<const uint32_t*>(q_lo),
+      reinterpret_cast<const uint32_t*>(q_hi), proto, valid, h,
+      static_cast<int32_t>(n_rows), static_cast<int32_t>(n_pad), common,
+      ranks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// common: (>= n_rows, n_pad) int32, rows [0, n_rows) read and cleared;
+// n1 / state_c / state_u / state_i: (n_pad,) int32; n2: (>= n_rows,) int32;
+// minc: (n_minc,) int32; state_m: (1,) int32.
+extern "C" int kan_hash_best(int32_t* common, int64_t n_rows, int64_t n_pad,
+                             const int32_t* n1, const int32_t* n2,
+                             const int32_t* minc, int64_t n_minc,
+                             int32_t* state_c, int32_t* state_u,
+                             int32_t* state_i, int32_t* state_m,
+                             int64_t chunk_base, void* stream) {
+  const int64_t blocks = (n_pad + kCols - 1) / kCols;
+  hash_best_kernel<<<static_cast<unsigned>(blocks), dim3(kCols, kSlices), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      common, static_cast<int32_t>(n_rows), static_cast<int32_t>(n_pad), n1,
+      n2, minc, static_cast<int32_t>(n_minc), state_c, state_u, state_i,
+      state_m, static_cast<int32_t>(chunk_base));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -16,6 +16,7 @@ package works as well as one of these.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import time
@@ -24,6 +25,11 @@ from typing import IO, Iterator
 from .locations import Location
 
 _PEG_TYPES = {"CDS", "peg"}
+
+
+def protein_md5(protein: str) -> str:
+    """MD5 of a protein sequence (MD5Hex.sequenceMD5 contract)."""
+    return hashlib.md5(protein.upper().encode("ascii")).hexdigest()
 
 
 class Contig:
@@ -96,6 +102,13 @@ class Feature:
     @function.setter
     def function(self, value: str) -> None:
         self.raw["function"] = value
+
+    @property
+    def peg_function(self) -> str:
+        """Function with empty mapped to "hypothetical protein"
+        (Feature.getPegFunction contract)."""
+        fun = self.function
+        return fun if fun else "hypothetical protein"
 
     @property
     def protein_translation(self) -> str | None:

@@ -1,8 +1,9 @@
-"""The PATRIC/BV-BRC genome source (GenomeSource contract: ``ids()``,
-``get(id)``).  A copy of the reference package's ``genome/sources.py``,
-holding the source the port uses.
+"""Genome sources (GenomeSource contract: enum-typed sources created with
+``GenomeSource.create(type, path)``, ``ids()``, ``get(id)``).  A copy of
+the reference package's ``genome/sources.py``, holding the sources the
+port uses: a directory of GTOs and the PATRIC/BV-BRC source.
 
-The source (P3Genome.load, KmerProcessor.java:189) is cache-first:
+The PATRIC source (P3Genome.load, KmerProcessor.java:189) is cache-first:
 genomes are looked up as ``<cache>/<id>.gto`` before any network attempt,
 and downloaded GTOs are written back to the cache.  In a network-isolated
 deployment the cache is the only backing store; fetch failures warn and
@@ -13,11 +14,57 @@ return None exactly like the reference tool's not-found path
 from __future__ import annotations
 
 import os
+from typing import Iterator
 
 from .gto import Genome
 
 
-class PatricGenomeSource:
+class GenomeSource:
+    """Base genome source."""
+
+    TYPES: dict[str, type] = {}
+
+    @classmethod
+    def create(cls, type_name: str, path: str) -> "GenomeSource":
+        try:
+            return cls.TYPES[type_name.upper()](path)
+        except KeyError:
+            raise ValueError(f"unknown genome source type {type_name!r}")
+
+    def ids(self) -> list[str]:
+        raise NotImplementedError
+
+    def get(self, genome_id: str) -> Genome | None:
+        raise NotImplementedError
+
+    def __len__(self) -> int:
+        return len(self.ids())
+
+    def __iter__(self) -> Iterator[Genome]:
+        for gid in self.ids():
+            g = self.get(gid)
+            if g is not None:
+                yield g
+
+
+class DirGenomeSource(GenomeSource):
+    """A directory of ``<genomeId>.gto`` files."""
+
+    def __init__(self, path: str):
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"genome directory {path} not found")
+        self.path = path
+
+    def ids(self) -> list[str]:
+        return sorted(f[:-4] for f in os.listdir(self.path)
+                      if f.endswith(".gto"))
+
+    def get(self, genome_id: str) -> Genome | None:
+        p = os.path.join(self.path, genome_id + ".gto")
+        return Genome.load(p) if os.path.isfile(p) else None
+
+
+class PatricGenomeSource(GenomeSource):
     """BV-BRC genomes (GenomeSource.Type.PATRIC contract,
     GtoBuildProcessor.java:100).
 
@@ -71,3 +118,6 @@ class PatricGenomeSource:
         from .p3api import Details, P3Connection, P3Genome
         return P3Genome.load(P3Connection(), genome_id,
                              Details.FULL, self.cache)
+
+
+GenomeSource.TYPES.update(DIR=DirGenomeSource, PATRIC=PatricGenomeSource)

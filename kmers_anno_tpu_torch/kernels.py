@@ -103,19 +103,33 @@ def build(src_dir: str | None = None, lib_path: str | None = None) -> str:
     return output
 
 
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+
+# every C entry point the port calls: name → argument types (all return
+# the CUDA error code as an int)
+ENTRY_POINTS = {
+    "kan_contig_scan": [_P, _I64, _P, _I32, _P, _P, _P, _P],
+    "kan_probe_wide": [_P, _I64, _P, _P, _P, _I64, ctypes.c_uint32, _I32,
+                       _P, _P],
+    "kan_apply_rows": [_P, _I64, _P, _P, _I64, _I64, _I32, _I32,
+                       ctypes.c_uint32, _I32, _I32, _P, _P, _P],
+    "kan_hash_commons": [_P, _I64, _I32, _P, _I64, _P, _P, _P, _P, _I64,
+                         _I64, _I64, _P, _P, _P],
+    "kan_hash_best": [_P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
+                      _I64, _P],
+}
+
+
 def load(lib_path: str) -> ctypes.CDLL:
-    """Load a built kernel library and declare its C entry points."""
+    """Load a built kernel library and declare its C entry points.  An
+    entry point the library lacks (a build of an older tree, timed beside
+    this one) is left undeclared."""
     handle = ctypes.CDLL(lib_path)
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-    handle.kan_contig_scan.restype = ctypes.c_int
-    handle.kan_contig_scan.argtypes = [p, i64, p, i32, p, p, p, p]
-    handle.kan_probe_wide.restype = ctypes.c_int
-    handle.kan_probe_wide.argtypes = [
-        p, i64, p, p, p, i64, ctypes.c_uint32, i32, p, p]
-    handle.kan_apply_rows.restype = ctypes.c_int
-    handle.kan_apply_rows.argtypes = [
-        p, i64, p, p, i64, i64, i32, i32, ctypes.c_uint32, i32, i32,
-        p, p, p]
+    for name, argtypes in ENTRY_POINTS.items():
+        if hasattr(handle, name):
+            fn = getattr(handle, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
     handle.kan_cuda_error_string.restype = ctypes.c_char_p
     handle.kan_cuda_error_string.argtypes = [ctypes.c_int]
     return handle

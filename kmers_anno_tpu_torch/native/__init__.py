@@ -107,6 +107,16 @@ def get_lib() -> ctypes.CDLL | None:
         lib.kan_java_apply.argtypes = [ctypes.c_void_p, c_char_p, i64p,
                                        i64, i32, i32, i32p]
         lib.kan_java_free.argtypes = [ctypes.c_void_p]
+        lib.kan_hash_new.restype = ctypes.c_void_p
+        lib.kan_hash_new.argtypes = [u8p, i64p, i64, i32, ctypes.c_double]
+        lib.kan_hash_kmers.restype = i64
+        lib.kan_hash_kmers.argtypes = [ctypes.c_void_p]
+        lib.kan_hash_score.restype = i64
+        lib.kan_hash_score.argtypes = [ctypes.c_void_p, u8p, i64p, i64, i32]
+        lib.kan_hash_best.argtypes = [
+            ctypes.c_void_p,
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"), i32p]
+        lib.kan_hash_free.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -119,6 +129,13 @@ def _concat_offsets(seqs: list[str]) -> tuple[bytes, np.ndarray]:
     offsets = np.zeros(len(seqs) + 1, np.int64)
     np.cumsum([len(s) for s in seqs], out=offsets[1:])
     return "".join(seqs).encode("ascii", errors="replace"), offsets
+
+
+def _encoded(lib, seqs: list[str]) -> tuple[np.ndarray, np.ndarray]:
+    concat_b, offs = _concat_offsets(seqs)
+    codes = np.empty(len(concat_b), np.uint8)
+    lib.kan_encode_protein(concat_b, len(concat_b), codes)
+    return codes, offs
 
 
 def flat_batch(proteins: list[str], k: int, width: int, pad_seg: int
@@ -305,9 +322,7 @@ class ProjectionBaseline(_Handle):
 
     def match(self, proteins: list[str], min_strength: float,
               max_fuzz: float, min_fuzz: float) -> tuple[int, int, int]:
-        concat_b, offs = _concat_offsets(proteins)
-        codes = np.empty(len(concat_b), np.uint8)
-        self._lib.kan_encode_protein(concat_b, len(concat_b), codes)
+        codes, offs = _encoded(self._lib, proteins)
         out = np.zeros(3, np.int64)
         self._lib.kan_proj_match(self._h, codes, offs, len(proteins),
                                  min_strength, max_fuzz, min_fuzz, out)
@@ -337,3 +352,40 @@ class JavaDataflowBaseline(_Handle):
         self._lib.kan_java_apply(self._h, concat, offs, len(proteins),
                                  k, min_hits, out)
         return out
+
+
+class HashAnnoBaseline(_Handle):
+    """Single-core hashAnno hot loop (kan_hash_*): the sequential
+    GenomeProteinKmers dataflow, a kmer → protein hash build and, per
+    prototype, probe + Jaccard best-proposal update
+    (HashAnnotationProcessor.java:233-263).  The independent check of the
+    device engine's best similarities and winners."""
+
+    __slots__ = ("_n", "_base")
+
+    def __init__(self, proteins: list[str], k: int, min_score: float):
+        lib = _required_lib()
+        codes, offs = _encoded(lib, proteins)
+        super().__init__(lib, lib.kan_hash_new(codes, offs, len(proteins),
+                                               k, min_score),
+                         lib.kan_hash_free)
+        self._n = len(proteins)
+        self._base = 0
+
+    def n_kmers(self) -> int:
+        return int(self._lib.kan_hash_kmers(self._h))
+
+    def score(self, prototypes: list[str]) -> int:
+        """Score prototypes sequentially; returns improvement events."""
+        codes, offs = _encoded(self._lib, prototypes)
+        got = int(self._lib.kan_hash_score(self._h, codes, offs,
+                                           len(prototypes), self._base))
+        self._base += len(prototypes)
+        return got
+
+    def best(self) -> tuple[np.ndarray, np.ndarray]:
+        """(best_sim float64, winning prototype index or -1) per protein."""
+        sim = np.zeros(self._n, np.float64)
+        proto = np.zeros(self._n, np.int32)
+        self._lib.kan_hash_best(self._h, sim, proto)
+        return sim, proto

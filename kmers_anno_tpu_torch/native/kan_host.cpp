@@ -3,8 +3,8 @@
 // The data loader that feeds the device kernels: protein encoding and the
 // fused flat-batch, peg-batch and row-batch builders; plus the streaming
 // signature builder, the key group-by, and the single-core baselines the
-// port is checked against (the packed-key apply and projection loops and
-// the string-keyed Java-dataflow apply walk).  A copy of the reference
+// port is checked against (the packed-key apply and projection loops, the
+// string-keyed Java-dataflow apply walk and the hashAnno loop).  A copy of the reference
 // package's kan_host.cpp holding the entry points the port calls.  Exposed
 // as a plain C ABI consumed via ctypes (kmers_anno_tpu_torch/native/
 // __init__.py); every entry point is GIL-free.
@@ -659,5 +659,136 @@ void kan_java_apply(void* hv, const char* prots, const int64_t* offs,
 }
 
 void kan_java_free(void* hv) { delete static_cast<KanJavaMap*>(hv); }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// single-core hashAnno baseline (GenomeProteinKmers dataflow, handle-based)
+// ---------------------------------------------------------------------------
+//
+// The compiled stand-in for the reference tool's per-genome hashAnno hot
+// loop (HashAnnotationProcessor.java:233-263 via the external
+// GenomeProteinKmers): build a kmer -> protein-list hash from the genome's
+// distinct protein kmer sets, then score every prototype sequentially: per
+// prototype kmer, hash-probe and tally common counts per protein;
+// similarity is the distinct-kmer Jaccard |∩|/|∪| and a proposal improves
+// only on strictly greater similarity at or above the min-score floor
+// (earliest prototype wins ties), the device engine's update rule
+// (engine/hashanno.py).
+
+#include <unordered_set>
+
+namespace {
+
+struct KanHash {
+  int k;
+  double min_score;
+  int64_t n_prot;
+  std::unordered_map<uint64_t, std::vector<int32_t>> map;
+  std::vector<int32_t> nk;          // distinct kmers per protein
+  std::vector<double> best;         // best similarity (0 = default)
+  std::vector<int32_t> best_proto;  // winning prototype index, -1 default
+  std::vector<int32_t> common;      // scratch tally
+  std::vector<int32_t> touched;
+};
+
+inline bool kan_hash_pack(const uint8_t* p, int k, uint64_t* key) {
+  uint64_t v = 0;
+  for (int j = 0; j < k; ++j) {
+    if (p[j] >= PROT_PAD) return false;   // padding guard only
+    v |= static_cast<uint64_t>(p[j]) << (5 * j);
+  }
+  *key = v;
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// prots: concatenated protein codes; offs (n_prot+1)
+void* kan_hash_new(const uint8_t* prots, const int64_t* offs,
+                   int64_t n_prot, int32_t k, double min_score) {
+  auto* h = new (std::nothrow) KanHash();
+  if (!h) return nullptr;
+  h->k = k;
+  h->min_score = min_score;
+  h->n_prot = n_prot;
+  h->nk.assign(static_cast<size_t>(n_prot), 0);
+  h->best.assign(static_cast<size_t>(n_prot), 0.0);
+  h->best_proto.assign(static_cast<size_t>(n_prot), -1);
+  h->common.assign(static_cast<size_t>(n_prot), 0);
+  h->map.reserve(static_cast<size_t>(offs[n_prot]));
+  std::unordered_set<uint64_t> distinct;
+  for (int64_t s = 0; s < n_prot; ++s) {
+    const uint8_t* p = prots + offs[s];
+    const int64_t plen = offs[s + 1] - offs[s];
+    distinct.clear();
+    for (int64_t i = 0; i + k <= plen; ++i) {   // ALL L-K+1 windows
+      uint64_t key;
+      if (kan_hash_pack(p + i, k, &key)) distinct.insert(key);
+    }
+    h->nk[static_cast<size_t>(s)] = static_cast<int32_t>(distinct.size());
+    for (uint64_t key : distinct)
+      h->map[key].push_back(static_cast<int32_t>(s));
+  }
+  return h;
+}
+
+int64_t kan_hash_kmers(void* hv) {
+  return static_cast<int64_t>(static_cast<KanHash*>(hv)->map.size());
+}
+
+// protos: concatenated prototype codes; offs (n_proto+1); proto_base is
+// added to the stored winner index.  Returns improvement events.
+int64_t kan_hash_score(void* hv, const uint8_t* protos,
+                       const int64_t* offs, int64_t n_proto,
+                       int32_t proto_base) {
+  auto* h = static_cast<KanHash*>(hv);
+  const int k = h->k;
+  int64_t events = 0;
+  std::unordered_set<uint64_t> distinct;
+  for (int64_t q = 0; q < n_proto; ++q) {
+    const uint8_t* p = protos + offs[q];
+    const int64_t plen = offs[q + 1] - offs[q];
+    distinct.clear();
+    for (int64_t i = 0; i + k <= plen; ++i) {
+      uint64_t key;
+      if (kan_hash_pack(p + i, k, &key)) distinct.insert(key);
+    }
+    const double n2 = static_cast<double>(distinct.size());
+    h->touched.clear();
+    for (uint64_t key : distinct) {             // the hash-probe loop
+      auto it = h->map.find(key);
+      if (it == h->map.end()) continue;
+      for (int32_t o : it->second) {
+        if (h->common[static_cast<size_t>(o)]++ == 0)
+          h->touched.push_back(o);
+      }
+    }
+    for (int32_t o : h->touched) {
+      const double c = h->common[static_cast<size_t>(o)];
+      h->common[static_cast<size_t>(o)] = 0;
+      const double uni = h->nk[static_cast<size_t>(o)] + n2 - c;
+      const double sim = c / (uni > 0 ? uni : 1.0);
+      if (sim >= h->min_score && sim > h->best[static_cast<size_t>(o)]) {
+        h->best[static_cast<size_t>(o)] = sim;
+        h->best_proto[static_cast<size_t>(o)] =
+            proto_base + static_cast<int32_t>(q);
+        ++events;
+      }
+    }
+  }
+  return events;
+}
+
+void kan_hash_best(void* hv, double* out_sim, int32_t* out_proto) {
+  auto* h = static_cast<KanHash*>(hv);
+  std::memcpy(out_sim, h->best.data(), h->best.size() * sizeof(double));
+  std::memcpy(out_proto, h->best_proto.data(),
+              h->best_proto.size() * sizeof(int32_t));
+}
+
+void kan_hash_free(void* hv) { delete static_cast<KanHash*>(hv); }
 
 }  // extern "C"

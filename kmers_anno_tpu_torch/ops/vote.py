@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 _INT32_MAX = 2**31 - 1
+_FIXED_ONE = float(1 << 24)     # fp16's smallest step, 2^-24, is one unit
 
 
 def unanimous_vote(roles: torch.Tensor, valid: torch.Tensor,
@@ -71,14 +72,21 @@ def weighted_vote_rows(roles: torch.Tensor, weights: torch.Tensor,
 
     Each row is sorted by role (stable), a row cumsum turns equal-role
     runs into tallies (``cummax`` carries each run's base), and ``argmax``
-    takes the first best run, so equal tallies call the smaller role.  A
-    tally sums its weights in row order, not in the order XLA's sort and
-    cumsum use, so tallies of non-integer weights may differ in the last
-    bits; integer weights (``uniform``) sum exactly.
+    takes the first best run, so equal tallies call the smaller role.
+
+    The sums are order-free.  A hit weight is a non-negative fp16, so
+    ``weight * 2^24`` is an integer below 2^40: each run is summed exactly
+    in int64 fixed point (units of 2^-24) and converted to float32 once,
+    so a tally is rounded once and the CPU and CUDA give the same bits
+    whatever order they add in.  (int64 rather than float64: a run of more
+    than about 8,192 weights of 65,504 is no longer exact in float64.)
+    The reference sums in float32 in XLA's order, so its tallies of
+    non-integer weights may still differ from these in the last bit.
     """
     hit = valid & (roles >= 0)
     r = torch.where(hit, roles, _INT32_MAX)
-    w = torch.where(hit, weights, 0.0)
+    fixed = (weights.to(torch.float64) * _FIXED_ONE).to(torch.int64)
+    w = torch.where(hit, fixed, 0)
     rs, order = torch.sort(r, dim=-1, stable=True)
     ws = torch.gather(w, -1, order)
     cw = torch.cumsum(ws, dim=-1)
@@ -86,8 +94,8 @@ def weighted_vote_rows(roles: torch.Tensor, weights: torch.Tensor,
     edge = torch.ones((rs.shape[0], 1), dtype=torch.bool, device=rs.device)
     first = torch.cat([edge, change], dim=-1)
     last = torch.cat([change, edge], dim=-1)
-    base = torch.cummax(torch.where(first, cw - ws, -1.0), dim=-1).values
-    tally = cw - base
+    base = torch.cummax(torch.where(first, cw - ws, -1), dim=-1).values
+    tally = (cw - base).to(torch.float32) * (1.0 / _FIXED_ONE)
     cand = torch.where(last & (rs != _INT32_MAX), tally, -1.0)
     arg = torch.argmax(cand, dim=-1, keepdim=True)
     best = torch.gather(cand, -1, arg)[:, 0]

@@ -4,10 +4,12 @@ The votes, the row-layout apply step (``apply_rows_plain``, the plain
 version of the ``csrc/apply_rows.cu`` kernel) array for array, the row
 batches, and the whole ``KmerApplyEngine`` against the reference engine
 and ``oracle.oracle_apply_protein``.  Exact, except the weighted vote with
-non-integer weights: the port sums a row's weights in another order than
-XLA's sort and cumsum, so its tallies are held to rtol 1e-5 (float32
-sums of a few fp16 weights differ in the last bits at most) while its roles
-must be equal.
+non-integer weights: the port sums a row's weights exactly and rounds
+once, the reference in float32 in the order of XLA's sort and cumsum, so
+its tallies are held to rtol 1e-5 (float32 sums of a few fp16 weights
+differ in the last bits at most) while its roles must be equal.  The
+port's own tallies are order-free: equal under any permutation of a
+row's windows, and equal to the exact rational sum rounded once.
 """
 
 import random
@@ -147,6 +149,84 @@ def test_weighted_vote_rows_matches_reference(weights):
     else:
         np.testing.assert_allclose(got[1].numpy(), _np(want[1]), rtol=1e-5)
     assert (got[0] >= 0).any() and (got[0] < 0).any()
+
+
+def _fp16_weights(rng, shape, mix):
+    """fp16-representable weights: random in [0, 3), or (``mix``) a mix of
+    the largest fp16 (65,504), subnormals (2^-24 to 2^-14) and random
+    magnitudes over fp16's range."""
+    if not mix:
+        return (rng.random(shape) * 3).astype(np.float16).astype(np.float32)
+    kind = rng.integers(0, 3, shape)
+    sub = rng.integers(1, 1 << 10, shape) * 2.0 ** -24
+    wide = 2.0 ** rng.uniform(-14, 15, shape)
+    w = np.where(kind == 0, 65504.0, np.where(kind == 1, sub, wide))
+    return w.astype(np.float16).astype(np.float32)
+
+
+def _round_fixed_to_f32(n: int) -> np.float32:
+    """The float32 nearest to n * 2^-24 (ties to even), in integers."""
+    shift = max(n.bit_length() - 24, 0)
+    if shift:
+        q, r = divmod(n, 1 << shift)
+        half = 1 << (shift - 1)
+        if r > half or (r == half and q & 1):
+            q += 1
+        n = q << shift
+    return np.float32(float(n) * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("width", [37, 2000])
+def test_weighted_tally_is_order_free(width):
+    """Permuting a row's windows (roles, weights and validity together)
+    changes no role and no tally bit."""
+    rng = np.random.default_rng(width)
+    rows = 16
+    roles = rng.integers(-1, 5, (rows, width)).astype(np.int32)
+    w = _fp16_weights(rng, (rows, width), mix=width > 100)
+    valid = rng.random((rows, width)) < 0.9
+    want = port_vote.weighted_vote_rows(torch.from_numpy(roles),
+                                        torch.from_numpy(w),
+                                        torch.from_numpy(valid), 1.0)
+    for _ in range(3):
+        perm = rng.permutation(width)
+        got = port_vote.weighted_vote_rows(
+            torch.from_numpy(roles[:, perm].copy()),
+            torch.from_numpy(w[:, perm].copy()),
+            torch.from_numpy(valid[:, perm].copy()), 1.0)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
+    assert (want[0] >= 0).any()
+
+
+def test_weighted_tally_is_the_exact_sum_rounded_once():
+    """Rows 16,384 windows wide mixing 65,504 and subnormal weights: each
+    role's tally is its exact rational sum rounded once to float32; the
+    best rounded tally wins, the smaller role on a tie."""
+    rng = np.random.default_rng(12)
+    rows, width, n_roles = 6, 16_384, 4
+    roles = rng.integers(0, n_roles, (rows, width)).astype(np.int32)
+    roles[0] = 2                                    # one role only
+    w = _fp16_weights(rng, (rows, width), mix=True)
+    w[1] = np.float32(2.0 ** -24)                   # all the smallest step
+    valid = rng.random((rows, width)) < 0.97
+    min_weight = 1000.0
+    got_role, got_tally = port_vote.weighted_vote_rows(
+        torch.from_numpy(roles), torch.from_numpy(w),
+        torch.from_numpy(valid), min_weight)
+    fixed = (w.astype(np.float64) * 2.0 ** 24).astype(np.int64)
+    for r in range(rows):
+        sums = np.zeros(n_roles, np.int64)
+        np.add.at(sums, roles[r][valid[r]], fixed[r][valid[r]])
+        tallies = [_round_fixed_to_f32(int(x)) for x in sums]
+        best = max(range(n_roles), key=lambda i: (tallies[i], -i))
+        called = tallies[best] >= min_weight and tallies[best] > 0
+        assert int(got_role[r]) == (best if called else -1)
+        assert got_tally[r].item() == (tallies[best] if called else 0.0)
+    assert int(got_role[1]) == -1 and 0 < float(np.float32(
+        int(valid[1].sum()) * 2.0 ** -24)) < min_weight
+    assert (got_role >= 0).sum() >= rows - 1
 
 
 # ---------------------------------------------------------------------------

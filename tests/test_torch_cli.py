@@ -100,7 +100,7 @@ def test_batch_data_parallel_is_not_yet_ported(tmp_path, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("command", ["genes", "funApply", "hashAnno",
+@pytest.mark.parametrize("command", ["genes", "funApply", "compare",
                                      "merge"])
 def test_unported_command_says_so(command, capsys):
     assert port_main([command]) != 0
@@ -220,3 +220,41 @@ def test_build_apply_default_cuda_without_cuda(monkeypatch, tmp_path,
     assert port_main([command, "-o", str(out), *files, gto_dir]) != 0
     assert "CUDA is not available" in capsys.readouterr().err
     assert not out.exists()
+
+
+def test_weighted_balance_report_bytes_match_reference(tmp_path):
+    """F3 at a few thousand proteins: ``build --weights balance`` then
+    ``apply --weighted --format VERIFY`` on two synthetic genomes of 1,310
+    pegs (non-integer fp16 weights, tallies printed to four places): the
+    port's report differs from the reference CLI's in no byte."""
+    import numpy as np
+
+    from chip_smoke import make_signature_genomes
+
+    genomes, role_map = make_signature_genomes(np.random.default_rng(3), 2,
+                                               700, 600, 10)
+    gto_dir = tmp_path / "gtos"
+    gto_dir.mkdir()
+    for g in genomes:
+        g.save(str(gto_dir / f"{g.id}.gto"))
+    role_file, use_file = str(tmp_path / "roles"), str(tmp_path / "use")
+    role_map.save(role_file)
+    with open(use_file, "w") as fh:
+        fh.writelines(f"{rid}\n" for rid in role_map.ids())
+    reports = {}
+    for name, main, extra in (("ref", ref_main, []),
+                              ("port", port_main, ["--device", "cpu"])):
+        db, report = str(tmp_path / f"{name}.tbl"), str(tmp_path / name)
+        assert main(["build", "--weights", "balance", *extra, "-o", db,
+                     role_file, use_file, str(gto_dir)]) == 0
+        assert main(["apply", "--weighted", "--format", "VERIFY",
+                     "--min-weight", "2", *extra, "-o", report, db,
+                     use_file, str(gto_dir)]) == 0
+        reports[name] = open(report, "rb").read()
+    want, got = reports["ref"], reports["port"]
+    differing = sum(a != b for a, b in zip(want, got)) + abs(
+        len(want) - len(got))
+    assert differing == 0
+    lines = want.decode().splitlines()
+    assert len(lines) > 1000
+    assert any(float(line.split("\t")[3]) % 1 for line in lines[1:])

@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (collision_rows, collision_table, made_up_rows,
-                        make_projection_workload, make_signature_genomes)
-from kmers_anno_tpu_torch.engine import projection
+from chip_smoke import (carried_state, collision_rows, collision_table,
+                        made_up_chunk, made_up_rows, make_projection_workload,
+                        make_signature_genomes)
+from kmers_anno_tpu_torch.engine import hashanno, projection
 from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
 from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
                                                    build_signatures)
@@ -27,6 +28,9 @@ from kmers_anno_tpu_torch.ops.apply_rows import apply_rows, apply_rows_plain
 from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
 from kmers_anno_tpu_torch.ops.contig_scan import (KERNEL_TILE, scan_stream,
                                                   scan_stream_plain)
+from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best, hash_best_plain,
+                                                 hash_commons,
+                                                 hash_commons_plain)
 from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
 from kmers_anno_tpu_torch.ops.translate import codon_lut
 from kmers_anno_tpu_torch.ops.widetable import (build_wide_table, probe_wide,
@@ -433,11 +437,12 @@ def _signature_case():
     return genomes, role_map, set(role_map.ids())
 
 
-@pytest.mark.parametrize("weights", ["none", "uniform"])
+@pytest.mark.parametrize("weights", ["none", "uniform", "balance"])
 def test_apply_engine_on_cuda_matches_cpu(cuda, weights):
     """The whole engine on the card against the CPU (which the CPU tests
     hold equal to the JAX reference): unweighted through the fused kernel,
-    uniform-weighted through the probe kernel and the torch vote."""
+    weighted through the probe kernel and the torch vote.  ``balance``
+    gives non-integer weights: calls and tallies equal bit for bit."""
     genomes, role_map, good = _signature_case()
     table = build_signatures(genomes, role_map, good, k=8, progress=False,
                              weight_mode=weights, device="cpu")
@@ -490,3 +495,133 @@ def test_device_groupby_on_cuda_matches_native(cuda):
                                       getattr(want, name))
     assert got.stats == want.stats
     assert got.stats["pruned"] > 0 and got.stats["killed"] > 0
+
+
+HASH_EDGES = {
+    "k8_odd": dict(k=8, n_prot=301, n_rows=37),
+    "k12_walk": dict(k=12, n_prot=400, n_rows=61, squeeze=True),
+    "k8_owners_at_cap": dict(k=8, n_prot=200, n_rows=19, family=40),
+    "k5_exact_cols": dict(k=5, n_prot=77, n_rows=5, exact_cols=True),
+    "k8_one_row": dict(k=8, n_prot=9, n_rows=1),
+    "k8_wide": dict(k=8, n_prot=3001, n_rows=1000),
+}
+
+
+def _chunk_on(c, dev, mode=None):
+    """made_up_chunk's tensors on ``dev``; ``mode`` "empty" keeps no chunk
+    kmer, "misses" turns every kmer into a miss."""
+    c = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+         for k, v in c.items()}
+    if mode == "empty":
+        for key in ("lo", "hi", "proto", "valid"):
+            c[key] = c[key][:0]
+    elif mode == "misses":
+        c["lo"] = c["lo"] | (1 << 30)        # no packed kmer has bit 30
+    return c
+
+
+@pytest.mark.parametrize("mode", [None, "empty", "misses"])
+@pytest.mark.parametrize("case", list(HASH_EDGES))
+def test_hash_chunk_kernels_match_plain(cuda, case, mode):
+    """Both chunk kernels against their plain versions: counts and ranks
+    equal, the carried state (c, u, index, improvements) bit-equal, the
+    counts cleared; a table whose lookups walk, owner rows at the cap,
+    row and column counts off powers of two, an empty chunk, all misses."""
+    params = HASH_EDGES[case]
+    rng = np.random.default_rng(len(case) * 11 + len(mode or ""))
+    c = _chunk_on(made_up_chunk(rng, **params), cuda, mode)
+    if params.get("squeeze"):
+        assert c["max_probes"] > 1
+    args = (c["table"], c["max_probes"], c["owner_mat"], c["lo"], c["hi"],
+            c["proto"], c["valid"], c["n_rows"], c["n_pad"])
+    before = (hash_commons.launches, hash_best.launches)
+    got, ranks = hash_commons(*args, with_ranks=True)
+    torch.cuda.synchronize()
+    assert hash_commons.launches == before[0] + (mode != "empty")
+    want, want_ranks = hash_commons_plain(*args, with_ranks=True)
+    assert torch.equal(got, want) and torch.equal(ranks, want_ranks)
+    assert (int(got.sum()) > 0) == (mode is None)
+    state = carried_state(rng, c["n_pad"], cuda)
+    got_state = tuple(t.clone() for t in state)
+    want_state = tuple(t.clone() for t in state)
+    plain_common = want.clone()
+    hash_best(got, c["n_rows"], c["n1"], c["n2"], c["minc"], got_state, 77)
+    torch.cuda.synchronize()
+    assert hash_best.launches == before[1] + 1
+    hash_best_plain(plain_common, c["n_rows"], c["n1"], c["n2"], c["minc"],
+                    want_state, 77)
+    for g, w in zip(got_state, want_state):
+        assert torch.equal(g, w)
+    assert not got.any()
+    if mode is None and case == "k8_wide":
+        assert int(got_state[3][0]) > 17
+
+
+def test_hash_commons_adds_into_a_buffer(cuda):
+    """The engine's reused count buffer: counts are added into its first
+    rows, the rest stay zero, and hash_best leaves it all zero."""
+    c = _chunk_on(made_up_chunk(np.random.default_rng(3), 8, 500, 50), cuda)
+    out = torch.zeros((64, c["n_pad"]), dtype=torch.int32, device=cuda)
+    args = (c["table"], c["max_probes"], c["owner_mat"], c["lo"], c["hi"],
+            c["proto"], c["valid"], c["n_rows"], c["n_pad"])
+    got = hash_commons(*args, out=out)
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, hash_commons_plain(*args))
+    assert not out[50:].any()
+    state = carried_state(np.random.default_rng(4), c["n_pad"], cuda)
+    hash_best(out, c["n_rows"], c["n1"], c["n2"], c["minc"], state, 0)
+    assert not out.any()
+
+
+def _hash_case():
+    """Four genomes' worth of proteins (families of variants shared across
+    genomes), prototypes from them and noise; min score 0.0125."""
+    rng = np.random.default_rng(9)
+    aa = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    pool = [rng.integers(0, 20, int(rng.integers(60, 300)))
+            for _ in range(300)]
+    genomes = []
+    for g in range(4):
+        prots = []
+        for p in pool:
+            v = p.copy()
+            v[rng.integers(0, len(v), 3)] = rng.integers(0, 20, 3)
+            prots.append("".join(aa[v]))
+        genomes.append(prots)
+    protos = []
+    for i in range(700):
+        src = pool[int(rng.integers(0, len(pool)))].copy()
+        n_sub = int(rng.integers(0, 8))
+        src[rng.integers(0, len(src), n_sub)] = rng.integers(0, 20, n_sub)
+        protos.append(hashanno.Prototype("".join(aa[src]), f"Role {i}"))
+    return genomes, protos
+
+
+@pytest.mark.parametrize("route", ["fast", "host"])
+def test_hash_engine_on_cuda_matches_cpu(cuda, route, monkeypatch):
+    """GenomeProteinKmers on the card against the CPU (which the CPU tests
+    hold equal to the JAX reference), on both routes: best similarity,
+    annotation and improvement count equal, with 300-prototype chunks;
+    the fast route launches each kernel once a chunk, the host route only
+    the counts."""
+    if route == "host":
+        monkeypatch.setattr(hashanno, "OWNER_CAP", 2)
+    genomes, protos = _hash_case()
+    pset = hashanno.PrototypeSet(protos, 8)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        gk = hashanno.GenomeProteinKmers(8, 0.0125, device=dev)
+        for gi, prots in enumerate(genomes):
+            for i, p in enumerate(prots):
+                gk.add_protein(f"fig|{gi}.peg.{i}", p, f"old {gi}.{i}")
+        before = (hash_commons.launches, hash_best.launches)
+        matches = gk.process_proposals(pset, chunk=300)
+        outs[dev.type] = (matches, list(gk.best_sim), gk.best_anno,
+                          (hash_commons.launches - before[0],
+                           hash_best.launches - before[1]))
+    n_chunks = -(-len(protos) // 300)
+    assert outs["cuda"][3] == ((n_chunks, n_chunks) if route == "fast"
+                               else (n_chunks, 0))
+    assert outs["cpu"][3] == (0, 0)
+    assert outs["cuda"][:3] == outs["cpu"][:3]
+    assert sum(s > 0 for s in outs["cpu"][1]) > 100

@@ -16,10 +16,13 @@ import pytest
 
 from kmers_anno_tpu import native as ref_native
 from kmers_anno_tpu.commands import app as ref_app
+from kmers_anno_tpu.commands import base as ref_base
+from kmers_anno_tpu.engine import annotation as ref_annotation
 from kmers_anno_tpu.genome import dna as ref_dna
 from kmers_anno_tpu.genome import gto as ref_gto
 from kmers_anno_tpu.genome import locations as ref_loc
 from kmers_anno_tpu.genome import roles as ref_roles
+from kmers_anno_tpu.genome import sources as ref_sources
 from kmers_anno_tpu.ops import encode as ref_enc
 from kmers_anno_tpu.ops import hashing as ref_hashing
 from kmers_anno_tpu.ops import orf as ref_orf
@@ -27,8 +30,9 @@ from kmers_anno_tpu.reports import apply_reports as ref_reports
 from kmers_anno_tpu.utils import counters as ref_counters
 from kmers_anno_tpu.utils import io as ref_io
 from kmers_anno_tpu_torch import native
-from kmers_anno_tpu_torch.commands import app
-from kmers_anno_tpu_torch.genome import dna, gto, locations, roles
+from kmers_anno_tpu_torch.commands import app, base
+from kmers_anno_tpu_torch.engine import annotation
+from kmers_anno_tpu_torch.genome import dna, gto, locations, roles, sources
 from kmers_anno_tpu_torch.ops import encode, hashing, orf
 from kmers_anno_tpu_torch.reports import apply_reports
 from kmers_anno_tpu_torch.utils import counters
@@ -238,6 +242,71 @@ def test_genome_directory_matches_reference(tmp_path):
     assert [g.id for g in port] == [g.id for g in ref]
 
 
+def test_peg_function_and_md5_match_reference():
+    raw = _genome_raw(0)
+    raw["features"][0]["function"] = ""
+    port, ref = gto.Genome(raw), ref_gto.Genome(raw)
+    assert [f.peg_function for f in port.features] == [
+        f.peg_function for f in ref.features]
+    assert port.features[0].peg_function == "hypothetical protein"
+    for prot in ("MKVLAA", "mkvlaa*", ""):
+        assert gto.protein_md5(prot) == ref_gto.protein_md5(prot)
+
+
+def test_genome_sources_match_reference(tmp_path):
+    for i in range(3):
+        make_genome(f"{70 + i}.1", seed=i).save(
+            str(tmp_path / f"{70 + i}.1.gto"))
+    (tmp_path / "notes.txt").write_text("x")
+    for type_name in ("DIR", "dir", "PATRIC"):
+        port = sources.GenomeSource.create(type_name, str(tmp_path))
+        ref = ref_sources.GenomeSource.create(type_name, str(tmp_path))
+        assert type(port).__name__ == type(ref).__name__
+        assert (len(port), port.ids()) == (len(ref), ref.ids())
+        if type_name != "PATRIC":
+            assert [g.id for g in port] == [g.id for g in ref]
+            assert port.get("99.9") is None and ref.get("99.9") is None
+    assert isinstance(sources.PatricGenomeSource(str(tmp_path)),
+                      sources.GenomeSource)
+    for create in (sources.GenomeSource.create,
+                   ref_sources.GenomeSource.create):
+        with pytest.raises(ValueError):
+            create("NOPE", str(tmp_path))
+        with pytest.raises(FileNotFoundError):
+            create("DIR", str(tmp_path / "missing"))
+
+
+def test_multi_report_processor_matches_reference(tmp_path, monkeypatch):
+    """-D / --clear and the output directory's preparation."""
+    monkeypatch.setenv("KMERS_ANNO_LOG", "off")
+    outs = []
+    for module, tag in ((base, "port"), (ref_base, "ref")):
+        out = tmp_path / tag
+        out.mkdir()
+        (out / "old.tbl").write_text("x")
+        (out / "keep").mkdir()
+        proc = module.BaseMultiReportProcessor()
+        proc.parse("t", ["-D", str(out), "--clear"])
+        proc.prepare_out_dir()
+        outs.append((sorted(os.listdir(out)),
+                     os.path.relpath(proc.out_file("a.tbl"), tmp_path)
+                     .replace(tag, "")))
+        fresh = module.BaseMultiReportProcessor()
+        fresh.parse("t", ["-D", str(tmp_path / tag / "new")])
+        fresh.prepare_out_dir()
+        assert os.path.isdir(tmp_path / tag / "new")
+        assert fresh.default_out_dir() == os.getcwd()
+    assert outs[0] == outs[1] == (["keep"], "/a.tbl")
+
+
+def test_annotation_names_match_reference():
+    assert annotation.OUTPUT_HEADER == ref_annotation.OUTPUT_HEADER
+    assert annotation.ANNO_FILE_RE.pattern == ref_annotation.ANNO_FILE_RE.pattern
+    for name in ("83333.1.anno.tbl", "83333.anno.tbl", "1.2.anno.tbl.bak"):
+        assert (bool(annotation.ANNO_FILE_RE.fullmatch(name))
+                == bool(ref_annotation.ANNO_FILE_RE.fullmatch(name)))
+
+
 def test_annotation_history_matches_reference():
     port = gto.Feature.create("f", "F", "c", "+", 1, 9)
     ref = ref_gto.Feature.create("f", "F", "c", "+", 1, 9)
@@ -342,7 +411,7 @@ def test_command_table_matches_reference():
     assert [(name, desc) for name, (_, desc) in app.COMMANDS.items()] == [
         (name, desc) for name, (_, desc) in ref_app.COMMANDS.items()]
     assert {n for n, (f, _) in app.COMMANDS.items() if f} == {
-        "kmers", "batch", "build", "apply"}
+        "kmers", "batch", "build", "apply", "hashAnno"}
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +511,27 @@ def test_native_baselines_match_reference(both_native):
     assert np.array_equal(
         native.JavaDataflowBaseline(kmers, role, 8).apply(queries, 8, 2),
         ref_native.JavaDataflowBaseline(kmers, role, 8).apply(queries, 8, 2))
+
+
+def test_native_hash_baseline_matches_reference(both_native):
+    """The single-core hashAnno loop the chip smoke checks the engine
+    against: kmer count, improvement events, best similarity and
+    winner, over two batches of prototypes."""
+    rng = np.random.default_rng(6)
+    prots = [_text(rng, "ACDEFGHIKLMNPQRSTVWYX", int(rng.integers(5, 120)))
+             for _ in range(40)]
+    protos = [p[int(rng.integers(0, 5)):] for p in prots[::3]] + [
+        _text(rng, "ACDEFGHIK", 60) for _ in range(5)]
+    got = native.HashAnnoBaseline(prots, 8, 0.0125)
+    want = ref_native.HashAnnoBaseline(prots, 8, 0.0125)
+    assert got.n_kmers() == want.n_kmers() > 0
+    for half in (protos[:7], protos[7:]):
+        assert got.score(half) == want.score(half)
+    for g, w in zip(got.best(), want.best()):
+        np.testing.assert_array_equal(g, w)
+    assert (got.best()[0] > 0).any()
+    got.close()
+    want.close()
 
 
 def test_native_builds_into_the_build_directory():

@@ -14,8 +14,8 @@ def test_sources_are_the_cu_files_and_headers_are_inputs():
     sources = [os.path.basename(p) for p in kernels._sources()]
     inputs = [os.path.basename(p) for p in kernels._inputs()]
     assert sources and all(s.endswith(".cu") for s in sources)
-    assert {"apply_rows.cu", "probe_wide.cu", "contig_scan.cu"} <= set(
-        sources)
+    assert {"apply_rows.cu", "probe_wide.cu", "contig_scan.cu",
+            "hash_chunk.cu"} <= set(sources)
     assert "wide_probe.cuh" in inputs and "wide_probe.cuh" not in sources
     assert set(sources) < set(inputs)
     # every header a source includes is an input
