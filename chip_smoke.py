@@ -48,15 +48,18 @@ is also checked on made-up rows (k = 8, and k = 12 with lookups that walk).
 
 Then hashAnno.  Both chunk kernels (``hash_commons``, ``hash_best``) are
 held against their plain versions on made-up chunks (k = 8 and 12, a
-table whose lookups walk, owner rows at the cap, chunk and protein counts
-off powers of two).  bench.py's hashAnno shape (4 genomes x 1,500
+table whose lookups walk, owner rows at the cap, 5,000-aa prototypes,
+chunk and protein counts off powers of two), each in the engine's order,
+shuffled and key-major.  bench.py's hashAnno shape (4 genomes x 1,500
 proteins of 250 aa, 32,768 prototypes; generator copied, seed 7) runs
 through one combined ``GenomeProteinKmers``: every protein's best
 similarity and winning prototype must equal ``native.HashAnnoBaseline``
 (one hash a genome); it reports prototype-genome pairs/s over five warm
 runs and a split of one run, and times both kernels on its first chunk
 beside their plain versions, the unfused torch scatter and one
-``torch.bincount`` (``library_ms``).  Last, ``hashAnno --batch 4`` runs
+``torch.bincount`` (``library_ms``), with ``hash_commons`` also on that
+chunk key-major and each order's distinct cells a kernel tile (its global
+adds).  Last, ``hashAnno --batch 4`` runs
 twice (cold, warm) through the CLI on the four signature genomes with a
 32,832-row annotation file; every row of every ``<gid>.anno.tbl`` must
 equal the baseline's best similarity (``repr``) and winner, the engine
@@ -83,7 +86,9 @@ device time; then a ``cProfile`` of one more warm genome on the host.
 ``--compare DIR`` also times the kernels (``contig_scan`` on the padded
 window stream and on the two strands, ``probe_wide`` on the union table
 and on the fused close tables, ``apply_rows`` on the bench batches, and
-``hash_commons`` and ``hash_best`` on the hashAnno bench chunk) of
+``hash_commons`` on the hashAnno bench chunk and on the first chunk of
+the hashAnno CLI batch, each in the engine's order and key-major, and
+``hash_best`` on the bench chunk) of
 this tree's build against the build of the tree at DIR (the root of
 another checkout, such as the parent commit's) through their C entry
 points: in turns (A B B A), each turn ``LAUNCH_REPS`` passes back to back,
@@ -403,13 +408,6 @@ def launch_hash_commons(lib, table, max_probes, owner_mat, lo, hi, proto,
     return out
 
 
-def launch_hash_commons_fresh(lib, *args):
-    """``launch_hash_commons`` into its buffer zeroed first, so that every
-    pass gives the same counts (``--compare``)."""
-    args[-1].zero_()
-    return launch_hash_commons(lib, *args)
-
-
 def launch_hash_best(lib, common, n_rows, n1, n2, minc, state, base):
     """hash_best through a kernel library's C entry point (uncounted).  It
     clears the counts it reads, so a pass after the first reads a zero
@@ -428,8 +426,9 @@ def launch_hash_best(lib, common, n_rows, n1, n2, minc, state, base):
 launch_scan.entry = "kan_contig_scan"
 launch_probe.entry = "kan_probe_wide"
 launch_apply.entry = "kan_apply_rows"
-launch_hash_commons.entry = launch_hash_commons_fresh.entry = (
-    "kan_hash_commons")
+launch_hash_commons.entry = "kan_hash_commons"
+# the pass whose outputs ``--compare`` checks adds into a zeroed buffer
+launch_hash_commons.reset = lambda *args: args[-1].zero_()
 launch_hash_best.entry = "kan_hash_best"
 
 
@@ -450,7 +449,8 @@ def build_contenders(other: str, tmp: str) -> dict:
 def compare_contenders(libs: dict, cases: dict) -> dict:
     """Each case's kernel under every library, in turns (A B C C B A); a
     turn is ``launch_ms`` (``LAUNCH_REPS`` passes back to back), and its
-    outputs must equal this build's.  Returns {case: {library: mean of its
+    outputs must equal this build's (after the launch's ``reset`` of its
+    arguments, where it has one).  Returns {case: {library: mean of its
     two turns' ms per launch}}."""
     def flat(outs):
         return [t for o in outs for t in (o if isinstance(o, tuple)
@@ -463,6 +463,8 @@ def compare_contenders(libs: dict, cases: dict) -> dict:
         order = names + names[::-1]
 
         def run(lib):
+            for a in arg_sets:
+                getattr(launch, "reset", lambda *_: None)(*a)
             return [launch(lib, *a) for a in arg_sets]
         # a copy: a launch may write into outputs it is given
         want = [t.clone() for t in flat(run(libs["this"]))]
@@ -1774,6 +1776,54 @@ def carried_state(rng, n_pad, device="cpu"):
                  for x in (c, u, i, np.array([17], np.int32)))
 
 
+CHUNK_ORDERS = ("engine", "shuffled", "key-major")
+
+
+def reorder_chunk(c: dict, order: str, rng=None) -> tuple[dict, torch.Tensor]:
+    """Chunk ``c`` with its kmers in another order, and the permutation
+    (``new[j] = old[perm[j]]``): "engine" as the engine packs it
+    (prototype by prototype, key order within a prototype, prototypes that
+    share their smallest kmer side by side), "shuffled" a seeded
+    permutation of every position (``rng``), "key-major" the valid kmers
+    by key, then prototype (equal kmers adjacent), padding last."""
+    n = c["lo"].numel()
+    if order == "engine":
+        perm = np.arange(n)
+    elif order == "shuffled":
+        perm = rng.permutation(n)
+    elif order == "key-major":
+        key = ((c["hi"].cpu().numpy().view(np.uint32).astype(np.uint64)
+                << np.uint64(32))
+               | c["lo"].cpu().numpy().view(np.uint32).astype(np.uint64))
+        perm = np.lexsort((c["proto"].cpu().numpy(), key,
+                           ~c["valid"].cpu().numpy()))
+    else:
+        raise ValueError(f"unknown chunk order {order!r}")
+    perm = torch.from_numpy(perm).to(c["lo"].device)
+    return dict(c, **{k: c[k][perm] for k in ("lo", "hi", "proto",
+                                               "valid")}), perm
+
+
+def tile_cells(c: dict, ranks: torch.Tensor) -> torch.Tensor:
+    """The distinct count cells (prototype row, owner) of each tile of
+    ``COMMONS_TILE`` chunk kmers, as ``kan_hash_commons`` counts them
+    (``ranks``: each kmer's probed rank).  A tile with at most
+    ``COMMONS_TABLE_CELLS`` makes one global add a cell; a tile with more
+    spills the counts of its later cells straight to the matrix."""
+    from kmers_anno_tpu_torch.ops.hash_chunk import COMMONS_TILE
+
+    n_rows, n_pad = c["n_rows"], c["n_pad"]
+    own = c["owner_mat"][torch.clamp(ranks, min=0).long()].long()
+    keep = (((ranks >= 0) & (c["proto"] >= 0)
+             & (c["proto"] < n_rows))[:, None] & (own < n_pad))
+    tile = (torch.arange(ranks.numel(), device=ranks.device)
+            // COMMONS_TILE)[:, None].expand_as(own)[keep]
+    cell = (c["proto"].long()[:, None] * n_pad + own)[keep]
+    n_cells = max(n_rows * n_pad, 1)
+    first = torch.unique(tile * n_cells + cell) // n_cells
+    return torch.bincount(first, minlength=-(-ranks.numel() // COMMONS_TILE))
+
+
 def bucket_reads(table, lo, hi, valid, max_probes) -> tuple[int, int, int]:
     """What this run's lookups need from an 8-slot table: (distinct
     buckets whose lo keys they read, bucket reads, hits).  A key walks
@@ -1804,7 +1854,7 @@ def bucket_reads(table, lo, hi, valid, max_probes) -> tuple[int, int, int]:
 
 HASH_KEY_OPS = 14               # a key's two fmix32 and the mask
 HASH_BUCKET_OPS = 16            # 8 lo compares and 8 free-slot tests
-HASH_OWNER_OPS = 2              # an owner's bound test and its atomic add
+HASH_OWNER_OPS = 2              # an owner's bound test and its count
 HASH_CELL_OPS = 2               # a count's load and zero test
 HASH_COUNT_OPS = 10             # a non-zero count's floor and compare
 
@@ -1845,6 +1895,57 @@ def hash_chunk_args(c):
             c["proto"], c["valid"], c["n_rows"], c["n_pad"])
 
 
+def commons_orders(c: dict, what: str, total: int) -> tuple[dict, dict]:
+    """``hash_commons`` on chunk ``c`` (tensors on the card) in the
+    engine's order and key-major: the key-major counts and ranks equal to
+    the plain version's; for each order the distinct cells of each kernel
+    tile (one global add a cell where the tile keeps them all), its time
+    alone (``launch_ms``) and its ``--compare`` case, "the {what} chunk"
+    and "the key-major {what} chunk".  ``total`` is the chunk's count of
+    counts, a global atomic each in the kernel this one replaced."""
+    from kmers_anno_tpu_torch.ops.hash_chunk import (COMMONS_TABLE_CELLS,
+                                                     COMMONS_TILE,
+                                                     hash_commons,
+                                                     hash_commons_plain)
+    from kmers_anno_tpu_torch.ops.hashtable import probe_table
+
+    km, _ = reorder_chunk(c, "key-major")
+    got, ranks = hash_commons(*hash_chunk_args(km), with_ranks=True)
+    want, want_ranks = hash_commons_plain(*hash_chunk_args(km),
+                                          with_ranks=True)
+    require(torch.equal(got, want) and torch.equal(ranks, want_ranks),
+            f"hash_commons differs from its plain version on the key-major "
+            f"{what} chunk")
+    stats, cases = {}, {}
+    for order, chunk_c in (("engine", c), ("key-major", km)):
+        cells = tile_cells(chunk_c, probe_table(
+            chunk_c["table"], chunk_c["lo"], chunk_c["hi"], chunk_c["valid"],
+            chunk_c["max_probes"]))
+        spilled = cells > COMMONS_TABLE_CELLS
+        buf = torch.zeros((c["n_rows"], c["n_pad"]), dtype=torch.int32,
+                          device=c["lo"].device)
+        launch = (launch_hash_commons, [(*hash_chunk_args(chunk_c), buf)])
+        t = stats[order] = dict(
+            tiles=len(cells), spilled_tiles=int(spilled.sum()),
+            max_tile_cells=int(cells.max()),
+            global_adds=int(cells[~spilled].sum()),
+            spilled_tile_cells=int(cells[spilled].sum()),
+            launch_ms=launch_ms(*launch))
+        name = "" if order == "engine" else "key-major "
+        cases[f"the {name}{what} chunk (hash_commons)"] = launch
+        print(f"hash_commons on the {what} chunk, {order} order: "
+              f"{t['launch_ms']:.4f} ms a launch back to back; {t['tiles']} "
+              f"tiles of {COMMONS_TILE} chunk kmers, at most "
+              f"{t['max_tile_cells']} distinct cells a tile; "
+              f"{t['tiles'] - t['spilled_tiles']} tiles keep every cell in "
+              f"the shared table and make {t['global_adds']} global adds; "
+              f"{t['spilled_tiles']} tiles hold more than "
+              f"{COMMONS_TABLE_CELLS} cells ({t['spilled_tile_cells']} in "
+              f"all) and spill; one global atomic a count would be {total}",
+              flush=True)
+    return stats, cases
+
+
 def check_hash_pair(c, state, base=0) -> tuple[int, int]:
     """Both chunk kernels against their plain versions on chunk ``c``
     (tensors on the card): counts and ranks equal, then the state from
@@ -1878,9 +1979,16 @@ def on_device(c: dict, dev) -> dict:
 
 
 def check_hash_chunk(dev) -> None:
-    """The chunk kernels against their plain versions on made-up chunks:
-    k = 8 and 12, a table whose lookups walk, owner rows at the cap, chunk
-    and protein counts off powers of two and off multiples of 256."""
+    """The chunk kernels against their plain versions on made-up chunks,
+    each in the engine's order, shuffled and key-major: k = 8 and 12, a
+    table whose lookups walk, owner rows at the cap (whose key-major tiles
+    overflow the kernel's shared table), 5,000-aa prototypes whose kmers
+    span several tiles, chunk and protein counts off powers of two and off
+    multiples of 256."""
+    from kmers_anno_tpu_torch.ops.hash_chunk import (COMMONS_TABLE_CELLS,
+                                                     COMMONS_TILE)
+    from kmers_anno_tpu_torch.ops.hashtable import probe_table
+
     rng = np.random.default_rng(SEED + 4)
     for what, params in (
             ("k=8", dict(k=8, n_prot=3001, n_rows=1001)),
@@ -1888,20 +1996,34 @@ def check_hash_chunk(dev) -> None:
                                            squeeze=True)),
             ("k=8, owners at the cap", dict(k=8, n_prot=1000, n_rows=257,
                                             family=40)),
+            ("k=8, 5,000-aa prototypes", dict(k=8, n_prot=60, n_rows=5,
+                                              plen=5000)),
             ("k=8, n_pad = 5,000 proteins", dict(k=8, n_prot=5000,
                                                  n_rows=4093,
                                                  exact_cols=True))):
-        c = on_device(made_up_chunk(rng, **params), dev)
-        require(not params.get("squeeze") or c["max_probes"] > 1,
+        made = on_device(made_up_chunk(rng, **params), dev)
+        require(not params.get("squeeze") or made["max_probes"] > 1,
                 "the squeezed table does not walk")
-        total, improved = check_hash_pair(c, carried_state(rng, c["n_pad"],
-                                                           dev), 99)
-        require(total > 0 and improved > 0, f"hash chunk {what}: no counts")
-        print(f"hash_commons + hash_best, {what}: {c['lo'].numel()} chunk "
-              f"kmers x {c['n_rows']} prototypes x {c['n_pad']} columns, "
-              f"cap {c['owner_mat'].shape[1]}, max_probes "
-              f"{c['max_probes']}: {total} counts, {improved} improvements, "
-              f"equal to the plain versions", flush=True)
+        for order in CHUNK_ORDERS:
+            c, _ = reorder_chunk(made, order, rng)
+            total, improved = check_hash_pair(
+                c, carried_state(rng, c["n_pad"], dev), 99)
+            require(total > 0 and improved > 0,
+                    f"hash chunk {what}, {order}: no counts")
+            cells = tile_cells(c, probe_table(c["table"], c["lo"], c["hi"],
+                                              c["valid"], c["max_probes"]))
+            spilled = int((cells > COMMONS_TABLE_CELLS).sum())
+            require(params.get("family", 1) == 1 or order != "key-major"
+                    or spilled, f"hash chunk {what}: no key-major tile "
+                    f"overflows the shared table")
+            print(f"hash_commons + hash_best, {what}, {order} order: "
+                  f"{c['lo'].numel()} chunk kmers x {c['n_rows']} prototypes "
+                  f"x {c['n_pad']} columns, cap {c['owner_mat'].shape[1]}, "
+                  f"max_probes {c['max_probes']}: {total} counts, "
+                  f"{improved} improvements, equal to the plain versions; "
+                  f"{len(cells)} tiles of {COMMONS_TILE}, at most "
+                  f"{int(cells.max())} cells a tile, {spilled} over the "
+                  f"shared table", flush=True)
 
 
 def make_hash_bench(rng):
@@ -2122,6 +2244,11 @@ def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
     commons.update(library_ms=library_ms, library=(
         "torch.bincount over the chunk's (prototype, owner) pair indices: "
         "the scatter only, without the probe and the owner gather"))
+    # the same chunk key-major (the order before the engine's prototype
+    # order), and each order's cells a kernel tile
+    orders, order_cases = commons_orders(c, "bench", total)
+    commons.update(tiles=orders, key_major_launch_ms=orders["key-major"][
+        "launch_ms"])
 
     # hash_best on the same counts, which it clears: each timed pass gets
     # them and the fresh state back outside its event pair
@@ -2171,9 +2298,8 @@ def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
           f"bound {best['bound_ms']:.4f} ms ({best['bound_by']}, "
           f"{best['bound_bytes']} bytes), share {best['bound_share']:.3f}, "
           f"back to back {best['launch_share']:.3f}", flush=True)
-    cases = {"the bench chunk (hash_commons)": (
-                 launch_hash_commons_fresh, [(*args, buf)]),
-             "the bench chunk (hash_best)": (launch_hash_best, [best_args])}
+    cases = dict(order_cases)
+    cases["the bench chunk (hash_best)"] = (launch_hash_best, [best_args])
     return routes, {"hash_commons": commons, "hash_best": best}, cases
 
 
@@ -2211,10 +2337,15 @@ class _CheckedChunks:
 
         self.hashanno = hashanno
         self.chunks = []            # (rows, columns, non-zero counts)
+        self.first = None           # the first chunk's hash_commons inputs
 
     def commons(self, *a, out=None, **kw):
         from kmers_anno_tpu_torch.ops.hash_chunk import hash_commons_plain
 
+        if self.first is None:
+            self.first = dict(zip(("table", "max_probes", "owner_mat", "lo",
+                                   "hi", "proto", "valid", "n_rows",
+                                   "n_pad"), a))
         before = None if out is None else out[: a[7]].clone()
         got = self._commons(*a, out=out, **kw)
         want = hash_commons_plain(*a, out=before, **kw)
@@ -2252,16 +2383,19 @@ class _CheckedChunks:
         return False
 
 
-def run_hash_cli(dev, tmp: str) -> dict:
+def run_hash_cli(dev, tmp: str) -> tuple[dict, dict]:
     """``hashAnno --batch 4`` through the CLI on the signature genomes
     (four genomes of 4,020 pegs of 300 aa) with a 32,832-row annotation
     file, twice (cold, warm).  Every row of every ``<gid>.anno.tbl``
     against ``HashAnnoBaseline``; the fast route, one launch of each chunk
     kernel a chunk.  A third, untimed run holds both chunk kernels against
-    their plain versions on every chunk of this shape."""
+    their plain versions on every chunk of this shape, and its first chunk
+    goes through ``commons_orders``.  Returns the route's launches and the
+    ``--compare`` cases of that chunk."""
     from kmers_anno_tpu_torch.commands.app import main
     from kmers_anno_tpu_torch.engine import hashanno
     from kmers_anno_tpu_torch.genome.gto import protein_md5
+    from kmers_anno_tpu_torch.ops.hash_chunk import hash_commons_plain
 
     t0 = time.perf_counter()
     genomes, _ = make_signature_genomes(
@@ -2319,6 +2453,9 @@ def run_hash_cli(dev, tmp: str) -> dict:
           f"hash_best equal to their plain versions on all {n_chunks} "
           f"chunks of {checked.chunks[0][0]} x {n_pad} (non-zero counts a "
           f"chunk: {[c[2] for c in checked.chunks]})", flush=True)
+    first = checked.first
+    counts = int(hash_commons_plain(*hash_chunk_args(first)).sum())
+    _, cases = commons_orders(first, "CLI", counts)
     want, base_wall, base_sum = hash_baselines(
         [[f.protein_translation for f in g.features] for g in genomes],
         [p for p, _ in rows], HASH_MIN_SCORE)
@@ -2355,7 +2492,7 @@ def run_hash_cli(dev, tmp: str) -> dict:
           f"all; cold {secs[0]:.2f} s, warm {secs[1]:.2f} s for the "
           f"4-genome batch (GTO load included); launches {runs[0]}",
           flush=True)
-    return {"hash_cli": dict(launches=runs[0])}
+    return {"hash_cli": dict(launches=runs[0])}, cases
 
 
 def main() -> None:
@@ -2418,7 +2555,9 @@ def main() -> None:
     measured.update(hash_measured)
     cases.update(hash_cases)
     with tempfile.TemporaryDirectory() as tmp:
-        routes.update(phase("hashAnno CLI", run_hash_cli, dev, tmp))
+        cli_routes, cli_cases = phase("hashAnno CLI", run_hash_cli, dev, tmp)
+    routes.update(cli_routes)
+    cases.update(cli_cases)
     if args.compare:
         with tempfile.TemporaryDirectory() as tmp:
             phase("compare", lambda: compare_contenders(

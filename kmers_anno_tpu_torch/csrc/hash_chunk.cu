@@ -6,19 +6,38 @@
 // tournament and state update of _chunk_best (:71-119), XLA kernels on the
 // TPU.  Plain versions: ops/hash_chunk.py.
 //
-// kan_hash_commons: one thread a chunk kmer (lo, hi, prototype row, valid).
-// It walks the 8-slot table ((B, 24) words, [8 lo | 8 hi | 8 payloads] a
+// kan_hash_commons: a block of 1,024 threads counts a tile of kTileKmers
+// chunk kmers (lo, hi, prototype row, valid), one a thread.  A thread
+// walks the 8-slot table ((B, 24) words, [8 lo | 8 hi | 8 payloads] a
 // bucket, home bucket = mix_kmer(lo, hi) & (B - 1), the unsalted murmur3
 // mix of ops/hashing.py; at most max_probes buckets, stopping at the first
-// bucket with a free slot), and on a hit reads the kmer's owner row
-// owner_mat[rank, :cap] and adds one to common[row, owner] for each owner
-// below n_pad (the padding value, never written).  Integer atomics are
-// order-free, so the counts are exact whatever the schedule.  What bounds
-// it: the table's 32-byte sectors from L2 (the bench shape's table is 12
-// MB) and the atomics, about four a hit there, spread over the matrix
-// because the chunk's kmers come key-major, not prototype by prototype.
+// bucket with a free slot; a slot whose lo matches has its hi and payload
+// words read together), and on a hit reads the kmer's owner row
+// owner_mat[rank, :cap], in 16-byte pieces when cap is a multiple of 4.
+// Each owner below n_pad (the padding value, never written) is one count
+// for the cell row * n_pad + owner, added into the block's table of
+// (cell, count) in shared memory (open addressing, atomicCAS to claim a
+// slot); at the end of the tile each cell of the table is one global
+// atomicAdd.  The table keeps at most kTableCells cells; a count for a new
+// cell past that goes straight to the global matrix, so the counts are
+// exact in any order of the chunk's kmers.
 //
-// kan_hash_best: one thread a (protein column, row slice).  A block is 32
+// It replaces one thread a kmer with one global atomic a count.  On the
+// bench shape's first chunk that made 3.27M atomics on 16,450 cells, and
+// on the kmers in key order (as the engine then packed them) it took
+// 0.058 ms on an H100.  The engine now packs a chunk prototype by
+// prototype (engine/hashanno.py, PrototypeSet.chunks), so a tile covers a
+// few prototypes and a few dozen cells, and a chunk needs some 20,000
+// global adds.  What bounds it then is the lookups: a bucket's lo keys, a
+// hit's hi and payload, its owner row, dependent reads from a 12.6 MB table
+// and a 15.8 MB owner matrix on the bench shape, several times that on
+// larger genome batches.  In key order, equal kmers of several prototypes
+// sit in one warp and share those reads; prototype by prototype they do
+// not, so the engine puts prototypes that share their smallest kmer side by
+// side, and a block reads their buckets and owner rows into its cache once.
+// Merging equal cells across a warp first (__match_any_sync, or a ballot
+// on the first lane's cell) measured slower than the shared-memory adds.
+//// kan_hash_best: one thread a (protein column, row slice).  A block is 32
 // columns (one warp's lanes: each row read is one coalesced 128-byte line)
 // by 16 row slices (one warp each, a contiguous range of rows).  A thread
 // walks its rows in order and keeps the first strict maximum of c / u
@@ -45,7 +64,14 @@ constexpr int kBucket = 8;
 constexpr int kBucketWords = 3 * kBucket;
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 constexpr uint32_t kGolden = 0x9E3779B9u;
-constexpr int kCommonsThreads = 256;
+constexpr int kTileKmers = 1024;
+constexpr int kCommonsThreads = kTileKmers;   // one chunk kmer a thread
+constexpr int kTableCells = 1024;
+// at most kTableCells - 1 + kCommonsThreads slots are ever claimed (a claim
+// reads the cell count before its atomicCAS), so a walk always ends
+constexpr int kSlotBits = 11;
+constexpr int kTableSlots = 1 << kSlotBits;
+constexpr uint32_t kNoCell = 0xFFFFFFFFu;
 constexpr int kCols = 32;
 constexpr int kSlices = 16;
 constexpr int kUnroll = 8;
@@ -64,14 +90,54 @@ __device__ __forceinline__ int32_t probe_bucket_key(
     bool full = true;
 #pragma unroll
     for (int s = 0; s < kBucket; ++s) {
-      if (keys[s] == lo && __ldg(row + kBucket + s) == hi)
-        return static_cast<int32_t>(__ldg(row + 2 * kBucket + s));
+      if (keys[s] == lo) {
+        const uint32_t h = __ldg(row + kBucket + s);
+        const uint32_t v = __ldg(row + 2 * kBucket + s);
+        if (h == hi) return static_cast<int32_t>(v);
+      }
       full &= keys[s] != kEmpty;
     }
     if (!full) return -1;
     b = (b + 1) & mask;
   }
   return -1;
+}
+
+struct CellTable {
+  uint32_t cell[kTableSlots];
+  uint32_t count[kTableSlots];
+  uint32_t used;
+};
+
+static_assert(kTableCells - 1 + kCommonsThreads < kTableSlots,
+              "the cell table must always keep a free slot");
+
+// Count one for `cell` in the block's table, or straight in the global
+// matrix once the table holds kTableCells cells and `cell` is not one.
+__device__ __forceinline__ void add_cell(CellTable& t, int32_t* common,
+                                         uint32_t cell) {
+  volatile uint32_t* cells = t.cell;
+  uint32_t s = (cell * kGolden) >> (32 - kSlotBits);
+  while (true) {
+    uint32_t c = cells[s];
+    if (c == kNoCell) {
+      if (*static_cast<volatile uint32_t*>(&t.used) >= kTableCells) {
+        atomicAdd(common + cell, 1);
+        return;
+      }
+      c = atomicCAS(&t.cell[s], kNoCell, cell);
+      if (c == kNoCell) {
+        atomicAdd(&t.used, 1u);
+        atomicAdd(&t.count[s], 1u);
+        return;
+      }
+    }
+    if (c == cell) {
+      atomicAdd(&t.count[s], 1u);
+      return;
+    }
+    s = (s + 1) & (kTableSlots - 1);
+  }
 }
 
 __global__ void __launch_bounds__(kCommonsThreads)
@@ -83,20 +149,55 @@ hash_commons_kernel(const uint32_t* __restrict__ table, uint32_t mask,
                     const uint8_t* __restrict__ valid, int64_t h,
                     int32_t n_rows, int32_t n_pad, int32_t* common,
                     int32_t* ranks) {
+  __shared__ CellTable t;
+  for (int s = threadIdx.x; s < kTableSlots; s += kCommonsThreads) {
+    t.cell[s] = kNoCell;
+    t.count[s] = 0;
+  }
+  if (threadIdx.x == 0) t.used = 0;
+  __syncthreads();
   const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * kCommonsThreads + threadIdx.x;
-  if (i >= h) return;
-  const int32_t rank =
-      valid[i] ? probe_bucket_key(table, mask, q_lo[i], q_hi[i], max_probes)
-               : -1;
-  if (ranks) ranks[i] = rank;
-  const int32_t p = proto[i];
-  if (rank < 0 || p < 0 || p >= n_rows) return;
-  const int32_t* own = owner_mat + static_cast<int64_t>(rank) * cap;
-  int32_t* row = common + static_cast<int64_t>(p) * n_pad;
-  for (int j = 0; j < cap; ++j) {
-    const uint32_t o = static_cast<uint32_t>(__ldg(own + j));
-    if (o < static_cast<uint32_t>(n_pad)) atomicAdd(row + o, 1);
+      static_cast<int64_t>(blockIdx.x) * kTileKmers + threadIdx.x;
+  if (i < h) {
+    const int32_t rank =
+        valid[i]
+            ? probe_bucket_key(table, mask, q_lo[i], q_hi[i], max_probes)
+            : -1;
+    if (ranks) ranks[i] = rank;
+    const int32_t p = proto[i];
+    if (rank >= 0 &&
+        static_cast<uint32_t>(p) < static_cast<uint32_t>(n_rows)) {
+      const int32_t* own = owner_mat + static_cast<int64_t>(rank) * cap;
+      const uint32_t row = static_cast<uint32_t>(p) * n_pad;
+      if ((cap & 3) == 0 &&
+          (reinterpret_cast<uintptr_t>(owner_mat) & 15) == 0) {
+        // the row in 16-byte pieces, two loads in flight at a time
+        const uint4* own4 = reinterpret_cast<const uint4*>(own);
+        for (int q = 0; q < cap / 4; q += 2) {
+          const uint4 a = __ldg(own4 + q);
+          const uint4 b =
+              q + 1 < cap / 4
+                  ? __ldg(own4 + q + 1)
+                  : make_uint4(kNoCell, kNoCell, kNoCell, kNoCell);
+          const uint32_t o[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (o[j] < static_cast<uint32_t>(n_pad))
+              add_cell(t, common, row + o[j]);
+        }
+      } else {
+        for (int j = 0; j < cap; ++j) {
+          const uint32_t o = static_cast<uint32_t>(__ldg(own + j));
+          if (o < static_cast<uint32_t>(n_pad)) add_cell(t, common, row + o);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < kTableSlots; s += kCommonsThreads) {
+    const uint32_t cell = t.cell[s];
+    if (cell != kNoCell)
+      atomicAdd(common + cell, static_cast<int32_t>(t.count[s]));
   }
 }
 
@@ -184,8 +285,8 @@ hash_best_kernel(int32_t* common, int32_t n_rows, int32_t n_pad,
 
 // table: (n_buckets, 24) 32-bit words, n_buckets a power of two, 16-byte
 // aligned; owner_mat: (U, cap) int32; q_lo / q_hi / proto: (h,) int32,
-// valid: (h,) bytes; common: (>= n_rows, n_pad) int32, added into; ranks:
-// (h,) int32 or null.
+// valid: (h,) bytes; common: (>= n_rows, n_pad) int32, added into, with
+// n_rows * n_pad < 2^31 cells; ranks: (h,) int32 or null.
 extern "C" int kan_hash_commons(const int32_t* table, int64_t n_buckets,
                                 int max_probes, const int32_t* owner_mat,
                                 int64_t cap, const int32_t* q_lo,
@@ -194,7 +295,7 @@ extern "C" int kan_hash_commons(const int32_t* table, int64_t n_buckets,
                                 int64_t n_rows, int64_t n_pad,
                                 int32_t* common, int32_t* ranks,
                                 void* stream) {
-  const int64_t blocks = (h + kCommonsThreads - 1) / kCommonsThreads;
+  const int64_t blocks = (h + kTileKmers - 1) / kTileKmers;
   hash_commons_kernel<<<static_cast<unsigned>(blocks), kCommonsThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const uint32_t*>(table),

@@ -103,7 +103,8 @@ class PrototypeSet:
         """Prepared chunks: (d_lo, d_hi, d_proto, d_valid, n2, protos,
         n_proto, d_n2), the query arrays and ``d_n2`` on ``device``; ``n2``
         is the host copy of the distinct-kmer counts, padded to
-        ``n_proto`` rows."""
+        ``n_proto`` rows.  A chunk's distinct (kmer, prototype) pairs come
+        in the order of :func:`_similar_prototypes_adjacent`."""
         key = (chunk, str(device))
         cached = self._cache.get(key)
         if cached is not None:
@@ -113,6 +114,8 @@ class PrototypeSet:
             sub = self.protos[start: start + chunk]
             lo, hi, proto_of, n2 = _distinct_kmers_flat(
                 [p.protein for p in sub], self.k)
+            order = _similar_prototypes_adjacent(proto_of, len(sub))
+            lo, hi, proto_of = lo[order], hi[order], proto_of[order]
             n_proto = _bucket(len(sub), 64)
             h = _bucket(len(lo), 4096)
             qlo = np.zeros(h, np.int32)
@@ -129,6 +132,24 @@ class PrototypeSet:
                            n_proto, _device_i32(n2, device)))
         self._cache[key] = cached
         return cached
+
+
+def _similar_prototypes_adjacent(proto_of: np.ndarray, n: int) -> np.ndarray:
+    """The order in which a chunk's distinct (kmer, prototype) pairs are
+    packed, from the key-major order of :func:`_distinct_kmers_flat`:
+    prototype by prototype, each prototype's kmers in key order, the ``n``
+    prototypes sorted by their smallest kmer (their first pair in key
+    order).  Prototypes that share many kmers mostly share their smallest,
+    so they sit side by side, and a block of the count kernel
+    (``hash_commons``) reads their table buckets and owner rows into its
+    cache once."""
+    own = torch.from_numpy(proto_of.astype(np.int64))
+    first = torch.full((n,), len(own), dtype=torch.int64).scatter_reduce_(
+        0, own, torch.arange(len(own)), "amin")
+    place = torch.empty(n, dtype=torch.int32)
+    place[torch.sort(first, stable=True).indices] = torch.arange(
+        n, dtype=torch.int32)
+    return torch.sort(place[own], stable=True).indices.numpy()
 
 
 def _distinct_kmers_flat(proteins: list[str], k: int):

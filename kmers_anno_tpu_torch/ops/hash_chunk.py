@@ -10,9 +10,15 @@ row of the owner matrix.
 
 * :func:`hash_commons` counts, for every (prototype, protein) pair, the
   kmers they share: ``common[p, o]`` = |kmers(p) ∩ kmers(o)|.  CUDA
-  tensors launch ``kan_hash_commons`` (``csrc/hash_chunk.cu``): one
-  thread a chunk kmer probes the table and adds one to the cell of each of
-  its owners with an integer atomic, which is order-free and exact.
+  tensors launch ``kan_hash_commons`` (``csrc/hash_chunk.cu``): a block
+  takes a tile of ``COMMONS_TILE`` chunk kmers, one a thread; a thread
+  probes the table for its kmer and adds each owner's count into the
+  block's table of at most ``COMMONS_TABLE_CELLS`` (prototype, owner)
+  cells in shared memory, and each of its cells is one global integer
+  atomic at the end of the tile (a new cell past that goes straight to the
+  global matrix).  Integer adds are order-free, so the counts are exact in
+  any order of the chunk's kmers; the engine packs a chunk prototype by
+  prototype, which keeps a tile's cells few.
 * :func:`hash_best` turns the counts into each protein's best prototype
   and folds it into the carried state (c, u, index, improvements):
   similarity is the Jaccard quotient c / u with u = n1 + n2 - c, the
@@ -43,6 +49,14 @@ from .widetable import check_probe_args
 # dense (prototypes x proteins) chunks are capped at this many cells
 DENSE_CELLS = 1 << 26
 
+# chunk kmers a block of the kernel counts, and the distinct cells its
+# shared table keeps (``kTileKmers``, ``kTableCells`` in csrc/hash_chunk.cu)
+COMMONS_TILE = 1024
+COMMONS_TABLE_CELLS = 1024
+
+# the kernel indexes the count cells of a chunk (n_rows x n_pad) in 32 bits
+MAX_CELLS = (1 << 31) - 1
+
 # owner-matrix width cap: a kmer with more owners keeps its first OWNER_CAP
 # in the device matrix and the rest in a host CSR (the engine's host route)
 OWNER_CAP = 32
@@ -61,6 +75,9 @@ def _check_commons(table, max_probes, owner_mat, key_lo, key_hi, proto,
                          "proto int32")
     if n_rows < 0 or n_pad < 1:
         raise ValueError("hash_commons: n_rows >= 0 and n_pad >= 1")
+    if n_rows * n_pad > MAX_CELLS:
+        raise ValueError(f"hash_commons: n_rows x n_pad must be at most "
+                         f"{MAX_CELLS} cells")
     if out is not None and (out.dtype != torch.int32 or out.dim() != 2
                             or out.shape[0] < n_rows
                             or out.shape[1] != n_pad):
@@ -110,9 +127,11 @@ def hash_commons(table: torch.Tensor, max_probes: int,
     owner_mat: (U, cap) int32, the owner proteins of each rank, padded
                with ``n_pad``
     key_lo/key_hi/proto/valid: (H,) the chunk's kmers, each with its
-               prototype row; invalid entries count nothing
-    n_rows:    prototype rows of the chunk; a kmer of a row >= n_rows counts
+               prototype row, in any order (the kernel is fastest when a
+               prototype's kmers are adjacent); invalid entries count
                nothing
+    n_rows:    prototype rows of the chunk; a kmer of a row >= n_rows counts
+               nothing; n_rows * n_pad is at most ``MAX_CELLS``
     out:       optional zeroed int32 (>= n_rows, n_pad) buffer the counts
                are added into (its first n_rows rows are returned)
     returns    common (n_rows, n_pad) int32, and with ``with_ranks`` the

@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (carried_state, collision_rows, collision_table,
-                        made_up_chunk, made_up_rows, make_projection_workload,
-                        make_signature_genomes)
+from chip_smoke import (CHUNK_ORDERS, carried_state, collision_rows,
+                        collision_table, made_up_chunk, made_up_rows,
+                        make_projection_workload, make_signature_genomes,
+                        reorder_chunk, tile_cells)
 from kmers_anno_tpu_torch.engine import hashanno, projection
 from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
 from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
@@ -28,7 +29,9 @@ from kmers_anno_tpu_torch.ops.apply_rows import apply_rows, apply_rows_plain
 from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
 from kmers_anno_tpu_torch.ops.contig_scan import (KERNEL_TILE, scan_stream,
                                                   scan_stream_plain)
-from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best, hash_best_plain,
+from kmers_anno_tpu_torch.ops.hash_chunk import (COMMONS_TABLE_CELLS,
+                                                 COMMONS_TILE, hash_best,
+                                                 hash_best_plain,
                                                  hash_commons,
                                                  hash_commons_plain)
 from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
@@ -504,6 +507,12 @@ HASH_EDGES = {
     "k5_exact_cols": dict(k=5, n_prot=77, n_rows=5, exact_cols=True),
     "k8_one_row": dict(k=8, n_prot=9, n_rows=1),
     "k8_wide": dict(k=8, n_prot=3001, n_rows=1000),
+    # 5,000-aa prototypes: one prototype's kmers span several tiles
+    "k8_long_proto": dict(k=8, n_prot=60, n_rows=5, plen=5000),
+    # owners at the cap: key-major tiles overflow the shared cell table
+    "k8_spill": dict(k=8, n_prot=1000, n_rows=257, family=40),
+    "k8_exact_cols_wide": dict(k=8, n_prot=1500, n_rows=300,
+                               exact_cols=True),
 }
 
 
@@ -520,18 +529,25 @@ def _chunk_on(c, dev, mode=None):
     return c
 
 
+@pytest.mark.parametrize("order", CHUNK_ORDERS)
 @pytest.mark.parametrize("mode", [None, "empty", "misses"])
 @pytest.mark.parametrize("case", list(HASH_EDGES))
-def test_hash_chunk_kernels_match_plain(cuda, case, mode):
+def test_hash_chunk_kernels_match_plain(cuda, case, mode, order):
     """Both chunk kernels against their plain versions: counts and ranks
     equal, the carried state (c, u, index, improvements) bit-equal, the
     counts cleared; a table whose lookups walk, owner rows at the cap,
-    row and column counts off powers of two, an empty chunk, all misses."""
+    row and column counts off powers of two, prototypes whose kmers span
+    several tiles, an empty chunk, all misses; the chunk's kmers in the
+    engine's order, shuffled and key-major (whose tiles overflow the
+    kernel's shared table where owners are at the cap)."""
     params = HASH_EDGES[case]
     rng = np.random.default_rng(len(case) * 11 + len(mode or ""))
-    c = _chunk_on(made_up_chunk(rng, **params), cuda, mode)
+    c, _ = reorder_chunk(_chunk_on(made_up_chunk(rng, **params), cuda, mode),
+                         order, rng)
     if params.get("squeeze"):
         assert c["max_probes"] > 1
+    if case == "k8_long_proto" and mode is None:
+        assert c["lo"].numel() > 2 * COMMONS_TILE
     args = (c["table"], c["max_probes"], c["owner_mat"], c["lo"], c["hi"],
             c["proto"], c["valid"], c["n_rows"], c["n_pad"])
     before = (hash_commons.launches, hash_best.launches)
@@ -541,6 +557,9 @@ def test_hash_chunk_kernels_match_plain(cuda, case, mode):
     want, want_ranks = hash_commons_plain(*args, with_ranks=True)
     assert torch.equal(got, want) and torch.equal(ranks, want_ranks)
     assert (int(got.sum()) > 0) == (mode is None)
+    if case == "k8_spill" and mode is None:
+        spilled = (tile_cells(c, ranks) > COMMONS_TABLE_CELLS).any()
+        assert bool(spilled) == (order != "engine")
     state = carried_state(rng, c["n_pad"], cuda)
     got_state = tuple(t.clone() for t in state)
     want_state = tuple(t.clone() for t in state)
@@ -555,6 +574,31 @@ def test_hash_chunk_kernels_match_plain(cuda, case, mode):
     assert not got.any()
     if mode is None and case == "k8_wide":
         assert int(got_state[3][0]) > 17
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("width", [1, 3, 4, 8, 12, 20, 32])
+def test_hash_commons_owner_row_widths(cuda, width, aligned):
+    """Owner rows of every width the kernel reads in 16-byte pieces (a
+    multiple of 4, an odd number of pieces too) or word by word, and an
+    owner matrix that starts off a 16-byte boundary (word by word): the
+    kernel equals the plain version, in the engine's order and key-major."""
+    rng = np.random.default_rng(width)
+    c = _chunk_on(made_up_chunk(rng, 8, 600, 120, family=40), cuda)
+    own = c["owner_mat"][:, :width]
+    base = torch.empty(own.numel() + 4, dtype=torch.int32, device=cuda)
+    start = 0 if aligned else 1
+    base[start: start + own.numel()] = own.reshape(-1)
+    c["owner_mat"] = base[start: start + own.numel()].view(own.shape)
+    assert (c["owner_mat"].data_ptr() % 16 == 0) == aligned
+    for order in ("engine", "key-major"):
+        oc, _ = reorder_chunk(c, order)
+        args = (oc["table"], oc["max_probes"], oc["owner_mat"], oc["lo"],
+                oc["hi"], oc["proto"], oc["valid"], oc["n_rows"],
+                oc["n_pad"])
+        got = hash_commons(*args)
+        want = hash_commons_plain(*args)
+        assert torch.equal(got, want) and int(want.sum()) > 0
 
 
 def test_hash_commons_adds_into_a_buffer(cuda):

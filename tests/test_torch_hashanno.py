@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import carried_state, made_up_chunk
+from chip_smoke import carried_state, made_up_chunk, reorder_chunk, tile_cells
 from kmers_anno_tpu.commands.app import main as ref_main
 from kmers_anno_tpu.engine import hashanno as ref_ha
 from kmers_anno_tpu.engine.projection import _min_ev_table as ref_minev
@@ -135,6 +135,99 @@ def test_hash_best_plain_matches_reference(case, min_score):
     assert not common.any()                 # the counts were consumed
     if min_score == 0.0125 and case == "k8_odd":
         assert int(want[3]) > 17            # some protein improved
+
+
+@pytest.mark.parametrize("order", ["shuffled", "key-major"])
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_hash_commons_plain_is_order_free(case, order):
+    """The same chunk in another order of its kmers gives the same counts,
+    and each position the rank of the kmer it now holds.  In the engine's
+    order no kernel tile holds more distinct cells than in the other."""
+    c = made_up_chunk(np.random.default_rng(len(case) + 7),
+                      **CHUNK_CASES[case])
+    moved, perm = reorder_chunk(c, order, np.random.default_rng(len(order)))
+    assert sorted(perm.tolist()) == list(range(c["lo"].numel()))
+    keys = ("table", "max_probes", "owner_mat", "lo", "hi", "proto",
+            "valid", "n_rows", "n_pad")
+    want, want_ranks = hash_chunk.hash_commons_plain(
+        *(c[k] for k in keys), with_ranks=True)
+    got, ranks = hash_chunk.hash_commons_plain(*(moved[k] for k in keys),
+                                               with_ranks=True)
+    assert torch.equal(got, want) and int(got.sum()) > 0
+    assert torch.equal(ranks, want_ranks[perm])
+    engine_cells = tile_cells(c, want_ranks)
+    cells = tile_cells(moved, ranks)
+    assert int(engine_cells.sum()) <= int(cells.sum())
+    assert int(engine_cells.sum()) >= int((want != 0).sum())
+    if len(cells) == 1:
+        assert int(cells[0]) == int((want != 0).sum())
+
+
+@pytest.mark.parametrize("chunk", [4096, 7])
+def test_prototype_chunks_hold_the_reference_pairs(genome, chunk):
+    """PrototypeSet.chunks packs each chunk prototype by prototype, each
+    prototype's kmers in key order, the prototypes ordered by their
+    smallest kmer (then by row): the reference's distinct (kmer,
+    prototype) pairs as a multiset, with the same n2, row count and
+    padding; the whole prototype list in one chunk, and split in chunks
+    of 7."""
+    _, prototypes = _oracle_case(genome)
+    ref = ref_ha.PrototypeSet([ref_ha.Prototype(*p) for p in prototypes], K)
+    port = port_ha.PrototypeSet([port_ha.Prototype(*p) for p in prototypes],
+                                K)
+    want, got = ref.chunks(chunk), port.chunks(chunk, CPU)
+    assert len(got) == len(want) == -(-len(prototypes) // chunk)
+    for w, g in zip(want, got):
+        lo, hi, proto, valid, n2, sub, n_proto, d_n2 = g
+        assert [(x.protein, x.annotation) for x in sub] == [
+            (x.protein, x.annotation) for x in w[5]]
+        assert n_proto == w[6]
+        np.testing.assert_array_equal(n2, w[4])
+        np.testing.assert_array_equal(d_n2.numpy(), w[4])
+        np.testing.assert_array_equal(valid.numpy(), _np(w[3]))
+        cols = [lo.numpy().view(np.uint32), hi.numpy().view(np.uint32),
+                proto.numpy()]
+        pairs = np.stack(cols).astype(np.int64)
+        want_pairs = np.stack([_np(w[0]), _np(w[1]),
+                               _np(w[2])]).astype(np.int64)
+        assert (sorted(map(tuple, pairs.T))
+                == sorted(map(tuple, want_pairs.T)))
+        v = valid.numpy()
+        p = proto.numpy()
+        assert (p[~v] == n_proto).all() and not v[v.sum():].any()
+        p = p[v]
+        key = ((cols[1][v].astype(np.uint64) << np.uint64(32))
+               | cols[0][v])
+        starts = np.flatnonzero(np.r_[True, p[1:] != p[:-1]])
+        assert len(starts) == len(set(p.tolist())) > (1 if chunk == 7
+                                                       else 10)
+        same = p[1:] == p[:-1]
+        assert (key[1:][same] > key[:-1][same]).all()
+        first = list(zip(key[starts].tolist(), p[starts].tolist()))
+        assert first == sorted(first)
+
+
+def test_hash_commons_rejects_too_many_cells():
+    """The count kernel indexes a chunk's cells in 32 bits: both versions
+    refuse n_rows x n_pad past MAX_CELLS before allocating anything."""
+    c = made_up_chunk(np.random.default_rng(1), 8, 20, 4)
+    args = [c["table"], c["max_probes"], c["owner_mat"], c["lo"], c["hi"],
+            c["proto"], c["valid"]]
+    n_rows = hash_chunk.MAX_CELLS // c["n_pad"] + 1
+    for fn in (hash_chunk.hash_commons, hash_chunk.hash_commons_plain):
+        with pytest.raises(ValueError, match="MAX_CELLS|cells"):
+            fn(*args, n_rows, c["n_pad"])
+
+
+def test_kernel_constants_are_the_sources():
+    """The smoke's tile model reads the kernel's tile and table sizes."""
+    src = os.path.join(os.path.dirname(hash_chunk.__file__), os.pardir,
+                       "csrc", "hash_chunk.cu")
+    with open(src, encoding="utf-8") as fh:
+        text = fh.read()
+    assert f"constexpr int kTileKmers = {hash_chunk.COMMONS_TILE};" in text
+    assert (f"constexpr int kTableCells = "
+            f"{hash_chunk.COMMONS_TABLE_CELLS};") in text
 
 
 def test_hash_chunk_rejects_bad_arguments():
