@@ -46,6 +46,23 @@ for bit).  The main-path
 comparisons give the ``kernels`` line's times and errors; ``apply_rows``
 is also checked on made-up rows (k = 8, and k = 12 with lookups that walk).
 
+Then the flat-stream path of tables past one wide table (BASELINE
+config 4).  ``apply`` (VERIFY) runs through the CLI on the same genomes
+with a 4M-key ``.kdb`` (the build's table plus kmers absent from every
+peg), which must take the flat route and give the wide route's report
+byte for byte.  bench.py's proteins (32 x 8,192 of 300 aa) run through
+``KmerApplyEngine.call_proteins`` against a 10M-key 8-slot table (about
+403 MB), as one FlatBatch:
+roles against ``native.apply_baseline`` on every 8th protein, both flat
+kernels (``apply_flat``; ``apply_flat_weighted`` with fractional fp16
+weights, dense on 8,192 proteins and in role blocks on all) bit for bit
+against their plain versions on the card and the weighted step against
+a CPU run on a sample; proteins/s and a split of one run.  On bench.py's
+big-table shape (10M random keys, 4M queries) the plain-torch sliced
+probe (on the probe-window layout) is timed beside the apply kernel's
+walk of the same queries on the plain table.  The flat kernels are also held to their plain versions on
+made-up streams with buckets of equal lo words and walks that wrap.
+
 Then hashAnno.  Both chunk kernels (``hash_commons``, ``hash_best``) are
 held against their plain versions on made-up chunks (k = 8 and 12, a
 table whose lookups walk, owner rows at the cap, 5,000-aa prototypes,
@@ -88,7 +105,8 @@ window stream and on the two strands, ``probe_wide`` on the union table
 and on the fused close tables, ``apply_rows`` on the bench batches, and
 ``hash_commons`` on the hashAnno bench chunk and on the first chunk of
 the hashAnno CLI batch, each in the engine's order and key-major, and
-``hash_best`` on the bench chunk) of
+``hash_best`` on the bench chunk, and both flat apply kernels on the
+big-table batch) of
 this tree's build against the build of the tree at DIR (the root of
 another checkout, such as the parent commit's) through their C entry
 points: in turns (A B B A), each turn ``LAUNCH_REPS`` passes back to back,
@@ -292,7 +310,8 @@ def apply_bound(table, salt, batches, valid, k, max_probes, ms) -> dict:
         n_bytes += (nbytes(codes, valid) + 8 * codes.shape[0]
                     + ROW_LO_BYTES * rows + HIT_BYTES * hits)
         n_ops += 2 * k * int(valid.sum()) + LOOKUP_OPS * reads
-    return bound(n_bytes / len(batches), n_ops / len(batches), ms)
+    return dict(bound(n_bytes / len(batches), n_ops / len(batches), ms),
+                windows=int(valid.sum()))
 
 
 def scan_bound(streams, outputs, k, ms) -> dict:
@@ -660,6 +679,8 @@ class _Launches:
 
     def __init__(self):
         from kmers_anno_tpu_torch.engine import projection
+        from kmers_anno_tpu_torch.ops.apply_flat import (apply_flat,
+                                                         apply_weighted_flat)
         from kmers_anno_tpu_torch.ops.apply_rows import apply_rows
         from kmers_anno_tpu_torch.ops.contig_scan import scan_stream
         from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best,
@@ -670,7 +691,9 @@ class _Launches:
                          "probe_wide": probe_wide,
                          "apply_rows": apply_rows,
                          "hash_commons": hash_commons,
-                         "hash_best": hash_best}
+                         "hash_best": hash_best,
+                         "apply_flat": apply_flat,
+                         "apply_flat_weighted": apply_weighted_flat}
         self.projection = projection
         self.counts: dict = {}
         self.fused_calls = 0
@@ -1357,11 +1380,12 @@ def make_signature_genomes(rng, n_genomes, n_roles, n_hypothetical,
     return genomes, role_map
 
 
-def run_signature_path(dev, tmp: str) -> dict:
+def run_signature_path(dev, tmp: str) -> tuple[dict, dict]:
     """``build`` then ``apply`` (VERIFY, then APPLY) through the CLI on
     synthetic genomes; the device group-by against the C++ builder; every
     call against the single-core string-keyed baseline; cold and warm
-    seconds per genome.  Returns each run's launch counts."""
+    seconds per genome.  Returns each run's launch counts, and the
+    genomes, files and VERIFY report for ``run_big_kdb_cli``."""
     from kmers_anno_tpu_torch.commands.app import main
     from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
     from kmers_anno_tpu_torch.engine.signature import (SignatureTable,
@@ -1477,7 +1501,8 @@ def run_signature_path(dev, tmp: str) -> dict:
     print(f"apply engine: wide table built and uploaded in {engine_s:.3f} "
           f"s; first genome {cold[0]:.4f} s; warm call_genome "
           f"{summary(warm)}", flush=True)
-    return runs
+    return runs, dict(genomes=genomes, table=table, use_file=use_file,
+                      gto_dir=gto_dir, verify=verify)
 
 
 # ---------------------------------------------------------------------------
@@ -1492,9 +1517,10 @@ def make_bench_proteins(rng, protos, n, which):
     return proteins
 
 
-def make_bench_workload(rng):
+def make_bench_workload(rng, n_keys=BENCH_KEYS):
     """``bench.make_workload``: the kmers of 2000 role prototypes plus
-    random fill up to 1M keys, first occurrence kept."""
+    random fill up to ``n_keys`` keys, first occurrence kept (each key
+    packed into one uint64 for ``np.unique``)."""
     from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
 
     protos = rng.integers(0, 20, size=(SIG_ROLES, 120)).astype(np.uint8)
@@ -1505,7 +1531,7 @@ def make_bench_workload(rng):
         hi_all.append(hi)
         role_all.append(np.full(len(lo), r, np.int32))
     n_proto = sum(len(x) for x in lo_all)
-    n_fill = max(0, BENCH_KEYS - n_proto)
+    n_fill = max(0, n_keys - n_proto)
     fill = rng.integers(0, 20, size=(n_fill + K - 1,)).astype(np.uint8)
     flo, fhi = pack_kmers_np(fill, K)
     lo_all.append(flo)
@@ -1515,7 +1541,8 @@ def make_bench_workload(rng):
     lo = np.concatenate(lo_all)
     hi = np.concatenate(hi_all)
     role = np.concatenate(role_all)
-    _, idx = np.unique(np.stack([hi, lo], 1), axis=0, return_index=True)
+    key = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    _, idx = np.unique(key, return_index=True)
     idx = np.sort(idx)
     return protos, lo[idx], hi[idx], role[idx]
 
@@ -1700,6 +1727,620 @@ def run_bench_shape(dev) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# kernels F and G: the flat-stream apply step over the 8-slot table
+# ---------------------------------------------------------------------------
+
+BIG_KEYS = 10_000_000            # BASELINE config 4: a 10M-entry table
+BIG_QUERIES = 4_000_000          # bench.py's big-table queries (bench.py:333)
+BIG_BASELINE_EVERY = 8           # apply_baseline checks every 8th protein
+KDB_KEYS = 4_000_000             # the CLI's .kdb past one wide table
+FLAT_VOTE_OPS = 3                # a hit's count, min and max (or its add)
+# a token's step of a rolling kmer pack: lo = lo >> 5 | (hi & 31) << 25,
+# hi = hi >> 5 | code << 25
+ROLL_PACK_OPS = 7
+HIT_BUCKET_BYTES = 64            # a hit bucket's hi-key and payload sectors
+FLAT_EDGES = {
+    "k8": dict(k=8, n_prot=300, max_len=200),
+    "k12": dict(k=12, n_prot=97, max_len=150),
+    # two residues: buckets hold several keys of one lo word; keys squeezed
+    # into few buckets, with the last one overflowing into bucket 0
+    "k8_collide_wrap": dict(k=8, n_prot=60, max_len=90, alphabet=2,
+                            n_buckets=16, n_keys=100, n_last=10),
+    "k12_collide_wrap": dict(k=12, n_prot=45, max_len=70, alphabet=2,
+                             n_buckets=32, n_keys=200, n_last=12),
+}
+
+
+def flat_case(rng, k, n_prot, max_len, n_roles, weights=None, alphabet=20,
+              n_buckets=None, n_keys=400, n_last=0):
+    """A FlatBatch of ``n_prot`` random proteins of 0..max_len residues over
+    the first ``alphabet`` codes (1% X with all 20), and an 8-slot table of
+    ``n_keys`` distinct kmers of its valid windows, each with its protein's
+    role modulo ``n_roles`` (one in ten the next role, so that some
+    proteins conflict); payloads packed with fp16 ``weights`` ("uniform",
+    or "fp16" from U[0.05, 3)) when given.  ``n_buckets`` squeezes the keys
+    into that many buckets with ``n_last`` of them homed on the last one,
+    so that it overflows and walks wrap to bucket 0 (``collision_keys``).
+    Returns (batch, table, max_probes)."""
+    from kmers_anno_tpu_torch.engine.apply_engine import FlatBatch
+    from kmers_anno_tpu_torch.ops.encode import PROT_X, decode_protein
+    from kmers_anno_tpu_torch.ops.hashtable import build_table
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+
+    prots = []
+    for n in rng.integers(0, max_len + 1, n_prot):
+        c = rng.integers(0, alphabet, n).astype(np.uint8)
+        if alphabet == 20:
+            c[rng.random(n) < 0.01] = PROT_X
+        prots.append(decode_protein(c))
+    batch = FlatBatch(prots, k)
+    lo, hi = pack_kmers_np(batch.codes, k)
+    windows = np.flatnonzero(batch.valid[: len(lo)])
+    if n_buckets:
+        pick = windows[collision_keys(rng, lo[windows], hi[windows],
+                                      n_buckets, n_keys, n_last)]
+    else:
+        key = (hi[windows].astype(np.uint64) << np.uint64(32)) | lo[windows]
+        _, first = np.unique(key, return_index=True)
+        pick = rng.choice(windows[first], min(n_keys, len(first)),
+                          replace=False)
+    role = (batch.seg_ids[pick] % n_roles).astype(np.uint32)
+    flip = rng.random(len(pick)) < 0.1
+    role[flip] = (role[flip] + 1) % n_roles
+    if weights is not None:
+        w = (np.ones(len(pick), np.float16) if weights == "uniform"
+             else rng.uniform(0.05, 3.0, len(pick)).astype(np.float16))
+        role |= w.view(np.uint16).astype(np.uint32) << np.uint32(16)
+    table, mp = build_table(lo[pick], hi[pick], role, n_buckets=n_buckets)
+    if n_buckets:
+        check_bucket_collisions_and_wrap(table, mp)
+    return batch, table, mp
+
+
+def check_bucket_collisions_and_wrap(table, mp) -> None:
+    """The 8-slot table holds a bucket with two keys of one lo word, and a
+    key homed on the last bucket stored in a bucket before it: its walk
+    wrapped to bucket 0."""
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer_np
+    from kmers_anno_tpu_torch.ops.hashtable import BUCKET, EMPTY
+
+    lo_keys = table[:, :BUCKET]
+    require(any(len(set(r[r != EMPTY])) < int((r != EMPTY).sum())
+                for r in lo_keys), "no bucket holds two keys of one lo word")
+    used = lo_keys != EMPTY
+    home = mix_kmer_np(lo_keys[used], table[:, BUCKET: 2 * BUCKET][used]
+                       ) & np.uint32(len(table) - 1)
+    stored = np.nonzero(used)[0]
+    require(mp >= 2 and ((home == len(table) - 1)
+                         & (stored < len(table) - 1)).any(),
+            "no key's walk wraps from the last bucket to bucket 0")
+
+
+def flat_tensors(batch, table, dev):
+    """(table, codes, seg_ids, valid) on ``dev``."""
+    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+
+    return (wide_table_from_numpy(table, dev),
+            *(torch.from_numpy(a).to(dev)
+              for a in (batch.codes, batch.seg_ids, batch.valid)))
+
+
+def tally_bits(out) -> tuple:
+    """A weighted step's (role, tally) with the tally's float32 bits."""
+    return out[0], out[1].view(torch.int32)
+
+
+def launch_flat(lib, table, codes, seg_ids, valid, k, max_probes, n_seqs,
+                min_hits):
+    """apply_flat through a kernel library's C entry point (uncounted)."""
+    from kmers_anno_tpu_torch.ops.encode import PROT_PAD
+
+    role, hits, rmin = (torch.empty(n_seqs, dtype=torch.int32,
+                                    device=codes.device) for _ in range(3))
+    err = lib.kan_apply_flat(
+        table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(),
+        seg_ids.data_ptr(), valid.data_ptr(), codes.numel(), k, PROT_PAD, n_seqs, int(min_hits), role.data_ptr(), hits.data_ptr(),
+        rmin.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_apply_flat returned CUDA error {err}")
+    return role, hits
+
+
+def launch_flat_weighted(lib, table, codes, seg_ids, valid, k, max_probes,
+                         n_seqs, n_roles, min_weight, cells):
+    """apply_weighted_flat through a kernel library's C entry point, one
+    launch a role block (uncounted); ``cells`` is the zeroed (n_seqs x
+    block) int64 tally the launches leave zeroed."""
+    from kmers_anno_tpu_torch.ops.encode import PROT_PAD
+    from kmers_anno_tpu_torch.ops.vote import vote_block
+
+    r_blk = vote_block(n_seqs, n_roles)
+    role = torch.empty(n_seqs, dtype=torch.int32, device=codes.device)
+    best = torch.empty(n_seqs, dtype=torch.float32, device=codes.device)
+    bases = range(0, n_roles, r_blk)
+    for i, base in enumerate(bases):
+        err = lib.kan_apply_flat_weighted(
+            table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(), seg_ids.data_ptr(), valid.data_ptr(),
+            codes.numel(), k, PROT_PAD, n_seqs, base, r_blk,
+            cells.data_ptr(), int(i == 0), int(i == len(bases) - 1),
+            float(min_weight), role.data_ptr(), best.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"kan_apply_flat_weighted returned CUDA error "
+                f"{err}")
+    return tally_bits((role, best))
+
+
+launch_flat.entry = "kan_apply_flat"
+launch_flat_weighted.entry = "kan_apply_flat_weighted"
+
+
+def check_apply_flat(dev) -> None:
+    """Both flat kernels against their plain versions on made-up streams:
+    k = 8 and 12, buckets with keys of one lo word and
+    walks that wrap to bucket 0, proteins at and past ``n_seqs``, an
+    all-invalid stream; the weighted step with uniform (ties) and
+    fractional fp16 weights, in one and in several role blocks.  Exact
+    equality, tallies bit for bit."""
+    from kmers_anno_tpu_torch.ops import vote
+    from kmers_anno_tpu_torch.ops.apply_flat import (
+        apply_flat, apply_flat_plain, apply_weighted_flat,
+        apply_weighted_flat_plain)
+
+    rng = np.random.default_rng(SEED + 7)
+    n_unanimous = n_weighted = 0
+    limit = vote.DENSE_VOTE_LIMIT
+    try:
+        for name, params in FLAT_EDGES.items():
+            batch, table, mp = flat_case(rng, n_roles=5, **params)
+            args = flat_tensors(batch, table, dev)
+            no_valid = (*args[:3], torch.zeros_like(args[3]))
+            for a, n_seqs in ((args, batch.n_seqs),
+                              (args, params["n_prot"] - 7),
+                              (no_valid, batch.n_seqs)):
+                kw = dict(k=params["k"], max_probes=mp, n_seqs=n_seqs)
+                for min_hits in (1, 3):
+                    got = apply_flat(*a, min_hits, **kw)
+                    want = apply_flat_plain(*a, min_hits, **kw)
+                    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                            f"apply_flat differs from its plain version "
+                            f"({name})")
+                    n_unanimous += 1
+            for weights in ("uniform", "fp16"):
+                batch, table, mp = flat_case(rng, n_roles=9, weights=weights,
+                                             **params)
+                a = flat_tensors(batch, table, dev)
+                kw = dict(k=params["k"], max_probes=mp, n_seqs=batch.n_seqs,
+                          n_roles=9)
+                for r_blk in (9, 4, 1):
+                    vote.DENSE_VOTE_LIMIT = batch.n_seqs * r_blk
+                    got = tally_bits(apply_weighted_flat(*a, 1.5, **kw))
+                    want = tally_bits(apply_weighted_flat_plain(*a, 1.5,
+                                                                **kw))
+                    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                            f"apply_weighted_flat differs from its plain "
+                            f"version ({name}, {weights}, blocks of {r_blk})")
+                    n_weighted += 1
+    finally:
+        vote.DENSE_VOTE_LIMIT = limit
+    print(f"flat apply kernels on made-up streams: {n_unanimous} apply_flat "
+          f"and {n_weighted} apply_weighted_flat cases equal to their plain "
+          f"versions (tallies bit for bit)", flush=True)
+
+
+def flat_bound(table, codes, seg_ids, valid, k, max_probes, n_seqs,
+               ms) -> dict:
+    """A flat apply step's bound, each input read once: a flag byte a
+    token, a code byte a token inside a protein (no valid window reads the
+    padding after the last one), a hit's segment id (4 B), the 32-byte
+    lo-key sector of every distinct bucket the lookups read and the hi-key
+    and payload sectors of every distinct bucket holding a hit (64 B), the
+    (role, count or tally) outputs (8 B a protein).  Operations: a rolling
+    pack (``ROLL_PACK_OPS`` a token inside a protein), a valid window's
+    hash, 16 a bucket read, 3 a hit's vote.  The weighted step walks the
+    table once a role block; its bound counts one walk, the least its
+    function needs."""
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+
+    seen = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
+    hit_seen = torch.zeros_like(seen)
+    reads = hits = 0
+    step = 1 << 24
+    for s in range(0, codes.numel(), step):
+        v = valid[s: s + step]
+        lo, hi = pack_kmer_windows(codes[s: s + step + k - 1], k)
+        _, r, h = bucket_reads(table, lo[: v.numel()], hi[: v.numel()], v,
+                               max_probes, seen, hit_seen)
+        reads += r
+        hits += h
+    n_valid = int(valid.sum())
+    n_inside = int((seg_ids < n_seqs).sum())
+    n_buckets, n_hit_buckets = int(seen.sum()), int(hit_seen.sum())
+    n_bytes = (codes.numel() + n_inside + 4 * hits + 32 * n_buckets
+               + HIT_BUCKET_BYTES * n_hit_buckets + 8 * n_seqs)
+    n_ops = (ROLL_PACK_OPS * n_inside + HASH_KEY_OPS * n_valid
+             + HASH_BUCKET_OPS * reads + FLAT_VOTE_OPS * hits)
+    return dict(bound(n_bytes, n_ops, ms), buckets=n_buckets,
+                hit_buckets=n_hit_buckets, bucket_reads=reads, hits=hits,
+                windows=n_valid, tokens_inside=n_inside)
+
+
+def proteins_of(codes: np.ndarray) -> list[str]:
+    """(n, length) protein codes -> n strings, in one decode."""
+    from kmers_anno_tpu_torch.ops.encode import decode_protein
+
+    n, length = codes.shape
+    text = decode_protein(codes.reshape(-1))
+    return [text[i * length: (i + 1) * length] for i in range(n)]
+
+
+def time_flat_step(kernel_fn, plain_fn, what, reps=REPS) -> dict:
+    """One wrapper call and one call of the plain version, each timed by
+    CUDA events (median of ``reps``); outputs equal, tallies bit for
+    bit."""
+    ms, got = timed(kernel_fn)
+    plain_ms, want = timed(plain_fn, reps=reps)
+    got, want = [tally_bits(o) if o[1].dtype == torch.float32 else o
+                 for o in (got, want)]
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"{what} differs from its plain version")
+    return dict(ms=ms, plain_ms=plain_ms,
+                max_abs_err=max_abs_err(zip(got, want)), outputs=got)
+
+
+def run_big_table(dev) -> tuple[dict, dict, dict]:
+    """BASELINE config 4's table size: ``make_bench_workload``'s construction
+    at 10M keys (seed 7), an 8-slot table of about 403 MB, and bench.py's 32 x 8,192 proteins of 300 aa
+    through ``KmerApplyEngine.call_proteins`` as one FlatBatch.  Roles
+    against ``native.apply_baseline`` on a sample, hits against the plain
+    version on the card; proteins/s and a split of one run; the weighted
+    step (fractional fp16 weights) dense on 8,192 proteins and in role
+    blocks on all of them, bit for bit against its plain version on the
+    card and against a CPU run on a sample.  Returns the runs' launches,
+    both kernels' measurements and their ``--compare`` cases."""
+    from kmers_anno_tpu_torch.engine.apply_engine import (FlatBatch,
+                                                          KmerApplyEngine)
+    from kmers_anno_tpu_torch.engine.signature import SignatureTable
+    from kmers_anno_tpu_torch import native
+    from kmers_anno_tpu_torch.ops.apply_flat import (
+        apply_flat, apply_flat_plain, apply_weighted_flat,
+        apply_weighted_flat_plain)
+    from kmers_anno_tpu_torch.ops.vote import vote_block
+    from kmers_anno_tpu_torch.ops.widetable import fits_wide
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(BENCH_SEED)
+    protos, key_lo, key_hi, roles = make_bench_workload(rng, BIG_KEYS)
+    codes = np.concatenate([make_bench_proteins(
+        rng, protos, BENCH_PROTEINS, rng.integers(0, SIG_ROLES,
+                                                  size=BENCH_PROTEINS))
+        for _ in range(BENCH_BATCHES)])
+    prots = proteins_of(codes)
+    n = len(prots)
+    role_ids = [f"Role{r}" for r in range(SIG_ROLES)]
+    table = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
+                           role_idx=roles, role_ids=role_ids)
+    require(not fits_wide(len(table)), "the big table fits one wide table")
+    gen_s = time.perf_counter() - t0
+    engine_s, engine = host_seconds(
+        lambda: KmerApplyEngine(table, min_hits=MIN_HITS, device=dev))
+    mp = engine.max_probes
+    require(engine.mode == "flat", f"the big table took mode {engine.mode}")
+    n_buckets = engine.table.shape[0]
+    with _Launches() as run:
+        got = engine.call_proteins(prots)
+    routes = {"big": dict(launches=run.counts)}
+    require(run.counts["apply_flat"] == 1 and run.counts["apply_rows"] == 0,
+            f"the big table's call_proteins launches {run.counts}")
+    index = {rid: i for i, rid in enumerate(role_ids)}
+    got_roles = np.array([index[c[0]] if c else -1 for c in got], np.int32)
+    table8 = engine.table.cpu().numpy().view(np.uint32)
+    sample = np.arange(0, n, BIG_BASELINE_EVERY)
+    base_s, want_roles = host_seconds(lambda: native.apply_baseline(
+        codes[sample], table8, mp, K, MIN_HITS))
+    require(np.array_equal(got_roles[sample], want_roles),
+            f"{int((got_roles[sample] != want_roles).sum())} big-table roles "
+            "differ from native.apply_baseline")
+    n_called = int((got_roles >= 0).sum())
+    print(f"big table: {len(key_lo)} keys of {SIG_ROLES} roles (made in "
+          f"{gen_s:.1f} s), {n_buckets} buckets ({engine.table.numel() * 4} "
+          f"B on the card, max_probes {mp}), built and uploaded in {engine_s:.2f} s; {n} proteins "
+          f"({BENCH_BATCHES} x {BENCH_PROTEINS} x {PROT_LEN} aa), "
+          f"{n_called} called; roles of {len(sample)} (every "
+          f"{BIG_BASELINE_EVERY}th) equal to native.apply_baseline "
+          f"({base_s:.2f} s single-core); launches {run.counts}", flush=True)
+
+    times = [host_seconds(lambda: engine.call_proteins(prots))[0]
+             for _ in range(REPS)]
+    rates = sorted(n / t for t in times)
+    t0 = time.perf_counter()
+    batch = FlatBatch(prots, K)
+    flat_s = time.perf_counter() - t0
+    upload_s, stream = host_seconds(lambda: [
+        torch.from_numpy(a).to(dev)
+        for a in (batch.codes, batch.seg_ids, batch.valid)])
+    kw = dict(k=K, max_probes=mp, n_seqs=batch.n_seqs)
+    args = (engine.table, *stream)
+    kernel_s, out = host_seconds(lambda: apply_flat(*args, MIN_HITS, **kw))
+    download_s, (r, h) = host_seconds(
+        lambda: [o.cpu().numpy()[:n] for o in out])
+    t0 = time.perf_counter()
+    decoded = engine._decode(r, h)
+    decode_s = time.perf_counter() - t0
+    require(decoded == got, "the split run's calls differ")
+    print(f"big table call_proteins: {statistics.median(rates):.1f} "
+          f"proteins/s (median of {REPS}, range {rates[0]:.1f}-"
+          f"{rates[-1]:.1f}; s per run {', '.join(f'{t:.4f}' for t in times)}"
+          f"); split of one more run: host FlatBatch {flat_s:.4f} s "
+          f"({batch.codes.size} tokens, {batch.n_seqs} segments), upload "
+          f"{upload_s:.4f} s, kernel {kernel_s:.4f} s, download "
+          f"{download_s:.4f} s, decode {decode_s:.4f} s", flush=True)
+
+    flat = time_flat_step(
+        lambda: apply_flat(*args, MIN_HITS, **kw),
+        lambda: apply_flat_plain(*args, MIN_HITS, **kw),
+        "apply_flat on the big-table batch")
+    require(np.array_equal(flat.pop("outputs")[0].cpu().numpy()[:n],
+                           got_roles), "the kernel's roles differ from the "
+            "engine's")
+    flat.update(flat_bound(engine.table, *stream, K, mp, batch.n_seqs,
+                           flat["ms"]))
+    flat_args = [(engine.table, *stream, K, mp, batch.n_seqs, MIN_HITS)]
+    flat = with_launch(flat, launch_ms(launch_flat, flat_args))
+    flat["lookups_per_s"] = flat["windows"] / flat["launch_ms"] * 1e3
+    print(f"big table apply_flat ({stream[0].numel()} tokens, "
+          f"{flat['tokens_inside']} inside proteins, {flat['windows']} "
+          f"windows, {flat['bucket_reads']} bucket reads, {flat['hits']} "
+          f"hits, {flat['buckets']} distinct buckets, {flat['hit_buckets']} "
+          f"of them with a hit), exact "
+          f"(role, hits) against its plain version: kernel {flat['ms']:.4f} "
+          f"ms through the wrapper, {flat['launch_ms']:.4f} ms a launch back "
+          f"to back ({flat['lookups_per_s']:.4e} kmer lookups/s), plain "
+          f"{flat['plain_ms']:.4f} ms; bound {flat['bound_ms']:.4f} ms "
+          f"({flat['bound_by']}, {flat['bound_bytes']} bytes, "
+          f"{flat['bound_ops']} ops), share {flat['bound_share']:.3f}, back "
+          f"to back {flat['launch_share']:.3f}", flush=True)
+    cases = {"the big-table batch": (launch_flat, flat_args)}
+    del out, r, h
+
+    # -- the weighted step: fractional fp16 weights --
+    w_rng = np.random.default_rng(BENCH_SEED)
+    weights = w_rng.uniform(0.05, 3.0, len(key_lo)).astype(
+        np.float16).astype(np.float32)
+    w_table = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
+                             role_idx=roles, role_ids=role_ids,
+                             weights=weights)
+    w_engine = KmerApplyEngine(w_table, min_hits=MIN_HITS, weighted=True,
+                               device=dev)
+    require(w_engine.mode == "flat", "the weighted big table is not flat")
+    dense_prots = prots[:BENCH_PROTEINS]
+    with _Launches() as run:
+        w_engine.call_proteins(dense_prots)
+    routes["big_dense"] = dict(launches=run.counts)
+    require(run.counts["apply_flat_weighted"] == 1,
+            f"the dense weighted call launches {run.counts}")
+    with _Launches() as run:
+        w_got = w_engine.call_proteins(prots)
+    routes["big_weighted"] = dict(launches=run.counts)
+    r_blk = vote_block(batch.n_seqs, SIG_ROLES)
+    n_blocks = -(-SIG_ROLES // r_blk)
+    require(run.counts["apply_flat_weighted"] == n_blocks > 1
+            and run.counts["apply_flat"] == 0,
+            f"the chunked weighted call launches {run.counts}, expected "
+            f"{n_blocks} blocks of {r_blk} roles")
+    w_kw = dict(k=K, max_probes=w_engine.max_probes, n_seqs=batch.n_seqs,
+                n_roles=SIG_ROLES)
+    w_args = (w_engine.table, *stream)
+    w_s = [host_seconds(lambda: w_engine.call_proteins(prots))[0]
+           for _ in range(3)]
+
+    weighted = time_flat_step(
+        lambda: apply_weighted_flat(*w_args, float(MIN_HITS), **w_kw),
+        lambda: apply_weighted_flat_plain(*w_args, float(MIN_HITS), **w_kw),
+        "apply_weighted_flat on the big-table batch", reps=3)
+    w_role, w_bits = (o.cpu().numpy()[:n] for o in weighted.pop("outputs"))
+    w_tally = w_bits.view(np.float32)
+    frac = w_tally[w_role >= 0]
+    require((w_role >= 0).any() and (frac != np.round(frac)).any(),
+            "the weighted check saw no fractional tally")
+    require([(role_ids[a], round(float(b), 4)) if a >= 0 else None
+             for a, b in zip(w_role, w_tally)] == w_got,
+            "the weighted kernel's calls differ from the engine's")
+    # a CPU run of the plain version on a sample, bit for bit
+    pick = list(range(0, n, n // WEIGHTED_SAMPLE))
+    cpu_batch = FlatBatch([prots[i] for i in pick], K)
+    cpu = apply_weighted_flat_plain(
+        w_engine.table.cpu(), *(torch.from_numpy(a) for a in (
+            cpu_batch.codes, cpu_batch.seg_ids, cpu_batch.valid)),
+        float(MIN_HITS), **dict(w_kw, n_seqs=cpu_batch.n_seqs))
+    require(np.array_equal(cpu[0].numpy()[:len(pick)], w_role[pick])
+            and np.array_equal(cpu[1].numpy()[:len(pick)].view(np.int32),
+                               w_bits[pick]),
+            "the weighted step on the card differs from its CPU run")
+    cells = torch.zeros(batch.n_seqs * r_blk, dtype=torch.int64, device=dev)
+    w_launch = [(*w_args, K, w_engine.max_probes, batch.n_seqs, SIG_ROLES,
+                 float(MIN_HITS), cells)]
+    # the same keys in the same buckets: the unweighted step's lookups
+    require(w_engine.max_probes == mp, "the weighted table walks otherwise")
+    weighted.update(bound(flat["bound_bytes"], flat["bound_ops"],
+                          weighted["ms"]))
+    weighted = with_launch(weighted, launch_ms(launch_flat_weighted,
+                                               w_launch, reps=5))
+    weighted["launches_a_call"] = n_blocks
+    # the dense shape: the first 8,192 proteins, one role block
+    d_batch = FlatBatch(dense_prots, K)
+    d_stream = [torch.from_numpy(a).to(dev)
+                for a in (d_batch.codes, d_batch.seg_ids, d_batch.valid)]
+    d_kw = dict(w_kw, n_seqs=d_batch.n_seqs)
+    require(vote_block(d_batch.n_seqs, SIG_ROLES) == SIG_ROLES,
+            "the 8,192-protein weighted call is not dense")
+    dense = time_flat_step(
+        lambda: apply_weighted_flat(w_engine.table, *d_stream,
+                                    float(MIN_HITS), **d_kw),
+        lambda: apply_weighted_flat_plain(
+            w_engine.table, *d_stream, float(MIN_HITS), **d_kw),
+        "apply_weighted_flat on the dense batch")
+    d_role, d_bits = (o.cpu().numpy()[:BENCH_PROTEINS]
+                      for o in dense.pop("outputs"))
+    require(np.array_equal(d_role, w_role[:BENCH_PROTEINS])
+            and np.array_equal(d_bits, w_bits[:BENCH_PROTEINS]),
+            "the dense and the role-block weighted votes differ")
+    d_cells = torch.zeros(d_batch.n_seqs * SIG_ROLES, dtype=torch.int64,
+                          device=dev)
+    d_launch = [(w_engine.table, *d_stream, K, w_engine.max_probes,
+                 d_batch.n_seqs, SIG_ROLES, float(MIN_HITS), d_cells)]
+    weighted.update(dense_ms=dense["ms"], dense_plain_ms=dense["plain_ms"],
+                    dense_launch_ms=launch_ms(launch_flat_weighted, d_launch))
+    print(f"big table weighted (fp16 weights from U[0.05, 3.0], seed "
+          f"{BENCH_SEED}): {int((w_role >= 0).sum())} of {n} called, "
+          f"{int((frac != np.round(frac)).sum())} fractional tallies; "
+          f"call_proteins {n / statistics.median(w_s):.1f} proteins/s "
+          f"(median of 3); {n_blocks} role blocks of {r_blk}: kernel "
+          f"{weighted['ms']:.4f} ms a call through the wrapper, "
+          f"{weighted['launch_ms']:.4f} ms a call back to back "
+          f"({n_blocks} launches), plain {weighted['plain_ms']:.4f} ms, "
+          f"bit for bit; bound {weighted['bound_ms']:.4f} ms "
+          f"({weighted['bound_by']}), share {weighted['bound_share']:.3f}, "
+          f"back to back {weighted['launch_share']:.3f}; dense on "
+          f"{BENCH_PROTEINS} proteins ({d_batch.codes.size} tokens, one "
+          f"block of {SIG_ROLES}): kernel {dense['ms']:.4f} ms, "
+          f"{weighted['dense_launch_ms']:.4f} ms back to back, plain "
+          f"{dense['plain_ms']:.4f} ms, bit for bit and equal to the role "
+          f"blocks' calls; the card's calls equal a CPU run of the plain "
+          f"version on {len(pick)} proteins bit for bit", flush=True)
+    cases["the big-table weighted batch"] = (launch_flat_weighted, w_launch)
+    return routes, {"apply_flat": flat, "apply_flat_weighted": weighted}, cases
+
+
+def time_sliced_walks(dev) -> dict:
+    """bench.py's big-table shape (bench.py:326-345: 10M random keys of 59
+    bits, 4M queries of table keys, seed 7): the plain-torch sliced probe
+    in payload mode, on the probe-window layout the reference gives it,
+    against the apply kernel's walk of the same queries on the plain table.
+    Each query is laid out as the 12 codes of a k=12
+    window (its lo and hi words cut into 5-bit fields), the windows 12
+    tokens apart and only their starts valid, so the kernel walks exactly
+    these keys; all segment ids are padding, so it counts nothing.  The
+    walk's values are checked through a run that gives each query its own
+    protein (min_hits 1: the called role is the stored value)."""
+    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+    from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
+    from kmers_anno_tpu_torch.ops.apply_flat import apply_flat
+    from kmers_anno_tpu_torch.ops.sliced_probe import (probe_table_sliced,
+                                                       windowed_table)
+
+    rng = np.random.default_rng(BENCH_SEED)
+    combined = np.unique(rng.integers(0, 1 << 59, BIG_KEYS + 200_000,
+                                      dtype=np.uint64))[:BIG_KEYS]
+    key_lo = (combined & np.uint64(0x3FFFFFFF)).astype(np.uint32)
+    key_hi = (combined >> np.uint64(30)).astype(np.uint32)
+    vals = rng.integers(0, SIG_ROLES, len(key_lo), dtype=np.int64)
+    table, mp = build_table(key_lo, key_hi, vals.astype(np.uint32))
+    q = rng.integers(0, len(key_lo), BIG_QUERIES)
+    qlo, qhi = key_lo[q], key_hi[q]
+    d_plain = wide_table_from_numpy(table, dev)
+    d_win = wide_table_from_numpy(windowed_table(table, mp), dev)
+    lo = torch.from_numpy(qlo.view(np.int32)).to(dev)
+    hi = torch.from_numpy(qhi.view(np.int32)).to(dev)
+    valid = torch.ones(BIG_QUERIES, dtype=torch.bool, device=dev)
+    seg = torch.arange(BIG_QUERIES, dtype=torch.int32, device=dev) >> 6
+    sliced_ms, (s_val, s_seg) = timed(lambda: probe_table_sliced(
+        d_win, lo, hi, valid, mp, payload=seg))
+    want = probe_table(d_plain, lo, hi, valid, mp)
+    require(torch.equal(torch.sort(s_val).values, torch.sort(want).values)
+            and bool((want >= 0).all()),
+            "the sliced probe's values differ from probe_table's")
+    # the queries as k=12 windows, 12 tokens apart
+    fields = [(w >> np.uint32(5 * j)) & np.uint32(31)
+              for w in (qlo, qhi) for j in range(6)]
+    codes = torch.from_numpy(np.stack(fields, 1).astype(np.uint8).reshape(
+        -1)).to(dev)
+    starts = torch.zeros(codes.numel(), dtype=torch.bool, device=dev)
+    starts[::12] = True
+    pad_seg = torch.ones(codes.numel(), dtype=torch.int32, device=dev)
+    own = torch.arange(codes.numel(), dtype=torch.int32, device=dev) // 12
+    role, _ = apply_flat(d_plain, codes, own, starts, 1, k=12, max_probes=mp,
+                         n_seqs=BIG_QUERIES)
+    require(torch.equal(role, want),
+            "the kernel's walk of the table differs from probe_table")
+    walk_ms = launch_ms(launch_flat, [(d_plain, codes, pad_seg, starts, 12,
+                                       mp, 1, 1)])
+    print(f"sliced probe on bench.py's big-table shape ({len(key_lo)} keys, "
+          f"{table.shape[0]} buckets, {table.nbytes} B, max_probes {mp}; "
+          f"{BIG_QUERIES} queries, all hits): plain-torch probe_table_sliced "
+          f"(payload mode, probe windows of {mp}) {sliced_ms:.4f} ms "
+          f"({BIG_QUERIES / sliced_ms * 1e3:.4e} lookups/s); the apply "
+          f"kernel's walk of the same queries on the plain table "
+          f"{walk_ms:.4f} ms ({BIG_QUERIES / walk_ms * 1e3:.4e} lookups/s); "
+          f"values equal to probe_table", flush=True)
+    return dict(sliced_ms=sliced_ms, walk_ms=walk_ms)
+
+
+def run_big_kdb_cli(dev, tmp: str, ctx: dict) -> dict:
+    """``apply --format VERIFY`` through the CLI on the signature genomes
+    with a ``.kdb`` of KDB_KEYS keys: the CLI build's table plus random
+    kmers absent from every peg's windows, with roles drawn from the
+    table's own.  The engine must take the flat route (an 8-slot table of
+    about 100 MB), and the report must equal the wide route's byte for
+    byte."""
+    from kmers_anno_tpu_torch.commands.app import main
+    from kmers_anno_tpu_torch.engine import signature
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+    from kmers_anno_tpu_torch.ops.widetable import fits_wide
+
+    t0 = time.perf_counter()
+    base = ctx["table"]
+    lo, hi, _ = signature._flat_protein_keys(
+        [f.protein_translation for g in ctx["genomes"] for f in g.pegs
+         if f.protein_translation], K)
+
+    def keys(lo_, hi_):
+        return (hi_.astype(np.uint64) << np.uint64(32)) | lo_
+
+    have = np.unique(np.concatenate([keys(lo, hi),
+                                     keys(base.key_lo, base.key_hi)]))
+    rng = np.random.default_rng(SEED + 9)
+    n_fill = KDB_KEYS - len(base)
+    flo, fhi = pack_kmers_np(rng.integers(0, 20, n_fill * 5 // 4 + K - 1
+                                          ).astype(np.uint8), K)
+    fill = np.unique(keys(flo, fhi))
+    fill = fill[~np.isin(fill, have)]
+    fill = fill[rng.permutation(len(fill))[:n_fill]]
+    require(len(fill) == n_fill, "too few fill keys for the .kdb")
+    big = signature.SignatureTable(
+        k=K, key_lo=np.concatenate([base.key_lo, (fill & np.uint64(
+            0xFFFFFFFF)).astype(np.uint32)]),
+        key_hi=np.concatenate([base.key_hi, (fill >> np.uint64(32)).astype(
+            np.uint32)]),
+        role_idx=np.concatenate([base.role_idx,
+                                 rng.choice(base.role_idx, n_fill)]),
+        role_ids=base.role_ids)
+    require(not fits_wide(len(big)), "the .kdb fits one wide table")
+    kdb = os.path.join(tmp, "big.kdb")
+    big.save(kdb)
+    make_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "verify_big.tbl")
+    t0 = time.perf_counter()
+    with _Launches() as run:
+        rc = main(["apply", "--format", "VERIFY", "-m", str(MIN_HITS),
+                   "--device", str(dev), "-o", out, kdb, ctx["use_file"],
+                   ctx["gto_dir"]])
+    cold_s = time.perf_counter() - t0
+    require(rc == 0, f"apply on the .kdb exited with {rc}")
+    require(run.counts["apply_flat"] == SIG_GENOMES
+            and run.counts["apply_rows"] == 0,
+            f"apply on the .kdb launches {run.counts}")
+    same = open(out, "rb").read() == open(ctx["verify"], "rb").read()
+    require(same, "the .kdb's VERIFY report differs from the wide route's")
+    print(f"apply --format VERIFY (CLI) on a {len(big)}-key .kdb (the "
+          f"build's {len(base)} kmers and {n_fill} absent from every peg, "
+          f"made in {make_s:.2f} s): the flat route, one apply_flat launch "
+          f"a genome; report byte "
+          f"for byte equal to the wide route's; {cold_s:.2f} s cold "
+          f"(table load and build, GTO load); launches {run.counts}",
+          flush=True)
+    return {"big_cli": dict(launches=run.counts)}
+
+
+# ---------------------------------------------------------------------------
 # kernels D and E: hashAnno's chunk step
 # ---------------------------------------------------------------------------
 
@@ -1824,31 +2465,41 @@ def tile_cells(c: dict, ranks: torch.Tensor) -> torch.Tensor:
     return torch.bincount(first, minlength=-(-ranks.numel() // COMMONS_TILE))
 
 
-def bucket_reads(table, lo, hi, valid, max_probes) -> tuple[int, int, int]:
+def bucket_reads(table, lo, hi, valid, max_probes, seen=None,
+                 hit_seen=None) -> tuple[int, int, int]:
     """What this run's lookups need from an 8-slot table: (distinct
     buckets whose lo keys they read, bucket reads, hits).  A key walks
     from its home bucket until its bucket is found, a bucket has a free
-    slot, or ``max_probes`` buckets are read."""
+    slot, or ``max_probes`` buckets are read.  ``seen``, a (buckets,) bool
+    tensor, gathers the buckets read over several calls; ``hit_seen``, when
+    given, the buckets holding a hit."""
     from kmers_anno_tpu_torch.ops.hashing import mix_kmer
     from kmers_anno_tpu_torch.ops.hashtable import BUCKET, EMPTY
 
     empty = int(EMPTY.view(np.int32))
     mask = table.shape[0] - 1
-    seen = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
-    qlo, qhi = lo[valid], hi[valid]
-    b = mix_kmer(qlo, qhi) & mask
+    if seen is None:
+        seen = torch.zeros(table.shape[0], dtype=torch.bool,
+                           device=table.device)
     reads = hits = 0
-    for _ in range(max_probes):
-        if not b.numel():
-            break
-        seen[b] = True
-        reads += b.numel()
-        rows = table[b]
-        hit = ((rows[:, :BUCKET] == qlo[:, None])
-               & (rows[:, BUCKET: 2 * BUCKET] == qhi[:, None])).any(1)
-        hits += int(hit.sum())
-        go = ~hit & (rows[:, :BUCKET] != empty).all(1)
-        qlo, qhi, b = qlo[go], qhi[go], (b[go] + 1) & mask
+    lo, hi, valid = lo.reshape(-1), hi.reshape(-1), valid.reshape(-1)
+    for s in range(0, lo.numel(), 1 << 22):
+        v = valid[s: s + (1 << 22)]
+        qlo, qhi = lo[s: s + (1 << 22)][v], hi[s: s + (1 << 22)][v]
+        b = mix_kmer(qlo, qhi) & mask
+        for _ in range(max_probes):
+            if not b.numel():
+                break
+            seen[b] = True
+            reads += b.numel()
+            rows = table[b]
+            hit = ((rows[:, :BUCKET] == qlo[:, None])
+                   & (rows[:, BUCKET: 2 * BUCKET] == qhi[:, None])).any(1)
+            hits += int(hit.sum())
+            if hit_seen is not None:
+                hit_seen[b[hit]] = True
+            go = ~hit & (rows[:, :BUCKET] != empty).all(1)
+            qlo, qhi, b = qlo[go], qhi[go], (b[go] + 1) & mask
     return int(seen.sum()), reads, hits
 
 
@@ -2538,16 +3189,27 @@ def main() -> None:
     phase("kernel checks", lambda: (check_contig_scan(dev),
                                     check_probe_wide(dev),
                                     check_apply_rows(dev),
-                                    check_collisions(dev)))
+                                    check_collisions(dev),
+                                    check_apply_flat(dev)))
     with tempfile.TemporaryDirectory() as tmp:
         routes, (measured, cases) = phase("projection", run_main_path, dev,
                                           tmp, args.profile)
     with tempfile.TemporaryDirectory() as tmp:
-        routes.update(phase("build + apply", run_signature_path, dev, tmp))
+        sig_routes, sig_files = phase("build + apply", run_signature_path,
+                                      dev, tmp)
+        routes.update(sig_routes)
+        routes.update(phase("apply, big .kdb CLI", run_big_kdb_cli, dev,
+                            tmp, sig_files))
     bench_routes, measured["apply_rows"], bench_cases = phase(
         "apply bench shape", run_bench_shape, dev)
     routes.update(bench_routes)
     cases.update(bench_cases)
+    big_routes, big_measured, big_cases = phase("apply, big table",
+                                                run_big_table, dev)
+    routes.update(big_routes)
+    measured.update(big_measured)
+    cases.update(big_cases)
+    walks = phase("sliced probe timing", time_sliced_walks, dev)
     phase("hash kernel checks", check_hash_chunk, dev)
     hash_routes, hash_measured, hash_cases = phase(
         "hashAnno bench shape", run_hash_bench_shape, dev)
@@ -2597,12 +3259,29 @@ def main() -> None:
             "engine/hashanno.py:122", "hash_cli", ("hash_cli", "hash_bench")),
         row("hash_best", "hash_best", "csrc/hash_chunk.cu",
             "engine/hashanno.py:71", "hash_cli", ("hash_cli", "hash_bench")),
+        # the flat-stream path of tables past one wide table: the 10M-key
+        # bench table's call_proteins and the CLI's 4M-key .kdb; weighted,
+        # the call in role blocks and the dense 8,192-protein call
+        row("apply_flat", "apply_flat", "csrc/apply_flat.cu",
+            "engine/apply_engine.py:61", "big", ("big", "big_cli")),
+        row("apply_flat_weighted", "apply_flat_weighted",
+            "csrc/apply_flat.cu", "engine/apply_engine.py:104",
+            "big_weighted", ("big_weighted", "big_dense")),
     ]
     for r, v in routes.items():
         if "times" in v:
             kind = "cold" if r == "host" else "warm"
             print(f"{kind} s/genome, {r} route: {summary(v['times'])}",
                   flush=True)
+    apply_lookups = measured["apply_rows"]["windows"] / measured[
+        "apply_rows"]["launch_ms"] * 1e3
+    print(f"kmer lookups/s, kernel alone: apply_flat on the "
+          f"{BIG_KEYS // 10**6}M-key 8-slot table (HBM-resident) "
+          f"{measured['apply_flat']['lookups_per_s']:.4e}; apply_rows on the "
+          f"1M-key wide table (L2-resident) {apply_lookups:.4e}; the sliced "
+          f"probe {BIG_QUERIES / walks['sliced_ms'] * 1e3:.4e}, the apply "
+          f"kernel's walk of the same queries "
+          f"{BIG_QUERIES / walks['walk_ms'] * 1e3:.4e}", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

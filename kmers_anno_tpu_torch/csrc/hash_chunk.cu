@@ -8,12 +8,9 @@
 //
 // kan_hash_commons: a block of 1,024 threads counts a tile of kTileKmers
 // chunk kmers (lo, hi, prototype row, valid), one a thread.  A thread
-// walks the 8-slot table ((B, 24) words, [8 lo | 8 hi | 8 payloads] a
-// bucket, home bucket = mix_kmer(lo, hi) & (B - 1), the unsalted murmur3
-// mix of ops/hashing.py; at most max_probes buckets, stopping at the first
-// bucket with a free slot; a slot whose lo matches has its hi and payload
-// words read together), and on a hit reads the kmer's owner row
-// owner_mat[rank, :cap], in 16-byte pieces when cap is a multiple of 4.
+// walks the 8-slot table (bucket_probe.cuh), and on a hit reads the kmer's
+// owner row owner_mat[rank, :cap], in 16-byte pieces when cap is a multiple
+// of 4.
 // Each owner below n_pad (the padding value, never written) is one count
 // for the cell row * n_pad + owner, added into the block's table of
 // (cell, count) in shared memory (open addressing, atomicCAS to claim a
@@ -56,13 +53,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "wide_probe.cuh"
+#include "bucket_probe.cuh"
 
 namespace {
 
-constexpr int kBucket = 8;
-constexpr int kBucketWords = 3 * kBucket;
-constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr int kTileKmers = 1024;
 constexpr int kCommonsThreads = kTileKmers;   // one chunk kmer a thread
@@ -75,33 +69,6 @@ constexpr uint32_t kNoCell = 0xFFFFFFFFu;
 constexpr int kCols = 32;
 constexpr int kSlices = 16;
 constexpr int kUnroll = 8;
-
-// The payload stored under (lo, hi) in an 8-slot table, or -1.
-__device__ __forceinline__ int32_t probe_bucket_key(
-    const uint32_t* __restrict__ table, uint32_t mask, uint32_t lo,
-    uint32_t hi, int max_probes) {
-  uint32_t b = kan::fmix32(lo ^ kan::fmix32(hi ^ kGolden)) & mask;
-  for (int probe = 0; probe < max_probes; ++probe) {
-    const uint32_t* row = table + static_cast<size_t>(b) * kBucketWords;
-    const uint4* row4 = reinterpret_cast<const uint4*>(row);
-    const uint4 a = __ldg(row4);
-    const uint4 c = __ldg(row4 + 1);
-    const uint32_t keys[kBucket] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
-    bool full = true;
-#pragma unroll
-    for (int s = 0; s < kBucket; ++s) {
-      if (keys[s] == lo) {
-        const uint32_t h = __ldg(row + kBucket + s);
-        const uint32_t v = __ldg(row + 2 * kBucket + s);
-        if (h == hi) return static_cast<int32_t>(v);
-      }
-      full &= keys[s] != kEmpty;
-    }
-    if (!full) return -1;
-    b = (b + 1) & mask;
-  }
-  return -1;
-}
 
 struct CellTable {
   uint32_t cell[kTableSlots];
@@ -161,7 +128,8 @@ hash_commons_kernel(const uint32_t* __restrict__ table, uint32_t mask,
   if (i < h) {
     const int32_t rank =
         valid[i]
-            ? probe_bucket_key(table, mask, q_lo[i], q_hi[i], max_probes)
+            ? kan::probe_bucket_key(table, mask, q_lo[i], q_hi[i],
+                                    max_probes)
             : -1;
     if (ranks) ranks[i] = rank;
     const int32_t p = proto[i];

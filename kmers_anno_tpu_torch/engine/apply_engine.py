@@ -1,9 +1,13 @@
 """Signature-table annotation engine (the ``apply`` hot path).
 
 Counterpart of ``kmers_anno_tpu/engine/apply_engine.py`` (ApplyKmerProcessor
-.java:113-155), row layout.  Proteins are length-sorted and encoded on the
-host into (rows, width) code matrices (``make_row_batches``, the C++
-loader), and each batch takes one device step:
+.java:113-155).  Two layouts, chosen by the table's size as the reference
+chooses them:
+
+**Row layout** (tables that fit one wide table, ~3.1M keys).  Proteins are
+length-sorted and encoded on the host into (rows, width) code matrices
+(``make_row_batches``, the C++ loader), and each batch takes one device
+step:
 
 * unweighted (the reference's unanimity vote): ``apply_rows``
   (``ops/apply_rows.py``, ``apply_engine.py:183-195``), one launch of the
@@ -12,12 +16,15 @@ loader), and each batch takes one device step:
 * weighted: :func:`apply_rows_weighted`, the torch pack, the
   ``probe_wide`` kernel, the payload split and the row-sort tally vote.
 
-The Java loop walks kmers in order and stops at the first conflicting
-hit; its outcome is order-free, so both steps reduce with min/max/sum.
+**Flat-stream layout** (bigger tables).  Every protein of a call is one
+``FlatBatch`` token stream with segment ids, probed against the 8-slot
+table, with per-protein votes:
+``ops/apply_flat.apply_flat`` and ``apply_weighted_flat``
+(``apply_engine.py:61-128``), the kernels of ``csrc/apply_flat.cu`` on
+CUDA and their plain versions on the CPU.
 
-Tables too large for one wide table take the reference's flat-stream
-layout, which is not yet ported (ROADMAP queue 1, item 9): the engine
-raises for them.
+The Java loop walks kmers in order and stops at the first conflicting
+hit; its outcome is order-free, so every step reduces with min/max/sum.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from .. import native
 from ..device import resolve_device
 from ..genome.gto import Feature, Genome
+from ..ops.apply_flat import apply_flat, apply_weighted_flat
 from ..ops.apply_rows import apply_rows   # the unweighted apply step
 from ..ops.encode import PROT_PAD, encode_protein
 from ..ops.kmers import pack_kmer_windows
@@ -35,11 +43,6 @@ from ..ops.vote import split_packed_payload, weighted_vote_rows
 from ..ops.widetable import probe_wide
 from .protein_kmers import apply_drop_last
 from .signature import SignatureTable
-
-NOT_PORTED_FLAT = (
-    "the signature table has {n} keys, more than one wide table holds; "
-    "the flat-stream and big-table apply layout is not yet ported to "
-    "kmers_anno_tpu_torch (ROADMAP queue 1, item 9)")
 
 # coarse width buckets (<= ~14% padding between steps)
 _W_BUCKETS = [64, 96, 128, 160, 192, 224, 256, 320, 384, 448, 512, 640,
@@ -54,6 +57,49 @@ def _bucket_width(n: int) -> int:
         if n <= w:
             return w
     return -(-n // 2048) * 2048
+
+
+def _bucket(n: int, minimum: int) -> int:
+    """Round up to the next power of two, at least ``minimum``
+    (``apply_engine.py:55-58``)."""
+    n = max(n, minimum)
+    return 1 << (n - 1).bit_length()
+
+
+class FlatBatch:
+    """A flat token-stream batch of protein sequences (host side,
+    ``apply_engine.py:131-160``): codes (PROT_PAD after the last protein),
+    each token's protein (``n_seqs`` after the last), and which tokens
+    start a kmer window inside their protein.  The stream and the protein
+    count are padded to powers of two."""
+
+    __slots__ = ("codes", "seg_ids", "valid", "n_seqs")
+
+    def __init__(self, proteins: list[str], k: int,
+                 min_tokens: int = 16384, min_seqs: int = 256):
+        n = len(proteins)
+        total = sum(map(len, proteins))
+        width = _bucket(total, min_tokens)
+        self.n_seqs = _bucket(n, min_seqs)
+        got = native.flat_batch(proteins, k, width, self.n_seqs)
+        if got is not None:  # C++ data loader (kan_host.cpp)
+            self.codes, self.seg_ids, self.valid = got
+            self.valid = apply_drop_last(self.valid)
+            return
+        codes = np.full(width, PROT_PAD, np.uint8)
+        seg_ids = np.full(width, self.n_seqs, np.int32)
+        valid = np.zeros(width, bool)
+        pos = 0
+        for i, prot in enumerate(proteins):
+            ln = len(prot)
+            codes[pos: pos + ln] = encode_protein(prot)
+            seg_ids[pos: pos + ln] = i
+            if ln >= k:
+                valid[pos: pos + ln - k + 1] = True
+            pos += ln
+        self.codes = codes
+        self.seg_ids = seg_ids
+        self.valid = apply_drop_last(valid)
 
 
 def apply_rows_weighted(table: torch.Tensor, salt: int, codes: torch.Tensor,
@@ -134,7 +180,9 @@ class KmerApplyEngine:
     (ApplyKmerProcessor.java:122-147); weighted=True calls the best-tally
     role when its summed hit weights reach ``min_weight`` (default:
     min_hits).  The table is built once, on the host, and kept on the
-    device.
+    device: the wide table when the keys fit one (``mode`` "wide", row
+    batches), else the 8-slot table (``mode`` "flat", one FlatBatch a
+    call).
     """
 
     def __init__(self, signatures: SignatureTable, min_hits: int = 5,
@@ -150,10 +198,22 @@ class KmerApplyEngine:
         self.device = resolve_device(device)
         wide = signatures.device_wide_table(packed_weights=weighted,
                                             device=self.device)
-        if wide is None:
-            raise NotImplementedError(
-                NOT_PORTED_FLAT.format(n=len(signatures)))
-        self.table, self.salt, self.max_probes = wide
+        if wide is not None:
+            self.mode = "wide"
+            self.table, self.salt, self.max_probes = wide
+        else:
+            self.mode = "flat"
+            self.table, self.max_probes = signatures.device_table(
+                packed_weights=weighted, device=self.device)
+
+    def _flat_step(self, batch: FlatBatch):
+        args = [torch.from_numpy(a).to(self.device)
+                for a in (batch.codes, batch.seg_ids, batch.valid)]
+        kw = dict(k=self.k, max_probes=self.max_probes, n_seqs=batch.n_seqs)
+        if self.weighted:
+            return apply_weighted_flat(self.table, *args, self.min_weight,
+                                       n_roles=len(self.role_ids), **kw)
+        return apply_flat(self.table, *args, self.min_hits, **kw)
 
     def _row_step(self, batch: RowBatch):
         codes = torch.from_numpy(batch.codes).to(self.device)
@@ -165,11 +225,16 @@ class KmerApplyEngine:
         return apply_rows(self.table, self.salt, codes, valid,
                           self.min_hits, self.k, self.max_probes)
 
-    def _call_batches(self, n: int, prepared: list[RowBatch]
+    def _call_batches(self, n: int, prepared: list[RowBatch] | FlatBatch
                       ) -> tuple[np.ndarray, np.ndarray]:
         """Run prepared batches; returns (role, hits) in caller order."""
         role = np.full(n, -1, np.int32)
         hits = np.zeros(n, np.float32 if self.weighted else np.int32)
+        if isinstance(prepared, FlatBatch):
+            r, h = self._flat_step(prepared)
+            role[:] = r.cpu().numpy()[:n]
+            hits[:] = h.cpu().numpy()[:n]
+            return role, hits
         outs = [self._row_step(b) for b in prepared]  # queue every step
         for batch, (r, h) in zip(prepared, outs):
             role[batch.idx] = r.cpu().numpy()[: batch.n]
@@ -193,8 +258,13 @@ class KmerApplyEngine:
         if not proteins:
             return []
         role, hits = self._call_batches(
-            len(proteins), make_row_batches(proteins, self.k))
+            len(proteins), self._prepare_proteins(proteins))
         return self._decode(role, hits)
+
+    def _prepare_proteins(self, proteins: list[str]):
+        if self.mode == "wide":
+            return make_row_batches(proteins, self.k)
+        return FlatBatch(proteins, self.k)
 
     def prepare(self, genome: Genome):
         """Host-side preparation (peg selection and batch encode); safe to
@@ -202,8 +272,8 @@ class KmerApplyEngine:
         pegs = [f for f in genome.pegs if f.protein_translation]
         if not pegs:
             return pegs, None
-        return pegs, make_row_batches(
-            [f.protein_translation for f in pegs], self.k)
+        return pegs, self._prepare_proteins(
+            [f.protein_translation for f in pegs])
 
     def call_prepared(self, pegs: list[Feature], prepared
                       ) -> list[tuple[Feature, str, int]]:

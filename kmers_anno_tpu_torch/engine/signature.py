@@ -19,6 +19,10 @@ torch on a device: one stable sort of the int64 key ``hi << 32 | lo``,
 segment min/max by ``scatter_reduce``, and the kill pass as a probe of
 the kill kmers into an 8-slot table of the candidates (``ops.hashtable``).
 
+The table goes to the device as the wide-bucket table (``ops.widetable``)
+when its keys fit one, else as the 8-slot table of the flat-stream apply
+step.
+
 DNA tables (``build --dna``) are not yet ported (ROADMAP queue 1, item
 10): every path that would need one raises.
 """
@@ -422,16 +426,25 @@ class SignatureTable:
         return (wide_table_from_numpy(table, resolve_device(device)), salt,
                 max_probes)
 
-    def device_table(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SignatureTable.device_table serves DNA mode and the mesh "
-            "engines, not yet ported (ROADMAP queue 1, items 10 and 11)")
+    def device_table(self, load_factor: float = 0.5,
+                     packed_weights: bool = False, *,
+                     device: str | torch.device):
+        """The 8-slot bucket table (``ops.hashtable``) of the flat-stream
+        apply step, built on the host and resident on ``device``
+        (``signature.py:469-485``); payloads as for
+        :meth:`device_wide_table`.
 
-    def device_probe_table(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SignatureTable.device_probe_table (the 8-slot and sliced "
-            "big-table layouts) is not yet ported (ROADMAP queue 1, "
-            "items 9-11)")
+        The table stays in this plain layout at every size.  The reference's
+        ``device_probe_table`` lays tables past 48 MB out in probe windows
+        for its sort-and-stream probe; a walk on the card leaves its home
+        bucket too rarely for the window to pay for twice the memory.
+
+        returns (table (B, 24) int32 tensor, max_probes int)
+        """
+        table, max_probes = build_table(
+            self.key_lo, self.key_hi, self._payloads(packed_weights),
+            load_factor=load_factor)
+        return wide_table_from_numpy(table, resolve_device(device)), max_probes
 
     def _payloads(self, packed_weights: bool) -> np.ndarray:
         if packed_weights:

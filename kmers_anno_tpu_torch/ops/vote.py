@@ -4,17 +4,45 @@ Counterpart of ``kmers_anno_tpu/ops/vote.py``, in plain PyTorch on the
 tensors' device.  ``unanimous_vote`` is the ``apply`` voting loop
 (ApplyKmerProcessor.java:122-147) as an order-free reduction: a protein is
 bad iff two hits disagree (min role != max role), the called role is the
-unanimous one and its count is the number of hits.  The weighted vote of
-the row layout sums hit weights per role and calls the best tally; equal
-tallies call the smaller role index.
+unanimous one and its count is the number of hits.  The weighted votes sum
+hit weights per (protein, role) and call the best tally; equal tallies call
+the smaller role index.  ``weighted_vote_rows`` works on the row layout;
+``weighted_vote_flat`` (one sort), ``weighted_vote_dense`` (one tally
+matrix) and ``weighted_vote_chunked`` (the matrix in role blocks) on a flat
+token stream with segment ids, routed by ``pick_weighted_vote``.
+
+Every weighted vote sums a tally exactly and rounds it once: a hit weight is
+a non-negative fp16, so ``weight * 2^24`` is an integer below 2^40, and each
+(protein, role) sum is taken in int64 fixed point (units of 2^-24) and
+converted to float32 once.  Tallies are compared as those float32 values, so
+every path, on the CPU and on the card, calls the same role with the same
+tally bits whatever order it adds in.  (int64 rather than float64: a run of
+more than about 8,192 weights of 65,504 is no longer exact in float64.)  The
+reference sums in float32 in XLA's order, so its tallies of non-integer
+weights may differ from these in the last bit.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 _INT32_MAX = 2**31 - 1
 _FIXED_ONE = float(1 << 24)     # fp16's smallest step, 2^-24, is one unit
+
+# dense tally matrices beyond this many cells are swept in role blocks
+DENSE_VOTE_LIMIT = 1 << 25
+
+
+def _fixed(weights: torch.Tensor) -> torch.Tensor:
+    """fp16-valued weights -> exact int64 units of 2^-24."""
+    return (weights.to(torch.float64) * _FIXED_ONE).to(torch.int64)
+
+
+def _to_tally(units: torch.Tensor) -> torch.Tensor:
+    """Exact int64 sums of units -> float32 tallies, rounded once."""
+    return units.to(torch.float32) * (1.0 / _FIXED_ONE)
 
 
 def unanimous_vote(roles: torch.Tensor, valid: torch.Tensor,
@@ -59,6 +87,14 @@ def split_packed_payload(val: torch.Tensor
     return role, torch.where(miss, 0.0, weight)
 
 
+def _call(best: torch.Tensor, role: torch.Tensor, min_weight: float):
+    """(role or -1, tally or 0.0): a role is called when its tally reaches
+    ``min_weight`` and is positive."""
+    called = (best >= min_weight) & (best > 0.0)
+    return (torch.where(called, role, -1).to(torch.int32),
+            torch.where(called, best, 0.0))
+
+
 def weighted_vote_rows(roles: torch.Tensor, weights: torch.Tensor,
                        valid: torch.Tensor, min_weight: float
                        ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -74,19 +110,11 @@ def weighted_vote_rows(roles: torch.Tensor, weights: torch.Tensor,
     runs into tallies (``cummax`` carries each run's base), and ``argmax``
     takes the first best run, so equal tallies call the smaller role.
 
-    The sums are order-free.  A hit weight is a non-negative fp16, so
-    ``weight * 2^24`` is an integer below 2^40: each run is summed exactly
-    in int64 fixed point (units of 2^-24) and converted to float32 once,
-    so a tally is rounded once and the CPU and CUDA give the same bits
-    whatever order they add in.  (int64 rather than float64: a run of more
-    than about 8,192 weights of 65,504 is no longer exact in float64.)
-    The reference sums in float32 in XLA's order, so its tallies of
-    non-integer weights may still differ from these in the last bit.
+    Each run is summed exactly and rounded once (module docstring).
     """
     hit = valid & (roles >= 0)
     r = torch.where(hit, roles, _INT32_MAX)
-    fixed = (weights.to(torch.float64) * _FIXED_ONE).to(torch.int64)
-    w = torch.where(hit, fixed, 0)
+    w = torch.where(hit, _fixed(weights), 0)
     rs, order = torch.sort(r, dim=-1, stable=True)
     ws = torch.gather(w, -1, order)
     cw = torch.cumsum(ws, dim=-1)
@@ -95,11 +123,125 @@ def weighted_vote_rows(roles: torch.Tensor, weights: torch.Tensor,
     first = torch.cat([edge, change], dim=-1)
     last = torch.cat([change, edge], dim=-1)
     base = torch.cummax(torch.where(first, cw - ws, -1), dim=-1).values
-    tally = (cw - base).to(torch.float32) * (1.0 / _FIXED_ONE)
+    tally = _to_tally(cw - base)
     cand = torch.where(last & (rs != _INT32_MAX), tally, -1.0)
     arg = torch.argmax(cand, dim=-1, keepdim=True)
     best = torch.gather(cand, -1, arg)[:, 0]
-    role = torch.gather(rs, -1, arg)[:, 0]
-    called = (best >= min_weight) & (best > 0.0)
-    return (torch.where(called, role, -1).to(torch.int32),
-            torch.where(called, best, 0.0))
+    return _call(best, torch.gather(rs, -1, arg)[:, 0], min_weight)
+
+
+def _flat_hits(roles, seg_ids, valid, n_seqs) -> torch.Tensor:
+    """Windows that count: valid hits of a protein below ``n_seqs``."""
+    return valid & (roles >= 0) & (seg_ids >= 0) & (seg_ids < n_seqs)
+
+
+def _block_best(roles, weights, seg_ids, hit, n_seqs, base, r_blk):
+    """Each protein's first best float32 tally over roles [base, base +
+    r_blk), from an exact (n_seqs, r_blk) int64 tally matrix."""
+    in_blk = hit & (roles >= base) & (roles < base + r_blk)
+    idx = torch.where(in_blk, seg_ids.long() * r_blk + (roles - base),
+                      n_seqs * r_blk)
+    cells = torch.zeros(n_seqs * r_blk + 1, dtype=torch.int64,
+                        device=roles.device)
+    cells.index_add_(0, idx.reshape(-1),
+                     torch.where(in_blk, _fixed(weights), 0).reshape(-1))
+    tally = _to_tally(cells[:-1].reshape(n_seqs, r_blk))
+    arg = torch.argmax(tally, dim=1, keepdim=True)      # the first maximum
+    return torch.gather(tally, 1, arg)[:, 0], arg[:, 0].to(torch.int32)
+
+
+def weighted_vote_flat(roles: torch.Tensor, weights: torch.Tensor,
+                       seg_ids: torch.Tensor, valid: torch.Tensor,
+                       min_weight: float, *, n_seqs: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted best-role vote over a flat token stream, by one sort
+    (``vote.py:73-120``).
+
+    roles:   (T,) int32 role per window, -1 = miss
+    weights: (T,) float32 hit weights (fp16 values)
+    seg_ids: (T,) int32 protein of each window (padding: >= n_seqs)
+    valid:   (T,) bool window validity
+    returns (role (n_seqs,) int32, called role or -1;
+             tally (n_seqs,) float32, the winning tally, 0.0 when uncalled)
+
+    One stable sort of the (protein, role) pairs makes runs, each summed
+    exactly; a protein's best run is its largest rounded tally, and the
+    smallest role among the runs that reach it is called.
+    """
+    dev = roles.device
+    hit = _flat_hits(roles, seg_ids, valid, n_seqs)
+    seg = torch.where(hit, seg_ids, n_seqs).to(torch.int64)
+    key = (seg << 32) | torch.where(hit, roles, _INT32_MAX).to(torch.int64)
+    skey, order = torch.sort(key, stable=True)
+    first = torch.ones_like(skey, dtype=torch.bool)
+    first[1:] = skey[1:] != skey[:-1]
+    run = torch.cumsum(first, 0) - 1
+    units = torch.zeros(skey.shape[0], dtype=torch.int64, device=dev)
+    units.index_add_(0, run, torch.where(hit, _fixed(weights), 0)[order])
+    run_key = skey[first]
+    run_seg = run_key >> 32
+    run_role = run_key & 0xFFFFFFFF
+    run_tally = _to_tally(units[: run_key.shape[0]])
+    best = torch.zeros(n_seqs + 1, dtype=torch.float32, device=dev)
+    best = best.scatter_reduce(0, run_seg, run_tally, "amax")
+    is_best = (run_seg < n_seqs) & (run_tally >= best[run_seg])
+    role = torch.full((n_seqs + 1,), _INT32_MAX, dtype=torch.int64,
+                      device=dev)
+    role = role.scatter_reduce(
+        0, run_seg, torch.where(is_best, run_role, _INT32_MAX), "amin")
+    return _call(best[:n_seqs], role[:n_seqs], min_weight)
+
+
+def weighted_vote_dense(roles: torch.Tensor, weights: torch.Tensor,
+                        seg_ids: torch.Tensor, valid: torch.Tensor,
+                        min_weight: float, *, n_seqs: int, n_roles: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted vote through one (n_seqs, n_roles) tally matrix
+    (``vote.py:123-144``); arguments and returns as
+    :func:`weighted_vote_flat`.  ``argmax`` takes the first maximum, so
+    equal tallies call the smaller role."""
+    hit = _flat_hits(roles, seg_ids, valid, n_seqs)
+    best, role = _block_best(roles, weights, seg_ids, hit, n_seqs, 0,
+                             n_roles)
+    return _call(best, role, min_weight)
+
+
+def weighted_vote_chunked(roles: torch.Tensor, weights: torch.Tensor,
+                          seg_ids: torch.Tensor, valid: torch.Tensor,
+                          min_weight: float, *, n_seqs: int, n_roles: int,
+                          r_blk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense vote in blocks of ``r_blk`` roles (``vote.py:195-234``),
+    for role spaces whose matrix would pass ``DENSE_VOTE_LIMIT``.  A running
+    (best, role) starts at (0.0, -1); a block displaces it only with a
+    strictly greater tally, so equal tallies call the smaller role, as in
+    the other paths."""
+    hit = _flat_hits(roles, seg_ids, valid, n_seqs)
+    best = torch.zeros(n_seqs, dtype=torch.float32, device=roles.device)
+    role = torch.full((n_seqs,), -1, dtype=torch.int32, device=roles.device)
+    for base in range(0, n_roles, r_blk):
+        bmax, barg = _block_best(roles, weights, seg_ids, hit, n_seqs, base,
+                                 r_blk)
+        better = bmax > best
+        best = torch.where(better, bmax, best)
+        role = torch.where(better, barg + base, role)
+    return _call(best, role, min_weight)
+
+
+def vote_block(n_seqs: int, n_roles: int) -> int:
+    """The roles a tally block holds: all of them when the (n_seqs,
+    n_roles) matrix fits ``DENSE_VOTE_LIMIT``, else as many as fit."""
+    if n_roles <= 0:
+        raise ValueError("weighted vote requires a known role count")
+    if n_seqs * n_roles <= DENSE_VOTE_LIMIT:
+        return n_roles
+    return max(1, DENSE_VOTE_LIMIT // n_seqs)
+
+
+def pick_weighted_vote(n_seqs: int, n_roles: int):
+    """Route a flat weighted vote by shape (``vote.py:237-247``): dense when
+    the tally matrix fits, role blocks otherwise."""
+    r_blk = vote_block(n_seqs, n_roles)
+    if r_blk == n_roles:
+        return partial(weighted_vote_dense, n_seqs=n_seqs, n_roles=n_roles)
+    return partial(weighted_vote_chunked, n_seqs=n_seqs, n_roles=n_roles,
+                   r_blk=r_blk)

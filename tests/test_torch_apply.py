@@ -24,6 +24,7 @@ from kmers_anno_tpu.engine import apply_engine as ref_engine
 from kmers_anno_tpu.engine import protein_kmers as ref_pk
 from kmers_anno_tpu.engine import signature as ref_sig
 from kmers_anno_tpu.ops import vote as ref_vote
+from kmers_anno_tpu.ops import widetable as ref_widetable
 from kmers_anno_tpu.ops.encode import PROT_PAD
 from kmers_anno_tpu.ops.widetable import build_wide_table
 from kmers_anno_tpu_torch.engine import apply_engine as port_engine
@@ -480,11 +481,28 @@ def test_weighted_engine_matches_reference(genomes, mode):
     assert sum(g is not None for g in got) > 10
 
 
-def test_engine_big_table_is_not_yet_ported(ref_table, monkeypatch):
+@pytest.mark.parametrize("min_hits", [1, 5])
+def test_engine_big_table_matches_reference(ref_table, oracle_db, genomes,
+                                            min_hits, monkeypatch):
+    """A table past one wide table takes the flat-stream path in both
+    packages (``fits_wide`` False in both): the same calls as the
+    reference's flat path and the oracle."""
+    monkeypatch.setattr(ref_widetable, "fits_wide", lambda n: False)
     monkeypatch.setattr(port_sig, "fits_wide", lambda n: False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_engine.KmerApplyEngine(
-            signature_table_from_reference(ref_table), device=CPU)
+    ref_eng = ref_engine.KmerApplyEngine(ref_table, min_hits=min_hits)
+    eng = port_engine.KmerApplyEngine(
+        signature_table_from_reference(ref_table), min_hits=min_hits,
+        device=CPU)
+    assert eng.mode == ref_eng.mode == "flat"
+    for genome in genomes:
+        prots = [f.protein_translation for f in genome.pegs
+                 if f.protein_translation]
+        got = eng.call_proteins(prots)
+        assert got == ref_eng.call_proteins(prots)
+        assert got == [oracle_apply_protein(oracle_db, p, K, min_hits)
+                       for p in prots]
+        assert [(f.id, r, h) for f, r, h in eng.call_genome(genome)] == \
+            [(f.id, r, h) for f, r, h in ref_eng.call_genome(genome)]
 
 
 @pytest.mark.parametrize("k,width,n_rows", [(12, 45, 21), (12, 100, 40),

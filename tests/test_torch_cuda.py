@@ -14,17 +14,24 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CHUNK_ORDERS, carried_state, collision_rows,
-                        collision_table, made_up_chunk, made_up_rows,
+from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, carried_state,
+                        collision_rows, collision_table, flat_case,
+                        flat_tensors, made_up_chunk, made_up_rows,
                         make_projection_workload, make_signature_genomes,
-                        reorder_chunk, tile_cells)
+                        reorder_chunk, tally_bits, tile_cells)
 from kmers_anno_tpu_torch.engine import hashanno, projection
+from kmers_anno_tpu_torch.engine import signature as signature_mod
 from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
 from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
                                                    build_signatures)
 from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
 from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
 from kmers_anno_tpu_torch.genome.gto import Genome
+from kmers_anno_tpu_torch.ops import apply_flat as apply_flat_mod
+from kmers_anno_tpu_torch.ops import vote
+from kmers_anno_tpu_torch.ops.apply_flat import (apply_flat, apply_flat_plain,
+                                                 apply_weighted_flat,
+                                                 apply_weighted_flat_plain)
 from kmers_anno_tpu_torch.ops.apply_rows import apply_rows, apply_rows_plain
 from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
 from kmers_anno_tpu_torch.ops.contig_scan import (KERNEL_TILE, scan_stream,
@@ -464,6 +471,116 @@ def test_apply_engine_on_cuda_matches_cpu(cuda, weights):
                            device="cpu").call_proteins(prots)
     assert got == want
     assert sum(c is not None for c in got) > 60
+
+
+@pytest.mark.parametrize("min_hits", [1, 3])
+@pytest.mark.parametrize("n_seqs", ["batch", "fewer", "no_valid"])
+@pytest.mark.parametrize("case", list(FLAT_EDGES))
+def test_apply_flat_kernel_matches_plain(cuda, case, n_seqs, min_hits):
+    """The unanimity kernel against its plain version, with buckets
+    holding keys of one lo word and walks that wrap to bucket 0 (the
+    collide cases), proteins past ``n_seqs`` ("fewer": their tokens count
+    nothing) and an all-invalid stream."""
+    params = FLAT_EDGES[case]
+    rng = np.random.default_rng(len(case) + 10 * min_hits)
+    batch, table, mp = flat_case(rng, n_roles=5, **params)
+    args = flat_tensors(batch, table, cuda)
+    n = params["n_prot"] - 7 if n_seqs == "fewer" else batch.n_seqs
+    if n_seqs == "no_valid":
+        args = (*args[:3], torch.zeros_like(args[3]))
+    kw = dict(k=params["k"], max_probes=mp, n_seqs=n)
+    before = apply_flat.launches
+    got = apply_flat(*args, min_hits, **kw)
+    torch.cuda.synchronize()
+    assert apply_flat.launches == before + 1
+    want = apply_flat_plain(*args, min_hits, **kw)
+    for g, w in zip(got, want):
+        assert g.device == args[0].device and torch.equal(g, w)
+    if n_seqs == "no_valid":
+        assert (got[0] == -1).all() and (got[1] == 0).all()
+    elif "alphabet" not in params:      # two residues: conflicts everywhere
+        assert (got[0] >= 0).any()
+
+
+@pytest.mark.parametrize("r_blk", [9, 4, 1])
+@pytest.mark.parametrize("weights", ["uniform", "fp16"])
+@pytest.mark.parametrize("case", list(FLAT_EDGES))
+def test_apply_weighted_flat_kernel_matches_plain(cuda, case, weights, r_blk,
+                                                  monkeypatch):
+    """The weighted kernel against its plain version, roles and tally bits:
+    uniform weights (many ties, the smaller role must win) and fractional
+    fp16 weights, in one role block (9 roles) and in blocks of 4 and 1."""
+    params = FLAT_EDGES[case]
+    rng = np.random.default_rng(len(case) + r_blk)
+    batch, table, mp = flat_case(rng, n_roles=9, weights=weights, **params)
+    monkeypatch.setattr(vote, "DENSE_VOTE_LIMIT", batch.n_seqs * r_blk)
+    args = flat_tensors(batch, table, cuda)
+    kw = dict(k=params["k"], max_probes=mp, n_seqs=batch.n_seqs, n_roles=9)
+    before = apply_weighted_flat.launches
+    got = tally_bits(apply_weighted_flat(*args, 1.5, **kw))
+    torch.cuda.synchronize()
+    assert apply_weighted_flat.launches == before + -(-9 // r_blk)
+    want = tally_bits(apply_weighted_flat_plain(*args, 1.5, **kw))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (got[0] >= 0).any()
+
+
+def test_apply_flat_kernels_on_an_empty_stream(cuda):
+    """No tokens: every protein uncalled, one launch; no proteins: no
+    launch."""
+    batch, table, mp = flat_case(np.random.default_rng(3), n_roles=4,
+                                 weights="fp16", **FLAT_EDGES["k8"])
+    args = [a[:0] if i else a for i, a in enumerate(
+        flat_tensors(batch, table, cuda))]
+    kw = dict(k=8, max_probes=mp)
+    before = (apply_flat.launches, apply_weighted_flat.launches)
+    role, hits = apply_flat(*args, 1, n_seqs=5, **kw)
+    w_role, tally = apply_weighted_flat(*args, 1.0, n_seqs=5, n_roles=4,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert (role == -1).all() and (hits == 0).all() and (w_role == -1).all()
+    assert (tally == 0).all()
+    assert apply_flat.launches == before[0] + 1
+    assert apply_weighted_flat.launches == before[1] + 1
+    assert apply_flat(*args, 1, n_seqs=0, **kw)[0].numel() == 0
+    assert apply_flat.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("weights", ["none", "balance"])
+def test_flat_engine_on_cuda_matches_cpu(cuda, weights, monkeypatch):
+    """A table forced onto the flat path: on the card the engine launches
+    the flat kernels and calls no plain version, and its calls equal the
+    CPU's (tallies bit for bit)."""
+    genomes, role_map, good = _signature_case()
+    table = build_signatures(genomes, role_map, good, k=8, progress=False,
+                             weight_mode=weights, device="cpu")
+    monkeypatch.setattr(signature_mod, "fits_wide", lambda n: False)
+    weighted = weights != "none"
+    prots = [f.protein_translation for g in genomes for f in g.pegs]
+    prots += [prots[0][:150] + prots[1][150:], "MKV", "A" * 20_000]
+    kw = dict(min_hits=5, weighted=weighted)
+    cpu = KmerApplyEngine(table, **kw, device="cpu")
+    want = cpu._call_batches(len(prots), cpu._prepare_proteins(prots))
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(apply_flat_mod, "apply_flat_plain", refuse)
+    monkeypatch.setattr(apply_flat_mod, "apply_weighted_flat_plain", refuse)
+    eng = KmerApplyEngine(table, **kw, device=cuda)
+    assert eng.mode == "flat"
+    before = (apply_flat.launches, apply_weighted_flat.launches,
+              apply_rows.launches, probe_wide.launches)
+    got = eng._call_batches(len(prots), eng._prepare_proteins(prots))
+    after = (apply_flat.launches, apply_weighted_flat.launches,
+             apply_rows.launches, probe_wide.launches)
+    assert after[int(not weighted)] == before[int(not weighted)]
+    assert after[int(weighted)] > before[int(weighted)]
+    assert after[2:] == before[2:]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1].view(np.int32),
+                                  want[1].view(np.int32))
+    assert (got[0] >= 0).sum() > 60
 
 
 def test_device_groupby_on_cuda_matches_native(cuda):

@@ -356,9 +356,3 @@ def test_dna_tables_are_not_yet_ported(genomes, tmp_path):
     path.write_text("acgtacgtacgtacg\tRoleA\n")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port.SignatureTable.load(str(path))
-    table = signature_table_from_reference(
-        ref.build_signatures(genomes[:1], make_role_map(), GOOD, k=K,
-                             progress=False))
-    for method in (table.device_table, table.device_probe_table):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            method()
