@@ -50,18 +50,27 @@ Then the flat-stream path of tables past one wide table (BASELINE
 config 4).  ``apply`` (VERIFY) runs through the CLI on the same genomes
 with a 4M-key ``.kdb`` (the build's table plus kmers absent from every
 peg), which must take the flat route and give the wide route's report
-byte for byte.  bench.py's proteins (32 x 8,192 of 300 aa) run through
+byte for byte; then ``apply_flat`` on every peg against that table,
+with its key filter and without, in turns.  bench.py's proteins (32 x
+8,192 of 300 aa) run through
 ``KmerApplyEngine.call_proteins`` against a 10M-key 8-slot table (about
-403 MB), as one FlatBatch:
+403 MB) and its key filter, as one FlatBatch:
 roles against ``native.apply_baseline`` on every 8th protein, both flat
 kernels (``apply_flat``; ``apply_flat_weighted`` with fractional fp16
-weights, dense on 8,192 proteins and in role blocks on all) bit for bit
-against their plain versions on the card and the weighted step against
-a CPU run on a sample; proteins/s and a split of one run.  On bench.py's
+weights, one walk a call, on 8,192 proteins and on all) bit for bit
+against their plain versions (dense, and role blocks) on the card and
+the weighted step against a CPU run on a sample; proteins/s and a split
+of one run; the filter's size, build seconds, false-positive share and
+the windows that skip the walk, and both kernels with the filter and
+without in turns.  On bench.py's
 big-table shape (10M random keys, 4M queries) the plain-torch sliced
 probe (on the probe-window layout) is timed beside the apply kernel's
-walk of the same queries on the plain table.  The flat kernels are also held to their plain versions on
-made-up streams with buckets of equal lo words and walks that wrap.
+walk of the same queries on the plain table.  The flat kernels are also
+held to their plain versions, with the filter and without, on made-up
+streams with buckets of equal lo words and walks that wrap, and the
+weighted one on its edges (``WEIGHTED_EDGES``: a 40,000-aa protein,
+30,000 roles, float32 ties of unequal sums, zero weights, empty
+proteins, owner-round edges).
 
 Then hashAnno.  Both chunk kernels (``hash_commons``, ``hash_best``) are
 held against their plain versions on made-up chunks (k = 8 and 12, a
@@ -123,6 +132,7 @@ and the port (``kmers_anno_tpu_torch``), never jax.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import logging
 import os
@@ -462,7 +472,9 @@ def build_contenders(other: str, tmp: str) -> dict:
     for line in out.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas (other):", line.strip(), flush=True)
-    return {"this": kernels.lib(), "other": kernels.load(path)}
+    other_lib = kernels.load(path)
+    declare_earlier_entries(other_lib)
+    return {"this": kernels.lib(), "other": other_lib}
 
 
 def compare_contenders(libs: dict, cases: dict) -> dict:
@@ -478,7 +490,10 @@ def compare_contenders(libs: dict, cases: dict) -> dict:
     out = {}
     for case, (launch, arg_sets) in cases.items():
         # a build of an older tree may lack this kernel: it sits out
-        names = [n for n in libs if hasattr(libs[n], launch.entry)]
+        entries = (launch.entry if isinstance(launch.entry, tuple)
+                   else (launch.entry,))
+        names = [n for n in libs
+                 if any(hasattr(libs[n], e) for e in entries)]
         order = names + names[::-1]
 
         def run(lib):
@@ -1816,6 +1831,128 @@ def check_bucket_collisions_and_wrap(table, mp) -> None:
             "no key's walk wraps from the last bucket to bucket 0")
 
 
+# weighted streams at the one-walk kernel's edges (``weighted_case``'s
+# arguments; lengths a list or (proteins, longest) drawn at random), and
+# "float_ties" (``crafted_ties``)
+WEIGHTED_EDGES = {
+    # one 40,000-aa protein whose hits span thousands of roles, past the
+    # shared tally: its kept hits are swept in role ranges
+    "long_protein": dict(k=8, lengths=[40_000, 300, 0, 7, 500],
+                         n_roles=30_000, n_keys=20_000),
+    "roles_30000": dict(k=12, lengths=(200, 400), n_roles=30_000,
+                        n_keys=6_000),
+    "zero_weights": dict(k=8, lengths=(150, 200), n_roles=9, n_keys=2_000,
+                         zero_share=0.5),
+    "empty_proteins": dict(k=8, lengths=[0, 0, 3, 0, 7, 8, 0, 50, 0, 0, 9,
+                                         120, 0], n_roles=9, n_keys=60),
+    # windows a protein: 1, and 127-129, 255-257, 383-385 about the owner
+    # block's rounds of 128
+    "tile_edges": dict(k=8, lengths=[7 + w for w in (
+        1, 127, 128, 129, 255, 256, 257, 383, 384, 385)] * 3, n_roles=9,
+        n_keys=1_500),
+    "float_ties": None,
+}
+
+
+def random_proteins(rng, lengths) -> list[str]:
+    """Proteins of the given lengths over the 20 residues (1% X)."""
+    from kmers_anno_tpu_torch.ops.encode import PROT_X, decode_protein
+
+    prots = []
+    for n in lengths:
+        c = rng.integers(0, 20, n).astype(np.uint8)
+        c[rng.random(n) < 0.01] = PROT_X
+        prots.append(decode_protein(c))
+    return prots
+
+
+def weighted_case(rng, k, lengths, n_roles, n_keys, zero_share=0.0):
+    """A FlatBatch of random proteins and an 8-slot table of ``n_keys``
+    distinct kmers of its valid windows, each with a role drawn from
+    [0, n_roles) and an fp16 weight from U[0.05, 3) (``zero_share`` of them
+    0).  Returns (batch, table, max_probes)."""
+    from kmers_anno_tpu_torch.engine.apply_engine import FlatBatch
+    from kmers_anno_tpu_torch.ops.hashtable import build_table
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+
+    if isinstance(lengths, tuple):
+        lengths = rng.integers(0, lengths[1] + 1, lengths[0])
+    batch = FlatBatch(random_proteins(rng, lengths), k)
+    lo, hi = pack_kmers_np(batch.codes, k)
+    windows = np.flatnonzero(batch.valid[: len(lo)])
+    key = (hi[windows].astype(np.uint64) << np.uint64(32)) | lo[windows]
+    _, first = np.unique(key, return_index=True)
+    pick = rng.choice(windows[first], min(n_keys, len(first)), replace=False)
+    w = rng.uniform(0.05, 3.0, len(pick)).astype(np.float16)
+    w[rng.random(len(pick)) < zero_share] = 0
+    payload = ((w.view(np.uint16).astype(np.uint32) << np.uint32(16))
+               | rng.integers(0, n_roles, len(pick)).astype(np.uint32))
+    table, mp = build_table(lo[pick], hi[pick], payload)
+    return batch, table, mp
+
+
+# crafted_ties's proteins: their hits as (role, fp16 weight), and the call
+TIE_PLANS = [
+    # 3 sums 2^25 + 1 units, 5 sums 2^25: both 2.0 as float32, 3 called
+    ([(3, 2.0), (3, 2.0 ** -24), (5, 2.0)], 3),
+    # the other way round: 5's sum is larger, the smaller role 3 is called
+    ([(5, 2.0), (5, 2.0 ** -24), (3, 2.0)], 3),
+    ([(6, 2.0), (6, 2.0 ** -24), (2, 2.0)], 2),
+    # 2^25 + 4 units is 2.0000002 as float32: 4 beats 1
+    ([(1, 2.0), (4, 2.0), (4, 2.0 ** -22)], 4),
+    # only hits of zero weight: nothing called
+    ([(2, 0.0), (2, 0.0)], -1),
+]
+
+
+def crafted_ties(rng, k=8):
+    """Proteins holding the hits of ``TIE_PLANS``, each kmer once in the
+    whole stream, and the 8-slot table of those kmers.  Returns (batch,
+    table, max_probes, the expected calls)."""
+    from kmers_anno_tpu_torch.engine.apply_engine import FlatBatch
+    from kmers_anno_tpu_torch.ops.hashtable import build_table
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+
+    for _ in range(100):
+        prots, keys, vals = [], [], []
+        for hits, _ in TIE_PLANS:
+            parts = random_proteins(rng, [int(rng.integers(3, 9))])
+            for role, weight in hits:
+                kmer, = random_proteins(rng, [k])
+                parts += [kmer, *random_proteins(rng, [
+                    int(rng.integers(3, 9))])]
+                keys.append(kmer)
+                bits = int(np.float16(weight).view(np.uint16))
+                vals.append(bits << 16 | role)
+            prots.append("".join(parts))
+        batch = FlatBatch(prots, k)
+        lo, hi = pack_kmers_np(batch.codes, k)
+        windows = np.flatnonzero(batch.valid[: len(lo)])
+        seen = (hi[windows].astype(np.uint64) << np.uint64(32)) | lo[windows]
+        klo, khi = pack_kmers_np(FlatBatch(keys, k).codes, k)
+        starts = np.cumsum([0] + [k] * (len(keys) - 1))
+        kkey = (khi[starts].astype(np.uint64) << np.uint64(32)) | klo[starts]
+        if (len(set(kkey.tolist())) == len(keys)
+                and all(int((seen == x).sum()) == 1 for x in kkey)):
+            table, mp = build_table(klo[starts], khi[starts],
+                                    np.array(vals, np.uint32))
+            expect = np.full(batch.n_seqs, -1, np.int32)
+            expect[: len(TIE_PLANS)] = [want for _, want in TIE_PLANS]
+            return batch, table, mp, expect
+    raise RuntimeError("no stream of distinct tie kmers in 100 draws")
+
+
+def weighted_edge(rng, name):
+    """``WEIGHTED_EDGES[name]``: (batch, table, max_probes, k, n_roles,
+    expected calls or None)."""
+    if name == "float_ties":
+        batch, table, mp, expect = crafted_ties(rng)
+        return batch, table, mp, 8, 9, expect
+    params = WEIGHTED_EDGES[name]
+    return (*weighted_case(rng, **params), params["k"], params["n_roles"],
+            None)
+
+
 def flat_tensors(batch, table, dev):
     """(table, codes, seg_ids, valid) on ``dev``."""
     from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
@@ -1830,56 +1967,160 @@ def tally_bits(out) -> tuple:
     return out[0], out[1].view(torch.int32)
 
 
+def flat_filter(table):
+    """The key filter of a (buckets, 24) int32 table tensor, on its
+    device (``ops.key_filter``, from the table's own keys)."""
+    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+    from kmers_anno_tpu_torch.ops.key_filter import (build_key_filter,
+                                                     table_keys)
+
+    words = table.cpu().numpy().view(np.uint32)
+    return wide_table_from_numpy(build_key_filter(*table_keys(words)),
+                                 table.device)
+
+
+# the C signatures of the earlier flat entry points (no filter; the
+# weighted one a launch a role block), declared on a build that has them
+# so that --compare can time it
+EARLIER_FLAT_ENTRIES = {
+    "kan_apply_flat": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int32,
+                               ctypes.c_int32, ctypes.c_int64,
+                               ctypes.c_int32] + [ctypes.c_void_p] * 4,
+    "kan_apply_flat_weighted": [ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_int32] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32] + [ctypes.c_int64] * 3
+    + [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_float]
+    + [ctypes.c_void_p] * 3,
+}
+
+
+def declare_earlier_entries(lib) -> None:
+    for name, argtypes in EARLIER_FLAT_ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+
+
+def filter_args(key_filter) -> tuple:
+    return ((None, 0) if key_filter is None
+            else (key_filter.data_ptr(), key_filter.shape[0]))
+
+
 def launch_flat(lib, table, codes, seg_ids, valid, k, max_probes, n_seqs,
-                min_hits):
-    """apply_flat through a kernel library's C entry point (uncounted)."""
+                min_hits, key_filter=None):
+    """apply_flat through a kernel library's C entry point (uncounted):
+    ``kan_flat_unanimous`` with ``key_filter`` (None: every window walks),
+    or on a build without it the earlier ``kan_apply_flat`` (no filter)."""
     from kmers_anno_tpu_torch.ops.encode import PROT_PAD
 
     role, hits, rmin = (torch.empty(n_seqs, dtype=torch.int32,
                                     device=codes.device) for _ in range(3))
-    err = lib.kan_apply_flat(
-        table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(),
-        seg_ids.data_ptr(), valid.data_ptr(), codes.numel(), k, PROT_PAD, n_seqs, int(min_hits), role.data_ptr(), hits.data_ptr(),
-        rmin.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    require(err == 0, f"kan_apply_flat returned CUDA error {err}")
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "kan_flat_unanimous"):
+        err = lib.kan_flat_unanimous(
+            table.data_ptr(), table.shape[0], max_probes,
+            *filter_args(key_filter), codes.data_ptr(), seg_ids.data_ptr(),
+            valid.data_ptr(), codes.numel(), k, PROT_PAD, n_seqs,
+            int(min_hits), role.data_ptr(), hits.data_ptr(), rmin.data_ptr(),
+            stream)
+    else:
+        err = lib.kan_apply_flat(
+            table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(),
+            seg_ids.data_ptr(), valid.data_ptr(), codes.numel(), k, PROT_PAD,
+            n_seqs, int(min_hits), role.data_ptr(), hits.data_ptr(),
+            rmin.data_ptr(), stream)
+    require(err == 0, f"the apply_flat entry returned CUDA error {err}")
     return role, hits
 
 
+class FlatScratch:
+    """The weighted entry points' scratch on the card: ``starts``, ``bad``
+    and (past ``DIRECT_ROLES`` roles) ``kept`` for ``kan_flat_weighted``;
+    the earlier entry's zeroed (n_seqs x block) int64 tally, made on first
+    use."""
+
+    def __init__(self, n_tokens, n_seqs, n_roles, dev):
+        from kmers_anno_tpu_torch.ops import apply_flat
+
+        self.n_seqs, self.n_roles, self.dev = n_seqs, n_roles, dev
+        self.starts = torch.empty(n_seqs + 1, dtype=torch.int64, device=dev)
+        self.bad = torch.empty(1, dtype=torch.int32, device=dev)
+        self.kept = (torch.empty(max(n_tokens, 1), dtype=torch.int32,
+                                 device=dev)
+                     if n_roles > apply_flat.DIRECT_ROLES else None)
+        self._cells = None
+
+    def cells(self):
+        from kmers_anno_tpu_torch.ops.vote import vote_block
+
+        if self._cells is None:
+            self._cells = torch.zeros(
+                self.n_seqs * vote_block(self.n_seqs, self.n_roles),
+                dtype=torch.int64, device=self.dev)
+        return self._cells
+
+
 def launch_flat_weighted(lib, table, codes, seg_ids, valid, k, max_probes,
-                         n_seqs, n_roles, min_weight, cells):
-    """apply_weighted_flat through a kernel library's C entry point, one
-    launch a role block (uncounted); ``cells`` is the zeroed (n_seqs x
-    block) int64 tally the launches leave zeroed."""
+                         n_seqs, n_roles, min_weight, scratch,
+                         key_filter=None):
+    """apply_weighted_flat through a kernel library's C entry point
+    (uncounted): ``kan_flat_weighted`` once, with ``key_filter`` (None:
+    every window walks), or on a build without it the earlier
+    ``kan_apply_flat_weighted`` once a role block (no filter).  ``scratch``
+    is a ``FlatScratch``."""
+    from kmers_anno_tpu_torch.ops import apply_flat
     from kmers_anno_tpu_torch.ops.encode import PROT_PAD
     from kmers_anno_tpu_torch.ops.vote import vote_block
 
-    r_blk = vote_block(n_seqs, n_roles)
     role = torch.empty(n_seqs, dtype=torch.int32, device=codes.device)
     best = torch.empty(n_seqs, dtype=torch.float32, device=codes.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "kan_flat_weighted"):
+        kept = scratch.kept
+        err = lib.kan_flat_weighted(
+            table.data_ptr(), table.shape[0], max_probes,
+            *filter_args(key_filter), codes.data_ptr(), seg_ids.data_ptr(),
+            valid.data_ptr(), codes.numel(), k, PROT_PAD, n_seqs, n_roles,
+            apply_flat.DIRECT_ROLES, float(min_weight),
+            scratch.starts.data_ptr(), scratch.bad.data_ptr(),
+            None if kept is None else kept.data_ptr(), role.data_ptr(),
+            best.data_ptr(), stream)
+        require(err == 0, f"kan_flat_weighted returned CUDA error {err}")
+        return tally_bits((role, best))
+    r_blk = vote_block(n_seqs, n_roles)
     bases = range(0, n_roles, r_blk)
     for i, base in enumerate(bases):
         err = lib.kan_apply_flat_weighted(
-            table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(), seg_ids.data_ptr(), valid.data_ptr(),
-            codes.numel(), k, PROT_PAD, n_seqs, base, r_blk,
-            cells.data_ptr(), int(i == 0), int(i == len(bases) - 1),
-            float(min_weight), role.data_ptr(), best.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(),
+            seg_ids.data_ptr(), valid.data_ptr(), codes.numel(), k, PROT_PAD,
+            n_seqs, base, r_blk, scratch.cells().data_ptr(), int(i == 0),
+            int(i == len(bases) - 1), float(min_weight), role.data_ptr(),
+            best.data_ptr(), stream)
         require(err == 0, f"kan_apply_flat_weighted returned CUDA error "
                 f"{err}")
     return tally_bits((role, best))
 
 
-launch_flat.entry = "kan_apply_flat"
-launch_flat_weighted.entry = "kan_apply_flat_weighted"
+# the entry points each launcher calls, this build's first
+launch_flat.entry = ("kan_flat_unanimous", "kan_apply_flat")
+launch_flat_weighted.entry = ("kan_flat_weighted", "kan_apply_flat_weighted")
 
 
 def check_apply_flat(dev) -> None:
-    """Both flat kernels against their plain versions on made-up streams:
-    k = 8 and 12, buckets with keys of one lo word and
-    walks that wrap to bucket 0, proteins at and past ``n_seqs``, an
-    all-invalid stream; the weighted step with uniform (ties) and
-    fractional fp16 weights, in one and in several role blocks.  Exact
-    equality, tallies bit for bit."""
+    """Both flat kernels against their plain versions on made-up streams,
+    each with the table's key filter and without: k = 8 and 12, buckets
+    with keys of one lo word and walks that wrap to bucket 0, proteins at
+    and past ``n_seqs``, an all-invalid stream; the weighted step with
+    uniform (ties) and fractional fp16 weights against the plain version's
+    dense and role-block votes, and on ``WEIGHTED_EDGES`` (a 40,000-aa
+    protein, 30,000 roles, float32 ties of unequal sums, zero weights,
+    empty proteins, owner-round edges) with the shared tally at
+    ``DIRECT_ROLES`` and at 5 roles (the kept hits swept in ranges), at
+    min_weight 1.5 and 0.  One launch a call; a stream whose seg_ids
+    decrease raises.  Exact equality, tallies bit for bit."""
+    from kmers_anno_tpu_torch.ops import apply_flat as apply_flat_mod
     from kmers_anno_tpu_torch.ops import vote
     from kmers_anno_tpu_torch.ops.apply_flat import (
         apply_flat, apply_flat_plain, apply_weighted_flat,
@@ -1887,43 +2128,86 @@ def check_apply_flat(dev) -> None:
 
     rng = np.random.default_rng(SEED + 7)
     n_unanimous = n_weighted = 0
-    limit = vote.DENSE_VOTE_LIMIT
+    limit, direct = vote.DENSE_VOTE_LIMIT, apply_flat_mod.DIRECT_ROLES
+
+    def same(got, want):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
     try:
         for name, params in FLAT_EDGES.items():
             batch, table, mp = flat_case(rng, n_roles=5, **params)
             args = flat_tensors(batch, table, dev)
+            filt = flat_filter(args[0])
             no_valid = (*args[:3], torch.zeros_like(args[3]))
             for a, n_seqs in ((args, batch.n_seqs),
                               (args, params["n_prot"] - 7),
                               (no_valid, batch.n_seqs)):
                 kw = dict(k=params["k"], max_probes=mp, n_seqs=n_seqs)
                 for min_hits in (1, 3):
-                    got = apply_flat(*a, min_hits, **kw)
                     want = apply_flat_plain(*a, min_hits, **kw)
-                    require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                            f"apply_flat differs from its plain version "
-                            f"({name})")
-                    n_unanimous += 1
+                    for f in (None, filt):
+                        got = apply_flat(*a, min_hits, **kw, key_filter=f)
+                        require(same(got, want), f"apply_flat differs from "
+                                f"its plain version ({name})")
+                        n_unanimous += 1
             for weights in ("uniform", "fp16"):
                 batch, table, mp = flat_case(rng, n_roles=9, weights=weights,
                                              **params)
                 a = flat_tensors(batch, table, dev)
+                filt = flat_filter(a[0])
                 kw = dict(k=params["k"], max_probes=mp, n_seqs=batch.n_seqs,
                           n_roles=9)
                 for r_blk in (9, 4, 1):
                     vote.DENSE_VOTE_LIMIT = batch.n_seqs * r_blk
-                    got = tally_bits(apply_weighted_flat(*a, 1.5, **kw))
                     want = tally_bits(apply_weighted_flat_plain(*a, 1.5,
                                                                 **kw))
-                    require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                            f"apply_weighted_flat differs from its plain "
-                            f"version ({name}, {weights}, blocks of {r_blk})")
-                    n_weighted += 1
+                    for f in (None, filt):
+                        got = tally_bits(apply_weighted_flat(
+                            *a, 1.5, **kw, key_filter=f))
+                        require(same(got, want), f"apply_weighted_flat "
+                                f"differs from its plain version ({name}, "
+                                f"{weights}, blocks of {r_blk})")
+                        n_weighted += 1
+        vote.DENSE_VOTE_LIMIT = limit
+        for name in WEIGHTED_EDGES:
+            batch, table, mp, k, n_roles, expect = weighted_edge(rng, name)
+            a = flat_tensors(batch, table, dev)
+            filt = flat_filter(a[0])
+            kw = dict(k=k, max_probes=mp, n_seqs=batch.n_seqs,
+                      n_roles=n_roles)
+            for min_weight in (1.5, 0.0):
+                want = tally_bits(apply_weighted_flat_plain(
+                    *a, min_weight, **kw))
+                require(expect is None
+                        or np.array_equal(want[0].cpu().numpy(), expect),
+                        f"the plain weighted vote misses the calls of {name}")
+                for apply_flat_mod.DIRECT_ROLES in (direct, 5):
+                    for f in (None, filt):
+                        before = apply_weighted_flat.launches
+                        got = tally_bits(apply_weighted_flat(
+                            *a, min_weight, **kw, key_filter=f))
+                        require(apply_weighted_flat.launches == before + 1,
+                                "a weighted call launched more than once")
+                        require(same(got, want), f"apply_weighted_flat "
+                                f"differs from its plain version ({name}, "
+                                f"min_weight {min_weight}, tally of "
+                                f"{apply_flat_mod.DIRECT_ROLES})")
+                        n_weighted += 1
+            apply_flat_mod.DIRECT_ROLES = direct
+        shuffled = a[2].flip(0).contiguous()
+        try:
+            apply_weighted_flat(a[0], a[1], shuffled, a[3], 1.5, **kw)
+        except ValueError:
+            pass
+        else:
+            require(False, "a stream whose seg_ids decrease did not raise")
     finally:
         vote.DENSE_VOTE_LIMIT = limit
+        apply_flat_mod.DIRECT_ROLES = direct
     print(f"flat apply kernels on made-up streams: {n_unanimous} apply_flat "
-          f"and {n_weighted} apply_weighted_flat cases equal to their plain "
-          f"versions (tallies bit for bit)", flush=True)
+          f"and {n_weighted} apply_weighted_flat cases, with the key filter "
+          f"and without, equal to their plain versions (tallies bit for "
+          f"bit); a stream out of order raised", flush=True)
 
 
 def flat_bound(table, codes, seg_ids, valid, k, max_probes, n_seqs,
@@ -1935,9 +2219,9 @@ def flat_bound(table, codes, seg_ids, valid, k, max_probes, n_seqs,
     and payload sectors of every distinct bucket holding a hit (64 B), the
     (role, count or tally) outputs (8 B a protein).  Operations: a rolling
     pack (``ROLL_PACK_OPS`` a token inside a protein), a valid window's
-    hash, 16 a bucket read, 3 a hit's vote.  The weighted step walks the
-    table once a role block; its bound counts one walk, the least its
-    function needs."""
+    hash, 16 a bucket read, 3 a hit's vote.  The weighted step's bound is
+    the same one walk.  Neither counts the key filter, which the function
+    does not need."""
     from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
 
     seen = torch.zeros(table.shape[0], dtype=torch.bool, device=table.device)
@@ -1986,16 +2270,66 @@ def time_flat_step(kernel_fn, plain_fn, what, reps=REPS) -> dict:
                 max_abs_err=max_abs_err(zip(got, want)), outputs=got)
 
 
+def filter_stats(key_filter, codes, valid, k, hits) -> dict:
+    """What the key filter does on a stream whose windows hit the table
+    ``hits`` times: its bytes, the windows it lets through to the walk and
+    those it answers, and its false-positive share of the windows that
+    miss (plain ``may_hold``)."""
+    from kmers_anno_tpu_torch.ops.key_filter import may_hold
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+
+    passed = 0
+    step = 1 << 24
+    for s in range(0, codes.numel(), step):
+        v = valid[s: s + step]
+        lo, hi = pack_kmer_windows(codes[s: s + step + k - 1], k)
+        passed += int(may_hold(key_filter, lo[: v.numel()][v],
+                               hi[: v.numel()][v]).sum())
+    windows = int(valid.sum())
+    return dict(filter_bytes=nbytes(key_filter), filter_passed=passed,
+                filter_skipped=windows - passed,
+                filter_fp_share=(passed - hits) / max(windows - hits, 1))
+
+
+def filter_turns(what, launch, with_filter, without) -> dict:
+    """This build's kernel with the key filter and without, in turns
+    (with, without, without, with), each turn ``launch_ms``; outputs
+    equal.  Returns each one's mean and turns (ms a pass)."""
+    from kmers_anno_tpu_torch import kernels
+
+    lib = kernels.lib()
+    sets = {"with": with_filter, "without": without}
+    outs = {n: [t for a in sets[n] for t in launch(lib, *a)] for n in sets}
+    require(all(torch.equal(x, y)
+                for x, y in zip(outs["with"], outs["without"])),
+            f"the key filter changes the outputs on {what}")
+    turns = {"with": [], "without": []}
+    for n in ("with", "without", "without", "with"):
+        turns[n].append(launch_ms(launch, sets[n], lib))
+    means = {n: statistics.mean(t) for n, t in turns.items()}
+    print(f"key filter in turns on {what} (ms a pass, with without without "
+          f"with): with {means['with']:.4f} "
+          f"({', '.join(f'{x:.4f}' for x in turns['with'])}), without "
+          f"{means['without']:.4f} "
+          f"({', '.join(f'{x:.4f}' for x in turns['without'])}); "
+          f"{means['without'] / means['with']:.3f}x", flush=True)
+    return dict(filtered_ms=means["with"], unfiltered_ms=means["without"],
+                filter_turns=turns)
+
+
 def run_big_table(dev) -> tuple[dict, dict, dict]:
     """BASELINE config 4's table size: ``make_bench_workload``'s construction
-    at 10M keys (seed 7), an 8-slot table of about 403 MB, and bench.py's 32 x 8,192 proteins of 300 aa
+    at 10M keys (seed 7), an 8-slot table of about 403 MB with its key
+    filter, and bench.py's 32 x 8,192 proteins of 300 aa
     through ``KmerApplyEngine.call_proteins`` as one FlatBatch.  Roles
     against ``native.apply_baseline`` on a sample, hits against the plain
-    version on the card; proteins/s and a split of one run; the weighted
-    step (fractional fp16 weights) dense on 8,192 proteins and in role
-    blocks on all of them, bit for bit against its plain version on the
-    card and against a CPU run on a sample.  Returns the runs' launches,
-    both kernels' measurements and their ``--compare`` cases."""
+    version on the card; proteins/s and a split of one run; what the
+    filter answers, and both kernels with and without it in turns; the
+    weighted step (fractional fp16 weights, one walk a call) on 8,192
+    proteins and on all of them, bit for bit against its plain version
+    (dense, and role blocks) on the card and against a CPU run on a
+    sample.  Returns the runs' launches, both kernels' measurements and
+    their ``--compare`` cases."""
     from kmers_anno_tpu_torch.engine.apply_engine import (FlatBatch,
                                                           KmerApplyEngine)
     from kmers_anno_tpu_torch.engine.signature import SignatureTable
@@ -2022,8 +2356,11 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
     gen_s = time.perf_counter() - t0
     engine_s, engine = host_seconds(
         lambda: KmerApplyEngine(table, min_hits=MIN_HITS, device=dev))
+    filter_s, _ = host_seconds(lambda: table.device_key_filter(device=dev))
     mp = engine.max_probes
-    require(engine.mode == "flat", f"the big table took mode {engine.mode}")
+    key_filter = engine.key_filter
+    require(engine.mode == "flat" and key_filter is not None,
+            f"the big table took mode {engine.mode}")
     n_buckets = engine.table.shape[0]
     with _Launches() as run:
         got = engine.call_proteins(prots)
@@ -2042,7 +2379,9 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
     n_called = int((got_roles >= 0).sum())
     print(f"big table: {len(key_lo)} keys of {SIG_ROLES} roles (made in "
           f"{gen_s:.1f} s), {n_buckets} buckets ({engine.table.numel() * 4} "
-          f"B on the card, max_probes {mp}), built and uploaded in {engine_s:.2f} s; {n} proteins "
+          f"B on the card, max_probes {mp}) and a {nbytes(key_filter)}-B key "
+          f"filter, built and uploaded in {engine_s:.2f} s (the filter "
+          f"alone {filter_s:.4f} s); {n} proteins "
           f"({BENCH_BATCHES} x {BENCH_PROTEINS} x {PROT_LEN} aa), "
           f"{n_called} called; roles of {len(sample)} (every "
           f"{BIG_BASELINE_EVERY}th) equal to native.apply_baseline "
@@ -2058,8 +2397,9 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
         torch.from_numpy(a).to(dev)
         for a in (batch.codes, batch.seg_ids, batch.valid)])
     kw = dict(k=K, max_probes=mp, n_seqs=batch.n_seqs)
+    fkw = dict(kw, key_filter=key_filter)
     args = (engine.table, *stream)
-    kernel_s, out = host_seconds(lambda: apply_flat(*args, MIN_HITS, **kw))
+    kernel_s, out = host_seconds(lambda: apply_flat(*args, MIN_HITS, **fkw))
     download_s, (r, h) = host_seconds(
         lambda: [o.cpu().numpy()[:n] for o in out])
     t0 = time.perf_counter()
@@ -2075,7 +2415,7 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
           f"{download_s:.4f} s, decode {decode_s:.4f} s", flush=True)
 
     flat = time_flat_step(
-        lambda: apply_flat(*args, MIN_HITS, **kw),
+        lambda: apply_flat(*args, MIN_HITS, **fkw),
         lambda: apply_flat_plain(*args, MIN_HITS, **kw),
         "apply_flat on the big-table batch")
     require(np.array_equal(flat.pop("outputs")[0].cpu().numpy()[:n],
@@ -2083,7 +2423,10 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
             "engine's")
     flat.update(flat_bound(engine.table, *stream, K, mp, batch.n_seqs,
                            flat["ms"]))
-    flat_args = [(engine.table, *stream, K, mp, batch.n_seqs, MIN_HITS)]
+    flat.update(filter_stats(key_filter, stream[0], stream[2], K,
+                             flat["hits"]))
+    flat_args = [(engine.table, *stream, K, mp, batch.n_seqs, MIN_HITS,
+                  key_filter)]
     flat = with_launch(flat, launch_ms(launch_flat, flat_args))
     flat["lookups_per_s"] = flat["windows"] / flat["launch_ms"] * 1e3
     print(f"big table apply_flat ({stream[0].numel()} tokens, "
@@ -2098,6 +2441,16 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
           f"({flat['bound_by']}, {flat['bound_bytes']} bytes, "
           f"{flat['bound_ops']} ops), share {flat['bound_share']:.3f}, back "
           f"to back {flat['launch_share']:.3f}", flush=True)
+    print(f"big table key filter: {flat['filter_bytes']} B "
+          f"({flat['filter_bytes'] * 8 / len(key_lo):.2f} bits a key), built "
+          f"in {filter_s:.4f} s; of {flat['windows']} windows "
+          f"{flat['filter_skipped']} skip the walk and "
+          f"{flat['filter_passed']} walk ({flat['hits']} hits); "
+          f"false-positive share of the misses "
+          f"{flat['filter_fp_share']:.6f}", flush=True)
+    flat.update(filter_turns(
+        "the big-table batch (apply_flat)", launch_flat, flat_args,
+        [a[:-1] + (None,) for a in flat_args]))
     cases = {"the big-table batch": (launch_flat, flat_args)}
     del out, r, h
 
@@ -2111,6 +2464,8 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
     w_engine = KmerApplyEngine(w_table, min_hits=MIN_HITS, weighted=True,
                                device=dev)
     require(w_engine.mode == "flat", "the weighted big table is not flat")
+    require(torch.equal(w_engine.key_filter, key_filter),
+            "the weighted table's key filter differs")
     dense_prots = prots[:BENCH_PROTEINS]
     with _Launches() as run:
         w_engine.call_proteins(dense_prots)
@@ -2120,20 +2475,21 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
     with _Launches() as run:
         w_got = w_engine.call_proteins(prots)
     routes["big_weighted"] = dict(launches=run.counts)
+    # one walk a call: the plain version would take 16 role blocks
     r_blk = vote_block(batch.n_seqs, SIG_ROLES)
-    n_blocks = -(-SIG_ROLES // r_blk)
-    require(run.counts["apply_flat_weighted"] == n_blocks > 1
+    require(run.counts["apply_flat_weighted"] == 1 < SIG_ROLES // r_blk
             and run.counts["apply_flat"] == 0,
-            f"the chunked weighted call launches {run.counts}, expected "
-            f"{n_blocks} blocks of {r_blk} roles")
+            f"the weighted big-table call launches {run.counts}, expected "
+            f"one walk")
     w_kw = dict(k=K, max_probes=w_engine.max_probes, n_seqs=batch.n_seqs,
                 n_roles=SIG_ROLES)
+    w_fkw = dict(w_kw, key_filter=key_filter)
     w_args = (w_engine.table, *stream)
     w_s = [host_seconds(lambda: w_engine.call_proteins(prots))[0]
            for _ in range(3)]
 
     weighted = time_flat_step(
-        lambda: apply_weighted_flat(*w_args, float(MIN_HITS), **w_kw),
+        lambda: apply_weighted_flat(*w_args, float(MIN_HITS), **w_fkw),
         lambda: apply_weighted_flat_plain(*w_args, float(MIN_HITS), **w_kw),
         "apply_weighted_flat on the big-table batch", reps=3)
     w_role, w_bits = (o.cpu().numpy()[:n] for o in weighted.pop("outputs"))
@@ -2155,17 +2511,21 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
             and np.array_equal(cpu[1].numpy()[:len(pick)].view(np.int32),
                                w_bits[pick]),
             "the weighted step on the card differs from its CPU run")
-    cells = torch.zeros(batch.n_seqs * r_blk, dtype=torch.int64, device=dev)
     w_launch = [(*w_args, K, w_engine.max_probes, batch.n_seqs, SIG_ROLES,
-                 float(MIN_HITS), cells)]
+                 float(MIN_HITS),
+                 FlatScratch(batch.codes.size, batch.n_seqs, SIG_ROLES, dev),
+                 key_filter)]
     # the same keys in the same buckets: the unweighted step's lookups
     require(w_engine.max_probes == mp, "the weighted table walks otherwise")
     weighted.update(bound(flat["bound_bytes"], flat["bound_ops"],
                           weighted["ms"]))
     weighted = with_launch(weighted, launch_ms(launch_flat_weighted,
-                                               w_launch, reps=5))
-    weighted["launches_a_call"] = n_blocks
-    # the dense shape: the first 8,192 proteins, one role block
+                                               w_launch))
+    weighted["launches_a_call"] = 1
+    weighted.update(filter_turns(
+        "the big-table batch (apply_weighted_flat)", launch_flat_weighted,
+        w_launch, [a[:-1] + (None,) for a in w_launch]))
+    # the dense shape: the first 8,192 proteins
     d_batch = FlatBatch(dense_prots, K)
     d_stream = [torch.from_numpy(a).to(dev)
                 for a in (d_batch.codes, d_batch.seg_ids, d_batch.valid)]
@@ -2174,7 +2534,8 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
             "the 8,192-protein weighted call is not dense")
     dense = time_flat_step(
         lambda: apply_weighted_flat(w_engine.table, *d_stream,
-                                    float(MIN_HITS), **d_kw),
+                                    float(MIN_HITS), **d_kw,
+                                    key_filter=key_filter),
         lambda: apply_weighted_flat_plain(
             w_engine.table, *d_stream, float(MIN_HITS), **d_kw),
         "apply_weighted_flat on the dense batch")
@@ -2182,29 +2543,52 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
                       for o in dense.pop("outputs"))
     require(np.array_equal(d_role, w_role[:BENCH_PROTEINS])
             and np.array_equal(d_bits, w_bits[:BENCH_PROTEINS]),
-            "the dense and the role-block weighted votes differ")
-    d_cells = torch.zeros(d_batch.n_seqs * SIG_ROLES, dtype=torch.int64,
-                          device=dev)
+            "the dense and the whole batch's weighted votes differ")
     d_launch = [(w_engine.table, *d_stream, K, w_engine.max_probes,
-                 d_batch.n_seqs, SIG_ROLES, float(MIN_HITS), d_cells)]
+                 d_batch.n_seqs, SIG_ROLES, float(MIN_HITS),
+                 FlatScratch(d_batch.codes.size, d_batch.n_seqs, SIG_ROLES,
+                             dev), key_filter)]
     weighted.update(dense_ms=dense["ms"], dense_plain_ms=dense["plain_ms"],
                     dense_launch_ms=launch_ms(launch_flat_weighted, d_launch))
+    # one 40,000-aa protein (134 of the others end to end) after the dense
+    # batch: a single block walks it
+    long_prot = "".join(prots[BENCH_PROTEINS: BENCH_PROTEINS + 134])[:40_000]
+    l_batch = FlatBatch(dense_prots + [long_prot], K)
+    l_stream = [torch.from_numpy(a).to(dev)
+                for a in (l_batch.codes, l_batch.seg_ids, l_batch.valid)]
+    l_kw = dict(w_kw, n_seqs=l_batch.n_seqs)
+    got = tally_bits(apply_weighted_flat(w_engine.table, *l_stream,
+                                         float(MIN_HITS), **l_kw,
+                                         key_filter=key_filter))
+    want = tally_bits(apply_weighted_flat_plain(
+        w_engine.table, *l_stream, float(MIN_HITS), **l_kw))
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "apply_weighted_flat differs from its plain version on the "
+            "dense batch with a 40,000-aa protein")
+    weighted["long_launch_ms"] = launch_ms(launch_flat_weighted, [(
+        w_engine.table, *l_stream, K, w_engine.max_probes, l_batch.n_seqs,
+        SIG_ROLES, float(MIN_HITS),
+        FlatScratch(l_batch.codes.size, l_batch.n_seqs, SIG_ROLES, dev),
+        key_filter)])
     print(f"big table weighted (fp16 weights from U[0.05, 3.0], seed "
           f"{BENCH_SEED}): {int((w_role >= 0).sum())} of {n} called, "
           f"{int((frac != np.round(frac)).sum())} fractional tallies; "
           f"call_proteins {n / statistics.median(w_s):.1f} proteins/s "
-          f"(median of 3); {n_blocks} role blocks of {r_blk}: kernel "
+          f"(median of 3); one walk a call (the plain version: "
+          f"{-(-SIG_ROLES // r_blk)} role blocks of {r_blk}): kernel "
           f"{weighted['ms']:.4f} ms a call through the wrapper, "
           f"{weighted['launch_ms']:.4f} ms a call back to back "
-          f"({n_blocks} launches), plain {weighted['plain_ms']:.4f} ms, "
+          f"(one launch), plain {weighted['plain_ms']:.4f} ms, "
           f"bit for bit; bound {weighted['bound_ms']:.4f} ms "
           f"({weighted['bound_by']}), share {weighted['bound_share']:.3f}, "
           f"back to back {weighted['launch_share']:.3f}; dense on "
-          f"{BENCH_PROTEINS} proteins ({d_batch.codes.size} tokens, one "
-          f"block of {SIG_ROLES}): kernel {dense['ms']:.4f} ms, "
+          f"{BENCH_PROTEINS} proteins ({d_batch.codes.size} tokens): kernel "
+          f"{dense['ms']:.4f} ms, "
           f"{weighted['dense_launch_ms']:.4f} ms back to back, plain "
-          f"{dense['plain_ms']:.4f} ms, bit for bit and equal to the role "
-          f"blocks' calls; the card's calls equal a CPU run of the plain "
+          f"{dense['plain_ms']:.4f} ms, bit for bit and equal to the whole "
+          f"batch's calls; with a 40,000-aa protein after it "
+          f"{weighted['long_launch_ms']:.4f} ms back to back, bit for bit; "
+          f"the card's calls equal a CPU run of the plain "
           f"version on {len(pick)} proteins bit for bit", flush=True)
     cases["the big-table weighted batch"] = (launch_flat_weighted, w_launch)
     return routes, {"apply_flat": flat, "apply_flat_weighted": weighted}, cases
@@ -2337,7 +2721,38 @@ def run_big_kdb_cli(dev, tmp: str, ctx: dict) -> dict:
           f"for byte equal to the wide route's; {cold_s:.2f} s cold "
           f"(table load and build, GTO load); launches {run.counts}",
           flush=True)
+    kdb_filter(dev, big, ctx)
     return {"big_cli": dict(launches=run.counts)}
+
+
+def kdb_filter(dev, big, ctx) -> dict:
+    """The key filter on the ``.kdb`` table: every peg of the CLI genomes
+    as one FlatBatch through ``apply_flat``, with the filter and without
+    in turns; the filter's size, build seconds and false-positive share."""
+    from kmers_anno_tpu_torch.engine.apply_engine import FlatBatch
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+
+    table_s, (table, mp) = host_seconds(lambda: big.device_table(device=dev))
+    filter_s, key_filter = host_seconds(
+        lambda: big.device_key_filter(device=dev))
+    batch = FlatBatch([f.protein_translation for g in ctx["genomes"]
+                       for f in g.pegs if f.protein_translation], K)
+    stream = [torch.from_numpy(a).to(dev)
+              for a in (batch.codes, batch.seg_ids, batch.valid)]
+    lo, hi = pack_kmer_windows(stream[0], K)
+    _, _, hits = bucket_reads(table, lo, hi, stream[2], mp)
+    stats = filter_stats(key_filter, stream[0], stream[2], K, hits)
+    print(f".kdb key filter: {stats['filter_bytes']} B for {len(big)} keys "
+          f"(the table {table.numel() * 4} B, built and uploaded in "
+          f"{table_s:.4f} s), built and uploaded in {filter_s:.4f} s; of "
+          f"{int(stream[2].sum())} windows of {batch.n_seqs} segments "
+          f"{stats['filter_skipped']} skip the walk and "
+          f"{stats['filter_passed']} walk ({hits} hits); false-positive "
+          f"share of the misses {stats['filter_fp_share']:.6f}", flush=True)
+    args = [(table, *stream, K, mp, batch.n_seqs, MIN_HITS, key_filter)]
+    return dict(stats, **filter_turns(
+        "the .kdb table (apply_flat, every peg)", launch_flat, args,
+        [a[:-1] + (None,) for a in args]))
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ step:
 table, with per-protein votes:
 ``ops/apply_flat.apply_flat`` and ``apply_weighted_flat``
 (``apply_engine.py:61-128``), the kernels of ``csrc/apply_flat.cu`` on
-CUDA and their plain versions on the CPU.
+CUDA, with the table's key filter (``ops.key_filter``) in front of the
+walk, and their plain versions on the CPU.
 
 The Java loop walks kmers in order and stops at the first conflicting
 hit; its outcome is order-free, so every step reduces with min/max/sum.
@@ -182,7 +183,7 @@ class KmerApplyEngine:
     min_hits).  The table is built once, on the host, and kept on the
     device: the wide table when the keys fit one (``mode`` "wide", row
     batches), else the 8-slot table (``mode`` "flat", one FlatBatch a
-    call).
+    call, with the table's key filter, ``key_filter``).
     """
 
     def __init__(self, signatures: SignatureTable, min_hits: int = 5,
@@ -198,6 +199,7 @@ class KmerApplyEngine:
         self.device = resolve_device(device)
         wide = signatures.device_wide_table(packed_weights=weighted,
                                             device=self.device)
+        self.key_filter = None
         if wide is not None:
             self.mode = "wide"
             self.table, self.salt, self.max_probes = wide
@@ -205,11 +207,14 @@ class KmerApplyEngine:
             self.mode = "flat"
             self.table, self.max_probes = signatures.device_table(
                 packed_weights=weighted, device=self.device)
+            self.key_filter = signatures.device_key_filter(
+                device=self.device)
 
     def _flat_step(self, batch: FlatBatch):
         args = [torch.from_numpy(a).to(self.device)
                 for a in (batch.codes, batch.seg_ids, batch.valid)]
-        kw = dict(k=self.k, max_probes=self.max_probes, n_seqs=batch.n_seqs)
+        kw = dict(k=self.k, max_probes=self.max_probes, n_seqs=batch.n_seqs,
+                  key_filter=self.key_filter)
         if self.weighted:
             return apply_weighted_flat(self.table, *args, self.min_weight,
                                        n_roles=len(self.role_ids), **kw)

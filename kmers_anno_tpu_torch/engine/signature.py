@@ -42,6 +42,7 @@ from ..genome.gto import Genome
 from ..genome.roles import RoleMap
 from ..ops.encode import decode_protein, encode_protein
 from ..ops.hashtable import build_table, probe_table
+from ..ops.key_filter import build_key_filter
 from ..ops.kmers import pack_kmers_np, unpack_kmer_np
 from ..ops.widetable import build_wide_table, fits_wide
 from ..utils.counters import CountMap
@@ -445,6 +446,19 @@ class SignatureTable:
             self.key_lo, self.key_hi, self._payloads(packed_weights),
             load_factor=load_factor)
         return wide_table_from_numpy(table, resolve_device(device)), max_probes
+
+    def device_key_filter(self, *, device: str | torch.device
+                          ) -> torch.Tensor:
+        """The key filter (``ops.key_filter``) of :meth:`device_table`'s
+        keys, built on the host and resident on ``device``: the flat-stream
+        kernels read it in front of the table walk.  A separate array, so
+        the table's bytes stay the reference's.
+
+        returns (sectors, 8) int32 tensor (the uint32 words)
+        """
+        return wide_table_from_numpy(
+            build_key_filter(self.key_lo, self.key_hi),
+            resolve_device(device))
 
     def _payloads(self, packed_weights: bool) -> np.ndarray:
         if packed_weights:

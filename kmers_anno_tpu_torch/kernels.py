@@ -117,11 +117,11 @@ ENTRY_POINTS = {
                          _I64, _I64, _P, _P, _P],
     "kan_hash_best": [_P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
                       _I64, _P],
-    "kan_apply_flat": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _I32, _I64,
-                       _I32, _P, _P, _P, _P],
-    "kan_apply_flat_weighted": [_P, _I64, _I32, _P, _P, _P, _I64, _I32, _I32,
-                                _I64, _I64, _I64, _P, _I32, _I32,
-                                ctypes.c_float, _P, _P, _P],
+    "kan_flat_unanimous": [_P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _I32,
+                           _I32, _I64, _I32, _P, _P, _P, _P],
+    "kan_flat_weighted": [_P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _I32,
+                          _I32, _I64, _I64, _I64, ctypes.c_float, _P, _P, _P,
+                          _P, _P, _P],
 }
 
 

@@ -6,15 +6,25 @@ one wide table.  Every protein of a call is one flat token stream: codes,
 the protein (segment) of each token, and which tokens start a kmer window
 inside their protein.  The table is the 8-slot table (``ops.hashtable``)
 in its plain layout at every size; the reference's probe-window layout and
-sort-and-stream probe (``ops.sliced_probe``) give the same calls.
+sort-and-stream probe (``ops.sliced_probe``) give the same calls.  Both
+steps take the table's key filter (``ops.key_filter``), which lets the
+kernels answer most misses without reading the table; it changes no
+output, and the plain versions do not read it.
 
-CUDA tensors launch ``csrc/apply_flat.cu``: ``kan_apply_flat`` packs, walks
-and counts each hit into per-protein integer atomics, one launch a call;
-``kan_apply_flat_weighted`` adds each hit's weight into an exact int64
-tally block, one launch a role block (one block when the (proteins, roles)
-matrix fits ``ops.vote.DENSE_VOTE_LIMIT``).  CPU tensors take the plain
-versions, the reference's composition in torch: ``pack_kmer_windows``,
-``probe_table``, then the votes.
+CUDA tensors launch ``csrc/apply_flat.cu``, one C entry point a call:
+``kan_flat_unanimous`` packs, filters, walks and counts each hit into
+per-protein integer atomics, in any token order; ``kan_flat_weighted``
+walks the stream once whatever the role count, one block of the card a
+protein, and sums each hit's weight exactly into the protein's int64 tally
+in shared memory (roles past ``DIRECT_ROLES`` are swept in ranges over the
+protein's kept hits).  The weighted step requires seg_ids never to
+decrease (each protein's tokens contiguous, proteins in order, as
+``FlatBatch`` lays them out) and raises on a stream that breaks it, on the
+card and on the CPU.  What bounds both kernels is the table lookups: the
+filter's and the hit buckets' sectors from L2, a miss the filter lets
+through from device memory.  CPU tensors take the plain versions, the
+reference's composition in torch: ``pack_kmer_windows``, ``probe_table``,
+then the votes.
 
 The unanimity vote calls a protein's role when it has hits, they agree and
 there are at least ``min_hits``; an uncalled protein's count is 0 (unlike
@@ -30,11 +40,17 @@ import torch
 from .. import kernels
 from .encode import PROT_PAD
 from .hashtable import BUCKET, probe_table
+from .key_filter import SECTOR_WORDS
 from .kmers import MAX_K, pack_kmer_windows
-from .vote import pick_weighted_vote, split_packed_payload, vote_block
+from .vote import pick_weighted_vote, split_packed_payload
 from .widetable import check_table
 
 _INT32_MAX = 2**31 - 1
+
+# the roles the weighted kernel's shared tally holds (8 bytes each); roles
+# past it are swept in ranges over each protein's kept hits
+DIRECT_ROLES = 4096
+_MAX_ROLES = 1 << 16            # a payload's role field
 
 
 def _check_args(what, table, codes, seg_ids, valid, k, max_probes,
@@ -53,6 +69,24 @@ def _check_args(what, table, codes, seg_ids, valid, k, max_probes,
     devs = {t.device for t in (table, codes, seg_ids, valid)}
     if len(devs) != 1:
         raise ValueError(f"{what}: arguments span devices {devs}")
+
+
+def _check_filter(what, key_filter, table) -> None:
+    if key_filter is None:
+        return
+    if (key_filter.dtype != torch.int32 or key_filter.dim() != 2
+            or key_filter.shape[1] != SECTOR_WORDS
+            or key_filter.shape[0] < 1):
+        raise ValueError(f"{what}: key_filter must be a (sectors, "
+                         f"{SECTOR_WORDS}) int32 tensor")
+    if key_filter.device != table.device:
+        raise ValueError(f"{what}: key_filter lies on {key_filter.device}, "
+                         f"the table on {table.device}")
+
+
+def _out_of_order(what) -> ValueError:
+    return ValueError(f"{what}: seg_ids must never decrease (each "
+                      "protein's tokens contiguous, proteins in order)")
 
 
 def _probe(table, codes, valid, k, max_probes):
@@ -87,20 +121,32 @@ def apply_flat_plain(table: torch.Tensor, codes: torch.Tensor,
             torch.where(called, n_hits, 0).to(torch.int32))
 
 
-def _launchable(what, table, codes, seg_ids, valid) -> None:
+def _launchable(what, table, codes, seg_ids, valid, key_filter) -> None:
     if table.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {table.device}")
     for name, t in (("table", table), ("codes", codes),
-                    ("seg_ids", seg_ids), ("valid", valid)):
-        if not t.is_contiguous():
+                    ("seg_ids", seg_ids), ("valid", valid),
+                    ("key_filter", key_filter)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    if table.data_ptr() % 16:
-        raise ValueError(f"{what}: table must be 16-byte aligned")
+    if table.data_ptr() % 16 or (key_filter is not None
+                                 and key_filter.data_ptr() % 16):
+        raise ValueError(f"{what}: table and key_filter must be 16-byte "
+                         "aligned")
+
+
+def _filter_args(key_filter) -> tuple:
+    """The C entry points' (filter pointer, sector count); (None, 0): no
+    filter, every window walks."""
+    if key_filter is None:
+        return None, 0
+    return key_filter.data_ptr(), key_filter.shape[0]
 
 
 def apply_flat(table: torch.Tensor, codes: torch.Tensor,
                seg_ids: torch.Tensor, valid: torch.Tensor, min_hits: int, *,
-               k: int, max_probes: int, n_seqs: int
+               k: int, max_probes: int, n_seqs: int,
+               key_filter: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Call a role for every protein of a flat token stream.
 
@@ -108,6 +154,7 @@ def apply_flat(table: torch.Tensor, codes: torch.Tensor,
     codes:   (T,) uint8 protein codes, ``PROT_PAD`` padding
     seg_ids: (T,) int32 protein of each token (padding: n_seqs)
     valid:   (T,) bool, a kmer window starting here stays in its protein
+    key_filter: (sectors, 8) int32, the table's ``key_filter``, or None
     returns (role (n_seqs,) int32, the called role or -1;
              hits (n_seqs,) int32, the unanimous hit count, 0 if uncalled)
 
@@ -116,10 +163,11 @@ def apply_flat(table: torch.Tensor, codes: torch.Tensor,
     """
     _check_args("apply_flat", table, codes, seg_ids, valid, k, max_probes,
                 n_seqs)
+    _check_filter("apply_flat", key_filter, table)
     if table.device.type == "cpu":
         return apply_flat_plain(table, codes, seg_ids, valid, min_hits, k=k,
                                 max_probes=max_probes, n_seqs=n_seqs)
-    _launchable("apply_flat", table, codes, seg_ids, valid)
+    _launchable("apply_flat", table, codes, seg_ids, valid, key_filter)
     dev = table.device
     role = torch.empty(n_seqs, dtype=torch.int32, device=dev)
     hits = torch.empty(n_seqs, dtype=torch.int32, device=dev)
@@ -127,11 +175,11 @@ def apply_flat(table: torch.Tensor, codes: torch.Tensor,
         return role, hits
     rmin = torch.empty(n_seqs, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = kernels.lib().kan_apply_flat(
-            table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(),
-            seg_ids.data_ptr(), valid.data_ptr(), codes.numel(), k, PROT_PAD,
-            n_seqs, int(min_hits),
-            role.data_ptr(), hits.data_ptr(), rmin.data_ptr(),
+        err = kernels.lib().kan_flat_unanimous(
+            table.data_ptr(), table.shape[0], max_probes,
+            *_filter_args(key_filter), codes.data_ptr(), seg_ids.data_ptr(),
+            valid.data_ptr(), codes.numel(), k, PROT_PAD, n_seqs,
+            int(min_hits), role.data_ptr(), hits.data_ptr(), rmin.data_ptr(),
             kernels.stream_of(table))
     kernels.check(err, "apply_flat kernel")
     apply_flat.launches += 1
@@ -147,7 +195,8 @@ def apply_weighted_flat_plain(table: torch.Tensor, codes: torch.Tensor,
                               n_seqs: int, n_roles: int
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch version of :func:`apply_weighted_flat`, on any
-    device: the dense or role-block vote ``pick_weighted_vote`` routes to."""
+    device: the dense or role-block vote ``pick_weighted_vote`` routes to.
+    It takes the stream in any order."""
     _check_args("apply_weighted_flat", table, codes, seg_ids, valid, k,
                 max_probes, n_seqs)
     val, hit = _probe(table, codes, valid, k, max_probes)
@@ -159,46 +208,57 @@ def apply_weighted_flat_plain(table: torch.Tensor, codes: torch.Tensor,
 def apply_weighted_flat(table: torch.Tensor, codes: torch.Tensor,
                         seg_ids: torch.Tensor, valid: torch.Tensor,
                         min_weight: float, *, k: int, max_probes: int,
-                        n_seqs: int, n_roles: int
+                        n_seqs: int, n_roles: int,
+                        key_filter: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The weighted vote of every protein of a flat token stream.
 
     Arguments as :func:`apply_flat`, with payloads packed as
-    ``fp16_bits(weight) << 16 | role`` and ``n_roles`` the table's roles.
+    ``fp16_bits(weight) << 16 | role`` and ``n_roles`` the table's roles
+    (at most 65,536); seg_ids must never decrease.
     returns (role (n_seqs,) int32, the best-tally role or -1;
              tally (n_seqs,) float32, its tally, 0.0 when uncalled)
     A role is called when its tally is >= ``min_weight`` and > 0; equal
     tallies call the smaller role.
 
     A CPU tensor takes :func:`apply_weighted_flat_plain`; a CUDA tensor
-    launches the kernel once for each role block or raises.
+    launches the kernel once (one walk of the stream) or raises.  A stream
+    whose seg_ids decrease raises ValueError on both.
     """
-    _check_args("apply_weighted_flat", table, codes, seg_ids, valid, k,
-                max_probes, n_seqs)
+    what = "apply_weighted_flat"
+    _check_args(what, table, codes, seg_ids, valid, k, max_probes, n_seqs)
+    _check_filter(what, key_filter, table)
+    if not 1 <= n_roles <= _MAX_ROLES:
+        raise ValueError(f"{what}: n_roles must be in 1..{_MAX_ROLES}, got "
+                         f"{n_roles}")
     if table.device.type == "cpu":
+        if seg_ids.numel() > 1 and bool((seg_ids[1:] < seg_ids[:-1]).any()):
+            raise _out_of_order(what)
         return apply_weighted_flat_plain(
             table, codes, seg_ids, valid, min_weight, k=k,
             max_probes=max_probes, n_seqs=n_seqs, n_roles=n_roles)
-    _launchable("apply_weighted_flat", table, codes, seg_ids, valid)
-    r_blk = vote_block(n_seqs, n_roles)
+    _launchable(what, table, codes, seg_ids, valid, key_filter)
     dev = table.device
     role = torch.empty(n_seqs, dtype=torch.int32, device=dev)
     tally = torch.empty(n_seqs, dtype=torch.float32, device=dev)
     if n_seqs == 0:
         return role, tally
-    cells = torch.zeros(n_seqs * r_blk, dtype=torch.int64, device=dev)
-    bases = range(0, n_roles, r_blk)
-    for i, base in enumerate(bases):
-        with torch.cuda.device(dev):
-            err = kernels.lib().kan_apply_flat_weighted(
-                table.data_ptr(), table.shape[0], max_probes,
-                codes.data_ptr(), seg_ids.data_ptr(), valid.data_ptr(),
-                codes.numel(), k, PROT_PAD, n_seqs, base, r_blk,
-                cells.data_ptr(), int(i == 0), int(i == len(bases) - 1),
-                float(min_weight), role.data_ptr(), tally.data_ptr(),
-                kernels.stream_of(table))
-        kernels.check(err, "apply_flat_weighted kernel")
-        apply_weighted_flat.launches += 1
+    starts = torch.empty(n_seqs + 1, dtype=torch.int64, device=dev)
+    bad = torch.empty(1, dtype=torch.int32, device=dev)
+    kept = (torch.empty(max(codes.numel(), 1), dtype=torch.int32, device=dev)
+            if n_roles > DIRECT_ROLES else None)
+    with torch.cuda.device(dev):
+        err = kernels.lib().kan_flat_weighted(
+            table.data_ptr(), table.shape[0], max_probes,
+            *_filter_args(key_filter), codes.data_ptr(), seg_ids.data_ptr(),
+            valid.data_ptr(), codes.numel(), k, PROT_PAD, n_seqs, n_roles,
+            DIRECT_ROLES, float(min_weight), starts.data_ptr(),
+            bad.data_ptr(), None if kept is None else kept.data_ptr(),
+            role.data_ptr(), tally.data_ptr(), kernels.stream_of(table))
+    kernels.check(err, "apply_flat_weighted kernel")
+    apply_weighted_flat.launches += 1
+    if int(bad.item()):      # the kernel called nothing
+        raise _out_of_order(what)
     return role, tally
 
 

@@ -64,7 +64,7 @@ def salt_sequence(n: int) -> list[int]:
 
 # ----- torch (int64 holding uint32) -----
 
-def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+def mul32(x: torch.Tensor, m: int) -> torch.Tensor:
     """(x * m) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant m."""
     lo = x * (m & 0xFFFF)                       # < 2^48
     hi = ((x * (m >> 16)) & 0xFFFF) << 16       # < 2^32
@@ -74,9 +74,9 @@ def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
 def fmix32(x: torch.Tensor) -> torch.Tensor:
     """Murmur3 finalizer on int64 tensors holding uint32 values."""
     x = x ^ (x >> 16)
-    x = _mul32(x, M1)
+    x = mul32(x, M1)
     x = x ^ (x >> 13)
-    x = _mul32(x, M2)
+    x = mul32(x, M2)
     return x ^ (x >> 16)
 
 

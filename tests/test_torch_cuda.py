@@ -14,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, carried_state,
-                        collision_rows, collision_table, flat_case,
-                        flat_tensors, made_up_chunk, made_up_rows,
-                        make_projection_workload, make_signature_genomes,
-                        reorder_chunk, tally_bits, tile_cells)
+from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, WEIGHTED_EDGES,
+                        carried_state, collision_rows, collision_table,
+                        flat_case, flat_filter, flat_tensors, made_up_chunk,
+                        made_up_rows, make_projection_workload,
+                        make_signature_genomes, reorder_chunk, tally_bits,
+                        tile_cells, weighted_edge)
 from kmers_anno_tpu_torch.engine import hashanno, projection
 from kmers_anno_tpu_torch.engine import signature as signature_mod
 from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
@@ -42,6 +43,7 @@ from kmers_anno_tpu_torch.ops.hash_chunk import (COMMONS_TABLE_CELLS,
                                                  hash_commons,
                                                  hash_commons_plain)
 from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
+from kmers_anno_tpu_torch.ops.key_filter import table_keys
 from kmers_anno_tpu_torch.ops.translate import codon_lut
 from kmers_anno_tpu_torch.ops.widetable import (build_wide_table, probe_wide,
                                                 probe_wide_plain)
@@ -473,11 +475,14 @@ def test_apply_engine_on_cuda_matches_cpu(cuda, weights):
     assert sum(c is not None for c in got) > 60
 
 
+@pytest.mark.parametrize("filtered", [False, True])
 @pytest.mark.parametrize("min_hits", [1, 3])
 @pytest.mark.parametrize("n_seqs", ["batch", "fewer", "no_valid"])
 @pytest.mark.parametrize("case", list(FLAT_EDGES))
-def test_apply_flat_kernel_matches_plain(cuda, case, n_seqs, min_hits):
-    """The unanimity kernel against its plain version, with buckets
+def test_apply_flat_kernel_matches_plain(cuda, case, n_seqs, min_hits,
+                                         filtered):
+    """The unanimity kernel, with the table's key filter and without,
+    against its plain version, with buckets
     holding keys of one lo word and walks that wrap to bucket 0 (the
     collide cases), proteins past ``n_seqs`` ("fewer": their tokens count
     nothing) and an all-invalid stream."""
@@ -490,7 +495,8 @@ def test_apply_flat_kernel_matches_plain(cuda, case, n_seqs, min_hits):
         args = (*args[:3], torch.zeros_like(args[3]))
     kw = dict(k=params["k"], max_probes=mp, n_seqs=n)
     before = apply_flat.launches
-    got = apply_flat(*args, min_hits, **kw)
+    got = apply_flat(*args, min_hits, **kw,
+                     key_filter=flat_filter(args[0]) if filtered else None)
     torch.cuda.synchronize()
     assert apply_flat.launches == before + 1
     want = apply_flat_plain(*args, min_hits, **kw)
@@ -502,14 +508,17 @@ def test_apply_flat_kernel_matches_plain(cuda, case, n_seqs, min_hits):
         assert (got[0] >= 0).any()
 
 
+@pytest.mark.parametrize("filtered", [False, True])
 @pytest.mark.parametrize("r_blk", [9, 4, 1])
 @pytest.mark.parametrize("weights", ["uniform", "fp16"])
 @pytest.mark.parametrize("case", list(FLAT_EDGES))
 def test_apply_weighted_flat_kernel_matches_plain(cuda, case, weights, r_blk,
-                                                  monkeypatch):
-    """The weighted kernel against its plain version, roles and tally bits:
-    uniform weights (many ties, the smaller role must win) and fractional
-    fp16 weights, in one role block (9 roles) and in blocks of 4 and 1."""
+                                                  filtered, monkeypatch):
+    """The weighted kernel, one walk a call whatever the role blocks of
+    the plain version, with the key filter and without, against the plain
+    version's dense vote (9 roles) and its role blocks of 4 and 1, roles
+    and tally bits: uniform weights (many ties, the smaller role must win)
+    and fractional fp16 weights."""
     params = FLAT_EDGES[case]
     rng = np.random.default_rng(len(case) + r_blk)
     batch, table, mp = flat_case(rng, n_roles=9, weights=weights, **params)
@@ -517,12 +526,108 @@ def test_apply_weighted_flat_kernel_matches_plain(cuda, case, weights, r_blk,
     args = flat_tensors(batch, table, cuda)
     kw = dict(k=params["k"], max_probes=mp, n_seqs=batch.n_seqs, n_roles=9)
     before = apply_weighted_flat.launches
-    got = tally_bits(apply_weighted_flat(*args, 1.5, **kw))
+    got = tally_bits(apply_weighted_flat(
+        *args, 1.5, **kw, key_filter=flat_filter(args[0]) if filtered
+        else None))
     torch.cuda.synchronize()
-    assert apply_weighted_flat.launches == before + -(-9 // r_blk)
+    assert apply_weighted_flat.launches == before + 1
     want = tally_bits(apply_weighted_flat_plain(*args, 1.5, **kw))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert (got[0] >= 0).any()
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("direct", ["default", 5])
+@pytest.mark.parametrize("case", list(WEIGHTED_EDGES))
+def test_apply_weighted_flat_kernel_edges(cuda, case, direct, filtered,
+                                          monkeypatch):
+    """The weighted kernel at its edges against its plain version, roles
+    and tally bits, at min_weight 1.5 and 0: a 40,000-aa protein whose
+    hits span more roles than the shared tally holds (its kept hits swept
+    in ranges), 30,000 roles, two roles whose int64 sums differ but round
+    to one float32 (the smaller role wins, in both orders), hits of zero
+    weight, empty proteins, proteins across the owner block's rounds; the
+    shared tally at ``DIRECT_ROLES`` and at 5 roles.  One launch a call."""
+    rng = np.random.default_rng(len(case))
+    batch, table, mp, k, n_roles, expect = weighted_edge(rng, case)
+    if direct != "default":
+        monkeypatch.setattr(apply_flat_mod, "DIRECT_ROLES", direct)
+    args = flat_tensors(batch, table, cuda)
+    key_filter = flat_filter(args[0]) if filtered else None
+    kw = dict(k=k, max_probes=mp, n_seqs=batch.n_seqs, n_roles=n_roles)
+    for min_weight in (1.5, 0.0):
+        before = apply_weighted_flat.launches
+        got = tally_bits(apply_weighted_flat(*args, min_weight, **kw,
+                                             key_filter=key_filter))
+        torch.cuda.synchronize()
+        assert apply_weighted_flat.launches == before + 1
+        want = tally_bits(apply_weighted_flat_plain(*args, min_weight, **kw))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        if expect is not None:
+            np.testing.assert_array_equal(got[0].cpu().numpy(), expect)
+    assert (got[0] >= 0).any()
+
+
+@pytest.mark.parametrize("how", ["swap", "padding", "first"])
+def test_apply_weighted_flat_rejects_a_stream_out_of_order(cuda, how):
+    """seg_ids that decrease somewhere: the kernel flags it and the
+    wrapper raises."""
+    batch, table, mp, k, n_roles, _ = weighted_edge(
+        np.random.default_rng(2), "tile_edges")
+    args = list(flat_tensors(batch, table, cuda))
+    seg = args[2].clone()
+    if how == "swap":
+        a = int(np.flatnonzero(batch.seg_ids == 3)[0])
+        b = int(np.flatnonzero(batch.seg_ids == 5)[0])
+        seg[a], seg[b] = args[2][b], args[2][a]
+    elif how == "padding":
+        seg[-1] = 0
+    else:
+        seg[0] = batch.n_seqs
+    kw = dict(k=k, max_probes=mp, n_seqs=batch.n_seqs, n_roles=n_roles)
+    apply_weighted_flat(*args, 1.5, **kw)
+    with pytest.raises(ValueError, match="never decrease"):
+        apply_weighted_flat(args[0], args[1], seg, args[3], 1.5, **kw)
+
+
+def _own_windows(lo, hi, dev):
+    """Each key laid out as the 12 codes of a k = 12 window (its lo and
+    hi words cut into 5-bit fields), a protein each, only the window
+    starts valid."""
+    fields = [(w >> np.uint32(5 * j)) & np.uint32(31)
+              for w in (lo, hi) for j in range(6)]
+    codes = torch.from_numpy(np.stack(fields, 1).astype(np.uint8).reshape(
+        -1)).to(dev)
+    starts = torch.zeros(codes.numel(), dtype=torch.bool, device=dev)
+    starts[::12] = True
+    own = torch.arange(codes.numel(), dtype=torch.int32, device=dev) // 12
+    return codes, own, starts
+
+
+@pytest.mark.parametrize("case", ["k8_collide_wrap", "k12_collide_wrap",
+                                  "collision_table"])
+def test_key_filter_passes_every_key_on_the_card(cuda, case):
+    """Every key of a table with walked and wrapped buckets (flat_case's
+    squeezed tables; collision_table's keys of six lo words in 32
+    buckets), walked through the filtered kernel as its own protein,
+    finds its payload."""
+    rng = np.random.default_rng(17)
+    if case == "collision_table":
+        _, _, _, (lo, hi, _), _ = collision_table(rng, 10)
+        table, mp = build_table(lo, hi, np.arange(len(lo), dtype=np.uint32),
+                                n_buckets=32)
+    else:
+        _, table, mp = flat_case(rng, n_roles=5, **FLAT_EDGES[case])
+    assert mp >= 2
+    lo, hi = table_keys(table)
+    vals = table[:, 16:24][table[:, :8] != np.uint32(0xFFFFFFFF)]
+    d_table = wide_table_from_numpy(table, cuda)
+    codes, own, starts = _own_windows(lo, hi, cuda)
+    role, hits = apply_flat(d_table, codes, own, starts, 1, k=12,
+                            max_probes=mp, n_seqs=len(lo),
+                            key_filter=flat_filter(d_table))
+    np.testing.assert_array_equal(role.cpu().numpy(), vals.astype(np.int32))
+    assert (hits == 1).all()
 
 
 def test_apply_flat_kernels_on_an_empty_stream(cuda):
