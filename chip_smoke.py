@@ -101,7 +101,7 @@ back to back through its C entry point between one pair of CUDA events
 included), with ``launch_share`` = bound / ``launch_ms``.
 
 Usage, from the repository root:
-    python3 chip_smoke.py [--profile] [--compare DIR]
+    python3 chip_smoke.py [--profile] [--compare DIR [DIR ...]]
 
 ``--profile`` also traces three warm fused-route genomes with
 ``torch.profiler`` (device activity only) and reports, within that one
@@ -109,18 +109,18 @@ traced run, the device's busy share (the union of its kernel and copy
 intervals over the run's wall time) and the kernels that take the most
 device time; then a ``cProfile`` of one more warm genome on the host.
 
-``--compare DIR`` also times the kernels (``contig_scan`` on the padded
-window stream and on the two strands, ``probe_wide`` on the union table
-and on the fused close tables, ``apply_rows`` on the bench batches, and
-``hash_commons`` on the hashAnno bench chunk and on the first chunk of
-the hashAnno CLI batch, each in the engine's order and key-major, and
-``hash_best`` on the bench chunk, and both flat apply kernels on the
-big-table batch) of
-this tree's build against the build of the tree at DIR (the root of
-another checkout, such as the parent commit's) through their C entry
-points: in turns (A B B A), each turn ``LAUNCH_REPS`` passes back to back,
-each output equal to this build's; a build that lacks a kernel sits that
-case out.
+``--compare DIR [DIR ...]`` also times the kernels (``contig_scan`` on
+the padded window stream and on the two strands, ``probe_wide`` on the
+union table and on the fused close tables, ``apply_rows`` on the bench
+batches, and ``hash_commons`` on the hashAnno bench chunk and on the
+first chunk of the hashAnno CLI batch, each in the engine's order and
+key-major, and ``hash_best`` on the bench chunk, and both flat apply
+kernels on the big-table batch, through the earlier flat entry points on
+a build that has them) of this tree's build against the build of the tree
+at each DIR (the root of another checkout, such as the parent commit's)
+through their C entry points: in turns (A B C C B A), each turn
+``LAUNCH_REPS`` passes back to back, each output equal to this build's; a
+build that lacks a kernel sits that case out.
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -461,20 +461,25 @@ launch_hash_commons.reset = lambda *args: args[-1].zero_()
 launch_hash_best.entry = "kan_hash_best"
 
 
-def build_contenders(other: str, tmp: str) -> dict:
+def build_contenders(others: list[str], tmp: str) -> dict:
     """Kernel libraries to time in turns: this tree's build ("this") and
-    the build of the tree rooted at ``other`` ("other")."""
+    the build of each tree rooted at one of ``others`` (named by its
+    directory)."""
     from kmers_anno_tpu_torch import kernels
 
-    path = os.path.join(tmp, "other", "libkan_cuda.so")
-    out = kernels.build(os.path.join(other, "kmers_anno_tpu_torch", "csrc"),
-                        path)
-    for line in out.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  ptxas (other):", line.strip(), flush=True)
-    other_lib = kernels.load(path)
-    declare_earlier_entries(other_lib)
-    return {"this": kernels.lib(), "other": other_lib}
+    libs = {"this": kernels.lib()}
+    for i, other in enumerate(others):
+        name = os.path.basename(os.path.normpath(other)) or f"other{i}"
+        name = name if name not in libs else f"{name}{i}"
+        path = os.path.join(tmp, str(i), "libkan_cuda.so")
+        out = kernels.build(
+            os.path.join(other, "kmers_anno_tpu_torch", "csrc"), path)
+        for line in out.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"  ptxas ({name}):", line.strip(), flush=True)
+        libs[name] = kernels.load(path)
+        declare_earlier_entries(libs[name])
+    return libs
 
 
 def compare_contenders(libs: dict, cases: dict) -> dict:
@@ -1970,13 +1975,11 @@ def tally_bits(out) -> tuple:
 def flat_filter(table):
     """The key filter of a (buckets, 24) int32 table tensor, on its
     device (``ops.key_filter``, from the table's own keys)."""
-    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
     from kmers_anno_tpu_torch.ops.key_filter import (build_key_filter,
                                                      table_keys)
 
     words = table.cpu().numpy().view(np.uint32)
-    return wide_table_from_numpy(build_key_filter(*table_keys(words)),
-                                 table.device)
+    return build_key_filter(*table_keys(words), table.device)
 
 
 # the C signatures of the earlier flat entry points (no filter; the
@@ -2003,16 +2006,12 @@ def declare_earlier_entries(lib) -> None:
             fn.argtypes = argtypes
 
 
-def filter_args(key_filter) -> tuple:
-    return ((None, 0) if key_filter is None
-            else (key_filter.data_ptr(), key_filter.shape[0]))
-
-
 def launch_flat(lib, table, codes, seg_ids, valid, k, max_probes, n_seqs,
                 min_hits, key_filter=None):
     """apply_flat through a kernel library's C entry point (uncounted):
     ``kan_flat_unanimous`` with ``key_filter`` (None: every window walks),
     or on a build without it the earlier ``kan_apply_flat`` (no filter)."""
+    from kmers_anno_tpu_torch.ops.apply_flat import filter_args
     from kmers_anno_tpu_torch.ops.encode import PROT_PAD
 
     role, hits, rmin = (torch.empty(n_seqs, dtype=torch.int32,
@@ -2036,7 +2035,7 @@ def launch_flat(lib, table, codes, seg_ids, valid, k, max_probes, n_seqs,
 
 
 class FlatScratch:
-    """The weighted entry points' scratch on the card: ``starts``, ``bad``
+    """The weighted entry points' scratch on the card: ``starts``, ``flags``
     and (past ``DIRECT_ROLES`` roles) ``kept`` for ``kan_flat_weighted``;
     the earlier entry's zeroed (n_seqs x block) int64 tally, made on first
     use."""
@@ -2046,7 +2045,7 @@ class FlatScratch:
 
         self.n_seqs, self.n_roles, self.dev = n_seqs, n_roles, dev
         self.starts = torch.empty(n_seqs + 1, dtype=torch.int64, device=dev)
-        self.bad = torch.empty(1, dtype=torch.int32, device=dev)
+        self.flags = torch.empty(2, dtype=torch.int32, device=dev)
         self.kept = (torch.empty(max(n_tokens, 1), dtype=torch.int32,
                                  device=dev)
                      if n_roles > apply_flat.DIRECT_ROLES else None)
@@ -2081,10 +2080,10 @@ def launch_flat_weighted(lib, table, codes, seg_ids, valid, k, max_probes,
         kept = scratch.kept
         err = lib.kan_flat_weighted(
             table.data_ptr(), table.shape[0], max_probes,
-            *filter_args(key_filter), codes.data_ptr(), seg_ids.data_ptr(),
-            valid.data_ptr(), codes.numel(), k, PROT_PAD, n_seqs, n_roles,
-            apply_flat.DIRECT_ROLES, float(min_weight),
-            scratch.starts.data_ptr(), scratch.bad.data_ptr(),
+            *apply_flat.filter_args(key_filter), codes.data_ptr(),
+            seg_ids.data_ptr(), valid.data_ptr(), codes.numel(), k, PROT_PAD,
+            n_seqs, n_roles, apply_flat.DIRECT_ROLES, float(min_weight),
+            scratch.starts.data_ptr(), scratch.flags.data_ptr(),
             None if kept is None else kept.data_ptr(), role.data_ptr(),
             best.data_ptr(), stream)
         require(err == 0, f"kan_flat_weighted returned CUDA error {err}")
@@ -3566,10 +3565,10 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="also trace warm fused-route genomes")
     parser.add_argument(
-        "--compare", metavar="DIR", default=None,
+        "--compare", metavar="DIR", nargs="+", default=None,
         help="also time the kernels of this tree against the build of the "
-             "tree at DIR (the root of another checkout), in turns on the "
-             "main path's inputs")
+             "tree at each DIR (the root of another checkout), in turns on "
+             "the main path's inputs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; no result")

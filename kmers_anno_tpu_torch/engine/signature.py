@@ -450,15 +450,14 @@ class SignatureTable:
     def device_key_filter(self, *, device: str | torch.device
                           ) -> torch.Tensor:
         """The key filter (``ops.key_filter``) of :meth:`device_table`'s
-        keys, built on the host and resident on ``device``: the flat-stream
-        kernels read it in front of the table walk.  A separate array, so
-        the table's bytes stay the reference's.
+        keys, built and resident on ``device``: the flat-stream kernels
+        read it in front of the table walk.  A separate array, so the
+        table's bytes stay the reference's.
 
         returns (sectors, 8) int32 tensor (the uint32 words)
         """
-        return wide_table_from_numpy(
-            build_key_filter(self.key_lo, self.key_hi),
-            resolve_device(device))
+        return build_key_filter(self.key_lo, self.key_hi,
+                                resolve_device(device))
 
     def _payloads(self, packed_weights: bool) -> np.ndarray:
         if packed_weights:

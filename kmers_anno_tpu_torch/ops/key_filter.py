@@ -14,10 +14,10 @@ sector lacks one of its 8 bits is surely absent; a Bloom filter has no false
 negatives, so filtering changes no output.
 
 The filter is a separate array beside the table: the table's bytes stay
-those of ``ops.hashtable.build_table``.  It is built once, on the host,
-from the table's keys (OR-ing bits is order-free, so any key order gives
-the same bits).  :func:`may_hold` is the plain-torch check the kernels
-make, for the tests and the measurements.
+those of ``ops.hashtable.build_table``.  It is built once, in torch on the
+table's device, from the table's keys (setting bits is order-free, so any
+key order gives the same bits).  :func:`may_hold` is the plain-torch check
+the kernels make, for the tests and the measurements.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .hashing import MASK32, mix_kmer_salted, mix_kmer_salted_np, mul32
+from .hashing import MASK32, mix_kmer_salted, mul32
 from .hashtable import BUCKET, EMPTY
 
 FILTER_BITS_PER_KEY = 16
@@ -50,22 +50,24 @@ def table_keys(table: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return lo[used], table[:, BUCKET: 2 * BUCKET][used]
 
 
-def build_key_filter(key_lo, key_hi) -> np.ndarray:
-    """The filter of the keys (lo, hi): a (sectors, 8) uint32 array."""
-    lo = np.asarray(key_lo, np.uint32)
-    hi = np.asarray(key_hi, np.uint32)
-    n = filter_sectors(len(lo))
-    hs = mix_kmer_salted_np(lo, hi, SECTOR_SALT)
-    sector = ((hs.astype(np.uint64) * np.uint64(n)) >> np.uint64(32)).astype(
-        np.int64)
-    hb = mix_kmer_salted_np(hi, lo, BIT_SALT)
-    bits = np.zeros(n * SECTOR_WORDS * 32, bool)
-    base = sector * (SECTOR_WORDS * 32)
+def build_key_filter(key_lo, key_hi,
+                     device: str | torch.device = "cpu") -> torch.Tensor:
+    """The filter of the uint32 keys (lo, hi), built on ``device``: a
+    (sectors, 8) int32 tensor of the uint32 words."""
+    lo, hi = (torch.from_numpy(np.asarray(k, np.uint32).view(np.int32)).to(
+        device) for k in (key_lo, key_hi))
+    n = filter_sectors(lo.numel())
+    base = ((mix_kmer_salted(lo, hi, SECTOR_SALT) * n) >> 32) * (
+        SECTOR_WORDS * 32)
+    hb = mix_kmer_salted(hi, lo, BIT_SALT)
+    bits = torch.zeros(n * SECTOR_WORDS * 32, dtype=torch.bool,
+                       device=lo.device)
     for i, salt in enumerate(WORD_SALTS):
-        pos = ((hb * np.uint32(salt)) >> np.uint32(27)).astype(np.int64)
-        bits[base + 32 * i + pos] = True
-    return np.packbits(bits, bitorder="little").view("<u4").reshape(
-        n, SECTOR_WORDS).astype(np.uint32)
+        bits[base + 32 * i + (mul32(hb, salt) >> 27)] = True
+    shifts = torch.arange(8, dtype=torch.uint8, device=lo.device)
+    octets = (bits.view(-1, 8).to(torch.uint8) << shifts).sum(
+        1, dtype=torch.uint8)
+    return octets.view(torch.int32).view(n, SECTOR_WORDS)
 
 
 def may_hold(key_filter: torch.Tensor, lo: torch.Tensor,

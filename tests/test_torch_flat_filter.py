@@ -46,8 +46,7 @@ def _keys(n_keys, seed):
 
 
 def _held(key_filter, lo, hi):
-    return kf.may_hold(torch.from_numpy(key_filter.view(np.int32)),
-                       torch.from_numpy(lo.view(np.int32)),
+    return kf.may_hold(key_filter, torch.from_numpy(lo.view(np.int32)),
                        torch.from_numpy(hi.view(np.int32))).numpy()
 
 
@@ -89,9 +88,9 @@ def test_filter_passes_every_table_key(case, builder):
     assert len(t_lo) == len(lo)
     key_filter = kf.build_key_filter(t_lo, t_hi)
     assert key_filter.shape == (kf.filter_sectors(len(lo)), kf.SECTOR_WORDS)
-    assert key_filter.dtype == np.uint32
+    assert key_filter.dtype == torch.int32
     assert _held(key_filter, lo, hi).all()
-    np.testing.assert_array_equal(key_filter, kf.build_key_filter(lo, hi))
+    assert torch.equal(key_filter, kf.build_key_filter(lo, hi))
 
 
 @pytest.mark.parametrize("case", ["k8_collide_wrap", "k12_collide_wrap"])
@@ -116,10 +115,10 @@ def test_filter_false_positive_share(n_keys):
     key_filter = kf.build_key_filter(lo[:n_keys], hi[:n_keys])
     share = _held(key_filter, lo[n_keys:], hi[n_keys:]).mean()
     assert share < 0.01
-    assert key_filter.nbytes == 4 * kf.SECTOR_WORDS * kf.filter_sectors(
-        n_keys)
+    n_bytes = 4 * key_filter.numel()
+    assert n_bytes == 4 * kf.SECTOR_WORDS * kf.filter_sectors(n_keys)
     if n_keys >= 1_000:
-        assert key_filter.nbytes * 8 / n_keys == pytest.approx(
+        assert n_bytes * 8 / n_keys == pytest.approx(
             kf.FILTER_BITS_PER_KEY, rel=0.01)
 
 
@@ -129,8 +128,7 @@ def test_filter_bits_are_order_free():
     rng = np.random.default_rng(9)
     for _ in range(3):
         perm = rng.permutation(len(lo))
-        np.testing.assert_array_equal(kf.build_key_filter(lo[perm],
-                                                          hi[perm]), want)
+        assert torch.equal(kf.build_key_filter(lo[perm], hi[perm]), want)
 
 
 def test_filter_check_matches_the_bit_layout():
@@ -139,9 +137,10 @@ def test_filter_check_matches_the_bit_layout():
     lo, hi = _keys(1, 4)
     key_filter = kf.build_key_filter(lo, hi)
     assert key_filter.shape == (1, kf.SECTOR_WORDS)
-    assert [bin(int(w)).count("1") for w in key_filter[0]] == [1] * 8
+    assert [bin(int(w) & 0xFFFFFFFF).count("1")
+            for w in key_filter[0]] == [1] * 8
     for word in range(kf.SECTOR_WORDS):
-        cleared = key_filter.copy()
+        cleared = key_filter.clone()
         cleared[0, word] = 0
         assert not _held(cleared, lo, hi).any()
 
