@@ -2045,6 +2045,8 @@ class FlatScratch:
 
         self.n_seqs, self.n_roles, self.dev = n_seqs, n_roles, dev
         self.starts = torch.empty(n_seqs + 1, dtype=torch.int64, device=dev)
+        # two int32: room for a build that keeps a protein counter beside
+        # its error flag
         self.flags = torch.empty(2, dtype=torch.int32, device=dev)
         self.kept = (torch.empty(max(n_tokens, 1), dtype=torch.int32,
                                  device=dev)

@@ -12,21 +12,12 @@
 // of lookups, so the probe window saves next to nothing.  Plain versions:
 // ops/apply_flat.py.
 //
-// What bounds them on this card: the latency of each window's chain of
-// dependent reads (its flag and codes, the filter sector, the home
-// bucket's lo keys, then a matching slot's hi key and payload), not bytes
-// or operations.  A 10M-key table is about 403 MB, eight times the 50 MB
-// L2, so a miss's bucket comes from device memory, while the buckets that
-// hold hits recur across proteins and stay in L2.  So every thread looks
-// up kWays windows at once, the reads of each step issued for all of them
-// before any is waited on (k is a template parameter, so a window's code
-// reads are unrolled too); a walk that leaves its home bucket (under 1% of
-// lookups) is redone by bucket_probe.cuh's walk.
-//
 // The key filter (ops/key_filter.py).  A table past one wide table is 100
-// MB or more, and most windows of a protein miss it.  In front of the walk
-// sits a split-block Bloom filter of the table's own keys, 16 bits a key
-// (20 MB for 10M keys): each key sets one bit in each of the 8 words of
+// MB or more, past the 50 MB L2, and most windows of a protein miss it: a
+// miss reads its home bucket's 32-byte lo-key sector from device memory.
+// In front of the walk sits a split-block Bloom filter of the table's own
+// keys, 16 bits a key (20 MB for 10M keys, small enough for L2 beside the
+// buckets that hold hits): each key sets one bit in each of the 8 words of
 // one 32-byte sector, the sector chosen by fmix32(lo ^ fmix32(hi ^ salt))
 // and the bits by fmix32(hi ^ fmix32(lo ^ salt')), both independent of the
 // bucket hash.  A window whose sector lacks one of its bits is a miss and
@@ -34,13 +25,15 @@
 // output is as without it.  Without a filter (a null pointer) every window
 // walks.
 //
-// kan_flat_unanimous (the unanimity vote): a grid-stride loop over the
-// stream, a warp on 32 * kWays consecutive tokens at a time, one window a
-// lane in each group of 32.  On a hit of a protein below n_seqs it counts
-// the hit with its role into three int32 arrays: hits (add), min role and
-// max role.  Tokens of one protein sit side by side, so a group's hits
-// mostly belong to one or two proteins: the lanes of the first and of the
-// last hit's protein each reduce to one atomicAdd, atomicMin and
+// kan_flat_unanimous (the unanimity vote): one thread a token, the warps of
+// a grid-stride loop over the stream, each on 32 consecutive tokens.  A
+// thread packs codes[t .. t+k-1] (5 bits a residue, residues 0..5 in lo and
+// 6..11 in hi; positions at or past T read the pad code), asks the filter,
+// walks the table (bucket_probe.cuh) and, on a hit of a protein below
+// n_seqs, counts it with its role into three int32 arrays: hits (add), min
+// role and max role.  Tokens of one protein sit side by side, so a warp's
+// hits mostly belong to one or two proteins: the lanes of the first and of
+// the last hit's protein each reduce to one atomicAdd, atomicMin and
 // atomicMax; any other hit adds alone.  Integer atomics are order-free, so
 // the result is exact for any order of the stream.  A finalize pass calls
 // role = max role and keeps the count when the protein has hits, min == max
@@ -54,33 +47,46 @@
 // reads seg_ids once, writes each protein's first token (starts, n_seqs + 1
 // entries) and raises an error flag where an id is smaller than the one
 // before it; the wrapper reads the flag and raises, so a stream that breaks
-// the contract never miscounts silently.  Then as many blocks of 128
-// threads as fit the card each own one protein at a time, taking the next
-// from a counter as they finish (a long protein holds only its own block):
-// a block walks its protein's windows 128 * kWays at a time.  A hit's
-// payload is fp16_bits(weight) << 16 | role; the weight, a non-negative
-// fp16, is a whole number of 2^-24 units below 2^40, decoded from its bits.
-// Each hit adds its units into the block's int64 tally in shared memory,
-// indexed by role: the lanes of a warp with one role merge first (units
-// split in 20-bit halves, so that a warp sum fits 32 bits), then one shared
-// atomic a role, which also lists the role when it was 0.  Integer sums are
-// exact in any order.  Hits of zero weight add nothing and are skipped: a
-// tally of 0 is never called.  The block then takes the first maximum over
-// the listed cells as float32 (each cell converted once, times 2^-24; on
-// equal float32 tallies the smaller role, even where their int64 sums
-// differ) and clears those cells alone; a protein that touches more roles
-// than the list holds scans and clears the whole tally.  The tally holds
-// r_tally = min(n_roles, r_direct) roles (r_direct 4,096: 32 KB); a hit of
-// a role past it is kept, once, in a global scratch buffer at its
-// protein's own token positions, and the block sweeps role ranges of
-// r_tally over those kept hits alone, each range starting at the smallest
-// kept role not yet swept, never reading the table again; a range's best
-// replaces the running one only when strictly greater.  It calls the best
-// role when its tally is >= min_weight and > 0, else role -1 and 0.
+// the contract never miscounts silently.  Then one block of 128 threads owns
+// one protein (the hardware hands blocks out as SMs free up, so a long
+// protein holds only its own block): it walks the protein's windows 128 at
+// a time with the same pack, filter and walk.  A hit's payload is
+// fp16_bits(weight) << 16 | role; the weight, a non-negative fp16, is a
+// whole number of 2^-24 units below 2^40, decoded from its bits.  Each hit
+// adds its units into the protein's int64 tally in shared memory, indexed
+// by role: the lanes of a warp with one role merge first (units split in
+// 20-bit halves, so that a warp sum fits 32 bits), then one shared atomic a
+// role.  Integer sums are exact in any order.  Hits of zero weight add
+// nothing and are skipped: a tally of 0 is never called.  The tally holds
+// r_tally = min(n_roles, r_direct) roles (r_direct 4,096: 32 KB); a hit of a
+// role past it is kept, once, in a global scratch buffer at its protein's
+// own token positions, and the block then sweeps role ranges of r_tally
+// over those kept hits alone, each range starting at the smallest kept role
+// not yet swept, never reading the table again.  After each range the
+// block takes the first maximum of the range's cells as float32 (each cell
+// converted once, times 2^-24), merged into the running best only when
+// strictly greater (from tally 0 and role -1), so equal float32 tallies
+// call the smaller role even where their int64 sums differ.  It calls the
+// best role when its tally is >= min_weight and > 0, else role -1 and 0.
+//
+// What bounds them on this card: the latency of each window's chain of
+// dependent reads (its flag and codes, the filter sector, the home bucket's
+// lo keys, then a hit's hi key and payload), not bytes or operations.  A
+// 10M-key table is about 403 MB, eight times the L2, so without the filter
+// a miss reads its home bucket's lo keys from device memory; hits of a
+// role's kmers recur across proteins and stay in L2.  A warp waits for its
+// slowest lane, and a hit's chain through L2 is about as long as a miss's
+// read from device memory, so the filter shortens a warp's step much less
+// than it cuts device-memory reads: 1.2x on the unanimity kernel, next to
+// nothing on the weighted one (PERF.md, Findings).  Four windows a thread
+// in flight, with persistent owners that clear only the cells they
+// touched, measured 5-7% slower than this design.  The stream is read once
+// (code and flag bytes, coalesced; the weighted step also reads seg_ids
+// once in its boundary pass), and the votes are a few merged atomics a
+// warp.
 
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "bucket_probe.cuh"
@@ -88,11 +94,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;   // 16 blocks an SM fill the grid-stride
-constexpr int kWays = 4;               // windows a thread looks up at once
+constexpr int kMaxBlocks = 132 * 64;   // 64 blocks an SM fill the grid-stride
 constexpr int kOwnerThreads = 128;     // a weighted owner block: 4 warps
 constexpr int kOwnerWarps = kOwnerThreads / 32;
-constexpr int kListed = 256;           // touched roles an owner lists
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr float kUnit = 1.0f / 16777216.0f;   // 2^-24
 // the key filter's salts (ops/key_filter.py)
@@ -116,19 +120,19 @@ struct Stream {
   const int32_t* seg_ids;
   const uint8_t* valid;
   int64_t n_tokens;
+  int k;
   uint32_t pad;
 };
 
-// The 8 words of a 32-byte sector: two 16-byte reads.
-__device__ __forceinline__ void load_sector(const uint4* p, uint4& a,
-                                            uint4& c) {
-  a = __ldg(p);
-  c = __ldg(p + 1);
-}
-
-// Whether the filter sector (a, c) holds every bit of (lo, hi).
-__device__ __forceinline__ bool sector_holds(const uint4& a, const uint4& c,
-                                             uint32_t lo, uint32_t hi) {
+// False when the table surely lacks (lo, hi): a bit of its sector is clear.
+__device__ __forceinline__ bool may_hold(const Filter& f, uint32_t lo,
+                                         uint32_t hi) {
+  if (!f.n_sectors) return true;
+  const uint32_t hs = kan::fmix32(lo ^ kan::fmix32(hi ^ kSectorSalt));
+  const size_t s = static_cast<size_t>(
+      (static_cast<uint64_t>(hs) * f.n_sectors) >> 32);
+  const uint4 a = __ldg(f.sectors + 2 * s);
+  const uint4 c = __ldg(f.sectors + 2 * s + 1);
   const uint32_t words[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
   const uint32_t salts[8] = {0x47B6137Bu, 0x44974D91u, 0x8824AD5Bu,
                              0xA2B7289Du, 0x705495C7u, 0x2DF1424Bu,
@@ -140,86 +144,21 @@ __device__ __forceinline__ bool sector_holds(const uint4& a, const uint4& c,
   return all & 1u;
 }
 
-// The payloads of the kmer windows at tokens t[0..N) (-1: at or past `end`,
-// invalid, or a miss).  Each step's reads are issued for all N windows
-// before any is used: flags and codes, filter sectors, home buckets' lo
-// keys, a matching slot's hi key and payload.  A lookup that the home
-// bucket does not settle (a full bucket without the key, or a second slot
-// with its lo word) is walked again by kan::probe_bucket_key.
-template <int K, int N>
-__device__ __forceinline__ void lookup(const Walk& w, const Filter& f,
-                                       const Stream& s, const int64_t (&t)[N],
-                                       int64_t end, int32_t (&val)[N]) {
-  uint32_t lo[N], hi[N];
-  bool ok[N];
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    ok[u] = t[u] < end && __ldg(s.valid + t[u]);
-    lo[u] = hi[u] = 0;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int64_t q = t[u] + j;
-      const uint32_t code = q < s.n_tokens ? __ldg(s.codes + q) : s.pad;
-      if (j < 6)
-        lo[u] |= code << (5 * j);
-      else
-        hi[u] |= code << (5 * (j - 6));
-    }
+// The payload of token t's kmer window, or -1 (an invalid window, a miss).
+__device__ __forceinline__ int32_t lookup(const Walk& w, const Filter& f,
+                                          const Stream& s, int64_t t) {
+  if (t >= s.n_tokens || !__ldg(s.valid + t)) return -1;
+  uint32_t lo = 0, hi = 0;
+  for (int j = 0; j < s.k; ++j) {
+    const uint32_t code =
+        t + j < s.n_tokens ? __ldg(s.codes + t + j) : s.pad;
+    if (j < 6)
+      lo |= code << (5 * j);
+    else
+      hi |= code << (5 * (j - 6));
   }
-  uint4 a[N], c[N];
-  if (f.n_sectors) {
-#pragma unroll
-    for (int u = 0; u < N; ++u) {
-      if (ok[u]) {
-        const uint32_t h =
-            kan::fmix32(lo[u] ^ kan::fmix32(hi[u] ^ kSectorSalt));
-        load_sector(f.sectors + 2 * ((static_cast<uint64_t>(h) *
-                                      f.n_sectors) >> 32), a[u], c[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < N; ++u)
-      ok[u] = ok[u] && sector_holds(a[u], c[u], lo[u], hi[u]);
-  }
-  const uint32_t* bucket[N];
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const uint32_t b =
-        kan::fmix32(lo[u] ^ kan::fmix32(hi[u] ^ kan::kHashGolden)) & w.mask;
-    bucket[u] = w.table + static_cast<size_t>(b) * kan::kBucketWords;
-    if (ok[u]) load_sector(reinterpret_cast<const uint4*>(bucket[u]), a[u],
-                           c[u]);
-  }
-  unsigned match[N];
-  bool full[N];
-  uint32_t hw[N], pw[N];
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const uint32_t keys[8] = {a[u].x, a[u].y, a[u].z, a[u].w,
-                              c[u].x, c[u].y, c[u].z, c[u].w};
-    match[u] = 0;
-    full[u] = true;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      match[u] |= static_cast<unsigned>(keys[i] == lo[u]) << i;
-      full[u] &= keys[i] != kan::kEmptyKey;
-    }
-    if (!ok[u]) match[u] = 0;
-    if (match[u]) {
-      const int slot = __ffs(match[u]) - 1;
-      hw[u] = __ldg(bucket[u] + kan::kBucketSlots + slot);
-      pw[u] = __ldg(bucket[u] + 2 * kan::kBucketSlots + slot);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    val[u] = -1;
-    if (match[u] && hw[u] == hi[u])
-      val[u] = static_cast<int32_t>(pw[u]);
-    else if (ok[u] && (full[u] || __popc(match[u]) > 1))
-      val[u] = kan::probe_bucket_key(w.table, w.mask, lo[u], hi[u],
-                                     w.max_probes);
-  }
+  if (!may_hold(f, lo, hi)) return -1;
+  return kan::probe_bucket_key(w.table, w.mask, lo, hi, w.max_probes);
 }
 
 // token t's protein, or -1 when it lies at or past n_seqs (padding)
@@ -257,32 +196,6 @@ __device__ __forceinline__ void merge_unanimous(bool in, int32_t seg,
   }
 }
 
-// One group of 32 consecutive tokens: each lane's hit of a protein below
-// n_seqs counted into (hits, rmin, rmax).
-__device__ __forceinline__ void count_hits(const Stream& s, int64_t t,
-                                           int32_t role, int32_t n_seqs,
-                                           int32_t* hits, int32_t* rmin,
-                                           int32_t* rmax) {
-  const int32_t seg = role >= 0 ? segment_of(s, t, n_seqs) : -1;
-  const unsigned hit = __ballot_sync(kFullMask, seg >= 0);
-  if (!hit) return;
-  const int first = __ffs(hit) - 1;
-  const int last = 31 - __clz(hit);
-  const int32_t seg_a = __shfl_sync(kFullMask, seg, first);
-  const int32_t seg_b = __shfl_sync(kFullMask, seg, last);
-  const bool in_a = seg >= 0 && seg == seg_a;
-  const bool in_b = seg >= 0 && seg == seg_b && !in_a;
-  merge_unanimous(in_a, seg_a, role, first, hits, rmin, rmax);
-  if (seg_b != seg_a)
-    merge_unanimous(in_b, seg_b, role, last, hits, rmin, rmax);
-  if (seg >= 0 && !in_a && !in_b) {
-    atomicAdd(hits + seg, 1);
-    atomicMin(rmin + seg, role);
-    atomicMax(rmax + seg, role);
-  }
-}
-
-template <int K>
 __global__ void __launch_bounds__(kThreads)
 flat_unanimous_kernel(Walk w, Filter f, Stream s, int32_t n_seqs,
                       int32_t* hits, int32_t* rmin, int32_t* rmax) {
@@ -291,16 +204,26 @@ flat_unanimous_kernel(Walk w, Filter f, Stream s, int32_t n_seqs,
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t n_warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
   // the loop bound is warp-uniform, so every lane reaches every merge
-  for (int64_t base = warp * 32 * kWays; base < s.n_tokens;
-       base += n_warps * 32 * kWays) {
-    int64_t t[kWays];
-    int32_t role[kWays];
-#pragma unroll
-    for (int u = 0; u < kWays; ++u) t[u] = base + 32 * u + lane;
-    lookup<K>(w, f, s, t, s.n_tokens, role);
-#pragma unroll
-    for (int u = 0; u < kWays; ++u)
-      count_hits(s, t[u], role[u], n_seqs, hits, rmin, rmax);
+  for (int64_t base = warp * 32; base < s.n_tokens; base += n_warps * 32) {
+    const int64_t t = base + lane;
+    const int32_t role = lookup(w, f, s, t);
+    const int32_t seg = role >= 0 ? segment_of(s, t, n_seqs) : -1;
+    const unsigned hit = __ballot_sync(kFullMask, seg >= 0);
+    if (!hit) continue;
+    const int first = __ffs(hit) - 1;
+    const int last = 31 - __clz(hit);
+    const int32_t seg_a = __shfl_sync(kFullMask, seg, first);
+    const int32_t seg_b = __shfl_sync(kFullMask, seg, last);
+    const bool in_a = seg >= 0 && seg == seg_a;
+    const bool in_b = seg >= 0 && seg == seg_b && !in_a;
+    merge_unanimous(in_a, seg_a, role, first, hits, rmin, rmax);
+    if (seg_b != seg_a)
+      merge_unanimous(in_b, seg_b, role, last, hits, rmin, rmax);
+    if (seg >= 0 && !in_a && !in_b) {
+      atomicAdd(hits + seg, 1);
+      atomicMin(rmin + seg, role);
+      atomicMax(rmax + seg, role);
+    }
   }
 }
 
@@ -327,17 +250,17 @@ __device__ __forceinline__ int64_t clamp_seg(int32_t seg, int32_t n_seqs) {
 // starts[p] = the first token whose clamped id is >= p, for p in
 // [0, n_seqs] (n_tokens where there is none), so protein p owns tokens
 // [starts[p], starts[p + 1]).  Thread t writes the proteins between the ids
-// of tokens t - 1 and t; flags[0] is set where an id falls below the one
+// of tokens t - 1 and t; *bad is set where an id falls below the one
 // before it.
 __global__ void __launch_bounds__(kThreads)
 flat_starts_kernel(const int32_t* __restrict__ seg_ids, int64_t n_tokens,
-                   int32_t n_seqs, int64_t* starts, int32_t* flags) {
+                   int32_t n_seqs, int64_t* starts, int32_t* bad) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        t <= n_tokens; t += stride) {
     const int32_t prev = t ? __ldg(seg_ids + t - 1) : INT_MIN;
     const int32_t cur = t < n_tokens ? __ldg(seg_ids + t) : INT_MAX;
-    if (cur < prev) flags[0] = 1;
+    if (cur < prev) *bad = 1;
     const int64_t from = t ? clamp_seg(prev, n_seqs) : -1;
     const int64_t to = t < n_tokens ? clamp_seg(cur, n_seqs) : n_seqs;
     for (int64_t p = from + 1; p <= to; ++p) starts[p] = t;
@@ -352,24 +275,11 @@ __device__ __forceinline__ uint64_t fp16_units(uint32_t bits) {
   return e ? (1024u + m) << (e - 1) : m;
 }
 
-// The owner block's shared state besides its tally.
-struct Owner {
-  float top[kOwnerWarps];
-  int32_t arg[kOwnerWarps];
-  int32_t listed[kListed];   // roles whose cells went from 0, in any order
-  int32_t n_listed;          // may pass kListed: then the list is unused
-  int32_t n_kept;
-  int32_t next;              // the block's next protein
-  int32_t sweep;             // a sweep's first role
-};
-
 // Each role of the lanes in `add` gets the sum of their units in
-// tally[role], one shared atomic a distinct role of the warp; a cell that
-// was 0 is listed.
+// tally[role], one shared atomic a distinct role of the warp.
 __device__ __forceinline__ void warp_tally(bool add, int32_t role,
                                            uint64_t units,
-                                           unsigned long long* tally,
-                                           Owner& o) {
+                                           unsigned long long* tally) {
   unsigned pending = __ballot_sync(kFullMask, add);
   while (pending) {
     const int leader = __ffs(pending) - 1;
@@ -379,12 +289,8 @@ __device__ __forceinline__ void warp_tally(bool add, int32_t role,
         kFullMask, in ? static_cast<unsigned>(units & 0xFFFFFu) : 0u);
     const unsigned hi = __reduce_add_sync(
         kFullMask, in ? static_cast<unsigned>(units >> 20) : 0u);
-    if ((threadIdx.x & 31) == leader &&
-        !atomicAdd(tally + r, (static_cast<unsigned long long>(hi) << 20) +
-                                  lo)) {
-      const int32_t i = atomicAdd(&o.n_listed, 1);
-      if (i < kListed) o.listed[i] = r;
-    }
+    if ((threadIdx.x & 31) == leader)
+      atomicAdd(tally + r, (static_cast<unsigned long long>(hi) << 20) + lo);
     pending &= ~__ballot_sync(kFullMask, in);
   }
 }
@@ -399,186 +305,140 @@ __device__ __forceinline__ void keep_first_max(float& top, int32_t& arg,
   }
 }
 
-// The block's first maximum over the cells `cells[0 .. n)`, or over
-// tally[0 .. n) when cells is null, every cell converted once to float32;
-// (top, cell) to every thread.  Ends with a __syncthreads.
+// The block's first maximum over tally[0 .. n): every cell converted once
+// to float32; (top, cell) returned to every thread.  Starts and ends with a
+// __syncthreads.
 __device__ __forceinline__ void block_first_max(
-    const unsigned long long* tally, const int32_t* cells, int32_t n,
-    Owner& o, float& top, int32_t& arg) {
+    const unsigned long long* tally, int32_t n, float* s_top, int32_t* s_arg,
+    float& top, int32_t& arg) {
+  __syncthreads();
   top = -1.0f;
   arg = INT_MAX;
-  for (int32_t i = threadIdx.x; i < n; i += kOwnerThreads) {
-    const int32_t c = cells ? cells[i] : i;
-    keep_first_max(top, arg,
-                   __ll2float_rn(static_cast<long long>(tally[c])) * kUnit,
-                   c);
+  for (int32_t c = threadIdx.x; c < n; c += kOwnerThreads) {
+    const float v =
+        __ll2float_rn(static_cast<long long>(tally[c])) * kUnit;
+    if (v > top) {   // a thread's cells rise: its first maximum stays
+      top = v;
+      arg = c;
+    }
   }
   for (int offset = 16; offset; offset >>= 1)
     keep_first_max(top, arg, __shfl_down_sync(kFullMask, top, offset),
                    __shfl_down_sync(kFullMask, arg, offset));
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) {
-    o.top[warp] = top;
-    o.arg[warp] = arg;
+    s_top[warp] = top;
+    s_arg[warp] = arg;
   }
   __syncthreads();
-  top = o.top[0];
-  arg = o.arg[0];
-  for (int i = 1; i < kOwnerWarps; ++i) keep_first_max(top, arg, o.top[i],
-                                                       o.arg[i]);
+  top = s_top[0];
+  arg = s_arg[0];
+  for (int i = 1; i < kOwnerWarps; ++i) keep_first_max(top, arg, s_top[i],
+                                                       s_arg[i]);
   __syncthreads();
 }
 
-// Zero the cells `cells[0 .. n)`, or tally[0 .. n) when cells is null.
-__device__ __forceinline__ void clear_cells(unsigned long long* tally,
-                                            const int32_t* cells,
-                                            int32_t n) {
-  for (int32_t i = threadIdx.x; i < n; i += kOwnerThreads)
-    tally[cells ? cells[i] : i] = 0;
+__device__ __forceinline__ void zero_tally(unsigned long long* tally,
+                                           int32_t n) {
+  for (int32_t c = threadIdx.x; c < n; c += kOwnerThreads) tally[c] = 0;
 }
 
-// The best role past the tally's range: role ranges of r_tally over the
-// protein's kept hits (kept[0 .. n_kept)), each from the smallest kept
-// role not yet swept, merged into (b, call) by a strictly greater tally.
-// Leaves the tally zero.
-__device__ __forceinline__ void sweep_kept(unsigned long long* tally,
-                                           const int32_t* kept,
-                                           int32_t n_kept, int32_t r_tally,
-                                           Owner& o, float& b,
-                                           int32_t& call) {
+// One block a protein (blockIdx.x): its windows walked once into the shared
+// tally of roles [0, r_tally), hits of later roles kept in `kept` at the
+// protein's own token positions and swept in ranges; the call written to
+// role / best.
+__global__ void __launch_bounds__(kOwnerThreads)
+flat_weighted_kernel(Walk w, Filter f, Stream s, const int64_t* starts,
+                     const int32_t* bad, int32_t n_roles, int32_t r_tally,
+                     float min_weight, int32_t* kept, int32_t* role,
+                     float* best) {
+  extern __shared__ unsigned long long tally[];
+  __shared__ float s_top[kOwnerWarps];
+  __shared__ int32_t s_arg[kOwnerWarps];
+  __shared__ int32_t s_kept, s_next;
+  const int32_t p = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  if (*bad) {   // a broken contract: the wrapper raises
+    if (!threadIdx.x) {
+      role[p] = -1;
+      best[p] = 0.0f;
+    }
+    return;
+  }
+  const int64_t t0 = starts[p];
+  const int64_t t1 = starts[p + 1];
+  zero_tally(tally, r_tally);
+  if (!threadIdx.x) s_kept = 0;
+  __syncthreads();
+  // the loop bound is block-uniform, so every lane reaches every merge
+  for (int64_t base = t0; base < t1; base += kOwnerThreads) {
+    const int64_t t = base + threadIdx.x;
+    const int32_t val = t < t1 ? lookup(w, f, s, t) : -1;
+    const uint64_t units =
+        val >= 0 ? fp16_units(static_cast<uint32_t>(val) >> 16) : 0;
+    const int32_t r = val & 0xFFFF;
+    // roles at or past n_roles count nothing, as in the plain votes
+    warp_tally(units && r < r_tally, r, units, tally);
+    const bool keep = units && r >= r_tally && r < n_roles;
+    const unsigned keeps = __ballot_sync(kFullMask, keep);
+    if (keeps) {
+      int32_t at = 0;
+      if (!lane) at = atomicAdd(&s_kept, __popc(keeps));
+      at = __shfl_sync(kFullMask, at, 0);
+      if (keep)
+        kept[t0 + at + __popc(keeps & ((1u << lane) - 1u))] = val;
+    }
+  }
+  float top;
+  int32_t arg;
+  block_first_max(tally, r_tally, s_top, s_arg, top, arg);
+  float b = 0.0f;
+  int32_t call = -1;
+  if (top > b) {
+    b = top;
+    call = arg;
+  }
+  // roles past the tally: ranges over the kept hits, in role order
+  const int32_t n_kept = s_kept;
   int32_t swept = r_tally;
-  for (;;) {
-    clear_cells(tally, nullptr, r_tally);
-    if (!threadIdx.x) o.sweep = INT_MAX;
+  while (n_kept) {
+    if (!threadIdx.x) s_next = INT_MAX;
+    zero_tally(tally, r_tally);
     __syncthreads();
     int32_t next = INT_MAX;
     for (int32_t i = threadIdx.x; i < n_kept; i += kOwnerThreads) {
-      const int32_t r = kept[i] & 0xFFFF;
+      const int32_t r = kept[t0 + i] & 0xFFFF;
       if (r >= swept && r < next) next = r;
     }
     next = __reduce_min_sync(kFullMask, next);
-    if (!(threadIdx.x & 31)) atomicMin(&o.sweep, next);
+    if (!lane) atomicMin(&s_next, next);
     __syncthreads();
-    const int32_t lo = o.sweep;
+    const int32_t lo = s_next;
     if (lo == INT_MAX) break;
     for (int32_t i = threadIdx.x; i < n_kept; i += kOwnerThreads) {
-      const int32_t v = kept[i];
+      const int32_t v = kept[t0 + i];
       const int32_t r = v & 0xFFFF;
       if (r >= lo && r - lo < r_tally)
         atomicAdd(tally + (r - lo),
                   static_cast<unsigned long long>(
                       fp16_units(static_cast<uint32_t>(v) >> 16)));
     }
-    __syncthreads();
-    float top;
-    int32_t arg;
-    block_first_max(tally, nullptr, r_tally, o, top, arg);
+    block_first_max(tally, r_tally, s_top, s_arg, top, arg);
     if (top > b) {   // later ranges hold larger roles: ties stay
       b = top;
       call = lo + arg;
     }
     swept = lo + r_tally;
   }
-  __syncthreads();
-}
-
-// Persistent owner blocks: each takes proteins from flags[1] and walks
-// each one's windows once into its shared tally of roles [0, r_tally),
-// hits of later roles kept in `kept` at the protein's own token positions
-// and swept in ranges; the call written to role / best.  The tally is zero
-// between proteins.
-template <int K>
-__global__ void __launch_bounds__(kOwnerThreads)
-flat_weighted_kernel(Walk w, Filter f, Stream s, const int64_t* starts,
-                     int32_t* flags, int32_t n_seqs, int32_t n_roles,
-                     int32_t r_tally, float min_weight, int32_t* kept,
-                     int32_t* role, float* best) {
-  extern __shared__ unsigned long long tally[];
-  __shared__ Owner o;
-  const int lane = threadIdx.x & 31;
-  if (flags[0]) {   // a broken contract: the wrapper raises
-    for (int64_t p = static_cast<int64_t>(blockIdx.x) * kOwnerThreads +
-                     threadIdx.x;
-         p < n_seqs; p += static_cast<int64_t>(gridDim.x) * kOwnerThreads) {
-      role[p] = -1;
-      best[p] = 0.0f;
-    }
-    return;
-  }
-  clear_cells(tally, nullptr, r_tally);
   if (!threadIdx.x) {
-    o.n_listed = 0;
-    o.n_kept = 0;
-    o.next = atomicAdd(flags + 1, 1);
-  }
-  __syncthreads();
-  for (;;) {
-    const int32_t p = o.next;
-    if (p >= n_seqs) break;
-    __syncthreads();   // every thread has read o.next
-    if (!threadIdx.x) o.next = atomicAdd(flags + 1, 1);   // lands meanwhile
-    const int64_t t0 = starts[p];
-    const int64_t t1 = starts[p + 1];
-    // the loop bound is block-uniform, so every lane reaches every merge
-    for (int64_t base = t0; base < t1; base += kOwnerThreads * kWays) {
-      int64_t t[kWays];
-      int32_t val[kWays];
-#pragma unroll
-      for (int u = 0; u < kWays; ++u)
-        t[u] = base + kOwnerThreads * u + threadIdx.x;
-      lookup<K>(w, f, s, t, t1, val);
-#pragma unroll
-      for (int u = 0; u < kWays; ++u) {
-        const uint64_t units =
-            val[u] >= 0 ? fp16_units(static_cast<uint32_t>(val[u]) >> 16)
-                        : 0;
-        const int32_t r = val[u] & 0xFFFF;
-        // roles at or past n_roles count nothing, as in the plain votes
-        warp_tally(units && r < r_tally, r, units, tally, o);
-        const bool keep = units && r >= r_tally && r < n_roles;
-        const unsigned keeps = __ballot_sync(kFullMask, keep);
-        if (keeps) {
-          int32_t at = 0;
-          if (!lane) at = atomicAdd(&o.n_kept, __popc(keeps));
-          at = __shfl_sync(kFullMask, at, 0);
-          if (keep)
-            kept[t0 + at + __popc(keeps & ((1u << lane) - 1u))] = val[u];
-        }
-      }
-    }
-    __syncthreads();
-    const int32_t n_listed = o.n_listed;
-    const int32_t n_kept = o.n_kept;
-    const int32_t* cells = n_listed <= kListed ? o.listed : nullptr;
-    const int32_t n_cells = cells ? n_listed : r_tally;
-    float top;
-    int32_t arg;
-    block_first_max(tally, cells, n_cells, o, top, arg);
-    float b = 0.0f;
-    int32_t call = -1;
-    if (top > b) {
-      b = top;
-      call = arg;
-    }
-    clear_cells(tally, cells, n_cells);
-    if (n_kept) {
-      __syncthreads();
-      sweep_kept(tally, kept + t0, n_kept, r_tally, o, b, call);
-    }
-    if (!threadIdx.x) {
-      const bool called = b >= min_weight && b > 0.0f;
-      role[p] = called ? call : -1;
-      best[p] = called ? b : 0.0f;
-      o.n_listed = 0;
-      o.n_kept = 0;
-    }
-    __syncthreads();
+    const bool called = b >= min_weight && b > 0.0f;
+    role[p] = called ? call : -1;
+    best[p] = called ? b : 0.0f;
   }
 }
 
-unsigned grid_for(int64_t n_tokens, int per_thread) {
-  const int64_t want =
-      (n_tokens + kThreads * per_thread - 1) / (kThreads * per_thread);
+unsigned grid_for(int64_t n_tokens) {
+  const int64_t want = (n_tokens + kThreads - 1) / kThreads;
   return static_cast<unsigned>(want < kMaxBlocks ? (want ? want : 1)
                                                  : kMaxBlocks);
 }
@@ -591,26 +451,6 @@ Walk make_walk(const int32_t* table, int64_t n_buckets, int max_probes) {
 Filter make_filter(const int32_t* filter, int64_t n_sectors) {
   return Filter{reinterpret_cast<const uint4*>(filter),
                 filter ? static_cast<uint32_t>(n_sectors) : 0u};
-}
-
-// f(std::integral_constant<int, k>{}) for k in 1..12
-template <typename F>
-cudaError_t with_k(int k, F&& f) {
-  switch (k) {
-    case 1: return f(std::integral_constant<int, 1>{});
-    case 2: return f(std::integral_constant<int, 2>{});
-    case 3: return f(std::integral_constant<int, 3>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    case 5: return f(std::integral_constant<int, 5>{});
-    case 6: return f(std::integral_constant<int, 6>{});
-    case 7: return f(std::integral_constant<int, 7>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 9: return f(std::integral_constant<int, 9>{});
-    case 10: return f(std::integral_constant<int, 10>{});
-    case 11: return f(std::integral_constant<int, 11>{});
-    case 12: return f(std::integral_constant<int, 12>{});
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -637,17 +477,12 @@ extern "C" int kan_flat_unanimous(const int32_t* table, int64_t n_buckets,
         static_cast<int32_t>(n_seqs), hits, rmin, role);
   }
   if (n_tokens) {
-    const cudaError_t err = with_k(k, [&](auto kc) {
-      flat_unanimous_kernel<decltype(kc)::value>
-          <<<grid_for(n_tokens, kWays), kThreads, 0, st>>>(
-              make_walk(table, n_buckets, max_probes),
-              make_filter(filter, n_sectors),
-              Stream{codes, seg_ids, valid, n_tokens,
-                     static_cast<uint32_t>(pad)},
-              static_cast<int32_t>(n_seqs), hits, rmin, role);
-      return cudaSuccess;
-    });
-    if (err != cudaSuccess) return static_cast<int>(err);
+    flat_unanimous_kernel<<<grid_for(n_tokens), kThreads, 0, st>>>(
+        make_walk(table, n_buckets, max_probes),
+        make_filter(filter, n_sectors),
+        Stream{codes, seg_ids, valid, n_tokens, k,
+               static_cast<uint32_t>(pad)},
+        static_cast<int32_t>(n_seqs), hits, rmin, role);
   }
   if (seq_blocks) {
     flat_finalize_kernel<<<seq_blocks, kThreads, 0, st>>>(
@@ -659,55 +494,34 @@ extern "C" int kan_flat_unanimous(const int32_t* table, int64_t n_buckets,
 // The weighted vote, one walk: table, filter, codes, seg_ids, valid as for
 // kan_flat_unanimous, seg_ids never decreasing; n_seqs >= 1; n_roles in
 // 1..65536; r_direct >= 1, the most roles the shared tally holds (8 bytes
-// each, at most 48 KB); starts: (n_seqs + 1,) int64 scratch; flags: two
-// int32, [0] set to 1 when seg_ids decreases somewhere (then every call is
-// -1), [1] the owners' protein counter; kept: (n_tokens,) int32 scratch,
-// needed only when n_roles > r_direct (else null); role / best: (n_seqs,)
-// int32 / float32, the call.
+// each, at most 48 KB); starts: (n_seqs + 1,) int64 scratch; bad: one int32,
+// set to 1 when seg_ids decreases somewhere (then every call is -1);
+// kept: (n_tokens,) int32 scratch, needed only when n_roles > r_direct
+// (else null); role / best: (n_seqs,) int32 / float32, the call.
 extern "C" int kan_flat_weighted(
     const int32_t* table, int64_t n_buckets, int max_probes,
     const int32_t* filter, int64_t n_sectors, const uint8_t* codes,
     const int32_t* seg_ids, const uint8_t* valid, int64_t n_tokens, int k,
     int pad, int64_t n_seqs, int64_t n_roles, int64_t r_direct,
-    float min_weight, int64_t* starts, int32_t* flags, int32_t* kept,
+    float min_weight, int64_t* starts, int32_t* bad, int32_t* kept,
     int32_t* role, float* best, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t r_tally =
       static_cast<int32_t>(n_roles < r_direct ? n_roles : r_direct);
-  const size_t smem = r_tally * sizeof(unsigned long long);
-  cudaError_t err = cudaMemsetAsync(flags, 0, 2 * sizeof(int32_t), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flat_starts_kernel<<<grid_for(n_tokens + 1, 1), kThreads, 0, st>>>(
-      seg_ids, n_tokens, static_cast<int32_t>(n_seqs), starts, flags);
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
+  // 14 owners of 2,000 roles an SM only with the whole carveout shared
+  cudaError_t err = cudaFuncSetAttribute(
+      flat_weighted_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+    err = cudaMemsetAsync(bad, 0, sizeof(int32_t), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = with_k(k, [&](auto kc) {
-    const auto kernel = flat_weighted_kernel<decltype(kc)::value>;
-    // as many owners an SM as the tally allows: the whole carveout shared
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    int per_sm = 0;
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, kOwnerThreads, smem);
-    if (e != cudaSuccess) return e;
-    const int64_t owners = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) *
-                           sms;
-    kernel<<<static_cast<unsigned>(owners < n_seqs ? owners : n_seqs),
-             kOwnerThreads, smem, st>>>(
-        make_walk(table, n_buckets, max_probes),
-        make_filter(filter, n_sectors),
-        Stream{codes, seg_ids, valid, n_tokens, static_cast<uint32_t>(pad)},
-        starts, flags, static_cast<int32_t>(n_seqs),
-        static_cast<int32_t>(n_roles), r_tally, min_weight, kept, role,
-        best);
-    return cudaSuccess;
-  });
-  if (err != cudaSuccess) return static_cast<int>(err);
+  flat_starts_kernel<<<grid_for(n_tokens + 1), kThreads, 0, st>>>(
+      seg_ids, n_tokens, static_cast<int32_t>(n_seqs), starts, bad);
+  flat_weighted_kernel<<<static_cast<unsigned>(n_seqs), kOwnerThreads,
+                         r_tally * sizeof(unsigned long long), st>>>(
+      make_walk(table, n_buckets, max_probes), make_filter(filter, n_sectors),
+      Stream{codes, seg_ids, valid, n_tokens, k, static_cast<uint32_t>(pad)},
+      starts, bad, static_cast<int32_t>(n_roles), r_tally, min_weight, kept,
+      role, best);
   return static_cast<int>(cudaGetLastError());
 }

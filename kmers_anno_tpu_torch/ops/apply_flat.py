@@ -14,16 +14,16 @@ output, and the plain versions do not read it.
 CUDA tensors launch ``csrc/apply_flat.cu``, one C entry point a call:
 ``kan_flat_unanimous`` packs, filters, walks and counts each hit into
 per-protein integer atomics, in any token order; ``kan_flat_weighted``
-walks the stream once whatever the role count, each block of the card
-owning one protein at a time, and sums each hit's weight exactly into the
-protein's int64 tally in shared memory (roles past ``DIRECT_ROLES`` are
-swept in ranges over the protein's kept hits).  The weighted step requires seg_ids never to
+walks the stream once whatever the role count, one block of the card a
+protein, and sums each hit's weight exactly into the protein's int64 tally
+in shared memory (roles past ``DIRECT_ROLES`` are swept in ranges over the
+protein's kept hits).  The weighted step requires seg_ids never to
 decrease (each protein's tokens contiguous, proteins in order, as
 ``FlatBatch`` lays them out) and raises on a stream that breaks it, on the
 card and on the CPU.  What bounds both kernels is the latency of each
-window's chain of reads (flag and codes, filter sector, bucket, a hit's
-payload), so each thread keeps several windows' reads in flight.  CPU tensors take the plain versions, the
-reference's composition in torch: ``pack_kmer_windows``, ``probe_table``,
+window's chain of dependent reads (flag and codes, filter sector, bucket,
+a hit's payload).  CPU tensors take the plain versions, the reference's
+composition in torch: ``pack_kmer_windows``, ``probe_table``,
 then the votes.
 
 The unanimity vote calls a protein's role when it has hits, they agree and
@@ -244,7 +244,7 @@ def apply_weighted_flat(table: torch.Tensor, codes: torch.Tensor,
     if n_seqs == 0:
         return role, tally
     starts = torch.empty(n_seqs + 1, dtype=torch.int64, device=dev)
-    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    bad = torch.empty(1, dtype=torch.int32, device=dev)
     kept = (torch.empty(max(codes.numel(), 1), dtype=torch.int32, device=dev)
             if n_roles > DIRECT_ROLES else None)
     with torch.cuda.device(dev):
@@ -253,11 +253,11 @@ def apply_weighted_flat(table: torch.Tensor, codes: torch.Tensor,
             *filter_args(key_filter), codes.data_ptr(), seg_ids.data_ptr(),
             valid.data_ptr(), codes.numel(), k, PROT_PAD, n_seqs, n_roles,
             DIRECT_ROLES, float(min_weight), starts.data_ptr(),
-            flags.data_ptr(), None if kept is None else kept.data_ptr(),
+            bad.data_ptr(), None if kept is None else kept.data_ptr(),
             role.data_ptr(), tally.data_ptr(), kernels.stream_of(table))
     kernels.check(err, "apply_flat_weighted kernel")
     apply_weighted_flat.launches += 1
-    if int(flags[0].item()):      # the kernel called nothing
+    if int(bad.item()):      # the kernel called nothing
         raise _out_of_order(what)
     return role, tally
 

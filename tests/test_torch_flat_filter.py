@@ -65,9 +65,9 @@ TABLE_CASES = {
 }
 
 
-@pytest.mark.parametrize("builder", ["port", "reference"])
+@pytest.mark.parametrize("package", ["port", "reference"])
 @pytest.mark.parametrize("case", list(TABLE_CASES))
-def test_filter_passes_every_table_key(case, builder):
+def test_filter_passes_every_table_key(case, package):
     """The filter of a table's own keys passes every one of them, in
     walked and wrapped buckets too; the port's and the reference's builds
     of one key set give one filter."""
@@ -79,7 +79,7 @@ def test_filter_passes_every_table_key(case, builder):
         lo, hi = _keys(params["n_keys"], 3)
         kw = dict(load_factor=params["load"])
     vals = np.arange(len(lo), dtype=np.uint32)
-    build = build_table if builder == "port" else ref_build_table
+    build = build_table if package == "port" else ref_build_table
     table, mp = build(lo, hi, vals, **kw)
     table = np.asarray(table, np.uint32)
     if case != "random":
