@@ -90,6 +90,25 @@ twice (cold, warm) through the CLI on the four signature genomes with a
 32,832-row annotation file; every row of every ``<gid>.anno.tbl`` must
 equal the baseline's best similarity (``repr``) and winner, the engine
 must take its fast route, and each kernel launches once a chunk.
+Then DNA mode.  ``probe_dna`` (``kan_dna_probe``) is held to its plain
+version bit for bit on made-up streams (k = 4, 8, 11 and 15, unweighted
+and with packed fp16 weights; ambiguous bases, entries shorter than k
+and of exactly k bases, entries joined where every window across the
+boundary is a table key, lengths off every power of two, an all-invalid
+stream, a stream valid to its end) over tables whose walks wrap from the
+last bucket to bucket 0.  ``build --dna`` (k = 15) runs through the CLI
+on four genomes of one 3.86 Mb contig (``make_dna_signature_genomes``:
+2,000 role CDS of 900 bp, 3% variants of 2,000 prototypes, strands
+alternating; 2,000 hypothetical CDS, one in ten with 90 bp of a
+prototype; 20 two-role CDS; seed 0), unweighted and with ``--weights
+balance``; then ``apply`` (VERIFY, APPLY, and ``--weighted`` on the
+balance build) on a fifth such genome, one launch each: every report
+must equal the CPU engine's byte for byte and every strand's hits
+``native.dna_baseline``'s.  Last, bench.py's DNA shape (a 2M-key k = 15
+table, 4 contigs of 4,000,000 bases; generator copied, seed 7): the
+kernel against its plain version and the baseline on every contig,
+contig bases/s over five runs, a split of one call, and the kernel
+alone against its bound.
 Each kernel's row also gives its bound (``bound_ms``): the larger of the
 bytes its work needs over the card's memory rate (inputs read once,
 outputs written once, and of a table the lo-key block of each row the
@@ -133,6 +152,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import io
 import json
 import logging
 import os
@@ -703,6 +723,7 @@ class _Launches:
                                                          apply_weighted_flat)
         from kmers_anno_tpu_torch.ops.apply_rows import apply_rows
         from kmers_anno_tpu_torch.ops.contig_scan import scan_stream
+        from kmers_anno_tpu_torch.ops.dna_probe import probe_dna
         from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best,
                                                          hash_commons)
         from kmers_anno_tpu_torch.ops.widetable import probe_wide
@@ -713,7 +734,8 @@ class _Launches:
                          "hash_commons": hash_commons,
                          "hash_best": hash_best,
                          "apply_flat": apply_flat,
-                         "apply_flat_weighted": apply_weighted_flat}
+                         "apply_flat_weighted": apply_weighted_flat,
+                         "dna_probe": probe_dna}
         self.projection = projection
         self.counts: dict = {}
         self.fused_calls = 0
@@ -3562,6 +3584,556 @@ def run_hash_cli(dev, tmp: str) -> tuple[dict, dict]:
     return {"hash_cli": dict(launches=runs[0])}, cases
 
 
+# ---------------------------------------------------------------------------
+# kernel H: DNA mode's window probe
+# ---------------------------------------------------------------------------
+
+DNA_K = 15
+DNA_GENOMES = 4                  # the build's genomes; a fifth is applied
+DNA_ROLES = 2000
+DNA_HYPOTHETICAL = 2000
+DNA_MULTI = 20
+DNA_CDS = 900                    # bp of every CDS
+DNA_SPACER = 60                  # bp of random DNA before every CDS
+DNA_KILL_BP = 90                 # bp of a prototype in 1 of 10 hypotheticals
+DNA_MAX_GAP = 500
+DNA_BENCH_KEYS = 2_000_000       # bench.py's bench_dna (bench.py:384-432)
+DNA_BENCH_CONTIGS = 4
+DNA_BENCH_BASES = 4_000_000
+DNA_KS = (4, 8, 11, 15)
+# a window's bytes for the bound: its code, its flag and its output word
+DNA_WINDOW_BYTES = 6
+BUCKET_SECTOR_BYTES = 32         # a bucket's lo keys
+
+
+def dna_wrap_table(rng, k, weighted):
+    """An 8-slot table of the k-mers of a random sequence, built so that
+    walks wrap from the last bucket to bucket 0: more keys than the 16
+    slots of the last two buckets are homed there (up to 400 of 3,000 keys
+    in 1,024 buckets; for k < 6, whose 4^k keys are few, all such keys of
+    96 in 16 buckets).  Payloads are roles below 37, or fp16 weights in
+    U[0.05, 3.0] over roles when ``weighted``.  Returns (the uint32 table,
+    max_probes, the sequence's codes)."""
+    from kmers_anno_tpu_torch.ops.dna_kmers import pack_dna_np
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer_np
+    from kmers_anno_tpu_torch.ops.hashtable import build_table
+
+    n_buckets, n_keys, n_last = (16, 96, 40) if k < 6 else (1024, 3000, 400)
+    seq = rng.integers(0, 4, 24_000).astype(np.uint8)
+    key = np.unique(pack_dna_np(seq, k)[0])
+    rng.shuffle(key)
+    home = mix_kmer_np(key, np.zeros_like(key)) & np.uint32(n_buckets - 1)
+    last = home >= n_buckets - 2
+    key = np.concatenate([key[last][:n_last],
+                          key[~last][: n_keys - min(n_last, last.sum())]])
+    vals = rng.integers(0, 37, len(key)).astype(np.uint32)
+    if weighted:
+        w = rng.uniform(0.05, 3.0, len(key)).astype(np.float16)
+        vals |= w.view(np.uint16).astype(np.uint32) << np.uint32(16)
+    table, mp = build_table(key, np.zeros_like(key), vals,
+                            n_buckets=n_buckets)
+    return table, mp, seq
+
+
+def dna_streams(rng, k, seq):
+    """Made-up DNA streams as (name, codes, valid) NumPy arrays, drawn
+    from ``seq`` (the table's sequence) so that windows hit: two-strand
+    contig batches with ambiguous bases, entries shorter than k and of
+    exactly k bases (a last window that ends at its entry's end), entries
+    that join where the windows across the boundary are table keys (and
+    invalid), stream lengths off every power of two; an all-invalid stream;
+    and a stream valid to its last position, whose tail windows reach past
+    its end (the probe reads code 0 there, as the plain version pads)."""
+    from kmers_anno_tpu_torch.engine.dna_apply import DnaContigBatch
+    from kmers_anno_tpu_torch.ops.encode import DNA_PAD, decode_dna
+
+    text = decode_dna(seq)
+    out = []
+    for n_contigs, tail in ((3, 1), (40, 37), (400, 5)):
+        contigs = []
+        for i in range(n_contigs):
+            at = int(rng.integers(0, len(text) - 2000))
+            n = int(rng.choice([k - 1, k, k + 1, 97, 1000, 1999]))
+            s = list(text[at: at + n])
+            for j in rng.integers(0, n, int(n > 50) * 3):
+                s[j] = "nrykmswbdhv"[int(rng.integers(0, 11))]
+            contigs.append((f"c{i}", "".join(s)))
+        batch = DnaContigBatch(contigs, k, min_tokens=1)
+        used = sum(e[3] for e in batch.entries)
+        codes = np.full(used + tail, DNA_PAD, np.uint8)
+        valid = np.zeros(used + tail, bool)
+        codes[:used], valid[:used] = batch.codes[:used], batch.valid[:used]
+        out.append((f"{n_contigs} contigs, T {used + tail}", codes, valid))
+    # entries that join inside the table's own sequence: every window across
+    # a boundary is a key, and invalid
+    cut = np.sort(rng.choice(np.arange(k, 6000), 20, replace=False))
+    codes = seq[: 6000 + 3].copy()
+    valid = np.zeros(len(codes), bool)
+    for a, b in zip(np.concatenate([[0], cut]), np.concatenate([cut,
+                                                                [6000]])):
+        valid[a: b - k + 1] = True
+    out.append(("joined entries", codes, valid))
+    out.append(("all invalid", codes, np.zeros(len(codes), bool)))
+    tail = seq[: (1 << 16) + 11].copy()
+    out.append(("valid to the end", tail, np.ones(len(tail), bool)))
+    return out
+
+
+def check_dna_probe(dev) -> None:
+    """``probe_dna`` against its plain version on made-up streams
+    (``dna_streams``) for k = 4, 8, 11 and 15, unweighted and with packed
+    fp16 weights, on tables whose walks wrap from the last bucket to bucket
+    0 (``dna_wrap_table``); one launch a call; bit for bit
+    (``torch.equal``); every invalid window -1."""
+    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+    from kmers_anno_tpu_torch.ops.dna_probe import probe_dna, probe_dna_plain
+
+    rng = np.random.default_rng(SEED + 10)
+    n_cases = n_hits = 0
+    for k in DNA_KS:
+        for weighted in (False, True):
+            table, mp, seq = dna_wrap_table(rng, k, weighted)
+            require(mp >= 3, f"the k={k} table's walks do not wrap")
+            t = wide_table_from_numpy(table, dev)
+            for name, codes_np, valid_np in dna_streams(rng, k, seq):
+                codes = torch.from_numpy(codes_np).to(dev)
+                valid = torch.from_numpy(valid_np).to(dev)
+                before = probe_dna.launches
+                got = probe_dna(t, codes, valid, k=k, max_probes=mp)
+                torch.cuda.synchronize()
+                require(probe_dna.launches == before + 1,
+                        "probe_dna did not launch once")
+                want = probe_dna_plain(t, codes, valid, k=k, max_probes=mp)
+                require(torch.equal(got, want), f"probe_dna differs from "
+                        f"its plain version (k {k}, weighted {weighted}, "
+                        f"{name})")
+                require(bool((got[~valid] == -1).all()),
+                        f"an invalid window hit (k {k}, {name})")
+                n_cases += 1
+                n_hits += int((got >= 0).sum())
+    print(f"dna probe on made-up streams: {n_cases} cases (k "
+          f"{', '.join(map(str, DNA_KS))}; unweighted and fp16-weighted "
+          f"payloads; tables whose walks wrap) equal to the plain version "
+          f"bit for bit, {n_hits} hits", flush=True)
+
+
+def make_dna_signature_genomes(rng, n_genomes, n_roles, n_hypothetical,
+                               n_multi, cds=DNA_CDS,
+                               substitution=SIG_SUBSTITUTION):
+    """Genomes for ``build --dna`` and DNA ``apply`` (``make_signature_
+    genomes`` laid onto real contigs, as ``tests/test_dna_mode.py``'s
+    ``make_dna_genome`` lays CDS DNA): one contig each, on which every CDS
+    of ``cds`` bp follows a random spacer of ``DNA_SPACER`` bp, strands
+    alternating.  Each genome has one CDS per role, a
+    ``substitution``-rate variant of that role's random prototype;
+    ``n_hypothetical`` hypothetical CDS, the kill list, one in ten carrying
+    ``DNA_KILL_BP`` bp of a prototype; and ``n_multi`` CDS whose function
+    names two roles (build skips them).  Prototypes 2i and 2i+1 share 90 bp
+    for the first tenth of the roles, so those kmers are pruned.  Returns
+    the genomes and their role map."""
+    from kmers_anno_tpu_torch.genome.gto import Genome
+    from kmers_anno_tpu_torch.genome.roles import Role, RoleMap
+    from kmers_anno_tpu_torch.ops.encode import decode_dna
+
+    protos = rng.integers(0, 4, (n_roles, cds)).astype(np.uint8)
+    for r in range(0, n_roles // 10, 2):
+        protos[r + 1, 150:240] = protos[r, 150:240]
+    names = [f"Synthetic DNA signature protein {r}" for r in range(n_roles)]
+    role_map = RoleMap()
+    for r, name in enumerate(names):
+        role_map.put(Role(f"DnaRole{r}", name))
+    genomes = []
+    for g in range(n_genomes):
+        gid = f"910{g}.1"
+        variants = protos.copy()
+        hit = rng.random(variants.shape) < substitution
+        variants[hit] = rng.integers(0, 4, int(hit.sum()))
+        hypo = rng.integers(0, 4, (n_hypothetical, cds)).astype(np.uint8)
+        src = rng.integers(0, n_roles, n_hypothetical)
+        hypo[::10, 300:300 + DNA_KILL_BP] = protos[src[::10],
+                                                   300:300 + DNA_KILL_BP]
+        multi = rng.integers(0, 4, (n_multi, cds)).astype(np.uint8)
+        genes = np.concatenate([variants, hypo, multi])
+        funcs = (names + ["hypothetical protein"] * n_hypothetical
+                 + [f"{names[2 * i]} / {names[2 * i + 1]}"
+                    for i in range(n_multi)])
+        n = len(genes)
+        minus = np.arange(n) % 2 == 1
+        # reverse complement in code space: code ^ 2, order reversed
+        placed = np.where(minus[:, None], genes[:, ::-1] ^ 2, genes)
+        spacers = rng.integers(0, 4, (n, DNA_SPACER)).astype(np.uint8)
+        contig = np.concatenate([np.concatenate([spacers, placed], axis=1)
+                                 .reshape(-1),
+                                 rng.integers(0, 4, DNA_SPACER).astype(
+                                     np.uint8)])
+        left = np.arange(n) * (DNA_SPACER + cds) + DNA_SPACER + 1
+        feats = [{"id": f"fig|{gid}.peg.{i + 1}", "type": "CDS",
+                  "function": f,
+                  "location": [["c1", str(int(left[i] + (cds - 1) * m)),
+                                "-" if m else "+", cds]],
+                  "protein_translation": "M",
+                  "annotations": [], "aliases": []}
+                 for i, (f, m) in enumerate(zip(funcs, minus))]
+        genomes.append(Genome({
+            "id": gid, "scientific_name": f"Synthetica dna {g}",
+            "genetic_code": 11, "domain": "Bacteria", "features": feats,
+            "contigs": [{"id": "c1", "dna": decode_dna(contig),
+                         "genetic_code": 11}],
+            "close_genomes": [], "subsystems": []}))
+    return genomes, role_map
+
+
+def dna_hits_against_baseline(engine, batch, vals, what) -> int:
+    """Hits of each stream entry (one strand of a contig) of a probed
+    batch against ``native.dna_baseline`` on that strand's codes; returns
+    the total."""
+    from kmers_anno_tpu_torch import native
+
+    table = engine.table.cpu().numpy().view(np.uint32)
+    total = 0
+    for cid, strand, off, length in batch.entries:
+        got = int((vals[off: off + max(length - engine.k + 1, 0)] >= 0).sum())
+        want = native.dna_baseline(batch.codes[off: off + length], table,
+                                   engine.max_probes, engine.k)
+        require(got == want, f"{what}: {got} hits on {cid} {strand} against "
+                f"native.dna_baseline's {want}")
+        total += got
+    return total
+
+
+def dna_report(engine, genomes, fmt, use_file) -> str:
+    """The ``apply`` report of ``engine``'s calls on ``genomes``, written
+    as the CLI writes it."""
+    from kmers_anno_tpu_torch.reports.apply_reports import ApplyKmerReporter
+
+    out = io.StringIO()
+    reporter = ApplyKmerReporter.create(fmt, out)
+    reporter.init_report(use_file)
+    for genome in genomes:
+        reporter.open_genome(genome)
+        for feat, role, score in engine.call_genome(genome):
+            reporter.record_feature(feat, role, score)
+        reporter.close_genome()
+    reporter.close_report()
+    return out.getvalue()
+
+
+def run_dna_cli(dev, tmp: str) -> tuple[dict, dict]:
+    """``build --dna`` (k = 15) through the CLI on four bacterial-size
+    genomes (``make_dna_signature_genomes``, seed 0), unweighted and with
+    ``--weights balance``; then ``apply`` in both formats, and
+    ``--weighted`` on the balance build, on a fifth genome made the same
+    way.  Every report equals, byte for byte, the same engine's on the
+    CPU (the plain version); every strand's hits equal
+    ``native.dna_baseline``'s; the kernel equals its plain version on the
+    genome's stream.  Returns each apply run's launch counts and the
+    kernel's times on that stream."""
+    from kmers_anno_tpu_torch.commands.app import main
+    from kmers_anno_tpu_torch.engine.dna_apply import DnaApplyEngine
+    from kmers_anno_tpu_torch.engine.signature import SignatureTable
+    from kmers_anno_tpu_torch.ops.dna_probe import probe_dna, probe_dna_plain
+    from kmers_anno_tpu_torch.ops.hashtable import table_size_for
+
+    t0 = time.perf_counter()
+    genomes, role_map = make_dna_signature_genomes(
+        np.random.default_rng(SEED), DNA_GENOMES + 1, DNA_ROLES,
+        DNA_HYPOTHETICAL, DNA_MULTI)
+    train_dir, target_dir = (os.path.join(tmp, d) for d in ("dna_train",
+                                                             "dna_target"))
+    os.makedirs(train_dir)
+    os.makedirs(target_dir)
+    for g in genomes[:DNA_GENOMES]:
+        g.save(os.path.join(train_dir, f"{g.id}.gto"))
+    target = genomes[DNA_GENOMES]
+    target.save(os.path.join(target_dir, f"{target.id}.gto"))
+    role_file = os.path.join(tmp, "dna.roles.in.subsystems")
+    use_file = os.path.join(tmp, "dna.roles.to.use")
+    role_map.save(role_file)
+    with open(use_file, "w") as fh:
+        fh.writelines(f"{rid}\n" for rid in role_map.ids())
+    bases = len(target.contigs[0].sequence)
+    print(f"dna workload: {DNA_GENOMES} + 1 genomes of one {bases}-base "
+          f"contig, {len(target.pegs)} CDS of {DNA_CDS} bp each "
+          f"({DNA_ROLES} role variants at {SIG_SUBSTITUTION:.0%} "
+          f"substitution, {DNA_HYPOTHETICAL} hypothetical, {DNA_MULTI} "
+          f"two-role; strands alternating), written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    runs, tables = {}, {}
+    for weights in ("none", "balance"):
+        db = os.path.join(tmp, f"dna.{weights}.kdb")
+        t0 = time.perf_counter()
+        with _Launches() as run:
+            rc = main(["build", "--dna", "-K", str(DNA_K), "--weights",
+                       weights, "--device", str(dev), "-o", db, role_file,
+                       use_file, train_dir])
+        build_s = time.perf_counter() - t0
+        require(rc == 0, f"build --dna --weights {weights} exited with {rc}")
+        table = tables[weights] = SignatureTable.load(db)
+        require(table.alphabet == "dna" and table.k == DNA_K,
+                f"build --dna wrote a {table.alphabet} table of k {table.k}")
+        require(weights == "none" or table.weights is not None,
+                "build --weights balance wrote no weights")
+        n_buckets = table_size_for(len(table))
+        print(f"build --dna --weights {weights} (CLI, C++ group-by): "
+              f"{len(table)} kmers of {len(table.role_ids)} roles, 8-slot "
+              f"table {n_buckets} buckets ({n_buckets * 96} B), "
+              f"{build_s:.2f} s (GTO load included); launches "
+              f"{run.counts}", flush=True)
+
+    for route, fmt, weights in (("dna_verify", "VERIFY", "none"),
+                                ("dna_apply", "APPLY", "none"),
+                                ("dna_weighted", "VERIFY", "balance")):
+        out = os.path.join(tmp, f"{route}.out")
+        extra = ["--weighted"] if weights == "balance" else []
+        t0 = time.perf_counter()
+        with _Launches() as run:
+            rc = main(["apply", "--format", fmt, "-m", str(MIN_HITS),
+                       "--max-gap", str(DNA_MAX_GAP), *extra, "--device",
+                       str(dev), "-o", out,
+                       os.path.join(tmp, f"dna.{weights}.kdb"), use_file,
+                       target_dir])
+        cold_s = time.perf_counter() - t0
+        require(rc == 0, f"DNA apply --format {fmt} {extra} exited with {rc}")
+        require(run.counts["dna_probe"] == 1,
+                f"DNA apply --format {fmt} {extra} launched probe_dna "
+                f"{run.counts['dna_probe']} times, not once")
+        runs[route] = dict(launches=run.counts)
+        cpu = DnaApplyEngine(tables[weights], min_hits=MIN_HITS,
+                             max_gap=DNA_MAX_GAP, weighted=bool(extra),
+                             device="cpu")
+        cpu_s, want = host_seconds(lambda: dna_report(cpu, [target], fmt,
+                                                      use_file))
+        got = open(out).read()
+        require(got == want, f"DNA apply --format {fmt} {extra} on the card "
+                "differs from the CPU engine's report")
+        if fmt == "VERIFY":
+            n_calls = got.count(".region.")
+        else:   # one line a genome: its id, then a count a role
+            n_calls = sum(int(x) for x in got.splitlines()[-1].split("\t")[1:])
+        require(n_calls >= DNA_ROLES // 2, f"DNA apply --format {fmt} "
+                f"{extra} called only {n_calls} regions")
+        print(f"dna apply --format {fmt} {' '.join(extra)} (CLI, cold: "
+              f"table load and build, GTO load): {cold_s:.2f} s; "
+              f"{len(got.splitlines())} report lines ({n_calls} regions) "
+              f"equal byte for byte to the CPU engine's ({cpu_s:.2f} s); "
+              f"launches {run.counts}", flush=True)
+
+    measured = {}
+    for weights in ("none", "balance"):
+        engine = DnaApplyEngine(tables[weights], min_hits=MIN_HITS,
+                                max_gap=DNA_MAX_GAP,
+                                weighted=weights == "balance", device=dev)
+        batch = engine.prepare(target)
+        codes = torch.from_numpy(batch.codes).to(dev)
+        valid = torch.from_numpy(batch.valid).to(dev)
+        args = (engine.table, codes, valid)
+        kw = dict(k=DNA_K, max_probes=engine.max_probes)
+        ms, got = timed(lambda: probe_dna(*args, **kw))
+        plain_ms, want = timed(lambda: probe_dna_plain(*args, **kw))
+        require(torch.equal(got, want), f"probe_dna differs from its plain "
+                f"version on the CLI genome (weights {weights})")
+        hits = dna_hits_against_baseline(engine, batch, got.cpu().numpy(),
+                                         f"the CLI genome ({weights})")
+        row = dict(ms=ms, plain_ms=plain_ms,
+                   max_abs_err=max_abs_err([(got, want)]))
+        row.update(dna_bound(*args, DNA_K, engine.max_probes, ms))
+        row = with_launch(row, launch_ms(launch_dna_probe,
+                                         [(*args, DNA_K, engine.max_probes)]))
+        measured[weights] = row
+        print(f"dna probe on the CLI genome (weights {weights}; "
+              f"{codes.numel()} windows, {int(valid.sum())} valid, {hits} "
+              f"hits equal to native.dna_baseline on both strands; table "
+              f"{engine.table.shape[0]} buckets, max_probes "
+              f"{engine.max_probes}): kernel {ms:.4f} ms "
+              f"({row['launch_ms']:.4f} alone), plain {plain_ms:.4f} ms, "
+              f"equal; bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{row['bound_bytes']} B, {row['bound_ops']} int ops, "
+              f"{row['buckets']} distinct buckets), share "
+              f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}",
+              flush=True)
+    return runs, measured
+
+
+def dna_bound(table, codes, valid, k, max_probes, ms) -> dict:
+    """probe_dna's bound: each window's code, flag and output word read or
+    written once (``DNA_WINDOW_BYTES``), and the 32-byte lo-key sector of
+    each distinct bucket the walks read; operations: a rolling pack
+    (``ROLL_PACK_OPS``) a window, a valid window's hash, 16 a bucket read.
+    A hit's hi key and payload lie in the sector after its lo keys; they
+    are not counted."""
+    from kmers_anno_tpu_torch.ops.dna_kmers import pack_dna_windows
+
+    lo, hi = pack_dna_windows(codes, k)
+    n_buckets, reads, hits = bucket_reads(table, lo, hi, valid, max_probes)
+    n_valid = int(valid.sum())
+    n_bytes = (DNA_WINDOW_BYTES * codes.numel()
+               + BUCKET_SECTOR_BYTES * n_buckets)
+    n_ops = (ROLL_PACK_OPS * codes.numel() + HASH_KEY_OPS * n_valid
+             + HASH_BUCKET_OPS * reads)
+    return dict(bound(n_bytes, n_ops, ms), buckets=n_buckets,
+                bucket_reads=reads, hits=hits, windows=n_valid)
+
+
+def launch_dna_probe(lib, table, codes, valid, k, max_probes):
+    """probe_dna through a kernel library's C entry point (uncounted)."""
+    out = torch.empty(codes.shape, dtype=torch.int32, device=codes.device)
+    err = lib.kan_dna_probe(
+        table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(),
+        valid.data_ptr(), codes.numel(), k, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_dna_probe returned CUDA error {err}")
+    return out
+
+
+launch_dna_probe.entry = "kan_dna_probe"
+
+
+def run_dna_bench(dev) -> tuple[dict, dict, dict]:
+    """bench.py's DNA shape (``bench_dna``, generator copied, seed 7): a
+    2M-key k = 15 table of one random sequence's windows, roles drawn from
+    2,000; 4 contigs of 4,000,000 random bases, each a genome of one
+    contig, one two-strand ``DnaContigBatch`` a call.  The kernel equals
+    its plain version and its hits ``native.dna_baseline`` on every
+    contig; contig bases/s over five runs; a split of one call; the
+    kernel alone against its bound."""
+    from kmers_anno_tpu_torch.engine.dna_apply import (DnaApplyEngine,
+                                                       cluster_calls)
+    from kmers_anno_tpu_torch.engine.signature import SignatureTable
+    from kmers_anno_tpu_torch.genome.gto import Genome
+    from kmers_anno_tpu_torch.ops.dna_kmers import pack_dna_np
+    from kmers_anno_tpu_torch.ops.dna_probe import probe_dna, probe_dna_plain
+    from kmers_anno_tpu_torch.ops.encode import decode_dna
+
+    rng = np.random.default_rng(BENCH_SEED)
+    seq = rng.integers(0, 4, size=DNA_BENCH_KEYS + DNA_K - 1).astype(np.uint8)
+    lo, hi = pack_dna_np(seq, DNA_K)
+    key = (hi.astype(np.uint64) << np.uint64(32)) | lo
+    _, idx = np.unique(key, return_index=True)
+    vals = rng.integers(0, SIG_ROLES, len(idx)).astype(np.int32)
+    table = SignatureTable(k=DNA_K, key_lo=lo[idx], key_hi=hi[idx],
+                           role_idx=vals, alphabet="dna",
+                           role_ids=[f"DnaBenchRole{r}"
+                                     for r in range(SIG_ROLES)])
+    contigs = [rng.integers(0, 4, size=DNA_BENCH_BASES).astype(np.uint8)
+               for _ in range(DNA_BENCH_CONTIGS)]
+    genomes = [Genome({"id": f"920{i}.1", "scientific_name": "Bench",
+                       "genetic_code": 11, "domain": "Bacteria",
+                       "features": [], "close_genomes": [],
+                       "subsystems": [],
+                       "contigs": [{"id": "c1", "dna": decode_dna(c)}]})
+               for i, c in enumerate(contigs)]
+    engine_s, engine = host_seconds(lambda: DnaApplyEngine(
+        table, min_hits=MIN_HITS, max_gap=DNA_MAX_GAP, device=dev))
+    batches = [engine.prepare(g) for g in genomes]
+    args = [(engine.table, torch.from_numpy(b.codes).to(dev),
+             torch.from_numpy(b.valid).to(dev)) for b in batches]
+    kw = dict(k=DNA_K, max_probes=engine.max_probes)
+    runs = {}
+    with _Launches() as run:
+        calls = [engine.call_genome(g) for g in genomes]
+    runs["dna_bench"] = dict(launches=run.counts)
+    require(run.counts["dna_probe"] == DNA_BENCH_CONTIGS,
+            f"the DNA bench shape launched probe_dna "
+            f"{run.counts['dna_probe']} times for {DNA_BENCH_CONTIGS} calls")
+    hits = 0
+    for i, (b, a) in enumerate(zip(batches, args)):
+        got = probe_dna(*a, **kw)
+        require(torch.equal(got, probe_dna_plain(*a, **kw)),
+                f"probe_dna differs from its plain version on bench contig "
+                f"{i}")
+        hits += dna_hits_against_baseline(engine, b, got.cpu().numpy(),
+                                          f"bench contig {i}")
+    print(f"dna bench shape: {len(table)} keys (k {DNA_K}, "
+          f"{engine.table.shape[0]} buckets, "
+          f"{engine.table.numel() * 4} B, max_probes {engine.max_probes}; "
+          f"built and uploaded in {engine_s:.3f} s), {DNA_BENCH_CONTIGS} "
+          f"contigs of {DNA_BENCH_BASES} bases, a two-strand stream of "
+          f"{batches[0].codes.size} windows each; {hits} hits equal to "
+          f"native.dna_baseline on every strand, kernel equal to its plain "
+          f"version; {sum(map(len, calls))} regions called; launches "
+          f"{run.counts}", flush=True)
+
+    times = [host_seconds(lambda: [engine.call_genome(g)
+                                   for g in genomes])[0]
+             for _ in range(REPS)]
+    rates = sorted(DNA_BENCH_CONTIGS * DNA_BENCH_BASES / t for t in times)
+    g = genomes[0]
+    prep_s, b = host_seconds(lambda: engine.prepare(g))
+    up_s, (codes, valid) = host_seconds(lambda: (
+        torch.from_numpy(b.codes).to(dev), torch.from_numpy(b.valid).to(dev)))
+    kernel_s, out = host_seconds(lambda: probe_dna(engine.table, codes,
+                                                   valid, **kw))
+    down_s, vals = host_seconds(lambda: out.cpu().numpy())
+    cluster_s, _ = host_seconds(lambda: cluster_calls(
+        g, b, vals, DNA_K, DNA_MAX_GAP, MIN_HITS, engine.role_ids))
+    print(f"dna bench shape call_genome: {statistics.median(rates):.1f} "
+          f"contig bases/s (median of {REPS}, range {rates[0]:.1f}-"
+          f"{rates[-1]:.1f}; s per run of {DNA_BENCH_CONTIGS} contigs "
+          f"{', '.join(f'{t:.4f}' for t in times)}); split of one more call "
+          f"(one contig): encode + valid {prep_s:.4f} s, upload {up_s:.4f} s "
+          f"({b.codes.nbytes + b.valid.nbytes} B), kernel {kernel_s:.4f} s, "
+          f"download {down_s:.4f} s, clustering {cluster_s:.4f} s",
+          flush=True)
+
+    def kernel():
+        return [probe_dna(*a, **kw) for a in args]
+
+    def plain():
+        return [probe_dna_plain(*a, **kw) for a in args]
+
+    ms, got = timed(kernel)
+    plain_ms, want = timed(plain)
+    pairs = list(zip(got, want))
+    require(all(torch.equal(x, y) for x, y in pairs),
+            "probe_dna differs from its plain version on the bench contigs")
+    n = DNA_BENCH_CONTIGS
+    measured = dict(ms=ms / n, plain_ms=plain_ms / n,
+                    max_abs_err=max_abs_err(pairs))
+    bounds = [dna_bound(*a, DNA_K, engine.max_probes, 1.0) for a in args]
+    for key_ in ("bound_bytes", "bound_ops", "buckets", "bucket_reads",
+                 "hits", "windows"):
+        measured[key_] = sum(x[key_] for x in bounds) / n
+    measured.update(bound(measured["bound_bytes"], measured["bound_ops"],
+                          measured["ms"]))
+    launch_args = [(*a, DNA_K, engine.max_probes) for a in args]
+    measured = with_launch(measured,
+                           launch_ms(launch_dna_probe, launch_args) / n)
+    measured["bases_per_s"] = statistics.median(rates)
+    print(f"dna bench shape probe_dna per contig (median of {REPS} runs over "
+          f"{n} contigs), exact: kernel {measured['ms']:.4f} ms "
+          f"({measured['launch_ms']:.4f} ms a launch back to back, "
+          f"{measured['windows'] / measured['launch_ms'] * 1e3:.4e} valid "
+          f"windows/s), plain {measured['plain_ms']:.4f} ms; bound (mean of "
+          f"the contigs) {measured['bound_ms']:.4f} ms "
+          f"({measured['bound_by']}, {measured['bound_bytes']:.0f} B, "
+          f"{measured['bound_ops']:.0f} int ops, {measured['buckets']:.0f} "
+          f"distinct buckets, {measured['bucket_reads']:.0f} bucket reads), "
+          f"share {measured['bound_share']:.3f}, alone "
+          f"{measured['launch_share']:.3f}; card {card_line()}", flush=True)
+    cases = {"the DNA bench contigs": (launch_dna_probe, launch_args)}
+    return runs, measured, cases
+
+
+def run_dna(dev, tmp: str) -> tuple[dict, dict, dict]:
+    """DNA mode: the probe kernel on made-up streams, the CLI at bacterial
+    size, and bench.py's DNA shape.  Returns the launch counts by route,
+    the ``dna_probe`` row's numbers (the bench shape's, with the CLI
+    genome's as ``cli_*``) and the ``--compare`` case."""
+    check_dna_probe(dev)
+    runs, cli = run_dna_cli(dev, tmp)
+    bench_runs, measured, cases = run_dna_bench(dev)
+    runs.update(bench_runs)
+    for weights, row in cli.items():
+        tag = "cli" if weights == "none" else "cli_weighted"
+        for name in ("ms", "launch_ms", "plain_ms", "bound_ms",
+                     "bound_share", "launch_share"):
+            measured[f"{tag}_{name}"] = row[name]
+        measured["max_abs_err"] = max(measured["max_abs_err"],
+                                      row["max_abs_err"])
+    return runs, measured, cases
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3636,6 +4208,11 @@ def main() -> None:
         cli_routes, cli_cases = phase("hashAnno CLI", run_hash_cli, dev, tmp)
     routes.update(cli_routes)
     cases.update(cli_cases)
+    with tempfile.TemporaryDirectory() as tmp:
+        dna_routes, measured["dna_probe"], dna_cases = phase(
+            "dna", run_dna, dev, tmp)
+    routes.update(dna_routes)
+    cases.update(dna_cases)
     if args.compare:
         with tempfile.TemporaryDirectory() as tmp:
             phase("compare", lambda: compare_contenders(
@@ -3683,6 +4260,11 @@ def main() -> None:
         row("apply_flat_weighted", "apply_flat_weighted",
             "csrc/apply_flat.cu", "engine/apply_engine.py:104",
             "big_weighted", ("big_weighted", "big_dense")),
+        # DNA mode: the CLI apply in both formats, weighted, and the bench
+        # shape's calls (one launch a genome)
+        row("dna_probe", "dna_probe", "csrc/dna_probe.cu",
+            "engine/dna_apply.py:49", "dna_verify",
+            ("dna_verify", "dna_apply", "dna_weighted", "dna_bench")),
     ]
     for r, v in routes.items():
         if "times" in v:

@@ -2,8 +2,11 @@
 (ApplyKmerProcessor.java:45-157).
 
 The options are the reference's (``kmers_anno_tpu/commands/apply_cmd.py``)
-plus ``--device``.  Protein tables run on one device; ``--mesh`` and DNA
-tables are not yet ported and raise.
+plus ``--device``.  Protein tables call roles for the pegs of each genome
+(``engine.apply_engine``); a DNA table (``build --dna``) calls regions on
+both strands of each genome's raw contigs (``engine.dna_apply``, with
+``--max-gap``), both on one device.  ``--mesh`` is not yet ported and
+raises.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import sys
 
 from ..device import resolve_device
 from ..engine.apply_engine import KmerApplyEngine
+from ..engine.dna_apply import DnaApplyEngine
 from ..engine.protein_kmers import set_drop_last
 from ..engine.signature import SignatureTable
 from ..genome.gto import Genome, GenomeDirectory
@@ -54,8 +58,7 @@ class ApplyKmerProcessor(BaseProcessor):
         parser.add_argument(
             "--max-gap", type=int, default=500, metavar="500",
             help="DNA mode: max window-start gap between same-role hits "
-                 "merged into one called region (DNA mode is not yet "
-                 "ported)")
+                 "merged into one called region (default 500)")
         parser.add_argument(
             "--weighted", action="store_true",
             help="weighted best-tally voting instead of reference "
@@ -106,6 +109,9 @@ class ApplyKmerProcessor(BaseProcessor):
             log.info("Kmer size is %d.", signatures.k)
             genomes = GenomeDirectory(self.inDir)
             log.info("%d genomes found in input directory.", len(genomes))
+            if signatures.alphabet == "dna":
+                log.info("DNA-mode table detected: annotating raw contigs "
+                         "on both strands.")
             self._run_single(signatures, genomes, reporter)
             reporter.close_report()
         finally:
@@ -113,10 +119,16 @@ class ApplyKmerProcessor(BaseProcessor):
                 out.close()
 
     def _run_single(self, signatures, genomes, reporter) -> None:
-        engine = KmerApplyEngine(signatures, min_hits=self.min_hits,
-                                 weighted=self.weighted,
-                                 min_weight=self.min_weight,
-                                 device=self.device)
+        kw = dict(min_hits=self.min_hits, weighted=self.weighted,
+                  min_weight=self.min_weight, device=self.device)
+        if signatures.alphabet == "dna":
+            engine = DnaApplyEngine(signatures, max_gap=self.max_gap, **kw)
+            call = engine.call_prepared
+        else:
+            engine = KmerApplyEngine(signatures, **kw)
+
+            def call(genome, prepared):
+                return engine.call_prepared(*prepared)
 
         def load(name: str):
             genome = Genome.load(os.path.join(self.inDir, name))
@@ -124,9 +136,9 @@ class ApplyKmerProcessor(BaseProcessor):
 
         # host load + encode of genome i+1 overlaps the device step of
         # genome i (prefetch_map keeps input order)
-        for genome, (pegs, batch) in prefetch_map(genomes.files, load):
+        for genome, prepared in prefetch_map(genomes.files, load):
             log.info("Processing genome %s.", genome)
             reporter.open_genome(genome)
-            for feat, role, count in engine.call_prepared(pegs, batch):
+            for feat, role, count in call(genome, prepared):
                 reporter.record_feature(feat, role, count)
             reporter.close_genome()

@@ -3,7 +3,8 @@
 
 The options are the reference's (``kmers_anno_tpu/commands/build_cmd.py``)
 plus ``--device``, the device of the torch group-bys, which run when the
-C++ merge builder is unavailable.  ``--dna`` is not yet ported.
+C++ merge builder is unavailable.  ``--dna`` builds nucleotide kmers
+(k 4..15, default 15) from the coding-strand CDS DNA of each peg.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import sys
 
 from ..device import resolve_device
 from ..engine.protein_kmers import set_drop_last
-from ..engine.signature import NOT_PORTED_DNA, build_signatures
+from ..engine.signature import build_signatures
 from ..genome.gto import GenomeDirectory
 from ..genome.roles import RoleMap
 from ..utils.io import LineReader, read_set
@@ -34,7 +35,7 @@ class BuildKmerProcessor(BaseProcessor):
         parser.add_argument(
             "--dna", action="store_true",
             help="build nucleotide kmers from coding-strand CDS DNA "
-                 "(not yet ported)")
+                 "instead of protein kmers (DNA mode)")
         parser.add_argument(
             "--weights", default="none",
             choices=["none", "uniform", "balance"],
@@ -60,15 +61,16 @@ class BuildKmerProcessor(BaseProcessor):
                             help="input genome directory")
 
     def validate_parms(self) -> None:
-        if self.dna:
-            raise ParseFailureException(NOT_PORTED_DNA)
         if self.drop_last:
             set_drop_last(True)
+        self.alphabet = "dna" if self.dna else "prot"
         if self.kmer is None:
-            self.kmer = 8
-        if self.kmer < 3 or self.kmer > 12:
+            self.kmer = 15 if self.dna else 8
+        lo_k, hi_k = (4, 15) if self.dna else (3, 12)
+        if self.kmer < lo_k or self.kmer > hi_k:
             raise ParseFailureException(
-                f"kmer size {self.kmer} out of supported prot range 3..12")
+                f"kmer size {self.kmer} out of supported "
+                f"{self.alphabet} range {lo_k}..{hi_k}")
         try:
             self.device = resolve_device(self.device)
         except RuntimeError as exc:     # the device does not exist here
@@ -89,5 +91,6 @@ class BuildKmerProcessor(BaseProcessor):
         table = build_signatures(
             GenomeDirectory(self.gtoDir), self.role_map, self.good_roles,
             k=self.kmer, genome_filter=self.genome_filter,
-            weight_mode=self.weights, device=self.device)
+            alphabet=self.alphabet, weight_mode=self.weights,
+            device=self.device)
         table.save(self.output if self.output else sys.stdout)

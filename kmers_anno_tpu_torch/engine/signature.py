@@ -1,7 +1,10 @@
 """Discriminating-kmer signature table: build, save/load, device table.
 
-Counterpart of ``kmers_anno_tpu/engine/signature.py`` for protein kmers.
-The two-pass ``build`` semantics (BuildKmerProcessor.java:137-223):
+Counterpart of ``kmers_anno_tpu/engine/signature.py``, for protein kmers
+(5-bit codes, k <= 12, ``ops.kmers``) and DNA kmers (``build --dna``: the
+coding-strand CDS DNA of each peg, 2-bit codes with a marker bit, k <= 15,
+``ops.dna_kmers``).  The two-pass ``build`` semantics
+(BuildKmerProcessor.java:137-223):
 
 * a peg contributes kmers only when its function has exactly ONE
   interesting role after RoleMap filtering (BuildKmerProcessor.java:
@@ -21,10 +24,7 @@ the kill kmers into an 8-slot table of the candidates (``ops.hashtable``).
 
 The table goes to the device as the wide-bucket table (``ops.widetable``)
 when its keys fit one, else as the 8-slot table of the flat-stream apply
-step.
-
-DNA tables (``build --dna``) are not yet ported (ROADMAP queue 1, item
-10): every path that would need one raises.
+step; a DNA table always as the 8-slot table (``engine.dna_apply``).
 """
 
 from __future__ import annotations
@@ -40,7 +40,9 @@ from .. import native
 from ..device import resolve_device
 from ..genome.gto import Genome
 from ..genome.roles import RoleMap
-from ..ops.encode import decode_protein, encode_protein
+from ..ops.dna_kmers import dna_valid_np, pack_dna_np, unpack_dna_np
+from ..ops.encode import (decode_dna, decode_protein, encode_dna,
+                          encode_protein)
 from ..ops.hashtable import build_table, probe_table
 from ..ops.key_filter import build_key_filter
 from ..ops.kmers import pack_kmers_np, unpack_kmer_np
@@ -54,8 +56,6 @@ log = logging.getLogger(__name__)
 CONFLICT = np.int32(-2)     # role tombstone: key seen with >= 2 roles
 _INT32_MAX = 2**31 - 1
 _FP16_MAX = 65504.0         # largest finite float16
-NOT_PORTED_DNA = ("DNA signature tables are not yet ported to "
-                  "kmers_anno_tpu_torch (ROADMAP queue 1, item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -275,21 +275,19 @@ def _dedup_pairs(lo: np.ndarray, hi: np.ndarray,
 @dataclass
 class SignatureTable:
     """A built discriminating-kmer table: packed keys and role indices
-    (``signature.py:310-555``), host NumPy arrays.  Only the protein
-    alphabet (5-bit codes, k <= 12) is ported."""
+    (``signature.py:310-555``), host NumPy arrays.  ``alphabet`` selects
+    the key packing: "prot" (5-bit codes, k <= 12) or "dna" (2-bit codes
+    with a marker bit, k <= 15); both give (lo, hi) uint32 pairs served by
+    the same tables."""
 
     k: int
     key_lo: np.ndarray          # (N,) uint32
     key_hi: np.ndarray          # (N,) uint32
     role_idx: np.ndarray        # (N,) int32, index into role_ids
     role_ids: list[str]         # role index -> role ID string
-    alphabet: str = "prot"
+    alphabet: str = "prot"      # "prot" | "dna"
     weights: np.ndarray | None = None  # (N,) float32 >= 0, or None
     stats: dict = field(default_factory=dict)
-
-    def __post_init__(self):
-        if self.alphabet != "prot":
-            raise NotImplementedError(NOT_PORTED_DNA)
 
     def __len__(self) -> int:
         return len(self.key_lo)
@@ -297,6 +295,9 @@ class SignatureTable:
     # ----- text round trip (the reference interchange format) -----
 
     def kmer_texts(self) -> list[str]:
+        if self.alphabet == "dna":
+            codes = unpack_dna_np(self.key_lo, self.key_hi, self.k)
+            return [decode_dna(row) for row in codes]
         codes = unpack_kmer_np(self.key_lo, self.key_hi, self.k)
         return [decode_protein(row) for row in codes]
 
@@ -350,9 +351,10 @@ class SignatureTable:
              alphabet: str | None = None) -> "SignatureTable":
         """Load a kmer DB TSV; K is the length of the kmer text
         (ApplyKmerProcessor.java:108).  Binary DBs are recognised by their
-        zip magic.  ``alphabet`` None detects it as the reference does
-        (all-``acgtu`` kmers are DNA); a DNA table raises, not yet
-        ported."""
+        zip magic.  ``alphabet`` None detects it as the reference does:
+        kmer texts made of ``acgtu`` alone, in either case, are DNA;
+        everything else is protein.  Pass "prot" or "dna" to force.  A DNA
+        kmer with an ambiguous base raises."""
         if isinstance(source, str):
             with open(source, "rb") as bf:
                 if bf.read(4) == b"PK\x03\x04":  # npz zip magic
@@ -394,17 +396,23 @@ class SignatureTable:
             dna_chars = set("acgtu")
             alphabet = ("dna" if all(set(km.lower()) <= dna_chars
                                      for km in kmers) else "prot")
-        if alphabet != "prot":
-            raise NotImplementedError(NOT_PORTED_DNA)
         if min(map(len, kmers)) < k:
             raise ValueError(f"a kmer is shorter than the first ({k})")
+        if alphabet == "dna":
+            bad = np.flatnonzero(encode_dna("".join(kmers)) >= 4)
+            if len(bad):
+                ends = np.cumsum([len(km) for km in kmers])
+                km = kmers[int(np.searchsorted(ends, bad[0], side="right"))]
+                raise ValueError(f"ambiguous base in DNA kmer {km.lower()!r}")
+            encode, pack = encode_dna, pack_dna_np
+        else:
+            encode, pack = encode_protein, pack_kmers_np
         # each kmer's first k residues, as the reference packs them, in
         # one encode and one pack: window i * k of the joined text is kmer i
-        lo, hi = pack_kmers_np(
-            encode_protein("".join(km[:k] for km in kmers)), k)
+        lo, hi = pack(encode("".join(km[:k] for km in kmers)), k)
         return cls(k=k, key_lo=lo[::k].copy(), key_hi=hi[::k].copy(),
                    role_idx=np.asarray(ridx, np.int32), role_ids=role_ids,
-                   weights=weights)
+                   alphabet=alphabet, weights=weights)
 
     # ----- device tables -----
 
@@ -479,15 +487,55 @@ class SignatureTable:
         return self.role_idx.astype(np.uint32)
 
     def role_counts(self) -> CountMap:
+        """Kmers a role, the roles in order of their first kmer (one
+        ``np.unique``, not a Python step a kmer)."""
+        roles, first, n = np.unique(self.role_idx, return_index=True,
+                                    return_counts=True)
         counts = CountMap()
-        for ridx in self.role_idx:
-            counts.count(self.role_ids[ridx])
+        for i in np.argsort(first):
+            counts.count(self.role_ids[roles[i]], int(n[i]))
         return counts
 
 
 # ---------------------------------------------------------------------------
 # the build pipeline
 # ---------------------------------------------------------------------------
+
+def _peg_source(genome: Genome, peg, k: int, alphabet: str):
+    """What one peg contributes to the build, or None when it has no usable
+    sequence (``signature.py:562-584``): its protein translation, packed
+    with the genome's other pegs by :func:`_flat_protein_keys`; in DNA mode
+    the (lo, hi) keys of the unambiguous windows of its coding-strand CDS
+    DNA (apply scans both strands, so genes on either strand are found
+    without storing reverse complements)."""
+    if alphabet == "dna":
+        loc = peg.location
+        if loc is None:
+            return None
+        dna = genome.get_dna(loc)
+        if len(dna) < k:
+            return None
+        codes = encode_dna(dna)
+        lo, hi = pack_dna_np(codes, k)
+        ok = dna_valid_np(codes, k)
+        return lo[ok], hi[ok]
+    prot = peg.protein_translation
+    if not prot or len(prot) < k:
+        return None
+    return prot
+
+
+def _batch_keys(sources: list, k: int, alphabet: str
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The keys of a genome's pegs (:func:`_peg_source` of each) and the
+    index of the peg of each key."""
+    if alphabet != "dna":
+        return _flat_protein_keys(sources, k)
+    seg = np.repeat(np.arange(len(sources), dtype=np.int32),
+                    [len(lo) for lo, _ in sources])
+    return (np.concatenate([lo for lo, _ in sources]),
+            np.concatenate([hi for _, hi in sources]), seg)
+
 
 def _flat_protein_keys(prots: list[str], k: int
                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -555,12 +603,12 @@ def build_signatures(genomes: Iterable[Genome], role_map: RoleMap,
     role_map:      role definitions (roles.in.subsystems)
     good_roles:    interesting role IDs (roles.to.use column 1)
     genome_filter: optional set of genome IDs to process (-g option)
-    alphabet:      "prot"; "dna" is not yet ported and raises
+    alphabet:      "prot", or "dna" (nucleotide kmers of the CDS DNA)
     weight_mode:   "none" | "uniform" | "balance" per-kmer vote weights
     backend, device: the group-by's (:class:`StreamingTableBuilder`)
     """
-    if alphabet != "prot":
-        raise NotImplementedError(NOT_PORTED_DNA)
+    if alphabet not in ("prot", "dna"):
+        raise ValueError(f"unknown alphabet {alphabet!r}")
     good = set(good_roles)
     role_ids: list[str] = []
     role_index: dict[str, int] = {}
@@ -573,18 +621,18 @@ def build_signatures(genomes: Iterable[Genome], role_map: RoleMap,
             continue
         n_interesting = 0
         n_buffered = 0
-        i_prots: list[str] = []
+        i_pegs: list = []
         i_ridx: list[int] = []
-        k_prots: list[str] = []
+        k_pegs: list = []
         for peg in genome.pegs:
-            prot = peg.protein_translation
-            if not prot or len(prot) < k:
+            source = _peg_source(genome, peg, k, alphabet)
+            if source is None:
                 continue
             peg_roles = [r for r in peg.get_useful_roles(role_map)
                          if r.id in good]
             if not peg_roles:
                 # kill-list protein (BuildKmerProcessor.java:160-164)
-                k_prots.append(prot)
+                k_pegs.append(source)
                 n_buffered += 1
             elif len(peg_roles) == 1:
                 # sole interesting role
@@ -593,16 +641,16 @@ def build_signatures(genomes: Iterable[Genome], role_map: RoleMap,
                 if ridx is None:
                     ridx = role_index[rid] = len(role_ids)
                     role_ids.append(rid)
-                i_prots.append(prot)
+                i_pegs.append(source)
                 i_ridx.append(ridx)
                 n_interesting += 1
-        if i_prots:
-            lo, hi, seg = _flat_protein_keys(i_prots, k)
+        if i_pegs:
+            lo, hi, seg = _batch_keys(i_pegs, k, alphabet)
             lo, hi, role = _dedup_pairs(
                 lo, hi, np.asarray(i_ridx, np.int32)[seg])
             builder.add_candidates(lo, hi, role)
-        if k_prots:
-            lo, hi, _ = _flat_protein_keys(k_prots, k)
+        if k_pegs:
+            lo, hi, _ = _batch_keys(k_pegs, k, alphabet)
             builder.add_kills(*_dedup_pairs(lo, hi, None))
         buffered += n_buffered
         if progress:
@@ -620,7 +668,7 @@ def build_signatures(genomes: Iterable[Genome], role_map: RoleMap,
 
     table = SignatureTable(
         k=k, key_lo=slo, key_hi=shi, role_idx=srole, role_ids=role_ids,
-        weights=compute_weights(srole, weight_mode),
+        alphabet=alphabet, weights=compute_weights(srole, weight_mode),
         stats={"buffered": buffered, "pruned": bstats["pruned"],
                "killed": bstats["killed"]})
     counts = table.role_counts()

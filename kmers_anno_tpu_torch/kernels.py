@@ -122,6 +122,7 @@ ENTRY_POINTS = {
     "kan_flat_weighted": [_P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _I32,
                           _I32, _I64, _I64, _I64, ctypes.c_float, _P, _P, _P,
                           _P, _P, _P],
+    "kan_dna_probe": [_P, _I64, _I32, _P, _P, _I64, _I32, _P, _P],
 }
 
 

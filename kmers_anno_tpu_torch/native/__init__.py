@@ -1,6 +1,6 @@
 """Native host runtime (C++ data loader) with transparent NumPy fallback.
 
-``kan_host.cpp`` implements the host-side hot loops (protein encoding,
+``kan_host.cpp`` implements the host-side hot loops (protein and DNA encoding,
 fused flat-batch, peg-batch and row-batch construction, the streaming
 signature builder, the key group-by) and the single-core baselines the
 port is checked against, as a C ABI shared library loaded via ctypes.
@@ -75,6 +75,7 @@ def get_lib() -> ctypes.CDLL | None:
         i64 = ctypes.c_int64
         i32 = ctypes.c_int32
         lib.kan_encode_protein.argtypes = [c_char_p, i64, u8p]
+        lib.kan_encode_dna.argtypes = [c_char_p, i64, u8p]
         lib.kan_flat_batch.argtypes = [
             c_char_p, i64p, i64, i64, i32, i32, u8p, i32p, u8p]
         lib.kan_flat_peg_batch.argtypes = [
@@ -117,6 +118,8 @@ def get_lib() -> ctypes.CDLL | None:
             ctypes.c_void_p,
             np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"), i32p]
         lib.kan_hash_free.argtypes = [ctypes.c_void_p]
+        lib.kan_dna_baseline.restype = i64
+        lib.kan_dna_baseline.argtypes = [u8p, i64, u32p, i64, i32, i32]
         _lib = lib
         return _lib
 
@@ -203,6 +206,33 @@ def apply_baseline(codes: np.ndarray, table: np.ndarray, max_probes: int,
                            table.reshape(-1), table.shape[0],
                            max_probes, k, min_hits, out)
     return out
+
+
+def encode_dna(s: str) -> np.ndarray | None:
+    """DNA string → uint8 codes (``ops.encode.encode_dna``), or None when
+    the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    raw = s.encode("ascii", errors="replace")
+    out = np.empty(len(raw), np.uint8)
+    lib.kan_encode_dna(raw, len(raw), out)
+    return out
+
+
+def dna_baseline(codes: np.ndarray, table: np.ndarray, max_probes: int,
+                 k: int) -> int | None:
+    """Single-core DNA window probe (kan_dna_baseline): packs every 2-bit
+    kmer window of a code stream without an ambiguous base and walks the
+    same 8-slot table as the device DNA mode.  Returns the hit count, or
+    None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, np.uint8)
+    table = np.ascontiguousarray(table, np.uint32)
+    return int(lib.kan_dna_baseline(codes, len(codes), table.reshape(-1),
+                                    table.shape[0], max_probes, k))
 
 
 class _Handle:

@@ -1,10 +1,11 @@
 // kan_host — native host-side runtime of kmers_anno_tpu_torch.
 //
-// The data loader that feeds the device kernels: protein encoding and the
-// fused flat-batch, peg-batch and row-batch builders; plus the streaming
-// signature builder, the key group-by, and the single-core baselines the
-// port is checked against (the packed-key apply and projection loops, the
-// string-keyed Java-dataflow apply walk and the hashAnno loop).  A copy of the reference
+// The data loader that feeds the device kernels: protein and DNA encoding
+// and the fused flat-batch, peg-batch and row-batch builders; plus the
+// streaming signature builder, the key group-by, and the single-core
+// baselines the port is checked against (the packed-key apply and
+// projection loops, the string-keyed Java-dataflow apply walk, the hashAnno
+// loop and the DNA window probe).  A copy of the reference
 // package's kan_host.cpp holding the entry points the port calls.  Exposed
 // as a plain C ABI consumed via ctypes (kmers_anno_tpu_torch/native/
 // __init__.py); every entry point is GIL-free.
@@ -65,6 +66,11 @@ extern "C" {
 void kan_encode_protein(const char* s, int64_t n, uint8_t* out) {
   for (int64_t i = 0; i < n; ++i)
     out[i] = kLuts.prot[static_cast<uint8_t>(s[i])];
+}
+
+void kan_encode_dna(const char* s, int64_t n, uint8_t* out) {
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = kLuts.dna[static_cast<uint8_t>(s[i])];
 }
 
 // ---------------------------------------------------------------------------
@@ -790,5 +796,54 @@ void kan_hash_best(void* hv, double* out_sim, int32_t* out_proto) {
 }
 
 void kan_hash_free(void* hv) { delete static_cast<KanHash*>(hv); }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// single-core DNA-mode baseline (config 3)
+// ---------------------------------------------------------------------------
+//
+// A single-core DNA window probe over the bucketed table, the check of the
+// device DNA mode (engine/dna_apply.probe_dna_flat).  Packing matches
+// ops/dna_kmers.py: lo = (1 << 2k) | sum(base_i << 2i), hi = 0; windows
+// touching an ambiguous base are skipped.
+
+extern "C" {
+
+// codes: (n,) DNA codes 0..3, >=4 ambiguous; returns total hits
+int64_t kan_dna_baseline(const uint8_t* codes, int64_t n,
+                         const uint32_t* table, int64_t n_buckets,
+                         int32_t max_probes, int32_t k) {
+  const uint32_t mask = static_cast<uint32_t>(n_buckets - 1);
+  const uint32_t marker = 1u << (2 * k);
+  int64_t hits = 0;
+  for (int64_t i = 0; i + k <= n; ++i) {
+    uint32_t lo = marker;
+    bool bad = false;
+    for (int32_t j = 0; j < k; ++j) {
+      const uint8_t c = codes[i + j];
+      if (c > 3) { bad = true; break; }
+      lo |= static_cast<uint32_t>(c) << (2 * j);
+    }
+    if (bad) continue;
+    uint32_t b = kan_fmix32(lo ^ kan_fmix32(0u ^ 0x9E3779B9u)) & mask;
+    int32_t val = -1;
+    for (int32_t r = 0; r < max_probes; ++r) {
+      const uint32_t* row = table + static_cast<size_t>(b) * 24;
+      bool full = true;
+      for (int t = 0; t < 8; ++t) {
+        if (row[t] == lo && row[8 + t] == 0u) {
+          val = static_cast<int32_t>(row[16 + t]);
+          break;
+        }
+        if (row[t] == 0xFFFFFFFFu) full = false;
+      }
+      if (val >= 0 || !full) break;
+      b = (b + 1) & mask;
+    }
+    if (val >= 0) ++hits;
+  }
+  return hits;
+}
 
 }  // extern "C"

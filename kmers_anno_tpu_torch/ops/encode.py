@@ -9,8 +9,8 @@ packing and filtering are pure arithmetic:
   anything else → 27, PAD → 31.  'X' is therefore code 23; the ambiguity
   filters (KmerReference.java:139,190) test codes, not characters.
 * DNA codes: t,c,a,g → 0,1,2,3 (NCBI codon-table order, matching
-  genome.dna), any IUPAC-ambiguous base → 4.  Reverse complement in code
-  space is ``code XOR 2`` for codes < 4.
+  genome.dna), any IUPAC-ambiguous base → 4, PAD → 5.  Reverse complement
+  in code space is ``code XOR 2`` for codes < 4.
 """
 
 from __future__ import annotations
@@ -49,17 +49,25 @@ def decode_protein(codes: np.ndarray) -> str:
 # ----- DNA codes -----
 
 DNA_AMBIG = 4
+DNA_PAD = 5
 
 _DNA_LUT = np.full(256, DNA_AMBIG, dtype=np.uint8)
 for _c, _v in (("t", 0), ("c", 1), ("a", 2), ("g", 3), ("u", 0)):
     _DNA_LUT[ord(_c)] = _v
     _DNA_LUT[ord(_c.upper())] = _v
 
+_DNA_CHARS = np.frombuffer(b"tcagnn", dtype=np.uint8)
+
 
 def encode_dna(s: str) -> np.ndarray:
     """DNA string → uint8 code array (IUPAC ambiguity folded to 4)."""
     raw = np.frombuffer(s.encode("ascii", errors="replace"), dtype=np.uint8)
     return _DNA_LUT[raw]
+
+
+def decode_dna(codes: np.ndarray) -> str:
+    """uint8 DNA code array → lower-case string (ambiguity and PAD → n)."""
+    return _DNA_CHARS[np.asarray(codes)].tobytes().decode("ascii")
 
 
 def reverse_complement_codes(codes: np.ndarray) -> np.ndarray:

@@ -193,7 +193,6 @@ def test_build_apply_cli_matches_reference(tmp_path, case):
 
 @pytest.mark.parametrize("command,args,message", [
     ("apply", ["--mesh", "2x1"], "item 11"),
-    ("build", ["--dna"], "item 10"),
 ])
 def test_unported_options_say_so(tmp_path, capsys, command, args, message):
     gto_dir, role_file, use_file = _signature_setup(tmp_path)

@@ -16,8 +16,9 @@ import torch
 
 from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, WEIGHTED_EDGES,
                         carried_state, collision_rows, collision_table,
-                        flat_case, flat_filter, flat_tensors, made_up_chunk,
-                        made_up_rows, make_projection_workload,
+                        dna_streams, dna_wrap_table, flat_case, flat_filter,
+                        flat_tensors, made_up_chunk, made_up_rows,
+                        make_dna_signature_genomes, make_projection_workload,
                         make_signature_genomes, reorder_chunk, tally_bits,
                         tile_cells, weighted_edge)
 from kmers_anno_tpu_torch.engine import hashanno, projection
@@ -26,6 +27,7 @@ from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
 from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
                                                    build_signatures)
 from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+from kmers_anno_tpu_torch.engine.dna_apply import DnaApplyEngine
 from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
 from kmers_anno_tpu_torch.genome.gto import Genome
 from kmers_anno_tpu_torch.ops import apply_flat as apply_flat_mod
@@ -37,6 +39,8 @@ from kmers_anno_tpu_torch.ops.apply_rows import apply_rows, apply_rows_plain
 from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
 from kmers_anno_tpu_torch.ops.contig_scan import (KERNEL_TILE, scan_stream,
                                                   scan_stream_plain)
+from kmers_anno_tpu_torch.ops import dna_probe as dna_probe_mod
+from kmers_anno_tpu_torch.ops.dna_probe import probe_dna, probe_dna_plain
 from kmers_anno_tpu_torch.ops.hash_chunk import (COMMONS_TABLE_CELLS,
                                                  COMMONS_TILE, hash_best,
                                                  hash_best_plain,
@@ -891,3 +895,70 @@ def test_hash_engine_on_cuda_matches_cpu(cuda, route, monkeypatch):
     assert outs["cpu"][3] == (0, 0)
     assert outs["cuda"][:3] == outs["cpu"][:3]
     assert sum(s > 0 for s in outs["cpu"][1]) > 100
+
+
+# ---------------------------------------------------------------------------
+# DNA mode: the window probe
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("k", [4, 8, 11, 15])
+def test_dna_probe_kernel_matches_plain(cuda, k, weighted):
+    """kan_dna_probe against its plain version on made-up streams (entries
+    shorter than k and of exactly k bases, ambiguous bases, entries that
+    join on table keys, lengths off powers of two, all invalid, valid to
+    the stream's end) over a table whose walks wrap; one launch a call."""
+    rng = np.random.default_rng(100 * k + weighted)
+    table, mp, seq = dna_wrap_table(rng, k, weighted)
+    assert mp >= 3
+    t = wide_table_from_numpy(table, cuda)
+    for name, codes_np, valid_np in dna_streams(rng, k, seq):
+        codes = torch.from_numpy(codes_np).to(cuda)
+        valid = torch.from_numpy(valid_np).to(cuda)
+        before = probe_dna.launches
+        got = probe_dna(t, codes, valid, k=k, max_probes=mp)
+        torch.cuda.synchronize()
+        assert probe_dna.launches == before + 1
+        want = probe_dna_plain(t, codes, valid, k=k, max_probes=mp)
+        assert torch.equal(got, want), name
+        assert (got[~valid] == -1).all(), name
+
+
+def test_dna_probe_on_an_empty_stream(cuda):
+    table, mp, _ = dna_wrap_table(np.random.default_rng(1), 8, False)
+    t = wide_table_from_numpy(table, cuda)
+    before = probe_dna.launches
+    out = probe_dna(t, torch.zeros(0, dtype=torch.uint8, device=cuda),
+                    torch.zeros(0, dtype=torch.bool, device=cuda), k=8,
+                    max_probes=mp)
+    assert out.numel() == 0 and probe_dna.launches == before
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_dna_engine_on_cuda_matches_cpu(cuda, weighted, monkeypatch):
+    """build --dna on small synthetic genomes, then the DNA engine on the
+    card (the kernel, no plain version) against the CPU engine on a fifth
+    genome: the same regions, roles and scores."""
+    genomes, role_map = make_dna_signature_genomes(
+        np.random.default_rng(5), 3, 40, 40, 4)
+    table = build_signatures(genomes[:2], role_map, set(role_map.ids()),
+                             k=15, progress=False, alphabet="dna",
+                             weight_mode="balance" if weighted else "none",
+                             device="cpu")
+    kw = dict(min_hits=5, max_gap=300, weighted=weighted)
+    want = DnaApplyEngine(table, **kw, device="cpu").call_genome(genomes[2])
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(dna_probe_mod, "probe_dna_plain", refuse)
+    before = probe_dna.launches
+    got = DnaApplyEngine(table, **kw, device=cuda).call_genome(genomes[2])
+    assert probe_dna.launches == before + 1
+
+    def key(calls):
+        return [(f.id, f.location.strand, f.location.left, f.location.right,
+                 role, score) for f, role, score in calls]
+
+    assert key(got) == key(want)
+    assert len(got) >= 20

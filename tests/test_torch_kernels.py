@@ -15,7 +15,7 @@ def test_sources_are_the_cu_files_and_headers_are_inputs():
     inputs = [os.path.basename(p) for p in kernels._inputs()]
     assert sources and all(s.endswith(".cu") for s in sources)
     assert {"apply_rows.cu", "probe_wide.cu", "contig_scan.cu",
-            "hash_chunk.cu", "apply_flat.cu"} <= set(sources)
+            "hash_chunk.cu", "apply_flat.cu", "dna_probe.cu"} <= set(sources)
     for header in ("wide_probe.cuh", "bucket_probe.cuh"):
         assert header in inputs and header not in sources
     assert set(sources) < set(inputs)

@@ -29,6 +29,7 @@ from kmers_anno_tpu_torch.ops import widetable as port_wt
 from tests.fixtures import (ROLE_DEFS, make_genome, make_role_map,
                             random_protein)
 from tests.oracle import oracle_build, protein_kmers
+from test_torch_host import reference_native
 
 GOOD = {rid for rid, _ in ROLE_DEFS[:4]}
 K = 8
@@ -189,6 +190,7 @@ def test_streaming_builder_matches_reference(backend):
     """Several flushes (chunk 2048) against the reference's native
     builder: keys, roles and stats."""
     chunks, kills = _stream(7)
+    reference_native()      # the reference's library, past a build race
     outs = []
     for b in (ref.StreamingTableBuilder(backend="native"),
               port.StreamingTableBuilder(chunk_entries=2048,
@@ -346,13 +348,3 @@ def test_load_rejects_a_short_kmer(tmp_path):
     np.testing.assert_array_equal(got.key_lo, want.key_lo)
     np.testing.assert_array_equal(got.key_hi, want.key_hi)
     assert got.kmer_texts() == ["ACDEFGHI", "KLMNPQRS"]
-
-
-def test_dna_tables_are_not_yet_ported(genomes, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port.build_signatures(genomes, make_role_map(), GOOD, k=K,
-                              alphabet="dna", device=CPU)
-    path = tmp_path / "dna.tbl"
-    path.write_text("acgtacgtacgtacg\tRoleA\n")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port.SignatureTable.load(str(path))
