@@ -120,7 +120,7 @@ back to back through its C entry point between one pair of CUDA events
 included), with ``launch_share`` = bound / ``launch_ms``.
 
 Usage, from the repository root:
-    python3 chip_smoke.py [--profile] [--compare DIR [DIR ...]]
+    python3 chip_smoke.py [--profile] [--compare DIR [DIR ...]] [--dna-only]
 
 ``--profile`` also traces three warm fused-route genomes with
 ``torch.profiler`` (device activity only) and reports, within that one
@@ -2293,19 +2293,21 @@ def time_flat_step(kernel_fn, plain_fn, what, reps=REPS) -> dict:
                 max_abs_err=max_abs_err(zip(got, want)), outputs=got)
 
 
-def filter_stats(key_filter, codes, valid, k, hits) -> dict:
+def filter_stats(key_filter, codes, valid, k, hits, pack=None) -> dict:
     """What the key filter does on a stream whose windows hit the table
     ``hits`` times: its bytes, the windows it lets through to the walk and
     those it answers, and its false-positive share of the windows that
-    miss (plain ``may_hold``)."""
+    miss (plain ``may_hold``).  ``pack`` packs the windows (default
+    ``pack_kmer_windows``, protein codes)."""
     from kmers_anno_tpu_torch.ops.key_filter import may_hold
     from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
 
+    pack = pack or pack_kmer_windows
     passed = 0
     step = 1 << 24
     for s in range(0, codes.numel(), step):
         v = valid[s: s + step]
-        lo, hi = pack_kmer_windows(codes[s: s + step + k - 1], k)
+        lo, hi = pack(codes[s: s + step + k - 1], k)
         passed += int(may_hold(key_filter, lo[: v.numel()][v],
                                hi[: v.numel()][v]).sum())
     windows = int(valid.sum())
@@ -3636,15 +3638,23 @@ def dna_wrap_table(rng, k, weighted):
 
 
 def dna_streams(rng, k, seq):
-    """Made-up DNA streams as (name, codes, valid) NumPy arrays, drawn
-    from ``seq`` (the table's sequence) so that windows hit: two-strand
-    contig batches with ambiguous bases, entries shorter than k and of
-    exactly k bases (a last window that ends at its entry's end), entries
-    that join where the windows across the boundary are table keys (and
-    invalid), stream lengths off every power of two; an all-invalid stream;
-    and a stream valid to its last position, whose tail windows reach past
-    its end (the probe reads code 0 there, as the plain version pads)."""
+    """Made-up DNA streams as (name, codes, valid, offsets) NumPy arrays,
+    drawn from ``seq`` (the table's sequence) so that windows hit:
+    two-strand contig batches with ambiguous bases, entries shorter than k
+    and of exactly k bases (a last window that ends at its entry's end),
+    entries that join where the windows across the boundary are table keys
+    (and invalid), stream lengths off every power of two; an all-invalid
+    stream; a stream valid to its last position, whose tail windows reach
+    past its end (the probe reads code 0 there, as the plain version pads);
+    streams of one kernel tile (``ops.dna_probe.KERNEL_TILE``) less one,
+    exactly one and one more window, and of two tiles + k - 2, valid to
+    their ends, so that windows cross tile boundaries; streams whose
+    windows alternate valid and invalid, one by one and three by three;
+    and slices of odd length whose codes and flags start 1, 7 or 15 bytes
+    past a 16-byte boundary.  ``offsets`` = (codes', valid's) byte offset
+    into the tensors that hold them (``dna_stream_tensors``)."""
     from kmers_anno_tpu_torch.engine.dna_apply import DnaContigBatch
+    from kmers_anno_tpu_torch.ops.dna_probe import KERNEL_TILE
     from kmers_anno_tpu_torch.ops.encode import DNA_PAD, decode_dna
 
     text = decode_dna(seq)
@@ -3676,15 +3686,46 @@ def dna_streams(rng, k, seq):
     out.append(("all invalid", codes, np.zeros(len(codes), bool)))
     tail = seq[: (1 << 16) + 11].copy()
     out.append(("valid to the end", tail, np.ones(len(tail), bool)))
-    return out
+    for n in (KERNEL_TILE - 1, KERNEL_TILE, KERNEL_TILE + 1,
+              2 * KERNEL_TILE + k - 2):
+        at = int(rng.integers(0, len(seq) - n))
+        out.append((f"T {n}, valid to the end", seq[at: at + n].copy(),
+                    np.ones(n, bool)))
+    n = 2 * KERNEL_TILE + 333
+    for step in (1, 3):
+        valid = (np.arange(n) // step) % 2 == 0
+        out.append((f"valid and invalid by {step}", seq[:n].copy(), valid))
+    streams = [(name, c, v, (0, 0)) for name, c, v in out]
+    for offsets in ((1, 1), (7, 7), (15, 15), (15, 1)):
+        at = int(rng.integers(0, len(seq) - n))
+        valid = rng.random(n) < 0.9
+        valid[-k:] = True
+        streams.append((f"T {n}, codes at byte {offsets[0]}, flags at "
+                        f"byte {offsets[1]}", seq[at: at + n].copy(), valid,
+                        offsets))
+    return streams
+
+
+def dna_stream_tensors(codes, valid, offsets, dev):
+    """``codes`` and ``valid`` on ``dev`` as slices that start ``offsets``
+    = (codes', valid's) bytes into freshly allocated (so 16-byte aligned)
+    tensors."""
+    held = []
+    for arr, dtype, off in ((codes, torch.uint8, offsets[0]),
+                            (valid, torch.bool, offsets[1])):
+        t = torch.zeros(off + len(arr), dtype=dtype, device=dev)
+        t[off:] = torch.from_numpy(arr).to(dev)
+        held.append(t[off:])
+    return tuple(held)
 
 
 def check_dna_probe(dev) -> None:
     """``probe_dna`` against its plain version on made-up streams
     (``dna_streams``) for k = 4, 8, 11 and 15, unweighted and with packed
     fp16 weights, on tables whose walks wrap from the last bucket to bucket
-    0 (``dna_wrap_table``); one launch a call; bit for bit
-    (``torch.equal``); every invalid window -1."""
+    0 (``dna_wrap_table``), each with the table's key filter and without;
+    one launch a call; bit for bit (``torch.equal``); every invalid window
+    -1."""
     from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
     from kmers_anno_tpu_torch.ops.dna_probe import probe_dna, probe_dna_plain
 
@@ -3695,26 +3736,35 @@ def check_dna_probe(dev) -> None:
             table, mp, seq = dna_wrap_table(rng, k, weighted)
             require(mp >= 3, f"the k={k} table's walks do not wrap")
             t = wide_table_from_numpy(table, dev)
-            for name, codes_np, valid_np in dna_streams(rng, k, seq):
-                codes = torch.from_numpy(codes_np).to(dev)
-                valid = torch.from_numpy(valid_np).to(dev)
-                before = probe_dna.launches
-                got = probe_dna(t, codes, valid, k=k, max_probes=mp)
-                torch.cuda.synchronize()
-                require(probe_dna.launches == before + 1,
-                        "probe_dna did not launch once")
+            key_filter = flat_filter(t)
+            for name, codes_np, valid_np, offsets in dna_streams(rng, k,
+                                                                 seq):
+                codes, valid = dna_stream_tensors(codes_np, valid_np,
+                                                  offsets, dev)
+                require(codes.data_ptr() % 16 == offsets[0]
+                        and valid.data_ptr() % 16 == offsets[1],
+                        f"the {name} stream lies at the wrong offsets")
                 want = probe_dna_plain(t, codes, valid, k=k, max_probes=mp)
-                require(torch.equal(got, want), f"probe_dna differs from "
-                        f"its plain version (k {k}, weighted {weighted}, "
-                        f"{name})")
-                require(bool((got[~valid] == -1).all()),
+                for f in (None, key_filter):
+                    before = probe_dna.launches
+                    got = probe_dna(t, codes, valid, k=k, max_probes=mp,
+                                    key_filter=f)
+                    torch.cuda.synchronize()
+                    require(probe_dna.launches == before + 1,
+                            "probe_dna did not launch once")
+                    require(torch.equal(got, want), f"probe_dna differs from "
+                            f"its plain version (k {k}, weighted {weighted}, "
+                            f"{name}, filter {f is not None})")
+                    n_cases += 1
+                require(bool((want[~valid] == -1).all()),
                         f"an invalid window hit (k {k}, {name})")
-                n_cases += 1
-                n_hits += int((got >= 0).sum())
+                n_hits += int((want >= 0).sum())
     print(f"dna probe on made-up streams: {n_cases} cases (k "
           f"{', '.join(map(str, DNA_KS))}; unweighted and fp16-weighted "
-          f"payloads; tables whose walks wrap) equal to the plain version "
-          f"bit for bit, {n_hits} hits", flush=True)
+          f"payloads; tables whose walks wrap; tile edges, alternating "
+          f"validity, slices at byte offsets 1, 7 and 15; each with the key "
+          f"filter and without) equal to the plain version bit for bit, "
+          f"{n_hits} hits", flush=True)
 
 
 def make_dna_signature_genomes(rng, n_genomes, n_roles, n_hypothetical,
@@ -3818,7 +3868,7 @@ def dna_report(engine, genomes, fmt, use_file) -> str:
     return out.getvalue()
 
 
-def run_dna_cli(dev, tmp: str) -> tuple[dict, dict]:
+def run_dna_cli(dev, tmp: str) -> tuple[dict, dict, dict]:
     """``build --dna`` (k = 15) through the CLI on four bacterial-size
     genomes (``make_dna_signature_genomes``, seed 0), unweighted and with
     ``--weights balance``; then ``apply`` in both formats, and
@@ -3826,8 +3876,9 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict]:
     way.  Every report equals, byte for byte, the same engine's on the
     CPU (the plain version); every strand's hits equal
     ``native.dna_baseline``'s; the kernel equals its plain version on the
-    genome's stream.  Returns each apply run's launch counts and the
-    kernel's times on that stream."""
+    genome's stream, with the table's key filter too.  Returns each apply
+    run's launch counts, the kernel's times on that stream and the
+    ``--compare`` cases of the unweighted table's stream."""
     from kmers_anno_tpu_torch.commands.app import main
     from kmers_anno_tpu_torch.engine.dna_apply import DnaApplyEngine
     from kmers_anno_tpu_torch.engine.signature import SignatureTable
@@ -3919,7 +3970,7 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict]:
               f"equal byte for byte to the CPU engine's ({cpu_s:.2f} s); "
               f"launches {run.counts}", flush=True)
 
-    measured = {}
+    measured, cases = {}, {}
     for weights in ("none", "balance"):
         engine = DnaApplyEngine(tables[weights], min_hits=MIN_HITS,
                                 max_gap=DNA_MAX_GAP,
@@ -3938,8 +3989,8 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict]:
         row = dict(ms=ms, plain_ms=plain_ms,
                    max_abs_err=max_abs_err([(got, want)]))
         row.update(dna_bound(*args, DNA_K, engine.max_probes, ms))
-        row = with_launch(row, launch_ms(launch_dna_probe,
-                                         [(*args, DNA_K, engine.max_probes)]))
+        launch_args = [(*args, DNA_K, engine.max_probes)]
+        row = with_launch(row, launch_ms(launch_dna_probe, launch_args))
         measured[weights] = row
         print(f"dna probe on the CLI genome (weights {weights}; "
               f"{codes.numel()} windows, {int(valid.sum())} valid, {hits} "
@@ -3952,7 +4003,16 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict]:
               f"{row['buckets']} distinct buckets), share "
               f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}",
               flush=True)
-    return runs, measured
+        if weights == "none":
+            key_filter = tables[weights].device_key_filter(device=dev)
+            row.update(dna_filter_and_floor(
+                "the DNA CLI genome", engine.table, codes, valid,
+                engine.max_probes, key_filter, row["hits"]))
+            cases["the DNA CLI genome"] = (launch_dna_probe, launch_args)
+            cases["the DNA CLI genome, key filter"] = (
+                launch_dna_probe_filtered, [(*a, key_filter)
+                                            for a in launch_args])
+    return runs, measured, cases
 
 
 def dna_bound(table, codes, valid, k, max_probes, ms) -> dict:
@@ -3975,18 +4035,67 @@ def dna_bound(table, codes, valid, k, max_probes, ms) -> dict:
                 bucket_reads=reads, hits=hits, windows=n_valid)
 
 
-def launch_dna_probe(lib, table, codes, valid, k, max_probes):
-    """probe_dna through a kernel library's C entry point (uncounted)."""
+def launch_dna_probe(lib, table, codes, valid, k, max_probes,
+                     key_filter=None):
+    """probe_dna through a kernel library's C entry point (uncounted):
+    ``kan_dna_probe``, or with ``key_filter`` ``kan_dna_probe_filtered``."""
+    from kmers_anno_tpu_torch.ops.apply_flat import filter_args
+
     out = torch.empty(codes.shape, dtype=torch.int32, device=codes.device)
-    err = lib.kan_dna_probe(
-        table.data_ptr(), table.shape[0], max_probes, codes.data_ptr(),
-        valid.data_ptr(), codes.numel(), k, out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    require(err == 0, f"kan_dna_probe returned CUDA error {err}")
+    tail = (codes.data_ptr(), valid.data_ptr(), codes.numel(), k,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if key_filter is None:
+        err = lib.kan_dna_probe(table.data_ptr(), table.shape[0],
+                                max_probes, *tail)
+    else:
+        err = lib.kan_dna_probe_filtered(table.data_ptr(), table.shape[0],
+                                         max_probes,
+                                         *filter_args(key_filter), *tail)
+    require(err == 0, f"the dna_probe entry returned CUDA error {err}")
     return out
 
 
+def launch_dna_probe_filtered(lib, *args):
+    """``launch_dna_probe`` with the key filter, the last of ``args``."""
+    return launch_dna_probe(lib, *args)
+
+
 launch_dna_probe.entry = "kan_dna_probe"
+launch_dna_probe_filtered.entry = "kan_dna_probe_filtered"
+
+
+def dna_filter_and_floor(what, table, codes, valid, max_probes, key_filter,
+                         hits) -> dict:
+    """On one DNA stream: the key filter's bytes, the valid windows it
+    answers and its false-positive share; the kernel with the filter and
+    without in turns (``filter_turns``); and the same-shape gather floor,
+    one 32-byte lo-key sector at each valid window's home bucket
+    (``torch.index_select`` of rows 3b of a (3 x buckets, 8) int32 view of
+    the table, an 8-row a window output), timed alone as ``launch_ms`` is.
+    The gather does not compute the probe: it shows how close the kernel
+    comes to the card's rate for random sectors."""
+    from kmers_anno_tpu_torch.ops.dna_kmers import pack_dna_windows
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer
+
+    stats = filter_stats(key_filter, codes, valid, DNA_K, hits,
+                         pack=pack_dna_windows)
+    args = (table, codes, valid, DNA_K, max_probes)
+    turns = filter_turns(
+        what, lambda lib, *a: (launch_dna_probe(lib, *a),),
+        [(*args, key_filter)], [args])
+    lo, hi = pack_dna_windows(codes, DNA_K)
+    rows = (3 * (mix_kmer(lo[valid], hi[valid]) & (table.shape[0] - 1))).to(
+        torch.int64)
+    sectors = table.view(-1, 8)
+    floor_ms = launch_ms(lambda lib, v, r: torch.index_select(v, 0, r),
+                         [(sectors, rows)])
+    print(f"dna probe on {what}: key filter {stats['filter_bytes']} B, "
+          f"{stats['filter_skipped']} of {int(valid.sum())} valid windows "
+          f"answered by it, false-positive share "
+          f"{stats['filter_fp_share']:.5f}; gather floor ({rows.numel()} "
+          f"sectors of 32 B by torch.index_select) {floor_ms:.4f} ms",
+          flush=True)
+    return dict(stats, **turns, gather_floor_ms=floor_ms)
 
 
 def run_dna_bench(dev) -> tuple[dict, dict, dict]:
@@ -4100,6 +4209,10 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
     measured = with_launch(measured,
                            launch_ms(launch_dna_probe, launch_args) / n)
     measured["bases_per_s"] = statistics.median(rates)
+    key_filter = table.device_key_filter(device=dev)
+    measured.update(dna_filter_and_floor(
+        "bench contig 0", *args[0], engine.max_probes, key_filter,
+        bounds[0]["hits"]))
     print(f"dna bench shape probe_dna per contig (median of {REPS} runs over "
           f"{n} contigs), exact: kernel {measured['ms']:.4f} ms "
           f"({measured['launch_ms']:.4f} ms a launch back to back, "
@@ -4111,7 +4224,10 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
           f"distinct buckets, {measured['bucket_reads']:.0f} bucket reads), "
           f"share {measured['bound_share']:.3f}, alone "
           f"{measured['launch_share']:.3f}; card {card_line()}", flush=True)
-    cases = {"the DNA bench contigs": (launch_dna_probe, launch_args)}
+    cases = {"the DNA bench contigs": (launch_dna_probe, launch_args),
+             "the DNA bench contigs, key filter": (
+                 launch_dna_probe_filtered,
+                 [(*a, key_filter) for a in launch_args])}
     return runs, measured, cases
 
 
@@ -4119,16 +4235,20 @@ def run_dna(dev, tmp: str) -> tuple[dict, dict, dict]:
     """DNA mode: the probe kernel on made-up streams, the CLI at bacterial
     size, and bench.py's DNA shape.  Returns the launch counts by route,
     the ``dna_probe`` row's numbers (the bench shape's, with the CLI
-    genome's as ``cli_*``) and the ``--compare`` case."""
+    genome's as ``cli_*``) and the ``--compare`` cases (the bench contigs
+    and the CLI genome, each with the key filter and without)."""
     check_dna_probe(dev)
-    runs, cli = run_dna_cli(dev, tmp)
-    bench_runs, measured, cases = run_dna_bench(dev)
+    runs, cli, cases = run_dna_cli(dev, tmp)
+    bench_runs, measured, bench_cases = run_dna_bench(dev)
     runs.update(bench_runs)
+    cases.update(bench_cases)
     for weights, row in cli.items():
         tag = "cli" if weights == "none" else "cli_weighted"
         for name in ("ms", "launch_ms", "plain_ms", "bound_ms",
-                     "bound_share", "launch_share"):
-            measured[f"{tag}_{name}"] = row[name]
+                     "bound_share", "launch_share", "filtered_ms",
+                     "unfiltered_ms", "gather_floor_ms"):
+            if name in row:
+                measured[f"{tag}_{name}"] = row[name]
         measured["max_abs_err"] = max(measured["max_abs_err"],
                                       row["max_abs_err"])
     return runs, measured, cases
@@ -4143,6 +4263,10 @@ def main() -> None:
         help="also time the kernels of this tree against the build of the "
              "tree at each DIR (the root of another checkout), in turns on "
              "the main path's inputs")
+    parser.add_argument(
+        "--dna-only", action="store_true",
+        help="run only the dna phase (and --compare on its cases); prints "
+             "no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; no result")
@@ -4173,6 +4297,18 @@ def main() -> None:
         out = fn(*a)
         phases.append((name, time.perf_counter() - t0))
         return out
+
+    if args.dna_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            _, dna_measured, cases = phase("dna", run_dna, dev, tmp)
+        if args.compare:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase("compare", lambda: compare_contenders(
+                    build_contenders(args.compare, tmp), cases))
+        print("seconds by phase: " + ", ".join(f"{n} {t:.1f}"
+                                               for n, t in phases))
+        print(json.dumps({"dna_probe": dna_measured}), flush=True)
+        return
 
     phase("kernel checks", lambda: (check_contig_scan(dev),
                                     check_probe_wide(dev),

@@ -12,18 +12,15 @@
 // of lookups, so the probe window saves next to nothing.  Plain versions:
 // ops/apply_flat.py.
 //
-// The key filter (ops/key_filter.py).  A table past one wide table is 100
-// MB or more, past the 50 MB L2, and most windows of a protein miss it: a
-// miss reads its home bucket's 32-byte lo-key sector from device memory.
-// In front of the walk sits a split-block Bloom filter of the table's own
-// keys, 16 bits a key (20 MB for 10M keys, small enough for L2 beside the
-// buckets that hold hits): each key sets one bit in each of the 8 words of
-// one 32-byte sector, the sector chosen by fmix32(lo ^ fmix32(hi ^ salt))
-// and the bits by fmix32(hi ^ fmix32(lo ^ salt')), both independent of the
-// bucket hash.  A window whose sector lacks one of its bits is a miss and
-// never reads the table; a Bloom filter has no false negatives, so every
-// output is as without it.  Without a filter (a null pointer) every window
-// walks.
+// The key filter (ops/key_filter.py, read through key_filter.cuh).  A
+// table past one wide table is 100 MB or more, past the 50 MB L2, and most
+// windows of a protein miss it: a miss reads its home bucket's 32-byte
+// lo-key sector from device memory.  In front of the walk sits a
+// split-block Bloom filter of the table's own keys, 16 bits a key (20 MB
+// for 10M keys, small enough for L2 beside the buckets that hold hits).  A
+// window whose sector lacks one of its bits is a miss and never reads the
+// table; a Bloom filter has no false negatives, so every output is as
+// without it.  Without a filter (a null pointer) every window walks.
 //
 // kan_flat_unanimous (the unanimity vote): one thread a token, the warps of
 // a grid-stride loop over the stream, each on 32 consecutive tokens.  A
@@ -90,6 +87,7 @@
 #include <cuda_runtime.h>
 
 #include "bucket_probe.cuh"
+#include "key_filter.cuh"
 
 namespace {
 
@@ -99,21 +97,13 @@ constexpr int kOwnerThreads = 128;     // a weighted owner block: 4 warps
 constexpr int kOwnerWarps = kOwnerThreads / 32;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr float kUnit = 1.0f / 16777216.0f;   // 2^-24
-// the key filter's salts (ops/key_filter.py)
-constexpr uint32_t kSectorSalt = 0x3C6EF372u;
-constexpr uint32_t kBitSalt = 0xA54FF53Au;
-
 struct Walk {
   const uint32_t* table;
   uint32_t mask;
   int max_probes;
 };
 
-// n_sectors 32-byte sectors of 8 words; none when n_sectors is 0
-struct Filter {
-  const uint4* sectors;
-  uint32_t n_sectors;
-};
+using Filter = kan::KeyFilter;
 
 struct Stream {
   const uint8_t* codes;
@@ -123,26 +113,6 @@ struct Stream {
   int k;
   uint32_t pad;
 };
-
-// False when the table surely lacks (lo, hi): a bit of its sector is clear.
-__device__ __forceinline__ bool may_hold(const Filter& f, uint32_t lo,
-                                         uint32_t hi) {
-  if (!f.n_sectors) return true;
-  const uint32_t hs = kan::fmix32(lo ^ kan::fmix32(hi ^ kSectorSalt));
-  const size_t s = static_cast<size_t>(
-      (static_cast<uint64_t>(hs) * f.n_sectors) >> 32);
-  const uint4 a = __ldg(f.sectors + 2 * s);
-  const uint4 c = __ldg(f.sectors + 2 * s + 1);
-  const uint32_t words[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
-  const uint32_t salts[8] = {0x47B6137Bu, 0x44974D91u, 0x8824AD5Bu,
-                             0xA2B7289Du, 0x705495C7u, 0x2DF1424Bu,
-                             0x9EFC4947u, 0x5C6BFB31u};
-  const uint32_t hb = kan::fmix32(hi ^ kan::fmix32(lo ^ kBitSalt));
-  uint32_t all = 1u;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) all &= words[i] >> ((hb * salts[i]) >> 27);
-  return all & 1u;
-}
 
 // The payload of token t's kmer window, or -1 (an invalid window, a miss).
 __device__ __forceinline__ int32_t lookup(const Walk& w, const Filter& f,
@@ -157,7 +127,7 @@ __device__ __forceinline__ int32_t lookup(const Walk& w, const Filter& f,
     else
       hi |= code << (5 * (j - 6));
   }
-  if (!may_hold(f, lo, hi)) return -1;
+  if (!kan::may_hold(f, lo, hi)) return -1;
   return kan::probe_bucket_key(w.table, w.mask, lo, hi, w.max_probes);
 }
 
@@ -448,11 +418,6 @@ Walk make_walk(const int32_t* table, int64_t n_buckets, int max_probes) {
               static_cast<uint32_t>(n_buckets - 1), max_probes};
 }
 
-Filter make_filter(const int32_t* filter, int64_t n_sectors) {
-  return Filter{reinterpret_cast<const uint4*>(filter),
-                filter ? static_cast<uint32_t>(n_sectors) : 0u};
-}
-
 }  // namespace
 
 // table: (n_buckets, 24) 32-bit words, n_buckets a power of two, 16-byte
@@ -479,7 +444,7 @@ extern "C" int kan_flat_unanimous(const int32_t* table, int64_t n_buckets,
   if (n_tokens) {
     flat_unanimous_kernel<<<grid_for(n_tokens), kThreads, 0, st>>>(
         make_walk(table, n_buckets, max_probes),
-        make_filter(filter, n_sectors),
+        kan::make_key_filter(filter, n_sectors),
         Stream{codes, seg_ids, valid, n_tokens, k,
                static_cast<uint32_t>(pad)},
         static_cast<int32_t>(n_seqs), hits, rmin, role);
@@ -519,7 +484,8 @@ extern "C" int kan_flat_weighted(
       seg_ids, n_tokens, static_cast<int32_t>(n_seqs), starts, bad);
   flat_weighted_kernel<<<static_cast<unsigned>(n_seqs), kOwnerThreads,
                          r_tally * sizeof(unsigned long long), st>>>(
-      make_walk(table, n_buckets, max_probes), make_filter(filter, n_sectors),
+      make_walk(table, n_buckets, max_probes),
+      kan::make_key_filter(filter, n_sectors),
       Stream{codes, seg_ids, valid, n_tokens, k, static_cast<uint32_t>(pad)},
       starts, bad, static_cast<int32_t>(n_roles), r_tally, min_weight, kept,
       role, best);

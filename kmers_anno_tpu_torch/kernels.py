@@ -123,6 +123,8 @@ ENTRY_POINTS = {
                           _I32, _I64, _I64, _I64, ctypes.c_float, _P, _P, _P,
                           _P, _P, _P],
     "kan_dna_probe": [_P, _I64, _I32, _P, _P, _I64, _I32, _P, _P],
+    "kan_dna_probe_filtered": [_P, _I64, _I32, _P, _I64, _P, _P, _I64, _I32,
+                               _P, _P],
 }
 
 

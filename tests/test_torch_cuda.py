@@ -16,8 +16,9 @@ import torch
 
 from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, WEIGHTED_EDGES,
                         carried_state, collision_rows, collision_table,
-                        dna_streams, dna_wrap_table, flat_case, flat_filter,
-                        flat_tensors, made_up_chunk, made_up_rows,
+                        dna_stream_tensors, dna_streams, dna_wrap_table,
+                        flat_case, flat_filter, flat_tensors, made_up_chunk,
+                        made_up_rows,
                         make_dna_signature_genomes, make_projection_workload,
                         make_signature_genomes, reorder_chunk, tally_bits,
                         tile_cells, weighted_edge)
@@ -907,21 +908,28 @@ def test_dna_probe_kernel_matches_plain(cuda, k, weighted):
     """kan_dna_probe against its plain version on made-up streams (entries
     shorter than k and of exactly k bases, ambiguous bases, entries that
     join on table keys, lengths off powers of two, all invalid, valid to
-    the stream's end) over a table whose walks wrap; one launch a call."""
+    the stream's end; one kernel tile less one, exactly one and one more
+    window, two tiles + k - 2; windows alternating valid and invalid;
+    slices at byte offsets 1, 7 and 15 of odd length) over a table whose
+    walks wrap, each with the table's key filter and without; one launch a
+    call."""
     rng = np.random.default_rng(100 * k + weighted)
     table, mp, seq = dna_wrap_table(rng, k, weighted)
     assert mp >= 3
     t = wide_table_from_numpy(table, cuda)
-    for name, codes_np, valid_np in dna_streams(rng, k, seq):
-        codes = torch.from_numpy(codes_np).to(cuda)
-        valid = torch.from_numpy(valid_np).to(cuda)
-        before = probe_dna.launches
-        got = probe_dna(t, codes, valid, k=k, max_probes=mp)
-        torch.cuda.synchronize()
-        assert probe_dna.launches == before + 1
+    key_filter = flat_filter(t)
+    for name, codes_np, valid_np, offsets in dna_streams(rng, k, seq):
+        codes, valid = dna_stream_tensors(codes_np, valid_np, offsets, cuda)
+        assert (codes.data_ptr() % 16, valid.data_ptr() % 16) == offsets
         want = probe_dna_plain(t, codes, valid, k=k, max_probes=mp)
-        assert torch.equal(got, want), name
-        assert (got[~valid] == -1).all(), name
+        assert (want[~valid] == -1).all(), name
+        for f in (None, key_filter):
+            before = probe_dna.launches
+            got = probe_dna(t, codes, valid, k=k, max_probes=mp,
+                            key_filter=f)
+            torch.cuda.synchronize()
+            assert probe_dna.launches == before + 1
+            assert torch.equal(got, want), (name, f is not None)
 
 
 def test_dna_probe_on_an_empty_stream(cuda):
