@@ -90,13 +90,17 @@ twice (cold, warm) through the CLI on the four signature genomes with a
 32,832-row annotation file; every row of every ``<gid>.anno.tbl`` must
 equal the baseline's best similarity (``repr``) and winner, the engine
 must take its fast route, and each kernel launches once a chunk.
-Then DNA mode.  ``probe_dna`` (``kan_dna_probe``) is held to its plain
-version bit for bit on made-up streams (k = 4, 8, 11 and 15, unweighted
-and with packed fp16 weights; ambiguous bases, entries shorter than k
-and of exactly k bases, entries joined where every window across the
-boundary is a table key, lengths off every power of two, an all-invalid
-stream, a stream valid to its end) over tables whose walks wrap from the
-last bucket to bucket 0.  ``build --dna`` (k = 15) runs through the CLI
+Then DNA mode.  ``probe_dna`` (``kan_dna_probe``, and
+``kan_dna_probe_filtered`` with the table's key filter) is held to its
+plain version bit for bit on made-up streams (k = 4, 8, 11 and 15,
+unweighted and with packed fp16 weights; ambiguous bases, entries
+shorter than k and of exactly k bases, entries joined where every window
+across the boundary is a table key, lengths off every power of two, an
+all-invalid stream, a stream valid to its end, streams of one kernel
+tile less one, exactly one and one more window and of two tiles + k - 2,
+windows alternating valid and invalid, slices of odd length at byte
+offsets 1, 7 and 15), each with the filter and without, over tables
+whose walks wrap from the last bucket to bucket 0.  ``build --dna`` (k = 15) runs through the CLI
 on four genomes of one 3.86 Mb contig (``make_dna_signature_genomes``:
 2,000 role CDS of 900 bp, 3% variants of 2,000 prototypes, strands
 alternating; 2,000 hypothetical CDS, one in ten with 90 bp of a
@@ -108,7 +112,11 @@ must equal the CPU engine's byte for byte and every strand's hits
 table, 4 contigs of 4,000,000 bases; generator copied, seed 7): the
 kernel against its plain version and the baseline on every contig,
 contig bases/s over five runs, a split of one call, and the kernel
-alone against its bound.
+alone against its bound.  On bench contig 0 and on the CLI genome's
+stream (the 100.7 MB table) the kernel also runs with the key filter and
+without in turns, beside the filter's false-positive share and a
+same-shape gather (``torch.index_select`` of one 32-byte lo-key sector a
+valid window).
 Each kernel's row also gives its bound (``bound_ms``): the larger of the
 bytes its work needs over the card's memory rate (inputs read once,
 outputs written once, and of a table the lo-key block of each row the
@@ -135,11 +143,18 @@ batches, and ``hash_commons`` on the hashAnno bench chunk and on the
 first chunk of the hashAnno CLI batch, each in the engine's order and
 key-major, and ``hash_best`` on the bench chunk, and both flat apply
 kernels on the big-table batch, through the earlier flat entry points on
-a build that has them) of this tree's build against the build of the tree
-at each DIR (the root of another checkout, such as the parent commit's)
-through their C entry points: in turns (A B C C B A), each turn
-``LAUNCH_REPS`` passes back to back, each output equal to this build's; a
-build that lacks a kernel sits that case out.
+a build that has them, and the DNA probe on the bench contigs and on the
+CLI genome's stream, each without the key filter and on the engine's
+path, with it, through ``kan_dna_probe`` on a build without the filtered
+entry) of this tree's build against the build of the tree at each DIR
+(the root of another checkout, such as the parent commit's) through
+their C entry points: in turns (A B C C B A), each turn ``LAUNCH_REPS``
+passes back to back, each output equal to this build's; a build that
+lacks a kernel sits that case out.
+
+``--dna-only`` runs the kernel build, the dna phase and ``--compare`` on
+its cases alone, and prints the ``dna_probe`` row in place of the result
+lines.
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -2033,8 +2048,8 @@ def launch_flat(lib, table, codes, seg_ids, valid, k, max_probes, n_seqs,
     """apply_flat through a kernel library's C entry point (uncounted):
     ``kan_flat_unanimous`` with ``key_filter`` (None: every window walks),
     or on a build without it the earlier ``kan_apply_flat`` (no filter)."""
-    from kmers_anno_tpu_torch.ops.apply_flat import filter_args
     from kmers_anno_tpu_torch.ops.encode import PROT_PAD
+    from kmers_anno_tpu_torch.ops.key_filter import filter_args
 
     role, hits, rmin = (torch.empty(n_seqs, dtype=torch.int32,
                                     device=codes.device) for _ in range(3))
@@ -2095,6 +2110,7 @@ def launch_flat_weighted(lib, table, codes, seg_ids, valid, k, max_probes,
     is a ``FlatScratch``."""
     from kmers_anno_tpu_torch.ops import apply_flat
     from kmers_anno_tpu_torch.ops.encode import PROT_PAD
+    from kmers_anno_tpu_torch.ops.key_filter import filter_args
     from kmers_anno_tpu_torch.ops.vote import vote_block
 
     role = torch.empty(n_seqs, dtype=torch.int32, device=codes.device)
@@ -2104,7 +2120,7 @@ def launch_flat_weighted(lib, table, codes, seg_ids, valid, k, max_probes,
         kept = scratch.kept
         err = lib.kan_flat_weighted(
             table.data_ptr(), table.shape[0], max_probes,
-            *apply_flat.filter_args(key_filter), codes.data_ptr(),
+            *filter_args(key_filter), codes.data_ptr(),
             seg_ids.data_ptr(), valid.data_ptr(), codes.numel(), k, PROT_PAD,
             n_seqs, n_roles, apply_flat.DIRECT_ROLES, float(min_weight),
             scratch.starts.data_ptr(), scratch.flags.data_ptr(),
@@ -3980,7 +3996,8 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict, dict]:
         valid = torch.from_numpy(batch.valid).to(dev)
         args = (engine.table, codes, valid)
         kw = dict(k=DNA_K, max_probes=engine.max_probes)
-        ms, got = timed(lambda: probe_dna(*args, **kw))
+        ms, got = timed(lambda: probe_dna(*args, **kw,
+                                          key_filter=engine.key_filter))
         plain_ms, want = timed(lambda: probe_dna_plain(*args, **kw))
         require(torch.equal(got, want), f"probe_dna differs from its plain "
                 f"version on the CLI genome (weights {weights})")
@@ -3990,9 +4007,12 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict, dict]:
                    max_abs_err=max_abs_err([(got, want)]))
         row.update(dna_bound(*args, DNA_K, engine.max_probes, ms))
         launch_args = [(*args, DNA_K, engine.max_probes)]
-        row = with_launch(row, launch_ms(launch_dna_probe, launch_args))
+        filtered_args = [(*a, engine.key_filter) for a in launch_args]
+        row = with_launch(row, launch_ms(launch_dna_probe_filtered,
+                                         filtered_args))
         measured[weights] = row
-        print(f"dna probe on the CLI genome (weights {weights}; "
+        print(f"dna probe with the engine's key filter on the CLI genome "
+              f"(weights {weights}; "
               f"{codes.numel()} windows, {int(valid.sum())} valid, {hits} "
               f"hits equal to native.dna_baseline on both strands; table "
               f"{engine.table.shape[0]} buckets, max_probes "
@@ -4004,14 +4024,12 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict, dict]:
               f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}",
               flush=True)
         if weights == "none":
-            key_filter = tables[weights].device_key_filter(device=dev)
             row.update(dna_filter_and_floor(
                 "the DNA CLI genome", engine.table, codes, valid,
-                engine.max_probes, key_filter, row["hits"]))
+                engine.max_probes, engine.key_filter, row["hits"]))
             cases["the DNA CLI genome"] = (launch_dna_probe, launch_args)
-            cases["the DNA CLI genome, key filter"] = (
-                launch_dna_probe_filtered, [(*a, key_filter)
-                                            for a in launch_args])
+            cases["the DNA CLI genome, the engine's path"] = (
+                launch_dna_probe_filtered, filtered_args)
     return runs, measured, cases
 
 
@@ -4039,7 +4057,7 @@ def launch_dna_probe(lib, table, codes, valid, k, max_probes,
                      key_filter=None):
     """probe_dna through a kernel library's C entry point (uncounted):
     ``kan_dna_probe``, or with ``key_filter`` ``kan_dna_probe_filtered``."""
-    from kmers_anno_tpu_torch.ops.apply_flat import filter_args
+    from kmers_anno_tpu_torch.ops.key_filter import filter_args
 
     out = torch.empty(codes.shape, dtype=torch.int32, device=codes.device)
     tail = (codes.data_ptr(), valid.data_ptr(), codes.numel(), k,
@@ -4056,12 +4074,17 @@ def launch_dna_probe(lib, table, codes, valid, k, max_probes,
 
 
 def launch_dna_probe_filtered(lib, *args):
-    """``launch_dna_probe`` with the key filter, the last of ``args``."""
+    """The engine's path: ``launch_dna_probe`` with the key filter, the last
+    of ``args``, or on a build without ``kan_dna_probe_filtered`` (an
+    earlier tree's) ``kan_dna_probe`` without it."""
+    if not hasattr(lib, "kan_dna_probe_filtered"):
+        args = args[:-1]
     return launch_dna_probe(lib, *args)
 
 
+# the entry points each launcher calls, this build's first
 launch_dna_probe.entry = "kan_dna_probe"
-launch_dna_probe_filtered.entry = "kan_dna_probe_filtered"
+launch_dna_probe_filtered.entry = ("kan_dna_probe_filtered", "kan_dna_probe")
 
 
 def dna_filter_and_floor(what, table, codes, valid, max_probes, key_filter,
@@ -4105,7 +4128,8 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
     contig, one two-strand ``DnaContigBatch`` a call.  The kernel equals
     its plain version and its hits ``native.dna_baseline`` on every
     contig; contig bases/s over five runs; a split of one call; the
-    kernel alone against its bound."""
+    kernel alone against its bound, with the engine's key filter (the
+    engine's path) and without."""
     from kmers_anno_tpu_torch.engine.dna_apply import (DnaApplyEngine,
                                                        cluster_calls)
     from kmers_anno_tpu_torch.engine.signature import SignatureTable
@@ -4145,9 +4169,10 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
     require(run.counts["dna_probe"] == DNA_BENCH_CONTIGS,
             f"the DNA bench shape launched probe_dna "
             f"{run.counts['dna_probe']} times for {DNA_BENCH_CONTIGS} calls")
+    fkw = dict(kw, key_filter=engine.key_filter)
     hits = 0
     for i, (b, a) in enumerate(zip(batches, args)):
-        got = probe_dna(*a, **kw)
+        got = probe_dna(*a, **fkw)
         require(torch.equal(got, probe_dna_plain(*a, **kw)),
                 f"probe_dna differs from its plain version on bench contig "
                 f"{i}")
@@ -4172,7 +4197,7 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
     up_s, (codes, valid) = host_seconds(lambda: (
         torch.from_numpy(b.codes).to(dev), torch.from_numpy(b.valid).to(dev)))
     kernel_s, out = host_seconds(lambda: probe_dna(engine.table, codes,
-                                                   valid, **kw))
+                                                   valid, **fkw))
     down_s, vals = host_seconds(lambda: out.cpu().numpy())
     cluster_s, _ = host_seconds(lambda: cluster_calls(
         g, b, vals, DNA_K, DNA_MAX_GAP, MIN_HITS, engine.role_ids))
@@ -4186,7 +4211,7 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
           flush=True)
 
     def kernel():
-        return [probe_dna(*a, **kw) for a in args]
+        return [probe_dna(*a, **fkw) for a in args]
 
     def plain():
         return [probe_dna_plain(*a, **kw) for a in args]
@@ -4206,15 +4231,16 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
     measured.update(bound(measured["bound_bytes"], measured["bound_ops"],
                           measured["ms"]))
     launch_args = [(*a, DNA_K, engine.max_probes) for a in args]
-    measured = with_launch(measured,
-                           launch_ms(launch_dna_probe, launch_args) / n)
+    filtered_args = [(*a, engine.key_filter) for a in launch_args]
+    measured = with_launch(measured, launch_ms(launch_dna_probe_filtered,
+                                               filtered_args) / n)
     measured["bases_per_s"] = statistics.median(rates)
-    key_filter = table.device_key_filter(device=dev)
     measured.update(dna_filter_and_floor(
-        "bench contig 0", *args[0], engine.max_probes, key_filter,
+        "bench contig 0", *args[0], engine.max_probes, engine.key_filter,
         bounds[0]["hits"]))
-    print(f"dna bench shape probe_dna per contig (median of {REPS} runs over "
-          f"{n} contigs), exact: kernel {measured['ms']:.4f} ms "
+    print(f"dna bench shape probe_dna with the engine's key filter per "
+          f"contig (median of {REPS} runs over {n} contigs), exact: kernel "
+          f"{measured['ms']:.4f} ms "
           f"({measured['launch_ms']:.4f} ms a launch back to back, "
           f"{measured['windows'] / measured['launch_ms'] * 1e3:.4e} valid "
           f"windows/s), plain {measured['plain_ms']:.4f} ms; bound (mean of "
@@ -4225,9 +4251,8 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
           f"share {measured['bound_share']:.3f}, alone "
           f"{measured['launch_share']:.3f}; card {card_line()}", flush=True)
     cases = {"the DNA bench contigs": (launch_dna_probe, launch_args),
-             "the DNA bench contigs, key filter": (
-                 launch_dna_probe_filtered,
-                 [(*a, key_filter) for a in launch_args])}
+             "the DNA bench contigs, the engine's path": (
+                 launch_dna_probe_filtered, filtered_args)}
     return runs, measured, cases
 
 

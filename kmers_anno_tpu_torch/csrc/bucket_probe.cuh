@@ -13,10 +13,7 @@
 //
 // A bucket's 8 lo keys are one 32-byte sector, read as two 16-byte loads
 // (every bucket starts 16-byte aligned when the table does); its hi and
-// payload words are read only for a slot whose lo matches.  A kernel that
-// keeps several home-bucket reads in flight issues them itself
-// (home_bucket), answers each with bucket_answer and walks on, through
-// probe_bucket_from, only where the home bucket is full and holds no match.
+// payload words are read only for a slot whose lo matches.
 #pragma once
 
 #include <cstdint>
@@ -30,61 +27,32 @@ constexpr int kBucketWords = 3 * kBucketSlots;
 constexpr uint32_t kHashGolden = 0x9E3779B9u;
 constexpr uint32_t kEmptyKey = 0xFFFFFFFFu;
 
-// The home bucket of (lo, hi).
-__device__ __forceinline__ uint32_t home_bucket(uint32_t lo, uint32_t hi,
-                                                uint32_t mask) {
-  return fmix32(lo ^ fmix32(hi ^ kHashGolden)) & mask;
-}
-
-// One bucket's answer for (lo, hi), given its 8 lo keys (a, c): true when
-// the walk ends at this bucket, with ``payload`` the value stored under
-// (lo, hi), or -1 where the bucket has a free slot; false (``payload`` -1)
-// when the bucket is full and holds no match, so the walk goes on.
-__device__ __forceinline__ bool bucket_answer(
-    const uint32_t* __restrict__ bucket, uint4 a, uint4 c, uint32_t lo,
-    uint32_t hi, int32_t& payload) {
-  const uint32_t keys[kBucketSlots] = {a.x, a.y, a.z, a.w,
-                                       c.x, c.y, c.z, c.w};
-  bool full = true;
-#pragma unroll
-  for (int s = 0; s < kBucketSlots; ++s) {
-    if (keys[s] == lo) {
-      const uint32_t h = __ldg(bucket + kBucketSlots + s);
-      const uint32_t v = __ldg(bucket + 2 * kBucketSlots + s);
-      if (h == hi) {
-        payload = static_cast<int32_t>(v);
-        return true;
-      }
-    }
-    full &= keys[s] != kEmptyKey;
-  }
-  payload = -1;
-  return !full;
-}
-
-// The payload stored under (lo, hi), or -1: the walk from bucket b over at
-// most ``probes`` buckets.
-__device__ __forceinline__ int32_t probe_bucket_from(
-    const uint32_t* __restrict__ table, uint32_t mask, uint32_t lo,
-    uint32_t hi, uint32_t b, int probes) {
-  for (int probe = 0; probe < probes; ++probe) {
-    const uint32_t* bucket = table + static_cast<size_t>(b) * kBucketWords;
-    const uint4* bucket4 = reinterpret_cast<const uint4*>(bucket);
-    int32_t payload;
-    if (bucket_answer(bucket, __ldg(bucket4), __ldg(bucket4 + 1), lo, hi,
-                      payload))
-      return payload;
-    b = (b + 1) & mask;
-  }
-  return -1;
-}
-
 // The payload stored under (lo, hi), or -1.
 __device__ __forceinline__ int32_t probe_bucket_key(
     const uint32_t* __restrict__ table, uint32_t mask, uint32_t lo,
     uint32_t hi, int max_probes) {
-  return probe_bucket_from(table, mask, lo, hi, home_bucket(lo, hi, mask),
-                           max_probes);
+  uint32_t b = fmix32(lo ^ fmix32(hi ^ kHashGolden)) & mask;
+  for (int probe = 0; probe < max_probes; ++probe) {
+    const uint32_t* bucket = table + static_cast<size_t>(b) * kBucketWords;
+    const uint4* bucket4 = reinterpret_cast<const uint4*>(bucket);
+    const uint4 a = __ldg(bucket4);
+    const uint4 c = __ldg(bucket4 + 1);
+    const uint32_t keys[kBucketSlots] = {a.x, a.y, a.z, a.w,
+                                         c.x, c.y, c.z, c.w};
+    bool full = true;
+#pragma unroll
+    for (int s = 0; s < kBucketSlots; ++s) {
+      if (keys[s] == lo) {
+        const uint32_t h = __ldg(bucket + kBucketSlots + s);
+        const uint32_t v = __ldg(bucket + 2 * kBucketSlots + s);
+        if (h == hi) return static_cast<int32_t>(v);
+      }
+      full &= keys[s] != kEmptyKey;
+    }
+    if (!full) return -1;
+    b = (b + 1) & mask;
+  }
+  return -1;
 }
 
 }  // namespace kan

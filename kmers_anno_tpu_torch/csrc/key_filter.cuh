@@ -32,19 +32,16 @@ inline KeyFilter make_key_filter(const int32_t* filter, int64_t n_sectors) {
                    filter ? static_cast<uint32_t>(n_sectors) : 0u};
 }
 
-// The filter's sector of (lo, hi).
-__device__ __forceinline__ const uint4* filter_sector(const KeyFilter& f,
-                                                      uint32_t lo,
-                                                      uint32_t hi) {
+// False when the table surely lacks (lo, hi): a bit of its sector is
+// clear.  True without a filter.
+__device__ __forceinline__ bool may_hold(const KeyFilter& f, uint32_t lo,
+                                         uint32_t hi) {
+  if (!f.n_sectors) return true;
   const uint32_t hs = fmix32(lo ^ fmix32(hi ^ kFilterSectorSalt));
-  return f.sectors + 2 * static_cast<size_t>(
+  const size_t s = static_cast<size_t>(
       (static_cast<uint64_t>(hs) * f.n_sectors) >> 32);
-}
-
-// False when the table surely lacks (lo, hi), given the 8 words (a, c) of
-// its sector: one of its bits is clear.
-__device__ __forceinline__ bool sector_holds(uint4 a, uint4 c, uint32_t lo,
-                                             uint32_t hi) {
+  const uint4 a = __ldg(f.sectors + 2 * s);
+  const uint4 c = __ldg(f.sectors + 2 * s + 1);
   const uint32_t words[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
   const uint32_t salts[8] = {0x47B6137Bu, 0x44974D91u, 0x8824AD5Bu,
                              0xA2B7289Du, 0x705495C7u, 0x2DF1424Bu,
@@ -54,14 +51,6 @@ __device__ __forceinline__ bool sector_holds(uint4 a, uint4 c, uint32_t lo,
 #pragma unroll
   for (int i = 0; i < 8; ++i) all &= words[i] >> ((hb * salts[i]) >> 27);
   return all & 1u;
-}
-
-// False when the table surely lacks (lo, hi); true without a filter.
-__device__ __forceinline__ bool may_hold(const KeyFilter& f, uint32_t lo,
-                                         uint32_t hi) {
-  if (!f.n_sectors) return true;
-  const uint4* s = filter_sector(f, lo, hi);
-  return sector_holds(__ldg(s), __ldg(s + 1), lo, hi);
 }
 
 }  // namespace kan

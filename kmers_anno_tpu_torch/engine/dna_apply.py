@@ -11,8 +11,8 @@ Dataflow:
             complement of each contig as its own stream entry, and compute
             window validity (no ambiguous base, window inside its entry)
     device: upload codes and validity, one probe launch a genome
-            (``ops.dna_probe``: the 2-bit pack and the 8-slot table walk),
-            download one int32 payload array
+            (``ops.dna_probe``: the 2-bit pack, the table's key filter and
+            the 8-slot table walk), download one int32 payload array
     host:   cluster hit windows into regions: consecutive same-role hits
             at most ``max_gap`` window starts apart merge; a cluster with
             at least ``min_hits`` hits (weighted: a summed weight of at
@@ -169,7 +169,9 @@ class DnaApplyEngine:
     weighted=True probes packed (fp16 weight, role) payloads and calls a
     cluster whose summed hit weight is at least ``min_weight`` (default:
     ``min_hits``), the positional analogue of the weighted protein vote.
-    The 8-slot table is built on the host and stays on the device.
+    The 8-slot table is built on the host and stays on the device, with
+    its key filter (``ops.key_filter``, ``key_filter``), which the probe
+    reads in front of the walk.
     """
 
     def __init__(self, signatures: SignatureTable, min_hits: int = 5,
@@ -188,6 +190,7 @@ class DnaApplyEngine:
                                 else min_weight)
         self.table, self.max_probes = signatures.device_table(
             packed_weights=weighted, device=self.device)
+        self.key_filter = signatures.device_key_filter(device=self.device)
         self.role_ids = signatures.role_ids
 
     def prepare(self, genome: Genome) -> DnaContigBatch:
@@ -203,7 +206,8 @@ class DnaApplyEngine:
         codes = torch.from_numpy(batch.codes).to(self.device)
         valid = torch.from_numpy(batch.valid).to(self.device)
         vals = probe_dna_flat(self.table, codes, valid, k=self.k,
-                              max_probes=self.max_probes).cpu().numpy()
+                              max_probes=self.max_probes,
+                              key_filter=self.key_filter).cpu().numpy()
         return cluster_calls(genome, batch, vals, self.k, self.max_gap,
                              self.min_hits, self.role_ids,
                              weighted=self.weighted,

@@ -40,7 +40,7 @@ import torch
 from .. import kernels
 from .encode import PROT_PAD
 from .hashtable import BUCKET, probe_table
-from .key_filter import SECTOR_WORDS
+from .key_filter import check_filter, filter_args
 from .kmers import MAX_K, pack_kmer_windows
 from .vote import pick_weighted_vote, split_packed_payload
 from .widetable import check_table
@@ -69,19 +69,6 @@ def _check_args(what, table, codes, seg_ids, valid, k, max_probes,
     devs = {t.device for t in (table, codes, seg_ids, valid)}
     if len(devs) != 1:
         raise ValueError(f"{what}: arguments span devices {devs}")
-
-
-def _check_filter(what, key_filter, table) -> None:
-    if key_filter is None:
-        return
-    if (key_filter.dtype != torch.int32 or key_filter.dim() != 2
-            or key_filter.shape[1] != SECTOR_WORDS
-            or key_filter.shape[0] < 1):
-        raise ValueError(f"{what}: key_filter must be a (sectors, "
-                         f"{SECTOR_WORDS}) int32 tensor")
-    if key_filter.device != table.device:
-        raise ValueError(f"{what}: key_filter lies on {key_filter.device}, "
-                         f"the table on {table.device}")
 
 
 def _out_of_order(what) -> ValueError:
@@ -135,14 +122,6 @@ def _launchable(what, table, codes, seg_ids, valid, key_filter) -> None:
                          "aligned")
 
 
-def filter_args(key_filter) -> tuple:
-    """The C entry points' (filter pointer, sector count); (None, 0): no
-    filter, every window walks."""
-    if key_filter is None:
-        return None, 0
-    return key_filter.data_ptr(), key_filter.shape[0]
-
-
 def apply_flat(table: torch.Tensor, codes: torch.Tensor,
                seg_ids: torch.Tensor, valid: torch.Tensor, min_hits: int, *,
                k: int, max_probes: int, n_seqs: int,
@@ -163,7 +142,7 @@ def apply_flat(table: torch.Tensor, codes: torch.Tensor,
     """
     _check_args("apply_flat", table, codes, seg_ids, valid, k, max_probes,
                 n_seqs)
-    _check_filter("apply_flat", key_filter, table)
+    check_filter("apply_flat", key_filter, table)
     if table.device.type == "cpu":
         return apply_flat_plain(table, codes, seg_ids, valid, min_hits, k=k,
                                 max_probes=max_probes, n_seqs=n_seqs)
@@ -227,7 +206,7 @@ def apply_weighted_flat(table: torch.Tensor, codes: torch.Tensor,
     """
     what = "apply_weighted_flat"
     _check_args(what, table, codes, seg_ids, valid, k, max_probes, n_seqs)
-    _check_filter(what, key_filter, table)
+    check_filter(what, key_filter, table)
     if not 1 <= n_roles <= _MAX_ROLES:
         raise ValueError(f"{what}: n_roles must be in 1..{_MAX_ROLES}, got "
                          f"{n_roles}")

@@ -12,12 +12,12 @@ hold only unambiguous codes and is still invalid, so the probe honours
 
 A CUDA tensor launches ``csrc/dna_probe.cu``: a block a tile of
 ``KERNEL_TILE`` window starts staged in shared memory, a rolling 2-bit
-pack, several home-bucket reads in flight and the walk of
+pack of each thread's run of windows, and the walk of
 ``bucket_probe.cuh`` (``kan_dna_probe``; ``kan_dna_probe_filtered`` with
-the table's key filter, ``ops.key_filter``, in front of the lookup).  A
-CPU tensor takes :func:`probe_dna_plain`, the reference's composition in
-torch, which reads no filter: a Bloom filter has no false negatives, so it
-changes no output.
+the table's key filter, ``ops.key_filter``, in front of the walk, as
+``DnaApplyEngine`` calls it).  A CPU tensor takes :func:`probe_dna_plain`,
+the reference's composition in torch, which reads no filter: a Bloom
+filter has no false negatives, so it changes no output.
 """
 
 from __future__ import annotations
@@ -25,9 +25,9 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .apply_flat import _check_filter, filter_args
 from .dna_kmers import _check_k, pack_dna_windows
 from .hashtable import BUCKET, probe_table
+from .key_filter import check_filter, filter_args
 from .widetable import check_table
 
 # window starts a block of the kernel takes (csrc/dna_probe.cu kTile)
@@ -72,7 +72,7 @@ def probe_dna(table: torch.Tensor, codes: torch.Tensor, valid: torch.Tensor,
     kernel or raises.
     """
     _check_args(table, codes, valid, k, max_probes)
-    _check_filter("probe_dna", key_filter, table)
+    check_filter("probe_dna", key_filter, table)
     if table.device.type == "cpu":
         return probe_dna_plain(table, codes, valid, k=k,
                                max_probes=max_probes)

@@ -1,5 +1,7 @@
 """A split-block Bloom filter of an 8-slot table's keys, read in front of
-the table walk of the flat-stream apply kernels (``csrc/apply_flat.cu``).
+the table walk of the flat-stream apply kernels (``csrc/apply_flat.cu``)
+and of the DNA window probe (``csrc/dna_probe.cu``), through
+``csrc/key_filter.cuh``.
 
 A table past one wide table is 100 MB or more, past the card's 50 MB L2,
 and most kmer windows of a protein miss it; without the filter each miss
@@ -17,7 +19,8 @@ The filter is a separate array beside the table: the table's bytes stay
 those of ``ops.hashtable.build_table``.  It is built once, in torch on the
 table's device, from the table's keys (setting bits is order-free, so any
 key order gives the same bits).  :func:`may_hold` is the plain-torch check
-the kernels make, for the tests and the measurements.
+the kernels make, for the tests and the measurements; :func:`check_filter`
+and :func:`filter_args` are the wrappers' checks and C arguments.
 """
 
 from __future__ import annotations
@@ -85,3 +88,26 @@ def may_hold(key_filter: torch.Tensor, lo: torch.Tensor,
         pos = mul32(hb, salt) >> 27
         held &= ((words[sector * SECTOR_WORDS + i] >> pos) & 1).bool()
     return held
+
+
+def check_filter(what, key_filter, table) -> None:
+    """Raise unless ``key_filter`` is None or a (sectors, 8) int32 filter
+    on the table's device."""
+    if key_filter is None:
+        return
+    if (key_filter.dtype != torch.int32 or key_filter.dim() != 2
+            or key_filter.shape[1] != SECTOR_WORDS
+            or key_filter.shape[0] < 1):
+        raise ValueError(f"{what}: key_filter must be a (sectors, "
+                         f"{SECTOR_WORDS}) int32 tensor")
+    if key_filter.device != table.device:
+        raise ValueError(f"{what}: key_filter lies on {key_filter.device}, "
+                         f"the table on {table.device}")
+
+
+def filter_args(key_filter) -> tuple:
+    """A kernel entry point's (filter pointer, sector count); (None, 0):
+    no filter, every window walks."""
+    if key_filter is None:
+        return None, 0
+    return key_filter.data_ptr(), key_filter.shape[0]

@@ -960,8 +960,10 @@ def test_dna_engine_on_cuda_matches_cpu(cuda, weighted, monkeypatch):
         raise AssertionError("the plain version ran on the card")
 
     monkeypatch.setattr(dna_probe_mod, "probe_dna_plain", refuse)
+    engine = DnaApplyEngine(table, **kw, device=cuda)
+    assert engine.key_filter.device == engine.table.device
     before = probe_dna.launches
-    got = DnaApplyEngine(table, **kw, device=cuda).call_genome(genomes[2])
+    got = engine.call_genome(genomes[2])
     assert probe_dna.launches == before + 1
 
     def key(calls):

@@ -19,6 +19,8 @@ import torch
 from chip_smoke import dna_stream_tensors, dna_streams, dna_wrap_table
 from kmers_anno_tpu.engine import dna_apply as ref_dna
 from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+from kmers_anno_tpu_torch.engine.dna_apply import DnaApplyEngine
+from kmers_anno_tpu_torch.engine.signature import SignatureTable
 from kmers_anno_tpu_torch.ops.dna_kmers import pack_dna_np
 from kmers_anno_tpu_torch.ops.dna_probe import probe_dna
 from kmers_anno_tpu_torch.ops.hashtable import build_table
@@ -97,3 +99,30 @@ def test_probe_rejects_a_bad_filter():
     with pytest.raises(ValueError, match="key_filter lies on meta"):
         probe_dna(t, codes, valid, k=8, max_probes=mp,
                   key_filter=key_filter.to("meta"))
+
+
+def test_engine_holds_the_key_filter_beside_its_table():
+    """``DnaApplyEngine`` keeps the filter of its table's keys on its
+    device and probes through it: the payloads equal the reference's."""
+    rng = np.random.default_rng(3)
+    seq = rng.integers(0, 4, 5_000).astype(np.uint8)
+    lo, hi = pack_dna_np(seq, 11)
+    lo, idx = np.unique(lo, return_index=True)
+    table = SignatureTable(k=11, key_lo=lo, key_hi=hi[idx],
+                           role_idx=(idx % 7).astype(np.int32),
+                           alphabet="dna",
+                           role_ids=[f"Role{r}" for r in range(7)])
+    engine = DnaApplyEngine(table, device="cpu")
+    words = engine.table.numpy().view(np.uint32)
+    assert torch.equal(engine.key_filter,
+                       build_key_filter(*table_keys(words)))
+    assert engine.key_filter.device == engine.table.device
+    codes = torch.from_numpy(seq)
+    valid = torch.ones(len(seq), dtype=torch.bool)
+    valid[-10:] = False
+    got = probe_dna(engine.table, codes, valid, k=11,
+                    max_probes=engine.max_probes,
+                    key_filter=engine.key_filter)
+    want = reference_probe(words, seq, valid.numpy(), 11, engine.max_probes)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int((got >= 0).sum()) == len(seq) - 10
