@@ -117,6 +117,25 @@ stream (the 100.7 MB table) the kernel also runs with the key filter and
 without in turns, beside the filter's false-positive share and a
 same-shape gather (``torch.index_select`` of one 32-byte lo-key sector a
 valid window).
+Then several devices, every member on the one card.  ``probe_keys``
+(``kan_probe_keys``, the mesh shards' key lookup) is held to its plain
+version (``probe_table``) bit for bit on tables with equal-lo buckets and
+wrapping walks (``keys_cases``).  ``MeshApplyEngine`` runs the big-table
+phase's 10M-key table and bench.py's 262,144 proteins as 8 genomes of
+32,768 in every mode of ``MESH_MODES`` (replicated 4x1, pmax 2x2, routed
+2x2 and 1x4, a routed 2x2 whose routing capacity overflows and re-runs,
+weighted routed 2x2 and weighted replicated 2x1): calls equal to the
+single-device engine's, weighted tallies bit for bit; proteins/s over
+five runs; the split of one routed call; ``probe_keys`` on the keys a
+routed member receives against its plain version and its bound.
+``DnaMeshApplyEngine`` (2x1 and 1x2) runs the DNA bench genomes and the
+DNA CLI genome against ``DnaApplyEngine`` (contig bases/s).  Through the
+CLI, after the ``.kdb`` run: ``apply --mesh 1x1`` in one process and
+``--mesh 2x1`` in two processes joined on gloo by the ``KAN_*``
+variables, in turns, three runs each, every primary report equal to
+plain ``apply``'s and the secondary's the header alone; and ``batch
+--data-parallel 2`` and ``hashAnno --batch 2 --data-parallel 2`` (one
+lane: one card) against their sequential runs.
 Each kernel's row also gives its bound (``bound_ms``): the larger of the
 bytes its work needs over the card's memory rate (inputs read once,
 outputs written once, and of a table the lo-key block of each row the
@@ -166,6 +185,7 @@ and the port (``kmers_anno_tpu_torch``), never jax.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import io
 import json
@@ -741,6 +761,7 @@ class _Launches:
         from kmers_anno_tpu_torch.ops.dna_probe import probe_dna
         from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best,
                                                          hash_commons)
+        from kmers_anno_tpu_torch.ops.probe_keys import probe_keys
         from kmers_anno_tpu_torch.ops.widetable import probe_wide
 
         self.wrappers = {"contig_scan": scan_stream,
@@ -750,7 +771,8 @@ class _Launches:
                          "hash_best": hash_best,
                          "apply_flat": apply_flat,
                          "apply_flat_weighted": apply_weighted_flat,
-                         "dna_probe": probe_dna}
+                         "dna_probe": probe_dna,
+                         "probe_keys": probe_keys}
         self.projection = projection
         self.counts: dict = {}
         self.fused_calls = 0
@@ -2358,7 +2380,7 @@ def filter_turns(what, launch, with_filter, without) -> dict:
                 filter_turns=turns)
 
 
-def run_big_table(dev) -> tuple[dict, dict, dict]:
+def run_big_table(dev, keep: dict) -> tuple[dict, dict, dict]:
     """BASELINE config 4's table size: ``make_bench_workload``'s construction
     at 10M keys (seed 7), an 8-slot table of about 403 MB with its key
     filter, and bench.py's 32 x 8,192 proteins of 300 aa
@@ -2370,7 +2392,8 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
     proteins and on all of them, bit for bit against its plain version
     (dense, and role blocks) on the card and against a CPU run on a
     sample.  Returns the runs' launches, both kernels' measurements and
-    their ``--compare`` cases."""
+    their ``--compare`` cases; leaves both tables, their engines and the
+    proteins in ``keep["big"]`` for the mesh phase."""
     from kmers_anno_tpu_torch.engine.apply_engine import (FlatBatch,
                                                           KmerApplyEngine)
     from kmers_anno_tpu_torch.engine.signature import SignatureTable
@@ -2398,6 +2421,7 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
     engine_s, engine = host_seconds(
         lambda: KmerApplyEngine(table, min_hits=MIN_HITS, device=dev))
     filter_s, _ = host_seconds(lambda: table.device_key_filter(device=dev))
+    keep["big"] = dict(table=table, engine=engine, prots=prots)
     mp = engine.max_probes
     key_filter = engine.key_filter
     require(engine.mode == "flat" and key_filter is not None,
@@ -2505,6 +2529,7 @@ def run_big_table(dev) -> tuple[dict, dict, dict]:
     w_engine = KmerApplyEngine(w_table, min_hits=MIN_HITS, weighted=True,
                                device=dev)
     require(w_engine.mode == "flat", "the weighted big table is not flat")
+    keep["big"].update(w_table=w_table, w_engine=w_engine)
     require(torch.equal(w_engine.key_filter, key_filter),
             "the weighted table's key filter differs")
     dense_prots = prots[:BENCH_PROTEINS]
@@ -2739,7 +2764,7 @@ def run_big_kdb_cli(dev, tmp: str, ctx: dict) -> dict:
                                  rng.choice(base.role_idx, n_fill)]),
         role_ids=base.role_ids)
     require(not fits_wide(len(big)), "the .kdb fits one wide table")
-    kdb = os.path.join(tmp, "big.kdb")
+    kdb = ctx["kdb"] = os.path.join(tmp, "big.kdb")
     big.save(kdb)
     make_s = time.perf_counter() - t0
     out = os.path.join(tmp, "verify_big.tbl")
@@ -3884,7 +3909,7 @@ def dna_report(engine, genomes, fmt, use_file) -> str:
     return out.getvalue()
 
 
-def run_dna_cli(dev, tmp: str) -> tuple[dict, dict, dict]:
+def run_dna_cli(dev, tmp: str, keep: dict) -> tuple[dict, dict, dict]:
     """``build --dna`` (k = 15) through the CLI on four bacterial-size
     genomes (``make_dna_signature_genomes``, seed 0), unweighted and with
     ``--weights balance``; then ``apply`` in both formats, and
@@ -3894,7 +3919,8 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict, dict]:
     ``native.dna_baseline``'s; the kernel equals its plain version on the
     genome's stream, with the table's key filter too.  Returns each apply
     run's launch counts, the kernel's times on that stream and the
-    ``--compare`` cases of the unweighted table's stream."""
+    ``--compare`` cases of the unweighted table's stream; leaves the
+    unweighted table and the fifth genome in ``keep["dna_cli"]``."""
     from kmers_anno_tpu_torch.commands.app import main
     from kmers_anno_tpu_torch.engine.dna_apply import DnaApplyEngine
     from kmers_anno_tpu_torch.engine.signature import SignatureTable
@@ -3937,6 +3963,7 @@ def run_dna_cli(dev, tmp: str) -> tuple[dict, dict, dict]:
         build_s = time.perf_counter() - t0
         require(rc == 0, f"build --dna --weights {weights} exited with {rc}")
         table = tables[weights] = SignatureTable.load(db)
+        keep.setdefault("dna_cli", (table, target))
         require(table.alphabet == "dna" and table.k == DNA_K,
                 f"build --dna wrote a {table.alphabet} table of k {table.k}")
         require(weights == "none" or table.weights is not None,
@@ -4121,7 +4148,7 @@ def dna_filter_and_floor(what, table, codes, valid, max_probes, key_filter,
     return dict(stats, **turns, gather_floor_ms=floor_ms)
 
 
-def run_dna_bench(dev) -> tuple[dict, dict, dict]:
+def run_dna_bench(dev, keep: dict) -> tuple[dict, dict, dict]:
     """bench.py's DNA shape (``bench_dna``, generator copied, seed 7): a
     2M-key k = 15 table of one random sequence's windows, roles drawn from
     2,000; 4 contigs of 4,000,000 random bases, each a genome of one
@@ -4129,7 +4156,8 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
     its plain version and its hits ``native.dna_baseline`` on every
     contig; contig bases/s over five runs; a split of one call; the
     kernel alone against its bound, with the engine's key filter (the
-    engine's path) and without."""
+    engine's path) and without.  Leaves the table and the genomes in
+    ``keep["dna_bench"]``."""
     from kmers_anno_tpu_torch.engine.dna_apply import (DnaApplyEngine,
                                                        cluster_calls)
     from kmers_anno_tpu_torch.engine.signature import SignatureTable
@@ -4156,6 +4184,7 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
                        "subsystems": [],
                        "contigs": [{"id": "c1", "dna": decode_dna(c)}]})
                for i, c in enumerate(contigs)]
+    keep["dna_bench"] = (table, genomes)
     engine_s, engine = host_seconds(lambda: DnaApplyEngine(
         table, min_hits=MIN_HITS, max_gap=DNA_MAX_GAP, device=dev))
     batches = [engine.prepare(g) for g in genomes]
@@ -4256,15 +4285,16 @@ def run_dna_bench(dev) -> tuple[dict, dict, dict]:
     return runs, measured, cases
 
 
-def run_dna(dev, tmp: str) -> tuple[dict, dict, dict]:
+def run_dna(dev, tmp: str, keep: dict) -> tuple[dict, dict, dict]:
     """DNA mode: the probe kernel on made-up streams, the CLI at bacterial
     size, and bench.py's DNA shape.  Returns the launch counts by route,
     the ``dna_probe`` row's numbers (the bench shape's, with the CLI
     genome's as ``cli_*``) and the ``--compare`` cases (the bench contigs
-    and the CLI genome, each with the key filter and without)."""
+    and the CLI genome, each with the key filter and without); leaves the
+    CLI genome's and the bench shape's tables and genomes in ``keep``."""
     check_dna_probe(dev)
-    runs, cli, cases = run_dna_cli(dev, tmp)
-    bench_runs, measured, bench_cases = run_dna_bench(dev)
+    runs, cli, cases = run_dna_cli(dev, tmp, keep)
+    bench_runs, measured, bench_cases = run_dna_bench(dev, keep)
     runs.update(bench_runs)
     cases.update(bench_cases)
     for weights, row in cli.items():
@@ -4277,6 +4307,615 @@ def run_dna(dev, tmp: str) -> tuple[dict, dict, dict]:
         measured["max_abs_err"] = max(measured["max_abs_err"],
                                       row["max_abs_err"])
     return runs, measured, cases
+
+
+# ---------------------------------------------------------------------------
+# several devices: apply --mesh and the --data-parallel lanes
+# ---------------------------------------------------------------------------
+
+MESH_GENOMES = 8                 # bench.py's 262,144 proteins as 8 genomes
+MESH_RETRY_FACTOR = 0.25         # a routing capacity the keys overflow
+# processes of the CLI mesh runs, in turns (1: --mesh 1x1, 2: --mesh 2x1)
+PROCESS_TURNS = (1, 2, 2, 1, 1, 2)
+PROCESS_TIMEOUT = 600
+# (route, n_data, n_table, mode, weighted, capacity_factor); the members
+# are all the one card
+MESH_MODES = (
+    ("mesh_replicated", 4, 1, "replicated", False, None),
+    ("mesh_pmax", 2, 2, "pmax", False, None),
+    ("mesh_routed", 2, 2, "routed", False, None),
+    ("mesh_routed_1x4", 1, 4, "routed", False, None),
+    ("mesh_retry", 2, 2, "routed", False, MESH_RETRY_FACTOR),
+    ("mesh_weighted", 2, 2, "routed", True, None),
+    ("mesh_weighted_replicated", 2, 1, "replicated", True, None),
+)
+
+
+def launch_probe_keys(lib, table, lo, hi, valid, max_probes, key_filter):
+    """probe_keys through a kernel library's C entry point (uncounted)."""
+    from kmers_anno_tpu_torch.ops.key_filter import filter_args
+
+    out = torch.empty(lo.shape, dtype=torch.int32, device=lo.device)
+    err = lib.kan_probe_keys(
+        table.data_ptr(), table.shape[0], max_probes,
+        *filter_args(key_filter), lo.data_ptr(), hi.data_ptr(),
+        None if valid is None else valid.data_ptr(), lo.numel(),
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_probe_keys returned CUDA error {err}")
+    return out
+
+
+launch_probe_keys.entry = "kan_probe_keys"
+
+
+def keys_bound(table, lo, hi, valid, max_probes, ms) -> dict:
+    """probe_keys' bound, each input read once: a key's lo word, a valid
+    key's hi word, the flag byte where flags are given, the output (4 B a
+    key), the 32-byte lo-key sector of every distinct bucket the lookups
+    read and the hi-key and payload sectors of every distinct bucket
+    holding a hit (64 B).  Operations: a valid key's hash, 16 a bucket
+    read (``bucket_reads``).  The key filter is not counted: the function
+    does not need it."""
+    v = lo != -1 if valid is None else valid
+    hit_seen = torch.zeros(table.shape[0], dtype=torch.bool,
+                           device=table.device)
+    n_buckets, reads, hits = bucket_reads(table, lo, hi, v, max_probes,
+                                          hit_seen=hit_seen)
+    n_valid = int(v.sum())
+    n_bytes = (8 * lo.numel() + 4 * n_valid
+               + (0 if valid is None else valid.numel()) + 32 * n_buckets
+               + HIT_BUCKET_BYTES * int(hit_seen.sum()))
+    n_ops = HASH_KEY_OPS * n_valid + HASH_BUCKET_OPS * reads
+    return dict(bound(n_bytes, n_ops, ms), keys=n_valid, buckets=n_buckets,
+                bucket_reads=reads, hits=hits)
+
+
+def keys_cases(rng):
+    """8-slot tables whose buckets hold several keys of one lo word and
+    whose walks wrap from the last bucket to bucket 0, with queries: the
+    table's keys, keys of its lo words that it lacks, and random keys.
+    Yields (name, table, max_probes, query lo, query hi) as numpy."""
+    from kmers_anno_tpu_torch.ops.hashtable import build_table
+    from kmers_anno_tpu_torch.ops.key_filter import table_keys
+
+    _, _, _, (klo, khi, vals), (qlo, qhi, _) = collision_table(rng, 3001)
+    table, mp = build_table(klo, khi, vals, n_buckets=32)
+    require(mp >= 2, "the collision table's walks never leave home")
+    yield "collision_table", table, mp, qlo, qhi
+    for case in ("k8_collide_wrap", "k12_collide_wrap"):
+        _, table, mp = flat_case(rng, n_roles=5, **FLAT_EDGES[case])
+        tlo, thi = table_keys(table)
+        n = 2 * len(tlo) + 37
+        yield (case, table, mp,
+               np.concatenate([tlo, rng.integers(0, 1 << 30, n).astype(
+                   np.uint32)]),
+               np.concatenate([thi, rng.integers(0, 1 << 30, n).astype(
+                   np.uint32)]))
+
+
+def check_probe_keys(dev) -> None:
+    """``probe_keys`` against its plain version (``probe_table``) bit for
+    bit on ``keys_cases``' tables, with one key in ten an empty slot
+    (EMPTY), validity given (70% valid) and taken from the keys, with the
+    table's key filter and without; every key of each table found; an
+    empty query launches nothing."""
+    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+    from kmers_anno_tpu_torch.ops.key_filter import (build_key_filter,
+                                                     table_keys)
+    from kmers_anno_tpu_torch.ops.probe_keys import (probe_keys,
+                                                     probe_keys_plain)
+
+    rng = np.random.default_rng(SEED + 12)
+    n_checks = 0
+    for name, table, mp, qlo, qhi in keys_cases(rng):
+        qlo = qlo.copy()
+        qlo[rng.random(len(qlo)) < 0.1] = 0xFFFFFFFF
+        d_table = wide_table_from_numpy(table, dev)
+        key_filter = build_key_filter(*table_keys(table), dev)
+        lo, hi = (torch.from_numpy(a.view(np.int32)).to(dev)
+                  for a in (qlo, qhi))
+        for valid in (None, torch.from_numpy(rng.random(len(qlo)) < 0.7
+                                             ).to(dev)):
+            want = probe_keys_plain(d_table, lo, hi, valid, max_probes=mp)
+            for filt in (None, key_filter):
+                before = probe_keys.launches
+                got = probe_keys(d_table, lo, hi, valid, max_probes=mp,
+                                 key_filter=filt)
+                torch.cuda.synchronize()
+                require(probe_keys.launches == before + 1,
+                        f"probe_keys on {name} did not launch once")
+                require(torch.equal(got, want), f"probe_keys differs from "
+                        f"its plain version on {name} (valid "
+                        f"{'given' if valid is not None else 'from keys'}, "
+                        f"filter {filt is not None})")
+                n_checks += 1
+        used = table[:, :8] != 0xFFFFFFFF
+        keys = [torch.from_numpy(table[:, o: o + 8][used].view(
+            np.int32)).to(dev) for o in (0, 8)]
+        found = probe_keys(d_table, *keys, None, max_probes=mp,
+                           key_filter=key_filter)
+        require(torch.equal(found.cpu(), torch.from_numpy(
+            table[:, 16:24][used].view(np.int32))),
+                f"probe_keys misses a key of {name}")
+    before = probe_keys.launches
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    require(probe_keys(d_table, empty, empty, None, max_probes=mp).numel()
+            == 0 and probe_keys.launches == before,
+            "an empty query launched probe_keys")
+    print(f"probe_keys: {n_checks} checks bit for bit against probe_table "
+          f"on tables with equal-lo buckets and wrapping walks (EMPTY "
+          f"slots, validity given and from the keys, key filter on and "
+          f"off); every table key found", flush=True)
+
+
+def mesh_genomes(prots: list[str]) -> list:
+    """``prots`` as MESH_GENOMES genomes of equal peg counts."""
+    from kmers_anno_tpu_torch.genome.gto import Genome
+
+    per = len(prots) // MESH_GENOMES
+    genomes = []
+    for g in range(MESH_GENOMES):
+        gid = f"930{g}.1"
+        feats = [{"id": f"fig|{gid}.peg.{i + 1}", "type": "CDS",
+                  "function": "", "protein_translation": p,
+                  "location": [["c1", str(1000 * i + 1), "+", 3 * len(p)]],
+                  "annotations": [], "aliases": []}
+                 for i, p in enumerate(prots[g * per: (g + 1) * per])]
+        genomes.append(Genome({
+            "id": gid, "scientific_name": f"Mesh {g}", "genetic_code": 11,
+            "domain": "Bacteria", "features": feats, "contigs": [],
+            "close_genomes": [], "subsystems": []}))
+    return genomes
+
+
+def calls_of(pairs) -> list:
+    return [[(f.id, role, hits) for f, role, hits in calls]
+            for _, calls in pairs]
+
+
+class _Messages(logging.Handler):
+    """The log messages of one logger over a ``with`` block."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger = logging.getLogger(name)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.old_level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.old_level)
+        return False
+
+
+def mesh_tally_bits(engine, genomes) -> list:
+    """A weighted mesh engine's (roles, float32 tally bits) of each
+    genome's pegs, from its rows' results (its calls print the tallies to
+    4 places)."""
+    out = []
+    for c in range(0, len(genomes), engine.n_data):
+        chunk = [(g, g.pegs) for g in genomes[c: c + engine.n_data]]
+        roles, tally = engine.run_rows(*engine.encode_chunk(chunk))
+        out += [(roles[i][: len(g.pegs)].numpy(),
+                 tally[i][: len(g.pegs)].numpy().view(np.int32))
+                for i, (g, _) in enumerate(chunk)]
+    return out
+
+
+def routed_split(engine, chunk) -> tuple[dict, list]:
+    """One routed call on ``chunk`` in its parts, each timed on the host
+    and ending in a synchronise: host encode (FlatBatch and the split over
+    the table axis), upload, routing (pack, owner, rank and buffers on the
+    card), exchange copies, lookup kernels (``probe_keys``), votes
+    (partial tallies and their merge) and download.  Returns the seconds
+    by part and each row's (roles, hits)."""
+    from kmers_anno_tpu_torch.ops.encode import PROT_PAD
+    from kmers_anno_tpu_torch.ops.probe_keys import EMPTY_KEY, probe_keys
+    from kmers_anno_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh, nt, split = engine.mesh, engine.n_table, {}
+
+    def part(name, fn):
+        s, out = host_seconds(fn)
+        split[name] = split.get(name, 0.0) + s
+        return out
+
+    codes, seg_ids, valid, n_seqs = part(
+        "host encode", lambda: engine.encode_chunk(chunk))
+    rows = part("host encode", lambda: [
+        mesh_mod.split_tokens_for_table_axis(
+            codes[j], seg_ids[j], valid[j], nt, engine.k, n_seqs, PROT_PAD)
+        for j in range(codes.shape[0])])
+    cap = rows[0][0].shape[-1]
+    out = []
+    for r, i in enumerate(engine.rows_mine):
+        devs = mesh.devices[i]
+        placed = part("upload", lambda: [
+            [torch.from_numpy(rows[r][w][c]).to(devs[c]) for w in range(3)]
+            for c in range(nt)])
+        sent = part("routing", lambda: [mesh_mod.route_keys(
+            *placed[c], k=engine.k, n_table=nt, capacity=cap,
+            n_seqs=n_seqs)[:3] for c in range(nt)])
+        recv = part("exchange copies", lambda: [
+            [torch.cat([b[w][s].to(devs[s]) for b in sent])
+             for w in range(3)] for s in range(nt)])
+        vals = part("lookup kernels", lambda: [probe_keys(
+            engine.tables.on(mesh, i, s)[0], recv[s][0], recv[s][1], None,
+            max_probes=engine.max_probes,
+            key_filter=engine.tables.on(mesh, i, s)[1]) for s in range(nt)])
+        voted = part("votes", lambda: mesh_mod._unanimous(
+            [mesh_mod._partial_unanimous(vals[s], recv[s][0] != EMPTY_KEY,
+                                         recv[s][2], n_seqs)
+             for s in range(nt)], engine.min_hits, devs[0]))
+        out.append(part("download", lambda: [t.cpu() for t in voted]))
+    return split, out
+
+
+def routed_keys(engine, chunk):
+    """The keys member 0 of row 0 receives in a routed call on ``chunk``
+    (its shard's table and key filter with them): (table, lo, hi,
+    key_filter)."""
+    from kmers_anno_tpu_torch.ops.encode import PROT_PAD
+    from kmers_anno_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh, nt = engine.mesh, engine.n_table
+    codes, seg_ids, valid, n_seqs = engine.encode_chunk(chunk)
+    row = mesh_mod.split_tokens_for_table_axis(
+        codes[0], seg_ids[0], valid[0], nt, engine.k, n_seqs, PROT_PAD)
+    devs = mesh.devices[0]
+    sent = [mesh_mod.route_keys(
+        *(torch.from_numpy(row[w][c]).to(devs[c]) for w in range(3)),
+        k=engine.k, n_table=nt, capacity=row[0].shape[-1],
+        n_seqs=n_seqs)[:2] for c in range(nt)]
+    lo, hi = (torch.cat([b[w][0] for b in sent]) for w in range(2))
+    table, key_filter = engine.tables.on(mesh, 0, 0)
+    return table, lo, hi, key_filter
+
+
+def mesh_engine(table, n_data, n_table, mode, weighted, dev):
+    from kmers_anno_tpu_torch.engine.mesh_apply import MeshApplyEngine
+
+    return MeshApplyEngine(table, n_data, n_table, min_hits=MIN_HITS,
+                           mode=mode, weighted=weighted,
+                           devices=[dev] * (n_data * n_table))
+
+
+def run_mesh(dev, keep: dict) -> tuple[dict, dict, dict]:
+    """The mesh at BASELINE config 4's table size: the big-table phase's
+    10M-key table and bench.py's 262,144 proteins as 8 genomes of 32,768,
+    through ``MeshApplyEngine.call_genomes`` with every member on the one
+    card (``MESH_MODES``: replicated 4x1, pmax 2x2, routed 2x2 and 1x4, a
+    routed 2x2 whose capacity must overflow and re-run, weighted routed
+    2x2 and weighted replicated 2x1 with the fp16 weights of that phase).
+    Each mode's calls equal the single-device ``KmerApplyEngine``'s, and
+    the weighted modes' float32 tallies its bits (``mesh_tally_bits``);
+    proteins/s, median of 5; the split of one routed call; ``probe_keys`` on the keys a routed member receives,
+    against its plain version, its bound and alone.  Then
+    ``DnaMeshApplyEngine`` replicated 2x1 and sharded 1x2 on the DNA bench
+    genomes and the DNA CLI genome, against ``DnaApplyEngine``; contig
+    bases/s.  Returns the launches by route, the ``probe_keys`` row and
+    the ``--compare`` case."""
+    from kmers_anno_tpu_torch.engine.dna_apply import DnaApplyEngine
+    from kmers_anno_tpu_torch.engine.mesh_apply import DnaMeshApplyEngine
+    from kmers_anno_tpu_torch.ops.probe_keys import (probe_keys,
+                                                     probe_keys_plain)
+
+    check_probe_keys(dev)
+    big = keep["big"]
+    t0 = time.perf_counter()
+    genomes = mesh_genomes(big["prots"])
+    n_prot = sum(len(g.pegs) for g in genomes)
+    want = {}
+    for weighted in (False, True):
+        engine = big["w_engine" if weighted else "engine"]
+        want[weighted] = [[(f.id, role, hits) for f, role, hits
+                           in engine.call_genome(g)] for g in genomes]
+    w_engine = big["w_engine"]
+    single_bits = []
+    for g in genomes:
+        role, tally = w_engine._call_batches(len(g.pegs), w_engine
+                                             ._prepare_proteins(
+            [f.protein_translation for f in g.pegs]))
+        single_bits.append((role, tally.view(np.int32)))
+    n_called = sum(map(len, want[False]))
+    made_s = time.perf_counter() - t0
+    times = [host_seconds(lambda: [[(f.id, role, hits) for f, role, hits
+                                    in big["engine"].call_genome(g)]
+                                   for g in genomes])[0]
+             for _ in range(REPS)]
+    rates = sorted(n_prot / t for t in times)
+    print(f"mesh workload: {MESH_GENOMES} genomes x {n_prot // MESH_GENOMES} "
+          f"proteins on the {len(big['table'])}-key table, every member on "
+          f"{dev}; single-device calls {n_called} (weighted "
+          f"{sum(map(len, want[True]))}), made in {made_s:.1f} s; the "
+          f"single-device KmerApplyEngine.call_genome on these genomes "
+          f"{statistics.median(rates):.1f} proteins/s (median of {REPS}, "
+          f"range {rates[0]:.1f}-{rates[-1]:.1f})", flush=True)
+    routes, engines = {}, {}
+    for route, n_data, n_table, mode, weighted, factor in MESH_MODES:
+        layout = (n_table if mode != "replicated" else 1, n_data * n_table,
+                  weighted)
+        if layout not in engines:
+            build_s, engines[layout] = host_seconds(lambda: mesh_engine(
+                big["w_table" if weighted else "table"], n_data, n_table,
+                mode, weighted, dev))
+            print(f"mesh {n_data}x{n_table} {'weighted ' * weighted}"
+                  f"tables ({engines[layout].max_probes} probes) "
+                  f"built and placed in {build_s:.2f} s", flush=True)
+        # one table layout serves every mode of its shape (pmax and
+        # routed shard alike): only the step changes
+        engine = copy.copy(engines[layout])
+        engine.mode, engine.capacity_factor = mode, factor
+        with _Launches() as run, _Messages(
+                "kmers_anno_tpu_torch.engine.mesh_apply") as log:
+            got = calls_of(engine.call_genomes(genomes))
+        routes[route] = dict(launches=run.counts)
+        require(got == want[weighted], f"{route}: the mesh's calls differ "
+                "from the single-device engine's")
+        retries = sum("overflowed" in m for m in log.messages)
+        require(retries == (MESH_GENOMES // n_data if factor else 0),
+                f"{route}: {retries} routing re-runs")
+        if weighted:
+            got_bits = mesh_tally_bits(engine, genomes)
+            require(all(np.array_equal(a, b) for g, w in zip(
+                got_bits, single_bits) for a, b in zip(g, w)),
+                    f"{route}: the mesh's tallies differ from the "
+                    "single-device engine's in their bits")
+        times = [host_seconds(lambda: calls_of(engine.call_genomes(
+            genomes)))[0] for _ in range(REPS)]
+        rates = sorted(n_prot / t for t in times)
+        routes[route]["rate"] = statistics.median(rates)
+        print(f"mesh {route} ({n_data}x{n_table} {mode}"
+              f"{', weighted' if weighted else ''}"
+              f"{f', capacity factor {factor}, {retries} re-runs' if factor else ''}"
+              f"): calls equal the single-device engine's"
+              f"{', tallies bit for bit' if weighted else ''}; "
+              f"{statistics.median(rates):.1f} proteins/s (median of {REPS}"
+              f", range {rates[0]:.1f}-{rates[-1]:.1f}); launches "
+              f"{run.counts}", flush=True)
+    require(routes["mesh_routed"]["launches"]["probe_keys"]
+            == MESH_GENOMES * 2 and routes["mesh_pmax"]["launches"][
+                "probe_keys"] == MESH_GENOMES * 2
+            and routes["mesh_replicated"]["launches"]["apply_flat"]
+            == MESH_GENOMES
+            and routes["mesh_weighted_replicated"]["launches"][
+                "apply_flat_weighted"] == MESH_GENOMES,
+            "the mesh modes' launches differ from one a member a row")
+
+    routed = copy.copy(engines[(2, 4, False)])
+    routed.mode = "routed"
+    chunk = [(g, g.pegs) for g in genomes[:2]]
+    split, out = routed_split(routed, chunk)
+    codes, seg_ids, valid, n_seqs = routed.encode_chunk(chunk)
+    roles, hits = routed.run_rows(codes, seg_ids, valid, n_seqs)
+    require(all(torch.equal(o[0], roles[i]) and torch.equal(o[1], hits[i])
+                for i, o in enumerate(out)), "the split routed call differs")
+    print("mesh routed 2x2 call split (2 genomes, " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in split.items()) + ")", flush=True)
+
+    table, lo, hi, key_filter = routed_keys(routed, chunk)
+    mp = routed.max_probes
+    ms, got = timed(lambda: probe_keys(table, lo, hi, None, max_probes=mp,
+                                       key_filter=key_filter))
+    plain_ms, want_keys = timed(lambda: probe_keys_plain(
+        table, lo, hi, None, max_probes=mp))
+    require(torch.equal(got, want_keys), "probe_keys differs from its plain "
+            "version on the routed keys")
+    row = dict(ms=ms, plain_ms=plain_ms,
+               max_abs_err=max_abs_err([(got, want_keys)]))
+    row.update(keys_bound(table, lo, hi, None, mp, ms))
+    args = [(table, lo, hi, None, mp, key_filter)]
+    row = with_launch(row, launch_ms(launch_probe_keys, args))
+    row["unfiltered_launch_ms"] = launch_ms(launch_probe_keys,
+                                            [a[:-1] + (None,) for a in args])
+    print(f"probe_keys on the keys member 0 of a routed 2x2 row receives "
+          f"({lo.numel()} slots, {row['keys']} keys, {row['hits']} hits, "
+          f"{row['buckets']} distinct buckets of {table.shape[0]}, "
+          f"{row['bucket_reads']} bucket reads), bit for bit against "
+          f"probe_table: kernel {ms:.4f} ms through the wrapper, "
+          f"{row['launch_ms']:.4f} ms alone ({row['unfiltered_launch_ms']:.4f}"
+          f" without the key filter), plain {plain_ms:.4f} ms; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+          f"{row['bound_bytes']} B, {row['bound_ops']} int ops), share "
+          f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}",
+          flush=True)
+    cases = {"the routed keys": (launch_probe_keys, args)}
+
+    for name, (table, dna_genomes) in (
+            ("DNA bench genomes", keep["dna_bench"]),
+            ("DNA CLI genome", (keep["dna_cli"][0], [keep["dna_cli"][1]]))):
+        kw = dict(min_hits=MIN_HITS, max_gap=DNA_MAX_GAP)
+        single = DnaApplyEngine(table, device=dev, **kw)
+        want_dna = [[(f.id, f.location.strand, f.location.left,
+                      f.location.right, role, hits)
+                     for f, role, hits in single.call_genome(g)]
+                    for g in dna_genomes]
+        bases = sum(len(c.sequence) for g in dna_genomes for c in g.contigs)
+        times = [host_seconds(lambda: [single.call_genome(g)
+                                       for g in dna_genomes])[0]
+                 for _ in range(REPS)]
+        rates = sorted(bases / t for t in times)
+        print(f"dna single-device DnaApplyEngine.call_genome on the {name}: "
+              f"{statistics.median(rates):.1f} contig bases/s (median of "
+              f"{REPS}, range {rates[0]:.1f}-{rates[-1]:.1f})", flush=True)
+        for n_data, n_table in ((2, 1), (1, 2)):
+            route = f"mesh_dna_{'replicated' if n_table == 1 else 'sharded'}"
+            engine = DnaMeshApplyEngine(table, n_data, n_table,
+                                        devices=[dev] * 2, **kw)
+            with _Launches() as run:
+                got = [[(f.id, f.location.strand, f.location.left,
+                         f.location.right, role, hits)
+                        for f, role, hits in calls]
+                       for _, calls in engine.call_genomes(dna_genomes)]
+            require(got == want_dna, f"{route} on the {name} differs from "
+                    "DnaApplyEngine")
+            times = [host_seconds(lambda: list(engine.call_genomes(
+                dna_genomes)))[0] for _ in range(REPS)]
+            rates = sorted(bases / t for t in times)
+            # one launch a member a row, padding rows included
+            require(run.counts["dna_probe"] == -(-len(dna_genomes) // n_data)
+                    * n_data * n_table, f"{route} on the {name} launched "
+                    f"{run.counts}")
+            if name.startswith("DNA bench"):
+                routes[route] = dict(launches=run.counts,
+                                     rate=statistics.median(rates))
+            print(f"dna mesh {n_data}x{n_table} on the {name} "
+                  f"({len(dna_genomes)} genomes, {bases} bases; "
+                  f"{sum(map(len, got))} regions called, equal to "
+                  f"DnaApplyEngine): {statistics.median(rates):.1f} contig "
+                  f"bases/s (median of {REPS}, range {rates[0]:.1f}-"
+                  f"{rates[-1]:.1f}); launches {run.counts}", flush=True)
+    return routes, row, cases
+
+
+def process_env(**kan) -> dict:
+    """This process's environment for a CLI process started from the
+    repository's root, with the ``KAN_*`` variables given and no others."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KAN_")}
+    env.update(kan)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+def apply_processes(dev, n: int, args: list[str], outs: list[str]) -> float:
+    """``apply`` through the CLI in ``n`` processes (``--mesh 1x1`` in one,
+    ``--mesh 2x1`` in two joined by the ``KAN_*`` variables), each writing
+    its own report; host seconds from the first start to the last exit.
+    Every process is waited for, or killed at ``PROCESS_TIMEOUT``."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "kmers_anno_tpu_torch", "apply", "--mesh",
+           f"{n}x1", "--device", dev.type]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [*cmd, "-o", outs[rank], *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=process_env(KAN_COORDINATOR=f"127.0.0.1:{port}",
+                        KAN_NUM_PROCESSES=str(n), KAN_PROCESS_ID=str(rank))
+        if n > 1 else process_env(),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for rank in range(n)]
+    try:
+        errs = [p.communicate(timeout=PROCESS_TIMEOUT)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        require(p.returncode == 0, f"apply --mesh {n}x1, process {rank}, "
+                f"exited with {p.returncode}: {err[-2000:]}")
+    return secs
+
+
+def run_mesh_cli(dev, tmp: str, ctx: dict) -> None:
+    """``apply --mesh`` through the CLI on the signature genomes and the
+    4M-key ``.kdb`` of ``run_big_kdb_cli``: ``--mesh 1x1`` in one process
+    and ``--mesh 2x1`` in two processes on the one card (a data row each,
+    gloo between them), in turns, 3 runs each.  The one process's and the
+    primary's reports equal plain ``apply``'s byte for byte; the
+    secondary's holds the header alone.  Then the ``--data-parallel``
+    lanes on ``cuda`` (one lane a card: one here): ``batch
+    --data-parallel 2`` on two jobs of a 500-gene projection genome with 3
+    close genomes, and ``hashAnno --batch 2 --data-parallel 2`` on four
+    small signature genomes, byte for byte against their sequential
+    runs."""
+    from kmers_anno_tpu_torch.commands.app import main
+    from kmers_anno_tpu_torch.genome.gto import Genome
+
+    args = ["--format", "VERIFY", "-m", str(MIN_HITS), ctx["kdb"],
+            ctx["use_file"], ctx["gto_dir"]]
+    want = open(ctx["verify"]).read()
+    times = {1: [], 2: []}
+    for turn, n in enumerate(PROCESS_TURNS):
+        outs = [os.path.join(tmp, f"mesh{turn}.{rank}.tbl")
+                for rank in range(n)]
+        times[n].append(apply_processes(dev, n, args, outs))
+        require(open(outs[0]).read() == want, f"apply --mesh {n}x1 in {n} "
+                "process(es): the primary's report differs from plain "
+                "apply's")
+        if n == 2:
+            require(open(outs[1]).read().splitlines()
+                    == want.splitlines()[:1],
+                    "the secondary process wrote more than the header")
+    def spread(t):
+        return (f"{statistics.median(t):.4f} s a run (median of {len(t)}, "
+                f"range {min(t):.4f}-{max(t):.4f}: "
+                f"{', '.join(f'{x:.4f}' for x in t)})")
+
+    print(f"apply --mesh (CLI, .kdb of {KDB_KEYS} keys, {SIG_GENOMES} "
+          f"genomes, every process on {dev}): one process --mesh 1x1 "
+          f"{spread(times[1])}; two processes --mesh 2x1 {spread(times[2])} "
+          f"(turns "
+          f"{' '.join(map(str, PROCESS_TURNS))}; each run from the first "
+          f"start to the last exit, interpreter start, table load and "
+          f"kernel load included); reports equal plain apply's byte for "
+          f"byte, the secondary's the header alone", flush=True)
+
+    # -- the lanes --
+    dna, olds, new = make_projection_workload(np.random.default_rng(SEED),
+                                              500, 3)
+    outs = {}
+    for tag, extra in (("seq", []), ("lanes", ["--data-parallel", "2"])):
+        d = os.path.join(tmp, f"batch_{tag}")
+        os.makedirs(os.path.join(d, "cache"))
+        for gid, og in olds.items():
+            og.save(os.path.join(d, "cache", f"{gid}.gto"))
+        for i in range(2):
+            new.save(os.path.join(d, f"in{i}.gto"))
+        with open(os.path.join(d, "batch.tbl"), "w") as fh:
+            fh.writelines(f"in{i}.gto\tout{i}.gto\n" for i in range(2))
+        with _Launches() as run:
+            rc = main(["batch", "--cache", os.path.join(d, "cache"),
+                       "--device", str(dev), *extra,
+                       os.path.join(d, "batch.tbl")])
+        require(rc == 0, f"batch {extra} exited with {rc}")
+        outs[tag] = [features_of(Genome.load(os.path.join(d, f"out{i}.gto")))
+                     for i in range(2)]
+        require(run.counts["contig_scan"] == 2, f"batch {extra} launched "
+                f"{run.counts}")
+    require(outs["lanes"] == outs["seq"] and outs["seq"][0],
+            "batch --data-parallel 2 differs from the sequential batch")
+    genomes, _ = make_signature_genomes(np.random.default_rng(SEED + 3), 4,
+                                        200, 200, 2)
+    gto_dir = os.path.join(tmp, "lane_gtos")
+    os.makedirs(gto_dir)
+    for g in genomes:
+        g.save(os.path.join(gto_dir, f"{g.id}.gto"))
+    anno_file = os.path.join(tmp, "lane_annos.tbl")
+    with open(anno_file, "w") as fh:
+        fh.write("protein\tannotation\n")
+        fh.writelines(f"{f.protein_translation}\tLane role {i}\n"
+                      for i, f in enumerate(genomes[0].pegs[:300]))
+    files = {}
+    for tag, extra in (("seq", []), ("lanes", ["--data-parallel", "2"])):
+        out_dir = os.path.join(tmp, f"hash_{tag}")
+        rc = main(["hashAnno", "--batch", "2", "--device", str(dev), *extra,
+                   "-D", out_dir, anno_file, gto_dir])
+        require(rc == 0, f"hashAnno {extra} exited with {rc}")
+        files[tag] = {n: open(os.path.join(out_dir, n), "rb").read()
+                      for n in sorted(os.listdir(out_dir))}
+    require(files["lanes"] == files["seq"] and len(files["seq"]) == 5,
+            "hashAnno --data-parallel 2 differs from the sequential run")
+    print(f"lanes on {dev} (one a card, {torch.cuda.device_count()} here): "
+          f"batch --data-parallel 2 on 2 genomes of {len(dna)} bases "
+          f"({len(outs['seq'][0])} features each) and hashAnno --batch 2 "
+          f"--data-parallel 2 on 4 genomes ({len(files['seq'])} files) equal "
+          f"their sequential runs byte for byte", flush=True)
 
 
 def main() -> None:
@@ -4316,6 +4955,7 @@ def main() -> None:
             print("  ptxas:", line.strip(), flush=True)
 
     phases = []
+    keep: dict = {}     # workloads an earlier phase leaves for the mesh
 
     def phase(name, fn, *a):
         t0 = time.perf_counter()
@@ -4325,7 +4965,7 @@ def main() -> None:
 
     if args.dna_only:
         with tempfile.TemporaryDirectory() as tmp:
-            _, dna_measured, cases = phase("dna", run_dna, dev, tmp)
+            _, dna_measured, cases = phase("dna", run_dna, dev, tmp, keep)
         if args.compare:
             with tempfile.TemporaryDirectory() as tmp:
                 phase("compare", lambda: compare_contenders(
@@ -4349,12 +4989,13 @@ def main() -> None:
         routes.update(sig_routes)
         routes.update(phase("apply, big .kdb CLI", run_big_kdb_cli, dev,
                             tmp, sig_files))
+        phase("mesh CLI", run_mesh_cli, dev, tmp, sig_files)
     bench_routes, measured["apply_rows"], bench_cases = phase(
         "apply bench shape", run_bench_shape, dev)
     routes.update(bench_routes)
     cases.update(bench_cases)
     big_routes, big_measured, big_cases = phase("apply, big table",
-                                                run_big_table, dev)
+                                                run_big_table, dev, keep)
     routes.update(big_routes)
     measured.update(big_measured)
     cases.update(big_cases)
@@ -4371,9 +5012,14 @@ def main() -> None:
     cases.update(cli_cases)
     with tempfile.TemporaryDirectory() as tmp:
         dna_routes, measured["dna_probe"], dna_cases = phase(
-            "dna", run_dna, dev, tmp)
+            "dna", run_dna, dev, tmp, keep)
     routes.update(dna_routes)
     cases.update(dna_cases)
+    mesh_routes, measured["probe_keys"], mesh_cases = phase(
+        "mesh", run_mesh, dev, keep)
+    routes.update(mesh_routes)
+    cases.update(mesh_cases)
+    del keep
     if args.compare:
         with tempfile.TemporaryDirectory() as tmp:
             phase("compare", lambda: compare_contenders(
@@ -4416,16 +5062,28 @@ def main() -> None:
         # the flat-stream path of tables past one wide table: the 10M-key
         # bench table's call_proteins and the CLI's 4M-key .kdb; weighted,
         # the call in role blocks and the dense 8,192-protein call
+        # (and the mesh's replicated rows, one launch a row)
         row("apply_flat", "apply_flat", "csrc/apply_flat.cu",
-            "engine/apply_engine.py:61", "big", ("big", "big_cli")),
+            "engine/apply_engine.py:61", "big",
+            ("big", "big_cli", "mesh_replicated")),
         row("apply_flat_weighted", "apply_flat_weighted",
             "csrc/apply_flat.cu", "engine/apply_engine.py:104",
-            "big_weighted", ("big_weighted", "big_dense")),
+            "big_weighted",
+            ("big_weighted", "big_dense", "mesh_weighted_replicated")),
         # DNA mode: the CLI apply in both formats, weighted, and the bench
-        # shape's calls (one launch a genome)
+        # shape's calls (one launch a genome), and the DNA mesh's (one a
+        # member a row)
         row("dna_probe", "dna_probe", "csrc/dna_probe.cu",
             "engine/dna_apply.py:49", "dna_verify",
-            ("dna_verify", "dna_apply", "dna_weighted", "dna_bench")),
+            ("dna_verify", "dna_apply", "dna_weighted", "dna_bench",
+             "mesh_dna_replicated", "mesh_dna_sharded")),
+        # the mesh's table shards: routed (the keys a member receives) and
+        # pmax (every window against every shard), one launch a member a
+        # row
+        row("probe_keys", "probe_keys", "csrc/probe_keys.cu",
+            "ops/hashtable.py:186", "mesh_routed",
+            ("mesh_routed", "mesh_pmax", "mesh_routed_1x4", "mesh_retry",
+             "mesh_weighted")),
     ]
     for r, v in routes.items():
         if "times" in v:

@@ -5,8 +5,12 @@ The options are the reference's (``kmers_anno_tpu/commands/apply_cmd.py``)
 plus ``--device``.  Protein tables call roles for the pegs of each genome
 (``engine.apply_engine``); a DNA table (``build --dna``) calls regions on
 both strands of each genome's raw contigs (``engine.dna_apply``, with
-``--max-gap``), both on one device.  ``--mesh`` is not yet ported and
-raises.
+``--max-gap``), both on one device.  ``--mesh DxT`` runs either on a
+(data, table) mesh of members (``engine.mesh_apply``): with ``--device
+cuda`` each process contributes its visible cards, with ``--device cpu``
+D·T / processes virtual CPU members.  Several processes join through the
+``KAN_*`` variables (``parallel.distributed``); every process writes the
+report's header and only the primary its genome rows.
 """
 
 from __future__ import annotations
@@ -16,12 +20,18 @@ import logging
 import os
 import sys
 
+import torch
+
 from ..device import resolve_device
 from ..engine.apply_engine import KmerApplyEngine
 from ..engine.dna_apply import DnaApplyEngine
+from ..engine.mesh_apply import (DnaMeshApplyEngine, MeshApplyEngine,
+                                 parse_mesh_spec)
 from ..engine.protein_kmers import set_drop_last
 from ..engine.signature import SignatureTable
 from ..genome.gto import Genome, GenomeDirectory
+from ..parallel.distributed import (is_primary, maybe_init_distributed,
+                                    process_count)
 from ..reports.apply_reports import ApplyKmerReporter
 from ..utils.prefetch import prefetch_map
 from .base import BaseProcessor, ParseFailureException
@@ -46,15 +56,20 @@ class ApplyKmerProcessor(BaseProcessor):
             help="report output file (default: stdout)")
         parser.add_argument(
             "--mesh", metavar="DATAxTABLE", default=None,
-            help="run on a device mesh (not yet ported)")
+            help="run on a device mesh, e.g. 8x1 (data-parallel, table "
+                 "replicated) or 4x2 (table hash-sharded over 2 members "
+                 "with routed lookups); --device cuda gives each process's "
+                 "visible cards, --device cpu virtual CPU members")
         parser.add_argument(
             "--table-mode", default="auto",
             choices=["auto", "replicated", "pmax", "routed"],
-            help="sharded-table merge strategy of --mesh (not yet ported)")
+            help="sharded-table merge strategy (default: routed when the "
+                 "table axis is >1)")
         parser.add_argument(
             "--capacity-factor", type=float, default=None, metavar="2.0",
-            help="routing-buffer slack per shard of --mesh (not yet "
-                 "ported)")
+            help="routing-buffer slack per shard (default: provably safe "
+                 "worst case; smaller is faster but may trigger an exact "
+                 "re-run)")
         parser.add_argument(
             "--max-gap", type=int, default=500, metavar="500",
             help="DNA mode: max window-start gap between same-role hits "
@@ -83,10 +98,6 @@ class ApplyKmerProcessor(BaseProcessor):
                             help="input genome directory")
 
     def validate_parms(self) -> None:
-        if self.mesh:
-            raise ParseFailureException(
-                "apply --mesh is not yet ported to kmers_anno_tpu_torch "
-                "(ROADMAP queue 1, item 11)")
         if self.drop_last:
             set_drop_last(True)
         self.require_dir(self.inDir, "Input directory")
@@ -94,6 +105,16 @@ class ApplyKmerProcessor(BaseProcessor):
         self.require_file(self.goodRoleFile, "Roles-to-use file")
         if self.min_hits < 1:
             raise ParseFailureException("Min-hits must be positive.")
+        self.mesh_shape = None
+        if self.mesh:
+            try:
+                self.mesh_shape = parse_mesh_spec(self.mesh)
+            except ValueError as exc:
+                raise ParseFailureException(str(exc)) from exc
+            if ":" in str(self.device):
+                raise ParseFailureException(
+                    "--mesh names its own members: give --device cuda or "
+                    "cpu, not a single card")
         try:
             self.device = resolve_device(self.device)
         except RuntimeError as exc:     # the device does not exist here
@@ -112,7 +133,10 @@ class ApplyKmerProcessor(BaseProcessor):
             if signatures.alphabet == "dna":
                 log.info("DNA-mode table detected: annotating raw contigs "
                          "on both strands.")
-            self._run_single(signatures, genomes, reporter)
+            if self.mesh_shape:
+                self._run_mesh(signatures, genomes, reporter)
+            else:
+                self._run_single(signatures, genomes, reporter)
             reporter.close_report()
         finally:
             if self.output:
@@ -140,5 +164,48 @@ class ApplyKmerProcessor(BaseProcessor):
             log.info("Processing genome %s.", genome)
             reporter.open_genome(genome)
             for feat, role, count in call(genome, prepared):
+                reporter.record_feature(feat, role, count)
+            reporter.close_genome()
+
+    def _members(self) -> list[torch.device]:
+        """The members this process contributes to the mesh: its visible
+        cards, or D·T / processes virtual CPU members."""
+        if self.device.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        n_data, n_table = self.mesh_shape
+        return [self.device] * -(-n_data * n_table // process_count())
+
+    def _run_mesh(self, signatures, genomes, reporter) -> None:
+        maybe_init_distributed()
+        n_data, n_table = self.mesh_shape
+        kw = dict(min_hits=self.min_hits, weighted=self.weighted,
+                  min_weight=self.min_weight, devices=self._members())
+        if signatures.alphabet == "dna":
+            engine = DnaMeshApplyEngine(signatures, n_data, n_table,
+                                        max_gap=self.max_gap, **kw)
+            log.info("DNA mesh apply: data=%d × table=%d (%s table).",
+                     n_data, n_table,
+                     "pmax-sharded" if n_table > 1 else "replicated")
+        else:
+            engine = MeshApplyEngine(
+                signatures, n_data, n_table, mode=self.table_mode,
+                capacity_factor=self.capacity_factor, **kw)
+            log.info("Mesh apply: data=%d × table=%d, %s table layout.",
+                     n_data, n_table, engine.mode)
+
+        def load(name: str):
+            return Genome.load(os.path.join(self.inDir, name))
+
+        # every process holds the same allgathered results; only the
+        # primary writes them (the reference emits exactly one report)
+        primary = is_primary()
+        for genome, calls in engine.call_genomes(
+                prefetch_map(genomes.files, load)):
+            log.info("Processing genome %s.", genome)
+            if not primary:
+                continue
+            reporter.open_genome(genome)
+            for feat, role, count in calls:
                 reporter.record_feature(feat, role, count)
             reporter.close_genome()

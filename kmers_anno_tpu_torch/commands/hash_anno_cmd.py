@@ -3,8 +3,10 @@
 
 The options are the reference's (``kmers_anno_tpu/commands/
 hash_anno_cmd.py``) plus ``--device``.  Genome batches run one after
-another on one device; ``--data-parallel N`` for N > 1 is not yet ported
-and raises.
+another on one device; ``--data-parallel N`` fans them over lanes
+(``parallel.lanes``: one a visible card on ``cuda``, threads on ``cpu``),
+with the same per-genome files and ``changes.tbl`` rows in genome-id
+order.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import threading
 import time
 
 from ..device import resolve_device
@@ -19,6 +22,7 @@ from ..engine.annotation import ANNO_FILE_RE, OUTPUT_HEADER
 from ..engine.hashanno import (Prototype, PrototypeSet, RateLogger,
                                annotate_genomes_batched)
 from ..genome.sources import GenomeSource
+from ..parallel.lanes import lane_devices, run_lanes
 from ..utils.io import TabbedLineReader
 from ..utils.prefetch import prefetch_map
 from .base import BaseMultiReportProcessor, ParseFailureException
@@ -57,8 +61,8 @@ class HashAnnotationProcessor(BaseMultiReportProcessor):
         parser.add_argument(
             "--data-parallel", dest="data_parallel", type=int, default=1,
             metavar="N",
-            help="fan genome batches across N local devices (not yet "
-                 "ported: only 1 is accepted)")
+            help="fan genome batches across N lanes: one a visible card "
+                 "on cuda, threads on cpu")
         parser.add_argument(
             "--device", default="cuda",
             help="torch device to run on: cuda (default), cuda:N or cpu")
@@ -77,10 +81,6 @@ class HashAnnotationProcessor(BaseMultiReportProcessor):
             raise ParseFailureException("Batch size must be at least 1.")
         if self.data_parallel < 1:
             raise ParseFailureException("--data-parallel must be >= 1")
-        if self.data_parallel > 1:
-            raise ParseFailureException(
-                "hashAnno --data-parallel > 1 is not yet ported to "
-                "kmers_anno_tpu_torch (ROADMAP queue 1, item 11)")
         if not 0.0 <= self.min_score < 1.0:
             raise ParseFailureException(
                 "Minimum similarity score must be between 0 and 1.")
@@ -127,6 +127,9 @@ class HashAnnotationProcessor(BaseMultiReportProcessor):
         ids = sorted(genome_ids)
         groups = [ids[i: i + self.batch_size]
                   for i in range(0, len(ids), self.batch_size)]
+        if self.data_parallel > 1 and len(groups) > 1:
+            return self._run_data_parallel(groups, protoset, rate, totals,
+                                           len(genome_ids))
         with open(self.out_file("changes.tbl"), "w") as change_writer:
             change_writer.write(OUTPUT_HEADER + "\n")
             # genome load/parse of the next batch overlaps device scoring
@@ -164,6 +167,55 @@ class HashAnnotationProcessor(BaseMultiReportProcessor):
         log.info("%d total proteins out of %d features processed for %d "
                  "genomes.", totals["proteins"], totals["features"],
                  len(genome_ids))
+        log.info("%d annotations confirmed, %d updated, %d defaulted.",
+                 totals["confirmed"], totals["changed"],
+                 totals["defaulted"])
+
+    def _run_data_parallel(self, groups, protoset, rate, totals,
+                           n_genomes: int) -> None:
+        """Fan genome batches over lanes, round-robin: a thread, a device
+        and a combined index a batch each.  Per-genome ``<id>.anno.tbl``
+        files are the sequential run's; ``changes.tbl`` rows are gathered
+        a genome and written in genome-id order, as the sequential run
+        writes them."""
+        devs = lane_devices(self.device, self.data_parallel, len(groups))
+        n = len(devs)
+        log.info("Fanning %d genome batches across %d lanes.", len(groups),
+                 n)
+        lanes = [groups[i::n] for i in range(n)]
+        lock = threading.Lock()
+        all_changes: dict[str, list] = {}
+        done = [0]
+
+        def lane(i: int) -> None:
+            for group in lanes[i]:
+                loaded = [(gid, self.genomes.get(gid)) for gid in group]
+                results = annotate_genomes_batched(
+                    [g for _, g in loaded], protoset, self.kmer_size,
+                    self.min_score, rate=rate, device=devs[i])
+                for (gid, genome), (rows, changes, stats) in zip(loaded,
+                                                                 results):
+                    with open(self.out_file(f"{gid}.anno.tbl"), "w") as fh:
+                        fh.write(OUTPUT_HEADER + "\n")
+                        for row in rows:
+                            fh.write("\t".join(row) + "\n")
+                    with lock:
+                        done[0] += 1
+                        log.info("Processed genome %d of %d:  %s.", done[0],
+                                 n_genomes, genome)
+                        all_changes[gid] = changes
+                        for key in totals:
+                            totals[key] += stats[key]
+
+        run_lanes(devs, lane)
+        with open(self.out_file("changes.tbl"), "w") as change_writer:
+            change_writer.write(OUTPUT_HEADER + "\n")
+            for gid in sorted(all_changes):
+                for row in all_changes[gid]:
+                    change_writer.write("\t".join(row) + "\n")
+        log.info("%d total proteins out of %d features processed for %d "
+                 "genomes.", totals["proteins"], totals["features"],
+                 n_genomes)
         log.info("%d annotations confirmed, %d updated, %d defaulted.",
                  totals["confirmed"], totals["changed"],
                  totals["defaulted"])

@@ -2,7 +2,9 @@
 (GenomeKmerProcessor.java:37-82, BatchKmerProcessor.java:36-83).
 
 The options are the reference's (``kmers_anno_tpu/commands/kmers_cmd.py``)
-plus ``--device``.
+plus ``--device``.  ``batch --data-parallel N`` fans the genomes over
+lanes, one thread and annotator a lane: on ``cuda`` one lane a visible
+card, ``min(N, cards, genomes)`` of them; on ``cpu`` ``min(N, genomes)``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 from ..engine.projection import ProjectionAnnotator
 from ..genome.gto import Genome
 from ..genome.sources import PatricGenomeSource
+from ..parallel.lanes import lane_devices, run_lanes
 from ..utils.io import TabbedLineReader
 from ..utils.prefetch import Prefetcher
 from .base import BaseProcessor, ParseFailureException
@@ -83,15 +86,19 @@ class KmerProcessorBase(BaseProcessor):
             raise FileNotFoundError("Genome cache is not a directory.")
         self.source = PatricGenomeSource(self.cache)
         try:
-            self.annotator = ProjectionAnnotator(
-                min_strength=self.min_strength, max_fuzz=self.max_fuzz,
-                min_fuzz=self.min_fuzz, max_genomes=self.max_genomes,
-                min_evidence=self.min_evidence, k=self.kmer,
-                algorithm=self.algorithm,
-                trace_function=self.trace_function, device=self.device)
+            self.annotator = self.make_annotator(self.device)
         except RuntimeError as exc:     # the device does not exist here
             raise ParseFailureException(str(exc)) from exc
         self.validate_command_parms()
+
+    def make_annotator(self, device) -> ProjectionAnnotator:
+        """An annotator with this command's options on ``device``."""
+        return ProjectionAnnotator(
+            min_strength=self.min_strength, max_fuzz=self.max_fuzz,
+            min_fuzz=self.min_fuzz, max_genomes=self.max_genomes,
+            min_evidence=self.min_evidence, k=self.kmer,
+            algorithm=self.algorithm, trace_function=self.trace_function,
+            device=device)
 
     def validate_command_parms(self) -> None:
         ...
@@ -135,8 +142,9 @@ class BatchKmerProcessor(KmerProcessorBase):
         parser.add_argument(
             "--data-parallel", dest="data_parallel", type=int, default=1,
             metavar="N",
-            help="fan input genomes across N local devices (not yet "
-                 "ported: only 1 is accepted)")
+            help="fan input genomes across N lanes: one a visible card "
+                 "on cuda, threads on cpu (outputs identical to the "
+                 "sequential run)")
         parser.add_argument(
             "in_file", metavar="inFile",
             help="input file containing input and output GTO names")
@@ -145,9 +153,6 @@ class BatchKmerProcessor(KmerProcessorBase):
         self.require_file(self.in_file, "Input file")
         if self.data_parallel < 1:
             raise ParseFailureException("--data-parallel must be >= 1")
-        if self.data_parallel > 1:
-            raise ParseFailureException(
-                "--data-parallel > 1 is not yet ported")
 
     def run_command(self) -> None:
         start = time.time()
@@ -158,6 +163,13 @@ class BatchKmerProcessor(KmerProcessorBase):
             jobs = [(os.path.join(base_dir, line.get(0)),
                      os.path.join(base_dir, line.get(1)))
                     for line in reader]
+        if self.data_parallel > 1 and len(jobs) > 1:
+            count = self._run_data_parallel(jobs)
+            if count:
+                log.info("Processing complete.  %d genomes annotated, "
+                         "%s seconds / genome.", count,
+                         (time.time() - start) / count)
+            return
 
         def load(job):
             in_path, out_path = job
@@ -178,3 +190,30 @@ class BatchKmerProcessor(KmerProcessorBase):
             log.info("Processing complete.  %d genomes annotated, "
                      "%s seconds / genome.", count,
                      (time.time() - start) / count)
+
+    def _run_data_parallel(self, jobs) -> int:
+        """Round-robin the genome list over lanes; each lane thread owns
+        one device and its own annotator, so close-genome tables replicate
+        a lane and the lanes' device work overlaps.  Every genome still
+        runs the single-genome pipeline, so outputs are byte-identical to
+        the sequential loop, in any lane order."""
+        devs = lane_devices(self.annotator.device, self.data_parallel,
+                            len(jobs))
+        n = len(devs)
+        log.info("Fanning %d genomes across %d lanes.", len(jobs), n)
+        lanes = [jobs[i::n] for i in range(n)]
+        counts = [0] * n
+
+        def lane(i: int) -> None:
+            annot = self.make_annotator(devs[i])
+            for in_path, out_path in lanes[i]:
+                log.info("Reading genome from %s.", in_path)
+                genome = Genome.load(in_path)
+                genome.de_annotate()
+                annot.annotate_genome(genome, self.source.get)
+                log.info("Writing genome to %s.", out_path)
+                genome.save(out_path)
+                counts[i] += 1
+
+        run_lanes(devs, lane)
+        return sum(counts)

@@ -125,6 +125,7 @@ ENTRY_POINTS = {
     "kan_dna_probe": [_P, _I64, _I32, _P, _P, _I64, _I32, _P, _P],
     "kan_dna_probe_filtered": [_P, _I64, _I32, _P, _I64, _P, _P, _I64, _I32,
                                _P, _P],
+    "kan_probe_keys": [_P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _P, _P],
 }
 
 

@@ -135,9 +135,10 @@ def _flat_hits(roles, seg_ids, valid, n_seqs) -> torch.Tensor:
     return valid & (roles >= 0) & (seg_ids >= 0) & (seg_ids < n_seqs)
 
 
-def _block_best(roles, weights, seg_ids, hit, n_seqs, base, r_blk):
-    """Each protein's first best float32 tally over roles [base, base +
-    r_blk), from an exact (n_seqs, r_blk) int64 tally matrix."""
+def tally_units(roles, weights, seg_ids, hit, n_seqs, base, r_blk):
+    """The exact (n_seqs, r_blk) int64 tallies, in units of 2^-24, of the
+    hits on roles [base, base + r_blk): partial tallies of one stream
+    share add up exactly, in any order, before :func:`best_of_units`."""
     in_blk = hit & (roles >= base) & (roles < base + r_blk)
     idx = torch.where(in_blk, seg_ids.long() * r_blk + (roles - base),
                       n_seqs * r_blk)
@@ -145,9 +146,22 @@ def _block_best(roles, weights, seg_ids, hit, n_seqs, base, r_blk):
                         device=roles.device)
     cells.index_add_(0, idx.reshape(-1),
                      torch.where(in_blk, _fixed(weights), 0).reshape(-1))
-    tally = _to_tally(cells[:-1].reshape(n_seqs, r_blk))
+    return cells[:-1].reshape(n_seqs, r_blk)
+
+
+def best_of_units(units: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's first best float32 tally of an exact int64 tally matrix,
+    rounded once, and its column."""
+    tally = _to_tally(units)
     arg = torch.argmax(tally, dim=1, keepdim=True)      # the first maximum
     return torch.gather(tally, 1, arg)[:, 0], arg[:, 0].to(torch.int32)
+
+
+def _block_best(roles, weights, seg_ids, hit, n_seqs, base, r_blk):
+    """Each protein's first best float32 tally over roles [base, base +
+    r_blk), from an exact (n_seqs, r_blk) int64 tally matrix."""
+    return best_of_units(tally_units(roles, weights, seg_ids, hit, n_seqs,
+                                     base, r_blk))
 
 
 def weighted_vote_flat(roles: torch.Tensor, weights: torch.Tensor,

@@ -1,7 +1,7 @@
 """The port's CLI against the reference CLI: ``kmers`` and ``batch`` write
 the same GTOs (annotation timestamps normalised), ``build`` the same kmer
-database and ``apply`` the same reports, byte for byte; the commands and
-options not yet ported answer so with a non-zero exit."""
+database and ``apply`` the same reports, byte for byte; the commands not
+yet ported answer so with a non-zero exit."""
 
 import json
 import os
@@ -92,12 +92,17 @@ def test_batch_cli_matches_reference(tmp_path):
         assert len(want["features"]) > 0
 
 
-def test_batch_data_parallel_is_not_yet_ported(tmp_path, capsys):
-    d, cache, _ = _batch_setup(tmp_path, "dp")
-    rc = port_main(["batch", "--device", "cpu", "--cache", cache,
-                    "--data-parallel", "2", str(d / "batch.tbl")])
-    assert rc != 0
-    assert "not yet ported" in capsys.readouterr().err
+def test_batch_data_parallel_is_not_yet_ported(tmp_path):
+    """``batch --data-parallel 2`` now runs two CPU lanes and writes the
+    sequential run's GTOs."""
+    d1, cache1, outs1 = _batch_setup(tmp_path, "seq")
+    assert port_main(["batch", "--device", "cpu", "--cache", cache1,
+                      str(d1 / "batch.tbl")]) == 0
+    d2, cache2, outs2 = _batch_setup(tmp_path, "dp")
+    assert port_main(["batch", "--device", "cpu", "--cache", cache2,
+                      "--data-parallel", "2", str(d2 / "batch.tbl")]) == 0
+    for a, b in zip(outs1, outs2):
+        assert _normalized(b) == _normalized(a)
 
 
 @pytest.mark.parametrize("command", ["genes", "funApply", "compare",
@@ -192,9 +197,12 @@ def test_build_apply_cli_matches_reference(tmp_path, case):
 
 
 @pytest.mark.parametrize("command,args,message", [
-    ("apply", ["--mesh", "2x1"], "item 11"),
+    ("apply", ["--mesh", "4y2"],
+     "bad mesh spec '4y2'; expected DATAxTABLE, e.g. 4x2"),
 ])
 def test_unported_options_say_so(tmp_path, capsys, command, args, message):
+    """An option the port takes but cannot run as given fails with the
+    reference's message: since the mesh is ported, a bad mesh spec."""
     gto_dir, role_file, use_file = _signature_setup(tmp_path)
     db = tmp_path / "db.tbl"
     db.write_text("ACDEFGHI\tRoleA\n")
@@ -203,7 +211,9 @@ def test_unported_options_say_so(tmp_path, capsys, command, args, message):
     assert port_main([command, *args, "--device", "cpu", *files,
                       gto_dir]) != 0
     err = capsys.readouterr().err
-    assert "not yet ported" in err and message in err
+    assert message in err and "not yet ported" not in err
+    assert ref_main([command, *args, *files, gto_dir]) != 0
+    assert message in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("command", ["build", "apply"])

@@ -17,8 +17,8 @@ import torch
 from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, WEIGHTED_EDGES,
                         carried_state, collision_rows, collision_table,
                         dna_stream_tensors, dna_streams, dna_wrap_table,
-                        flat_case, flat_filter, flat_tensors, made_up_chunk,
-                        made_up_rows,
+                        flat_case, flat_filter, flat_tensors, keys_cases,
+                        made_up_chunk, made_up_rows,
                         make_dna_signature_genomes, make_projection_workload,
                         make_signature_genomes, reorder_chunk, tally_bits,
                         tile_cells, weighted_edge)
@@ -29,6 +29,8 @@ from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
                                                    build_signatures)
 from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
 from kmers_anno_tpu_torch.engine.dna_apply import DnaApplyEngine
+from kmers_anno_tpu_torch.engine.mesh_apply import (DnaMeshApplyEngine,
+                                                    MeshApplyEngine)
 from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
 from kmers_anno_tpu_torch.genome.gto import Genome
 from kmers_anno_tpu_torch.ops import apply_flat as apply_flat_mod
@@ -48,7 +50,9 @@ from kmers_anno_tpu_torch.ops.hash_chunk import (COMMONS_TABLE_CELLS,
                                                  hash_commons,
                                                  hash_commons_plain)
 from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
-from kmers_anno_tpu_torch.ops.key_filter import table_keys
+from kmers_anno_tpu_torch.ops.key_filter import build_key_filter, table_keys
+from kmers_anno_tpu_torch.ops import probe_keys as probe_keys_mod
+from kmers_anno_tpu_torch.ops.probe_keys import probe_keys, probe_keys_plain
 from kmers_anno_tpu_torch.ops.translate import codon_lut
 from kmers_anno_tpu_torch.ops.widetable import (build_wide_table, probe_wide,
                                                 probe_wide_plain)
@@ -972,3 +976,113 @@ def test_dna_engine_on_cuda_matches_cpu(cuda, weighted, monkeypatch):
 
     assert key(got) == key(want)
     assert len(got) >= 20
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("flags", ["given", "from_keys"])
+@pytest.mark.parametrize("case", ["collision_table", "k8_collide_wrap",
+                                  "k12_collide_wrap"])
+def test_probe_keys_kernel_matches_plain(cuda, case, flags, filtered):
+    """``kan_probe_keys`` against ``probe_table`` bit for bit on tables
+    with equal-lo buckets and walks that wrap (``keys_cases``), one key in
+    ten an empty slot, validity given or taken from the keys, with the
+    table's key filter and without; one launch."""
+    rng = np.random.default_rng(23)
+    name, table, mp, qlo, qhi = [c for c in keys_cases(rng)
+                                 if c[0] == case][0]
+    qlo = qlo.copy()
+    qlo[rng.random(len(qlo)) < 0.1] = 0xFFFFFFFF
+    d_table = wide_table_from_numpy(table, cuda)
+    lo, hi = (torch.from_numpy(a.view(np.int32)).to(cuda)
+              for a in (qlo, qhi))
+    valid = (torch.from_numpy(rng.random(len(qlo)) < 0.7).to(cuda)
+             if flags == "given" else None)
+    key_filter = (build_key_filter(*table_keys(table), cuda) if filtered
+                  else None)
+    before = probe_keys.launches
+    got = probe_keys(d_table, lo, hi, valid, max_probes=mp,
+                     key_filter=key_filter)
+    torch.cuda.synchronize()
+    assert probe_keys.launches == before + 1
+    want = probe_keys_plain(d_table.cpu(), lo.cpu(), hi.cpu(),
+                            None if valid is None else valid.cpu(),
+                            max_probes=mp)
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).sum() > 10 and (want == -1).sum() > 10
+
+
+def test_probe_keys_on_an_empty_query(cuda):
+    _, table, mp, _, _ = next(keys_cases(np.random.default_rng(2)))
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    before = probe_keys.launches
+    out = probe_keys(wide_table_from_numpy(table, cuda), empty, empty, None,
+                     max_probes=mp)
+    assert out.numel() == 0 and probe_keys.launches == before
+
+
+@pytest.mark.parametrize("weights", ["none", "balance"])
+@pytest.mark.parametrize("shape", [(2, 1, "replicated"), (2, 2, "pmax"),
+                                   (2, 2, "routed"), (1, 4, "routed")])
+def test_mesh_engine_on_cuda_matches_cpu(cuda, shape, weights, monkeypatch):
+    """The mesh with every member on the card against the same mesh on
+    CPU members (which the CPU tests hold equal to the reference): the
+    same calls, tallies to their printed places; the sharded modes launch
+    the key-lookup kernel and call no plain version, the replicated one
+    the flat kernels."""
+    n_data, n_table, mode = shape
+    genomes, role_map, good = _signature_case()
+    genomes = genomes + make_signature_genomes(np.random.default_rng(6), 1,
+                                               60, 40, 3)[0]
+    table = build_signatures(genomes, role_map, good, k=8, progress=False,
+                             weight_mode=weights, device="cpu")
+    kw = dict(min_hits=5, mode=mode, weighted=weights != "none")
+
+    def calls(devices):
+        engine = MeshApplyEngine(table, n_data, n_table, devices=devices,
+                                 **kw)
+        return [[(f.id, role, hits) for f, role, hits in c]
+                for _, c in engine.call_genomes(genomes)]
+
+    want = calls([torch.device("cpu")] * (n_data * n_table))
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(probe_keys_mod, "probe_keys_plain", refuse)
+    monkeypatch.setattr(apply_flat_mod, "apply_flat_plain", refuse)
+    monkeypatch.setattr(apply_flat_mod, "apply_weighted_flat_plain", refuse)
+    before = (probe_keys.launches, apply_flat.launches,
+              apply_weighted_flat.launches)
+    got = calls([cuda] * (n_data * n_table))
+    after = (probe_keys.launches, apply_flat.launches,
+             apply_weighted_flat.launches)
+    assert got == want and sum(map(len, got)) > 60
+    rows = -(-len(genomes) // n_data) * n_data
+    if mode == "replicated":
+        which = 2 if weights != "none" else 1
+        assert after[which] - before[which] == rows
+    else:
+        assert after[0] - before[0] == rows * n_table
+
+
+@pytest.mark.parametrize("n_data,n_table", [(2, 1), (1, 2)])
+def test_dna_mesh_engine_on_cuda_matches_cpu(cuda, n_data, n_table):
+    genomes, role_map = make_dna_signature_genomes(
+        np.random.default_rng(5), 3, 40, 40, 4)
+    table = build_signatures(genomes[:2], role_map, set(role_map.ids()),
+                             k=15, progress=False, alphabet="dna",
+                             device="cpu")
+    want = DnaApplyEngine(table, min_hits=5, max_gap=300,
+                          device="cpu").call_genome(genomes[2])
+    engine = DnaMeshApplyEngine(table, n_data, n_table, min_hits=5,
+                                max_gap=300,
+                                devices=[cuda] * (n_data * n_table))
+    before = probe_dna.launches
+    (_, got), = engine.call_genomes(genomes[2:])
+    assert probe_dna.launches - before == n_data * n_table
+
+    def key(calls):
+        return [(f.id, f.location.strand, f.location.left, f.location.right,
+                 role, score) for f, role, score in calls]
+
+    assert key(got) == key(want) and len(got) >= 20

@@ -619,9 +619,20 @@ def test_dna_cli_defaults_to_cuda(monkeypatch, cli_files, capsys, command):
     assert not out.exists()
 
 
-def test_apply_mesh_on_a_dna_table_still_raises(cli_files, capsys):
-    tmp, _, target, _, use_file = cli_files
-    db = _tiny_db(tmp)
-    assert port_main(["apply", "--mesh", "2x1", "--device", "cpu", db,
-                      use_file, target]) != 0
-    assert "item 11" in capsys.readouterr().err
+def test_apply_mesh_on_a_dna_table_still_raises(cli_files):
+    """``apply --mesh`` on a DNA table now runs the DNA mesh (replicated
+    and table-sharded, virtual CPU members) and writes the single-device
+    report byte for byte."""
+    tmp, train, target, role_file, use_file = cli_files
+    db = str(tmp / "db.mesh.tbl")
+    assert port_main(["build", "--dna", "--device", "cpu", "-o", db,
+                      role_file, use_file, train]) == 0
+    out = {}
+    for mesh in ([], ["--mesh", "2x1"], ["--mesh", "1x2"]):
+        out[tuple(mesh)] = str(tmp / f"mesh{len(out)}.out")
+        assert port_main(["apply", "--format", "VERIFY", "-m", "5",
+                          "--device", "cpu", *mesh, "-o", out[tuple(mesh)],
+                          db, use_file, target]) == 0
+    want = open(out[()], "rb").read()
+    assert want.count(b".region.") >= 4
+    assert all(open(p, "rb").read() == want for p in out.values())

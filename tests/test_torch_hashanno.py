@@ -551,13 +551,18 @@ def test_hash_anno_cli_matches_reference(tmp_path, case):
         assert "Shiny new function" in changes
 
 
-def test_hash_anno_data_parallel_is_not_yet_ported(tmp_path, capsys):
+def test_hash_anno_data_parallel_is_not_yet_ported(tmp_path):
+    """``hashAnno --data-parallel 2`` now runs two CPU lanes and writes
+    the sequential run's files byte for byte."""
     gto_dir, anno_file = _cli_setup(tmp_path)
-    rc = port_main(["hashAnno", "--device", "cpu", "--data-parallel", "2",
-                    "-D", str(tmp_path / "out"), anno_file, gto_dir])
-    assert rc != 0
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "item 11" in err
+    outs = {}
+    for dp in ("1", "2"):
+        outs[dp] = str(tmp_path / f"out{dp}")
+        assert port_main(["hashAnno", "--device", "cpu", "--batch", "1",
+                          "--data-parallel", dp, "-D", outs[dp], anno_file,
+                          gto_dir]) == 0
+    want = _outputs(outs["1"])
+    assert len(want) == 5 and _outputs(outs["2"]) == want
 
 
 def test_hash_anno_default_cuda_without_cuda(monkeypatch, tmp_path, capsys):

@@ -15,8 +15,9 @@ def test_sources_are_the_cu_files_and_headers_are_inputs():
     inputs = [os.path.basename(p) for p in kernels._inputs()]
     assert sources and all(s.endswith(".cu") for s in sources)
     assert {"apply_rows.cu", "probe_wide.cu", "contig_scan.cu",
-            "hash_chunk.cu", "apply_flat.cu", "dna_probe.cu"} <= set(sources)
-    for header in ("wide_probe.cuh", "bucket_probe.cuh"):
+            "hash_chunk.cu", "apply_flat.cu", "dna_probe.cu",
+            "probe_keys.cu"} <= set(sources)
+    for header in ("wide_probe.cuh", "bucket_probe.cuh", "key_filter.cuh"):
         assert header in inputs and header not in sources
     assert set(sources) < set(inputs)
     # every header a source includes is an input
