@@ -120,14 +120,18 @@ valid window).
 Then several devices, every member on the one card.  ``probe_keys``
 (``kan_probe_keys``, the mesh shards' key lookup) is held to its plain
 version (``probe_table``) bit for bit on tables with equal-lo buckets and
-wrapping walks (``keys_cases``).  ``MeshApplyEngine`` runs the big-table
+wrapping walks (``keys_cases``) and on slots 0%, 3%, 28.6% and 100% live
+(``live_share_keys``).  ``MeshApplyEngine`` runs the big-table
 phase's 10M-key table and bench.py's 262,144 proteins as 8 genomes of
 32,768 in every mode of ``MESH_MODES`` (replicated 4x1, pmax 2x2, routed
 2x2 and 1x4, a routed 2x2 whose routing capacity overflows and re-runs,
 weighted routed 2x2 and weighted replicated 2x1): calls equal to the
 single-device engine's, weighted tallies bit for bit; proteins/s over
-five runs; the split of one routed call; ``probe_keys`` on the keys a
-routed member receives against its plain version and its bound.
+five runs; the split of one routed call (its count read, one a row, a
+part of its own); ``probe_keys`` on both of its inputs against its plain
+version and its bound: the live keys a routed member receives (and,
+alone, the padded buffer that the exchange sent before it took split
+sizes) and the window stream with flags that a pmax member looks up.
 ``DnaMeshApplyEngine`` (2x1 and 1x2) runs the DNA bench genomes and the
 DNA CLI genome against ``DnaApplyEngine`` (contig bases/s).  Through the
 CLI, after the ``.kdb`` run: ``apply --mesh 1x1`` in one process and
@@ -147,7 +151,8 @@ back to back through its C entry point between one pair of CUDA events
 included), with ``launch_share`` = bound / ``launch_ms``.
 
 Usage, from the repository root:
-    python3 chip_smoke.py [--profile] [--compare DIR [DIR ...]] [--dna-only]
+    python3 chip_smoke.py [--profile] [--compare DIR [DIR ...]]
+                          [--dna-only | --keys-only]
 
 ``--profile`` also traces three warm fused-route genomes with
 ``torch.profiler`` (device activity only) and reports, within that one
@@ -165,7 +170,10 @@ kernels on the big-table batch, through the earlier flat entry points on
 a build that has them, and the DNA probe on the bench contigs and on the
 CLI genome's stream, each without the key filter and on the engine's
 path, with it, through ``kan_dna_probe`` on a build without the filtered
-entry) of this tree's build against the build of the tree at each DIR
+entry, and ``probe_keys`` on a routed member's padded buffer, on its
+dense keys, on each tree's layout (this tree's dense keys against the
+other tree's padded buffer, outputs held at the live slots) and on the
+pmax member's stream) of this tree's build against the build of the tree at each DIR
 (the root of another checkout, such as the parent commit's) through
 their C entry points: in turns (A B C C B A), each turn ``LAUNCH_REPS``
 passes back to back, each output equal to this build's; a build that
@@ -173,7 +181,9 @@ lacks a kernel sits that case out.
 
 ``--dna-only`` runs the kernel build, the dna phase and ``--compare`` on
 its cases alone, and prints the ``dna_probe`` row in place of the result
-lines.
+lines.  ``--keys-only`` does the same for the key lookup: its checks, the
+big-table cell's table as 2x2 shards, ``measure_probe_keys`` on the
+first two mesh genomes and ``--compare`` on its cases.
 
 Prints the card's name and power limit, the kernel comparisons and timings,
 one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -559,7 +569,10 @@ def compare_contenders(libs: dict, cases: dict) -> dict:
         def run(lib):
             for a in arg_sets:
                 getattr(launch, "reset", lambda *_: None)(*a)
-            return [launch(lib, *a) for a in arg_sets]
+            outs = [launch(lib, *a) for a in arg_sets]
+            view = getattr(launch, "view", None)
+            return ([view(lib, o, *a) for o, a in zip(outs, arg_sets)]
+                    if view else outs)
         # a copy: a launch may write into outputs it is given
         want = [t.clone() for t in flat(run(libs["this"]))]
         times = {n: [] for n in names}
@@ -2380,6 +2393,24 @@ def filter_turns(what, launch, with_filter, without) -> dict:
                 filter_turns=turns)
 
 
+def make_big_workload():
+    """The big-table cell's inputs: ``make_bench_workload``'s construction
+    at 10M keys (seed 7) as a SignatureTable, and bench.py's 32 x 8,192
+    proteins of 300 aa.  Returns (table, codes, proteins)."""
+    from kmers_anno_tpu_torch.engine.signature import SignatureTable
+
+    rng = np.random.default_rng(BENCH_SEED)
+    protos, key_lo, key_hi, roles = make_bench_workload(rng, BIG_KEYS)
+    codes = np.concatenate([make_bench_proteins(
+        rng, protos, BENCH_PROTEINS, rng.integers(0, SIG_ROLES,
+                                                  size=BENCH_PROTEINS))
+        for _ in range(BENCH_BATCHES)])
+    table = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
+                           role_idx=roles,
+                           role_ids=[f"Role{r}" for r in range(SIG_ROLES)])
+    return table, codes, proteins_of(codes)
+
+
 def run_big_table(dev, keep: dict) -> tuple[dict, dict, dict]:
     """BASELINE config 4's table size: ``make_bench_workload``'s construction
     at 10M keys (seed 7), an 8-slot table of about 403 MB with its key
@@ -2404,20 +2435,11 @@ def run_big_table(dev, keep: dict) -> tuple[dict, dict, dict]:
     from kmers_anno_tpu_torch.ops.vote import vote_block
     from kmers_anno_tpu_torch.ops.widetable import fits_wide
 
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(BENCH_SEED)
-    protos, key_lo, key_hi, roles = make_bench_workload(rng, BIG_KEYS)
-    codes = np.concatenate([make_bench_proteins(
-        rng, protos, BENCH_PROTEINS, rng.integers(0, SIG_ROLES,
-                                                  size=BENCH_PROTEINS))
-        for _ in range(BENCH_BATCHES)])
-    prots = proteins_of(codes)
+    gen_s, (table, codes, prots) = host_seconds(make_big_workload)
+    key_lo, key_hi, roles, role_ids = (table.key_lo, table.key_hi,
+                                       table.role_idx, table.role_ids)
     n = len(prots)
-    role_ids = [f"Role{r}" for r in range(SIG_ROLES)]
-    table = SignatureTable(k=K, key_lo=key_lo, key_hi=key_hi,
-                           role_idx=roles, role_ids=role_ids)
     require(not fits_wide(len(table)), "the big table fits one wide table")
-    gen_s = time.perf_counter() - t0
     engine_s, engine = host_seconds(
         lambda: KmerApplyEngine(table, min_hits=MIN_HITS, device=dev))
     filter_s, _ = host_seconds(lambda: table.device_key_filter(device=dev))
@@ -4393,16 +4415,40 @@ def keys_cases(rng):
                    np.uint32)]))
 
 
+KEYS_SHARES = (0.0, 0.03, 0.286, 1.0)    # live shares of the lookup's input
+
+
+def live_share_keys(rng, table, n, share):
+    """n query slots of an 8-slot ``table`` (numpy), a ``share`` of them
+    live at random places (all or none at 0 and 1): half the keys the
+    table's own, half random ones.  Returns (lo, hi, live) as numpy
+    (uint32, uint32, bool); a caller marks the dead slots EMPTY, or passes
+    ``live`` as the flags."""
+    from kmers_anno_tpu_torch.ops.key_filter import table_keys
+
+    tlo, thi = table_keys(table)
+    pick = rng.integers(0, len(tlo), n)
+    own = rng.random(n) < 0.5
+    lo = np.where(own, tlo[pick], rng.integers(0, 1 << 30, n)).astype(
+        np.uint32)
+    hi = np.where(own, thi[pick], rng.integers(0, 1 << 30, n)).astype(
+        np.uint32)
+    return lo, hi, rng.random(n) < share
+
+
 def check_probe_keys(dev) -> None:
     """``probe_keys`` against its plain version (``probe_table``) bit for
     bit on ``keys_cases``' tables, with one key in ten an empty slot
     (EMPTY), validity given (70% valid) and taken from the keys, with the
-    table's key filter and without; every key of each table found; an
-    empty query launches nothing."""
+    table's key filter and without; on the last table, inputs of each
+    ``KEYS_SHARES`` live share (``live_share_keys``, a size that is no
+    multiple of 4 or of the kernel's tile); every key of each table found;
+    an empty query launches nothing."""
     from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
     from kmers_anno_tpu_torch.ops.key_filter import (build_key_filter,
                                                      table_keys)
-    from kmers_anno_tpu_torch.ops.probe_keys import (probe_keys,
+    from kmers_anno_tpu_torch.ops.probe_keys import (KERNEL_TILE,
+                                                     probe_keys,
                                                      probe_keys_plain)
 
     rng = np.random.default_rng(SEED + 12)
@@ -4437,6 +4483,20 @@ def check_probe_keys(dev) -> None:
         require(torch.equal(found.cpu(), torch.from_numpy(
             table[:, 16:24][used].view(np.int32))),
                 f"probe_keys misses a key of {name}")
+    for share in KEYS_SHARES:
+        klo, khi, live = live_share_keys(rng, table, 3 * KERNEL_TILE + 7,
+                                         share)
+        for flags in (False, True):
+            lo, hi = (torch.from_numpy(a.view(np.int32)).to(dev) for a in (
+                klo if flags else np.where(live, klo, 0xFFFFFFFF), khi))
+            valid = torch.from_numpy(live).to(dev) if flags else None
+            want = probe_keys_plain(d_table, lo, hi, valid, max_probes=mp)
+            for filt in (None, key_filter):
+                got = probe_keys(d_table, lo, hi, valid, max_probes=mp,
+                                 key_filter=filt)
+                require(torch.equal(got, want), f"probe_keys differs from "
+                        f"its plain version at live share {share}")
+                n_checks += 1
     before = probe_keys.launches
     empty = torch.empty(0, dtype=torch.int32, device=dev)
     require(probe_keys(d_table, empty, empty, None, max_probes=mp).numel()
@@ -4445,7 +4505,8 @@ def check_probe_keys(dev) -> None:
     print(f"probe_keys: {n_checks} checks bit for bit against probe_table "
           f"on tables with equal-lo buckets and wrapping walks (EMPTY "
           f"slots, validity given and from the keys, key filter on and "
-          f"off); every table key found", flush=True)
+          f"off, live shares {KEYS_SHARES}); every table key found",
+          flush=True)
 
 
 def mesh_genomes(prots: list[str]) -> list:
@@ -4513,12 +4574,14 @@ def mesh_tally_bits(engine, genomes) -> list:
 def routed_split(engine, chunk) -> tuple[dict, list]:
     """One routed call on ``chunk`` in its parts, each timed on the host
     and ending in a synchronise: host encode (FlatBatch and the split over
-    the table axis), upload, routing (pack, owner, rank and buffers on the
-    card), exchange copies, lookup kernels (``probe_keys``), votes
-    (partial tallies and their merge) and download.  Returns the seconds
-    by part and each row's (roles, hits)."""
+    the table axis), upload, routing (pack, owner, rank, buffers and live
+    counts on the card), count read (the host read of each row's split
+    sizes, one a row), exchange copies (each owner's live keys alone),
+    lookup kernels (``probe_keys``), votes (partial tallies and their
+    merge) and download.  Returns the seconds by part and each row's
+    (roles, hits)."""
     from kmers_anno_tpu_torch.ops.encode import PROT_PAD
-    from kmers_anno_tpu_torch.ops.probe_keys import EMPTY_KEY, probe_keys
+    from kmers_anno_tpu_torch.ops.probe_keys import probe_keys
     from kmers_anno_tpu_torch.parallel import mesh as mesh_mod
 
     mesh, nt, split = engine.mesh, engine.n_table, {}
@@ -4543,26 +4606,29 @@ def routed_split(engine, chunk) -> tuple[dict, list]:
             for c in range(nt)])
         sent = part("routing", lambda: [mesh_mod.route_keys(
             *placed[c], k=engine.k, n_table=nt, capacity=cap,
-            n_seqs=n_seqs)[:3] for c in range(nt)])
-        recv = part("exchange copies", lambda: [
-            [torch.cat([b[w][s].to(devs[s]) for b in sent])
-             for w in range(3)] for s in range(nt)])
+            n_seqs=n_seqs) for c in range(nt)])
+        sizes, _ = part("count read",
+                        lambda: mesh_mod.split_sizes(sent, devs[0]))
+        recv = part("exchange copies",
+                    lambda: mesh_mod.exchange_keys(sent, sizes, devs))
         vals = part("lookup kernels", lambda: [probe_keys(
             engine.tables.on(mesh, i, s)[0], recv[s][0], recv[s][1], None,
             max_probes=engine.max_probes,
             key_filter=engine.tables.on(mesh, i, s)[1]) for s in range(nt)])
         voted = part("votes", lambda: mesh_mod._unanimous(
-            [mesh_mod._partial_unanimous(vals[s], recv[s][0] != EMPTY_KEY,
-                                         recv[s][2], n_seqs)
+            [mesh_mod._partial_unanimous(vals[s], recv[s][2], n_seqs)
              for s in range(nt)], engine.min_hits, devs[0]))
         out.append(part("download", lambda: [t.cpu() for t in voted]))
     return split, out
 
 
-def routed_keys(engine, chunk):
-    """The keys member 0 of row 0 receives in a routed call on ``chunk``
-    (its shard's table and key filter with them): (table, lo, hi,
-    key_filter)."""
+def routed_inputs(engine, chunk) -> dict:
+    """What member 0 of row 0 looks up in a routed call on ``chunk``, in
+    both layouts: its shard's ``table`` and ``key_filter``; ``dense`` (lo,
+    hi), the live keys the split-size exchange sends it; ``padded`` (lo,
+    hi), bucket 0 of every member's routing buffers whole, the layout the
+    exchange sent before it took split sizes (PR 12); and ``live``, the
+    positions of the dense keys in the padded buffer."""
     from kmers_anno_tpu_torch.ops.encode import PROT_PAD
     from kmers_anno_tpu_torch.parallel import mesh as mesh_mod
 
@@ -4571,13 +4637,154 @@ def routed_keys(engine, chunk):
     row = mesh_mod.split_tokens_for_table_axis(
         codes[0], seg_ids[0], valid[0], nt, engine.k, n_seqs, PROT_PAD)
     devs = mesh.devices[0]
+    cap = row[0].shape[-1]
     sent = [mesh_mod.route_keys(
         *(torch.from_numpy(row[w][c]).to(devs[c]) for w in range(3)),
-        k=engine.k, n_table=nt, capacity=row[0].shape[-1],
-        n_seqs=n_seqs)[:2] for c in range(nt)]
-    lo, hi = (torch.cat([b[w][0] for b in sent]) for w in range(2))
+        k=engine.k, n_table=nt, capacity=cap, n_seqs=n_seqs)
+        for c in range(nt)]
+    sizes, _ = mesh_mod.split_sizes(sent, devs[0])
     table, key_filter = engine.tables.on(mesh, 0, 0)
-    return table, lo, hi, key_filter
+    return dict(
+        table=table, key_filter=key_filter,
+        dense=mesh_mod.exchange_keys(sent, sizes, devs)[0][:2],
+        padded=tuple(torch.cat([b[w][0] for b in sent]) for w in range(2)),
+        live=torch.cat([c * cap + torch.arange(sizes[c][0], device=devs[0])
+                        for c in range(nt)]))
+
+
+def pmax_inputs(engine, chunk) -> dict:
+    """What member (0, 0) of a pmax 2x2 looks up on ``chunk``: row 0's
+    whole window stream, every window packed (``lo``, ``hi``) with the
+    host's validity flags (``valid``), against shard 0 (``table``,
+    ``key_filter``)."""
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+
+    codes, _, valid, _ = engine.encode_chunk(chunk)
+    dev = engine.mesh.devices[0][0]
+    lo, hi = pack_kmer_windows(torch.from_numpy(codes[0]).to(dev), engine.k)
+    table, key_filter = engine.tables.on(engine.mesh, 0, 0)
+    return dict(table=table, key_filter=key_filter, lo=lo, hi=hi,
+                valid=torch.from_numpy(valid[0]).to(dev))
+
+
+def launch_routed_lookup(lib, table, max_probes, key_filter, dense, padded,
+                         live):
+    """The routed lookup as each tree lays out its keys: this tree's
+    build on the live keys its split-size exchange sends, another tree's
+    on the padded buffer its exchange sent (uncounted)."""
+    from kmers_anno_tpu_torch import kernels
+
+    keys = dense if lib is kernels.lib() else padded
+    return launch_probe_keys(lib, table, *keys, None, max_probes,
+                             key_filter)
+
+
+def _at_live_slots(lib, out, table, max_probes, key_filter, dense, padded,
+                   live):
+    from kmers_anno_tpu_torch import kernels
+
+    return out if lib is kernels.lib() else out[live]
+
+
+launch_routed_lookup.entry = "kan_probe_keys"
+# ``--compare`` holds a padded buffer's outputs at its live slots
+launch_routed_lookup.view = _at_live_slots
+
+
+def measure_probe_keys(engine, chunk) -> tuple[dict, dict]:
+    """``probe_keys`` on both of the mesh's inputs, ``chunk``'s first row
+    against shard 0 of ``engine``'s 2x2 tables: the keys a routed member
+    receives (row ``probe_keys``; also the padded buffer of PR 12's
+    exchange, this build alone and its bound) and the pmax member's window
+    stream with flags (row ``probe_keys_pmax``).  Each bit for bit against
+    its plain version; through the wrapper, alone, alone without the key
+    filter, and its bound.  Returns both rows and the ``--compare`` cases:
+    the padded buffer, the dense keys, each tree's layout (this tree's
+    dense keys against another tree's padded buffer, outputs at the live
+    slots) and the pmax stream."""
+    from kmers_anno_tpu_torch.ops.probe_keys import (probe_keys,
+                                                     probe_keys_plain)
+
+    mp = engine.max_probes
+    rin, pin = routed_inputs(engine, chunk), pmax_inputs(engine, chunk)
+    table, filt = rin["table"], rin["key_filter"]
+    inputs = {"probe_keys": (rin["dense"], None, "the keys member 0 of a "
+                             "routed 2x2 row receives"),
+              "probe_keys_pmax": ((pin["lo"], pin["hi"]), pin["valid"],
+                                  "the window stream member (0, 0) of a "
+                                  "pmax 2x2 looks up")}
+    rows = {}
+    for name, ((lo, hi), valid, what) in inputs.items():
+        ms, got = timed(lambda: probe_keys(table, lo, hi, valid,
+                                           max_probes=mp, key_filter=filt))
+        plain_ms, want = timed(lambda: probe_keys_plain(
+            table, lo, hi, valid, max_probes=mp))
+        require(torch.equal(got, want), f"probe_keys differs from its plain "
+                f"version on {what}")
+        row = dict(ms=ms, plain_ms=plain_ms,
+                   max_abs_err=max_abs_err([(got, want)]))
+        row.update(keys_bound(table, lo, hi, valid, mp, ms))
+        args = [(table, lo, hi, valid, mp, filt)]
+        row = with_launch(row, launch_ms(launch_probe_keys, args))
+        row["unfiltered_launch_ms"] = launch_ms(
+            launch_probe_keys, [a[:-1] + (None,) for a in args])
+        rows[name] = row
+        print(f"probe_keys on {what} ({lo.numel()} slots, {row['keys']} "
+              f"keys, {row['hits']} hits, {row['buckets']} distinct buckets "
+              f"of {table.shape[0]}, {row['bucket_reads']} bucket reads), "
+              f"bit for bit against probe_table: kernel {ms:.4f} ms through "
+              f"the wrapper, {row['launch_ms']:.4f} ms alone "
+              f"({row['unfiltered_launch_ms']:.4f} without the key filter), "
+              f"plain {plain_ms:.4f} ms; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {row['bound_bytes']} B, "
+              f"{row['bound_ops']} int ops), share {row['bound_share']:.3f}, "
+              f"alone {row['launch_share']:.3f}", flush=True)
+
+    plo, phi = rin["padded"]
+    got = probe_keys(table, plo, phi, None, max_probes=mp, key_filter=filt)
+    dense_out = probe_keys(table, *rin["dense"], None, max_probes=mp,
+                           key_filter=filt)
+    dead = torch.ones(plo.numel(), dtype=torch.bool, device=plo.device)
+    dead[rin["live"]] = False
+    require(torch.equal(got[rin["live"]], dense_out)
+            and bool((got[dead] == -1).all()),
+            "probe_keys on the padded buffer differs from the dense keys")
+    args = [(table, plo, phi, None, mp, filt)]
+    padded = dict(slots=plo.numel(),
+                  launch_ms=launch_ms(launch_probe_keys, args),
+                  bound_ms=keys_bound(table, plo, phi, None, mp, 1.0)[
+                      "bound_ms"])
+    rows["probe_keys"]["padded"] = padded
+    print(f"probe_keys on the padded buffer of that member ({plo.numel()} "
+          f"slots, {rin['live'].numel()} live; the exchange before split "
+          f"sizes): {padded['launch_ms']:.4f} ms alone, its bound "
+          f"{padded['bound_ms']:.4f} ms; outputs at the live slots equal "
+          f"the dense keys', -1 elsewhere", flush=True)
+    cases = {
+        "the routed keys, padded": (launch_probe_keys, args),
+        "the routed keys, dense": (launch_probe_keys, [
+            (table, *rin["dense"], None, mp, filt)]),
+        "the routed keys, each tree's layout": (launch_routed_lookup, [
+            (table, mp, filt, rin["dense"], rin["padded"], rin["live"])]),
+        "the pmax stream": (launch_probe_keys, [
+            (table, pin["lo"], pin["hi"], pin["valid"], mp, filt)]),
+    }
+    return rows, cases
+
+
+def run_keys(dev) -> tuple[dict, dict]:
+    """The quick loop for key-lookup designs (``--keys-only``):
+    ``check_probe_keys``, then ``measure_probe_keys`` on the big-table
+    cell's table as 2x2 shards and the first two mesh genomes, as the mesh
+    phase measures them."""
+    check_probe_keys(dev)
+    table, _, prots = make_big_workload()
+    genomes = mesh_genomes(prots)[:2]
+    build_s, engine = host_seconds(lambda: mesh_engine(
+        table, 2, 2, "routed", False, dev))
+    print(f"mesh 2x2 tables ({engine.max_probes} probes) built and placed "
+          f"in {build_s:.2f} s", flush=True)
+    return measure_probe_keys(engine, [(g, g.pegs) for g in genomes])
 
 
 def mesh_engine(table, n_data, n_table, mode, weighted, dev):
@@ -4597,16 +4804,14 @@ def run_mesh(dev, keep: dict) -> tuple[dict, dict, dict]:
     2x2 and weighted replicated 2x1 with the fp16 weights of that phase).
     Each mode's calls equal the single-device ``KmerApplyEngine``'s, and
     the weighted modes' float32 tallies its bits (``mesh_tally_bits``);
-    proteins/s, median of 5; the split of one routed call; ``probe_keys`` on the keys a routed member receives,
-    against its plain version, its bound and alone.  Then
+    proteins/s, median of 5; the split of one routed call; ``probe_keys``
+    on both of its inputs (``measure_probe_keys``).  Then
     ``DnaMeshApplyEngine`` replicated 2x1 and sharded 1x2 on the DNA bench
     genomes and the DNA CLI genome, against ``DnaApplyEngine``; contig
-    bases/s.  Returns the launches by route, the ``probe_keys`` row and
-    the ``--compare`` case."""
+    bases/s.  Returns the launches by route, the ``probe_keys`` rows and
+    their ``--compare`` cases."""
     from kmers_anno_tpu_torch.engine.dna_apply import DnaApplyEngine
     from kmers_anno_tpu_torch.engine.mesh_apply import DnaMeshApplyEngine
-    from kmers_anno_tpu_torch.ops.probe_keys import (probe_keys,
-                                                     probe_keys_plain)
 
     check_probe_keys(dev)
     big = keep["big"]
@@ -4701,33 +4906,7 @@ def run_mesh(dev, keep: dict) -> tuple[dict, dict, dict]:
     print("mesh routed 2x2 call split (2 genomes, " + ", ".join(
         f"{k} {v:.4f} s" for k, v in split.items()) + ")", flush=True)
 
-    table, lo, hi, key_filter = routed_keys(routed, chunk)
-    mp = routed.max_probes
-    ms, got = timed(lambda: probe_keys(table, lo, hi, None, max_probes=mp,
-                                       key_filter=key_filter))
-    plain_ms, want_keys = timed(lambda: probe_keys_plain(
-        table, lo, hi, None, max_probes=mp))
-    require(torch.equal(got, want_keys), "probe_keys differs from its plain "
-            "version on the routed keys")
-    row = dict(ms=ms, plain_ms=plain_ms,
-               max_abs_err=max_abs_err([(got, want_keys)]))
-    row.update(keys_bound(table, lo, hi, None, mp, ms))
-    args = [(table, lo, hi, None, mp, key_filter)]
-    row = with_launch(row, launch_ms(launch_probe_keys, args))
-    row["unfiltered_launch_ms"] = launch_ms(launch_probe_keys,
-                                            [a[:-1] + (None,) for a in args])
-    print(f"probe_keys on the keys member 0 of a routed 2x2 row receives "
-          f"({lo.numel()} slots, {row['keys']} keys, {row['hits']} hits, "
-          f"{row['buckets']} distinct buckets of {table.shape[0]}, "
-          f"{row['bucket_reads']} bucket reads), bit for bit against "
-          f"probe_table: kernel {ms:.4f} ms through the wrapper, "
-          f"{row['launch_ms']:.4f} ms alone ({row['unfiltered_launch_ms']:.4f}"
-          f" without the key filter), plain {plain_ms:.4f} ms; bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
-          f"{row['bound_bytes']} B, {row['bound_ops']} int ops), share "
-          f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}",
-          flush=True)
-    cases = {"the routed keys": (launch_probe_keys, args)}
+    keys_rows, cases = measure_probe_keys(routed, chunk)
 
     for name, (table, dna_genomes) in (
             ("DNA bench genomes", keep["dna_bench"]),
@@ -4773,7 +4952,7 @@ def run_mesh(dev, keep: dict) -> tuple[dict, dict, dict]:
                   f"DnaApplyEngine): {statistics.median(rates):.1f} contig "
                   f"bases/s (median of {REPS}, range {rates[0]:.1f}-"
                   f"{rates[-1]:.1f}); launches {run.counts}", flush=True)
-    return routes, row, cases
+    return routes, keys_rows, cases
 
 
 def process_env(**kan) -> dict:
@@ -4931,6 +5110,10 @@ def main() -> None:
         "--dna-only", action="store_true",
         help="run only the dna phase (and --compare on its cases); prints "
              "no result line")
+    parser.add_argument(
+        "--keys-only", action="store_true",
+        help="run only the key lookup's checks and measurements (and "
+             "--compare on its cases); prints no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; no result")
@@ -4963,6 +5146,16 @@ def main() -> None:
         phases.append((name, time.perf_counter() - t0))
         return out
 
+    if args.keys_only:
+        keys_measured, cases = phase("keys", run_keys, dev)
+        if args.compare:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase("compare", lambda: compare_contenders(
+                    build_contenders(args.compare, tmp), cases))
+        print("seconds by phase: " + ", ".join(f"{n} {t:.1f}"
+                                               for n, t in phases))
+        print(json.dumps(keys_measured), flush=True)
+        return
     if args.dna_only:
         with tempfile.TemporaryDirectory() as tmp:
             _, dna_measured, cases = phase("dna", run_dna, dev, tmp, keep)
@@ -5015,9 +5208,10 @@ def main() -> None:
             "dna", run_dna, dev, tmp, keep)
     routes.update(dna_routes)
     cases.update(dna_cases)
-    mesh_routes, measured["probe_keys"], mesh_cases = phase(
+    mesh_routes, keys_measured, mesh_cases = phase(
         "mesh", run_mesh, dev, keep)
     routes.update(mesh_routes)
+    measured.update(keys_measured)
     cases.update(mesh_cases)
     del keep
     if args.compare:
@@ -5084,6 +5278,10 @@ def main() -> None:
             "ops/hashtable.py:186", "mesh_routed",
             ("mesh_routed", "mesh_pmax", "mesh_routed_1x4", "mesh_retry",
              "mesh_weighted")),
+        # the same kernel on the pmax step's input: a row's whole window
+        # stream with flags
+        row("probe_keys_pmax", "probe_keys", "csrc/probe_keys.cu",
+            "ops/hashtable.py:186", "mesh_pmax", ("mesh_pmax",)),
     ]
     for r, v in routes.items():
         if "times" in v:

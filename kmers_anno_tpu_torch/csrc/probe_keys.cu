@@ -15,15 +15,39 @@
 // the routed exchange they lie in owner-bucket order, so this kernel reads
 // no codes and needs no segment order, unlike the flat apply kernels.
 //
-// What bounds it on this card: the table reads.  A key reads its 32-byte
-// lo-key sector at a random bucket (a hit also its hi key and payload),
-// and a shard of a 10M-key table is 100-400 MB, past the 50 MB L2.  The
-// design for this first port is the simple one: one thread a key, the
-// shard's key filter (key_filter.cuh), when given, in front of the walk of
-// kan::probe_bucket_key (bucket_probe.cuh), which wraps from the last
-// bucket to bucket 0.  The filter answers most misses from an array a
-// fifth of the lo-key sectors' size.
+// What bounds it on this card: the table reads, and how many of them are
+// in flight.  A valid key reads its filter sector, then its 32-byte lo-key
+// sector at a random bucket (a hit also its hi key and payload), one
+// dependent read after another, and a shard of a 10M-key table is 100-400
+// MB, past the 50 MB L2.  The inputs come in two shapes: a routed buffer,
+// whose slots were mostly empty before the exchange sent each owner only
+// its live keys (28.6% live on a 2x2 member; now 100%), and the broadcast
+// step's window stream with flags, about 97% live.  One thread a slot, the
+// first design, gave a warp about 9 walks out of 32 on the padded buffer.
+// The design:
+//
+//  * A persistent grid: a few blocks an SM (as many as stay resident),
+//    each looping over tiles of kTile consecutive slots.
+//  * Staged loads.  A block copies its next tile's lo words, and its flags
+//    where given, into shared memory with 16-byte cp.async copies from the
+//    16-byte boundary at or below the tile (so a slice at any offset
+//    works), double buffered: the next tile arrives while this one walks.
+//    A vector that crosses an end of the array is read word by word.
+//  * In-block compaction.  Each warp ballots its slots' validity and
+//    appends its live slots' indices, densely, to a list in shared memory
+//    (one shared atomic a warp a round).
+//  * Walks on live keys only.  The block's threads take the list one key
+//    at a time: the hi word then, the shard's key filter (key_filter.cuh),
+//    and the walk of kan::probe_bucket_key (bucket_probe.cuh), which wraps
+//    from the last bucket to bucket 0.  So every resident thread carries a
+//    live walk whatever the live share.
+//  * Coalesced output.  Each result goes back into its own slot of the
+//    staged tile (a dead slot gets -1 there), and the tile is written with
+//    16-byte stores.
+//
+// What was measured against it: PERF.md, Findings, PR 13.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -33,45 +57,178 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = 2048;         // slots a tile: ops/probe_keys.KERNEL_TILE
+constexpr int kBlocksPerSm = 8;     // every thread of an SM resident
+// staged 16-byte vectors a tile: up to 3 lo words (15 flag bytes) before it
+constexpr int kLoVecs = kTile / 4 + 1;
+constexpr int kFlagVecs = kTile / 16 + 1;
+static_assert(kTile % kThreads == 0 && kTile % 4 == 0 && kTile <= 65536,
+              "whole warps a compaction round, 16-bit slot indices");
 
-__global__ void __launch_bounds__(kThreads)
-probe_keys_kernel(const uint32_t* __restrict__ table, uint32_t mask,
-                  int max_probes, kan::KeyFilter f,
-                  const uint32_t* __restrict__ lo,
+struct Stage {
+  uint4 lo[kLoVecs];
+  uint4 flags[kFlagVecs];
+};
+
+struct Walk {
+  const uint32_t* table;
+  uint32_t mask;
+  int max_probes;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every copy but the newest group has landed
+__device__ __forceinline__ void cp_async_wait_older() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stage n_vecs 16-byte vectors of src, elements [g0, g0 + n_vecs * 16 /
+// sizeof(T)) with g0 16-byte aligned in memory, into dst; an element
+// outside [0, n) reads 0.
+template <typename T>
+__device__ __forceinline__ void stage(uint4* __restrict__ dst,
+                                      const T* __restrict__ src, int64_t g0,
+                                      int64_t n, int n_vecs) {
+  constexpr int kPer = 16 / sizeof(T);
+  for (int v = threadIdx.x; v < n_vecs; v += kThreads) {
+    const int64_t g = g0 + static_cast<int64_t>(kPer) * v;
+    if (g >= 0 && g + kPer <= n) {
+      cp_async16(dst + v, src + g);
+    } else {                       // crosses an end of the array
+      T* d = reinterpret_cast<T*>(dst + v);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e)
+        d[e] = (g + e >= 0 && g + e < n) ? src[g + e] : T(0);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+probe_keys_kernel(Walk w, kan::KeyFilter f, const uint32_t* __restrict__ lo,
                   const uint32_t* __restrict__ hi,
                   const uint8_t* __restrict__ valid, int64_t n,
                   int32_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t l = __ldg(lo + i);
-  const bool v = valid ? __ldg(valid + i) != 0 : l != kan::kEmptyKey;
-  int32_t r = -1;
-  if (v) {
-    const uint32_t h = __ldg(hi + i);
-    if (kan::may_hold(f, l, h))
-      r = kan::probe_bucket_key(table, mask, l, h, max_probes);
+  __shared__ Stage s_stage[2];
+  __shared__ uint16_t s_live[kTile];
+  __shared__ int s_n_live;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int64_t n_tiles = (n + kTile - 1) / kTile;
+  // slot i of a tile is staged lo word lshift + i and flag byte fshift + i
+  const int lshift =
+      static_cast<int>((reinterpret_cast<uintptr_t>(lo) & 15) / 4);
+  const int fshift = static_cast<int>(reinterpret_cast<uintptr_t>(valid) & 15);
+  const bool out_aligned = !(reinterpret_cast<uintptr_t>(out) & 15);
+
+  auto stage_tile = [&](int64_t t, Stage& s) {
+    const int64_t base = t * kTile;
+    stage(s.lo, lo, base - lshift, n, kLoVecs);
+    if (valid) stage(s.flags, valid, base - fshift, n, kFlagVecs);
+  };
+
+  int64_t t = blockIdx.x;
+  if (tid == 0) s_n_live = 0;
+  if (t < n_tiles) stage_tile(t, s_stage[0]);
+  cp_async_commit();
+  for (int buf = 0; t < n_tiles; t += gridDim.x, buf ^= 1) {
+    if (t + gridDim.x < n_tiles) stage_tile(t + gridDim.x, s_stage[buf ^ 1]);
+    cp_async_commit();
+    cp_async_wait_older();
+    __syncthreads();               // this tile is staged
+
+    const int64_t base = t * kTile;
+    const int n_here = n - base < kTile ? static_cast<int>(n - base) : kTile;
+    uint32_t* s_lo = reinterpret_cast<uint32_t*>(s_stage[buf].lo) + lshift;
+    const uint8_t* s_flag =
+        reinterpret_cast<const uint8_t*>(s_stage[buf].flags) + fshift;
+
+    // the live slots' indices, densely; a dead slot's output is -1
+    for (int i = tid; i < kTile; i += kThreads) {
+      const bool live = i < n_here && (valid ? s_flag[i] != 0
+                                             : s_lo[i] != kan::kEmptyKey);
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, live);
+      int at = 0;
+      if (lane == 0 && m) at = atomicAdd(&s_n_live, __popc(m));
+      at = __shfl_sync(0xFFFFFFFFu, at, 0);
+      if (live)
+        s_live[at + __popc(m & ((1u << lane) - 1u))] =
+            static_cast<uint16_t>(i);
+      else
+        s_lo[i] = kan::kEmptyKey;
+    }
+    __syncthreads();
+
+    // one live key a thread at a time, its result into its own slot
+    const int n_live = s_n_live;
+    for (int j = tid; j < n_live; j += kThreads) {
+      const int i = s_live[j];
+      const uint32_t l = s_lo[i];
+      const uint32_t h = __ldg(hi + base + i);
+      s_lo[i] = kan::may_hold(f, l, h)
+                    ? static_cast<uint32_t>(kan::probe_bucket_key(
+                          w.table, w.mask, l, h, w.max_probes))
+                    : kan::kEmptyKey;
+    }
+    __syncthreads();
+
+    if (tid == 0) s_n_live = 0;    // every thread read it before the barrier
+    for (int i = 4 * tid; i < n_here; i += 4 * kThreads) {
+      int32_t* o = out + base + i;
+      if (out_aligned && i + 4 <= n_here) {
+        *reinterpret_cast<int4*>(o) =
+            make_int4(static_cast<int32_t>(s_lo[i]),
+                      static_cast<int32_t>(s_lo[i + 1]),
+                      static_cast<int32_t>(s_lo[i + 2]),
+                      static_cast<int32_t>(s_lo[i + 3]));
+      } else {
+        for (int q = 0; q < 4 && i + q < n_here; ++q)
+          o[q] = static_cast<int32_t>(s_lo[i + q]);
+      }
+    }
+    __syncthreads();               // the buffer is free for the tile after next
   }
-  out[i] = r;
 }
 
 }  // namespace
 
 // table: (n_buckets, 24) 32-bit words, n_buckets a power of two, 16-byte
 // aligned; filter: (n_sectors, 8) 32-bit words (ops/key_filter.py),
-// 16-byte aligned, or null (no filter); lo / hi: (n,) 32-bit keys; valid:
-// (n,) bytes, or null (valid where lo != EMPTY); out: (n,) int32, written.
+// 16-byte aligned, or null (no filter); lo / hi: (n,) 32-bit keys at any
+// 4-byte offset; valid: (n,) bytes at any offset, or null (valid where
+// lo != EMPTY); out: (n,) int32, written.
 extern "C" int kan_probe_keys(const int32_t* table, int64_t n_buckets,
                               int max_probes, const int32_t* filter,
                               int64_t n_sectors, const int32_t* lo,
                               const int32_t* hi, const uint8_t* valid,
                               int64_t n, int32_t* out, void* stream) {
   if (n > 0) {
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) /
-                                                  kThreads);
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, probe_keys_kernel, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t tiles = (n + kTile - 1) / kTile;
+    const unsigned blocks = static_cast<unsigned>(
+        std::min<int64_t>(tiles, std::max(1, sms * per_sm)));
     probe_keys_kernel<<<blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const uint32_t*>(table),
-        static_cast<uint32_t>(n_buckets - 1), max_probes,
+        Walk{reinterpret_cast<const uint32_t*>(table),
+             static_cast<uint32_t>(n_buckets - 1), max_probes},
         kan::make_key_filter(filter, n_sectors),
         reinterpret_cast<const uint32_t*>(lo),
         reinterpret_cast<const uint32_t*>(hi), valid, n, out);

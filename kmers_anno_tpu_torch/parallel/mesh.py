@@ -19,8 +19,10 @@ layouts (SURVEY.md §5.8):
 * **all_to_all-routed** (``routed_apply_step``) — the row's stream is
   split over the table axis too, with a k-1 halo; each member packs its
   chunk, buckets each valid window's key by owner shard (its rank within
-  the bucket by a cumulative sum a shard, stable), and one exchange hands
-  every key with its protein to its owner, which looks the keys up and
+  the bucket by a cumulative sum a shard, stable), and one exchange with
+  split sizes hands every key with its protein to its owner: the row's
+  live counts are read on the host once, and owner s receives only the
+  live prefix of each member's bucket s.  The owner looks the keys up and
   reduces partial votes per protein; the partial votes merge by sum, min
   and max (weighted: exact int64 tallies, summed before the one float32
   conversion).
@@ -161,19 +163,19 @@ class MemberTables:
 # votes (plain torch, on the row's first member)
 # ---------------------------------------------------------------------------
 
-def _hits(vals, valid, seg_ids, n_seqs):
-    """The payloads and proteins (int64) of the valid windows that hit a
-    protein below ``n_seqs``.  Compacted before any scatter: the misses,
-    most of a routed buffer, would otherwise all land on one overflow
-    cell, whose atomics on the card run one after another."""
-    keep = valid & (vals >= 0) & (seg_ids >= 0) & (seg_ids < n_seqs)
+def _hits(vals, seg_ids, n_seqs):
+    """The payloads and proteins (int64) of the lookups that hit a protein
+    below ``n_seqs`` (an invalid key's lookup gives -1, a miss).
+    Compacted before any scatter: the misses would otherwise all land on
+    one overflow cell, whose atomics on the card run one after another."""
+    keep = (vals >= 0) & (seg_ids >= 0) & (seg_ids < n_seqs)
     idx = keep.nonzero().squeeze(1)
     return vals[idx], seg_ids[idx].to(torch.int64)
 
 
-def _partial_unanimous(vals, valid, seg_ids, n_seqs):
+def _partial_unanimous(vals, seg_ids, n_seqs):
     """One member's (hit count, min role, max role) of every protein."""
-    vals, seg = _hits(vals, valid, seg_ids, n_seqs)
+    vals, seg = _hits(vals, seg_ids, n_seqs)
     dev = vals.device
     n_hits = torch.zeros(n_seqs, dtype=torch.int32, device=dev)
     n_hits.index_add_(0, seg, torch.ones_like(vals))
@@ -200,8 +202,8 @@ def _unanimous(parts, min_hits, dev):
 
 def _weighted(parts, min_weight, n_seqs, n_roles, dev):
     """The weighted vote of members' packed payloads (``_weighted_tally``,
-    ``mesh.py:117-161``): each part is one member's (payloads, valid,
-    seg_ids).  A block of roles at a time, as many as ``vote_block``
+    ``mesh.py:117-161``): each part is one member's (payloads, seg_ids).
+    A block of roles at a time, as many as ``vote_block``
     allows, each member's exact int64 tallies (units of 2^-24) are summed
     on ``dev`` before the one float32 conversion and the first maximum; a
     later block displaces the running best only with a greater tally, so
@@ -313,14 +315,13 @@ def sharded_apply_step(mesh: Mesh, *, k: int, max_probes: int, n_seqs: int,
                                    key_filter=key_filter).to(dev0)
                 merged = local if merged is None else torch.maximum(merged,
                                                                     local)
-            v0 = _on(valid[r], dev0, placed_valid)
             s0 = _on(seg_ids[r], dev0)
             if weighted:
-                outs.append(_weighted([(merged, v0, s0)], float(thresh),
+                outs.append(_weighted([(merged, s0)], float(thresh),
                                       n_seqs, n_roles, dev0))
             else:
                 outs.append(_unanimous(
-                    [_partial_unanimous(merged, v0, s0, n_seqs)],
+                    [_partial_unanimous(merged, s0, n_seqs)],
                     int(thresh), dev0))
         return _download(outs)
 
@@ -369,19 +370,24 @@ def route_keys(codes: torch.Tensor, seg_ids: torch.Tensor,
     bucket of its owner shard, ``mix_kmer % n_table``, at its rank among
     that owner's keys in stream order.
 
-    returns (lo, hi, seg (n_table, capacity) int32, overflow bool tensor):
-    empty slots hold EMPTY keys and segment ``n_seqs``; a key ranked past
-    ``capacity`` is dropped and sets ``overflow``.
+    returns (lo, hi, seg (n_table, capacity) int32, overflow bool tensor,
+    live (n_table,) int64): empty slots hold EMPTY keys and segment
+    ``n_seqs``; a key ranked past ``capacity`` is dropped and sets
+    ``overflow``; ``live[s]`` is owner s's key count cut to ``capacity``,
+    the length of the live prefix of its bucket.
     """
     lo, hi = pack_kmer_windows(codes, k)
     dev = codes.device
     owner = torch.where(valid, mix_kmer(lo, hi) % n_table, n_table)
     rank = torch.zeros(owner.shape, dtype=torch.int64, device=dev)
+    counts = []
     for s in range(n_table):       # a cumulative sum a shard: stable
         mine = owner == s
-        rank = torch.where(mine, torch.cumsum(mine, 0) - 1, rank)
-    routed = owner < n_table
-    ok = routed & (rank < capacity)
+        csum = torch.cumsum(mine, 0)
+        rank = torch.where(mine, csum - 1, rank)
+        counts.append(csum[-1:])
+    counts = torch.cat(counts)
+    ok = (owner < n_table) & (rank < capacity)
     sink = n_table * capacity
     slot = torch.where(ok, owner * capacity + rank, sink)
     out = []
@@ -389,7 +395,27 @@ def route_keys(codes: torch.Tensor, seg_ids: torch.Tensor,
         buf = torch.full((sink + 1,), fill, dtype=torch.int32, device=dev)
         buf[slot] = vals
         out.append(buf[:sink].view(n_table, capacity))
-    return (*out, (routed & (rank >= capacity)).any())
+    return (*out, (counts > capacity).any(), counts.clamp(max=capacity))
+
+
+def split_sizes(sent, dev) -> tuple[list[list[int]], bool]:
+    """The host read of a row's split sizes, one synchronisation a row:
+    ``sizes[c][s]``, the live keys member c sends owner s, and whether a
+    bucket of the row overflowed.  ``sent``: each member's
+    :func:`route_keys` buffers; ``dev``: the row's first member."""
+    head = torch.stack([torch.cat([b[4], b[3].view(1).to(torch.int64)])
+                        .to(dev) for b in sent]).tolist()
+    return [h[:-1] for h in head], any(h[-1] for h in head)
+
+
+def exchange_keys(sent, sizes, devs) -> list[tuple]:
+    """The all_to_all with split sizes: owner s receives, on ``devs[s]``,
+    the live prefix of bucket s of every member's buffers, in member
+    order: a dense (lo, hi, seg) of ``sum(sizes[c][s])`` keys each."""
+    return [tuple(torch.cat([b[w][s, : sizes[c][s]].to(devs[s])
+                             for c, b in enumerate(sent)])
+                  for w in range(3))
+            for s in range(len(devs))]
 
 
 def routed_apply_step(mesh: Mesh, *, k: int, max_probes: int, n_seqs: int,
@@ -406,49 +432,46 @@ def routed_apply_step(mesh: Mesh, *, k: int, max_probes: int, n_seqs: int,
     default capacity, Tc, cannot overflow.
 
     Member c of a row packs chunk c and routes its keys
-    (:func:`route_keys`); the exchange hands member s row s of every
-    member's buffers; member s looks them up in its shard
-    (``probe_keys``, validity from the keys) and reduces partial votes,
-    which merge on the row's first member.  Weighted: each member's exact
+    (:func:`route_keys`); the row's split sizes are read on the host
+    (:func:`split_sizes`), and the exchange hands member s the live keys
+    of bucket s of every member's buffers (:func:`exchange_keys`); member s
+    looks them up in its shard (``probe_keys``; an owner that receives no
+    key launches nothing) and reduces partial votes, which merge on the
+    row's first member.  Weighted: each member's exact
     int64 partial tallies, summed there before the float32 conversion.
     """
     n_table = mesh.n_table
 
     def step(tables, codes, seg_ids, valid, thresh, rows=None):
-        outs, overflow = [], []
+        outs, overflow = [], False
         for r, i in enumerate(_rows(mesh, rows)):
             devs = mesh.devices[i]
             dev0 = devs[0]
             cap = codes.shape[-1] if capacity is None else capacity
-            sent = []
-            for c in range(n_table):
-                buf = route_keys(
-                    *(_on(a[r][c], devs[c]) for a in (codes, seg_ids,
-                                                      valid)),
-                    k=k, n_table=n_table, capacity=cap, n_seqs=n_seqs)
-                sent.append(buf[:3])
-                overflow.append(buf[3])
+            sent = [route_keys(*(_on(a[r][c], devs[c])
+                                 for a in (codes, seg_ids, valid)),
+                               k=k, n_table=n_table, capacity=cap,
+                               n_seqs=n_seqs)
+                    for c in range(n_table)]
+            sizes, row_overflow = split_sizes(sent, dev0)
+            overflow |= row_overflow
             parts = []
-            for s in range(n_table):        # the all_to_all
-                rlo, rhi, rseg = (torch.cat([b[w][s].to(devs[s])
-                                             for b in sent])
-                                  for w in range(3))
+            for s, (rlo, rhi, rseg) in enumerate(exchange_keys(sent, sizes,
+                                                               devs)):
                 table, key_filter = tables.on(mesh, i, s)
                 vals = probe_keys(table, rlo, rhi, None,
                                   max_probes=max_probes,
                                   key_filter=key_filter)
-                rvalid = rlo != EMPTY_KEY
                 if weighted:
-                    parts.append((vals, rvalid, rseg))
+                    parts.append((vals, rseg))
                 else:
-                    parts.append(_partial_unanimous(vals, rvalid, rseg,
-                                                    n_seqs))
+                    parts.append(_partial_unanimous(vals, rseg, n_seqs))
             if weighted:
                 outs.append(_weighted(parts, float(thresh), n_seqs, n_roles,
                                       dev0))
             else:
                 outs.append(_unanimous(parts, int(thresh), dev0))
-        return (*_download(outs), int(any(bool(f) for f in overflow)))
+        return (*_download(outs), int(overflow))
 
     return step
 

@@ -14,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, WEIGHTED_EDGES,
-                        carried_state, collision_rows, collision_table,
-                        dna_stream_tensors, dna_streams, dna_wrap_table,
-                        flat_case, flat_filter, flat_tensors, keys_cases,
-                        made_up_chunk, made_up_rows,
+from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, KEYS_SHARES,
+                        WEIGHTED_EDGES, carried_state, collision_rows,
+                        collision_table, dna_stream_tensors, dna_streams,
+                        dna_wrap_table, flat_case, flat_filter, flat_tensors,
+                        keys_cases, live_share_keys, made_up_chunk,
+                        made_up_rows,
                         make_dna_signature_genomes, make_projection_workload,
                         make_signature_genomes, reorder_chunk, tally_bits,
                         tile_cells, weighted_edge)
@@ -52,7 +53,8 @@ from kmers_anno_tpu_torch.ops.hash_chunk import (COMMONS_TABLE_CELLS,
 from kmers_anno_tpu_torch.ops.hashtable import build_table, probe_table
 from kmers_anno_tpu_torch.ops.key_filter import build_key_filter, table_keys
 from kmers_anno_tpu_torch.ops import probe_keys as probe_keys_mod
-from kmers_anno_tpu_torch.ops.probe_keys import probe_keys, probe_keys_plain
+from kmers_anno_tpu_torch.ops.probe_keys import (KERNEL_TILE, probe_keys,
+                                                 probe_keys_plain)
 from kmers_anno_tpu_torch.ops.translate import codon_lut
 from kmers_anno_tpu_torch.ops.widetable import (build_wide_table, probe_wide,
                                                 probe_wide_plain)
@@ -1011,6 +1013,93 @@ def test_probe_keys_kernel_matches_plain(cuda, case, flags, filtered):
     assert (want >= 0).sum() > 10 and (want == -1).sum() > 10
 
 
+def _keys_table(cuda):
+    """``keys_cases``' k = 8 table (equal-lo buckets, walks that wrap), on
+    the card, with its key filter."""
+    name, table, mp, _, _ = [c for c in keys_cases(np.random.default_rng(23))
+                             if c[0] == "k8_collide_wrap"][0]
+    return (table, wide_table_from_numpy(table, cuda), mp,
+            build_key_filter(*table_keys(table), cuda))
+
+
+def _check_keys(cuda, d_table, mp, key_filter, klo, khi, live, flags,
+                offset=0):
+    """``probe_keys`` on (klo, khi) with ``live`` as its flags, or with
+    the dead slots EMPTY, against its plain version on the CPU: one
+    launch.  ``offset`` > 0 passes slices that start ``offset`` words
+    (keys) and ``5 * offset`` bytes (flags) past a 16-byte boundary."""
+    lo_np = klo if flags else np.where(live, klo, 0xFFFFFFFF)
+    n = len(klo)
+
+    def on_card(a, at):
+        t = torch.from_numpy(a).to(cuda)
+        whole = torch.zeros(n + at, dtype=t.dtype, device=cuda)
+        whole[at:] = t
+        return whole[at:]
+
+    lo, hi = (on_card(a.view(np.int32), offset) for a in (lo_np, khi))
+    valid = on_card(live, 5 * offset) if flags else None
+    assert lo.data_ptr() % 16 == 4 * offset % 16
+    before = probe_keys.launches
+    got = probe_keys(d_table, lo, hi, valid, max_probes=mp,
+                     key_filter=key_filter)
+    torch.cuda.synchronize()
+    assert probe_keys.launches == before + 1
+    want = probe_keys_plain(d_table.cpu(), lo.cpu(), hi.cpu(),
+                            None if valid is None else valid.cpu(),
+                            max_probes=mp)
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("flags", [False, True])
+@pytest.mark.parametrize("share", KEYS_SHARES)
+def test_probe_keys_kernel_live_shares(cuda, share, flags, filtered):
+    """Inputs 0%, 3%, 28.6% and 100% live, of 3 tiles + 7 slots (no
+    multiple of the tile or of 4), dead slots EMPTY or flagged."""
+    table, d_table, mp, key_filter = _keys_table(cuda)
+    klo, khi, live = live_share_keys(np.random.default_rng(31), table,
+                                     3 * KERNEL_TILE + 7, share)
+    want = _check_keys(cuda, d_table, mp, key_filter if filtered else None,
+                       klo, khi, live, flags)
+    assert int((want >= 0).sum()) <= int(live.sum())
+    if share == 1.0:
+        assert (want >= 0).sum() > KERNEL_TILE
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("flags", [False, True])
+def test_probe_keys_kernel_tile_edges(cuda, flags, offset):
+    """Tiles all dead, all live, live only at the first slot, only at the
+    last, a run of dead slots across a tile edge, and 5 slots past the
+    last whole tile; on slices off a 16-byte boundary."""
+    table, d_table, mp, key_filter = _keys_table(cuda)
+    t = KERNEL_TILE
+    klo, khi, _ = live_share_keys(np.random.default_rng(32), table,
+                                  6 * t + 5, 1.0)
+    live = np.ones(6 * t + 5, bool)
+    live[:t] = False                       # tile 0: all dead
+    live[2 * t + 1: 3 * t] = False         # tile 2: only its first slot
+    live[3 * t: 4 * t - 1] = False         # tile 3: only its last slot
+    live[5 * t - 37: 5 * t + 41] = False   # a dead run across an edge
+    want = _check_keys(cuda, d_table, mp, key_filter, klo, khi, live, flags,
+                       offset)
+    assert (want[:t] == -1).all() and (want[t: 2 * t] >= 0).sum() > t // 3
+    assert (want[2 * t + 1: 4 * t - 1] == -1).all()
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, KERNEL_TILE - 1, KERNEL_TILE,
+                               KERNEL_TILE + 1])
+def test_probe_keys_kernel_odd_sizes(cuda, n):
+    table, d_table, mp, key_filter = _keys_table(cuda)
+    klo, khi, live = live_share_keys(np.random.default_rng(n), table, n,
+                                     0.5)
+    for flags in (False, True):
+        _check_keys(cuda, d_table, mp, key_filter, klo, khi, live, flags,
+                    offset=n % 4)
+
+
 def test_probe_keys_on_an_empty_query(cuda):
     _, table, mp, _, _ = next(keys_cases(np.random.default_rng(2)))
     empty = torch.empty(0, dtype=torch.int32, device=cuda)
@@ -1061,8 +1150,10 @@ def test_mesh_engine_on_cuda_matches_cpu(cuda, shape, weights, monkeypatch):
     if mode == "replicated":
         which = 2 if weights != "none" else 1
         assert after[which] - before[which] == rows
-    else:
+    elif mode == "pmax":
         assert after[0] - before[0] == rows * n_table
+    else:   # a padding row's owners receive no key and launch nothing
+        assert after[0] - before[0] == len(genomes) * n_table
 
 
 @pytest.mark.parametrize("n_data,n_table", [(2, 1), (1, 2)])

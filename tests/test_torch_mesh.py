@@ -150,7 +150,7 @@ def test_route_keys_ranks_each_owner_in_stream_order():
     lo, hi = pack_kmer_windows(codes, K)
     owner = mix_kmer(lo, hi) % 3
     most = max(int((valid & (owner == s)).sum()) for s in range(3))
-    blo, bhi, bseg, ovf = port_mesh.route_keys(
+    blo, bhi, bseg, ovf, _ = port_mesh.route_keys(
         codes, seg, valid, k=K, n_table=3, capacity=most, n_seqs=10)
     assert not bool(ovf)
     for s in range(3):
@@ -160,9 +160,37 @@ def test_route_keys_ranks_each_owner_in_stream_order():
         assert torch.equal(bhi[s, :n], hi[mine])
         assert torch.equal(bseg[s, :n], seg[mine])
         assert (blo[s, n:] == -1).all() and (bseg[s, n:] == 10).all()
-    *_, ovf = port_mesh.route_keys(codes, seg, valid, k=K, n_table=3,
-                                   capacity=most - 1, n_seqs=10)
+    *_, ovf, _ = port_mesh.route_keys(codes, seg, valid, k=K, n_table=3,
+                                      capacity=most - 1, n_seqs=10)
     assert bool(ovf)
+
+
+@pytest.mark.parametrize("short", [0, 1])
+def test_route_keys_counts_each_owners_live_keys(short):
+    """``live[s]`` is owner s's key count cut to the capacity: the length
+    of the live prefix of its bucket, EMPTY past it; at a capacity that
+    fits, and at one short by one, where the fullest owner's count is cut
+    and the flag is set."""
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+
+    rng = np.random.default_rng(6)
+    codes = torch.from_numpy(rng.integers(0, 20, 500).astype(np.uint8))
+    seg = torch.arange(500, dtype=torch.int32) // 50
+    valid = torch.from_numpy(rng.random(500) < 0.8)
+    lo, hi = pack_kmer_windows(codes, K)
+    owner = mix_kmer(lo, hi) % 4
+    count = [int((valid & (owner == s)).sum()) for s in range(4)]
+    cap = max(count) - short
+    blo, _, bseg, ovf, live = port_mesh.route_keys(
+        codes, seg, valid, k=K, n_table=4, capacity=cap, n_seqs=10)
+    assert live.dtype == torch.int64
+    assert live.tolist() == [min(c, cap) for c in count]
+    assert bool(ovf) == bool(short)
+    for s in range(4):
+        n = int(live[s])
+        assert (blo[s, :n] != -1).all() and (blo[s, n:] == -1).all()
+        assert (bseg[s, :n] < 10).all() and (bseg[s, n:] == 10).all()
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +308,8 @@ def test_broadcast_steps_match_reference(tables, streams, kind, n_table,
         assert (want[0] >= 0).any()
 
 
-@pytest.mark.parametrize("n_table,capacity", [(2, None), (4, None), (2, 64),
+@pytest.mark.parametrize("n_table,capacity", [(2, None), (3, None),
+                                              (4, None), (2, 64), (3, 8),
                                               (4, 8)])
 @pytest.mark.parametrize("weights", ["none", "balance"])
 def test_routed_step_matches_reference(tables, streams, n_table, capacity,
@@ -309,6 +338,50 @@ def test_routed_step_matches_reference(tables, streams, n_table, capacity,
         for g, w in zip(got[:2], want[:2]):
             assert np.array_equal(g.numpy(), w)
         assert (want[0] >= 0).any()
+
+
+@pytest.mark.parametrize("weights", ["none", "balance"])
+def test_routed_step_with_owners_that_receive_no_key(tables, streams,
+                                                     weights, monkeypatch):
+    """Keys owned by shard 1 made invalid in every row, and one row with
+    no valid window: owner 1 of every row, and every owner of that row,
+    receive no key and look nothing up; the results still equal the
+    reference's step."""
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+
+    n_data, n_table = 2, 3
+    codes, seg_ids, valid, n_seqs = _first_rows(streams, n_data)
+    inputs = _routed_inputs(codes, seg_ids, valid, n_table, n_seqs)
+    sc, sv = inputs[0], inputs[2].copy()
+    for r in range(n_data):
+        for c in range(n_table):
+            lo, hi = pack_kmer_windows(torch.from_numpy(sc[r, c]), K)
+            sv[r, c] &= (mix_kmer(lo, hi) % n_table != 1).numpy()
+    sv[1] = False
+    inputs[2] = sv
+    table = tables[weights][0]
+    weighted = weights != "none"
+    thresh = 0.5 if weighted else 1
+    sizes = []
+
+    def spy(table, lo, *a, **kw):
+        sizes.append(lo.numel())
+        return probe_keys(table, lo, *a, **kw)
+
+    monkeypatch.setattr(port_mesh, "probe_keys", spy)
+    port, host, mp = _port_step("routed", table, weighted, n_data, n_table,
+                                n_seqs)
+    got = port(*inputs, thresh)
+    want = _ref_step("routed", host, mp, table, weighted, n_data, n_table,
+                     n_seqs)(
+        *inputs, jnp.float32(thresh) if weighted else jnp.int32(thresh))
+    assert sizes[1] == 0 and sizes[3:] == [0, 0, 0]
+    assert sizes[0] > 0 and sizes[2] > 0
+    assert got[2] == int(want[2]) == 0
+    for g, w in zip(got[:2], want[:2]):
+        assert np.array_equal(g.numpy(), w)
+    assert (want[0][0] >= 0).any() and (want[0][1] == -1).all()
 
 
 def test_routed_overflow_undercounts_like_the_reference(tables, streams):
@@ -397,16 +470,18 @@ def test_mesh_engine_matches_single_device_and_reference(
     assert sum(map(len, got)) > 20
 
 
+@pytest.mark.parametrize("n_table", [3, 4])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_routed_capacity_retry_is_exact(genomes, tables, expected, weighted,
-                                        caplog):
+                                        n_table, caplog):
     port, _ = tables["balance" if weighted else "none"]
     kw = dict(weighted=True, min_weight=0.5) if weighted else {}
     want = _calls(_SingleGenomes(port, kw), genomes) if weighted else expected
     with caplog.at_level(logging.INFO, logger=port_engine.__name__):
         got = _calls(port_engine.MeshApplyEngine(
-            port, 2, 4, min_hits=1, mode="routed", capacity_factor=0.01,
-            devices=members(8), **kw), genomes)
+            port, 2, n_table, min_hits=1, mode="routed",
+            capacity_factor=0.01, devices=members(2 * n_table), **kw),
+            genomes)
     assert got == want
     assert sum("overflowed" in r.getMessage() for r in caplog.records) == 3
 
