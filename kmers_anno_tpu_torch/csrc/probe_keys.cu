@@ -56,13 +56,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 2048;         // slots a tile: ops/probe_keys.KERNEL_TILE
+constexpr int kThreads = 256;       // 8 warps, each on tiles of its own
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 256;          // slots a warp tile: ops/probe_keys.KERNEL_TILE
 constexpr int kBlocksPerSm = 8;     // every thread of an SM resident
 // staged 16-byte vectors a tile: up to 3 lo words (15 flag bytes) before it
 constexpr int kLoVecs = kTile / 4 + 1;
 constexpr int kFlagVecs = kTile / 16 + 1;
-static_assert(kTile % kThreads == 0 && kTile % 4 == 0 && kTile <= 65536,
+static_assert(kTile % 32 == 0 && kTile <= 65536,
               "whole warps a compaction round, 16-bit slot indices");
 
 struct Stage {
@@ -92,15 +93,15 @@ __device__ __forceinline__ void cp_async_wait_older() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Stage n_vecs 16-byte vectors of src, elements [g0, g0 + n_vecs * 16 /
-// sizeof(T)) with g0 16-byte aligned in memory, into dst; an element
-// outside [0, n) reads 0.
+// A warp stages n_vecs 16-byte vectors of src, elements [g0, g0 + n_vecs
+// * 16 / sizeof(T)) with g0 16-byte aligned in memory, into dst; an
+// element outside [0, n) reads 0.
 template <typename T>
 __device__ __forceinline__ void stage(uint4* __restrict__ dst,
                                       const T* __restrict__ src, int64_t g0,
-                                      int64_t n, int n_vecs) {
+                                      int64_t n, int n_vecs, int lane) {
   constexpr int kPer = 16 / sizeof(T);
-  for (int v = threadIdx.x; v < n_vecs; v += kThreads) {
+  for (int v = lane; v < n_vecs; v += 32) {
     const int64_t g = g0 + static_cast<int64_t>(kPer) * v;
     if (g >= 0 && g + kPer <= n) {
       cp_async16(dst + v, src + g);
@@ -118,61 +119,62 @@ probe_keys_kernel(Walk w, kan::KeyFilter f, const uint32_t* __restrict__ lo,
                   const uint32_t* __restrict__ hi,
                   const uint8_t* __restrict__ valid, int64_t n,
                   int32_t* __restrict__ out) {
-  __shared__ Stage s_stage[2];
-  __shared__ uint16_t s_live[kTile];
-  __shared__ int s_n_live;
+  __shared__ Stage s_stage[kWarps][2];
+  __shared__ uint16_t s_live[kWarps][kTile];
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
   const int64_t n_tiles = (n + kTile - 1) / kTile;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
   // slot i of a tile is staged lo word lshift + i and flag byte fshift + i
   const int lshift =
       static_cast<int>((reinterpret_cast<uintptr_t>(lo) & 15) / 4);
   const int fshift = static_cast<int>(reinterpret_cast<uintptr_t>(valid) & 15);
   const bool out_aligned = !(reinterpret_cast<uintptr_t>(out) & 15);
+  uint16_t* live_at = s_live[warp];
 
   auto stage_tile = [&](int64_t t, Stage& s) {
     const int64_t base = t * kTile;
-    stage(s.lo, lo, base - lshift, n, kLoVecs);
-    if (valid) stage(s.flags, valid, base - fshift, n, kFlagVecs);
+    stage(s.lo, lo, base - lshift, n, kLoVecs, lane);
+    if (valid) stage(s.flags, valid, base - fshift, n, kFlagVecs, lane);
   };
 
-  int64_t t = blockIdx.x;
-  if (tid == 0) s_n_live = 0;
-  if (t < n_tiles) stage_tile(t, s_stage[0]);
+  int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (t < n_tiles) stage_tile(t, s_stage[warp][0]);
   cp_async_commit();
-  for (int buf = 0; t < n_tiles; t += gridDim.x, buf ^= 1) {
-    if (t + gridDim.x < n_tiles) stage_tile(t + gridDim.x, s_stage[buf ^ 1]);
+  for (int buf = 0; t < n_tiles; t += stride, buf ^= 1) {
+    if (t + stride < n_tiles) stage_tile(t + stride, s_stage[warp][buf ^ 1]);
     cp_async_commit();
     cp_async_wait_older();
-    __syncthreads();               // this tile is staged
+    __syncwarp();                  // this tile is staged
 
     const int64_t base = t * kTile;
     const int n_here = n - base < kTile ? static_cast<int>(n - base) : kTile;
-    uint32_t* s_lo = reinterpret_cast<uint32_t*>(s_stage[buf].lo) + lshift;
+    uint32_t* s_lo = reinterpret_cast<uint32_t*>(s_stage[warp][buf].lo) +
+                     lshift;
     const uint8_t* s_flag =
-        reinterpret_cast<const uint8_t*>(s_stage[buf].flags) + fshift;
+        reinterpret_cast<const uint8_t*>(s_stage[warp][buf].flags) + fshift;
 
     // the live slots' indices, densely; a dead slot's output is -1
-    for (int i = tid; i < kTile; i += kThreads) {
+    int n_live = 0;
+#pragma unroll
+    for (int r = 0; r < kTile / 32; ++r) {
+      const int i = 32 * r + lane;
       const bool live = i < n_here && (valid ? s_flag[i] != 0
                                              : s_lo[i] != kan::kEmptyKey);
       const unsigned m = __ballot_sync(0xFFFFFFFFu, live);
-      int at = 0;
-      if (lane == 0 && m) at = atomicAdd(&s_n_live, __popc(m));
-      at = __shfl_sync(0xFFFFFFFFu, at, 0);
       if (live)
-        s_live[at + __popc(m & ((1u << lane) - 1u))] =
-            static_cast<uint16_t>(i);
+        live_at[n_live + __popc(m & lanes_below)] = static_cast<uint16_t>(i);
       else
         s_lo[i] = kan::kEmptyKey;
+      n_live += __popc(m);
     }
-    __syncthreads();
+    __syncwarp();
 
-    // one live key a thread at a time, its result into its own slot
-    const int n_live = s_n_live;
-    for (int j = tid; j < n_live; j += kThreads) {
-      const int i = s_live[j];
+    // one live key a lane at a time, its result into its own slot
+    for (int j = lane; j < n_live; j += 32) {
+      const int i = live_at[j];
       const uint32_t l = s_lo[i];
       const uint32_t h = __ldg(hi + base + i);
       s_lo[i] = kan::may_hold(f, l, h)
@@ -180,10 +182,9 @@ probe_keys_kernel(Walk w, kan::KeyFilter f, const uint32_t* __restrict__ lo,
                           w.table, w.mask, l, h, w.max_probes))
                     : kan::kEmptyKey;
     }
-    __syncthreads();
+    __syncwarp();
 
-    if (tid == 0) s_n_live = 0;    // every thread read it before the barrier
-    for (int i = 4 * tid; i < n_here; i += 4 * kThreads) {
+    for (int i = 4 * lane; i < n_here; i += 128) {
       int32_t* o = out + base + i;
       if (out_aligned && i + 4 <= n_here) {
         *reinterpret_cast<int4*>(o) =
@@ -196,7 +197,7 @@ probe_keys_kernel(Walk w, kan::KeyFilter f, const uint32_t* __restrict__ lo,
           o[q] = static_cast<int32_t>(s_lo[i + q]);
       }
     }
-    __syncthreads();               // the buffer is free for the tile after next
+    __syncwarp();                  // the buffer is free for the tile after next
   }
 }
 
@@ -222,9 +223,9 @@ extern "C" int kan_probe_keys(const int32_t* table, int64_t n_buckets,
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, probe_keys_kernel, kThreads, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t tiles = (n + kTile - 1) / kTile;
+    const int64_t blocks_needed = (n + kWarps * kTile - 1) / (kWarps * kTile);
     const unsigned blocks = static_cast<unsigned>(
-        std::min<int64_t>(tiles, std::max(1, sms * per_sm)));
+        std::min<int64_t>(blocks_needed, std::max(1, sms * per_sm)));
     probe_keys_kernel<<<blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         Walk{reinterpret_cast<const uint32_t*>(table),
