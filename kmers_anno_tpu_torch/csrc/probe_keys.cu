@@ -58,18 +58,9 @@ namespace {
 
 constexpr int kThreads = 256;       // 8 warps, each on tiles of its own
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 256;          // slots a warp tile: ops/probe_keys.KERNEL_TILE
+constexpr int kRounds = 4;          // slots a lane a tile
+constexpr int kTile = 32 * kRounds; // slots a warp tile: ops/probe_keys.KERNEL_TILE
 constexpr int kBlocksPerSm = 8;     // every thread of an SM resident
-// staged 16-byte vectors a tile: up to 3 lo words (15 flag bytes) before it
-constexpr int kLoVecs = kTile / 4 + 1;
-constexpr int kFlagVecs = kTile / 16 + 1;
-static_assert(kTile % 32 == 0 && kTile <= 65536,
-              "whole warps a compaction round, 16-bit slot indices");
-
-struct Stage {
-  uint4 lo[kLoVecs];
-  uint4 flags[kFlagVecs];
-};
 
 struct Walk {
   const uint32_t* table;
@@ -77,127 +68,61 @@ struct Walk {
   int max_probes;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// every copy but the newest group has landed
-__device__ __forceinline__ void cp_async_wait_older() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// A warp stages n_vecs 16-byte vectors of src, elements [g0, g0 + n_vecs
-// * 16 / sizeof(T)) with g0 16-byte aligned in memory, into dst; an
-// element outside [0, n) reads 0.
-template <typename T>
-__device__ __forceinline__ void stage(uint4* __restrict__ dst,
-                                      const T* __restrict__ src, int64_t g0,
-                                      int64_t n, int n_vecs, int lane) {
-  constexpr int kPer = 16 / sizeof(T);
-  for (int v = lane; v < n_vecs; v += 32) {
-    const int64_t g = g0 + static_cast<int64_t>(kPer) * v;
-    if (g >= 0 && g + kPer <= n) {
-      cp_async16(dst + v, src + g);
-    } else {                       // crosses an end of the array
-      T* d = reinterpret_cast<T*>(dst + v);
-#pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        d[e] = (g + e >= 0 && g + e < n) ? src[g + e] : T(0);
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 probe_keys_kernel(Walk w, kan::KeyFilter f, const uint32_t* __restrict__ lo,
                   const uint32_t* __restrict__ hi,
                   const uint8_t* __restrict__ valid, int64_t n,
                   int32_t* __restrict__ out) {
-  __shared__ Stage s_stage[kWarps][2];
-  __shared__ uint16_t s_live[kWarps][kTile];
+  __shared__ uint32_t s_key[kWarps][kTile];    // a tile's live lo words
+  __shared__ uint8_t s_slot[kWarps][kTile];    // and their slots
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned lanes_below = (1u << lane) - 1u;
   const int64_t n_tiles = (n + kTile - 1) / kTile;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
-  // slot i of a tile is staged lo word lshift + i and flag byte fshift + i
-  const int lshift =
-      static_cast<int>((reinterpret_cast<uintptr_t>(lo) & 15) / 4);
-  const int fshift = static_cast<int>(reinterpret_cast<uintptr_t>(valid) & 15);
-  const bool out_aligned = !(reinterpret_cast<uintptr_t>(out) & 15);
-  uint16_t* live_at = s_live[warp];
+  uint32_t* key_at = s_key[warp];
+  uint8_t* slot_at = s_slot[warp];
 
-  auto stage_tile = [&](int64_t t, Stage& s) {
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+       t < n_tiles; t += stride) {
     const int64_t base = t * kTile;
-    stage(s.lo, lo, base - lshift, n, kLoVecs, lane);
-    if (valid) stage(s.flags, valid, base - fshift, n, kFlagVecs, lane);
-  };
-
-  int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (t < n_tiles) stage_tile(t, s_stage[warp][0]);
-  cp_async_commit();
-  for (int buf = 0; t < n_tiles; t += stride, buf ^= 1) {
-    if (t + stride < n_tiles) stage_tile(t + stride, s_stage[warp][buf ^ 1]);
-    cp_async_commit();
-    cp_async_wait_older();
-    __syncwarp();                  // this tile is staged
-
-    const int64_t base = t * kTile;
-    const int n_here = n - base < kTile ? static_cast<int>(n - base) : kTile;
-    uint32_t* s_lo = reinterpret_cast<uint32_t*>(s_stage[warp][buf].lo) +
-                     lshift;
-    const uint8_t* s_flag =
-        reinterpret_cast<const uint8_t*>(s_stage[warp][buf].flags) + fshift;
-
-    // the live slots' indices, densely; a dead slot's output is -1
+    uint32_t l[kRounds];
+    bool live[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {        // coalesced, all in flight
+      const int64_t g = base + 32 * r + lane;
+      l[r] = g < n ? __ldg(lo + g) : kan::kEmptyKey;
+      live[r] = g < n && (valid ? __ldg(valid + g) != 0
+                                : l[r] != kan::kEmptyKey);
+    }
+    // the live keys, densely; a dead slot's output is -1
     int n_live = 0;
 #pragma unroll
-    for (int r = 0; r < kTile / 32; ++r) {
-      const int i = 32 * r + lane;
-      const bool live = i < n_here && (valid ? s_flag[i] != 0
-                                             : s_lo[i] != kan::kEmptyKey);
-      const unsigned m = __ballot_sync(0xFFFFFFFFu, live);
-      if (live)
-        live_at[n_live + __popc(m & lanes_below)] = static_cast<uint16_t>(i);
-      else
-        s_lo[i] = kan::kEmptyKey;
+    for (int r = 0; r < kRounds; ++r) {
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, live[r]);
+      const int64_t g = base + 32 * r + lane;
+      if (live[r]) {
+        const int at = n_live + __popc(m & lanes_below);
+        key_at[at] = l[r];
+        slot_at[at] = static_cast<uint8_t>(32 * r + lane);
+      } else if (g < n) {
+        out[g] = -1;
+      }
       n_live += __popc(m);
     }
     __syncwarp();
-
-    // one live key a lane at a time, its result into its own slot
+    // one live key a lane at a time
     for (int j = lane; j < n_live; j += 32) {
-      const int i = live_at[j];
-      const uint32_t l = s_lo[i];
-      const uint32_t h = __ldg(hi + base + i);
-      s_lo[i] = kan::may_hold(f, l, h)
-                    ? static_cast<uint32_t>(kan::probe_bucket_key(
-                          w.table, w.mask, l, h, w.max_probes))
-                    : kan::kEmptyKey;
+      const int64_t g = base + slot_at[j];
+      const uint32_t lk = key_at[j];
+      const uint32_t h = __ldg(hi + g);
+      out[g] = kan::may_hold(f, lk, h)
+                   ? kan::probe_bucket_key(w.table, w.mask, lk, h,
+                                           w.max_probes)
+                   : -1;
     }
-    __syncwarp();
-
-    for (int i = 4 * lane; i < n_here; i += 128) {
-      int32_t* o = out + base + i;
-      if (out_aligned && i + 4 <= n_here) {
-        *reinterpret_cast<int4*>(o) =
-            make_int4(static_cast<int32_t>(s_lo[i]),
-                      static_cast<int32_t>(s_lo[i + 1]),
-                      static_cast<int32_t>(s_lo[i + 2]),
-                      static_cast<int32_t>(s_lo[i + 3]));
-      } else {
-        for (int q = 0; q < 4 && i + q < n_here; ++q)
-          o[q] = static_cast<int32_t>(s_lo[i + q]);
-      }
-    }
-    __syncwarp();                  // the buffer is free for the tile after next
+    __syncwarp();                  // the lists are free for the next tile
   }
 }
 

@@ -29,7 +29,7 @@ from .key_filter import check_filter, filter_args
 from .widetable import check_table
 
 EMPTY_KEY = -1      # EMPTY's int32 bits: a routed buffer's empty slot
-KERNEL_TILE = 256    # slots a warp of the kernel stages at a time (kTile)
+KERNEL_TILE = 128    # slots a warp of the kernel takes at a time (kTile)
 
 
 def _check_args(table, lo, hi, valid, max_probes) -> None:
