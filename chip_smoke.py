@@ -4627,7 +4627,7 @@ def routed_inputs(engine, chunk) -> dict:
     both layouts: its shard's ``table`` and ``key_filter``; ``dense`` (lo,
     hi), the live keys the split-size exchange sends it; ``padded`` (lo,
     hi), bucket 0 of every member's routing buffers whole, the layout the
-    exchange sent before it took split sizes (PR 12); and ``live``, the
+    exchange sent before it took split sizes; and ``live``, the
     positions of the dense keys in the padded buffer."""
     from kmers_anno_tpu_torch.ops.encode import PROT_PAD
     from kmers_anno_tpu_torch.parallel import mesh as mesh_mod
@@ -4694,8 +4694,8 @@ launch_routed_lookup.view = _at_live_slots
 def measure_probe_keys(engine, chunk) -> tuple[dict, dict]:
     """``probe_keys`` on both of the mesh's inputs, ``chunk``'s first row
     against shard 0 of ``engine``'s 2x2 tables: the keys a routed member
-    receives (row ``probe_keys``; also the padded buffer of PR 12's
-    exchange, this build alone and its bound) and the pmax member's window
+    receives (row ``probe_keys``; also the padded buffer of the exchange
+    before split sizes, this build alone and its bound) and the pmax member's window
     stream with flags (row ``probe_keys_pmax``).  Each bit for bit against
     its plain version; through the wrapper, alone, alone without the key
     filter, and its bound.  Returns both rows and the ``--compare`` cases:

@@ -8,46 +8,41 @@
 //
 // The function: key i's output is -1 unless it is valid; a valid key gives
 // the payload stored under (lo[i], hi[i]), or -1.  Validity is valid[i]
-// when the caller passes a flag array, else lo[i] != EMPTY (0xFFFFFFFF),
-// as for a routed buffer, whose empty slots hold EMPTY and whose packed
-// keys are below 2^30.  The payload word comes back untouched (fp16 << 16 |
-// role in a weighted table).  The keys arrive packed, in any order: after
-// the routed exchange they lie in owner-bucket order, so this kernel reads
-// no codes and needs no segment order, unlike the flat apply kernels.
+// when the caller passes a flag array, else lo[i] != EMPTY (0xFFFFFFFF);
+// packed keys are below 2^30, so a live key is never EMPTY.  The payload
+// word comes back untouched (fp16 << 16 | role in a weighted table).  The
+// keys arrive packed, in any order: after the routed exchange they lie in
+// owner order, so this kernel reads no codes and needs no segment order,
+// unlike the flat apply kernels.
 //
-// What bounds it on this card: the table reads, and how many of them are
-// in flight.  A valid key reads its filter sector, then its 32-byte lo-key
-// sector at a random bucket (a hit also its hi key and payload), one
-// dependent read after another, and a shard of a 10M-key table is 100-400
-// MB, past the 50 MB L2.  The inputs come in two shapes: a routed buffer,
-// whose slots were mostly empty before the exchange sent each owner only
-// its live keys (28.6% live on a 2x2 member; now 100%), and the broadcast
-// step's window stream with flags, about 97% live.  One thread a slot, the
-// first design, gave a warp about 9 walks out of 32 on the padded buffer.
-// The design:
+// Its inputs: the routed step's keys, dense since the exchange sends each
+// owner only its live keys (parallel/mesh.exchange_keys), and the
+// broadcast step's window stream with flags (57% live on a genome row of
+// the mesh cell: the stream is padded to its width bucket).
 //
-//  * A persistent grid: a few blocks an SM (as many as stay resident),
-//    each looping over tiles of kTile consecutive slots.
-//  * Staged loads.  A block copies its next tile's lo words, and its flags
-//    where given, into shared memory with 16-byte cp.async copies from the
-//    16-byte boundary at or below the tile (so a slice at any offset
-//    works), double buffered: the next tile arrives while this one walks.
-//    A vector that crosses an end of the array is read word by word.
-//  * In-block compaction.  Each warp ballots its slots' validity and
-//    appends its live slots' indices, densely, to a list in shared memory
-//    (one shared atomic a warp a round).
-//  * Walks on live keys only.  The block's threads take the list one key
-//    at a time: the hi word then, the shard's key filter (key_filter.cuh),
-//    and the walk of kan::probe_bucket_key (bucket_probe.cuh), which wraps
-//    from the last bucket to bucket 0.  So every resident thread carries a
-//    live walk whatever the live share.
-//  * Coalesced output.  Each result goes back into its own slot of the
-//    staged tile (a dead slot gets -1 there), and the tile is written with
-//    16-byte stores.
+// What bounds it on this card: the table's sectors.  A valid key reads its
+// filter sector (key_filter.cuh; the filter of a shard fits the L2), then
+// the 32-byte lo-key sector of a random bucket of a shard of 100-400 MB,
+// and a hit also its hi-key and payload sectors.  On a routed 2x2 member's
+// 4,797,979 keys those are 5,122,852 bucket reads and 1,850,088 hits, 282
+// MB of 32-byte sectors beside the 58 MB of keys and outputs: at the
+// kernel's 0.1020 ms, 3.3 TB/s, the card's memory rate, unless the L2
+// serves the buckets that several keys read (PERF.md, Findings; NVIDIA
+// H100 80GB HBM3, 700 W).  The design is the simple one: one
+// thread a key, the filter, the walk of kan::probe_bucket_key
+// (bucket_probe.cuh), which wraps from the last bucket to bucket 0.
 //
-// What was measured against it: PERF.md, Findings, PR 13.
+// What was measured against it, in turns on one card: designs that keep
+// every resident thread on a live key lost on every input, because the
+// dead slots were never what held it back (the sectors were).  Tiles of
+// 2,048 slots a block staged by cp.async, double buffered, compacted in
+// shared memory on a persistent grid (commit 8dd582c): 1.7-2.0x slower;
+// a warp's own tiles of 256 or 128 slots (commit b3a3f95): 1.1-2.1x; a
+// warp's compaction from registers through 5 KB of shared memory (commit
+// e70ba1d): 1.06-1.13x.  The gain went to the exchange instead: the
+// routed member's lookup on its dense keys takes 0.1020 ms against 0.1491
+// on the padded buffer the exchange sent before, 71% empty slots.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -56,105 +51,46 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // 8 warps, each on tiles of its own
-constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 4;          // slots a lane a tile
-constexpr int kTile = 32 * kRounds; // slots a warp tile: ops/probe_keys.KERNEL_TILE
-constexpr int kBlocksPerSm = 8;     // every thread of an SM resident
+constexpr int kThreads = 256;   // keys a block: ops/probe_keys.KERNEL_TILE
 
-struct Walk {
-  const uint32_t* table;
-  uint32_t mask;
-  int max_probes;
-};
-
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-probe_keys_kernel(Walk w, kan::KeyFilter f, const uint32_t* __restrict__ lo,
+__global__ void __launch_bounds__(kThreads)
+probe_keys_kernel(const uint32_t* __restrict__ table, uint32_t mask,
+                  int max_probes, kan::KeyFilter f,
+                  const uint32_t* __restrict__ lo,
                   const uint32_t* __restrict__ hi,
                   const uint8_t* __restrict__ valid, int64_t n,
                   int32_t* __restrict__ out) {
-  __shared__ uint32_t s_key[kWarps][kTile];    // a tile's live lo words
-  __shared__ uint8_t s_slot[kWarps][kTile];    // and their slots
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  const int64_t n_tiles = (n + kTile - 1) / kTile;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
-  uint32_t* key_at = s_key[warp];
-  uint8_t* slot_at = s_slot[warp];
-
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-       t < n_tiles; t += stride) {
-    const int64_t base = t * kTile;
-    uint32_t l[kRounds];
-    bool live[kRounds];
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {        // coalesced, all in flight
-      const int64_t g = base + 32 * r + lane;
-      l[r] = g < n ? __ldg(lo + g) : kan::kEmptyKey;
-      live[r] = g < n && (valid ? __ldg(valid + g) != 0
-                                : l[r] != kan::kEmptyKey);
-    }
-    // the live keys, densely; a dead slot's output is -1
-    int n_live = 0;
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      const unsigned m = __ballot_sync(0xFFFFFFFFu, live[r]);
-      const int64_t g = base + 32 * r + lane;
-      if (live[r]) {
-        const int at = n_live + __popc(m & lanes_below);
-        key_at[at] = l[r];
-        slot_at[at] = static_cast<uint8_t>(32 * r + lane);
-      } else if (g < n) {
-        out[g] = -1;
-      }
-      n_live += __popc(m);
-    }
-    __syncwarp();
-    // one live key a lane at a time
-    for (int j = lane; j < n_live; j += 32) {
-      const int64_t g = base + slot_at[j];
-      const uint32_t lk = key_at[j];
-      const uint32_t h = __ldg(hi + g);
-      out[g] = kan::may_hold(f, lk, h)
-                   ? kan::probe_bucket_key(w.table, w.mask, lk, h,
-                                           w.max_probes)
-                   : -1;
-    }
-    __syncwarp();                  // the lists are free for the next tile
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t l = __ldg(lo + i);
+  const bool v = valid ? __ldg(valid + i) != 0 : l != kan::kEmptyKey;
+  int32_t r = -1;
+  if (v) {
+    const uint32_t h = __ldg(hi + i);
+    if (kan::may_hold(f, l, h))
+      r = kan::probe_bucket_key(table, mask, l, h, max_probes);
   }
+  out[i] = r;
 }
 
 }  // namespace
 
 // table: (n_buckets, 24) 32-bit words, n_buckets a power of two, 16-byte
 // aligned; filter: (n_sectors, 8) 32-bit words (ops/key_filter.py),
-// 16-byte aligned, or null (no filter); lo / hi: (n,) 32-bit keys at any
-// 4-byte offset; valid: (n,) bytes at any offset, or null (valid where
-// lo != EMPTY); out: (n,) int32, written.
+// 16-byte aligned, or null (no filter); lo / hi: (n,) 32-bit keys; valid:
+// (n,) bytes, or null (valid where lo != EMPTY); out: (n,) int32, written.
 extern "C" int kan_probe_keys(const int32_t* table, int64_t n_buckets,
                               int max_probes, const int32_t* filter,
                               int64_t n_sectors, const int32_t* lo,
                               const int32_t* hi, const uint8_t* valid,
                               int64_t n, int32_t* out, void* stream) {
   if (n > 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, probe_keys_kernel, kThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t blocks_needed = (n + kWarps * kTile - 1) / (kWarps * kTile);
-    const unsigned blocks = static_cast<unsigned>(
-        std::min<int64_t>(blocks_needed, std::max(1, sms * per_sm)));
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) /
+                                                  kThreads);
     probe_keys_kernel<<<blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        Walk{reinterpret_cast<const uint32_t*>(table),
-             static_cast<uint32_t>(n_buckets - 1), max_probes},
+        reinterpret_cast<const uint32_t*>(table),
+        static_cast<uint32_t>(n_buckets - 1), max_probes,
         kan::make_key_filter(filter, n_sectors),
         reinterpret_cast<const uint32_t*>(lo),
         reinterpret_cast<const uint32_t*>(hi), valid, n, out);

@@ -10,11 +10,9 @@ in protein order.  So this lookup takes packed keys, not codes, in any
 order; the flat apply kernels, which pack from codes and need their
 proteins in order, cannot serve it.
 
-A CUDA tensor launches ``csrc/probe_keys.cu`` (``kan_probe_keys``: a
-persistent grid of blocks, each staging tiles of ``KERNEL_TILE`` slots in
-shared memory, compacting a tile's live slots and walking only those: the
-shard's key filter, ``ops.key_filter``, in front of the walk of
-``bucket_probe.cuh``).  A CPU tensor takes :func:`probe_keys_plain`,
+A CUDA tensor launches ``csrc/probe_keys.cu`` (``kan_probe_keys``: one
+thread a key, the shard's key filter, ``ops.key_filter``, in front of the
+walk of ``bucket_probe.cuh``).  A CPU tensor takes :func:`probe_keys_plain`,
 ``ops.hashtable.probe_table``, which reads no filter: a Bloom filter has no
 false negatives, so it changes no output.
 """
@@ -29,7 +27,7 @@ from .key_filter import check_filter, filter_args
 from .widetable import check_table
 
 EMPTY_KEY = -1      # EMPTY's int32 bits: a routed buffer's empty slot
-KERNEL_TILE = 128    # slots a warp of the kernel takes at a time (kTile)
+KERNEL_TILE = 256    # keys a block of the kernel takes (kThreads)
 
 
 def _check_args(table, lo, hi, valid, max_probes) -> None:
@@ -62,7 +60,7 @@ def probe_keys(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     """Look up packed keys in an 8-slot table.
 
     table: (B, 24) int32, the uint32 words of ``hashtable.build_table``
-    lo, hi: (...,) int32 packed keys, contiguous (a slice at any offset)
+    lo, hi: (...,) int32 packed keys
     valid: (...,) bool, or None: valid where ``lo != EMPTY`` (a routed
     buffer's empty slots)
     key_filter: (sectors, 8) int32, the table's key filter, or None

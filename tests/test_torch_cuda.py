@@ -1016,7 +1016,7 @@ def test_probe_keys_kernel_matches_plain(cuda, case, flags, filtered):
 def _keys_table(cuda):
     """``keys_cases``' k = 8 table (equal-lo buckets, walks that wrap), on
     the card, with its key filter."""
-    name, table, mp, _, _ = [c for c in keys_cases(np.random.default_rng(23))
+    _, table, mp, _, _ = [c for c in keys_cases(np.random.default_rng(23))
                              if c[0] == "k8_collide_wrap"][0]
     return (table, wide_table_from_numpy(table, cuda), mp,
             build_key_filter(*table_keys(table), cuda))

@@ -470,8 +470,9 @@ def test_mesh_engine_matches_single_device_and_reference(
     assert sum(map(len, got)) > 20
 
 
-@pytest.mark.parametrize("n_table", [3, 4])
-@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("weighted,n_table", [(False, 4), (True, 4),
+                                              (False, 3), (True, 3)],
+                         ids=["False", "True", "False-3", "True-3"])
 def test_routed_capacity_retry_is_exact(genomes, tables, expected, weighted,
                                         n_table, caplog):
     port, _ = tables["balance" if weighted else "none"]
