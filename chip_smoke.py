@@ -90,6 +90,16 @@ twice (cold, warm) through the CLI on the four signature genomes with a
 32,832-row annotation file; every row of every ``<gid>.anno.tbl`` must
 equal the baseline's best similarity (``repr``) and winner, the engine
 must take its fast route, and each kernel launches once a chunk.
+Then the ``commands`` phase, through the port's CLI on what the card
+wrote, each command's seconds printed and each output held to a recount
+that this script makes from the files themselves (no kernel may launch):
+``checkAnno``, ``applyAnno`` (the DIR, LIST and DNAFASTA targets) and
+``listAnno`` (FULL and NEW_ROLES) on the first hashAnno run's
+``.anno.tbl`` files and ``changes.tbl``; ``compare``, ``funMap`` (its
+rows the mapping file of ``funApply``), ``seqCheck`` and ``genes`` on
+the ``kmers`` output against a genome of the planted genes (even genes
+under the close genomes' names, odd ones under another system's);
+``merge``, ``updateJson`` and ``buildGtos`` on small files it writes.
 Then DNA mode.  ``probe_dna`` (``kan_dna_probe``, and
 ``kan_dna_probe_filtered`` with the table's key filter) is held to its
 plain version bit for bit on made-up streams (k = 4, 8, 11 and 15,
@@ -685,15 +695,19 @@ def check_probe_wide(dev) -> None:
 # the main path: kmers on the realistic projection workload
 # ---------------------------------------------------------------------------
 
-def make_projection_workload(rng, n_genes, n_close, lo_cod=60, hi_cod=500):
+def make_projection_workload(rng, n_genes, n_close, lo_cod=60, hi_cod=500,
+                             planted=None):
     """Synthetic genome with planted clean ORFs + close genomes carrying
-    the source proteins (the generator of bench.py's projection bench)."""
+    the source proteins (the generator of bench.py's projection bench).
+    ``planted``, a list if given, receives each gene's (strand, left,
+    right) on the new genome's contig."""
     from kmers_anno_tpu_torch.genome.dna import (DnaTranslator,
                                                  reverse_complement)
     from kmers_anno_tpu_torch.genome.gto import Genome
 
     xl = DnaTranslator(11)
     parts = ["".join("acgt"[c] for c in rng.integers(0, 4, 50))]
+    n_bases = len(parts[0])
     genes = []
     for i in range(n_genes):
         n_cod = int(rng.integers(lo_cod, hi_cod))
@@ -703,8 +717,11 @@ def make_projection_workload(rng, n_genes, n_close, lo_cod=60, hi_cod=500):
         codons = [c for c in codons if c not in ("taa", "tag", "tga")]
         gene = "atg" + "".join(codons) + "taa"
         strand = "+" if i % 2 == 0 else "-"
+        if planted is not None:
+            planted.append((strand, n_bases + 1, n_bases + len(gene)))
         parts.append(gene if strand == "+" else reverse_complement(gene))
         parts.append("".join("acgt"[c] for c in rng.integers(0, 4, 30)))
+        n_bases += len(gene) + 30
         genes.append(gene)
     dna = "".join(parts)
 
@@ -1104,8 +1121,9 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
     from kmers_anno_tpu_torch.ops.translate import codon_lut
 
     t0 = time.perf_counter()
+    planted: list = []
     dna, olds, new = make_projection_workload(
-        np.random.default_rng(SEED), N_GENES, N_CLOSE)
+        np.random.default_rng(SEED), N_GENES, N_CLOSE, planted=planted)
     cache = os.path.join(tmp, "cache")
     os.makedirs(cache)
     for gid, og in olds.items():
@@ -1113,6 +1131,8 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
     new_path = os.path.join(tmp, "new.gto")
     out_path = os.path.join(tmp, "out.gto")
     new.save(new_path)
+    # the planted genes and their proteins, for the commands phase
+    write_planted(tmp, planted, next(iter(olds.values())))
     print(f"workload: {len(dna)} bases, {N_GENES} planted genes, "
           f"{len(olds)} close genomes, written in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3650,6 +3670,429 @@ def run_hash_cli(dev, tmp: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the host commands on what the card wrote
+# ---------------------------------------------------------------------------
+
+def write_planted(tmp: str, planted: list, old_genome) -> None:
+    """``planted.json`` beside the projection's files: each planted gene's
+    strand, left, right and protein (a close genome's peg of that gene)."""
+    prots = [f.protein_translation for f in old_genome.pegs]
+    with open(os.path.join(tmp, "planted.json"), "w") as fh:
+        json.dump([[*p, prot] for p, prot in zip(planted, prots)], fh)
+
+
+def read_rows(path: str) -> list[list[str]]:
+    with open(path) as fh:
+        return [line.rstrip("\n").split("\t") for line in fh]
+
+
+def read_gto(path: str) -> dict:
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def peg_fn(feat: dict) -> str:
+    return feat.get("function") or "hypothetical protein"
+
+
+def orf_key(feat: dict) -> tuple:
+    contig, begin, strand, length = feat["location"][0]
+    begin, length = int(begin), int(length)
+    end = begin + length - 1 if strand == "+" else begin - length + 1
+    return contig, end, strand
+
+
+def anno_score(text: str) -> float:
+    try:
+        return float(text) if text else float("nan")
+    except ValueError:
+        return float("nan")
+
+
+class CommandClock:
+    """Runs port commands through the CLI; each must exit 0, and its
+    seconds are printed and kept."""
+
+    def __init__(self):
+        from kmers_anno_tpu_torch.commands.app import main
+        self.main = main
+        self.seconds: list[tuple[str, float]] = []
+
+    def __call__(self, what: str, *argv: str) -> None:
+        t0 = time.perf_counter()
+        rc = self.main(list(argv))
+        secs = time.perf_counter() - t0
+        require(rc == 0, f"{what} exited with {rc}")
+        self.seconds.append((what, secs))
+        print(f"command {what}: {secs:.4f} s", flush=True)
+
+
+def check_anno_trio(run: CommandClock, tmp: str, anno_dir: str,
+                    gto_dir: str) -> None:
+    """checkAnno, applyAnno (DIR, LIST twice, DNAFASTA) and listAnno (FULL,
+    NEW_ROLES) on hashAnno's files, each held to a recount made here from
+    the files themselves."""
+    annos = {name.split(".anno.tbl")[0]: read_rows(os.path.join(anno_dir,
+                                                                name))[1:]
+             for name in sorted(os.listdir(anno_dir))
+             if name.endswith(".anno.tbl")}
+    gids = sorted(annos)
+    inputs = {gid: read_gto(os.path.join(gto_dir, f"{gid}.gto"))
+              for gid in gids}
+    require(gids == sorted(n[:-4] for n in os.listdir(gto_dir)) and all(
+        len(annos[g]) == len(inputs[g]["features"]) for g in gids),
+        f"hashAnno's files do not cover the genomes: {gids}")
+
+    # -- checkAnno: counts a genome and their sums --
+    confirmed = {(r[3], r[2]) for r in read_rows(
+        os.path.join(anno_dir, "changes.tbl"))[1:] if anno_score(r[1]) >= 0.9}
+    run("checkAnno", "checkAnno", "-o", os.path.join(tmp, "check.tbl"),
+        anno_dir)
+    rows = read_rows(os.path.join(tmp, "check.tbl"))
+    require(rows[0][:4] == ["genome", "fids", "defaulted", "hypo_defaulted"]
+            and [r[0] for r in rows[1:]] == gids + ["TOTALS"],
+            f"checkAnno's rows: {[r[0] for r in rows]}")
+    totals = np.zeros(5, np.int64)
+    good_scores: list[float] = []
+    for gid, row in zip(gids, rows[1:]):
+        # fids, hypothetical defaults, other defaults, good, other
+        want = np.zeros(5, np.int64)
+        for _, score, new, old in annos[gid]:
+            x = anno_score(score)
+            want[0] += 1
+            if x != x or x == 0.0:
+                want[1 if new == "hypothetical protein" else 2] += 1
+            elif new == old or (old, new) in confirmed:
+                want[3] += 1
+                good_scores.append(x)
+            else:
+                want[4] += 1
+        # the reference's report swaps the two default columns on purpose
+        got = [int(row[i]) for i in (1, 2, 3, 4, 8)]
+        require(got == want.tolist(), f"checkAnno {gid}: {got} != recount "
+                f"{want.tolist()}")
+        totals += want
+    got = [int(rows[-1][i]) for i in (1, 2, 3, 4, 8)]
+    require(got == totals.tolist() and totals[3] > 0 and totals[4] > 0,
+            f"checkAnno TOTALS {got} != the genomes' sum {totals.tolist()}")
+    mean = float(rows[-1][5])
+    require(abs(mean - statistics.fmean(good_scores)) <= 1e-12 * mean,
+            f"checkAnno good_mean {mean} != recount")
+
+    # -- applyAnno DIR: every feature gets the recounted function --
+    applied = os.path.join(tmp, "applied")
+    run("applyAnno DIR", "applyAnno", "--clear", anno_dir, gto_dir, applied)
+    changed: dict[str, set] = {}
+    for gid in gids:
+        by_fid = {r[0]: r[2] for r in annos[gid]}
+        got = read_gto(os.path.join(applied, f"{gid}.gto"))
+        changed[gid] = set()
+        for f_in, f_out in zip(inputs[gid]["features"], got["features"]):
+            new = by_fid[f_in["id"]]
+            want_fn = f_in.get("function", "")
+            if new != peg_fn(f_in):
+                want_fn = new
+                changed[gid].add(f_in["id"])
+            require(f_out["id"] == f_in["id"]
+                    and f_out.get("function", "") == want_fn,
+                    f"applyAnno {f_in['id']}: {f_out.get('function')!r} != "
+                    f"{want_fn!r}")
+    n_changed = sum(map(len, changed.values()))
+    require(n_changed > 0, "applyAnno changed no function")
+
+    # -- applyAnno LIST (appends without --clear) and DNAFASTA --
+    listed = os.path.join(tmp, "genomes.list")
+    run("applyAnno LIST", "applyAnno", "--target", "LIST", "--clear",
+        anno_dir, gto_dir, listed)
+    run("applyAnno LIST, appended", "applyAnno", "--target", "LIST",
+        anno_dir, gto_dir, listed)
+    want = "".join(f"{gid}\t{inputs[gid]['scientific_name']}\n"
+                   for gid in gids)
+    require(open(listed).read() == 2 * want, "applyAnno LIST's lines")
+    fasta = os.path.join(tmp, "genomes.fna")
+    run("applyAnno DNAFASTA", "applyAnno", "--target", "DNAFASTA",
+        "--clear", anno_dir, gto_dir, fasta)
+    want = ""
+    for gid in gids:
+        for c in inputs[gid]["contigs"]:
+            want += f">{c['id']} {gid} {inputs[gid]['scientific_name']}\n"
+            want += "".join(c["dna"][i:i + 60] + "\n"
+                            for i in range(0, len(c["dna"]), 60))
+    require(open(fasta).read() == want, "applyAnno DNAFASTA's records")
+
+    # -- listAnno FULL and NEW_ROLES between the inputs and the applied --
+    full = os.path.join(tmp, "full.tbl")
+    run("listAnno FULL", "listAnno", "-o", full, gto_dir, applied)
+    rows = read_rows(full)
+    want_fids = [f["id"] for gid in gids for f in inputs[gid]["features"]]
+    require(rows[0][0] == "fid" and [r[0] for r in rows[1:]] == want_fids,
+            "listAnno FULL: not one row a feature, in genome order")
+    listed_changes = {r[0] for r in rows[1:] if r[1] != r[6]}
+    require(listed_changes == set().union(*changed.values()),
+            f"listAnno FULL lists {len(listed_changes)} changes, applyAnno "
+            f"made {n_changed}")
+    new_roles = os.path.join(tmp, "new_roles.tbl")
+    run("listAnno NEW_ROLES", "listAnno", "--format", "NEW_ROLES", "-o",
+        new_roles, gto_dir, applied)
+    want = [f["id"] for gid in gids for f in inputs[gid]["features"]
+            if f["id"] in changed[gid]
+            and peg_fn(f) == "hypothetical protein"]
+    rows = read_rows(new_roles)
+    require([r[0] for r in rows[1:]] == want and want,
+            f"listAnno NEW_ROLES: {len(rows) - 1} rows, {len(want)} "
+            "hypothetical proteins renamed")
+    print(f"anno trio on hashAnno's {len(want_fids)} rows: checkAnno "
+          f"{totals.tolist()} (fids, hypothetical and other defaults, "
+          f"good, other) equal to the recount; applyAnno changed "
+          f"{n_changed} functions, all listed by listAnno; "
+          f"{len(want)} NEW_ROLES rows", flush=True)
+
+
+def truth_genome(proj: str) -> dict:
+    """The projection's input genome with the planted genes as its pegs:
+    even genes keep the close genomes' names, odd ones carry a name of
+    another annotation system, and every gene a gene name."""
+    planted = read_gto(os.path.join(proj, "planted.json"))
+    raw = read_gto(os.path.join(proj, "new.gto"))
+    contig = raw["contigs"][0]["id"]
+    raw["features"] = [{
+        "id": f"fig|{raw['id']}.peg.{i + 1}", "type": "CDS",
+        "function": (f"Projected role number {i + 1}" if i % 2 == 0
+                     else f"Core role number {i + 1}"),
+        "location": [[contig, str(left if strand == "+" else right), strand,
+                      right - left + 1]],
+        "protein_translation": prot, "annotations": [],
+        "aliases": [["gene_name", f"gen{i + 1}"]]}
+        for i, (strand, left, right, prot) in enumerate(planted)]
+    return raw
+
+
+def kmer_distance(a: str, b: str, k: int = 8) -> float:
+    ka = {a[i:i + k] for i in range(len(a) - k + 1)}
+    kb = {b[i:i + k] for i in range(len(b) - k + 1)}
+    if not ka or not kb:
+        return 1.0
+    common = len(ka & kb)
+    return 1.0 - common / (len(ka) + len(kb) - common)
+
+
+def check_projection_commands(run: CommandClock, tmp: str,
+                              proj: str) -> None:
+    """compare, funMap into funApply, seqCheck and genes on the ``kmers``
+    output the card projected, against a truth genome of the planted
+    genes; each output held to a recount made here."""
+    truth = truth_genome(proj)
+    out = read_gto(os.path.join(proj, "out.gto"))
+    dirs = {name: os.path.join(tmp, name)
+            for name in ("truth", "kmers", "fun_applied", "seq")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for d in (dirs["truth"], dirs["seq"]):
+        with open(os.path.join(d, f"{truth['id']}.gto"), "w") as fh:
+            json.dump(truth, fh)
+    for d in (dirs["kmers"], dirs["seq"]):
+        with open(os.path.join(d, "projected.gto"), "w") as fh:
+            json.dump(out, fh)
+    truth_by_orf = {orf_key(f): f for f in truth["features"]}
+    pairs = [(f, truth_by_orf[orf_key(f)]) for f in out["features"]
+             if orf_key(f) in truth_by_orf]
+    good = sum(peg_fn(a) == peg_fn(b) for a, b in pairs)
+    require(len(pairs) > 0.9 * len(truth["features"]) and 0 < good
+            < len(pairs), f"{len(pairs)} projected pegs on planted ORFs, "
+            f"{good} with the truth's name")
+
+    # -- compare --
+    table = os.path.join(tmp, "compare.tbl")
+    run("compare", "compare", "-o", table, dirs["truth"], dirs["kmers"])
+    pct = "%8.4f" % (good * 100.0 / len(pairs))
+    require(read_rows(table) == [["reference", "kmers"], [truth["id"], pct],
+                                 [""], ["TOTAL", pct]],
+            f"compare: {read_rows(table)} != recount {pct}")
+
+    # -- funMap, its rows as the mapping file of funApply --
+    fun_map = os.path.join(tmp, "fun_map.tbl")
+    run("funMap", "funMap", "-o", fun_map, dirs["truth"], dirs["kmers"])
+    rows = read_rows(fun_map)
+    total: dict[str, int] = {}
+    miss: dict[tuple, int] = {}
+    for a, b in pairs:
+        total[a["function"]] = total.get(a["function"], 0) + 1
+        if a["function"] != b["function"]:
+            key = (a["function"], b["function"])
+            miss[key] = miss.get(key, 0) + 1
+    want = sorted([a, b, str(n), "%8.2f" % (n * 100 / total[a])]
+                  for (a, b), n in miss.items())
+    require(rows[0] == ["old_function", "new_function", "count", "percent"]
+            and sorted(r for r in rows[1:] if r[1]) == want,
+            "funMap's mapped rows differ from the recount")
+    misses = sorted(miss)
+    mapping = os.path.join(tmp, "mapping.tbl")
+    with open(mapping, "w") as fh:
+        fh.write("patric_function\tcore_function\tgood\n")
+        fh.writelines(f"{old}\t{new}\tY\n" for old, new in misses)
+    run("funApply", "funApply", "--clear", mapping, dirs["kmers"],
+        dirs["fun_applied"])
+    applied = read_gto(os.path.join(dirs["fun_applied"], f"{out['id']}.gto"))
+    to_core = dict(misses)
+    require([f.get("function") for f in applied["features"]] == [
+        to_core.get(f.get("function"), f.get("function"))
+        for f in out["features"]] and applied["subsystems"] == [],
+        "funApply's functions differ from the mapping's")
+    require(all(peg_fn(f) == peg_fn(truth_by_orf[orf_key(f)])
+                for f in applied["features"] if orf_key(f) in truth_by_orf),
+            "funApply left a planted ORF named apart from the truth")
+
+    # -- seqCheck: proteins named two ways across the two genomes --
+    checked = os.path.join(tmp, "seq_check.tbl")
+    run("seqCheck", "seqCheck", "-o", checked, dirs["seq"])
+    by_protein: dict[str, list] = {}
+    for f in out["features"] + truth["features"]:
+        if f.get("type") in ("CDS", "peg") and f.get("protein_translation"):
+            by_protein.setdefault(f["protein_translation"].upper(),
+                                  []).append(f)
+    flagged = [g for g in by_protein.values() if len(g) > 1
+               and len({" ".join(peg_fn(f).lower().split()) for f in g}) > 1]
+    rows = [r for r in read_rows(checked)[1:] if r != [""]]
+    require({r[1] for r in rows} == {f["id"] for g in flagged for f in g}
+            and len({r[0] for r in rows}) == len(flagged) > 0,
+            f"seqCheck flags {len({r[0] for r in rows})} proteins, the "
+            f"recount {len(flagged)}")
+
+    # -- genes: gene names onto the renamed projection --
+    genes_out = os.path.join(tmp, "genes.gto")
+    run("genes", "genes", os.path.join(dirs["truth"], f"{truth['id']}.gto"),
+        os.path.join(dirs["fun_applied"], f"{out['id']}.gto"), genes_out)
+    source = {f["function"]: f for f in truth["features"]}
+    want = {}
+    for f in applied["features"]:
+        if f.get("type") not in ("CDS", "peg"):
+            continue
+        src = source.get(peg_fn(f))
+        if src and kmer_distance(f.get("protein_translation") or "",
+                                 src["protein_translation"]) <= 0.5:
+            want[f["id"]] = src["aliases"]
+    got = {f["id"]: f["aliases"] for f in read_gto(genes_out)["features"]
+           if f.get("aliases")}
+    require(got == want and want, f"genes named {len(got)} pegs, the "
+            f"recount {len(want)}")
+    print(f"projection commands: {len(pairs)} projected pegs on the "
+          f"{len(truth['features'])} planted ORFs, compare {pct.strip()}% "
+          f"equal names, funMap mapped {len(misses)} functions and funApply "
+          f"applied them, seqCheck flagged {len(flagged)} proteins, genes "
+          f"named {len(got)} pegs; each equal to the recount", flush=True)
+
+
+def check_small_commands(run: CommandClock, tmp: str) -> None:
+    """merge, updateJson and buildGtos on small files written here."""
+    d = os.path.join(tmp, "eval")
+    os.makedirs(d)
+    for name, text in (
+            ("roles.to.use", "R1\nR2\nR3\n"),
+            ("training.tbl", "genome\tR1\tR2\tR3\n100.1\t1\t2\t3\n"
+                             "100.2\t4\t5\t6\n"),
+            ("testing.tbl", "200.1\t7\t0\t9\n200.2\t1\t0\t0\n")):
+        with open(os.path.join(d, name), "w") as fh:
+            fh.write(text)
+    run("merge", "merge", d)
+    require(open(os.path.join(d, "training.tbl")).read()
+            == "genome\tR1\tR3\n200.1\t7\t9\n200.2\t1\t0\n100.1\t1\t3\n"
+               "100.2\t4\t6\n"
+            and open(os.path.join(d, "roles.to.use")).read() == "R1\nR3\n"
+            and os.path.isfile(os.path.join(d, "Backup", "training.tbl")),
+            "merge's files")
+
+    gid = "600.1"
+    feats = [{"id": f"fig|{gid}.peg.{i + 1}", "type": "CDS",
+              "function": f"Small role {i + 1}",
+              "location": [["c1", str(100 * i + 1), "+", 90]],
+              "protein_translation": "M" + "AK" * 20, "annotations": [],
+              "aliases": []} for i in range(4)]
+    genome = {"id": gid, "scientific_name": "Parvus", "genetic_code": 11,
+              "domain": "Bacteria", "features": feats,
+              "contigs": [{"id": "c1", "dna": "acgt" * 200}],
+              "close_genomes": [],
+              "subsystems": [{"name": "Small subsystem",
+                              "variant_code": "active",
+                              "classification": ["Metabolism", "Energy"],
+                              "role_bindings": [{"role_id": "Small role 1",
+                                                 "features": [feats[0]["id"]]
+                                                 }]}]}
+    gto_dir = os.path.join(tmp, "small_gtos")
+    os.makedirs(gto_dir)
+    with open(os.path.join(gto_dir, f"{gid}.gto"), "w") as fh:
+        json.dump(genome, fh)
+    json_in = os.path.join(tmp, "json_in", gid)
+    os.makedirs(json_in)
+    with open(os.path.join(json_in, "genome_feature.json"), "w") as fh:
+        json.dump([{"patric_id": f["id"], "product": "old product",
+                    "genome_id": gid, "start": 1, "end": 90}
+                   for f in feats[:3]], fh)
+    with open(os.path.join(json_in, "genome.json"), "w") as fh:
+        json.dump([{"genome_id": gid}], fh)
+    roles_file = os.path.join(tmp, "roles.in.subsystems")
+    with open(roles_file, "w") as fh:
+        fh.writelines(f"SmallRole{i + 1}\t0\tSmall role {i + 1}\n"
+                      for i in range(4))
+    json_out = os.path.join(tmp, "json_out")
+    run("updateJson", "updateJson", "-R", roles_file,
+        os.path.dirname(json_in), gto_dir, json_out)
+    got = read_gto(os.path.join(json_out, gid, "genome_feature.json"))
+    subs = read_gto(os.path.join(json_out, gid, "subsystem.json"))
+    require([f["product"] for f in got] == [f["function"]
+                                            for f in feats[:3]]
+            and os.path.isfile(os.path.join(json_out, gid, "genome.json"))
+            and [(s["patric_id"], s["role_name"], s["subsystem_name"],
+                  s["active"], s["superclass"]) for s in subs]
+            == [(feats[0]["id"], "Small role 1", "Small subsystem", "active",
+                 "Metabolism")], "updateJson's files")
+
+    in_dir = os.path.join(tmp, "annofiles")
+    os.makedirs(in_dir)
+    for name, text in (
+            ("calls", f"{feats[0]['id']}\tCalled function one\t\t\n"
+                      f"{feats[1]['id']}\tCalled function two\t\t\n"
+                      "fig|9999.9.peg.1\tbogus\t\t\n"),
+            ("local.family.defs", "17\tFamily function seventeen\t\t\t\t\n"),
+            ("local.family.members.expanded",
+             f"17\t{feats[1]['id']}\tx\tx\tgenA\n")):
+        with open(os.path.join(in_dir, name), "w") as fh:
+            fh.write(text)
+    gtos_out = os.path.join(tmp, "gtos_out")
+    run("buildGtos", "buildGtos", "-D", gtos_out, "-t", "DIR", "1234",
+        in_dir, gto_dir)
+    got = read_gto(os.path.join(gtos_out, f"{gid}.gto"))["features"]
+    require([f["function"] for f in got] == [
+        "Called function one", "Family function seventeen",
+        "hypothetical protein", "hypothetical protein"]
+        # the family takes the function it had when it was set: the call's
+        and got[1]["family_assignments"] == [
+            ["PLFAM", "PLF_1234_00000017", "Called function two"]]
+        and ["gene_name", "genA"] in got[1]["aliases"], "buildGtos' GTO")
+    print("merge, updateJson and buildGtos: files as expected", flush=True)
+
+
+def run_commands(tmp: str, anno_dir: str, gto_dir: str, proj: str) -> None:
+    """The commands phase: the anno trio on hashAnno's output
+    (``anno_dir``, genomes in ``gto_dir``), compare, funMap, funApply,
+    seqCheck and genes on the ``kmers`` output in ``proj``, then merge,
+    updateJson and buildGtos on small files; outputs under ``tmp``.  The
+    commands run on the host; every kernel's count must stay 0."""
+    run = CommandClock()
+    parts = [os.path.join(tmp, p) for p in ("trio", "projection", "small")]
+    for p in parts:
+        os.makedirs(p)
+    with _Launches() as launches:
+        check_anno_trio(run, parts[0], anno_dir, gto_dir)
+        check_projection_commands(run, parts[1], proj)
+        check_small_commands(run, parts[2])
+    require(not any(launches.counts.values()),
+            f"a host command launched a kernel: {launches.counts}")
+    print("commands, seconds: " + ", ".join(f"{w} {s:.4f}"
+                                            for w, s in run.seconds),
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
 # kernel H: DNA mode's window probe
 # ---------------------------------------------------------------------------
 
@@ -5173,9 +5616,10 @@ def main() -> None:
                                     check_apply_rows(dev),
                                     check_collisions(dev),
                                     check_apply_flat(dev)))
-    with tempfile.TemporaryDirectory() as tmp:
-        routes, (measured, cases) = phase("projection", run_main_path, dev,
-                                          tmp, args.profile)
+    # the projection's files stay for the commands phase
+    proj = tempfile.TemporaryDirectory()
+    routes, (measured, cases) = phase("projection", run_main_path, dev,
+                                      proj.name, args.profile)
     with tempfile.TemporaryDirectory() as tmp:
         sig_routes, sig_files = phase("build + apply", run_signature_path,
                                       dev, tmp)
@@ -5201,6 +5645,11 @@ def main() -> None:
     cases.update(hash_cases)
     with tempfile.TemporaryDirectory() as tmp:
         cli_routes, cli_cases = phase("hashAnno CLI", run_hash_cli, dev, tmp)
+        os.makedirs(os.path.join(tmp, "commands"))
+        phase("commands", run_commands, os.path.join(tmp, "commands"),
+              os.path.join(tmp, "hash_cold"), os.path.join(tmp, "hash_gtos"),
+              proj.name)
+    proj.cleanup()
     routes.update(cli_routes)
     cases.update(cli_cases)
     with tempfile.TemporaryDirectory() as tmp:

@@ -1,1 +1,1 @@
-"""CLI command processors of the port (so far ``kmers`` and ``batch``)."""
+"""CLI command processors of the port: all 16 commands of the reference."""

@@ -1,9 +1,5 @@
 """Command dispatcher of the port (App.java:29-85): the first argument
-selects the subcommand, the rest go to its processor.
-
-The table lists every command of the reference with its description; only
-the ported ones have a processor, and the others answer "not yet ported".
-"""
+selects the subcommand, the rest go to its processor."""
 
 from __future__ import annotations
 
@@ -20,9 +16,9 @@ def _lazy(module: str, cls: str) -> Callable:
     return factory
 
 
-# command name → (factory, or None when not yet ported; description),
-# the reference's table (App.java:32-49)
-COMMANDS: dict[str, tuple[Callable | None, str]] = {
+# command name → (factory, description), the reference's table
+# (App.java:32-49)
+COMMANDS: dict[str, tuple[Callable, str]] = {
     "kmers": (_lazy("kmers_cmd", "GenomeKmerProcessor"),
               "annotate a genome using kmer comparison"),
     "batch": (_lazy("kmers_cmd", "BatchKmerProcessor"),
@@ -31,27 +27,29 @@ COMMANDS: dict[str, tuple[Callable | None, str]] = {
               "build a discriminating-kmer database for a specified list of roles"),
     "apply": (_lazy("apply_cmd", "ApplyKmerProcessor"),
               "apply a discriminating-kmer database to genomes to create a role-count file"),
-    "merge": (None,
+    "merge": (_lazy("merge_cmd", "MergeFilesProcessor"),
               "merge the testing set and the training set into a single file"),
-    "funMap": (None,
+    "funMap": (_lazy("compare_cmds", "FunctionCompareProcessor"),
                "map functions between genomes annotated using an old system and newly-annotated genomes"),
-    "funApply": (None, "apply a function mapping to one or more genomes"),
-    "compare": (None,
+    "funApply": (_lazy("fun_apply_cmd", "FunctionApplyProcessor"),
+                 "apply a function mapping to one or more genomes"),
+    "compare": (_lazy("compare_cmds", "GenomeCompareProcessor"),
                 "compare functional assignments between new and old genomes"),
-    "seqCheck": (None,
+    "seqCheck": (_lazy("seq_check_cmd", "SequenceCheckProcessor"),
                  "verify that proteins in genomes are consistently annotated"),
-    "genes": (None,
+    "genes": (_lazy("genes_cmd", "GeneCopyProcessor"),
               "copy gene names from one genome to a close genome without gene names"),
     "hashAnno": (_lazy("hash_anno_cmd", "HashAnnotationProcessor"),
                  "use a protein kmer hash to annotate features in a PATRIC dump directory"),
-    "applyAnno": (None,
+    "applyAnno": (_lazy("anno_cmds", "ApplyAnnotationProcessor"),
                   "apply annotations produced by the hash annotator"),
-    "checkAnno": (None,
+    "checkAnno": (_lazy("anno_cmds", "CheckAnnotationProcessor"),
                   "examine hash-annotator results and write statistics"),
-    "listAnno": (None,
+    "listAnno": (_lazy("anno_cmds", "ListNewAnnotationProcessor"),
                  "list annotation changes between identical genomes"),
-    "updateJson": (None, "update annotations in JSON genome files"),
-    "buildGtos": (None,
+    "updateJson": (_lazy("update_json_cmd", "UpdateJsonProcessor"),
+                   "update annotations in JSON genome files"),
+    "buildGtos": (_lazy("build_gtos_cmd", "GtoBuildProcessor"),
                   "build GTOs from PATRIC data and annotation update files"),
 }
 
@@ -59,9 +57,8 @@ COMMANDS: dict[str, tuple[Callable | None, str]] = {
 def show_commands() -> None:
     print("Valid commands are:", file=sys.stderr)
     width = max(len(name) for name in COMMANDS)
-    for name, (factory, desc) in COMMANDS.items():
-        note = "" if factory else " (not yet ported)"
-        print(f"  {name:<{width}}  {desc}{note}", file=sys.stderr)
+    for name, (_, desc) in COMMANDS.items():
+        print(f"  {name:<{width}}  {desc}", file=sys.stderr)
 
 
 def main(argv: Sequence[str] | None = None) -> int:
@@ -74,10 +71,6 @@ def main(argv: Sequence[str] | None = None) -> int:
     if entry is None:
         print(f"Invalid command {command}.", file=sys.stderr)
         show_commands()
-        return 2
-    if entry[0] is None:
-        print(f"Command {command} is not yet ported to {PROG}; "
-              "run it with python -m kmers_anno_tpu.", file=sys.stderr)
         return 2
     processor = entry[0]()
     processor.parse(f"{PROG} {command}", rest)

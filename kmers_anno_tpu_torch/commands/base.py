@@ -1,6 +1,6 @@
 """Processor lifecycle framework (contract of the reference tool's external
-BaseProcessor).  A copy of the reference package's ``commands/base.py``,
-holding what the port uses.
+BaseProcessor / BaseReportProcessor / BaseMultiReportProcessor).  A copy
+of the reference package's ``commands/base.py``.
 
 Lifecycle: ``parse(args)`` builds an argparse parser from the subclass's
 ``add_options`` and stores parsed values on the instance; ``run()`` calls
@@ -14,7 +14,7 @@ import argparse
 import logging
 import os
 import sys
-from typing import Sequence
+from typing import IO, Sequence
 
 
 class ParseFailureException(Exception):
@@ -92,6 +92,30 @@ class BaseProcessor:
     def require_dir(path: str, what: str) -> None:
         if not os.path.isdir(path):
             raise FileNotFoundError(f"{what} {path} not found or invalid.")
+
+
+class BaseReportProcessor(BaseProcessor):
+    """Adds the ``-o`` report-output option (BaseReportProcessor contract,
+    CheckAnnotationProcessor.java:109)."""
+
+    def add_options(self, parser: argparse.ArgumentParser) -> None:
+        parser.add_argument(
+            "-o", "--output", metavar="outFile", default=None,
+            help="report output file (default: stdout)")
+
+    def open_report(self) -> IO:
+        return open(self.output, "w") if self.output else sys.stdout
+
+    def run_command(self) -> None:
+        out = self.open_report()
+        try:
+            self.run_reporter(out)
+        finally:
+            if self.output:
+                out.close()
+
+    def run_reporter(self, writer: IO) -> None:
+        raise NotImplementedError
 
 
 class BaseMultiReportProcessor(BaseProcessor):

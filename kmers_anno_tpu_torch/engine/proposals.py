@@ -4,8 +4,8 @@ PegProposalList.java:20-142).
 Semantics preserved exactly (SURVEY.md §2c Q7):
 
 * a proposal's identity is (contig, end, strand) — one proposal per ORF;
-* a candidate location is extended to a start/stop codon
-  (``ops.orf.OrfExtender``), and is rejected when that is impossible;
+* ``create`` extends the location to a start/stop codon via
+  ``Location.extend``, returning None when impossible;
 * strength = evidence / extended length; filters run in the order
   invalid → weak (strength < min) → small (evidence < minEvidence);
 * a duplicate ORF keeps the better proposal (more evidence, tie → longer)
@@ -15,8 +15,8 @@ Semantics preserved exactly (SURVEY.md §2c Q7):
 
 Host NumPy: ``propose_batch`` and ``replay_stored`` of
 ``kmers_anno_tpu/engine/proposals.py`` copied as they are (that package's
-``engine/__init__`` imports jax).  The reference's scalar ``propose`` is
-not copied: no ported path calls it.
+``engine/__init__`` imports jax).  The one-at-a-time ``propose`` is a
+batch of one here, with the same counters and results.
 """
 
 from __future__ import annotations
@@ -42,9 +42,23 @@ class PegProposal:
         self.function = function
         self.evidence = evidence
 
+    @staticmethod
+    def create(genome: "Genome", loc: Location, function: str,
+               evidence: int) -> "PegProposal | None":
+        real = loc.extend(genome)
+        if real is None:
+            return None
+        return PegProposal(real, function, evidence)
+
     @property
     def strength(self) -> float:
         return self.evidence / self.loc.length
+
+    def better_than(self, other: "PegProposal") -> bool:
+        if self.evidence > other.evidence:
+            return True
+        return (self.evidence == other.evidence
+                and self.loc.length > other.loc.length)
 
     def merge(self, other: "PegProposal") -> None:
         """Overwrite with the better proposal's data; the ORF end stays."""
@@ -78,6 +92,17 @@ class PegProposalList:
         self.merged = 0
         self._by_orf: dict[tuple, PegProposal] = {}
         self._extender = None
+
+    def propose(self, loc: Location, function: str,
+                evidence: int) -> PegProposal | None:
+        """Propose one candidate: the stored proposal when it was inserted
+        or won a merge, else None."""
+        stored = self.propose_batch(
+            np.zeros(1, np.int64), [loc.contig_id],
+            np.array([0 if loc.strand == "+" else 1]), np.array([loc.left]),
+            np.array([loc.right]), np.array([evidence]),
+            np.zeros(1, np.int64), [function])
+        return stored[0][1] if stored else None
 
     def propose_batch(self, contig_idx: np.ndarray, contig_ids: list,
                       strands: np.ndarray, lefts: np.ndarray,

@@ -117,6 +117,12 @@ class GeneticCode:
         lut = np.frombuffer(self.aa_string.encode("ascii"), dtype=np.uint8)
         return np.concatenate([lut, np.array([ord("X")], dtype=np.uint8)])
 
+    def is_start(self, codon: str) -> bool:
+        return codon.lower() in self.starts
+
+    def is_stop(self, codon: str) -> bool:
+        return codon.lower() in self.stops
+
 
 class DnaTranslator:
     """Host reference translator matching the external DnaTranslator contract."""

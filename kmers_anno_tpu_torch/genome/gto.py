@@ -1,12 +1,11 @@
 """GTO (Genome Typed Object) JSON model.
 
-A copy of the reference package's ``genome/gto.py``, holding what the
-port uses.  Implements the contract of the reference tool's external
-``Genome`` / ``Feature`` / ``Contig`` classes (schema: keys domain/
-taxonomy/features/contigs/genetic_code/id/close_genomes/subsystems;
-feature = {id, type, function, location: [[contig, begin, strand, len]],
-protein_translation, annotations, aliases}; contig = {id, dna,
-genetic_code}).
+A copy of the reference package's ``genome/gto.py``.  Implements the
+contract of the reference tool's external ``Genome`` / ``Feature`` /
+``Contig`` classes (schema: keys domain/taxonomy/features/contigs/
+genetic_code/id/close_genomes/subsystems; feature = {id, type, function,
+location: [[contig, begin, strand, len]], protein_translation,
+annotations, aliases}; contig = {id, dna, genetic_code}).
 
 Unknown JSON keys are preserved verbatim so load→save round-trips do not
 lose information the engines don't model.  The port's engines read
@@ -19,12 +18,15 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import time
 from typing import IO, Iterator
 
+from .dna import reverse_complement
 from .locations import Location
 
 _PEG_TYPES = {"CDS", "peg"}
+_FID_GENOME_RE = re.compile(r"fig\|(\d+\.\d+)\.")
 
 
 def protein_md5(protein: str) -> str:
@@ -32,11 +34,17 @@ def protein_md5(protein: str) -> str:
     return hashlib.md5(protein.upper().encode("ascii")).hexdigest()
 
 
+def dna_md5(dna: str) -> str:
+    """MD5 of a DNA sequence, case-insensitive."""
+    return hashlib.md5(dna.lower().encode("ascii")).hexdigest()
+
+
 class Contig:
     """One contig: id, dna sequence, genetic code."""
 
     def __init__(self, raw: dict):
         self.raw = raw
+        self._seq_lower: str | None = None
 
     @property
     def id(self) -> str:
@@ -45,6 +53,18 @@ class Contig:
     @property
     def sequence(self) -> str:
         return self.raw.get("dna", "")
+
+    @property
+    def seq_lower(self) -> str:
+        """Lower-cased sequence, cached."""
+        if self._seq_lower is None:
+            self._seq_lower = self.sequence.lower()
+        return self._seq_lower
+
+    @property
+    def r_sequence(self) -> str:
+        """Reverse complement (Contig.getRSequence, KmerReference.java:166)."""
+        return reverse_complement(self.sequence)
 
     @property
     def genetic_code(self) -> int:
@@ -124,6 +144,15 @@ class Feature:
         return len(prot) if prot else 0
 
     @property
+    def md5(self) -> str:
+        prot = self.protein_translation
+        return protein_md5(prot) if prot else ""
+
+    @property
+    def aliases(self) -> list:
+        return self.raw.setdefault("aliases", [])
+
+    @property
     def regions(self) -> list[Location]:
         """Feature location segments as Location objects."""
         out = []
@@ -153,10 +182,140 @@ class Feature:
         self.raw.setdefault("annotations", []).append(
             [text, tool, time.time(), ""])
 
+    @property
+    def subsystem_rows(self) -> list["SubsystemRow"]:
+        """Subsystem rows binding this feature (Feature.getSubsystemRows)."""
+        return self.genome.subsystem_rows_of(self.id) if self.genome else []
+
     def get_useful_roles(self, role_map) -> list:
         """Roles of this feature's function present in the role map
         (Feature.getUsefulRoles contract, BuildKmerProcessor.java:158)."""
         return role_map.useful_roles(self.function)
+
+    def is_interesting(self, role_map) -> bool:
+        """True when the function has at least one role in the map
+        (Feature.isInteresting, SequenceCheckProcessor.java:129)."""
+        return bool(role_map.useful_roles(self.function))
+
+    @property
+    def alias_map(self) -> dict[str, list[str]]:
+        """Aliases grouped by type (Feature.getAliasMap contract,
+        GeneCopyProcessor.java:107).  GTO alias entries are either
+        [type, value] pairs or bare strings (type inferred as 'misc')."""
+        out: dict[str, list[str]] = {}
+        for entry in self.raw.get("aliases", []) or []:
+            if isinstance(entry, (list, tuple)) and len(entry) >= 2:
+                atype, value = entry[0], entry[1]
+            else:
+                atype, value = "misc", entry
+            bucket = out.setdefault(atype, [])
+            if value not in bucket:
+                bucket.append(value)
+        return out
+
+    def add_alias(self, alias_type: str, alias: str) -> None:
+        """Append an alias (Feature.addAlias contract)."""
+        aliases = self.raw.setdefault("aliases", [])
+        entry = [alias_type, alias]
+        if entry not in aliases and alias not in aliases:
+            aliases.append(entry)
+
+    # -- protein families + gene name (Feature.setPlfam/setPgfam/
+    #    setGeneName contract, GtoBuildProcessor.java:146-148, 216, 227;
+    #    GTO family_assignments entries are [type, id, function] lists) --
+
+    def _set_family(self, fam_type: str, fam_id: str | None) -> None:
+        fams = [f for f in self.raw.get("family_assignments", [])
+                if not (isinstance(f, (list, tuple)) and f
+                        and f[0] == fam_type)]
+        if fam_id:
+            fams.append([fam_type, fam_id, self.function])
+        self.raw["family_assignments"] = fams
+
+    def _get_family(self, fam_type: str) -> str | None:
+        for f in self.raw.get("family_assignments", []):
+            if isinstance(f, (list, tuple)) and f and f[0] == fam_type:
+                return f[1]
+        return None
+
+    @property
+    def plfam(self) -> str | None:
+        return self._get_family("PLFAM")
+
+    @plfam.setter
+    def plfam(self, fam_id: str | None) -> None:
+        self._set_family("PLFAM", fam_id)
+
+    @property
+    def pgfam(self) -> str | None:
+        return self._get_family("PGFAM")
+
+    @pgfam.setter
+    def pgfam(self, fam_id: str | None) -> None:
+        self._set_family("PGFAM", fam_id)
+
+    @property
+    def gene_name(self) -> str:
+        for entry in self.raw.get("aliases", []) or []:
+            if (isinstance(entry, (list, tuple)) and len(entry) >= 2
+                    and entry[0] == "gene_name"):
+                return entry[1]
+        return ""
+
+    @gene_name.setter
+    def gene_name(self, name: str) -> None:
+        aliases = [a for a in self.raw.get("aliases", []) or []
+                   if not (isinstance(a, (list, tuple)) and a
+                           and a[0] == "gene_name")]
+        if name:
+            aliases.append(["gene_name", name])
+        self.raw["aliases"] = aliases
+
+    @staticmethod
+    def genome_of(fid: str) -> str:
+        m = _FID_GENOME_RE.match(fid)
+        return m.group(1) if m else ""
+
+
+class SubsystemRow:
+    """One subsystem of a genome (the reference tool's SubsystemRow
+    contract: getName/getRoles/getClassifications/isActive,
+    UpdateJsonProcessor.java:311-326).  GTO schema: {name, role_bindings:
+    [{role_id, features}], classification: [..], variant_code}."""
+
+    def __init__(self, raw: dict):
+        self.raw = raw
+
+    @property
+    def name(self) -> str:
+        return self.raw.get("name", "")
+
+    @property
+    def classifications(self) -> list[str]:
+        return list(self.raw.get("classification", []))
+
+    @property
+    def variant_code(self) -> str:
+        return self.raw.get("variant_code", "")
+
+    @property
+    def is_active(self) -> bool:
+        code = self.variant_code
+        return code not in ("", "0", "-1", "inactive", "dirty.-1", "*-1")
+
+    @property
+    def role_bindings(self) -> list[dict]:
+        return self.raw.get("role_bindings", [])
+
+    @property
+    def roles(self) -> list[str]:
+        return [b.get("role_id", "") for b in self.role_bindings]
+
+    def feature_ids(self) -> set[str]:
+        out: set[str] = set()
+        for b in self.role_bindings:
+            out.update(b.get("features", []))
+        return out
 
 
 class CloseGenome:
@@ -192,6 +351,8 @@ class Genome:
         for f in self._features:
             f.genome = self
         self._contigs = [Contig(c) for c in raw.get("contigs", [])]
+        self._by_id: dict[str, Feature] | None = None
+        self._sub_index: dict[str, list["SubsystemRow"]] | None = None
 
     # ----- I/O -----
 
@@ -225,6 +386,10 @@ class Genome:
     def genetic_code(self) -> int:
         return int(self.raw.get("genetic_code", 11))
 
+    @property
+    def length(self) -> int:
+        return sum(c.length for c in self._contigs)
+
     def __str__(self) -> str:
         return f"{self.id} ({self.name})"
 
@@ -246,6 +411,14 @@ class Genome:
             return ""
         return loc.dna(contig.sequence)
 
+    @property
+    def md5(self) -> str:
+        """Whole-genome sequence MD5: md5 over the sorted contig sequence
+        MD5s (the convention for MD5Hex.sequenceMD5(genome); only used to
+        match genomes against each other, BaseCompareProcessor.java:89)."""
+        parts = sorted(dna_md5(c.sequence) for c in self._contigs)
+        return hashlib.md5(";".join(parts).encode("ascii")).hexdigest()
+
     # ----- features -----
 
     @property
@@ -256,17 +429,24 @@ class Genome:
     def pegs(self) -> list[Feature]:
         return [f for f in self._features if f.is_protein]
 
+    def get_feature(self, fid: str) -> Feature | None:
+        if self._by_id is None or len(self._by_id) != len(self._features):
+            self._by_id = {f.id: f for f in self._features}
+        return self._by_id.get(fid)
+
     def add_feature(self, feat: Feature) -> None:
         feat.genome = self
         self._features.append(feat)
+        self._by_id = None
 
     def de_annotate(self) -> None:
         """Remove protein features and subsystems so the genome can be
         re-annotated from scratch (BatchKmerProcessor.java:67)."""
         self._features = [f for f in self._features if not f.is_protein]
+        self._by_id = None
         self.raw["subsystems"] = []
 
-    # ----- close genomes -----
+    # ----- close genomes / subsystems -----
 
     @property
     def close_genomes(self) -> list[CloseGenome]:
@@ -274,6 +454,24 @@ class Genome:
         out = [CloseGenome(c) for c in self.raw.get("close_genomes", [])]
         out.sort(key=CloseGenome.sort_key)
         return out
+
+    @property
+    def subsystems(self) -> list[SubsystemRow]:
+        return [SubsystemRow(s) for s in self.raw.get("subsystems", [])]
+
+    def subsystem_rows_of(self, fid: str) -> list[SubsystemRow]:
+        """Subsystem rows binding a feature (Feature.getSubsystemRows
+        contract, FullCompareAnnotationReporter.java:46-47)."""
+        if self._sub_index is None:
+            self._sub_index = {}
+            for row in self.subsystems:
+                for bound_fid in row.feature_ids():
+                    self._sub_index.setdefault(bound_fid, []).append(row)
+        return self._sub_index.get(fid, [])
+
+    def clear_subsystems(self) -> None:
+        self.raw["subsystems"] = []
+        self._sub_index = None
 
 
 class GenomeDirectory:

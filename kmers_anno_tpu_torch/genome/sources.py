@@ -1,7 +1,8 @@
-"""Genome sources (GenomeSource contract: enum-typed sources created with
-``GenomeSource.create(type, path)``, ``ids()``, ``get(id)``).  A copy of
-the reference package's ``genome/sources.py``, holding the sources the
-port uses: a directory of GTOs and the PATRIC/BV-BRC source.
+"""Genome sources and targets (GenomeSource contract: enum-typed sources
+created with ``GenomeSource.create(type, path)``, ``ids()``, ``get(id)``;
+GenomeTarget contract: enum-typed targets created with
+``GenomeTarget.create(type, path, clear)`` that accept genomes).  A copy
+of the reference package's ``genome/sources.py``.
 
 The PATRIC source (P3Genome.load, KmerProcessor.java:189) is cache-first:
 genomes are looked up as ``<cache>/<id>.gto`` before any network attempt,
@@ -16,6 +17,7 @@ from __future__ import annotations
 import os
 from typing import Iterator
 
+from ..utils.io import FastaWriter, Sequence
 from .gto import Genome
 
 
@@ -121,3 +123,81 @@ class PatricGenomeSource(GenomeSource):
 
 
 GenomeSource.TYPES.update(DIR=DirGenomeSource, PATRIC=PatricGenomeSource)
+
+
+class GenomeTarget:
+    """Base genome target (the reference tool's IGenomeTarget /
+    GenomeTargetType contract, ApplyAnnotationProcessor.java:23, 33-34,
+    105: enum-typed targets created with ``type.create(fileOrDir,
+    clearFlag)`` that accept genomes; the non-annotation types LIST and
+    DNAFASTA exist alongside DIR)."""
+
+    TYPES: dict[str, type] = {}
+
+    @classmethod
+    def create(cls, type_name: str, path: str,
+               clear: bool = False) -> "GenomeTarget":
+        try:
+            return cls.TYPES[type_name.upper()](path, clear=clear)
+        except KeyError:
+            raise ValueError(f"unknown genome target type {type_name!r}")
+
+    def add(self, genome: Genome) -> None:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        """Flush file-backed targets (directory targets are no-ops)."""
+
+
+class DirGenomeTarget(GenomeTarget):
+    """Writes genomes as ``<id>.gto`` files (IGenomeTarget DIR contract)."""
+
+    def __init__(self, path: str, clear: bool = False):
+        os.makedirs(path, exist_ok=True)
+        if clear:
+            for name in os.listdir(path):
+                if name.endswith(".gto"):
+                    os.unlink(os.path.join(path, name))
+        self.path = path
+
+    def add(self, genome: Genome) -> None:
+        genome.save(os.path.join(self.path, genome.id + ".gto"))
+
+
+class ListGenomeTarget(GenomeTarget):
+    """Writes one ``<genomeId>\\t<name>`` line per genome to a text file
+    (the LIST target type: annotations are not retained —
+    ApplyAnnotationProcessor.java:33-34).  ``clear`` truncates an existing
+    file; otherwise genomes append."""
+
+    def __init__(self, path: str, clear: bool = False):
+        self.fh = open(path, "w" if clear else "a")
+
+    def add(self, genome: Genome) -> None:
+        self.fh.write(f"{genome.id}\t{genome.name}\n")
+
+    def close(self) -> None:
+        self.fh.close()
+
+
+class DnaFastaGenomeTarget(GenomeTarget):
+    """Writes every contig of each genome as DNA FASTA records
+    (the DNAFASTA target type — annotations are not retained).  Record
+    label = contig id, comment = ``<genomeId> <genomeName>``."""
+
+    def __init__(self, path: str, clear: bool = False):
+        self.fh = open(path, "w" if clear else "a")
+
+    def add(self, genome: Genome) -> None:
+        writer = FastaWriter(self.fh)
+        for contig in genome.contigs:
+            writer.write(Sequence(contig.id,
+                                  f"{genome.id} {genome.name}",
+                                  contig.sequence))
+
+    def close(self) -> None:
+        self.fh.close()
+
+
+GenomeTarget.TYPES.update(DIR=DirGenomeTarget, LIST=ListGenomeTarget,
+                          DNAFASTA=DnaFastaGenomeTarget)

@@ -1,7 +1,7 @@
-"""Counting map (contract of the reference tool's external CountMap:
-count/getCount/size/counts/sortedCounts/deleteAll/getSingletons).  A copy
-of the reference package's ``utils/counters.py``, holding what the port
-uses."""
+"""Counting maps (contract of the reference tool's external CountMap /
+QualityCountMap: count/getCount/size/counts/sortedCounts/deleteAll/
+getSingletons; setGood/setBad/good/bad).  A copy of the reference
+package's ``utils/counters.py``."""
 
 from __future__ import annotations
 
@@ -47,3 +47,31 @@ class CountMap(Generic[K]):
 
     def delete_all(self) -> None:
         self._counts.clear()
+
+
+class QualityCountMap(Generic[K]):
+    """Tracks good and bad occurrence counts per key
+    (CompareFunctions.java:59-64)."""
+
+    def __init__(self) -> None:
+        self._good: Counter = Counter()
+        self._bad: Counter = Counter()
+
+    def set_good(self, key: K) -> None:
+        self._good[key] += 1
+
+    def set_bad(self, key: K) -> None:
+        self._bad[key] += 1
+
+    def good(self, key: K) -> int:
+        return self._good.get(key, 0)
+
+    def bad(self, key: K) -> int:
+        return self._bad.get(key, 0)
+
+    def all_keys(self) -> set[K]:
+        return set(self._good) | set(self._bad)
+
+    def best_keys(self) -> list[K]:
+        """Keys sorted by descending good count."""
+        return sorted(self.all_keys(), key=lambda k: -self.good(k))

@@ -1,6 +1,6 @@
-"""Tabular I/O (contracts of the reference tool's external
-TabbedLineReader / LineReader).  A copy of the reference package's
-``utils/io.py``, holding what the port uses.
+"""Tabular and FASTA I/O (contracts of the reference tool's external
+TabbedLineReader / LineReader / FastaInputStream / FastaOutputStream).  A
+copy of the reference package's ``utils/io.py``.
 
 * ``TabbedLineReader(path)`` — header-indexed TSV with ``find_field`` by
   column name or 1-based index string (Annotation.java:131-134).
@@ -8,10 +8,13 @@ TabbedLineReader / LineReader).  A copy of the reference package's
   (ApplyKmerProcessor.java:102).
 * ``read_set(path, "1")`` — the set of values of a column
   (BuildKmerProcessor.java:117).
+* FASTA streams of ``Sequence{label, comment, sequence}``
+  (BuildKmerProcessor.java:160-162, 196-207).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import IO, Iterator
 
 
@@ -136,3 +139,80 @@ def read_set(path: str, column: str) -> set[str]:
                 if idx < len(fields):
                     out.add(fields[idx])
     return out
+
+
+@dataclass
+class Sequence:
+    """A FASTA record: label, comment, sequence."""
+
+    label: str
+    comment: str
+    sequence: str
+
+
+class FastaReader:
+    """Stream of Sequence records from a FASTA file or an open text file.
+
+    The reference package parses a file path with its C++ loader; the
+    port parses every source with the line parser.  The two agree on
+    files whose headers hold one blank after the label and whose sequence
+    lines hold no blanks, such as ``FastaWriter`` writes.
+    """
+
+    def __init__(self, source: str | IO):
+        self._own = isinstance(source, str)
+        self._path = source if self._own else None
+        self._fh = None if self._own else source
+
+    def __enter__(self) -> "FastaReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._fh is not None and self._own:
+            self._fh.close()
+
+    def __iter__(self) -> Iterator[Sequence]:
+        if self._own:
+            self._fh = open(self._path, "r")
+        label, comment, chunks = None, "", []
+        for line in self._fh:
+            line = line.rstrip("\r\n")
+            if line.startswith(">"):
+                if label is not None:
+                    yield Sequence(label, comment, "".join(chunks))
+                head = line[1:].split(None, 1)
+                label = head[0] if head else ""
+                comment = head[1] if len(head) > 1 else ""
+                chunks = []
+            elif line:
+                chunks.append(line)
+        if label is not None:
+            yield Sequence(label, comment, "".join(chunks))
+
+
+class FastaWriter:
+    """Writer of Sequence records to a FASTA file."""
+
+    def __init__(self, target: str | IO, width: int = 60):
+        self._own = isinstance(target, str)
+        self._fh = open(target, "w") if self._own else target
+        self.width = width
+
+    def __enter__(self) -> "FastaWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        if self._own:
+            self._fh.close()
+
+    def write(self, seq: Sequence) -> None:
+        header = f">{seq.label}"
+        if seq.comment:
+            header += f" {seq.comment}"
+        self._fh.write(header + "\n")
+        s = seq.sequence
+        for i in range(0, len(s), self.width):
+            self._fh.write(s[i:i + self.width] + "\n")

@@ -108,8 +108,16 @@ def test_batch_data_parallel_is_not_yet_ported(tmp_path):
 @pytest.mark.parametrize("command", ["genes", "funApply", "compare",
                                      "merge"])
 def test_unported_command_says_so(command, capsys):
-    assert port_main([command]) != 0
-    assert "not yet ported" in capsys.readouterr().err
+    """These four commands are ported now: with no arguments each stops
+    with its usage error (argparse's exit code 2), as the reference's
+    does, and no message says "not yet ported"."""
+    with pytest.raises(SystemExit) as got:
+        port_main([command])
+    assert got.value.code == 2
+    err = capsys.readouterr().err
+    assert f"usage: kmers_anno_tpu_torch {command}" in err
+    assert "the following arguments are required" in err
+    assert "not yet ported" not in err
 
 
 def test_help_lists_every_reference_command(capsys):
