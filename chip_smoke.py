@@ -29,7 +29,23 @@ wrapper's launch count is set to 0 before each route and read after it.
 Last, each kernel is held against its plain version again on the inputs
 those routes give it: the genome's padded window stream and its two
 strands (contig scanner), the union table and the ten close-genome tables
-of both stream routes (probe).
+of both stream routes (probe).  Both stream routes build every close
+genome's table on the card (``csrc/table_build.cu``), ten launches a
+close set, with no host build.
+
+Then the ``table_build`` phase.  The table build kernel, in both layouts
+(wide at the close set's common rows and salt 0; 8-slot at load 1/8), is
+held to its plain version bit for bit, table and ``bad`` flag, on the
+realistic close set's ten singleton sets (914,109 keys each, padded as the
+engine pads them) and on forced cases (a row given 24 and 25 keys, 25 in
+the last row; an 8-slot walk of 1 and of 2, a wrap past the last bucket).
+The cold ``_close_set`` of the realistic cell (singletons cached) is timed
+with the device builds and with the engine's own host build in turns; a
+batch of 4 genomes, each the realistic genome with another ordered 10 of
+a pool of 14 close genomes (the 10 and copies of 4 under new ids), runs
+both ways in turns, every genome's stats and features equal to the warm
+fused run's; and the RLE route runs once with every close table in the
+8-slot layout.
 
 Then the signature slice.  ``build`` and ``apply`` (VERIFY, then APPLY)
 run through the CLI on four synthetic genomes whose table holds about 1M
@@ -172,7 +188,8 @@ device time; then a ``cProfile`` of one more warm genome on the host.
 
 ``--compare DIR [DIR ...]`` also times the kernels (``contig_scan`` on
 the padded window stream and on the two strands, ``probe_wide`` on the
-union table and on the fused close tables, ``apply_rows`` on the bench
+union table and on the fused close tables, the table build on the
+realistic singleton sets in both layouts, ``apply_rows`` on the bench
 batches, and ``hash_commons`` on the hashAnno bench chunk and on the
 first chunk of the hashAnno CLI batch, each in the engine's order and
 key-major, and ``hash_best`` on the bench chunk, and both flat apply
@@ -792,6 +809,8 @@ class _Launches:
         from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best,
                                                          hash_commons)
         from kmers_anno_tpu_torch.ops.probe_keys import probe_keys
+        from kmers_anno_tpu_torch.ops.table_build import (build_bucketed,
+                                                          build_wide)
         from kmers_anno_tpu_torch.ops.widetable import probe_wide
 
         self.wrappers = {"contig_scan": scan_stream,
@@ -802,7 +821,9 @@ class _Launches:
                          "apply_flat": apply_flat,
                          "apply_flat_weighted": apply_weighted_flat,
                          "dna_probe": probe_dna,
-                         "probe_keys": probe_keys}
+                         "probe_keys": probe_keys,
+                         "table_build_wide": build_wide,
+                         "table_build_bucketed": build_bucketed}
         self.projection = projection
         self.counts: dict = {}
         self.fused_calls = 0
@@ -1112,9 +1133,11 @@ def profile_fused(annot, new_path, olds, s_per_genome) -> None:
               f" x {os.path.basename(path)}:{line}({func})", flush=True)
 
 
-def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
+def run_main_path(dev, tmp: str, profile: bool,
+                  keep: dict) -> tuple[dict, dict]:
     from kmers_anno_tpu_torch.commands.app import main
-    from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
+    from kmers_anno_tpu_torch.engine.projection import (ProjectionAnnotator,
+                                                        host_fallback)
     from kmers_anno_tpu_torch import native
     from kmers_anno_tpu_torch.genome.gto import Genome
     from kmers_anno_tpu_torch.ops.encode import encode_dna
@@ -1157,6 +1180,7 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
 
     # -- route 1, the main path: kmers through the CLI, fused route --
     t0 = time.perf_counter()
+    fallbacks = host_fallback.count
     with _Launches() as fused_run:
         rc = main(["kmers", "--cache", cache, "-i", new_path, "-o",
                    out_path, "--device", str(dev)])
@@ -1166,6 +1190,11 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
     require(fused_run.counts["contig_scan"] > 0
             and fused_run.counts["probe_wide"] > 0,
             f"a kernel of the path never launched: {fused_run.counts}")
+    # every close genome's table built on the card, none on the host
+    require(fused_run.counts["table_build_wide"] == N_CLOSE
+            and host_fallback.count == fallbacks,
+            f"kmers: {fused_run.counts['table_build_wide']} device table "
+            f"builds, {host_fallback.count - fallbacks} host builds")
     want_feats = features_of(Genome.load(out_path))
     n_pegs = len(want_feats)
     require(n_pegs > 0, "out.gto holds no pegs")
@@ -1179,6 +1208,7 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
     require(want_stats["pegs"] == n_pegs, "warm pegs differ from the CLI's")
     print(f"fused route, warm annotate_genome: {summary(times)}, stats "
           f"{want_stats}", flush=True)
+    keep["projection"] = (new_path, olds, want_feats, want_stats)
     fused_breakdown(dev, fused, new_path, olds, statistics.median(times))
     if profile:
         profile_fused(fused, new_path, olds, statistics.median(times))
@@ -1204,7 +1234,8 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
                     f"{run.counts}")
         else:
             require(run.counts["contig_scan"] > 0
-                    and run.counts["probe_wide"] > 0,
+                    and run.counts["probe_wide"] > 0
+                    and run.counts["table_build_wide"] == N_CLOSE,
                     f"{name}: a kernel of the route never launched: "
                     f"{run.counts}")
         require(stats == want_stats, f"{name} stats {stats} != fused "
@@ -1227,6 +1258,417 @@ def run_main_path(dev, tmp: str, profile: bool) -> tuple[dict, dict]:
         routes[name] = dict(launches=run.counts, times=times)
     return routes, check_kernels_on_main_path(dev, Genome.load(new_path),
                                               fused, rle)
+
+
+# ---------------------------------------------------------------------------
+# the close-genome table builds (csrc/table_build.cu)
+# ---------------------------------------------------------------------------
+
+# forced placements: layout, rows, row -> keys homed there, random keys
+# (none homed in those rows or beside them), and the expected bad flag
+TABLE_BUILD_EDGES = {
+    "wide_row_of_24": ("wide", 128, {5: 24}, 300, False),
+    "wide_row_of_25": ("wide", 128, {5: 25}, 300, True),
+    "wide_last_row_of_25": ("wide", 128, {127: 25}, 300, True),
+    "bucket_walk_of_1": ("bucketed", 64, {3: 9}, 40, False),
+    "bucket_walk_of_2": ("bucketed", 64, {3: 17}, 40, True),
+    "bucket_wrap": ("bucketed", 64, {63: 9}, 40, True),
+}
+KEY_BYTES = 12          # a key's lo, hi and payload words
+SORT_PASS_BYTES = 16    # the sort's pass: a 4-byte home read, the sorted
+                        # home (4 B) and its int64 index (8 B) written
+TABLE_LIBRARY_NOTE = "none: no single PyTorch call builds a hash table"
+ROTATING_GENOMES = 4
+POOL_EXTRA = 4          # the pool: the 10 close genomes and 4 copies
+
+
+def random_keys(rng, n):
+    """n distinct random packed keys (30-bit words), 20-bit payloads."""
+    lo = rng.integers(0, 1 << 30, 2 * n + 16).astype(np.uint32)
+    hi = rng.integers(0, 1 << 30, 2 * n + 16).astype(np.uint32)
+    keys = rng.permutation(np.unique(hi.astype(np.uint64) << np.uint64(32)
+                                     | lo))[:n]
+    return ((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (keys >> np.uint64(32)).astype(np.uint32),
+            rng.integers(0, 1 << 20, n).astype(np.uint32))
+
+
+def homed_keys(rng, n, n_rows, salt, row):
+    """n distinct keys whose home row at ``salt`` is ``row``."""
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer_salted_np
+
+    got = [np.zeros(0, np.uint32)] * 3
+    while len(got[0]) < n:
+        lo, hi, val = random_keys(rng, 50_000)
+        at = (mix_kmer_salted_np(lo, hi, salt) & np.uint32(n_rows - 1)) == row
+        got = [np.concatenate([g, a[at]]) for g, a in zip(got, (lo, hi, val))]
+    return [g[:n] for g in got]
+
+
+def padded_keys(parts, n_pad, rng):
+    """Key sets joined, shuffled and padded to ``n_pad`` with EMPTY keys
+    and 0 payloads, as the engine pads a singleton set: (lo, hi, val)
+    uint32 arrays."""
+    lo, hi, val = (np.concatenate(p) for p in zip(*parts))
+    perm = rng.permutation(len(lo))
+    out = []
+    for words, fill in ((lo, 0xFFFFFFFF), (hi, 0xFFFFFFFF), (val, 0)):
+        padded = np.full(n_pad, fill, np.uint32)
+        padded[: len(words)] = words[perm]
+        out.append(padded)
+    return out
+
+
+def edge_keys(name):
+    """One ``TABLE_BUILD_EDGES`` case: (layout, the key parts (homed
+    groups, then the random keys), padded (lo, hi, val) uint32 arrays,
+    rows, salt, the expected bad flag)."""
+    from kmers_anno_tpu_torch.ops.hashing import GOLDEN, mix_kmer_salted_np
+
+    layout, n_rows, groups, n_random, want_bad = TABLE_BUILD_EDGES[name]
+    salt = 0 if layout == "wide" else GOLDEN
+    rng = np.random.default_rng(len(name))
+    parts = [homed_keys(rng, c, n_rows, salt, row)
+             for row, c in groups.items()]
+    lo, hi, val = random_keys(rng, n_random)
+    far = ~np.isin(mix_kmer_salted_np(lo, hi, salt) & np.uint32(n_rows - 1),
+                   [r + d for r in groups for d in (-1, 0, 1, 2)])
+    parts.append((lo[far], hi[far], val[far]))
+    n_pad = 1 << (sum(len(p[0]) for p in parts) + 7).bit_length()
+    return (layout, parts, padded_keys(parts, n_pad, rng), n_rows, salt,
+            want_bad)
+
+
+def int32_tensors(arrays, dev) -> list:
+    """uint32 arrays as int32 tensors of the same bits on ``dev``."""
+    return [torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(
+        np.int32).copy()).to(dev) for a in arrays]
+
+
+def table_build_of(layout: str):
+    """A layout name's wrapper and ``Layout``."""
+    from kmers_anno_tpu_torch.ops import table_build
+
+    if layout == "wide":
+        return table_build.build_wide, table_build.WIDE
+    return table_build.build_bucketed, table_build.BUCKETED
+
+
+def check_table_build(what, layout, keys, n_rows, salt, want_bad=None):
+    """The kernel against its plain version on the card, table and bad
+    bit for bit: (kernel ms, plain ms, max_abs_err, bad, table)."""
+    from kmers_anno_tpu_torch.ops.table_build import build_table_plain
+
+    wrapper, lay = table_build_of(layout)
+    extra = (salt,) if layout == "wide" else ()
+    t_k, (table, bad) = timed(lambda: wrapper(*keys, n_rows, *extra))
+    t_p, (want, want_b) = timed(lambda: build_table_plain(*keys, n_rows, lay,
+                                                          salt))
+    require(torch.equal(table, want) and bool(bad) == bool(want_b),
+            f"the {layout} table build differs from its plain version on "
+            f"{what}")
+    require(want_bad is None or bool(bad) == want_bad,
+            f"the {layout} table build's bad flag is wrong on {what}")
+    return t_k, t_p, max_abs_err([(table, want)]), bool(bad), table
+
+
+def launch_table_build(lib, lo, hi, val, n_rows, lay, salt, home, hb, order,
+                       tile_max, table, bad):
+    """Both entry points of a table build through a kernel library
+    (uncounted); the stable sort between them is the one made ahead, in
+    ``hb`` and ``order``.  Every launch writes the same slots."""
+    stream = torch.cuda.current_stream().cuda_stream
+    n = lo.numel()
+    err = lib.kan_table_homes(lo.data_ptr(), hi.data_ptr(), n, n_rows,
+                              salt & 0xFFFFFFFF, home.data_ptr(), stream)
+    require(err == 0, f"kan_table_homes returned CUDA error {err}")
+    err = lib.kan_table_place(hb.data_ptr(), order.data_ptr(), lo.data_ptr(),
+                              hi.data_ptr(), val.data_ptr(), n, n_rows,
+                              lay.slots, lay.max_walk, int(lay.keep_walkers),
+                              tile_max.data_ptr(), table.data_ptr(),
+                              bad.data_ptr(), stream)
+    require(err == 0, f"kan_table_place returned CUDA error {err}")
+    return table, bad
+
+
+launch_table_build.entry = "kan_table_place"
+
+
+def table_build_args(layout, keys, n_rows, salt) -> tuple:
+    """``launch_table_build``'s arguments for one key set: its homes
+    sorted ahead, the scratch, and a table filled as the wrapper fills
+    it."""
+    from kmers_anno_tpu_torch import kernels
+    from kmers_anno_tpu_torch.ops.table_build import KERNEL_TILE
+
+    _, lay = table_build_of(layout)
+    lo = keys[0]
+    n = lo.numel()
+    home = torch.empty(n, dtype=torch.int32, device=lo.device)
+    err = kernels.lib().kan_table_homes(
+        lo.data_ptr(), keys[1].data_ptr(), n, n_rows, salt & 0xFFFFFFFF,
+        home.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"kan_table_homes returned CUDA error {err}")
+    hb, order = torch.sort(home, stable=True)
+    table = torch.full((n_rows, 3 * lay.slots), -1, dtype=torch.int32,
+                       device=lo.device)
+    table[:, 2 * lay.slots:] = 0
+    return (*keys, n_rows, lay, salt, home, hb, order,
+            torch.empty(-(-n // KERNEL_TILE), dtype=torch.int64,
+                        device=lo.device), table,
+            torch.zeros(1, dtype=torch.int32, device=lo.device))
+
+
+def table_build_bound(keys, table, ms) -> dict:
+    """A build's bound: each key's 12 bytes read once, the table written
+    once, and the sort's one pass (``SORT_PASS_BYTES`` a key); operations:
+    a key's hash (``HASH_KEY_OPS``)."""
+    n = keys[0].numel()
+    return dict(bound(KEY_BYTES * n + nbytes(table) + SORT_PASS_BYTES * n,
+                      HASH_KEY_OPS * n, ms), library=TABLE_LIBRARY_NOTE)
+
+
+def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
+    """Both layouts' kernels against their plain versions on the realistic
+    close set's singleton sets (the wide layout at the close set's common
+    rows, salt 0; the 8-slot layout at ``device_table_buckets``, as for a
+    singleton set past the wide table's capacity) and on the forced
+    cases.  The realistic sets are padded by the engine's own
+    ``_padded_keys``.  Returns the two ``kernels`` rows and the
+    ``--compare`` cases."""
+    from kmers_anno_tpu_torch.engine.projection import _bucket
+    from kmers_anno_tpu_torch.ops.hashing import GOLDEN
+    from kmers_anno_tpu_torch.ops.hashtable import device_table_buckets
+    from kmers_anno_tpu_torch.ops.widetable import wide_rows_for
+
+    sets = [list(annot._padded_keys(lo, hi, peg, _bucket(len(lo), 4096)))
+            for lo, hi, peg, _ in singles]
+    n_pad = max(k[0].numel() for k in sets)
+    rows = {"wide": max(wide_rows_for(k[0].numel()) for k in sets),
+            "bucketed": device_table_buckets(n_pad)}
+    names = {"wide": "build_wide_table_device",
+             "bucketed": "build_table_device"}
+    measured, cases = {}, {}
+    for layout, salt in (("wide", 0), ("bucketed", GOLDEN)):
+        got = [check_table_build("a realistic singleton set", layout, keys,
+                                 rows[layout], salt) for keys in sets]
+        require(not any(g[3] for g in got),
+                f"the {layout} build reported bad on a realistic set")
+        args = [table_build_args(layout, keys, rows[layout], salt)
+                for keys in sets]
+        alone = launch_ms(launch_table_build, args) / len(args)
+        require(all(torch.equal(a[-2], g[4]) for a, g in zip(args, got)),
+                f"launch_table_build's {layout} tables differ from the "
+                f"wrapper's")
+        sort_ms = timed(lambda: torch.sort(args[0][6], stable=True))[0]
+        ms = statistics.median(g[0] for g in got)
+        row = with_launch(dict(
+            ms=ms, plain_ms=statistics.median(g[1] for g in got),
+            max_abs_err=max(g[2] for g in got), sort_ms=sort_ms,
+            keys=statistics.median(len(s[0]) for s in singles),
+            padded_keys=n_pad, rows=rows[layout],
+            **table_build_bound(sets[0], got[0][4], ms)), alone)
+        measured[names[layout]] = row
+        cases[f"the realistic singleton sets, {layout}"] = (
+            launch_table_build, args)
+        print(f"table build, {layout} layout: {len(sets)} realistic "
+              f"singleton sets of {[len(s[0]) for s in singles]} keys "
+              f"(padded to {n_pad}) into {rows[layout]} rows, no bad, "
+              f"tables equal to the plain version's, max_abs_err "
+              f"{row['max_abs_err']}; kernel {ms:.4f} ms a build through "
+              f"the wrapper (median), {alone:.4f} ms the two entry points "
+              f"alone back to back, the stable sort of the homes "
+              f"{sort_ms:.4f} ms; plain {row['plain_ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+              f"{row['bound_bytes']} bytes), share {row['bound_share']:.3f},"
+              f" alone {row['launch_share']:.3f}", flush=True)
+    for name in TABLE_BUILD_EDGES:
+        layout, _, arrays, n_rows, salt, want_bad = edge_keys(name)
+        check_table_build(name, layout, int32_tensors(arrays, dev), n_rows,
+                          salt, want_bad)
+    print(f"table build: both layouts equal to their plain versions, bad "
+          f"flags as forced, on {', '.join(TABLE_BUILD_EDGES)}", flush=True)
+    return measured, cases
+
+
+def close_set_split(annot, singles) -> dict:
+    """Where a cold close set's seconds go with device builds, each step
+    timed alone as ``_close_set`` runs it: ``np.unique`` of the union's
+    keys, the union's host build, and the device builds (padding, upload,
+    build, the ``bad`` read), with the padding and upload also alone."""
+    from kmers_anno_tpu_torch.engine.projection import _bucket
+    from kmers_anno_tpu_torch.ops.widetable import (build_wide_table,
+                                                    build_wide_table_device,
+                                                    wide_rows_for)
+
+    t_unique, keys64 = host_seconds(lambda: np.unique(np.concatenate(
+        [(s[1].astype(np.uint64) << np.uint64(32)) | s[0].astype(np.uint64)
+         for s in singles])))
+    u_lo = (keys64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    u_hi = (keys64 >> np.uint64(32)).astype(np.uint32)
+    t_union, _ = host_seconds(lambda: build_wide_table(
+        u_lo, u_hi, np.zeros(len(u_lo), np.uint32)))
+    rows = max(wide_rows_for(_bucket(len(s[0]), 4096)) for s in singles)
+
+    def padded():
+        return [annot._padded_keys(lo, hi, peg, _bucket(len(lo), 4096))
+                for lo, hi, peg, _ in singles]
+
+    def builds():
+        for keys in padded():
+            require(not bool(build_wide_table_device(*keys, rows)[1]),
+                    "a realistic close table reported bad")
+
+    t_builds, _ = host_seconds(builds)
+    t_upload, _ = host_seconds(padded)
+    return dict(keys=sum(len(s[0]) for s in singles),
+                union_keys=len(keys64), unique_s=t_unique, union_s=t_union,
+                builds_s=t_builds, upload_s=t_upload)
+
+
+def declined(*_args):
+    """A device table build that declines (reports ``bad``), so that the
+    engine takes its own host build for every table: the host side of the
+    smoke's turns.  No switch in the package does this."""
+    return None, torch.tensor(True)
+
+
+def run_table_build(dev, keep: dict) -> tuple[dict, dict, dict]:
+    """The ``table_build`` phase: the kernel on the realistic singleton
+    sets and forced cases; the cold ``_close_set`` of the realistic cell,
+    device builds against the engine's host build in turns; a batch of 4
+    genomes whose close sets rotate through a pool of 14, in turns; and
+    the RLE route with every close table in the 8-slot layout."""
+    from kmers_anno_tpu_torch.engine import projection
+    from kmers_anno_tpu_torch.engine.projection import (ProjectionAnnotator,
+                                                        host_fallback)
+    from kmers_anno_tpu_torch.genome.gto import Genome
+
+    new_path, olds, want_feats, want_stats = keep.pop("projection")
+    annot = ProjectionAnnotator(device=dev)
+    olds_list = list(olds.values())
+    singles = [annot._singletons(og) for og in olds_list]
+    measured, cases = check_table_builds(dev, annot, singles)
+    device_build = projection.build_wide_table_device
+
+    def with_build(build_fn, fn):
+        projection.build_wide_table_device = build_fn
+        try:
+            annot._closeset_cache.clear()
+            before = host_fallback.count
+            out = fn()
+            return out, host_fallback.count - before
+        finally:
+            projection.build_wide_table_device = device_build
+
+    turns = (("device", device_build), ("host", declined),
+             ("host", declined), ("device", device_build))
+    cold = {"device": [], "host": []}
+    for name, build_fn in turns:
+        (s, _), fallbacks = with_build(build_fn, lambda: host_seconds(
+            lambda: annot._close_set(olds_list)))
+        require(fallbacks == (0 if name == "device" else N_CLOSE),
+                f"cold close set, {name} builds: {fallbacks} host builds")
+        cold[name].append(s)
+    print(f"cold _close_set of the realistic cell ({N_CLOSE} close genomes,"
+          f" singletons cached), turns device host host device: device "
+          f"{', '.join(f'{s:.4f}' for s in cold['device'])} s, host "
+          f"{', '.join(f'{s:.4f}' for s in cold['host'])} s; no host "
+          f"build on the device turns", flush=True)
+    split = close_set_split(annot, singles)
+    print(f"split of a cold close set with device builds: np.unique of "
+          f"{split['keys']} keys ({split['union_keys']} distinct) "
+          f"{split['unique_s']:.4f} s, the union's host build "
+          f"{split['union_s']:.4f} s, {N_CLOSE} device builds with their "
+          f"padding, upload and bad read {split['builds_s']:.4f} s (the "
+          f"padding and upload alone {split['upload_s']:.4f} s)",
+          flush=True)
+
+    # the rotating batch: each genome's close set an ordered 10 of 14
+    pool = dict(olds)
+    for j, gid in enumerate(list(olds)[:POOL_EXTRA]):
+        raw = copy.deepcopy(olds[gid].raw)
+        raw["id"] = f"31{j}.1"
+        pool[raw["id"]] = Genome(raw)
+    pool_ids = list(pool)
+    for og in pool.values():
+        annot._singletons(og)             # cached, as in a batch run
+
+    def rotating_batch():
+        """Seconds a genome: its close set built, then the rest of its
+        annotation (which finds the close set cached)."""
+        times, set_times = [], []
+        with _Launches() as run:
+            for g in range(ROTATING_GENOMES):
+                ids = pool_ids[g: g + N_CLOSE]
+                genome = Genome.load(new_path)
+                genome.raw["close_genomes"] = [
+                    {"genome": gid, "genome_name": "Oldus",
+                     "closeness_measure": 99.0} for gid in ids]
+                s_set, _ = host_seconds(
+                    lambda: annot._close_set([pool[i] for i in ids]))
+                s, stats = host_seconds(
+                    lambda: annot.annotate_genome(genome, pool.get))
+                require(stats == want_stats
+                        and features_of(genome) == want_feats,
+                        f"rotating genome {g}: stats or features differ "
+                        f"from the warm fused run's")
+                times.append(s_set + s)
+                set_times.append(s_set)
+        require(run.fused_calls == ROTATING_GENOMES,
+                "a rotating genome left the fused route")
+        return (times, set_times), run.counts
+
+    rotating = {"device": [], "host": []}
+    set_s = {"device": [], "host": []}
+    for name, build_fn in turns:
+        ((times, set_times), counts), fallbacks = with_build(
+            build_fn, rotating_batch)
+        require(fallbacks == (0 if name == "device"
+                              else ROTATING_GENOMES * N_CLOSE),
+                f"rotating batch, {name} builds: {fallbacks} host builds")
+        want_launches = ROTATING_GENOMES * N_CLOSE if name == "device" else 0
+        require(counts["table_build_wide"] == want_launches,
+                f"rotating batch, {name} builds: {counts['table_build_wide']}"
+                f" launches of the wide build")
+        rotating[name].extend(times)
+        set_s[name].extend(set_times)
+        if name == "device":
+            device_counts = counts
+    for name, times in rotating.items():
+        print(f"rotating close sets ({ROTATING_GENOMES} genomes a turn, "
+              f"each an ordered {N_CLOSE} of {len(pool)} close genomes, "
+              f"features equal to the warm fused run's), {name} builds: "
+              f"{summary(times)}; of which its close set "
+              f"{summary(set_s[name])}", flush=True)
+
+    # the RLE route with every close table in the 8-slot layout, as for
+    # singleton sets past the wide table's capacity
+    rle8 = ProjectionAnnotator(device=dev)
+    rle8._close_set = lambda olds_: None
+    wide_rows_for = projection.wide_rows_for
+    projection.wide_rows_for = lambda n: None
+    try:
+        genome = Genome.load(new_path)
+        before = host_fallback.count
+        with _Launches() as run8:
+            s, stats = host_seconds(
+                lambda: rle8.annotate_genome(genome, olds.get))
+    finally:
+        projection.wide_rows_for = wide_rows_for
+    require(stats == want_stats and features_of(genome) == want_feats,
+            "the 8-slot RLE run differs from the warm fused run")
+    require(run8.counts["table_build_bucketed"] == N_CLOSE
+            and host_fallback.count == before,
+            f"the 8-slot RLE run: launches {run8.counts}, "
+            f"{host_fallback.count - before} host builds")
+    print(f"RLE route, every close table 8-slot (cold): {s:.4f} s, stats "
+          f"and features equal to the fused route's, launches "
+          f"{run8.counts}", flush=True)
+    routes = {"rotating": dict(launches=device_counts,
+                               times=rotating["device"]),
+              "rle_bucketed": dict(launches=run8.counts)}
+    return routes, measured, cases
 
 
 # ---------------------------------------------------------------------------
@@ -5619,7 +6061,12 @@ def main() -> None:
     # the projection's files stay for the commands phase
     proj = tempfile.TemporaryDirectory()
     routes, (measured, cases) = phase("projection", run_main_path, dev,
-                                      proj.name, args.profile)
+                                      proj.name, args.profile, keep)
+    tb_routes, tb_measured, tb_cases = phase("table_build", run_table_build,
+                                             dev, keep)
+    routes.update(tb_routes)
+    measured.update(tb_measured)
+    cases.update(tb_cases)
     with tempfile.TemporaryDirectory() as tmp:
         sig_routes, sig_files = phase("build + apply", run_signature_path,
                                       dev, tmp)
@@ -5731,10 +6178,21 @@ def main() -> None:
         # stream with flags
         row("probe_keys_pmax", "probe_keys", "csrc/probe_keys.cu",
             "ops/hashtable.py:186", "mesh_pmax", ("mesh_pmax",)),
+        # the close-genome tables: one wide build a close genome on the
+        # fused route's CLI run and on the RLE route (10 a close set), 40
+        # a rotating batch of 4; the 8-slot build on the RLE run whose
+        # tables all take that layout
+        row("build_wide_table_device", "table_build_wide",
+            "csrc/table_build.cu", "ops/widetable.py:153", "fused",
+            ("fused", "rle", "rotating")),
+        row("build_table_device", "table_build_bucketed",
+            "csrc/table_build.cu", "ops/hashtable.py:129", "rle_bucketed",
+            ("rle_bucketed",)),
     ]
     for r, v in routes.items():
         if "times" in v:
-            kind = "cold" if r == "host" else "warm"
+            kind = {"host": "cold", "rotating": "close set built, device "
+                    "builds"}.get(r, "warm")
             print(f"{kind} s/genome, {r} route: {summary(v['times'])}",
                   flush=True)
     apply_lookups = measured["apply_rows"]["windows"] / measured[

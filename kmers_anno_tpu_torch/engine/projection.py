@@ -28,7 +28,12 @@ routes:
 
 Peg singleton kmers (hot loop #2) are a host NumPy pack plus the C++
 group-by (a torch sort when the native library is absent), cached by
-close-genome id across the genomes of a batch.  Features are emitted in
+close-genome id across the genomes of a batch.  Each close genome's
+singleton table is built on the device from its padded keys
+(``build_wide_table_device``, or ``build_table_device`` for a singleton
+set past the wide table's capacity: ``csrc/table_build.cu``), with the
+host build only where the device build reports ``bad``; the union table
+is a host build, as in the reference.  Features are emitted in
 numbering order (Q8).  Stats, features and ``--trace`` lines equal the
 reference's on every route.
 """
@@ -53,10 +58,13 @@ from ..ops.encode import (DNA_AMBIG, PROT_PAD, PROT_X, encode_dna,
 from ..ops.contig_kmers import extract_contig_kmers
 from ..ops.contig_scan import scan_stream
 from ..ops.hashing import MASK32
-from ..ops.hashtable import build_table, device_table_buckets, probe_table
+from ..ops.hashtable import (MAX_DEVICE_PROBES, build_table,
+                             build_table_device, device_table_buckets,
+                             probe_table)
 from ..ops.kmers import pack_kmer_windows, pack_kmers_np, window_any
 from ..ops.translate import codon_lut
-from ..ops.widetable import build_wide_table, probe_wide, wide_rows_for
+from ..ops.widetable import (build_wide_table, build_wide_table_device,
+                             probe_wide, wide_rows_for)
 from .convert import wide_table_from_numpy
 from .proposals import PegProposalList
 
@@ -780,6 +788,19 @@ class _PegInfo(NamedTuple):
     protein_length: int
 
 
+def host_fallback(layout: str, n: int, build, *args, **kwargs):
+    """A close genome's host table build, taken only where its device
+    build reported ``bad`` (the reference's own fallback): logged, and
+    counted in ``host_fallback.count``."""
+    log.info("device %s build of %d keys reported bad; host build", layout,
+             n)
+    host_fallback.count += 1
+    return build(*args, **kwargs)
+
+
+host_fallback.count = 0
+
+
 @dataclass
 class _CloseSet:
     """Device state for one ordered set of close genomes (the fused
@@ -912,9 +933,13 @@ class ProjectionAnnotator:
         LRU-cached by (genome id, k): (table | None, max_probes, salt,
         n_keys, pegs); salt None marks the 8-slot layout.
 
-        A batch run reuses the same close genomes for every input genome,
+        As the reference (``projection.py:1133-1197``): the wide device
+        build at salt 0, or for a singleton set past the wide table's
+        capacity the 8-slot device build at load 1/8; each falls back to
+        its host build only when the device build reports ``bad``.  A
+        batch run reuses the same close genomes for every input genome,
         so the table depends only on the close genome and is built once
-        (the reference recounts per pair, KmerProcessor.java:195).
+        (the reference tool recounts per pair, KmerProcessor.java:195).
         """
         key = (old_genome.id, self.k)
         got = self._table_cache.get(key)
@@ -925,18 +950,31 @@ class ProjectionAnnotator:
         n = len(lo)
         if n == 0:
             got = (None, 0, None, 0, peg_info)
-        elif wide_rows_for(_bucket(n, 4096)) is not None:
-            table, salt, max_probes = build_wide_table(lo, hi, peg_idx)
-            got = (wide_table_from_numpy(table, self.device), max_probes,
-                   salt, n, peg_info)
         else:
-            # huge singleton set: the 8-slot bucketed table, at the
-            # reference's device-build size (load factor 1/8)
-            table, max_probes = build_table(
-                lo, hi, peg_idx,
-                n_buckets=device_table_buckets(_bucket(n, 4096)))
-            got = (wide_table_from_numpy(table, self.device), max_probes,
-                   None, n, peg_info)
+            n_pad = _bucket(n, 4096)
+            d_args = self._padded_keys(lo, hi, peg_idx, n_pad)
+            n_rows = wide_rows_for(n_pad)
+            if n_rows is not None:
+                # wide-bucket layout: every stream lookup reads one row
+                table, bad = build_wide_table_device(*d_args, n_rows)
+                if bool(bad):
+                    htab, hsalt, hmp = host_fallback(
+                        "wide", n, build_wide_table, lo, hi, peg_idx)
+                    got = (wide_table_from_numpy(htab, self.device), hmp,
+                           hsalt, n, peg_info)
+                else:
+                    got = (table, 1, 0, n, peg_info)
+            else:
+                # huge singleton set: the 8-slot bucketed layout
+                table, bad = build_table_device(
+                    *d_args, device_table_buckets(n_pad))
+                if bool(bad):
+                    htab, mp = host_fallback("8-slot", n, build_table, lo,
+                                             hi, peg_idx)
+                    got = (wide_table_from_numpy(htab, self.device), mp,
+                           None, n, peg_info)
+                else:
+                    got = (table, MAX_DEVICE_PROBES, None, n, peg_info)
         self._table_cache[key] = got
         total = sum(e[0].nbytes for e in self._table_cache.values()
                     if e[0] is not None)
@@ -945,6 +983,18 @@ class ProjectionAnnotator:
             if e[0] is not None:
                 total -= e[0].nbytes
         return got
+
+    def _padded_keys(self, lo, hi, peg_idx, n_pad: int) -> tuple:
+        """A singleton set's keys and peg indices as int32 tensors on the
+        device, padded to ``n_pad`` with EMPTY keys (payload 0): what a
+        device table build takes.  Only the keys go up (12 B a key)."""
+        n = len(lo)
+        out = []
+        for words, fill in ((lo, -1), (hi, -1), (peg_idx, 0)):
+            padded = np.full(n_pad, fill, np.int32)
+            padded[:n] = np.asarray(words).view(np.int32)
+            out.append(torch.from_numpy(padded).to(self.device))
+        return tuple(out)
 
     def _singletons(self, genome: Genome):
         """Host singleton kmers of a close genome, LRU-cached by id."""
@@ -978,11 +1028,14 @@ class ProjectionAnnotator:
         live = [(i, s) for i, s in enumerate(singles) if len(s[0])]
         if not live:
             return None
+        rows_list = []
         for _, s in live:
             if len(s[3]) > (1 << _PEG_BITS):
                 return None
-            if wide_rows_for(_bucket(len(s[0]), 4096)) is None:
+            r = wide_rows_for(_bucket(len(s[0]), 4096))
+            if r is None:
                 return None                     # huge singleton set
+            rows_list.append(r)
         # union of all singleton kmers across the set
         keys64 = np.unique(np.concatenate(
             [(s[1].astype(np.uint64) << np.uint64(32))
@@ -993,12 +1046,25 @@ class ProjectionAnnotator:
         u_hi = (keys64 >> np.uint64(32)).astype(np.uint32)
         utab, usalt, ump = build_wide_table(
             u_lo, u_hi, np.zeros(len(u_lo), np.uint32))
+        # every genome's table at one row count, as the reference stacks
+        # them (projection.py:1245-1270): the device build at salt 0, the
+        # host salt-retry build at the same rows when it reports bad
+        rows_common = max(rows_list)
         tables, salts, mps, pinfo = [], [], [], []
         max_delta = 0
         for _, s in live:
             lo, hi, peg_idx, pegs = s
-            table, salt, mp = build_wide_table(lo, hi, peg_idx)
-            tables.append(wide_table_from_numpy(table, self.device))
+            table, bad = build_wide_table_device(
+                *self._padded_keys(lo, hi, peg_idx, _bucket(len(lo), 4096)),
+                rows_common)
+            if bool(bad):
+                htab, salt, mp = host_fallback(
+                    "wide", len(lo), build_wide_table, lo, hi, peg_idx,
+                    n_rows=rows_common)
+                table = wide_table_from_numpy(htab, self.device)
+            else:
+                salt, mp = 0, 1
+            tables.append(table)
             salts.append(salt)
             mps.append(mp)
             plen3 = np.fromiter((p.protein_length for p in pegs),

@@ -1,9 +1,10 @@
 """Native host runtime (C++ data loader) with transparent NumPy fallback.
 
-``kan_host.cpp`` implements the host-side hot loops (protein and DNA encoding,
-fused flat-batch, peg-batch and row-batch construction, the streaming
-signature builder, the key group-by) and the single-core baselines the
-port is checked against, as a C ABI shared library loaded via ctypes.
+``kan_host.cpp`` implements the host-side hot loops (protein and DNA
+encoding, fused flat-batch, peg-batch and row-batch construction, FASTA
+parsing, the streaming signature builder, the key group-by) and the
+single-core baselines the port is checked against, as a C ABI shared
+library loaded via ctypes.
 Every call releases the GIL, so Python-thread prefetching overlaps with
 device compute.  The library is built on first use with g++ (one-time,
 ~2 s) into ``kmers_anno_tpu_torch/_build/``; if that fails, callers fall
@@ -82,6 +83,15 @@ def get_lib() -> ctypes.CDLL | None:
             c_char_p, i64p, i64, i64, i32, u8p, i32p, i32p, i32p]
         lib.kan_row_batch.argtypes = [
             c_char_p, i64p, i64, i64, i64, i32, u8p, u8p]
+        lib.kan_fasta_read.restype = ctypes.c_void_p
+        lib.kan_fasta_read.argtypes = [c_char_p]
+        for fn in (lib.kan_fasta_nseq, lib.kan_fasta_seqbytes,
+                   lib.kan_fasta_hdrbytes):
+            fn.restype = i64
+            fn.argtypes = [ctypes.c_void_p]
+        lib.kan_fasta_fill.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, i64p, ctypes.c_char_p, i64p]
+        lib.kan_fasta_free.argtypes = [ctypes.c_void_p]
         lib.kan_apply_baseline.argtypes = [
             u8p, i64, i64, u32p, i64, i32, i32, i32, i32p]
         lib.kan_build_new.restype = ctypes.c_void_p
@@ -108,6 +118,14 @@ def get_lib() -> ctypes.CDLL | None:
         lib.kan_java_apply.argtypes = [ctypes.c_void_p, c_char_p, i64p,
                                        i64, i32, i32, i32p]
         lib.kan_java_free.argtypes = [ctypes.c_void_p]
+        lib.kan_jproj_new.restype = ctypes.c_void_p
+        lib.kan_jproj_new.argtypes = [u8p, i64p, i64, u8p, i32]
+        lib.kan_jproj_map_size.restype = i64
+        lib.kan_jproj_map_size.argtypes = [ctypes.c_void_p]
+        lib.kan_jproj_match.argtypes = [
+            ctypes.c_void_p, u8p, i64p, i64, ctypes.c_double,
+            ctypes.c_double, ctypes.c_double, i64p]
+        lib.kan_jproj_free.argtypes = [ctypes.c_void_p]
         lib.kan_hash_new.restype = ctypes.c_void_p
         lib.kan_hash_new.argtypes = [u8p, i64p, i64, i32, ctypes.c_double]
         lib.kan_hash_kmers.restype = i64
@@ -208,6 +226,18 @@ def apply_baseline(codes: np.ndarray, table: np.ndarray, max_probes: int,
     return out
 
 
+def encode_protein(s: str) -> np.ndarray | None:
+    """Protein string → uint8 codes (``ops.encode.encode_protein``), or None
+    when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    raw = s.encode("ascii", errors="replace")
+    out = np.empty(len(raw), np.uint8)
+    lib.kan_encode_protein(raw, len(raw), out)
+    return out
+
+
 def encode_dna(s: str) -> np.ndarray | None:
     """DNA string → uint8 codes (``ops.encode.encode_dna``), or None when
     the native library is unavailable."""
@@ -233,6 +263,39 @@ def dna_baseline(codes: np.ndarray, table: np.ndarray, max_probes: int,
     table = np.ascontiguousarray(table, np.uint32)
     return int(lib.kan_dna_baseline(codes, len(codes), table.reshape(-1),
                                     table.shape[0], max_probes, k))
+
+
+def read_fasta(path: str) -> list[tuple[str, str, str]] | None:
+    """Parse a FASTA file natively → [(label, comment, sequence)], or None
+    when the native library is unavailable.  The label ends at the first
+    blank, tab or carriage return; the comment is the rest of the header
+    line after that one character, trailing blanks dropped; sequence lines
+    are joined with every blank, tab and carriage return removed."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    h = lib.kan_fasta_read(path.encode())
+    if not h:
+        raise FileNotFoundError(f"cannot read FASTA file {path}")
+    try:
+        n = lib.kan_fasta_nseq(h)
+        seq = ctypes.create_string_buffer(max(1, lib.kan_fasta_seqbytes(h)))
+        hdr = ctypes.create_string_buffer(max(1, lib.kan_fasta_hdrbytes(h)))
+        offs = np.empty(n + 1, np.int64)
+        hoffs = np.empty(n + 1, np.int64)
+        lib.kan_fasta_fill(h, seq, offs, hdr, hoffs)
+    finally:
+        lib.kan_fasta_free(h)
+    sq = seq.raw
+    hd = hdr.raw
+    out = []
+    for i in range(n):
+        label, _, comment = (
+            hd[hoffs[i]: hoffs[i + 1]].decode("ascii", "replace")
+            .partition("\t"))
+        out.append((label, comment, sq[offs[i]: offs[i + 1]].decode(
+            "ascii", "replace")))
+    return out
 
 
 class _Handle:
@@ -356,6 +419,40 @@ class ProjectionBaseline(_Handle):
         out = np.zeros(3, np.int64)
         self._lib.kan_proj_match(self._h, codes, offs, len(proteins),
                                  min_strength, max_fuzz, min_fuzz, out)
+        return int(out[0]), int(out[1]), int(out[2])
+
+
+class JavaProjectionBaseline(_Handle):
+    """Java-dataflow ORF-projection hot loops (kan_jproj_* in
+    kan_host.cpp): a string-keyed contig kmer map, CountMap<String>
+    singleton counting and per-window substring hashing, the closest
+    single-core model of what KmerProcessor.annotateGenome runs on the JVM
+    (KmerReference.java:157-203, KmerProcessor.java:197-254).  Same
+    ``match`` contract as :class:`ProjectionBaseline`."""
+
+    __slots__ = ()
+
+    def __init__(self, contig_codes: list[np.ndarray], lut65: np.ndarray,
+                 k: int):
+        lib = _required_lib()
+        concat = np.ascontiguousarray(
+            np.concatenate(contig_codes) if contig_codes
+            else np.zeros(0, np.uint8), np.uint8)
+        offs = np.zeros(len(contig_codes) + 1, np.int64)
+        np.cumsum([len(c) for c in contig_codes], out=offs[1:])
+        super().__init__(lib, lib.kan_jproj_new(
+            concat, offs, len(contig_codes),
+            np.ascontiguousarray(lut65, np.uint8), k), lib.kan_jproj_free)
+
+    def map_size(self) -> int:
+        return int(self._lib.kan_jproj_map_size(self._h))
+
+    def match(self, proteins: list[str], min_strength: float,
+              max_fuzz: float, min_fuzz: float) -> tuple[int, int, int]:
+        codes, offs = _encoded(self._lib, proteins)
+        out = np.zeros(3, np.int64)
+        self._lib.kan_jproj_match(self._h, codes, offs, len(proteins),
+                                  min_strength, max_fuzz, min_fuzz, out)
         return int(out[0]), int(out[1]), int(out[2])
 
 

@@ -1,14 +1,15 @@
 // kan_host — native host-side runtime of kmers_anno_tpu_torch.
 //
-// The data loader that feeds the device kernels: protein and DNA encoding
-// and the fused flat-batch, peg-batch and row-batch builders; plus the
-// streaming signature builder, the key group-by, and the single-core
-// baselines the port is checked against (the packed-key apply and
-// projection loops, the string-keyed Java-dataflow apply walk, the hashAnno
-// loop and the DNA window probe).  A copy of the reference
-// package's kan_host.cpp holding the entry points the port calls.  Exposed
-// as a plain C ABI consumed via ctypes (kmers_anno_tpu_torch/native/
-// __init__.py); every entry point is GIL-free.
+// The data loader that feeds the device kernels: protein and DNA encoding,
+// the fused flat-batch, peg-batch and row-batch builders and the FASTA
+// reader; plus the streaming signature builder, the key group-by, and the
+// single-core baselines the port is checked against (the packed-key apply
+// and projection loops, the string-keyed Java-dataflow apply walk and
+// projection loops, the hashAnno loop and the DNA window probe).  A copy
+// of the reference package's kan_host.cpp holding the entry points the
+// port calls.  Exposed as a plain C ABI consumed via ctypes
+// (kmers_anno_tpu_torch/native/__init__.py); every entry point is
+// GIL-free.
 //
 // Encodings mirror kmers_anno_tpu_torch/ops/encode.py exactly:
 //   protein: 'A'..'Z' -> 0..25 (case-insensitive), '*' -> 26, other -> 27,
@@ -393,6 +394,99 @@ int64_t kan_groupby(const uint32_t* lo, const uint32_t* hi, int64_t n,
 
 }  // extern "C"
 
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// FASTA reader (handle-based: parse once, copy out, free)
+// ---------------------------------------------------------------------------
+//
+// Grammar per the reference's FastaInputStream contract (SURVEY.md §2b):
+// '>'<label>[ <comment>]\n sequence lines (concatenated, whitespace
+// stripped) until the next '>' or EOF.
+
+struct KanFasta {
+  std::string seq;            // all residues, concatenated
+  std::vector<int64_t> offs;  // n+1 prefix offsets into seq
+  std::string hdr;            // all "label\tcomment" strings, concatenated
+  std::vector<int64_t> hoffs; // n+1 prefix offsets into hdr
+};
+
+void* kan_fasta_read(const char* path) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return nullptr;
+  fseek(f, 0, SEEK_END);
+  const long sz = ftell(f);
+  fseek(f, 0, SEEK_SET);
+  std::string buf;
+  buf.resize(static_cast<size_t>(sz));
+  if (sz && fread(&buf[0], 1, static_cast<size_t>(sz), f) !=
+                static_cast<size_t>(sz)) {
+    fclose(f);
+    return nullptr;
+  }
+  fclose(f);
+
+  auto* out = new (std::nothrow) KanFasta();
+  if (!out) return nullptr;
+  out->offs.push_back(0);
+  out->hoffs.push_back(0);
+  const char* p = buf.data();
+  const char* end = p + buf.size();
+  bool in_record = false;
+  while (p < end) {
+    if (*p == '>') {
+      if (in_record) out->offs.push_back(static_cast<int64_t>(
+          out->seq.size()));
+      ++p;
+      const char* eol = static_cast<const char*>(
+          memchr(p, '\n', static_cast<size_t>(end - p)));
+      if (!eol) eol = end;
+      const char* sp = p;
+      while (sp < eol && *sp != ' ' && *sp != '\t' && *sp != '\r') ++sp;
+      out->hdr.append(p, static_cast<size_t>(sp - p));  // label
+      out->hdr.push_back('\t');
+      const char* c = sp < eol ? sp + 1 : eol;
+      const char* ce = eol;
+      while (ce > c && (ce[-1] == '\r' || ce[-1] == ' ')) --ce;
+      if (c < ce) out->hdr.append(c, static_cast<size_t>(ce - c));
+      out->hoffs.push_back(static_cast<int64_t>(out->hdr.size()));
+      in_record = true;
+      p = eol < end ? eol + 1 : end;
+    } else {
+      const char* eol = static_cast<const char*>(
+          memchr(p, '\n', static_cast<size_t>(end - p)));
+      if (!eol) eol = end;
+      if (in_record)
+        for (const char* q = p; q < eol; ++q)
+          if (*q != '\r' && *q != ' ' && *q != '\t') out->seq.push_back(*q);
+      p = eol < end ? eol + 1 : end;
+    }
+  }
+  if (in_record) out->offs.push_back(static_cast<int64_t>(out->seq.size()));
+  return out;
+}
+
+int64_t kan_fasta_nseq(void* h) {
+  return static_cast<int64_t>(static_cast<KanFasta*>(h)->offs.size()) - 1;
+}
+int64_t kan_fasta_seqbytes(void* h) {
+  return static_cast<int64_t>(static_cast<KanFasta*>(h)->seq.size());
+}
+int64_t kan_fasta_hdrbytes(void* h) {
+  return static_cast<int64_t>(static_cast<KanFasta*>(h)->hdr.size());
+}
+void kan_fasta_fill(void* h, char* seq, int64_t* offs, char* hdr,
+                    int64_t* hoffs) {
+  auto* fa = static_cast<KanFasta*>(h);
+  memcpy(seq, fa->seq.data(), fa->seq.size());
+  memcpy(offs, fa->offs.data(), fa->offs.size() * sizeof(int64_t));
+  memcpy(hdr, fa->hdr.data(), fa->hdr.size());
+  memcpy(hoffs, fa->hoffs.data(), fa->hoffs.size() * sizeof(int64_t));
+}
+void kan_fasta_free(void* h) { delete static_cast<KanFasta*>(h); }
+
+}  // extern "C"
+
 // ---------------------------------------------------------------------------
 // single-core compiled projection baseline (handle-based)
 // ---------------------------------------------------------------------------
@@ -665,6 +759,200 @@ void kan_java_apply(void* hv, const char* prots, const int64_t* offs,
 }
 
 void kan_java_free(void* hv) { delete static_cast<KanJavaMap*>(hv); }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Java-dataflow projection baseline (string-keyed maps, handle-based)
+// ---------------------------------------------------------------------------
+//
+// kan_proj_* above uses packed integer keys — a strict floor on what the
+// reference's JVM actually costs.  This variant reproduces the Java
+// dataflow of annotateGenome's hot loops: the contig index is a
+// HashMap<String kmer, List<Location>> built by materializing every
+// frame-translation substring (KmerReference.getContigKmers,
+// KmerReference.java:157-203), peg singleton counting is a
+// CountMap<String> of substrings (KmerProcessor.java:319-327), and every
+// probe hashes the kmer characters (197-207).  C++ std::string SSO (k=8
+// fits inline) still avoids Java's per-substring heap allocation, so the
+// resulting multiple remains conservative.
+
+namespace {
+
+struct KanJProj {
+  int k;
+  std::unordered_map<std::string, std::vector<ProjLoc>> map;
+};
+
+}  // namespace
+
+extern "C" {
+
+void* kan_jproj_new(const uint8_t* dna, const int64_t* offs,
+                    int64_t n_contigs, const uint8_t* lut65, int32_t k) {
+  auto* h = new (std::nothrow) KanJProj();
+  if (!h) return nullptr;
+  h->k = k;
+  const int64_t k3 = 3 * k;
+  std::vector<uint8_t> rc;
+  std::string aa;
+  std::string kmer;
+  for (int64_t c = 0; c < n_contigs; ++c) {
+    const uint8_t* seq = dna + offs[c];
+    const int64_t L = offs[c + 1] - offs[c];
+    rc.assign(seq, seq + L);
+    std::reverse(rc.begin(), rc.end());
+    for (auto& b : rc)
+      if (b < 4) b ^= 2;
+    for (int strand = 0; strand < 2; ++strand) {
+      const uint8_t* s = strand == 0 ? seq : rc.data();
+      for (int f = 0; f < 3; ++f) {
+        const int64_t flen = (L - f) / 3;
+        if (flen <= k) continue;
+        aa.resize(static_cast<size_t>(flen));   // the frame translation
+        for (int64_t p = 0; p < flen; ++p) {
+          const uint8_t c0 = s[f + 3 * p], c1 = s[f + 3 * p + 1],
+                        c2 = s[f + 3 * p + 2];
+          aa[static_cast<size_t>(p)] =
+              static_cast<char>((c0 > 3 || c1 > 3 || c2 > 3)
+                                    ? lut65[64]
+                                    : lut65[c0 * 16 + c1 * 4 + c2]);
+        }
+        for (int64_t p = 0; p < flen - k; ++p) {  // Q1 strict drop-last
+          bool bad = false;
+          for (int j = 0; j < k; ++j) {           // Q2: reject '*'/'X'
+            const uint8_t a = static_cast<uint8_t>(aa[p + j]);
+            if (a == PROT_X || a == PROT_STOP || a >= PROT_PAD) {
+              bad = true;
+              break;
+            }
+          }
+          if (bad) continue;
+          kmer.assign(aa, static_cast<size_t>(p),
+                      static_cast<size_t>(k));    // the substring
+          const int64_t base = 3 * p + f;
+          const int32_t left =
+              strand == 0 ? static_cast<int32_t>(base + 1)
+                          : static_cast<int32_t>(L - k3 + 1 - base);
+          h->map[kmer].push_back(                 // hash chars + insert
+              {static_cast<int32_t>(c), left,
+               static_cast<uint8_t>(strand)});
+        }
+      }
+    }
+  }
+  return h;
+}
+
+int64_t kan_jproj_map_size(void* hv) {
+  return static_cast<int64_t>(static_cast<KanJProj*>(hv)->map.size());
+}
+
+// identical contract to kan_proj_match; prots are PROTEIN CODES and get
+// re-materialized as strings per window like the Java ProteinKmers walk
+void kan_jproj_match(void* hv, const uint8_t* prots, const int64_t* offs,
+                     int64_t n_pegs, double min_strength, double max_fuzz,
+                     double min_fuzz, int64_t* out) {
+  auto* h = static_cast<KanJProj*>(hv);
+  const int k = h->k;
+  const int64_t k3 = 3 * k;
+
+  // hot loop #2: CountMap<String> of peg kmers, keep singletons (Q5)
+  struct Cnt { int32_t count; int32_t peg; };
+  std::unordered_map<std::string, Cnt> counts;
+  counts.reserve(static_cast<size_t>(offs[n_pegs]));
+  std::string kmer;
+  for (int64_t s = 0; s < n_pegs; ++s) {
+    const uint8_t* p = prots + offs[s];
+    const int64_t plen = offs[s + 1] - offs[s];
+    for (int64_t i = 0; i < plen - k; ++i) {      // Q1 strict drop-last
+      bool bad = false;
+      for (int j = 0; j < k; ++j) {               // Q2 peg path: 'X' only
+        const uint8_t a = p[i + j];
+        if (a == PROT_X || a >= PROT_PAD) {
+          bad = true;
+          break;
+        }
+      }
+      if (bad) continue;
+      kmer.assign(reinterpret_cast<const char*>(p) + i,
+                  static_cast<size_t>(k));        // the substring
+      auto& e = counts[kmer];                     // hash chars + insert
+      ++e.count;
+      e.peg = static_cast<int32_t>(s);
+    }
+  }
+
+  // hot loop #3: probe singleton strings into the contig map
+  struct Pair {
+    int32_t frame, peg, contig, left;
+  };
+  std::vector<Pair> pairs;
+  for (const auto& kv : counts) {
+    if (kv.second.count != 1) continue;
+    auto it = h->map.find(kv.first);              // hash chars + probe
+    if (it == h->map.end()) continue;
+    for (const ProjLoc& loc : it->second) {
+      const int32_t right = loc.left + static_cast<int32_t>(k3) - 1;
+      const int32_t frame =
+          loc.strand == 0 ? 3 + loc.left % 3 : right % 3;
+      pairs.push_back({frame, kv.second.peg, loc.contig, loc.left});
+    }
+  }
+  out[0] = static_cast<int64_t>(pairs.size());
+
+  // hot loop #4: (frame, peg) window scan (Q6) — same as kan_proj_match
+  std::sort(pairs.begin(), pairs.end(), [](const Pair& a, const Pair& b) {
+    if (a.frame != b.frame) return a.frame < b.frame;
+    if (a.peg != b.peg) return a.peg < b.peg;
+    if (a.contig != b.contig) return a.contig < b.contig;
+    return a.left < b.left;
+  });
+  int64_t groups = 0, live = 0;
+  const int64_t m = static_cast<int64_t>(pairs.size());
+  int64_t gs = 0;
+  while (gs < m) {
+    int64_t ge = gs + 1;
+    while (ge < m && pairs[ge].frame == pairs[gs].frame &&
+           pairs[ge].peg == pairs[gs].peg)
+      ++ge;
+    ++groups;
+    const int64_t size = ge - gs;
+    const int64_t plen3 =
+        3 * (offs[pairs[gs].peg + 1] - offs[pairs[gs].peg]);
+    const int64_t max_len = static_cast<int64_t>(plen3 * max_fuzz + 1);
+    const int64_t min_len = static_cast<int64_t>(plen3 * min_fuzz);
+    const int64_t min_k = static_cast<int64_t>(plen3 * (min_strength / 3));
+    if (min_k <= size) {
+      int64_t rs = gs;
+      while (rs < ge) {
+        int64_t re = rs + 1;
+        while (re < ge && pairs[re].contig == pairs[rs].contig) ++re;
+        for (int64_t i = rs; i < re; ++i) {
+          if (i - gs > size - min_k) break;
+          const int64_t left = pairs[i].left;
+          const int64_t edge = left + max_len;
+          int64_t lo_j = rs, hi_j = re;
+          while (lo_j < hi_j) {
+            const int64_t mid = (lo_j + hi_j) / 2;
+            if (pairs[mid].left + k3 - 1 < edge) lo_j = mid + 1;
+            else hi_j = mid;
+          }
+          const int64_t ub = lo_j;
+          const int64_t bi = ub - 1 > i ? ub - 1 : i;
+          const int64_t best_edge = pairs[bi].left + k3 - 1;
+          if (best_edge >= left + min_len) ++live;
+        }
+        rs = re;
+      }
+    }
+    gs = ge;
+  }
+  out[1] = groups;
+  out[2] = live;
+}
+
+void kan_jproj_free(void* hv) { delete static_cast<KanJProj*>(hv); }
 
 }  // extern "C"
 

@@ -1,0 +1,173 @@
+"""Device builds of the wide-bucket and the 8-slot hash tables.
+
+Counterpart of the reference's ``build_wide_table_device``
+(``kmers_anno_tpu/ops/widetable.py:153``) and ``build_table_device``
+(``kmers_anno_tpu/ops/hashtable.py:129``), which the projection engine
+runs for each close genome's singleton table.  Both take EMPTY-padded
+unique keys and try one placement: the keys sorted stably by home row,
+key i of that order at slot ``i + max-scan(home * S - i)``, a row's
+overflow walking on to the next row.  A real key that would walk
+``max_walk`` rows or more, or wrap past the last row, sets ``bad``, and
+the caller then builds the table on the host instead.  The wide layout
+(24 slots a row, the given salt, ``max_walk`` 1) drops the keys that
+walk; the 8-slot layout (the unsalted hash, ``max_walk``
+``MAX_DEVICE_PROBES``) keeps them.
+
+:func:`build_wide` and :func:`build_bucketed` launch
+``csrc/table_build.cu`` for CUDA tensors (``kan_table_homes``, a stable
+``torch.sort`` of the homes, ``kan_table_place``) and take
+:func:`build_table_plain`, which follows the reference line by line, for
+CPU tensors.  Tables are ``int32`` tensors of the uint32 words, as for the
+host builds (``EMPTY`` reads as -1).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import kernels
+from .hashing import GOLDEN, MASK32, mix_kmer_salted
+from .hashtable import BUCKET, MAX_DEVICE_PROBES
+from .widetable import SLOTS
+
+EMPTY_KEY = -1          # EMPTY's int32 bits
+KERNEL_TILE = 1024      # sorted ranks a block of the place pass (kTile)
+
+
+class Layout(NamedTuple):
+    """What sets the two builds apart."""
+
+    slots: int          # slots a row
+    max_walk: int       # a real key walking this many rows is bad
+    keep_walkers: bool  # whether keys that walk are written
+
+
+WIDE = Layout(SLOTS, 1, False)
+BUCKETED = Layout(BUCKET, MAX_DEVICE_PROBES, True)
+
+
+def _check(key_lo, key_hi, values, n_rows: int) -> None:
+    for name, t in (("key_lo", key_lo), ("key_hi", key_hi),
+                    ("values", values)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"table build: {name} must be 1-D int32")
+    if not key_lo.shape == key_hi.shape == values.shape:
+        raise ValueError("table build: keys and values must have one shape")
+    devs = {t.device for t in (key_lo, key_hi, values)}
+    if len(devs) != 1:
+        raise ValueError(f"table build: arguments span devices {devs}")
+    if n_rows < 1 or n_rows & (n_rows - 1):
+        raise ValueError(
+            f"table build: rows must be a power of two, got {n_rows}")
+
+
+def build_table_plain(key_lo: torch.Tensor, key_hi: torch.Tensor,
+                      values: torch.Tensor, n_rows: int, layout: Layout,
+                      salt: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch build, on any device: (table (n_rows, 3 * slots)
+    int32, bad 0-dim bool tensor)."""
+    _check(key_lo, key_hi, values, n_rows)
+    s = layout.slots
+    n = key_lo.numel()
+    dev = key_lo.device
+    cap = n_rows * s
+    real = key_lo != EMPTY_KEY
+    home = torch.where(real, mix_kmer_salted(key_lo, key_hi, salt)
+                       & (n_rows - 1), n_rows)     # pads sort last, then drop
+    hb, order = torch.sort(home, stable=True)
+    ar = torch.arange(n, dtype=torch.int64, device=dev)
+    if n:
+        pos = ar + torch.cummax(hb * s - ar, 0).values
+    else:
+        pos = ar
+    ok = pos < cap
+    walk = torch.where(ok, pos // s - hb, 0)
+    bad = (real[order] & (~ok | (walk >= layout.max_walk))).any()
+    keep = ok if layout.keep_walkers else ok & (walk < 1)
+    drop = torch.where(keep, pos, cap)
+    flat = torch.full((3, cap + 1), EMPTY_KEY, dtype=torch.int32, device=dev)
+    flat[2] = 0
+    for plane, src in zip(flat, (key_lo, key_hi, values)):
+        plane[drop] = src[order]
+    table = torch.cat([plane[:cap].reshape(n_rows, s) for plane in flat], 1)
+    return table, bad
+
+
+def _launch(key_lo, key_hi, values, n_rows: int, layout: Layout,
+            salt: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's build on CUDA tensors: the table filled with EMPTY keys
+    and 0 payloads, the homes, their stable sort, the placement."""
+    s = layout.slots
+    dev = key_lo.device
+    lo, hi, val = (t.contiguous() for t in (key_lo, key_hi, values))
+    table = torch.full((n_rows, 3 * s), EMPTY_KEY, dtype=torch.int32,
+                       device=dev)
+    table[:, 2 * s:] = 0
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    n = lo.numel()
+    if n:
+        lib = kernels.lib()
+        home = torch.empty(n, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = kernels.stream_of(lo)
+            err = lib.kan_table_homes(lo.data_ptr(), hi.data_ptr(), n,
+                                      n_rows, int(salt) & MASK32,
+                                      home.data_ptr(), stream)
+            kernels.check(err, "table build kernel (homes)")
+            hb, order = torch.sort(home, stable=True)
+            tile_max = torch.empty(-(-n // KERNEL_TILE), dtype=torch.int64,
+                                   device=dev)
+            err = lib.kan_table_place(
+                hb.data_ptr(), order.data_ptr(), lo.data_ptr(),
+                hi.data_ptr(), val.data_ptr(), n, n_rows, s,
+                layout.max_walk, int(layout.keep_walkers),
+                tile_max.data_ptr(), table.data_ptr(), bad.data_ptr(),
+                stream)
+            kernels.check(err, "table build kernel (place)")
+    return table, bad[0] != 0
+
+
+def _on_card(key_lo) -> bool:
+    """True for CUDA tensors (the kernel), False for CPU ones (the plain
+    version); any other device raises."""
+    if key_lo.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"table build: unsupported device {key_lo.device}")
+    return key_lo.device.type == "cuda"
+
+
+def build_wide(key_lo: torch.Tensor, key_hi: torch.Tensor,
+               values: torch.Tensor, n_rows: int,
+               salt: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wide-bucket table (``(n_rows, 72)`` int32) of EMPTY-padded unique
+    keys at one salt, and ``bad``: a 0-dim bool tensor, True when a real
+    key would leave its home row.  Keys and payloads are 1-D int32 (the
+    uint32 bits; payloads keep bit 31 clear)."""
+    _check(key_lo, key_hi, values, n_rows)
+    if not _on_card(key_lo):
+        return build_table_plain(key_lo, key_hi, values, n_rows, WIDE, salt)
+    out = _launch(key_lo, key_hi, values, n_rows, WIDE, salt)
+    if key_lo.numel():
+        build_wide.launches += 1
+    return out
+
+
+def build_bucketed(key_lo: torch.Tensor, key_hi: torch.Tensor,
+                   values: torch.Tensor,
+                   n_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """8-slot table (``(n_buckets, 24)`` int32) of EMPTY-padded unique keys
+    under the unsalted hash, and ``bad``: True when a real key would walk
+    ``MAX_DEVICE_PROBES`` buckets or more, or wrap past the last one."""
+    _check(key_lo, key_hi, values, n_buckets)
+    if not _on_card(key_lo):
+        return build_table_plain(key_lo, key_hi, values, n_buckets,
+                                 BUCKETED, GOLDEN)
+    out = _launch(key_lo, key_hi, values, n_buckets, BUCKETED, GOLDEN)
+    if key_lo.numel():
+        build_bucketed.launches += 1
+    return out
+
+
+build_wide.launches = 0
+build_bucketed.launches = 0

@@ -17,6 +17,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import IO, Iterator
 
+from .. import native
+
 
 class LineReader:
     """Plain line reader, stripping line terminators."""
@@ -153,10 +155,11 @@ class Sequence:
 class FastaReader:
     """Stream of Sequence records from a FASTA file or an open text file.
 
-    The reference package parses a file path with its C++ loader; the
-    port parses every source with the line parser.  The two agree on
-    files whose headers hold one blank after the label and whose sequence
-    lines hold no blanks, such as ``FastaWriter`` writes.
+    A file path is parsed by the C++ loader (``native.read_fasta``) when
+    the native library is available, as in the reference package; an open
+    file, or a path without the native library, by the line parser.  The
+    two agree on files whose headers hold one blank after the label and
+    whose sequence lines hold no blanks, such as ``FastaWriter`` writes.
     """
 
     def __init__(self, source: str | IO):
@@ -173,7 +176,15 @@ class FastaReader:
 
     def __iter__(self) -> Iterator[Sequence]:
         if self._own:
+            records = native.read_fasta(self._path)
+            if records is not None:
+                for label, comment, seq in records:
+                    yield Sequence(label, comment, seq)
+                return
             self._fh = open(self._path, "r")
+        yield from self._iter_lines()
+
+    def _iter_lines(self) -> Iterator[Sequence]:
         label, comment, chunks = None, "", []
         for line in self._fh:
             line = line.rstrip("\r\n")

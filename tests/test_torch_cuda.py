@@ -15,9 +15,12 @@ import pytest
 import torch
 
 from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, KEYS_SHARES,
-                        WEIGHTED_EDGES, carried_state, collision_rows,
+                        TABLE_BUILD_EDGES, WEIGHTED_EDGES, carried_state,
+                        collision_rows,
                         collision_table, dna_stream_tensors, dna_streams,
-                        dna_wrap_table, flat_case, flat_filter, flat_tensors,
+                        dna_wrap_table, edge_keys, flat_case, flat_filter,
+                        flat_tensors, int32_tensors, padded_keys,
+                        random_keys,
                         keys_cases, live_share_keys, made_up_chunk,
                         made_up_rows,
                         make_dna_signature_genomes, make_projection_workload,
@@ -55,9 +58,13 @@ from kmers_anno_tpu_torch.ops.key_filter import build_key_filter, table_keys
 from kmers_anno_tpu_torch.ops import probe_keys as probe_keys_mod
 from kmers_anno_tpu_torch.ops.probe_keys import (KERNEL_TILE, probe_keys,
                                                  probe_keys_plain)
+from kmers_anno_tpu_torch.ops import table_build
+from kmers_anno_tpu_torch.ops.hashing import GOLDEN
+from kmers_anno_tpu_torch.ops.hashtable import device_table_buckets
 from kmers_anno_tpu_torch.ops.translate import codon_lut
 from kmers_anno_tpu_torch.ops.widetable import (build_wide_table, probe_wide,
-                                                probe_wide_plain)
+                                                probe_wide_plain,
+                                                wide_rows_for)
 
 pytestmark = pytest.mark.cuda
 
@@ -1177,3 +1184,84 @@ def test_dna_mesh_engine_on_cuda_matches_cpu(cuda, n_data, n_table):
                  role, score) for f, role, score in calls]
 
     assert key(got) == key(want) and len(got) >= 20
+
+
+def _table_build_on_card(cuda, layout, keys, n_rows, salt):
+    """The kernel's build against the plain version's on the card: table
+    and bad equal; one launch counted unless the input is empty."""
+    wrapper, lay = ((table_build.build_wide, table_build.WIDE)
+                    if layout == "wide"
+                    else (table_build.build_bucketed, table_build.BUCKETED))
+    extra = (salt,) if layout == "wide" else ()
+    before = wrapper.launches
+    table, bad = wrapper(*keys, n_rows, *extra)
+    torch.cuda.synchronize()
+    assert wrapper.launches - before == (keys[0].numel() > 0)
+    want, want_bad = table_build.build_table_plain(*keys, n_rows, lay, salt)
+    assert table.device.type == "cuda" and torch.equal(table, want)
+    assert bool(bad) == bool(want_bad)
+    return table, bool(bad)
+
+
+# (real keys, padded length): tile edges of the place pass (1,024 ranks),
+# no pads, and past 1,024 tiles (the carry scan's second chunk)
+TABLE_SIZES = [(0, 64), (1, 8), (1_023, 1_023), (1_024, 1_024),
+               (1_025, 2_048), (5_000, 8_192), (1_500_000, 2_097_152)]
+
+
+@pytest.mark.parametrize("layout", ["wide", "bucketed"])
+@pytest.mark.parametrize("n,n_pad", TABLE_SIZES)
+def test_table_build_kernel_matches_plain(cuda, layout, n, n_pad):
+    rng = np.random.default_rng(n + 1)
+    keys = int32_tensors(padded_keys([random_keys(rng, n)], n_pad, rng),
+                         cuda)
+    if layout == "wide":
+        for salt in (0, 12_345):
+            _table_build_on_card(cuda, layout, keys, wide_rows_for(n_pad),
+                                 salt)
+    else:
+        _table_build_on_card(cuda, layout, keys,
+                             device_table_buckets(n_pad), GOLDEN)
+
+
+@pytest.mark.parametrize("case", list(TABLE_BUILD_EDGES))
+def test_table_build_kernel_on_forced_cases(cuda, case):
+    layout, _, arrays, n_rows, salt, want_bad = edge_keys(case)
+    _, bad = _table_build_on_card(cuda, layout, int32_tensors(arrays, cuda),
+                                  n_rows, salt)
+    assert bad == want_bad
+
+
+def test_table_build_on_an_empty_input(cuda):
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    for layout in ("wide", "bucketed"):
+        table, bad = _table_build_on_card(cuda, layout, [empty] * 3, 128,
+                                          0 if layout == "wide" else GOLDEN)
+        assert not bad and int((table[:, :8] != -1).sum()) == 0
+
+
+@pytest.mark.parametrize("layout", ["wide", "bucketed"])
+def test_close_tables_on_cuda_match_cpu(cuda, layout, monkeypatch):
+    """The annotator's close-genome tables built on the card equal the
+    CPU annotator's (the plain builds, which the CPU tests hold equal to
+    the reference's), with no host build and one launch a table."""
+    if layout == "bucketed":
+        monkeypatch.setattr(projection, "wide_rows_for", lambda n: None)
+    _, olds, _ = make_projection_workload(np.random.default_rng(3), 300, 3)
+    olds = list(olds.values())
+    counter = (table_build.build_wide if layout == "wide"
+               else table_build.build_bucketed)
+    fallbacks, launches = projection.host_fallback.count, counter.launches
+    cpu = ProjectionAnnotator(device="cpu")
+    card = ProjectionAnnotator(device=cuda)
+    for og in olds:
+        want, got = cpu._close_table(og), card._close_table(og)
+        assert torch.equal(got[0].cpu(), want[0]) and got[1:4] == want[1:4]
+    if layout == "wide":
+        want, got = cpu._close_set(olds), card._close_set(olds)
+        assert all(torch.equal(g.cpu(), w)
+                   for g, w in zip(got.tables, want.tables))
+        assert (got.salts, got.mps) == (want.salts, want.mps)
+    assert projection.host_fallback.count == fallbacks
+    assert counter.launches - launches == len(olds) * (
+        2 if layout == "wide" else 1)

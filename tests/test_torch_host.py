@@ -774,6 +774,42 @@ def test_fasta_reader_and_writer_match_reference(seed, tmp_path):
                     for s in port_io.FastaReader(fh)] == records
 
 
+# headers with two blanks, a tab and a trailing blank after the label,
+# blanks inside sequence lines, an empty line between records
+RAGGED_FASTA = (">a1  two blanks here\nACDE FG\nHIK\n>b2\tTabbed comment\n"
+                "MM\n\n>c3 \nPP Q\n")
+
+
+def test_fasta_reader_on_a_ragged_file_matches_reference(tmp_path,
+                                                         both_native):
+    """A path goes through the C++ loader in both packages, so labels,
+    comments and sequences agree where the line parser would split the
+    header on the first run of blanks and keep blanks in sequences."""
+    path = str(tmp_path / "ragged.fa")
+    with open(path, "w") as fh:
+        fh.write(RAGGED_FASTA)
+    with port_io.FastaReader(path) as p, ref_io.FastaReader(path) as r:
+        got = [(s.label, s.comment, s.sequence) for s in p]
+        want = [(s.label, s.comment, s.sequence) for s in r]
+    assert got == want == [("a1", " two blanks here", "ACDEFGHIK"),
+                           ("b2", "Tabbed comment", "MM"), ("c3", "", "PPQ")]
+    assert native.read_fasta(path) == ref_native.read_fasta(path) == want
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_native_read_fasta_matches_reference(seed, tmp_path, both_native):
+    rng = np.random.default_rng(seed)
+    path = str(tmp_path / "records.fa")
+    with open(path, "w") as fh:
+        for label, comment, seq in _fasta_records(rng):
+            fh.write(f">{label}{' ' + comment if comment else ''}\r\n")
+            for i in range(0, len(seq), 13):
+                fh.write(seq[i: i + 13] + (" \t" if i % 2 else "") + "\n")
+    assert native.read_fasta(path) == ref_native.read_fasta(path)
+    with pytest.raises(FileNotFoundError):
+        native.read_fasta(str(tmp_path / "missing.fa"))
+
+
 def _compare_pair(seed):
     rng = np.random.default_rng(seed)
     old_raw = _rich_raw(seed)
@@ -1133,6 +1169,41 @@ def test_native_baselines_match_reference(both_native):
     assert np.array_equal(
         native.JavaDataflowBaseline(kmers, role, 8).apply(queries, 8, 2),
         ref_native.JavaDataflowBaseline(kmers, role, 8).apply(queries, 8, 2))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_native_protein_encoder_matches_reference(seed, both_native):
+    rng = np.random.default_rng(seed)
+    for n in (0, 1, 15, 700):
+        s = _text(rng, "ACDEFGHIKLMNPQRSTVWYacdxXuU*-?", n)
+        np.testing.assert_array_equal(native.encode_protein(s),
+                                      ref_native.encode_protein(s))
+        np.testing.assert_array_equal(native.encode_protein(s),
+                                      encode.encode_protein(s))
+
+
+@pytest.mark.parametrize("seed", [4, 7])
+def test_native_java_projection_baseline_matches_reference(seed,
+                                                           both_native):
+    """The Java-dataflow projection loops: the contig map's size and the
+    match counts equal the reference's, and the packed-key
+    ``ProjectionBaseline``'s on the same pair."""
+    from kmers_anno_tpu_torch.ops.translate import codon_lut
+    new, olds = make_projection_pair(seed=seed, n_genes=6)
+    contigs = [ref_enc.encode_dna(c.sequence) for c in new.contigs]
+    lut = np.asarray(codon_lut(11), np.uint8)
+    prots = [f.protein_translation for f in next(iter(olds.values())).pegs]
+    got = native.JavaProjectionBaseline(contigs, lut, 8)
+    want = ref_native.JavaProjectionBaseline(contigs, lut, 8)
+    packed = native.ProjectionBaseline(contigs, lut, 8)
+    assert got.map_size() == want.map_size() == packed.map_size() > 0
+    for params in ((0.5, 1.5, 0.8), (0.9, 1.1, 1.0)):
+        counts = got.match(prots, *params)
+        assert counts == want.match(prots, *params) == packed.match(
+            prots, *params)
+    assert got.match(prots, 0.5, 1.5, 0.8)[0] > 0
+    for handle in (got, want, packed):
+        handle.close()
 
 
 def test_native_hash_baseline_matches_reference(both_native):
