@@ -38,7 +38,11 @@ Then the ``table_build`` phase.  The table build kernel, in both layouts
 held to its plain version bit for bit, table and ``bad`` flag, on the
 realistic close set's ten singleton sets (914,109 keys each, padded as the
 engine pads them) and on forced cases (a row given 24 and 25 keys, 25 in
-the last row; an 8-slot walk of 1 and of 2, a wrap past the last bucket).
+the last row; an 8-slot walk of 1 and of 2, a wrap past the last bucket;
+rows of 300 keys, every key in one row, a chain of walks through five
+buckets, pads between keys, one key, key counts off the kernel's block),
+and launched five times more on memory filled with junk, every table the
+same.  Its bound counts the keys read once and the table written once.
 The cold ``_close_set`` of the realistic cell (singletons cached) is timed
 with the device builds and with the engine's own host build in turns; a
 batch of 4 genomes, each the realistic genome with another ordered 10 of
@@ -178,7 +182,7 @@ included), with ``launch_share`` = bound / ``launch_ms``.
 
 Usage, from the repository root:
     python3 chip_smoke.py [--profile] [--compare DIR [DIR ...]]
-                          [--dna-only | --keys-only]
+                          [--dna-only | --keys-only | --tables-only]
 
 ``--profile`` also traces three warm fused-route genomes with
 ``torch.profiler`` (device activity only) and reports, within that one
@@ -208,7 +212,10 @@ lacks a kernel sits that case out.
 
 ``--dna-only`` runs the kernel build, the dna phase and ``--compare`` on
 its cases alone, and prints the ``dna_probe`` row in place of the result
-lines.  ``--keys-only`` does the same for the key lookup: its checks, the
+lines.  ``--tables-only`` does the same for the table build: the
+realistic projection workload, one fused annotation of it, the
+``table_build`` phase and ``--compare`` on its cases (each tree's whole
+device build on the realistic singleton sets).  ``--keys-only`` does the same for the key lookup: its checks, the
 big-table cell's table as 2x2 shards, ``measure_probe_keys`` on the
 first two mesh genomes and ``--compare`` on its cases.
 
@@ -578,14 +585,15 @@ def compare_contenders(libs: dict, cases: dict) -> dict:
     """Each case's kernel under every library, in turns (A B C C B A); a
     turn is ``launch_ms`` (``LAUNCH_REPS`` passes back to back), and its
     outputs must equal this build's (after the launch's ``reset`` of its
-    arguments, where it has one).  Returns {case: {library: mean of its
-    two turns' ms per launch}}."""
+    arguments, where it has one).  A case given a third element, its
+    bound in ms, also prints each library's share of it.  Returns {case:
+    {library: mean of its two turns' ms per launch}}."""
     def flat(outs):
         return [t for o in outs for t in (o if isinstance(o, tuple)
                                           else (o,))]
 
     out = {}
-    for case, (launch, arg_sets) in cases.items():
+    for case, (launch, arg_sets, *bound_ms) in cases.items():
         # a build of an older tree may lack this kernel: it sits out
         entries = (launch.entry if isinstance(launch.entry, tuple)
                    else (launch.entry,))
@@ -614,6 +622,10 @@ def compare_contenders(libs: dict, cases: dict) -> dict:
               f"{' '.join(order)}): " + ", ".join(
                   f"{n} {statistics.mean(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
                   for n, t in times.items()), flush=True)
+        if bound_ms:
+            print(f"  against the bound {bound_ms[0]:.4f} ms: " + ", ".join(
+                f"{n} share {bound_ms[0] / ms:.3f}"
+                for n, ms in out[case].items()), flush=True)
     return out
 
 
@@ -1265,7 +1277,9 @@ def run_main_path(dev, tmp: str, profile: bool,
 # ---------------------------------------------------------------------------
 
 # forced placements: layout, rows, row -> keys homed there, random keys
-# (none homed in those rows or beside them), and the expected bad flag
+# (none homed in those rows or beside them), the expected bad flag and,
+# where given, where the EMPTY pads go ("end", the default, as the engine
+# pads; "between" real keys; "none": no pads, an odd key count)
 TABLE_BUILD_EDGES = {
     "wide_row_of_24": ("wide", 128, {5: 24}, 300, False),
     "wide_row_of_25": ("wide", 128, {5: 25}, 300, True),
@@ -1273,10 +1287,25 @@ TABLE_BUILD_EDGES = {
     "bucket_walk_of_1": ("bucketed", 64, {3: 9}, 40, False),
     "bucket_walk_of_2": ("bucketed", 64, {3: 17}, 40, True),
     "bucket_wrap": ("bucketed", 64, {63: 9}, 40, True),
+    # a row's keys past one warp of the kernel's row pass
+    "wide_row_of_300": ("wide", 128, {5: 300}, 300, True),
+    "bucket_row_of_300": ("bucketed", 64, {3: 300}, 40, True),
+    "wide_all_in_one_row": ("wide", 64, {9: 100}, 0, True),
+    "bucket_all_in_one_row": ("bucketed", 32, {0: 100}, 0, True),
+    # each bucket's overflow walks one bucket on, through five buckets
+    "bucket_chain": ("bucketed", 64, {10: 12, 11: 10, 12: 9, 13: 8}, 40,
+                     False),
+    "wide_pads_between": ("wide", 128, {5: 24}, 300, False, "between"),
+    "bucket_pads_between": ("bucketed", 64, {3: 9}, 40, False, "between"),
+    "wide_one_key": ("wide", 128, {}, 1, False),
+    "bucket_one_key": ("bucketed", 64, {}, 1, False),
+    "wide_odd_count": ("wide", 128, {5: 24}, 1000, False, "none"),
+    "bucket_odd_count": ("bucketed", 512, {3: 9}, 1000, False, "none"),
 }
 KEY_BYTES = 12          # a key's lo, hi and payload words
-SORT_PASS_BYTES = 16    # the sort's pass: a 4-byte home read, the sorted
-                        # home (4 B) and its int64 index (8 B) written
+# the bound before PR 16 also counted a sort's pass (a 4-byte home read,
+# the sorted home and its int64 index written): printed beside the bound
+PR15_SORT_PASS_BYTES = 16
 TABLE_LIBRARY_NOTE = "none: no single PyTorch call builds a hash table"
 ROTATING_GENOMES = 4
 POOL_EXTRA = 4          # the pool: the 10 close genomes and 4 copies
@@ -1325,7 +1354,9 @@ def edge_keys(name):
     rows, salt, the expected bad flag)."""
     from kmers_anno_tpu_torch.ops.hashing import GOLDEN, mix_kmer_salted_np
 
-    layout, n_rows, groups, n_random, want_bad = TABLE_BUILD_EDGES[name]
+    layout, n_rows, groups, n_random, want_bad, *pads = TABLE_BUILD_EDGES[
+        name]
+    pads = pads[0] if pads else "end"
     salt = 0 if layout == "wide" else GOLDEN
     rng = np.random.default_rng(len(name))
     parts = [homed_keys(rng, c, n_rows, salt, row)
@@ -1334,9 +1365,13 @@ def edge_keys(name):
     far = ~np.isin(mix_kmer_salted_np(lo, hi, salt) & np.uint32(n_rows - 1),
                    [r + d for r in groups for d in (-1, 0, 1, 2)])
     parts.append((lo[far], hi[far], val[far]))
-    n_pad = 1 << (sum(len(p[0]) for p in parts) + 7).bit_length()
-    return (layout, parts, padded_keys(parts, n_pad, rng), n_rows, salt,
-            want_bad)
+    n_real = sum(len(p[0]) for p in parts)
+    n_pad = n_real if pads == "none" else 1 << (n_real + 7).bit_length()
+    keys = padded_keys(parts, n_pad, rng)
+    if pads == "between":
+        perm = rng.permutation(n_pad)
+        keys = [a[perm] for a in keys]
+    return layout, parts, keys, n_rows, salt, want_bad
 
 
 def int32_tensors(arrays, dev) -> list:
@@ -1372,60 +1407,95 @@ def check_table_build(what, layout, keys, n_rows, salt, want_bad=None):
     return t_k, t_p, max_abs_err([(table, want)]), bool(bad), table
 
 
-def launch_table_build(lib, lo, hi, val, n_rows, lay, salt, home, hb, order,
-                       tile_max, table, bad):
-    """Both entry points of a table build through a kernel library
-    (uncounted); the stable sort between them is the one made ahead, in
-    ``hb`` and ``order``.  Every launch writes the same slots."""
+def launch_table_build(lib, lo, hi, val, n_rows, lay, salt, scratch, table,
+                       bad):
+    """A whole table build through a kernel library (uncounted): this
+    tree's ``kan_table_build`` into ``table`` and ``bad`` (a 0-dim bool);
+    on a build without it (PR 15's), that build's whole device work as its
+    wrapper ran it: the table filled with EMPTY keys and 0 payloads,
+    ``kan_table_homes``, the stable ``torch.sort`` of the homes,
+    ``kan_table_place``.  ``scratch`` holds either build's scratch.
+    Returns (table, bad)."""
     stream = torch.cuda.current_stream().cuda_stream
     n = lo.numel()
+    if hasattr(lib, "kan_table_build"):
+        err = lib.kan_table_build(
+            lo.data_ptr(), hi.data_ptr(), val.data_ptr(), n, n_rows,
+            salt & 0xFFFFFFFF, lay.slots, lay.max_walk, int(lay.keep_walkers),
+            scratch.data_ptr(), scratch.numel(), table.data_ptr(),
+            bad.data_ptr(), stream)
+        require(err == 0, f"kan_table_build returned CUDA error {err}")
+        return table, bad
+    table.fill_(-1)
+    table[:, 2 * lay.slots:] = 0
+    tiles = -(-n // 1024)                    # PR 15's place tile
+    tile_max = scratch[: 8 * tiles].view(torch.int64)
+    flag = scratch[8 * tiles: 8 * tiles + 4].view(torch.int32)
+    home = scratch[8 * tiles + 16: 8 * tiles + 16 + 4 * n].view(torch.int32)
+    flag.zero_()
     err = lib.kan_table_homes(lo.data_ptr(), hi.data_ptr(), n, n_rows,
                               salt & 0xFFFFFFFF, home.data_ptr(), stream)
     require(err == 0, f"kan_table_homes returned CUDA error {err}")
+    hb, order = torch.sort(home, stable=True)
     err = lib.kan_table_place(hb.data_ptr(), order.data_ptr(), lo.data_ptr(),
                               hi.data_ptr(), val.data_ptr(), n, n_rows,
                               lay.slots, lay.max_walk, int(lay.keep_walkers),
                               tile_max.data_ptr(), table.data_ptr(),
-                              bad.data_ptr(), stream)
+                              flag.data_ptr(), stream)
     require(err == 0, f"kan_table_place returned CUDA error {err}")
-    return table, bad
+    return table, flag[0] != 0
 
 
-launch_table_build.entry = "kan_table_place"
+launch_table_build.entry = ("kan_table_build", "kan_table_place")
 
 
 def table_build_args(layout, keys, n_rows, salt) -> tuple:
-    """``launch_table_build``'s arguments for one key set: its homes
-    sorted ahead, the scratch, and a table filled as the wrapper fills
-    it."""
-    from kmers_anno_tpu_torch import kernels
-    from kmers_anno_tpu_torch.ops.table_build import KERNEL_TILE
+    """``launch_table_build``'s arguments for one key set: its layout, the
+    scratch (room for either tree's build) and the outputs."""
+    from kmers_anno_tpu_torch.ops.table_build import scratch_bytes
 
     _, lay = table_build_of(layout)
-    lo = keys[0]
-    n = lo.numel()
-    home = torch.empty(n, dtype=torch.int32, device=lo.device)
-    err = kernels.lib().kan_table_homes(
-        lo.data_ptr(), keys[1].data_ptr(), n, n_rows, salt & 0xFFFFFFFF,
-        home.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    require(err == 0, f"kan_table_homes returned CUDA error {err}")
-    hb, order = torch.sort(home, stable=True)
-    table = torch.full((n_rows, 3 * lay.slots), -1, dtype=torch.int32,
-                       device=lo.device)
-    table[:, 2 * lay.slots:] = 0
-    return (*keys, n_rows, lay, salt, home, hb, order,
-            torch.empty(-(-n // KERNEL_TILE), dtype=torch.int64,
-                        device=lo.device), table,
-            torch.zeros(1, dtype=torch.int32, device=lo.device))
+    n = keys[0].numel()
+    dev = keys[0].device
+    room = max(scratch_bytes(n, n_rows, lay), 8 * (-(-n // 1024)) + 16 + 4 * n)
+    return (*keys, n_rows, lay, salt,
+            torch.empty(room, dtype=torch.uint8, device=dev),
+            torch.empty((n_rows, 3 * lay.slots), dtype=torch.int32,
+                        device=dev),
+            torch.empty((), dtype=torch.bool, device=dev))
+
+
+def check_repeats(layout, args, want) -> int:
+    """Launches of the build on the same keys, the table and scratch
+    overwritten with junk before each, must each write ``want`` (table,
+    bad): atomics' arrival order and earlier contents never show.
+    Returns the launches made."""
+    from kmers_anno_tpu_torch import kernels
+
+    scratch, table, bad = args[-3:]
+    for junk in (0x5A5A5A5A, -1, 0, 0x7FFFFFFF, 0x12345678):
+        scratch.view(torch.int32)[: scratch.numel() // 4].fill_(junk)
+        table.fill_(junk)
+        bad.fill_(bool(junk & 1))
+        got = launch_table_build(kernels.lib(), *args)
+        require(torch.equal(got[0], want[0])
+                and bool(got[1]) == bool(want[1]),
+                f"a repeated {layout} build wrote another table")
+    return 5
 
 
 def table_build_bound(keys, table, ms) -> dict:
-    """A build's bound: each key's 12 bytes read once, the table written
-    once, and the sort's one pass (``SORT_PASS_BYTES`` a key); operations:
-    a key's hash (``HASH_KEY_OPS``)."""
+    """A build's bound: each key's 12 bytes read once and the table
+    written once, whatever builds it; operations: a key's hash
+    (``HASH_KEY_OPS``).  ``pr15_bound_ms`` is the bound as PR 15 defined
+    it, with a sort's pass (``PR15_SORT_PASS_BYTES`` a key) added."""
     n = keys[0].numel()
-    return dict(bound(KEY_BYTES * n + nbytes(table) + SORT_PASS_BYTES * n,
-                      HASH_KEY_OPS * n, ms), library=TABLE_LIBRARY_NOTE)
+    row = dict(bound(KEY_BYTES * n + nbytes(table), HASH_KEY_OPS * n, ms),
+               library=TABLE_LIBRARY_NOTE)
+    row["pr15_bound_ms"] = bound(
+        KEY_BYTES * n + nbytes(table) + PR15_SORT_PASS_BYTES * n,
+        HASH_KEY_OPS * n, ms)["bound_ms"]
+    return row
 
 
 def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
@@ -1460,28 +1530,31 @@ def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
         require(all(torch.equal(a[-2], g[4]) for a, g in zip(args, got)),
                 f"launch_table_build's {layout} tables differ from the "
                 f"wrapper's")
-        sort_ms = timed(lambda: torch.sort(args[0][6], stable=True))[0]
+        repeats = check_repeats(layout, args[0], (got[0][4], got[0][3]))
         ms = statistics.median(g[0] for g in got)
         row = with_launch(dict(
             ms=ms, plain_ms=statistics.median(g[1] for g in got),
-            max_abs_err=max(g[2] for g in got), sort_ms=sort_ms,
+            max_abs_err=max(g[2] for g in got),
             keys=statistics.median(len(s[0]) for s in singles),
             padded_keys=n_pad, rows=rows[layout],
             **table_build_bound(sets[0], got[0][4], ms)), alone)
         measured[names[layout]] = row
         cases[f"the realistic singleton sets, {layout}"] = (
-            launch_table_build, args)
+            launch_table_build, args, row["bound_ms"])
         print(f"table build, {layout} layout: {len(sets)} realistic "
               f"singleton sets of {[len(s[0]) for s in singles]} keys "
               f"(padded to {n_pad}) into {rows[layout]} rows, no bad, "
               f"tables equal to the plain version's, max_abs_err "
-              f"{row['max_abs_err']}; kernel {ms:.4f} ms a build through "
-              f"the wrapper (median), {alone:.4f} ms the two entry points "
-              f"alone back to back, the stable sort of the homes "
-              f"{sort_ms:.4f} ms; plain {row['plain_ms']:.4f} ms; bound "
+              f"{row['max_abs_err']}, {repeats} repeated launches over junk "
+              f"identical; kernel {ms:.4f} ms a build through the wrapper "
+              f"(median), {alone:.4f} ms the entry point alone back to "
+              f"back; plain {row['plain_ms']:.4f} ms; bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
-              f"{row['bound_bytes']} bytes), share {row['bound_share']:.3f},"
-              f" alone {row['launch_share']:.3f}", flush=True)
+              f"{row['bound_bytes']} bytes: keys read once, the table "
+              f"written once; PR 15's bound with a sort's pass "
+              f"{row['pr15_bound_ms']:.4f} ms), share "
+              f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}",
+              flush=True)
     for name in TABLE_BUILD_EDGES:
         layout, _, arrays, n_rows, salt, want_bad = edge_keys(name)
         check_table_build(name, layout, int32_tensors(arrays, dev), n_rows,
@@ -1494,8 +1567,9 @@ def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
 def close_set_split(annot, singles) -> dict:
     """Where a cold close set's seconds go with device builds, each step
     timed alone as ``_close_set`` runs it: ``np.unique`` of the union's
-    keys, the union's host build, and the device builds (padding, upload,
-    build, the ``bad`` read), with the padding and upload also alone."""
+    keys, the union's host build, and the device builds (upload, padding
+    on the card, the builds, one read of their ``bad`` flags), with the
+    upload and padding also alone."""
     from kmers_anno_tpu_torch.engine.projection import _bucket
     from kmers_anno_tpu_torch.ops.widetable import (build_wide_table,
                                                     build_wide_table_device,
@@ -1515,9 +1589,9 @@ def close_set_split(annot, singles) -> dict:
                 for lo, hi, peg, _ in singles]
 
     def builds():
-        for keys in padded():
-            require(not bool(build_wide_table_device(*keys, rows)[1]),
-                    "a realistic close table reported bad")
+        bads = [build_wide_table_device(*keys, rows)[1] for keys in padded()]
+        require(not any(torch.stack(bads).tolist()),
+                "a realistic close table reported bad")
 
     t_builds, _ = host_seconds(builds)
     t_upload, _ = host_seconds(padded)
@@ -1531,6 +1605,23 @@ def declined(*_args):
     engine takes its own host build for every table: the host side of the
     smoke's turns.  No switch in the package does this."""
     return None, torch.tensor(True)
+
+
+def projection_workload(dev, tmp: str) -> tuple:
+    """The realistic projection workload, its new genome written to
+    ``tmp``, and one fused annotation of it: (new genome's path, close
+    genomes, features, stats), what the projection phase leaves for the
+    ``table_build`` phase."""
+    from kmers_anno_tpu_torch.engine.projection import ProjectionAnnotator
+    from kmers_anno_tpu_torch.genome.gto import Genome
+
+    _, olds, new = make_projection_workload(np.random.default_rng(SEED),
+                                            N_GENES, N_CLOSE)
+    new_path = os.path.join(tmp, "new.gto")
+    new.save(new_path)
+    genome = Genome.load(new_path)
+    stats = ProjectionAnnotator(device=dev).annotate_genome(genome, olds.get)
+    return new_path, olds, features_of(genome), stats
 
 
 def run_table_build(dev, keep: dict) -> tuple[dict, dict, dict]:
@@ -2516,10 +2607,11 @@ def flat_filter(table):
     return build_key_filter(*table_keys(words), table.device)
 
 
-# the C signatures of the earlier flat entry points (no filter; the
-# weighted one a launch a role block), declared on a build that has them
-# so that --compare can time it
-EARLIER_FLAT_ENTRIES = {
+# the C signatures of earlier entry points, declared on a build that has
+# them so that --compare can time it: the flat ones (no filter; the
+# weighted one a launch a role block) and PR 15's table build (homes, then
+# the placement of the stably sorted homes)
+EARLIER_ENTRIES = {
     "kan_apply_flat": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
     + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int32,
                                ctypes.c_int32, ctypes.c_int64,
@@ -2529,11 +2621,15 @@ EARLIER_FLAT_ENTRIES = {
     + [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32] + [ctypes.c_int64] * 3
     + [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_float]
     + [ctypes.c_void_p] * 3,
+    "kan_table_homes": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2
+    + [ctypes.c_uint32] + [ctypes.c_void_p] * 2,
+    "kan_table_place": [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
+    + [ctypes.c_int32] * 3 + [ctypes.c_void_p] * 4,
 }
 
 
 def declare_earlier_entries(lib) -> None:
-    for name, argtypes in EARLIER_FLAT_ENTRIES.items():
+    for name, argtypes in EARLIER_ENTRIES.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -5996,6 +6092,11 @@ def main() -> None:
         help="run only the dna phase (and --compare on its cases); prints "
              "no result line")
     parser.add_argument(
+        "--tables-only", action="store_true",
+        help="run only the realistic projection workload's one fused "
+             "annotation and the table_build phase (and --compare on its "
+             "cases); prints no result line")
+    parser.add_argument(
         "--keys-only", action="store_true",
         help="run only the key lookup's checks and measurements (and "
              "--compare on its cases); prints no result line")
@@ -6040,6 +6141,20 @@ def main() -> None:
         print("seconds by phase: " + ", ".join(f"{n} {t:.1f}"
                                                for n, t in phases))
         print(json.dumps(keys_measured), flush=True)
+        return
+    if args.tables_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            keep["projection"] = phase("workload", projection_workload, dev,
+                                       tmp)
+            _, tb_measured, cases = phase("table_build", run_table_build,
+                                          dev, keep)
+        if args.compare:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase("compare", lambda: compare_contenders(
+                    build_contenders(args.compare, tmp), cases))
+        print("seconds by phase: " + ", ".join(f"{n} {t:.1f}"
+                                               for n, t in phases))
+        print(json.dumps(tb_measured), flush=True)
         return
     if args.dna_only:
         with tempfile.TemporaryDirectory() as tmp:

@@ -11,55 +11,88 @@
 //
 // The function.  A key i is real unless lo[i] == EMPTY (0xFFFFFFFF).  Its
 // home row is fmix32(lo ^ fmix32(hi ^ salt)) & (rows - 1) (salt GOLDEN for
-// the 8-slot layout: the unsalted mix_kmer); a pad's home is `rows`, so
-// that pads sort last.  With the keys sorted by home, stably, the key at
-// rank i takes slot pos = i + max over j <= i of (home_j * S - j), S slots
-// a row: the greedy placement that fills each row in rank order and sends
-// a full row's overflow on to the next row.  Its walk is pos / S - home.
-// `bad` is set when a real key has pos >= rows * S (it would wrap past the
-// last row) or a walk of max_walk or more (1 for the wide layout, whose
-// probe reads one row; 2, MAX_DEVICE_PROBES, for the 8-slot layout).  A
-// key is written where pos < rows * S and, unless keep_walkers, its walk
-// is 0: the wide layout drops the keys that walk, the 8-slot layout keeps
-// them, as the two reference builds do.  The table's rows are
-// [S lo keys | S hi keys | S payloads]; the wrapper fills it with EMPTY
-// keys and 0 payloads first.
+// the 8-slot layout: the unsalted mix_kmer).  The reference sorts the keys
+// stably by home (pads last) and gives the key at rank i the slot
+// pos = i + max over j <= i of (home_j * S - j), S slots a row: the greedy
+// placement that fills each row in rank order and sends a full row's
+// overflow on to the next row.  `bad` is set when a real key has
+// pos >= rows * S (it would wrap) or a walk pos / S - home of max_walk or
+// more (1 for the wide layout, whose probe reads one row; 2,
+// MAX_DEVICE_PROBES, for the 8-slot layout).  A key is written where
+// pos < rows * S and, unless keep_walkers, its walk is 0: the wide layout
+// drops the keys that walk, the 8-slot layout keeps them.  The table's rows
+// are [S lo keys | S hi keys | S payloads], EMPTY keys and 0 payloads where
+// no key lies.
 //
-// Two entry points, with the sort between them: kan_table_homes (one
-// thread a key: the home), then torch.sort(stable=True) of the homes (the
-// reference sorts with XLA's argsort, outside any kernel), then
-// kan_table_place: a pass of tile maxima of home * S - i (1,024 ranks a
-// tile), one block's exclusive max-scan of the tile maxima (each tile's
-// carry), and the place pass, a block a tile: each thread's 4 ranks, an
-// inclusive max-scan across the block's threads by warp shuffles, the
-// carry, then the scatter of lo, hi and payload through the sort's order.
-// A block that holds a bad key sets the flag once, with atomicOr; the
-// wrapper's caller reads it on the host once a build.
+// The same placement by rows, with no sort.  Let cnt[h] be the real keys
+// homed in row h, start[h] its exclusive prefix sum, and
+// C[h] = max over h' <= h of (h' * S - start[h']).  The key of home h whose
+// stable rank among that home's keys (by input index) is r takes
+// pos = start[h] + C[h] + r.  So home h fills the run of slots from
+// first[h] = start[h] + C[h], and the keys of the homes before it end at
+// F[h] = start[h] + C[h - 1]; the slots [h * S, F[h]) are every one taken,
+// the one at p by the key of sorted index p - C[h - 1].  A row's bad test
+// is on its last key: first[h] + cnt[h] - 1 >= min(rows * S,
+// (h + max_walk) * S).  tests/test_torch_table_build.py holds this to the
+// plain version key by key.
+//
+// One entry point, kan_table_build, five passes (six for the 8-slot
+// layout), no library call:
+//   zero   the row counts, the scan's tile flags and ticket, and `bad`;
+//   count  a thread a key: its home, atomicAdd(&cnt[home], 1), the old
+//          value kept as the key's arrival slot;
+//   scan   a block a tile of 2,048 rows, one pass with a decoupled
+//          look-back over the pair (sum, max) under
+//          (s1, m1) . (s2, m2) = (s1 + s2, max(m1, m2 - s1)), each row's
+//          element (cnt[h], h * S): each row's inclusive (start[h + 1],
+//          C[h]) as an int2;
+//   scatter a thread a key: the record (index, lo, hi, payload) at
+//          start[home] + arrival, one 16-byte store;
+//   wide   a warp a row: its records ranked by index with shuffles (a
+//          register sort in one round for up to 32 keys, a loop of rounds
+//          past that), the row staged in shared memory with EMPTY and 0
+//          where no key lands and written whole, 72 words, once;
+//   8-slot rank (a thread a record: its rank by index among its home's
+//          records, the record stored at start + rank, the stable order)
+//          then rows (a thread a slot: the key of the walkers' run or of
+//          the home's own run read from the stable order, EMPTY and 0 past
+//          them; a warp writes four whole rows).
+// Atomics arrive in any order; the rank by index makes every launch write
+// the same table.  A block with a bad row stores 1 into `bad`, read once a
+// build.  A segment of L keys in one row costs O(L^2) compares (L / 32
+// warp rounds of L shuffles, or L loads a thread in the 8-slot rank): the
+// realistic sets hold 7 keys a wide row on average, and only forced bad
+// cases reach a few hundred.
 //
 // What bounds it on this card: bytes.  A build of n keys into a table of
-// B bytes reads each key's 12 bytes once and writes B, and its sort reads
-// the 4-byte homes and writes the sorted homes and their 8-byte order: on
-// the projection's close tables (914,109 keys padded to 1,048,576; 131,072
-// rows of 288 bytes) 67 MB, 0.020 ms at 3.35 TB/s.  Measured there
-// (PERF.md, Findings; NVIDIA H100 80GB HBM3, 700 W): 0.358 ms a build
-// through the wrapper, of which the stable sort takes 0.108 ms and the two
-// entry points 0.126 ms; the table's fill, the allocations and the
-// launches the rest.  The design is the simple one, one pass a step at one
-// thread a key; the place pass reads each key's lo, hi and payload through
-// the sort's order, three scattered 4-byte reads a key.
+// B bytes must read each key's 12 bytes once and write B: on the
+// projection's close tables (914,109 keys padded to 1,048,576; 131,072
+// rows of 288 bytes) 50.3 MB, 0.0150 ms at 3.35 TB/s; the 8-slot table
+// (1,048,576 rows of 96 bytes) 113.2 MB, 0.0338 ms.  The passes move more:
+// keys read twice, the arrival slots (4 B a key) and records (16 B a key)
+// written and read, the rows' counts and pairs (L2-resident at 131,072
+// rows), and for the 8-slot layout the stable order (16 B a key) once
+// more.  The parent design (PR 15) sorted the homes with torch.sort, filled
+// the table with torch.full before placing keys, and read each key's words
+// through the sort's order; its numbers and this design's are in PERF.md.
 
 #include <cstdint>
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
-constexpr int kThreads = 256;            // threads a block
-constexpr int kItems = 4;                // ranks a thread
-// ranks a tile: ops/table_build.KERNEL_TILE
-constexpr int kTile = kThreads * kItems;
-constexpr int kScanThreads = 1024;       // the carry scan's one block
+constexpr int kThreads = 256;            // threads a block, every pass
+constexpr int kWarps = kThreads / 32;    // rows a block of the wide pass
+constexpr int kScanItems = 8;            // rows a thread of the scan
+// rows a tile of the scan: ops/table_build.SCAN_TILE
+constexpr int kScanTile = kThreads * kScanItems;
+constexpr int kMaxWideSlots = 32;        // the wide pass: a lane a slot
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kAggregate = 1;            // a tile's flag: its own pair
+constexpr int kPrefix = 2;               // ... and its inclusive prefix
+constexpr long long kNegInf = LLONG_MIN / 4;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -70,189 +103,379 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ int64_t lead(const int32_t* __restrict__ hb,
-                                        int64_t i, int slots) {
-  return static_cast<int64_t>(__ldg(hb + i)) * slots - i;
+__device__ __forceinline__ uint32_t home_of(uint32_t lo, uint32_t hi,
+                                            uint32_t salt, uint32_t mask) {
+  return fmix32(lo ^ fmix32(hi ^ salt)) & mask;
 }
 
-// Inclusive max-scan of one value a thread across the block; `warp_tot`
-// holds blockDim.x / 32 entries.  Returns the thread's inclusive maximum.
-__device__ __forceinline__ int64_t block_scan_max(int64_t v,
-                                                  int64_t* warp_tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int64_t o = __shfl_up_sync(kFullMask, v, d);
-    if (lane >= d) v = max(v, o);
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int64_t t = lane < n_warps ? warp_tot[lane] : INT64_MIN;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int64_t o = __shfl_up_sync(kFullMask, t, d);
-      if (lane >= d) t = max(t, o);
-    }
-    if (lane < n_warps) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  if (warp > 0) v = max(v, warp_tot[warp - 1]);
-  return v;
+// (sum, max) of a run of rows; combine(a, b) is a followed by b.
+struct RowPair {
+  long long sum, max;
+};
+
+__device__ __forceinline__ RowPair combine(RowPair a, RowPair b) {
+  return {a.sum + b.sum, max(a.max, b.max - a.sum)};
+}
+
+__device__ __forceinline__ RowPair shfl_up(RowPair v, int d) {
+  return {__shfl_up_sync(kFullMask, v.sum, d),
+          __shfl_up_sync(kFullMask, v.max, d)};
+}
+
+// The scratch the wrapper allocates (ops/table_build.scratch_bytes), in
+// order, each part from a 16-byte boundary.
+struct Scratch {
+  int32_t* cnt;          // rows: real keys a home       } zeroed
+  int32_t* flag;         // tiles: the scan's flags      } by the
+  int32_t* ticket;       // 1: the scan's next tile      } zero pass
+  longlong2* agg;        // tiles: each tile's own pair
+  longlong2* incl;       // tiles: each tile's inclusive prefix
+  int2* pair;            // rows: (start[h + 1], C[h])
+  int32_t* arrival;      // n: each real key's arrival slot
+  int4* rec;             // n: (index, lo, hi, payload) grouped by home
+  int4* sorted;          // n, 8-slot layout only: the stable order
+  int64_t zero_bytes;    // the zeroed span from cnt
+  int64_t bytes;         // the whole
+};
+
+__host__ __device__ inline int64_t align16(int64_t b) {
+  return (b + 15) & ~int64_t{15};
+}
+
+Scratch carve(char* base, int64_t n, int64_t n_rows, bool keep_walkers) {
+  const int64_t tiles = (n_rows + kScanTile - 1) / kScanTile;
+  Scratch s;
+  int64_t at = 0;
+  s.cnt = reinterpret_cast<int32_t*>(base);
+  s.flag = s.cnt + n_rows;
+  s.ticket = s.flag + tiles;
+  at = s.zero_bytes = align16(4 * (n_rows + tiles + 1));
+  s.agg = reinterpret_cast<longlong2*>(base + at);
+  at += 16 * tiles;
+  s.incl = reinterpret_cast<longlong2*>(base + at);
+  at += 16 * tiles;
+  s.pair = reinterpret_cast<int2*>(base + at);
+  at += align16(8 * n_rows);
+  s.arrival = reinterpret_cast<int32_t*>(base + at);
+  at += align16(4 * n);
+  s.rec = reinterpret_cast<int4*>(base + at);
+  at += 16 * n;
+  s.sorted = reinterpret_cast<int4*>(base + at);
+  if (keep_walkers) at += 16 * n;
+  s.bytes = at;
+  return s;
 }
 
 __global__ void __launch_bounds__(kThreads)
-homes_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
-             int64_t n, uint32_t mask, uint32_t salt,
-             int32_t* __restrict__ home) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+zero_kernel(int4* __restrict__ words, int64_t n_vec,
+            uint8_t* __restrict__ bad) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i < n_vec) words[i] = make_int4(0, 0, 0, 0);
+  if (i == 0) *bad = 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
+             int64_t n, uint32_t salt, uint32_t mask,
+             int32_t* __restrict__ cnt, int32_t* __restrict__ arrival) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
   if (i >= n) return;
   const uint32_t l = __ldg(lo + i);
-  home[i] = l == kEmpty
-                ? static_cast<int32_t>(mask + 1u)
-                : static_cast<int32_t>(fmix32(l ^ fmix32(__ldg(hi + i) ^
-                                                          salt)) & mask);
+  if (l == kEmpty) return;
+  arrival[i] = atomicAdd(cnt + home_of(l, __ldg(hi + i), salt, mask), 1);
 }
 
-// The maximum of home * S - i over each tile of sorted ranks.
+// Each row's inclusive pair (start[h + 1], C[h]).  Tiles are taken in the
+// order blocks start (a ticket), so a block waits only on tiles that
+// running or finished blocks hold.
 __global__ void __launch_bounds__(kThreads)
-tile_max_kernel(const int32_t* __restrict__ hb, int64_t n, int slots,
-                int64_t* __restrict__ tile_max) {
-  __shared__ int64_t warp_max[kThreads / 32];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-  int64_t m = INT64_MIN;
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    const int64_t i = base + j;
-    if (i < n) m = max(m, lead(hb, i, slots));
-  }
+scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
+            int32_t* flag, int32_t* ticket, longlong2* agg, longlong2* incl,
+            int2* __restrict__ pair) {
+  __shared__ int tile_sh;
+  __shared__ RowPair warp_tot[kWarps];
+  __shared__ RowPair tile_before;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) tile_sh = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = tile_sh;
+  const int64_t row0 = static_cast<int64_t>(tile) * kScanTile +
+                       static_cast<int64_t>(threadIdx.x) * kScanItems;
+  int32_t c[kScanItems];
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-    m = max(m, __shfl_xor_sync(kFullMask, m, d));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  for (int k = 0; k < kScanItems; ++k)
+    c[k] = row0 + k < n_rows ? cnt[row0 + k] : 0;
+  RowPair mine = {0, kNegInf};
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k)
+    if (row0 + k < n_rows)
+      mine = combine(mine, {c[k], (row0 + k) * slots});
+
+  // the block's scan of the threads' pairs, in thread order
+  RowPair in_warp = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const RowPair o = shfl_up(in_warp, d);
+    if (lane >= d) in_warp = combine(o, in_warp);
+  }
+  if (lane == 31) warp_tot[warp] = in_warp;
+  RowPair before = shfl_up(in_warp, 1);
+  if (lane == 0) before = {0, kNegInf};
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
-    tile_max[blockIdx.x] = m;
+    RowPair total = {0, kNegInf};
+    for (int w = 0; w < kWarps; ++w) {
+      const RowPair t = warp_tot[w];
+      warp_tot[w] = total;               // the warps before w
+      total = combine(total, t);
+    }
+    // the tiles before this one, by decoupled look-back
+    RowPair prior = {0, kNegInf};
+    if (tile == 0) {
+      incl[0] = make_longlong2(total.sum, total.max);
+      __threadfence();
+      atomicExch(flag, kPrefix);
+    } else {
+      agg[tile] = make_longlong2(total.sum, total.max);
+      __threadfence();
+      atomicExch(flag + tile, kAggregate);
+      for (int j = tile - 1;; --j) {
+        int f;
+        do {
+          f = *reinterpret_cast<volatile int32_t*>(flag + j);
+        } while (f == 0);
+        __threadfence();
+        const longlong2 v = __ldcg(f == kPrefix ? incl + j : agg + j);
+        prior = combine({v.x, v.y}, prior);
+        if (f == kPrefix) break;
+      }
+      const RowPair with = combine(prior, total);
+      incl[tile] = make_longlong2(with.sum, with.max);
+      __threadfence();
+      atomicExch(flag + tile, kPrefix);
+    }
+    tile_before = prior;
+  }
+  __syncthreads();
+  RowPair run = combine(combine(tile_before, warp_tot[warp]), before);
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    if (row0 + k < n_rows) {
+      run = combine(run, {c[k], (row0 + k) * slots});
+      pair[row0 + k] = make_int2(static_cast<int32_t>(run.sum),
+                                 static_cast<int32_t>(run.max));
+    }
   }
 }
 
-// In place: tile_max[t] becomes the maximum over tiles 0 .. t-1 (INT64_MIN
-// for tile 0), the carry of tile t.  One block, in chunks of its width.
-__global__ void __launch_bounds__(kScanThreads)
-carry_kernel(int64_t* __restrict__ tile_max, int64_t n_tiles) {
-  __shared__ int64_t warp_tot[kScanThreads / 32];
-  __shared__ int64_t last;
-  int64_t running = INT64_MIN;
-  for (int64_t c = 0; c < n_tiles; c += kScanThreads) {
-    const int64_t t = c + threadIdx.x;
-    const int64_t v = t < n_tiles ? tile_max[t] : INT64_MIN;
-    const int64_t incl = block_scan_max(v, warp_tot);
-    // the exclusive maximum: the inclusive one of the thread before
-    const int64_t before = __shfl_up_sync(kFullMask, incl, 1);
-    int64_t excl = (threadIdx.x & 31) ? before : INT64_MIN;
-    if ((threadIdx.x & 31) == 0 && threadIdx.x > 0)
-      excl = warp_tot[(threadIdx.x >> 5) - 1];
-    if (t < n_tiles) tile_max[t] = max(running, excl);
-    if (threadIdx.x == kScanThreads - 1) last = incl;
-    __syncthreads();
-    running = max(running, last);
-    __syncthreads();
-  }
+__device__ __forceinline__ int32_t start_of(const int2* __restrict__ pair,
+                                            int64_t h) {
+  return h > 0 ? pair[h - 1].x : 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
-place_kernel(const int32_t* __restrict__ hb, const int64_t* __restrict__ order,
-             const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
-             const int32_t* __restrict__ values, int64_t n, int64_t n_rows,
-             int slots, int max_walk, int keep_walkers,
-             const int64_t* __restrict__ carry, int32_t* __restrict__ table,
-             int32_t* __restrict__ bad) {
-  __shared__ int64_t warp_tot[kThreads / 32];
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kTile +
-                        static_cast<int64_t>(threadIdx.x) * kItems;
-  int64_t run[kItems];
-  int64_t m = INT64_MIN;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = first + j;
-    if (i < n) m = max(m, lead(hb, i, slots));
-    run[j] = m;
-  }
-  // the maximum over every rank before this thread's first
-  const int64_t incl = block_scan_max(m, warp_tot);
-  int64_t before = __shfl_up_sync(kFullMask, incl, 1);
-  if ((threadIdx.x & 31) == 0)
-    before = threadIdx.x > 0 ? warp_tot[(threadIdx.x >> 5) - 1] : INT64_MIN;
-  const int64_t prefix = max(before, carry[blockIdx.x]);
+scatter_kernel(const uint32_t* __restrict__ lo,
+               const uint32_t* __restrict__ hi,
+               const int32_t* __restrict__ values, int64_t n, uint32_t salt,
+               uint32_t mask, const int2* __restrict__ pair,
+               const int32_t* __restrict__ arrival, int4* __restrict__ rec) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i >= n) return;
+  const uint32_t l = __ldg(lo + i);
+  if (l == kEmpty) return;
+  const uint32_t hv = __ldg(hi + i);
+  const int32_t at = start_of(pair, home_of(l, hv, salt, mask)) +
+                     __ldg(arrival + i);
+  rec[at] = make_int4(static_cast<int32_t>(i), static_cast<int32_t>(l),
+                      static_cast<int32_t>(hv), __ldg(values + i));
+}
 
-  const int64_t cap = n_rows * slots;
+// Whether row h (cnt keys from `first`) holds a bad key.
+__device__ __forceinline__ bool row_bad(int64_t h, int32_t cnt,
+                                        int32_t first, int64_t cap,
+                                        int slots, int max_walk) {
+  const int64_t limit = min(cap, (h + max_walk) * slots);
+  return cnt > 0 && static_cast<int64_t>(first) + cnt - 1 >= limit;
+}
+
+// The wide layout: a warp a row.  Only the row's own keys land in it (a
+// key that walks is dropped), at first - h * S + rank while below S.
+__global__ void __launch_bounds__(kThreads)
+wide_rows_kernel(const int2* __restrict__ pair, const int4* __restrict__ rec,
+                 int64_t n_rows, int slots, int max_walk,
+                 int32_t* __restrict__ table, uint8_t* __restrict__ bad) {
+  __shared__ int32_t buf[kWarps][3 * kMaxWideSlots];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t h = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  const int width = 3 * slots;
   bool is_bad = false;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = first + j;
-    if (i >= n) break;
-    const int64_t home = __ldg(hb + i);
-    const int64_t pos = i + max(prefix, run[j]);
-    const bool ok = pos < cap;
-    const int64_t walk = ok ? pos / slots - home : 0;
-    if (home < n_rows && (!ok || walk >= max_walk)) is_bad = true;
-    if (!ok || (!keep_walkers && walk > 0)) continue;
-    const int64_t src = order[i];
-    int32_t* row = table + (pos / slots) * 3 * slots + pos % slots;
-    row[0] = __ldg(lo + src);
-    row[slots] = __ldg(hi + src);
-    row[2 * slots] = __ldg(values + src);
+  if (h < n_rows) {
+    int32_t* row = buf[warp];
+    for (int w = lane; w < width; w += 32) row[w] = w < 2 * slots ? -1 : 0;
+    const int32_t start = start_of(pair, h);
+    const int2 cur = pair[h];
+    const int32_t cnt = cur.x - start;
+    const int32_t first = start + cur.y;
+    const int64_t base = first - h * slots;     // >= 0
+    is_bad = lane == 0 && row_bad(h, cnt, first, n_rows * slots, slots,
+                                  max_walk);
+    __syncwarp();
+    if (base < slots) {
+      for (int32_t c0 = 0; c0 < cnt; c0 += 32) {
+        const bool have = c0 + lane < cnt;
+        const int4 r = have ? rec[start + c0 + lane]
+                            : make_int4(INT_MAX, 0, 0, 0);
+        int32_t rank = 0;
+        for (int32_t k0 = 0; k0 < cnt; k0 += 32) {
+          const int32_t other =
+              k0 == c0 ? r.x
+                       : (k0 + lane < cnt ? rec[start + k0 + lane].x
+                                          : INT_MAX);
+          const int m = min(32, cnt - k0);
+          for (int q = 0; q < m; ++q)
+            rank += __shfl_sync(kFullMask, other, q) < r.x;
+        }
+        const int64_t slot = base + rank;
+        if (have && slot < slots) {
+          row[slot] = r.y;
+          row[slots + slot] = r.z;
+          row[2 * slots + slot] = r.w;
+        }
+      }
+    }
+    __syncwarp();
+    int32_t* out = table + h * width;
+    for (int w = lane; w < width; w += 32) out[w] = row[w];
   }
-  if (__syncthreads_or(is_bad) && threadIdx.x == 0) atomicOr(bad, 1);
+  if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
+}
+
+// The 8-slot layout, first: each real key's record at its stable rank.
+__global__ void __launch_bounds__(kThreads)
+rank_kernel(const int4* __restrict__ rec, const int2* __restrict__ pair,
+            int64_t n_rows, uint32_t salt, int4* __restrict__ sorted) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (j >= pair[n_rows - 1].x) return;       // the real keys
+  const int4 r = rec[j];
+  const uint32_t h = home_of(static_cast<uint32_t>(r.y),
+                             static_cast<uint32_t>(r.z), salt,
+                             static_cast<uint32_t>(n_rows - 1));
+  const int32_t start = start_of(pair, h);
+  const int32_t end = pair[h].x;
+  int32_t rank = 0;
+  for (int32_t k = start; k < end; ++k) rank += rec[k].x < r.x;
+  sorted[start + rank] = r;
+}
+
+// The 8-slot layout, then: a thread a slot p of row h.  The walkers' run
+// [h * S, F) holds sorted index p - C[h - 1]; the home's own run
+// [first, first + cnt) holds start + (p - first).
+__global__ void __launch_bounds__(kThreads)
+slot_rows_kernel(const int2* __restrict__ pair,
+                 const int4* __restrict__ sorted, int64_t n_rows, int slots,
+                 int max_walk, int32_t* __restrict__ table,
+                 uint8_t* __restrict__ bad) {
+  const int64_t cap = n_rows * slots;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  bool is_bad = false;
+  if (p < cap) {
+    const int64_t h = p / slots;
+    const int64_t s = p - h * slots;
+    const int2 cur = pair[h];
+    const int2 prev = h > 0 ? pair[h - 1] : make_int2(0, 0);
+    const int32_t start = prev.x;
+    const int32_t cnt = cur.x - start;
+    const int64_t first = start + cur.y;
+    const int64_t walkers_end = h > 0 ? int64_t{start} + prev.y : 0;
+    int64_t at = -1;
+    if (p < walkers_end)
+      at = p - prev.y;
+    else if (p >= first && p < first + cnt)
+      at = start + (p - first);
+    int4 r = make_int4(0, -1, -1, 0);
+    if (at >= 0) r = sorted[at];
+    int32_t* row = table + h * 3 * slots + s;
+    row[0] = r.y;
+    row[slots] = r.z;
+    row[2 * slots] = r.w;
+    is_bad = s == 0 && row_bad(h, cnt, static_cast<int32_t>(first), cap,
+                               slots, max_walk);
+  }
+  if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
+}
+
+unsigned blocks_for(int64_t n, int64_t per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
 }  // namespace
 
-// lo / hi: (n,) 32-bit keys, EMPTY in pads; home: (n,) int32, written:
-// the home row of each key at `salt` in a table of n_rows (a power of two)
-// rows, n_rows for a pad.
-extern "C" int kan_table_homes(const int32_t* lo, const int32_t* hi,
-                               int64_t n, int64_t n_rows, uint32_t salt,
-                               int32_t* home, void* stream) {
-  if (n > 0) {
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) /
-                                                  kThreads);
-    homes_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const uint32_t*>(lo),
-        reinterpret_cast<const uint32_t*>(hi), n,
-        static_cast<uint32_t>(n_rows - 1), salt, home);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// hb: (n,) int32 homes in stable sorted order; order: (n,) int64, the
-// sort's indices into lo / hi / values (n,) 32-bit; tile_max: scratch of
-// ceil(n / 1024) int64; table: (n_rows, 3 * slots) int32, filled by the
-// caller with EMPTY keys and 0 payloads; bad: one int32 the caller zeroed,
-// set to 1 when a real key walks max_walk rows or more or wraps.
-extern "C" int kan_table_place(const int32_t* hb, const int64_t* order,
-                               const int32_t* lo, const int32_t* hi,
+// lo / hi / values: (n,) 32-bit keys (EMPTY in pads) and payloads; n_rows a
+// power of two, n_rows * slots + n < 2^31; scratch: scratch_bytes bytes of
+// device memory (ops/table_build.scratch_bytes), 16-byte aligned; table:
+// (n_rows, 3 * slots) int32, written whole; bad: one byte, written: 1 when
+// a real key walks max_walk rows or more or wraps, else 0.  The wide pass
+// (keep_walkers 0) takes at most 32 slots a row.
+extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
                                const int32_t* values, int64_t n,
-                               int64_t n_rows, int32_t slots,
+                               int64_t n_rows, uint32_t salt, int32_t slots,
                                int32_t max_walk, int32_t keep_walkers,
-                               int64_t* tile_max, int32_t* table,
-                               int32_t* bad, void* stream) {
+                               void* scratch, int64_t scratch_bytes,
+                               int32_t* table, uint8_t* bad, void* stream) {
+  if (n < 0 || n_rows < 1 || (n_rows & (n_rows - 1)) || slots < 1 ||
+      (!keep_walkers && slots > kMaxWideSlots) ||
+      n_rows * slots + n >= (int64_t{1} << 31) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Scratch s = carve(static_cast<char*>(scratch), n, n_rows,
+                          keep_walkers != 0);
+  if (scratch_bytes < s.bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto u_lo = reinterpret_cast<const uint32_t*>(lo);
+  const auto u_hi = reinterpret_cast<const uint32_t*>(hi);
+  const uint32_t mask = static_cast<uint32_t>(n_rows - 1);
+  cudaError_t err;
+
+  const int64_t n_vec = s.zero_bytes / 16;
+  zero_kernel<<<blocks_for(n_vec, kThreads), kThreads, 0, st>>>(
+      reinterpret_cast<int4*>(s.cnt), n_vec, bad);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    auto s = static_cast<cudaStream_t>(stream);
-    const int64_t n_tiles = (n + kTile - 1) / kTile;
-    const unsigned tiles = static_cast<unsigned>(n_tiles);
-    tile_max_kernel<<<tiles, kThreads, 0, s>>>(hb, n, slots, tile_max);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    carry_kernel<<<1, kScanThreads, 0, s>>>(tile_max, n_tiles);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    place_kernel<<<tiles, kThreads, 0, s>>>(hb, order, lo, hi, values, n,
-                                            n_rows, slots, max_walk,
-                                            keep_walkers, tile_max, table,
-                                            bad);
+    count_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+        u_lo, u_hi, n, salt, mask, s.cnt, s.arrival);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  scan_kernel<<<blocks_for(n_rows, kScanTile), kThreads, 0, st>>>(
+      s.cnt, n_rows, slots, s.flag, s.ticket, s.agg, s.incl, s.pair);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    scatter_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+        u_lo, u_hi, values, n, salt, mask, s.pair, s.arrival, s.rec);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  if (!keep_walkers) {
+    wide_rows_kernel<<<blocks_for(n_rows, kWarps), kThreads, 0, st>>>(
+        s.pair, s.rec, n_rows, slots, max_walk, table, bad);
+  } else {
+    if (n > 0) {
+      rank_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+          s.rec, s.pair, n_rows, salt, s.sorted);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    }
+    slot_rows_kernel<<<blocks_for(n_rows * slots, kThreads), kThreads, 0,
+                       st>>>(s.pair, s.sorted, n_rows, slots, max_walk, table,
+                             bad);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -73,7 +73,6 @@ log = logging.getLogger(__name__)
 TOOL_NAME = "kmers.anno"
 
 _STREAM_BLOCK = 1 << 13     # stream lengths are whole blocks of this size
-_TABLE_CACHE_BYTES = 4 << 30    # device bytes of cached singleton tables
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -833,7 +832,8 @@ class ProjectionAnnotator:
                  min_evidence: int = 10, k: int = 8,
                  algorithm: str = "AGGRESSIVE",
                  trace_function: str | None = None, engine: str = "auto",
-                 *, device: str | torch.device):
+                 table_cache_bytes: int = 4 << 30, *,
+                 device: str | torch.device):
         if engine not in ("auto", "device", "host"):
             raise ValueError(f"unknown projection engine {engine!r}")
         if min_strength >= 1.0:
@@ -853,6 +853,7 @@ class ProjectionAnnotator:
         self.trace_function = trace_function
         self.engine = engine
         self.device = resolve_device(device)
+        self.table_cache_bytes = table_cache_bytes
         self._table_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._singleton_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._closeset_cache: "OrderedDict[tuple, _CloseSet]" = OrderedDict()
@@ -978,7 +979,7 @@ class ProjectionAnnotator:
         self._table_cache[key] = got
         total = sum(e[0].nbytes for e in self._table_cache.values()
                     if e[0] is not None)
-        while total > _TABLE_CACHE_BYTES and len(self._table_cache) > 1:
+        while total > self.table_cache_bytes and len(self._table_cache) > 1:
             _, e = self._table_cache.popitem(last=False)
             if e[0] is not None:
                 total -= e[0].nbytes
@@ -987,13 +988,14 @@ class ProjectionAnnotator:
     def _padded_keys(self, lo, hi, peg_idx, n_pad: int) -> tuple:
         """A singleton set's keys and peg indices as int32 tensors on the
         device, padded to ``n_pad`` with EMPTY keys (payload 0): what a
-        device table build takes.  Only the keys go up (12 B a key)."""
+        device table build takes.  Only the ``n`` real keys go up (12 B a
+        key); the pads are filled on the device."""
         n = len(lo)
-        out = []
-        for words, fill in ((lo, -1), (hi, -1), (peg_idx, 0)):
-            padded = np.full(n_pad, fill, np.int32)
-            padded[:n] = np.asarray(words).view(np.int32)
-            out.append(torch.from_numpy(padded).to(self.device))
+        out = torch.empty((3, n_pad), dtype=torch.int32, device=self.device)
+        for row, words in zip(out, (lo, hi, peg_idx)):
+            row[:n].copy_(torch.from_numpy(np.asarray(words).view(np.int32)))
+        out[:2, n:] = -1
+        out[2, n:] = 0
         return tuple(out)
 
     def _singletons(self, genome: Genome):
@@ -1050,14 +1052,15 @@ class ProjectionAnnotator:
         # them (projection.py:1245-1270): the device build at salt 0, the
         # host salt-retry build at the same rows when it reports bad
         rows_common = max(rows_list)
+        built = [build_wide_table_device(
+            *self._padded_keys(lo, hi, peg_idx, _bucket(len(lo), 4096)),
+            rows_common) for lo, hi, peg_idx, _ in (s for _, s in live)]
+        bads = torch.stack([bad for _, bad in built]).tolist()  # one read
         tables, salts, mps, pinfo = [], [], [], []
         max_delta = 0
-        for _, s in live:
+        for (_, s), (table, _), bad in zip(live, built, bads):
             lo, hi, peg_idx, pegs = s
-            table, bad = build_wide_table_device(
-                *self._padded_keys(lo, hi, peg_idx, _bucket(len(lo), 4096)),
-                rows_common)
-            if bool(bad):
+            if bad:
                 htab, salt, mp = host_fallback(
                     "wide", len(lo), build_wide_table, lo, hi, peg_idx,
                     n_rows=rows_common)

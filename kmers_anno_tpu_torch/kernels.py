@@ -126,9 +126,8 @@ ENTRY_POINTS = {
     "kan_dna_probe_filtered": [_P, _I64, _I32, _P, _I64, _P, _P, _I64, _I32,
                                _P, _P],
     "kan_probe_keys": [_P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _P, _P],
-    "kan_table_homes": [_P, _P, _I64, _I64, ctypes.c_uint32, _P, _P],
-    "kan_table_place": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _P,
-                        _P, _P, _P],
+    "kan_table_build": [_P, _P, _P, _I64, _I64, ctypes.c_uint32, _I32, _I32,
+                        _I32, _P, _I64, _P, _P, _P],
 }
 
 

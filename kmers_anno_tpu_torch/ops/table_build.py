@@ -14,10 +14,10 @@ walk; the 8-slot layout (the unsalted hash, ``max_walk``
 ``MAX_DEVICE_PROBES``) keeps them.
 
 :func:`build_wide` and :func:`build_bucketed` launch
-``csrc/table_build.cu`` for CUDA tensors (``kan_table_homes``, a stable
-``torch.sort`` of the homes, ``kan_table_place``) and take
-:func:`build_table_plain`, which follows the reference line by line, for
-CPU tensors.  Tables are ``int32`` tensors of the uint32 words, as for the
+``csrc/table_build.cu`` for CUDA tensors (``kan_table_build``: row
+counts, a scan over rows, the keys grouped by home and ranked by index,
+the table written once) and take :func:`build_table_plain`, which follows
+the reference line by line, for CPU tensors.  Tables are ``int32`` tensors of the uint32 words, as for the
 host builds (``EMPTY`` reads as -1).
 """
 
@@ -33,7 +33,7 @@ from .hashtable import BUCKET, MAX_DEVICE_PROBES
 from .widetable import SLOTS
 
 EMPTY_KEY = -1          # EMPTY's int32 bits
-KERNEL_TILE = 1024      # sorted ranks a block of the place pass (kTile)
+SCAN_TILE = 2048        # rows a block of the kernel's scan (kScanTile)
 
 
 class Layout(NamedTuple):
@@ -95,38 +95,45 @@ def build_table_plain(key_lo: torch.Tensor, key_hi: torch.Tensor,
     return table, bad
 
 
+def _align16(n_bytes: int) -> int:
+    return -(-n_bytes // 16) * 16
+
+
+def scratch_bytes(n: int, n_rows: int, layout: Layout) -> int:
+    """Device scratch of one kernel build, as ``carve`` in
+    ``csrc/table_build.cu`` lays it out: row counts, the scan's flags and
+    ticket (zeroed); the scan's tile pairs (16 B twice a tile); each row's
+    pair (8 B); each key's arrival slot (4 B) and record (16 B); for the
+    8-slot layout the stable order (16 B a key)."""
+    tiles = -(-n_rows // SCAN_TILE)
+    return (_align16(4 * (n_rows + tiles + 1)) + 32 * tiles
+            + _align16(8 * n_rows) + _align16(4 * n)
+            + 16 * n * (2 if layout.keep_walkers else 1))
+
+
 def _launch(key_lo, key_hi, values, n_rows: int, layout: Layout,
             salt: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's build on CUDA tensors: the table filled with EMPTY keys
-    and 0 payloads, the homes, their stable sort, the placement."""
+    """The kernel's build on CUDA tensors: one entry point writes the
+    whole table and ``bad``."""
     s = layout.slots
     dev = key_lo.device
     lo, hi, val = (t.contiguous() for t in (key_lo, key_hi, values))
-    table = torch.full((n_rows, 3 * s), EMPTY_KEY, dtype=torch.int32,
-                       device=dev)
-    table[:, 2 * s:] = 0
-    bad = torch.zeros(1, dtype=torch.int32, device=dev)
     n = lo.numel()
-    if n:
-        lib = kernels.lib()
-        home = torch.empty(n, dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            stream = kernels.stream_of(lo)
-            err = lib.kan_table_homes(lo.data_ptr(), hi.data_ptr(), n,
-                                      n_rows, int(salt) & MASK32,
-                                      home.data_ptr(), stream)
-            kernels.check(err, "table build kernel (homes)")
-            hb, order = torch.sort(home, stable=True)
-            tile_max = torch.empty(-(-n // KERNEL_TILE), dtype=torch.int64,
-                                   device=dev)
-            err = lib.kan_table_place(
-                hb.data_ptr(), order.data_ptr(), lo.data_ptr(),
-                hi.data_ptr(), val.data_ptr(), n, n_rows, s,
-                layout.max_walk, int(layout.keep_walkers),
-                tile_max.data_ptr(), table.data_ptr(), bad.data_ptr(),
-                stream)
-            kernels.check(err, "table build kernel (place)")
-    return table, bad[0] != 0
+    if n_rows * s + n >= 1 << 31:
+        raise ValueError(f"table build: {n} keys into {n_rows} rows of {s} "
+                         f"slots pass the kernel's int32 positions")
+    table = torch.empty((n_rows, 3 * s), dtype=torch.int32, device=dev)
+    bad = torch.empty((), dtype=torch.bool, device=dev)
+    n_scratch = scratch_bytes(n, n_rows, layout)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.lib().kan_table_build(
+            lo.data_ptr(), hi.data_ptr(), val.data_ptr(), n, n_rows,
+            int(salt) & MASK32, s, layout.max_walk,
+            int(layout.keep_walkers), scratch.data_ptr(), n_scratch,
+            table.data_ptr(), bad.data_ptr(), kernels.stream_of(lo))
+    kernels.check(err, "table build kernel")
+    return table, bad
 
 
 def _on_card(key_lo) -> bool:
@@ -148,8 +155,7 @@ def build_wide(key_lo: torch.Tensor, key_hi: torch.Tensor,
     if not _on_card(key_lo):
         return build_table_plain(key_lo, key_hi, values, n_rows, WIDE, salt)
     out = _launch(key_lo, key_hi, values, n_rows, WIDE, salt)
-    if key_lo.numel():
-        build_wide.launches += 1
+    build_wide.launches += 1
     return out
 
 
@@ -164,8 +170,7 @@ def build_bucketed(key_lo: torch.Tensor, key_hi: torch.Tensor,
         return build_table_plain(key_lo, key_hi, values, n_buckets,
                                  BUCKETED, GOLDEN)
     out = _launch(key_lo, key_hi, values, n_buckets, BUCKETED, GOLDEN)
-    if key_lo.numel():
-        build_bucketed.launches += 1
+    build_bucketed.launches += 1
     return out
 
 

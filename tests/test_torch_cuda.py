@@ -1188,7 +1188,8 @@ def test_dna_mesh_engine_on_cuda_matches_cpu(cuda, n_data, n_table):
 
 def _table_build_on_card(cuda, layout, keys, n_rows, salt):
     """The kernel's build against the plain version's on the card: table
-    and bad equal; one launch counted unless the input is empty."""
+    and bad equal; one launch counted (an empty input too: the kernel
+    writes its empty table)."""
     wrapper, lay = ((table_build.build_wide, table_build.WIDE)
                     if layout == "wide"
                     else (table_build.build_bucketed, table_build.BUCKETED))
@@ -1196,15 +1197,17 @@ def _table_build_on_card(cuda, layout, keys, n_rows, salt):
     before = wrapper.launches
     table, bad = wrapper(*keys, n_rows, *extra)
     torch.cuda.synchronize()
-    assert wrapper.launches - before == (keys[0].numel() > 0)
+    assert wrapper.launches - before == 1
     want, want_bad = table_build.build_table_plain(*keys, n_rows, lay, salt)
     assert table.device.type == "cuda" and torch.equal(table, want)
     assert bool(bad) == bool(want_bad)
     return table, bool(bad)
 
 
-# (real keys, padded length): tile edges of the place pass (1,024 ranks),
-# no pads, and past 1,024 tiles (the carry scan's second chunk)
+# (real keys, padded length): tile edges of PR 15's place pass (1,024
+# ranks) and of the key passes' blocks (256 keys), no pads, and tables of
+# 2^18 wide rows and 2^21 buckets (128 and 1,024 scan tiles of 2,048 rows,
+# each waiting on the tiles before it)
 TABLE_SIZES = [(0, 64), (1, 8), (1_023, 1_023), (1_024, 1_024),
                (1_025, 2_048), (5_000, 8_192), (1_500_000, 2_097_152)]
 
@@ -1230,6 +1233,26 @@ def test_table_build_kernel_on_forced_cases(cuda, case):
     _, bad = _table_build_on_card(cuda, layout, int32_tensors(arrays, cuda),
                                   n_rows, salt)
     assert bad == want_bad
+
+
+@pytest.mark.parametrize("layout", ["wide", "bucketed"])
+def test_table_build_repeats_bit_for_bit(cuda, layout):
+    """Atomics arrive in any order: ten builds of the same keys, on
+    memory left full of junk, write one table and one bad flag."""
+    rng = np.random.default_rng(11)
+    keys = int32_tensors(padded_keys([random_keys(rng, 200_000)], 262_144,
+                                     rng), cuda)
+    wrapper = (table_build.build_wide if layout == "wide"
+               else table_build.build_bucketed)
+    n_rows = (wide_rows_for(262_144) if layout == "wide"
+              else device_table_buckets(262_144))
+    first, first_bad = wrapper(*keys, n_rows)
+    for _ in range(10):
+        junk = torch.full((4 << 20,), 0x5A5A5A5A, dtype=torch.int32,
+                          device=cuda)
+        del junk                    # the next build may take its memory
+        table, bad = wrapper(*keys, n_rows)
+        assert torch.equal(table, first) and bool(bad) == bool(first_bad)
 
 
 def test_table_build_on_an_empty_input(cuda):

@@ -5,11 +5,19 @@ The port's plain versions of ``build_wide_table_device`` and
 ``csrc/table_build.cu``) against the reference's (``ops/widetable.py:153``,
 ``ops/hashtable.py:129``, run under JAX on the CPU): table and ``bad`` bit
 for bit on EMPTY-padded random keys and on forced overflows, walks and
-wraps.  Then the projection engine: the port's ``_close_set`` and
-``_close_table`` (both layouts) against the reference's, every table,
-salt and probe bound equal, and the host fallback, taken when a device
-build reports ``bad``, giving the reference's features.  Tolerance 0.
+wraps.  The kernel's placement by rows (row counts, their exclusive
+sums, a max-scan over rows, each key's rank among its home's keys by input
+index, each row written from the runs that reach it), written out in
+numpy here, against the plain version key by key.  Then the projection
+engine: the port's ``_close_set`` and ``_close_table`` (both layouts)
+against the reference's, every table, salt and probe bound equal, the
+table cache's eviction by ``table_cache_bytes``, and the host fallback,
+taken when a device build reports ``bad``, giving the reference's
+features.  Tolerance 0.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -21,7 +29,7 @@ from kmers_anno_tpu.ops import hashtable as ref_hashtable
 from kmers_anno_tpu.ops import widetable as ref_widetable
 from kmers_anno_tpu_torch.engine import projection as port
 from kmers_anno_tpu_torch.ops import hashtable, table_build, widetable
-from kmers_anno_tpu_torch.ops.hashing import GOLDEN
+from kmers_anno_tpu_torch.ops.hashing import GOLDEN, mix_kmer_salted_np
 
 from chip_smoke import TABLE_BUILD_EDGES, edge_keys, padded_keys, random_keys
 from tests.fixtures import make_projection_pair
@@ -121,6 +129,154 @@ def test_plain_builds_launch_nothing():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's placement by rows, against the plain version
+# ---------------------------------------------------------------------------
+
+def row_placement(lo, hi, n_rows, layout, salt):
+    """Each key's slot, the kernel's way, with no sort: row counts, their
+    exclusive sums ``start``, the row max-scan ``C[h] = max over h' <= h
+    of (h' * S - start[h'])`` and each key's rank among its home's keys by
+    input index; ``pos = start + C + rank``.  ``bad`` is a test on each
+    row's last key.  Returns (pos, -1 for pads; home; start; C; bad)."""
+    s = layout.slots
+    real = lo != EMPTY
+    home = (mix_kmer_salted_np(lo, hi, salt)
+            & np.uint32(n_rows - 1)).astype(np.int64)
+    cnt = np.bincount(home[real], minlength=n_rows)
+    start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    rows = np.arange(n_rows)
+    c = np.maximum.accumulate(rows * s - start)
+    rank = np.zeros(len(lo), np.int64)
+    seen = np.zeros(n_rows, np.int64)
+    for i in np.flatnonzero(real):
+        rank[i] = seen[home[i]]
+        seen[home[i]] += 1
+    pos = np.where(real, start[home] + c[home] + rank, -1)
+    last = start + c + cnt - 1
+    bad = bool(((cnt > 0) & (last >= np.minimum(
+        n_rows * s, (rows + layout.max_walk) * s))).any())
+    return pos, home, start, c, bad
+
+
+def rows_written(lo, hi, val, n_rows, layout, salt):
+    """The table as the kernel's last pass writes it, row by row: the
+    keys in stable order at ``start + rank``; in row h the walkers' run
+    ``[h * S, F)``, ``F = start[h] + C[h - 1]``, holds stable index
+    ``p - C[h - 1]`` (8-slot layout only: the wide layout drops walkers),
+    then the home's own run from ``start[h] + C[h]``; EMPTY and 0 past
+    them."""
+    s = layout.slots
+    pos, home, start, c, _ = row_placement(lo, hi, n_rows, layout, salt)
+    real = pos >= 0
+    cnt = np.bincount(home[real], minlength=n_rows)
+    stable = np.zeros(int(real.sum()), np.int64)
+    stable[(pos - c[home])[real]] = np.flatnonzero(real)
+    table = np.zeros((n_rows, 3 * s), np.uint32)
+    table[:, : 2 * s] = EMPTY
+    for h in range(n_rows):
+        walkers_end = start[h] + c[h - 1] if h else 0
+        first = start[h] + c[h]
+        for slot in range(s):
+            p = h * s + slot
+            if layout.keep_walkers and p < walkers_end:
+                at = p - c[h - 1]
+            elif first <= p < first + cnt[h]:
+                at = start[h] + p - first
+            else:
+                continue
+            i = stable[at]
+            table[h, [slot, s + slot, 2 * s + slot]] = lo[i], hi[i], val[i]
+    return table
+
+
+def _hold_rows_to_plain(layout_name, lo, hi, val, n_rows, salt):
+    """The row placement against ``build_table_plain``, key by key, and
+    the rows written from it against the plain table, bit for bit."""
+    layout = (table_build.WIDE if layout_name == "wide"
+              else table_build.BUCKETED)
+    s = layout.slots
+    want, want_bad = table_build.build_table_plain(
+        *(torch.from_numpy(a.view(np.int32).copy()) for a in (lo, hi, val)),
+        n_rows, layout, salt)
+    want = want.numpy().view(np.uint32)
+    pos, home, _, _, bad = row_placement(lo, hi, n_rows, layout, salt)
+    assert bad == bool(want_bad)
+    kept = (pos >= 0) & (pos < n_rows * s)
+    if not layout.keep_walkers:
+        kept &= pos < (home + 1) * s
+    for i in np.flatnonzero(kept):
+        h, slot = divmod(int(pos[i]), s)
+        assert (want[h, slot], want[h, s + slot], want[h, 2 * s + slot]) == (
+            lo[i], hi[i], val[i]), f"key {i}"
+    assert int((want[:, :s] != EMPTY).sum()) == int(kept.sum())
+    np.testing.assert_array_equal(
+        rows_written(lo, hi, val, n_rows, layout, salt), want)
+
+
+@pytest.mark.parametrize("layout", ["wide", "bucketed"])
+@pytest.mark.parametrize("case", list(RANDOM_CASES))
+def test_row_placement_matches_plain(layout, case):
+    n, n_pad, n_rows, salt = RANDOM_CASES[case]
+    rng = np.random.default_rng(n + n_pad)
+    lo, hi, val = padded_keys([random_keys(rng, n)], n_pad, rng)
+    _hold_rows_to_plain(layout, lo, hi, val, n_rows,
+                        salt if layout == "wide" else GOLDEN)
+
+
+@pytest.mark.parametrize("case", list(TABLE_BUILD_EDGES))
+def test_row_placement_on_forced_cases(case):
+    layout, _, keys, n_rows, salt, _ = edge_keys(case)
+    _hold_rows_to_plain(layout, *keys, n_rows, salt)
+
+
+def test_forced_cases_cover_the_kernels_edges():
+    """The forced cases hold a row longer than a warp, every key in one
+    row, a walk through several 8-slot buckets, pads between real keys,
+    one real key and key counts off the kernel's block of 256."""
+    shapes = {}
+    for case in TABLE_BUILD_EDGES:
+        layout, _, keys, n_rows, salt, want_bad = edge_keys(case)
+        lo = keys[0]
+        real = lo != EMPTY
+        lay = (table_build.WIDE if layout == "wide"
+               else table_build.BUCKETED)
+        pos, home, _, _, _ = row_placement(lo, *keys[1:2], n_rows, lay, salt)
+        shapes[case] = dict(
+            longest=int(np.bincount(home[real]).max()),
+            rows=len(np.unique(home[real])),
+            walk=int((pos[real] // lay.slots - home[real]).max()),
+            pads_between=bool((~real[:-1] & real[1:]).any()),
+            n_real=int(real.sum()), n=len(lo), bad=want_bad)
+    assert shapes["wide_row_of_300"]["longest"] == 300
+    assert shapes["bucket_row_of_300"]["longest"] == 300
+    for case in ("wide_all_in_one_row", "bucket_all_in_one_row"):
+        assert shapes[case]["rows"] == 1 and shapes[case]["longest"] > 32
+    assert shapes["bucket_chain"]["walk"] == 1
+    assert not shapes["bucket_chain"]["bad"]
+    assert shapes["bucket_chain"]["rows"] >= 4
+    for case in ("wide_pads_between", "bucket_pads_between"):
+        assert shapes[case]["pads_between"]
+    for case in ("wide_one_key", "bucket_one_key"):
+        assert shapes[case]["n_real"] == 1
+    for case in ("wide_odd_count", "bucket_odd_count"):
+        assert shapes[case]["n"] == shapes[case]["n_real"]
+        assert shapes[case]["n"] % 256
+
+
+def test_scan_tile_is_the_kernels():
+    """``SCAN_TILE`` (which sizes the wrapper's scratch) is the kernel's
+    rows a scan tile, kThreads * kScanItems."""
+    path = os.path.join(os.path.dirname(table_build.__file__), "..", "csrc",
+                        "table_build.cu")
+    with open(path, encoding="utf-8") as fh:
+        src = fh.read()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    items = int(re.search(r"constexpr int kScanItems = (\d+);", src)[1])
+    assert "constexpr int kScanTile = kThreads * kScanItems;" in src
+    assert threads * items == table_build.SCAN_TILE
+
+
+# ---------------------------------------------------------------------------
 # the projection engine's close-genome tables
 # ---------------------------------------------------------------------------
 
@@ -179,6 +335,27 @@ def test_close_table_matches_reference(layout, monkeypatch):
         assert got[0].shape[1] == width
         assert got[1] == (1 if layout == "wide"
                           else hashtable.MAX_DEVICE_PROBES)
+
+
+def test_table_cache_evicts_as_the_reference():
+    """With ``table_cache_bytes`` room for the largest table, the port's
+    and the reference's caches keep the same close genomes after each
+    table of the same sequence."""
+    olds = _close_genomes()
+    bound = max(port.ProjectionAnnotator(k=8, device="cpu")._close_table(
+        og)[0].nbytes for og in olds)
+    jann = ref.ProjectionAnnotator(k=8, engine="device",
+                                   table_cache_bytes=bound)
+    pann = port.ProjectionAnnotator(k=8, table_cache_bytes=bound,
+                                    device="cpu")
+    assert pann.table_cache_bytes == bound
+    kept = []
+    for j in (0, 1, 2, 3, 0, 2, 1, 1, 3):
+        jann._close_table(olds[j])
+        pann._close_table(olds[j])
+        kept.append(list(pann._table_cache))
+        assert list(pann._table_cache) == list(jann._table_cache)
+    assert min(len(k) for k in kept) == 1 < max(len(k) for k in kept)
 
 
 def _stats_and_features(annot):
