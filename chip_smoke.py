@@ -585,7 +585,8 @@ def compare_contenders(libs: dict, cases: dict) -> dict:
     """Each case's kernel under every library, in turns (A B C C B A); a
     turn is ``launch_ms`` (``LAUNCH_REPS`` passes back to back), and its
     outputs must equal this build's (after the launch's ``reset`` of its
-    arguments, where it has one).  A case given a third element, its
+    arguments, where it has one); a launch's ``reps`` sets the passes a
+    turn where it has one.  A case given a third element, its
     bound in ms, also prints each library's share of it.  Returns {case:
     {library: mean of its two turns' ms per launch}}."""
     def flat(outs):
@@ -612,7 +613,8 @@ def compare_contenders(libs: dict, cases: dict) -> dict:
         want = [t.clone() for t in flat(run(libs["this"]))]
         times = {n: [] for n in names}
         for n in order:
-            ms = launch_ms(launch, arg_sets, libs[n])
+            ms = launch_ms(launch, arg_sets, libs[n],
+                           reps=getattr(launch, "reps", LAUNCH_REPS))
             got = flat(run(libs[n]))
             require(all(torch.equal(g, w) for g, w in zip(got, want)),
                     f"{n} differs from this build on {case}")
@@ -1447,6 +1449,10 @@ def launch_table_build(lib, lo, hi, val, n_rows, lay, salt, scratch, table,
 
 
 launch_table_build.entry = ("kan_table_build", "kan_table_place")
+# passes of ten builds a launch_ms: PR 15's build is some 12 launches, and
+# 20 passes would fill the card's queue of pending launches while the spin
+# holds the stream
+launch_table_build.reps = 4
 
 
 def table_build_args(layout, keys, n_rows, salt) -> tuple:
@@ -1526,7 +1532,8 @@ def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
                 f"the {layout} build reported bad on a realistic set")
         args = [table_build_args(layout, keys, rows[layout], salt)
                 for keys in sets]
-        alone = launch_ms(launch_table_build, args) / len(args)
+        alone = launch_ms(launch_table_build, args,
+                          reps=launch_table_build.reps) / len(args)
         require(all(torch.equal(a[-2], g[4]) for a, g in zip(args, got)),
                 f"launch_table_build's {layout} tables differ from the "
                 f"wrapper's")

@@ -187,15 +187,51 @@ count_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
   arrival[i] = atomicAdd(cnt + home_of(l, __ldg(hi + i), salt, mask), 1);
 }
 
+// The pairs of the 32 tiles tile - 32 * step - 1 - lane before a tile,
+// combined in tile order up to the nearest one whose inclusive prefix is
+// out (kPrefix); lane 0 gets the result, and `done` says whether a prefix
+// was reached.  A lane spins until its tile has published.
+__device__ __forceinline__ RowPair look_back(int tile_top, int lane,
+                                             const int32_t* flag,
+                                             const longlong2* agg,
+                                             const longlong2* incl,
+                                             bool* done) {
+  const int j = tile_top - lane;
+  int f = kPrefix;                  // before tile 0: the identity
+  RowPair v = {0, kNegInf};
+  if (j >= 0) {
+    do {
+      f = *reinterpret_cast<const volatile int32_t*>(flag + j);
+    } while (f == 0);
+    __threadfence();
+    const longlong2 w = __ldcg(f == kPrefix ? incl + j : agg + j);
+    v = {w.x, w.y};
+  }
+  const unsigned prefixed = __ballot_sync(kFullMask, f == kPrefix);
+  *done = prefixed != 0;
+  // lanes past the nearest prefixed tile add nothing
+  if (prefixed && lane > __ffs(prefixed) - 1) v = {0, kNegInf};
+  // a higher lane holds an earlier tile
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const RowPair o = {__shfl_down_sync(kFullMask, v.sum, d),
+                       __shfl_down_sync(kFullMask, v.max, d)};
+    if (lane + d < 32) v = combine(o, v);
+  }
+  return v;
+}
+
 // Each row's inclusive pair (start[h + 1], C[h]).  Tiles are taken in the
 // order blocks start (a ticket), so a block waits only on tiles that
-// running or finished blocks hold.
+// running or finished blocks hold; its first warp looks back 32 tiles at
+// a time.
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
             int32_t* flag, int32_t* ticket, longlong2* agg, longlong2* incl,
             int2* __restrict__ pair) {
   __shared__ int tile_sh;
   __shared__ RowPair warp_tot[kWarps];
+  __shared__ RowPair tile_total;
   __shared__ RowPair tile_before;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -232,32 +268,35 @@ scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
       warp_tot[w] = total;               // the warps before w
       total = combine(total, t);
     }
-    // the tiles before this one, by decoupled look-back
-    RowPair prior = {0, kNegInf};
+    tile_total = total;
     if (tile == 0) {
       incl[0] = make_longlong2(total.sum, total.max);
-      __threadfence();
-      atomicExch(flag, kPrefix);
     } else {
       agg[tile] = make_longlong2(total.sum, total.max);
-      __threadfence();
-      atomicExch(flag + tile, kAggregate);
-      for (int j = tile - 1;; --j) {
-        int f;
-        do {
-          f = *reinterpret_cast<volatile int32_t*>(flag + j);
-        } while (f == 0);
-        __threadfence();
-        const longlong2 v = __ldcg(f == kPrefix ? incl + j : agg + j);
-        prior = combine({v.x, v.y}, prior);
-        if (f == kPrefix) break;
-      }
-      const RowPair with = combine(prior, total);
-      incl[tile] = make_longlong2(with.sum, with.max);
-      __threadfence();
-      atomicExch(flag + tile, kPrefix);
     }
-    tile_before = prior;
+    __threadfence();
+    atomicExch(flag + tile, tile == 0 ? kPrefix : kAggregate);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the tiles before this one, by decoupled look-back
+    RowPair prior = {0, kNegInf};
+    bool done = tile == 0;
+    for (int top = tile - 1; !done; top -= 32) {
+      const RowPair window = look_back(top, lane, flag, agg, incl, &done);
+      const RowPair w0 = {__shfl_sync(kFullMask, window.sum, 0),
+                          __shfl_sync(kFullMask, window.max, 0)};
+      prior = combine(w0, prior);
+    }
+    if (lane == 0) {
+      if (tile > 0) {
+        const RowPair with = combine(prior, tile_total);
+        incl[tile] = make_longlong2(with.sum, with.max);
+        __threadfence();
+        atomicExch(flag + tile, kPrefix);
+      }
+      tile_before = prior;
+    }
   }
   __syncthreads();
   RowPair run = combine(combine(tile_before, warp_tot[warp]), before);
