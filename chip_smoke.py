@@ -1463,7 +1463,7 @@ def table_build_args(layout, keys, n_rows, salt) -> tuple:
     _, lay = table_build_of(layout)
     n = keys[0].numel()
     dev = keys[0].device
-    room = max(scratch_bytes(n, lay), 8 * (-(-n // 1024)) + 16 + 4 * n)
+    room = max(scratch_bytes(n, n_rows, lay), 8 * (-(-n // 1024)) + 16 + 4 * n)
     return (*keys, n_rows, lay, salt,
             torch.empty(room, dtype=torch.uint8, device=dev),
             torch.empty((n_rows, 3 * lay.slots), dtype=torch.int32,

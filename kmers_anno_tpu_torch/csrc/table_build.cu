@@ -31,54 +31,50 @@
 // pos = start[h] + C[h] + r.  So home h fills the run of slots from
 // first[h] = start[h] + C[h], and the keys of the homes before it end at
 // F[h] = start[h] + C[h - 1]; the slots [h * S, F[h]) are every one taken,
-// the one at p by the key of stable index p - C[h - 1].  A row's bad test
+// the one at p by the key of sorted index p - C[h - 1].  A row's bad test
 // is on its last key: first[h] + cnt[h] - 1 >= min(rows * S,
 // (h + max_walk) * S).  tests/test_torch_table_build.py holds this to the
-// plain version key by key and row by row.
+// plain version key by key.
 //
-// The design: rows in groups of G (a power of two, chosen so that a group
-// holds about kTargetKeys keys), each group built by one block in shared
-// memory.  One entry point, kan_table_build, four passes, no library call:
-//   zero   the group counts and cursors, the look-back flags, `bad`;
-//   count  a block 4,096 keys: each key's group counted in shared memory,
-//          one global add a group; the last block to finish takes the
-//          groups' exclusive starts;
-//   part   a block 4,096 keys: counted again in shared memory, one global
-//          add a group reserves the block's run in that group, each key's
-//          record (index, lo, hi, payload) stored there, 16 bytes;
-//   group  a block a group, in the order blocks start (a ticket): its
-//          records into shared memory, row counts by shared atomics, the
-//          scan of its rows' pairs (cnt[h], h * S) under
-//          (s1, m1) . (s2, m2) = (s1 + s2, max(m1, m2 - s1)) with a
-//          decoupled look-back over the groups before it (its first warp
-//          reads 32 groups' flags at a time), the records in row order,
-//          each ranked by index within its row (the stable order), then
-//          every word of its rows written once: the walkers' run from the
-//          stable order, the home's own run, EMPTY and 0 past them.
-// The wide layout drops walkers, so a group needs nothing of another but
-// the look-back's pair.  In the 8-slot layout a key that lands past its
-// group is also stored at its stable index in `sorted`, and a flag says so
-// once its group is done; a group whose first row takes walkers waits for
-// the flags of the groups they come from.  Atomics arrive in any order;
-// the rank by index makes every launch write the same table.  A group of
-// more than kGroupCap keys (only forced, crowded inputs) keeps its
-// records and arrays in the scratch instead of shared memory.  A row of L
-// keys costs O(L^2) shared-memory compares: the realistic sets hold 7 a
-// wide row on average, only forced bad cases a few hundred.  A block with
-// a bad row stores 1 into `bad`, read once a build.
+// One entry point, kan_table_build, five passes (six for the 8-slot
+// layout), no library call:
+//   zero   the row counts, the scan's tile flags and ticket, and `bad`;
+//   count  a thread a key: its home, atomicAdd(&cnt[home], 1), the old
+//          value kept as the key's arrival slot;
+//   scan   a block a tile of 2,048 rows, one pass with a decoupled
+//          look-back over the pair (sum, max) under
+//          (s1, m1) . (s2, m2) = (s1 + s2, max(m1, m2 - s1)), each row's
+//          element (cnt[h], h * S): each row's inclusive (start[h + 1],
+//          C[h]) as an int2;
+//   scatter a thread a key: the record (index, lo, hi, payload) at
+//          start[home] + arrival, one 16-byte store;
+//   wide   a warp a row: its records ranked by index with shuffles (a
+//          register sort in one round for up to 32 keys, a loop of rounds
+//          past that), the row staged in shared memory with EMPTY and 0
+//          where no key lands and written whole, 72 words, once;
+//   8-slot rank (a thread a record: its rank by index among its home's
+//          records, the record stored at start + rank, the stable order)
+//          then rows (a thread a slot: the key of the walkers' run or of
+//          the home's own run read from the stable order, EMPTY and 0 past
+//          them; a warp writes four whole rows).
+// Atomics arrive in any order; the rank by index makes every launch write
+// the same table.  A block with a bad row stores 1 into `bad`, read once a
+// build.  A segment of L keys in one row costs O(L^2) compares (L / 32
+// warp rounds of L shuffles, or L loads a thread in the 8-slot rank): the
+// realistic sets hold 7 keys a wide row on average, and only forced bad
+// cases reach a few hundred.
 //
 // What bounds it on this card: bytes.  A build of n keys into a table of
 // B bytes must read each key's 12 bytes once and write B: on the
 // projection's close tables (914,109 keys padded to 1,048,576; 131,072
 // rows of 288 bytes) 50.3 MB, 0.0150 ms at 3.35 TB/s; the 8-slot table
-// (1,048,576 rows of 96 bytes) 113.2 MB, 0.0338 ms.  The passes move
-// more: the keys' words read three times (twice as 8 bytes, once as 12),
-// the records (16 B a key) written and read back (L2-resident at these
-// sizes).  Earlier designs and their times (PERF.md, Findings): PR 15's
-// torch.sort of the homes, a torch.full fill and a place pass through the
-// sort's order; and a first sort-free design (global row counts, a scan
-// over rows, a scatter, a warp a row) whose global atomics and 16-byte
-// scatter took 0.054 of its 0.119 ms.
+// (1,048,576 rows of 96 bytes) 113.2 MB, 0.0338 ms.  The passes move more:
+// keys read twice, the arrival slots (4 B a key) and records (16 B a key)
+// written and read, the rows' counts and pairs (L2-resident at 131,072
+// rows), and for the 8-slot layout the stable order (16 B a key) once
+// more.  The parent design (PR 15) sorted the homes with torch.sort, filled
+// the table with torch.full before placing keys, and read each key's words
+// through the sort's order; its numbers and this design's are in PERF.md.
 
 #include <cstdint>
 #include <climits>
@@ -87,24 +83,16 @@
 namespace {
 
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
-constexpr int kThreads = 256;             // threads a block, every pass
-constexpr int kWarps = kThreads / 32;
-constexpr int kKeyItems = 16;             // keys a thread of the key passes
-constexpr int kKeyTile = kThreads * kKeyItems;   // keys a block of them
-constexpr int kMaxGroups = 8192;          // groups a table, at most
-constexpr int kMaxGroupRows = 2048;       // rows a group, at most
-constexpr int kTargetKeys = 1024;         // keys a group, as sized
-constexpr int kGroupCap = 2048;           // a group's keys in shared memory
+constexpr int kThreads = 256;            // threads a block, every pass
+constexpr int kWarps = kThreads / 32;    // rows a block of the wide pass
+constexpr int kScanItems = 8;            // rows a thread of the scan
+// rows a tile of the scan: ops/table_build.SCAN_TILE
+constexpr int kScanTile = kThreads * kScanItems;
+constexpr int kMaxWideSlots = 32;        // the wide pass: a lane a slot
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr int kAggregate = 1;             // a group's flag: its own pair
-constexpr int kPrefix = 2;                // ... and its inclusive prefix
+constexpr int kAggregate = 1;            // a tile's flag: its own pair
+constexpr int kPrefix = 2;               // ... and its inclusive prefix
 constexpr long long kNegInf = LLONG_MIN / 4;
-
-// shared memory of the group pass: records, four row arrays, four record
-// arrays
-constexpr int group_smem_bytes(int g_rows) {
-  return 16 * kGroupCap + 16 * g_rows + 16 * kGroupCap;
-}
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -135,24 +123,24 @@ __device__ __forceinline__ RowPair shfl_up(RowPair v, int d) {
 }
 
 // The scratch the wrapper allocates (ops/table_build.scratch_bytes), in
-// order, each part from a 16-byte boundary.
+// order, each part from a 16-byte boundary.  A row's bucket holds
+// max_walk * S entries: a row with more keys has one that walks
+// max_walk rows or more, so its table is bad.
 struct Scratch {
-  int32_t* gcnt;         // groups: real keys a group      } zeroed
-  int32_t* fill;         // groups: keys placed so far     } by the
-  int32_t* flag;         // groups: look-back flags        } zero
-  int32_t* spilled;      // groups: spill stored           } pass
-  int32_t* ticket;       // 1: the group pass's next group }
-  int32_t* done;         // 1: count blocks finished       }
-  int32_t* gstart;       // groups + 1: each group's first record
-  longlong2* agg;        // groups: each group's own pair
-  longlong2* incl;       // groups: each group's inclusive prefix
-  int4* rec;             // n: (index, lo, hi, payload) grouped
-  int32_t* rowid;        // n each: a group's arrays when its keys
-  int32_t* arrival;      //   pass kGroupCap (in shared memory
-  int32_t* perm;         //   otherwise)
-  int32_t* order;        //
-  int4* sorted;          // n, 8-slot layout only: keys past their group
-  int64_t zero_bytes;    // the zeroed span from gcnt
+  int32_t* cnt;          // rows: real keys a home       } zeroed
+  int32_t* flag;         // tiles: the scan's flags      } by the
+  int32_t* ticket;       // 1: the scan's next tile      } zero
+  int32_t* overflow;     // 1: a bucket overflowed       } pass
+  longlong2* agg;        // tiles: each tile's own pair
+  longlong2* incl;       // tiles: each tile's inclusive prefix
+  int2* pair;            // rows: (start[h + 1], C[h])
+  int32_t* arrival;      // n: each real key's arrival slot
+  void* bucket;          // rows * cap: the wide layout's records
+                         //   (index, lo, hi, payload); the 8-slot
+                         //   layout's indices
+  int4* rec;             // n: records grouped by home, on overflow
+  int4* sorted;          // n, 8-slot layout only: the stable order
+  int64_t zero_bytes;    // the zeroed span from cnt
   int64_t bytes;         // the whole
 };
 
@@ -160,31 +148,26 @@ __host__ __device__ inline int64_t align16(int64_t b) {
   return (b + 15) & ~int64_t{15};
 }
 
-// The group arrays are laid out for kMaxGroups, so that the scratch's
-// size depends on n alone.
-Scratch carve(char* base, int64_t n, int64_t n_groups, bool keep_walkers) {
+Scratch carve(char* base, int64_t n, int64_t n_rows, int64_t cap,
+              bool keep_walkers) {
+  const int64_t tiles = (n_rows + kScanTile - 1) / kScanTile;
   Scratch s;
-  s.gcnt = reinterpret_cast<int32_t*>(base);
-  s.fill = s.gcnt + n_groups;
-  s.flag = s.fill + n_groups;
-  s.spilled = s.flag + n_groups;
-  s.ticket = s.spilled + n_groups;
-  s.done = s.ticket + 1;
-  s.zero_bytes = align16(4 * (4 * n_groups + 2));
-  int64_t at = align16(4 * (4 * kMaxGroups + 2));
-  s.gstart = reinterpret_cast<int32_t*>(base + at);
-  at += align16(4 * (kMaxGroups + 1));
+  s.cnt = reinterpret_cast<int32_t*>(base);
+  s.flag = s.cnt + n_rows;
+  s.ticket = s.flag + tiles;
+  s.overflow = s.ticket + 1;
+  int64_t at = s.zero_bytes = align16(4 * (n_rows + tiles + 2));
   s.agg = reinterpret_cast<longlong2*>(base + at);
-  at += 16 * kMaxGroups;
+  at += 16 * tiles;
   s.incl = reinterpret_cast<longlong2*>(base + at);
-  at += 16 * kMaxGroups;
+  at += 16 * tiles;
+  s.pair = reinterpret_cast<int2*>(base + at);
+  at += align16(8 * n_rows);
+  s.arrival = reinterpret_cast<int32_t*>(base + at);
+  at += align16(4 * n);
+  s.bucket = base + at;
+  at += align16(n_rows * cap * (keep_walkers ? 4 : 16));
   s.rec = reinterpret_cast<int4*>(base + at);
-  at += 16 * n;
-  int32_t* per = reinterpret_cast<int32_t*>(base + at);
-  s.rowid = per;
-  s.arrival = per + n;
-  s.perm = per + 2 * n;
-  s.order = per + 3 * n;
   at += 16 * n;
   s.sorted = reinterpret_cast<int4*>(base + at);
   if (keep_walkers) at += 16 * n;
@@ -201,120 +184,49 @@ zero_kernel(int4* __restrict__ words, int64_t n_vec,
   if (i == 0) *bad = 0;
 }
 
-// Each key's group counted; the last block to finish writes gstart, the
-// groups' exclusive starts and, at n_groups, the real keys.
+// Each real key counted in its home row, its arrival slot kept, and its
+// entry stored in the row's bucket while there is room (a record for the
+// wide layout, the index for the 8-slot layout); past that, the overflow
+// flag.
+template <bool kRecords>
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
-             int64_t n, uint32_t salt, uint32_t mask, int group_shift,
-             int n_groups, int32_t* gcnt, int32_t* done,
-             int32_t* __restrict__ gstart) {
-  __shared__ int32_t hist[kMaxGroups];
-  __shared__ int32_t warp_sum[kWarps];
-  __shared__ bool last;
-  for (int g = threadIdx.x; g < n_groups; g += kThreads) hist[g] = 0;
-  __syncthreads();
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kKeyTile;
-#pragma unroll 4
-  for (int k = 0; k < kKeyItems; ++k) {
-    const int64_t i = base + k * kThreads + threadIdx.x;
-    if (i < n) {
-      const uint32_t l = __ldg(lo + i);
-      if (l != kEmpty)
-        atomicAdd(hist + (home_of(l, __ldg(hi + i), salt, mask) >>
-                          group_shift), 1);
-    }
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < n_groups; g += kThreads)
-    if (hist[g]) atomicAdd(gcnt + g, hist[g]);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(done, 1) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // the exclusive scan of the groups' counts: a thread a run of them
-  const int per = (n_groups + kThreads - 1) / kThreads;
-  const int g0 = threadIdx.x * per;
-  int32_t mine = 0;
-  for (int g = g0; g < min(g0 + per, n_groups); ++g) {
-    hist[g] = __ldcg(gcnt + g);
-    mine += hist[g];
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int32_t incl = mine;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int32_t o = __shfl_up_sync(kFullMask, incl, d);
-    if (lane >= d) incl += o;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  int32_t before = incl - mine;
-  for (int w = 0; w < warp; ++w) before += warp_sum[w];
-  for (int g = g0; g < min(g0 + per, n_groups); ++g) {
-    gstart[g] = before;
-    before += hist[g];
-  }
-  if (threadIdx.x == kThreads - 1) gstart[n_groups] = before;
-}
-
-// Each real key's record stored in its group's run.
-__global__ void __launch_bounds__(kThreads)
-part_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
-            const int32_t* __restrict__ values, int64_t n, uint32_t salt,
-            uint32_t mask, int group_shift, int n_groups,
-            const int32_t* __restrict__ gstart, int32_t* fill,
-            int4* __restrict__ rec) {
-  __shared__ int32_t hist[kMaxGroups];
-  for (int g = threadIdx.x; g < n_groups; g += kThreads) hist[g] = 0;
-  __syncthreads();
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kKeyTile;
-  int32_t grp[kKeyItems];
-  int32_t slot[kKeyItems];
-#pragma unroll
-  for (int k = 0; k < kKeyItems; ++k) {
-    const int64_t i = base + k * kThreads + threadIdx.x;
-    grp[k] = -1;
-    if (i < n) {
-      const uint32_t l = __ldg(lo + i);
-      if (l != kEmpty) {
-        grp[k] = home_of(l, __ldg(hi + i), salt, mask) >> group_shift;
-        slot[k] = atomicAdd(hist + grp[k], 1);
-      }
-    }
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < n_groups; g += kThreads) {
-    const int32_t c = hist[g];
-    if (c) hist[g] = __ldg(gstart + g) + atomicAdd(fill + g, c);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kKeyItems; ++k) {
-    if (grp[k] >= 0) {
-      const int64_t i = base + k * kThreads + threadIdx.x;
-      rec[hist[grp[k]] + slot[k]] = make_int4(
-          static_cast<int32_t>(i), __ldg(reinterpret_cast<const int32_t*>(
-                                        lo) + i),
-          __ldg(reinterpret_cast<const int32_t*>(hi) + i),
-          __ldg(values + i));
-    }
+             const int32_t* __restrict__ values, int64_t n, uint32_t salt,
+             uint32_t mask, int cap, int32_t* __restrict__ cnt,
+             int32_t* __restrict__ arrival, void* __restrict__ bucket,
+             int32_t* __restrict__ overflow) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i >= n) return;
+  const uint32_t l = __ldg(lo + i);
+  if (l == kEmpty) return;
+  const uint32_t hv = __ldg(hi + i);
+  const uint32_t h = home_of(l, hv, salt, mask);
+  const int32_t at = atomicAdd(cnt + h, 1);
+  arrival[i] = at;
+  if (at >= cap) {
+    *overflow = 1;
+  } else if (kRecords) {
+    static_cast<int4*>(bucket)[int64_t{h} * cap + at] =
+        make_int4(static_cast<int32_t>(i), static_cast<int32_t>(l),
+                  static_cast<int32_t>(hv), __ldg(values + i));
+  } else {
+    static_cast<int32_t*>(bucket)[int64_t{h} * cap + at] =
+        static_cast<int32_t>(i);
   }
 }
 
-// The pairs of the 32 groups top - lane before a group, combined in group
-// order up to the nearest one whose inclusive prefix is out (kPrefix);
-// lane 0 gets the result, and `done` says whether a prefix was reached.
-// A lane spins until its group has published.
-__device__ __forceinline__ RowPair look_back(int top, int lane,
+// The pairs of the 32 tiles tile - 32 * step - 1 - lane before a tile,
+// combined in tile order up to the nearest one whose inclusive prefix is
+// out (kPrefix); lane 0 gets the result, and `done` says whether a prefix
+// was reached.  A lane spins until its tile has published.
+__device__ __forceinline__ RowPair look_back(int tile_top, int lane,
                                              const int32_t* flag,
                                              const longlong2* agg,
                                              const longlong2* incl,
                                              bool* done) {
-  const int j = top - lane;
-  int f = kPrefix;                  // before group 0: the identity
+  const int j = tile_top - lane;
+  int f = kPrefix;                  // before tile 0: the identity
   RowPair v = {0, kNegInf};
   if (j >= 0) {
     do {
@@ -326,9 +238,9 @@ __device__ __forceinline__ RowPair look_back(int top, int lane,
   }
   const unsigned prefixed = __ballot_sync(kFullMask, f == kPrefix);
   *done = prefixed != 0;
-  // lanes past the nearest prefixed group add nothing
+  // lanes past the nearest prefixed tile add nothing
   if (prefixed && lane > __ffs(prefixed) - 1) v = {0, kNegInf};
-  // a higher lane holds an earlier group
+  // a higher lane holds an earlier tile
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const RowPair o = {__shfl_down_sync(kFullMask, v.sum, d),
@@ -338,72 +250,36 @@ __device__ __forceinline__ RowPair look_back(int top, int lane,
   return v;
 }
 
-__device__ __forceinline__ bool row_bad(int64_t h, int32_t cnt,
-                                        int64_t first, int64_t cap,
-                                        int slots, int max_walk) {
-  const int64_t limit = min(cap, (h + max_walk) * slots);
-  return cnt > 0 && first + cnt - 1 >= limit;
-}
-
-template <int kSlots, bool kKeepWalkers>
+// Each row's inclusive pair (start[h + 1], C[h]).  Tiles are taken in the
+// order blocks start (a ticket), so a block waits only on tiles that
+// running or finished blocks hold; its first warp looks back 32 tiles at
+// a time.
 __global__ void __launch_bounds__(kThreads)
-group_kernel(const int4* __restrict__ rec_all,
-             const int32_t* __restrict__ gstart, int64_t n_rows, int g_rows,
-             uint32_t salt, int max_walk, int32_t* flag, int32_t* spilled,
-             int32_t* ticket, longlong2* agg, longlong2* incl,
-             int32_t* g_rowid, int32_t* g_arrival, int32_t* g_perm,
-             int32_t* g_order, int4* sorted, int32_t* __restrict__ table,
-             uint8_t* __restrict__ bad) {
-  extern __shared__ int4 smem[];
-  __shared__ int group_sh;
+scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
+            int32_t* flag, int32_t* ticket, longlong2* agg, longlong2* incl,
+            int2* __restrict__ pair) {
+  __shared__ int tile_sh;
   __shared__ RowPair warp_tot[kWarps];
-  __shared__ RowPair group_total;
-  __shared__ RowPair group_before;
-  constexpr int kWidth = 3 * kSlots;
+  __shared__ RowPair tile_total;
+  __shared__ RowPair tile_before;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) group_sh = atomicAdd(ticket, 1);
+  if (threadIdx.x == 0) tile_sh = atomicAdd(ticket, 1);
   __syncthreads();
-  const int g = group_sh;
-  const int64_t h0 = static_cast<int64_t>(g) * g_rows;
-  const int64_t cap = n_rows * kSlots;
-  const uint32_t mask = static_cast<uint32_t>(n_rows - 1);
-  const int32_t gs = __ldg(gstart + g);
-  const int32_t count = __ldg(gstart + g + 1) - gs;
-  const bool fits = count <= kGroupCap;
-  int32_t* cnt = reinterpret_cast<int32_t*>(smem + kGroupCap);
-  int32_t* lstart = cnt + g_rows;       // first record of the row
-  int32_t* start = lstart + g_rows;     // start[h]
-  int32_t* cmax = start + g_rows;       // C[h]
-  int32_t* per = cmax + g_rows;
-  const int4* rec = fits ? smem : rec_all + gs;
-  int32_t* rowid = fits ? per : g_rowid + gs;
-  int32_t* arrival = fits ? per + kGroupCap : g_arrival + gs;
-  int32_t* perm = fits ? per + 2 * kGroupCap : g_perm + gs;
-  int32_t* order = fits ? per + 3 * kGroupCap : g_order + gs;
-
-  if (fits)
-    for (int j = threadIdx.x; j < count; j += kThreads)
-      smem[j] = __ldg(rec_all + gs + j);
-  for (int r = threadIdx.x; r < g_rows; r += kThreads) cnt[r] = 0;
-  __syncthreads();
-  for (int j = threadIdx.x; j < count; j += kThreads) {
-    const int4 r = rec[j];
-    const int32_t h = static_cast<int32_t>(
-        home_of(static_cast<uint32_t>(r.y), static_cast<uint32_t>(r.z),
-                salt, mask) - h0);
-    rowid[j] = h;
-    arrival[j] = atomicAdd(cnt + h, 1);
-  }
-  __syncthreads();
-
-  // the scan of the group's rows: a thread a run of R rows
-  const int rows_per = (g_rows + kThreads - 1) / kThreads;
-  const int r0 = threadIdx.x * rows_per;
-  const int r1 = min(r0 + rows_per, g_rows);
+  const int tile = tile_sh;
+  const int64_t row0 = static_cast<int64_t>(tile) * kScanTile +
+                       static_cast<int64_t>(threadIdx.x) * kScanItems;
+  int32_t c[kScanItems];
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k)
+    c[k] = row0 + k < n_rows ? cnt[row0 + k] : 0;
   RowPair mine = {0, kNegInf};
-  for (int r = r0; r < r1; ++r)
-    mine = combine(mine, {cnt[r], (h0 + r) * kSlots});
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k)
+    if (row0 + k < n_rows)
+      mine = combine(mine, {c[k], (row0 + k) * slots});
+
+  // the block's scan of the threads' pairs, in thread order
   RowPair in_warp = mine;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
@@ -418,110 +294,203 @@ group_kernel(const int4* __restrict__ rec_all,
     RowPair total = {0, kNegInf};
     for (int w = 0; w < kWarps; ++w) {
       const RowPair t = warp_tot[w];
-      warp_tot[w] = total;                 // the warps before w
+      warp_tot[w] = total;               // the warps before w
       total = combine(total, t);
     }
-    group_total = total;
-    if (g == 0)
+    tile_total = total;
+    if (tile == 0) {
       incl[0] = make_longlong2(total.sum, total.max);
-    else
-      agg[g] = make_longlong2(total.sum, total.max);
+    } else {
+      agg[tile] = make_longlong2(total.sum, total.max);
+    }
     __threadfence();
-    atomicExch(flag + g, g == 0 ? kPrefix : kAggregate);
+    atomicExch(flag + tile, tile == 0 ? kPrefix : kAggregate);
   }
   __syncthreads();
   if (warp == 0) {
+    // the tiles before this one, by decoupled look-back
     RowPair prior = {0, kNegInf};
-    bool found = g == 0;
-    for (int top = g - 1; !found; top -= 32) {
-      const RowPair window = look_back(top, lane, flag, agg, incl, &found);
-      prior = combine({__shfl_sync(kFullMask, window.sum, 0),
-                       __shfl_sync(kFullMask, window.max, 0)},
-                      prior);
+    bool done = tile == 0;
+    for (int top = tile - 1; !done; top -= 32) {
+      const RowPair window = look_back(top, lane, flag, agg, incl, &done);
+      const RowPair w0 = {__shfl_sync(kFullMask, window.sum, 0),
+                          __shfl_sync(kFullMask, window.max, 0)};
+      prior = combine(w0, prior);
     }
     if (lane == 0) {
-      if (g > 0) {
-        const RowPair with = combine(prior, group_total);
-        incl[g] = make_longlong2(with.sum, with.max);
+      if (tile > 0) {
+        const RowPair with = combine(prior, tile_total);
+        incl[tile] = make_longlong2(with.sum, with.max);
         __threadfence();
-        atomicExch(flag + g, kPrefix);
+        atomicExch(flag + tile, kPrefix);
       }
-      group_before = prior;
+      tile_before = prior;
     }
   }
   __syncthreads();
-  RowPair run = combine(combine(group_before, warp_tot[warp]), before);
-  for (int r = r0; r < r1; ++r) {
-    start[r] = static_cast<int32_t>(run.sum);
-    lstart[r] = static_cast<int32_t>(run.sum) - gs;
-    run = combine(run, {cnt[r], (h0 + r) * kSlots});
-    cmax[r] = static_cast<int32_t>(run.max);
-  }
-  __syncthreads();
-
-  // the records in row order, then each row's in the stable order
-  for (int j = threadIdx.x; j < count; j += kThreads)
-    perm[lstart[rowid[j]] + arrival[j]] = j;
-  __syncthreads();
-  const int64_t group_end = (h0 + g_rows) * kSlots;
-  for (int q = threadIdx.x; q < count; q += kThreads) {
-    const int32_t j = perm[q];
-    const int32_t h = rowid[j];
-    const int32_t b = lstart[h];
-    const int32_t e = b + cnt[h];
-    const int32_t key = rec[j].x;
-    int32_t rank = 0;
-    for (int32_t t = b; t < e; ++t) rank += rec[perm[t]].x < key;
-    order[b + rank] = j;
-    if (kKeepWalkers) {
-      const int64_t pos = int64_t{start[h]} + cmax[h] + rank;
-      if (pos >= group_end && pos < cap) sorted[start[h] + rank] = rec[j];
+  RowPair run = combine(combine(tile_before, warp_tot[warp]), before);
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    if (row0 + k < n_rows) {
+      run = combine(run, {c[k], (row0 + k) * slots});
+      pair[row0 + k] = make_int2(static_cast<int32_t>(run.sum),
+                                 static_cast<int32_t>(run.max));
     }
   }
-  if (kKeepWalkers) __threadfence();
-  __syncthreads();
+}
 
+__device__ __forceinline__ int32_t start_of(const int2* __restrict__ pair,
+                                            int64_t h) {
+  return h > 0 ? pair[h - 1].x : 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+scatter_kernel(const uint32_t* __restrict__ lo,
+               const uint32_t* __restrict__ hi,
+               const int32_t* __restrict__ values, int64_t n, uint32_t salt,
+               uint32_t mask, const int2* __restrict__ pair,
+               const int32_t* __restrict__ arrival,
+               const int32_t* __restrict__ overflow, int4* __restrict__ rec) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i >= n || !*overflow) return;
+  const uint32_t l = __ldg(lo + i);
+  if (l == kEmpty) return;
+  const uint32_t hv = __ldg(hi + i);
+  const int32_t at = start_of(pair, home_of(l, hv, salt, mask)) +
+                     __ldg(arrival + i);
+  rec[at] = make_int4(static_cast<int32_t>(i), static_cast<int32_t>(l),
+                      static_cast<int32_t>(hv), __ldg(values + i));
+}
+
+// Whether row h (cnt keys from `first`) holds a bad key.
+__device__ __forceinline__ bool row_bad(int64_t h, int32_t cnt,
+                                        int32_t first, int64_t cap,
+                                        int slots, int max_walk) {
+  const int64_t limit = min(cap, (h + max_walk) * slots);
+  return cnt > 0 && static_cast<int64_t>(first) + cnt - 1 >= limit;
+}
+
+// The wide layout: a warp a row.  Only the row's own keys land in it (a
+// key that walks is dropped), at first - h * S + rank while below S.  Its
+// records are its bucket's, or after an overflow its run of `rec`.
+__global__ void __launch_bounds__(kThreads)
+wide_rows_kernel(const int2* __restrict__ pair,
+                 const int4* __restrict__ bucket, const int4* __restrict__ rec,
+                 const int32_t* __restrict__ overflow, int64_t n_rows,
+                 int slots, int max_walk, int cap,
+                 int32_t* __restrict__ table, uint8_t* __restrict__ bad) {
+  __shared__ int32_t buf[kWarps][3 * kMaxWideSlots];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t h = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  const int width = 3 * slots;
   bool is_bad = false;
-  for (int r = threadIdx.x; r < g_rows; r += kThreads)
-    is_bad |= row_bad(h0 + r, cnt[r], int64_t{start[r]} + cmax[r], cap,
-                      kSlots, max_walk);
-  if (kKeepWalkers) {
-    if (threadIdx.x == 0) {
-      atomicExch(spilled + g, 1);
-      // walkers into the first row come from groups before this one:
-      // wait until each has stored the keys that leave it
-      const long long c_before = group_before.max;
-      if (g > 0 && gs + c_before > h0 * kSlots) {
-        const long long first_i = h0 * kSlots - c_before;
-        for (int g2 = g - 1; g2 >= 0 && __ldg(gstart + g2 + 1) > first_i;
-             --g2) {
-          while (*reinterpret_cast<const volatile int32_t*>(spilled + g2) ==
-                 0) {
-          }
+  if (h < n_rows) {
+    int32_t* row = buf[warp];
+    for (int w = lane; w < width; w += 32) row[w] = w < 2 * slots ? -1 : 0;
+    const int32_t start = start_of(pair, h);
+    const int2 cur = pair[h];
+    const int32_t cnt = cur.x - start;
+    const int32_t first = start + cur.y;
+    const int64_t base = first - h * slots;     // >= 0
+    const int4* seg = *overflow ? rec + start : bucket + h * cap;
+    is_bad = lane == 0 && row_bad(h, cnt, first, n_rows * slots, slots,
+                                  max_walk);
+    __syncwarp();
+    if (base < slots) {
+      for (int32_t c0 = 0; c0 < cnt; c0 += 32) {
+        const bool have = c0 + lane < cnt;
+        const int4 r = have ? seg[c0 + lane] : make_int4(INT_MAX, 0, 0, 0);
+        int32_t rank = 0;
+        for (int32_t k0 = 0; k0 < cnt; k0 += 32) {
+          const int32_t other =
+              k0 == c0 ? r.x
+                       : (k0 + lane < cnt ? seg[k0 + lane].x : INT_MAX);
+          const int m = min(32, cnt - k0);
+          for (int q = 0; q < m; ++q)
+            rank += __shfl_sync(kFullMask, other, q) < r.x;
         }
-        __threadfence();
+        const int64_t slot = base + rank;
+        if (have && slot < slots) {
+          row[slot] = r.y;
+          row[slots + slot] = r.z;
+          row[2 * slots + slot] = r.w;
+        }
       }
     }
-    __syncthreads();
+    __syncwarp();
+    int32_t* out = table + h * width;
+    for (int w = lane; w < width; w += 32) out[w] = row[w];
   }
+  if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
+}
 
-  // every word of the group's rows, once
-  int32_t* out = table + h0 * kWidth;
-  for (int w = threadIdx.x; w < g_rows * kWidth; w += kThreads) {
-    const int r = w / kWidth;
-    const int within = w - r * kWidth;
-    const int plane = within / kSlots;
-    const int64_t p = (h0 + r) * kSlots + (within - plane * kSlots);
-    const long long c_prev = r > 0 ? cmax[r - 1] : group_before.max;
-    const int64_t first = int64_t{start[r]} + cmax[r];
-    int4 src = make_int4(0, -1, -1, 0);
-    if (kKeepWalkers && p < start[r] + c_prev) {
-      const int64_t i = p - c_prev;              // its stable index
-      src = i >= gs ? rec[order[i - gs]] : __ldcg(sorted + i);
-    } else if (p >= first && p < first + cnt[r]) {
-      src = rec[order[lstart[r] + (p - first)]];
-    }
-    out[w] = plane == 0 ? src.y : (plane == 1 ? src.z : src.w);
+// The 8-slot layout, first: each real key's record at its stable rank,
+// its rank by index among the indices of its bucket (or after an
+// overflow its run of `rec`).
+__global__ void __launch_bounds__(kThreads)
+rank_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
+            const int32_t* __restrict__ values, int64_t n, uint32_t salt,
+            uint32_t mask, int cap, const int2* __restrict__ pair,
+            const int32_t* __restrict__ bucket, const int4* __restrict__ rec,
+            const int32_t* __restrict__ overflow, int4* __restrict__ sorted) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i >= n) return;
+  const uint32_t l = __ldg(lo + i);
+  if (l == kEmpty) return;
+  const uint32_t hv = __ldg(hi + i);
+  const uint32_t h = home_of(l, hv, salt, mask);
+  const int32_t start = start_of(pair, h);
+  const int32_t cnt = pair[h].x - start;
+  const int32_t me = static_cast<int32_t>(i);
+  int32_t rank = 0;
+  if (*overflow) {
+    for (int32_t k = 0; k < cnt; ++k) rank += rec[start + k].x < me;
+  } else {
+    const int32_t* seg = bucket + int64_t{h} * cap;
+    for (int32_t k = 0; k < cnt; ++k) rank += seg[k] < me;
+  }
+  sorted[start + rank] = make_int4(me, static_cast<int32_t>(l),
+                                   static_cast<int32_t>(hv),
+                                   __ldg(values + i));
+}
+
+// The 8-slot layout, then: a thread a slot p of row h.  The walkers' run
+// [h * S, F) holds sorted index p - C[h - 1]; the home's own run
+// [first, first + cnt) holds start + (p - first).
+__global__ void __launch_bounds__(kThreads)
+slot_rows_kernel(const int2* __restrict__ pair,
+                 const int4* __restrict__ sorted, int64_t n_rows, int slots,
+                 int max_walk, int32_t* __restrict__ table,
+                 uint8_t* __restrict__ bad) {
+  const int64_t cap = n_rows * slots;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  bool is_bad = false;
+  if (p < cap) {
+    const int64_t h = p / slots;
+    const int64_t s = p - h * slots;
+    const int2 cur = pair[h];
+    const int2 prev = h > 0 ? pair[h - 1] : make_int2(0, 0);
+    const int32_t start = prev.x;
+    const int32_t cnt = cur.x - start;
+    const int64_t first = start + cur.y;
+    const int64_t walkers_end = h > 0 ? int64_t{start} + prev.y : 0;
+    int64_t at = -1;
+    if (p < walkers_end)
+      at = p - prev.y;
+    else if (p >= first && p < first + cnt)
+      at = start + (p - first);
+    int4 r = make_int4(0, -1, -1, 0);
+    if (at >= 0) r = sorted[at];
+    int32_t* row = table + h * 3 * slots + s;
+    row[0] = r.y;
+    row[slots] = r.z;
+    row[2 * slots] = r.w;
+    is_bad = s == 0 && row_bad(h, cnt, static_cast<int32_t>(first), cap,
+                               slots, max_walk);
   }
   if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
 }
@@ -530,59 +499,27 @@ unsigned blocks_for(int64_t n, int64_t per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
-// Rows a group: about kTargetKeys keys a group, a power of two, at most
-// kMaxGroupRows and the table's rows, and few enough groups.
-int64_t group_rows_for(int64_t n, int64_t n_rows) {
-  int64_t g = 1;
-  while (g < kMaxGroupRows && g < n_rows &&
-         2 * g * (n > 0 ? n : 1) <= int64_t{kTargetKeys} * n_rows)
-    g *= 2;
-  while (n_rows / g > kMaxGroups && g < n_rows) g *= 2;
-  return g;
-}
-
-template <int kSlots, bool kKeepWalkers>
-cudaError_t launch_groups(const Scratch& s, int64_t n_rows, int64_t g_rows,
-                          uint32_t salt, int max_walk, int32_t* table,
-                          uint8_t* bad, cudaStream_t st) {
-  auto kernel = group_kernel<kSlots, kKeepWalkers>;
-  const int smem = group_smem_bytes(static_cast<int>(g_rows));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      group_smem_bytes(kMaxGroupRows));
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(n_rows / g_rows), kThreads, smem, st>>>(
-      s.rec, s.gstart, n_rows, static_cast<int>(g_rows), salt, max_walk,
-      s.flag, s.spilled, s.ticket, s.agg, s.incl, s.rowid, s.arrival, s.perm,
-      s.order, s.sorted, table, bad);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // lo / hi / values: (n,) 32-bit keys (EMPTY in pads) and payloads; n_rows a
-// power of two, n_rows * slots + n < 2^31; slots and keep_walkers 24 and 0
-// (the wide layout) or 8 and 1 (the 8-slot layout); scratch: scratch_bytes
-// bytes of device memory (ops/table_build.scratch_bytes), 16-byte
-// aligned; table: (n_rows, 3 * slots) int32, written whole; bad: one byte,
-// written: 1 when a real key walks max_walk rows or more or wraps, else 0.
+// power of two, n_rows * slots + n < 2^31; scratch: scratch_bytes bytes of
+// device memory (ops/table_build.scratch_bytes), 16-byte aligned; table:
+// (n_rows, 3 * slots) int32, written whole; bad: one byte, written: 1 when
+// a real key walks max_walk rows or more or wraps, else 0.  The wide pass
+// (keep_walkers 0) takes at most 32 slots a row.
 extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
                                const int32_t* values, int64_t n,
                                int64_t n_rows, uint32_t salt, int32_t slots,
                                int32_t max_walk, int32_t keep_walkers,
                                void* scratch, int64_t scratch_bytes,
                                int32_t* table, uint8_t* bad, void* stream) {
-  const bool wide = slots == 24 && !keep_walkers;
-  const bool bucketed = slots == 8 && keep_walkers;
-  if (n < 0 || n_rows < 1 || (n_rows & (n_rows - 1)) ||
-      !(wide || bucketed) || n_rows * slots + n >= (int64_t{1} << 31) ||
+  if (n < 0 || n_rows < 1 || (n_rows & (n_rows - 1)) || slots < 1 ||
+      max_walk < 1 || (!keep_walkers && slots > kMaxWideSlots) ||
+      n_rows * slots + n >= (int64_t{1} << 31) ||
       reinterpret_cast<uintptr_t>(scratch) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t g_rows = group_rows_for(n, n_rows);
-  const int64_t n_groups = n_rows / g_rows;
-  if (n_groups > kMaxGroups || g_rows > kMaxGroupRows)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Scratch s = carve(static_cast<char*>(scratch), n, n_groups,
+  const int cap = slots * max_walk;
+  const Scratch s = carve(static_cast<char*>(scratch), n, n_rows, cap,
                           keep_walkers != 0);
   if (scratch_bytes < s.bytes)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -590,29 +527,49 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
   const auto u_lo = reinterpret_cast<const uint32_t*>(lo);
   const auto u_hi = reinterpret_cast<const uint32_t*>(hi);
   const uint32_t mask = static_cast<uint32_t>(n_rows - 1);
-  int shift = 0;
-  while ((int64_t{1} << shift) < g_rows) ++shift;
   cudaError_t err;
 
   const int64_t n_vec = s.zero_bytes / 16;
   zero_kernel<<<blocks_for(n_vec, kThreads), kThreads, 0, st>>>(
-      reinterpret_cast<int4*>(s.gcnt), n_vec, bad);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // one block at least, so that the last block writes gstart
-  count_kernel<<<blocks_for(n > 0 ? n : 1, kKeyTile), kThreads, 0, st>>>(
-      u_lo, u_hi, n, salt, mask, shift, static_cast<int>(n_groups), s.gcnt,
-      s.done, s.gstart);
+      reinterpret_cast<int4*>(s.cnt), n_vec, bad);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    part_kernel<<<blocks_for(n, kKeyTile), kThreads, 0, st>>>(
-        u_lo, u_hi, values, n, salt, mask, shift,
-        static_cast<int>(n_groups), s.gstart, s.fill, s.rec);
+    if (keep_walkers)
+      count_kernel<false><<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+          u_lo, u_hi, values, n, salt, mask, cap, s.cnt, s.arrival, s.bucket,
+          s.overflow);
+    else
+      count_kernel<true><<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+          u_lo, u_hi, values, n, salt, mask, cap, s.cnt, s.arrival, s.bucket,
+          s.overflow);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
-  err = wide ? launch_groups<24, false>(s, n_rows, g_rows, salt, max_walk,
-                                        table, bad, st)
-             : launch_groups<8, true>(s, n_rows, g_rows, salt, max_walk,
-                                      table, bad, st);
-  return static_cast<int>(err);
+  scan_kernel<<<blocks_for(n_rows, kScanTile), kThreads, 0, st>>>(
+      s.cnt, n_rows, slots, s.flag, s.ticket, s.agg, s.incl, s.pair);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    scatter_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+        u_lo, u_hi, values, n, salt, mask, s.pair, s.arrival, s.overflow,
+        s.rec);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  if (!keep_walkers) {
+    wide_rows_kernel<<<blocks_for(n_rows, kWarps), kThreads, 0, st>>>(
+        s.pair, static_cast<const int4*>(s.bucket), s.rec, s.overflow,
+        n_rows, slots, max_walk, cap, table, bad);
+  } else {
+    if (n > 0) {
+      rank_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+          u_lo, u_hi, values, n, salt, mask, cap, s.pair,
+          static_cast<const int32_t*>(s.bucket), s.rec, s.overflow, s.sorted);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    }
+    slot_rows_kernel<<<blocks_for(n_rows * slots, kThreads), kThreads, 0,
+                       st>>>(s.pair, s.sorted, n_rows, slots, max_walk, table,
+                             bad);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

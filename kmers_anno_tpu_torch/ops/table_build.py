@@ -14,9 +14,9 @@ walk; the 8-slot layout (the unsalted hash, ``max_walk``
 ``MAX_DEVICE_PROBES``) keeps them.
 
 :func:`build_wide` and :func:`build_bucketed` launch
-``csrc/table_build.cu`` for CUDA tensors (``kan_table_build``: the keys
-grouped by groups of rows, each group's rows counted, scanned, ranked by
-index and written once in shared memory) and take :func:`build_table_plain`, which follows
+``csrc/table_build.cu`` for CUDA tensors (``kan_table_build``: row
+counts and each row's bucket of keys, a scan over rows, each row's keys
+ranked by index, the table written once) and take :func:`build_table_plain`, which follows
 the reference line by line, for CPU tensors.  Tables are ``int32`` tensors of the uint32 words, as for the
 host builds (``EMPTY`` reads as -1).
 """
@@ -33,8 +33,7 @@ from .hashtable import BUCKET, MAX_DEVICE_PROBES
 from .widetable import SLOTS
 
 EMPTY_KEY = -1          # EMPTY's int32 bits
-MAX_GROUPS = 8192       # the kernel's groups of rows, at most (kMaxGroups)
-MAX_GROUP_ROWS = 2048   # rows a group, at most (kMaxGroupRows)
+SCAN_TILE = 2048        # rows a block of the kernel's scan (kScanTile)
 
 
 class Layout(NamedTuple):
@@ -100,15 +99,22 @@ def _align16(n_bytes: int) -> int:
     return -(-n_bytes // 16) * 16
 
 
-def scratch_bytes(n: int, layout: Layout) -> int:
-    """Device scratch of one kernel build of ``n`` keys, as ``carve`` in
-    ``csrc/table_build.cu`` lays it out: the groups' counts, cursors and
-    flags, their starts and look-back pairs (sized for ``MAX_GROUPS``);
-    each key's record (16 B) and four int32 arrays of a group past shared
-    memory (16 B); for the 8-slot layout the keys that leave their group
-    (16 B a key)."""
-    return (_align16(4 * (4 * MAX_GROUPS + 2)) + _align16(4 * (MAX_GROUPS + 1))
-            + 32 * MAX_GROUPS + 16 * n * (3 if layout.keep_walkers else 2))
+def scratch_bytes(n: int, n_rows: int, layout: Layout) -> int:
+    """Device scratch of one kernel build, as ``carve`` in
+    ``csrc/table_build.cu`` lays it out: row counts, the scan's flags,
+    ticket and overflow flag (zeroed); the scan's tile pairs (16 B twice a
+    tile); each row's pair (8 B); each key's arrival slot (4 B); each row's
+    bucket of ``max_walk * slots`` entries (16-byte records for the wide
+    layout, 4-byte indices for the 8-slot layout); the records grouped by
+    home after an overflow (16 B a key); for the 8-slot layout the stable
+    order (16 B a key)."""
+    tiles = -(-n_rows // SCAN_TILE)
+    cap = layout.slots * layout.max_walk
+    entry = 4 if layout.keep_walkers else 16
+    return (_align16(4 * (n_rows + tiles + 2)) + 32 * tiles
+            + _align16(8 * n_rows) + _align16(4 * n)
+            + _align16(n_rows * cap * entry)
+            + 16 * n * (2 if layout.keep_walkers else 1))
 
 
 def _launch(key_lo, key_hi, values, n_rows: int, layout: Layout,
@@ -119,13 +125,12 @@ def _launch(key_lo, key_hi, values, n_rows: int, layout: Layout,
     dev = key_lo.device
     lo, hi, val = (t.contiguous() for t in (key_lo, key_hi, values))
     n = lo.numel()
-    if n_rows * s + n >= 1 << 31 or n_rows > MAX_GROUPS * MAX_GROUP_ROWS:
+    if n_rows * s + n >= 1 << 31:
         raise ValueError(f"table build: {n} keys into {n_rows} rows of {s} "
-                         f"slots pass the kernel's int32 positions or its "
-                         f"groups of rows")
+                         f"slots pass the kernel's int32 positions")
     table = torch.empty((n_rows, 3 * s), dtype=torch.int32, device=dev)
     bad = torch.empty((), dtype=torch.bool, device=dev)
-    n_scratch = scratch_bytes(n, layout)
+    n_scratch = scratch_bytes(n, n_rows, layout)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = kernels.lib().kan_table_build(

@@ -263,19 +263,17 @@ def test_forced_cases_cover_the_kernels_edges():
         assert shapes[case]["n"] % 256
 
 
-def test_scratch_constants_are_the_kernels():
-    """The group limits that size the wrapper's scratch are the kernel's
-    (kMaxGroups, kMaxGroupRows)."""
+def test_scan_tile_is_the_kernels():
+    """``SCAN_TILE`` (which sizes the wrapper's scratch) is the kernel's
+    rows a scan tile, kThreads * kScanItems."""
     path = os.path.join(os.path.dirname(table_build.__file__), "..", "csrc",
                         "table_build.cu")
     with open(path, encoding="utf-8") as fh:
         src = fh.read()
-
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
-
-    assert const("kMaxGroups") == table_build.MAX_GROUPS
-    assert const("kMaxGroupRows") == table_build.MAX_GROUP_ROWS
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    items = int(re.search(r"constexpr int kScanItems = (\d+);", src)[1])
+    assert "constexpr int kScanTile = kThreads * kScanItems;" in src
+    assert threads * items == table_build.SCAN_TILE
 
 
 # ---------------------------------------------------------------------------
