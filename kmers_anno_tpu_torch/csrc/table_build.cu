@@ -88,7 +88,8 @@ constexpr int kWarps = kThreads / 32;    // rows a block of the wide pass
 constexpr int kScanItems = 8;            // rows a thread of the scan
 // rows a tile of the scan: ops/table_build.SCAN_TILE
 constexpr int kScanTile = kThreads * kScanItems;
-constexpr int kMaxWideSlots = 32;        // the wide pass: a lane a slot
+constexpr int kWideSlots = 24;           // the wide layout's slots a row
+constexpr int kRunRows = 8;              // rows a warp of the wide pass
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kAggregate = 1;            // a tile's flag: its own pair
 constexpr int kPrefix = 2;               // ... and its inclusive prefix
@@ -123,22 +124,16 @@ __device__ __forceinline__ RowPair shfl_up(RowPair v, int d) {
 }
 
 // The scratch the wrapper allocates (ops/table_build.scratch_bytes), in
-// order, each part from a 16-byte boundary.  A row's bucket holds
-// max_walk * S entries: a row with more keys has one that walks
-// max_walk rows or more, so its table is bad.
+// order, each part from a 16-byte boundary.
 struct Scratch {
   int32_t* cnt;          // rows: real keys a home       } zeroed
   int32_t* flag;         // tiles: the scan's flags      } by the
-  int32_t* ticket;       // 1: the scan's next tile      } zero
-  int32_t* overflow;     // 1: a bucket overflowed       } pass
+  int32_t* ticket;       // 1: the scan's next tile      } zero pass
   longlong2* agg;        // tiles: each tile's own pair
   longlong2* incl;       // tiles: each tile's inclusive prefix
   int2* pair;            // rows: (start[h + 1], C[h])
   int32_t* arrival;      // n: each real key's arrival slot
-  void* bucket;          // rows * cap: the wide layout's records
-                         //   (index, lo, hi, payload); the 8-slot
-                         //   layout's indices
-  int4* rec;             // n: records grouped by home, on overflow
+  int4* rec;             // n: (index, lo, hi, payload) grouped by home
   int4* sorted;          // n, 8-slot layout only: the stable order
   int64_t zero_bytes;    // the zeroed span from cnt
   int64_t bytes;         // the whole
@@ -148,15 +143,14 @@ __host__ __device__ inline int64_t align16(int64_t b) {
   return (b + 15) & ~int64_t{15};
 }
 
-Scratch carve(char* base, int64_t n, int64_t n_rows, int64_t cap,
-              bool keep_walkers) {
+Scratch carve(char* base, int64_t n, int64_t n_rows, bool keep_walkers) {
   const int64_t tiles = (n_rows + kScanTile - 1) / kScanTile;
   Scratch s;
+  int64_t at = 0;
   s.cnt = reinterpret_cast<int32_t*>(base);
   s.flag = s.cnt + n_rows;
   s.ticket = s.flag + tiles;
-  s.overflow = s.ticket + 1;
-  int64_t at = s.zero_bytes = align16(4 * (n_rows + tiles + 2));
+  at = s.zero_bytes = align16(4 * (n_rows + tiles + 1));
   s.agg = reinterpret_cast<longlong2*>(base + at);
   at += 16 * tiles;
   s.incl = reinterpret_cast<longlong2*>(base + at);
@@ -165,8 +159,6 @@ Scratch carve(char* base, int64_t n, int64_t n_rows, int64_t cap,
   at += align16(8 * n_rows);
   s.arrival = reinterpret_cast<int32_t*>(base + at);
   at += align16(4 * n);
-  s.bucket = base + at;
-  at += align16(n_rows * cap * (keep_walkers ? 4 : 16));
   s.rec = reinterpret_cast<int4*>(base + at);
   at += 16 * n;
   s.sorted = reinterpret_cast<int4*>(base + at);
@@ -184,36 +176,16 @@ zero_kernel(int4* __restrict__ words, int64_t n_vec,
   if (i == 0) *bad = 0;
 }
 
-// Each real key counted in its home row, its arrival slot kept, and its
-// entry stored in the row's bucket while there is room (a record for the
-// wide layout, the index for the 8-slot layout); past that, the overflow
-// flag.
-template <bool kRecords>
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
-             const int32_t* __restrict__ values, int64_t n, uint32_t salt,
-             uint32_t mask, int cap, int32_t* __restrict__ cnt,
-             int32_t* __restrict__ arrival, void* __restrict__ bucket,
-             int32_t* __restrict__ overflow) {
+             int64_t n, uint32_t salt, uint32_t mask,
+             int32_t* __restrict__ cnt, int32_t* __restrict__ arrival) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
                     threadIdx.x;
   if (i >= n) return;
   const uint32_t l = __ldg(lo + i);
   if (l == kEmpty) return;
-  const uint32_t hv = __ldg(hi + i);
-  const uint32_t h = home_of(l, hv, salt, mask);
-  const int32_t at = atomicAdd(cnt + h, 1);
-  arrival[i] = at;
-  if (at >= cap) {
-    *overflow = 1;
-  } else if (kRecords) {
-    static_cast<int4*>(bucket)[int64_t{h} * cap + at] =
-        make_int4(static_cast<int32_t>(i), static_cast<int32_t>(l),
-                  static_cast<int32_t>(hv), __ldg(values + i));
-  } else {
-    static_cast<int32_t*>(bucket)[int64_t{h} * cap + at] =
-        static_cast<int32_t>(i);
-  }
+  arrival[i] = atomicAdd(cnt + home_of(l, __ldg(hi + i), salt, mask), 1);
 }
 
 // The pairs of the 32 tiles tile - 32 * step - 1 - lane before a tile,
@@ -349,11 +321,10 @@ scatter_kernel(const uint32_t* __restrict__ lo,
                const uint32_t* __restrict__ hi,
                const int32_t* __restrict__ values, int64_t n, uint32_t salt,
                uint32_t mask, const int2* __restrict__ pair,
-               const int32_t* __restrict__ arrival,
-               const int32_t* __restrict__ overflow, int4* __restrict__ rec) {
+               const int32_t* __restrict__ arrival, int4* __restrict__ rec) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
                     threadIdx.x;
-  if (i >= n || !*overflow) return;
+  if (i >= n) return;
   const uint32_t l = __ldg(lo + i);
   if (l == kEmpty) return;
   const uint32_t hv = __ldg(hi + i);
@@ -371,90 +342,96 @@ __device__ __forceinline__ bool row_bad(int64_t h, int32_t cnt,
   return cnt > 0 && static_cast<int64_t>(first) + cnt - 1 >= limit;
 }
 
-// The wide layout: a warp a row.  Only the row's own keys land in it (a
-// key that walks is dropped), at first - h * S + rank while below S.  Its
-// records are its bucket's, or after an overflow its run of `rec`.
+// The wide layout: a warp a run of kRunRows rows.  Only a row's own keys
+// land in it (a key that walks is dropped), at first - h * S + rank while
+// below S.  The run's records are one stretch of `rec`, read 32 at a
+// time; each is ranked by index among its row's, by shuffles.  The rows
+// are staged in shared memory and written whole, 16 bytes a lane.
 __global__ void __launch_bounds__(kThreads)
-wide_rows_kernel(const int2* __restrict__ pair,
-                 const int4* __restrict__ bucket, const int4* __restrict__ rec,
-                 const int32_t* __restrict__ overflow, int64_t n_rows,
-                 int slots, int max_walk, int cap,
-                 int32_t* __restrict__ table, uint8_t* __restrict__ bad) {
-  __shared__ int32_t buf[kWarps][3 * kMaxWideSlots];
+wide_rows_kernel(const int2* __restrict__ pair, const int4* __restrict__ rec,
+                 int64_t n_rows, int max_walk, int32_t* __restrict__ table,
+                 uint8_t* __restrict__ bad) {
+  constexpr int S = kWideSlots;
+  constexpr int W = 3 * kWideSlots;
+  __shared__ __align__(16) int32_t buf[kWarps][kRunRows * W];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t h = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  const int width = 3 * slots;
+  const int64_t h0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kRunRows;
   bool is_bad = false;
-  if (h < n_rows) {
-    int32_t* row = buf[warp];
-    for (int w = lane; w < width; w += 32) row[w] = w < 2 * slots ? -1 : 0;
-    const int32_t start = start_of(pair, h);
-    const int2 cur = pair[h];
-    const int32_t cnt = cur.x - start;
-    const int32_t first = start + cur.y;
-    const int64_t base = first - h * slots;     // >= 0
-    const int4* seg = *overflow ? rec + start : bucket + h * cap;
-    is_bad = lane == 0 && row_bad(h, cnt, first, n_rows * slots, slots,
-                                  max_walk);
+  if (h0 < n_rows) {
+    const int rows = static_cast<int>(min(int64_t{kRunRows}, n_rows - h0));
+    // lane j <= rows: the pair of row h0 - 1 + j; lane j < rows then
+    // holds row h0 + j's start, end and C
+    const int64_t hp = h0 - 1 + lane;
+    const int2 pv = lane <= rows && hp >= 0 ? pair[hp] : make_int2(0, 0);
+    const int32_t start = pv.x;
+    const int32_t end = __shfl_down_sync(kFullMask, pv.x, 1);
+    const int32_t cmax = __shfl_down_sync(kFullMask, pv.y, 1);
+    const int32_t base = start + cmax - static_cast<int32_t>((h0 + lane) * S);
+    if (lane < rows)
+      is_bad = row_bad(h0 + lane, end - start, start + cmax, n_rows * S, S,
+                       max_walk);
+    const int32_t seg0 = __shfl_sync(kFullMask, start, 0);
+    const int32_t total = __shfl_sync(kFullMask, start, rows) - seg0;
+    int32_t* stage = buf[warp];
+    for (int w = lane; w < rows * W; w += 32)
+      stage[w] = w % W < 2 * S ? -1 : 0;
     __syncwarp();
-    if (base < slots) {
-      for (int32_t c0 = 0; c0 < cnt; c0 += 32) {
-        const bool have = c0 + lane < cnt;
-        const int4 r = have ? seg[c0 + lane] : make_int4(INT_MAX, 0, 0, 0);
-        int32_t rank = 0;
-        for (int32_t k0 = 0; k0 < cnt; k0 += 32) {
-          const int32_t other =
-              k0 == c0 ? r.x
-                       : (k0 + lane < cnt ? seg[k0 + lane].x : INT_MAX);
-          const int m = min(32, cnt - k0);
-          for (int q = 0; q < m; ++q)
-            rank += __shfl_sync(kFullMask, other, q) < r.x;
+    for (int32_t c0 = 0; c0 < total; c0 += 32) {
+      const int32_t q = c0 + lane;           // in the run
+      const bool have = q < total;
+      const int4 r = have ? rec[seg0 + q] : make_int4(INT_MAX, 0, 0, 0);
+      // its row: the last of the run's rows that starts at or before it
+      int my_row = 0;
+      for (int j = 1; j < rows; ++j)
+        my_row += __shfl_sync(kFullMask, start, j) - seg0 <= q;
+      const int32_t rs = __shfl_sync(kFullMask, start, my_row) - seg0;
+      const int32_t re = __shfl_sync(kFullMask, end, my_row) - seg0;
+      int32_t rank = 0;
+      for (int32_t k0 = 0; k0 < total; k0 += 32) {
+        const int32_t other =
+            k0 == c0 ? r.x
+                     : (k0 + lane < total ? rec[seg0 + k0 + lane].x
+                                          : INT_MAX);
+        const int m = min(32, total - k0);
+        for (int t = 0; t < m; ++t) {
+          const int32_t o = __shfl_sync(kFullMask, other, t);
+          rank += k0 + t >= rs && k0 + t < re && o < r.x;
         }
-        const int64_t slot = base + rank;
-        if (have && slot < slots) {
-          row[slot] = r.y;
-          row[slots + slot] = r.z;
-          row[2 * slots + slot] = r.w;
-        }
+      }
+      const int32_t slot = __shfl_sync(kFullMask, base, my_row) + rank;
+      if (have && slot < S) {
+        int32_t* row = stage + my_row * W;
+        row[slot] = r.y;
+        row[S + slot] = r.z;
+        row[2 * S + slot] = r.w;
       }
     }
     __syncwarp();
-    int32_t* out = table + h * width;
-    for (int w = lane; w < width; w += 32) out[w] = row[w];
+    const int4* src = reinterpret_cast<const int4*>(stage);
+    int4* dst = reinterpret_cast<int4*>(table + h0 * W);
+    for (int v = lane; v < rows * W / 4; v += 32) dst[v] = src[v];
   }
   if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
 }
 
-// The 8-slot layout, first: each real key's record at its stable rank,
-// its rank by index among the indices of its bucket (or after an
-// overflow its run of `rec`).
+// The 8-slot layout, first: each real key's record at its stable rank.
 __global__ void __launch_bounds__(kThreads)
-rank_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
-            const int32_t* __restrict__ values, int64_t n, uint32_t salt,
-            uint32_t mask, int cap, const int2* __restrict__ pair,
-            const int32_t* __restrict__ bucket, const int4* __restrict__ rec,
-            const int32_t* __restrict__ overflow, int4* __restrict__ sorted) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+rank_kernel(const int4* __restrict__ rec, const int2* __restrict__ pair,
+            int64_t n_rows, uint32_t salt, int4* __restrict__ sorted) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads +
                     threadIdx.x;
-  if (i >= n) return;
-  const uint32_t l = __ldg(lo + i);
-  if (l == kEmpty) return;
-  const uint32_t hv = __ldg(hi + i);
-  const uint32_t h = home_of(l, hv, salt, mask);
+  if (j >= pair[n_rows - 1].x) return;       // the real keys
+  const int4 r = rec[j];
+  const uint32_t h = home_of(static_cast<uint32_t>(r.y),
+                             static_cast<uint32_t>(r.z), salt,
+                             static_cast<uint32_t>(n_rows - 1));
   const int32_t start = start_of(pair, h);
-  const int32_t cnt = pair[h].x - start;
-  const int32_t me = static_cast<int32_t>(i);
+  const int32_t end = pair[h].x;
   int32_t rank = 0;
-  if (*overflow) {
-    for (int32_t k = 0; k < cnt; ++k) rank += rec[start + k].x < me;
-  } else {
-    const int32_t* seg = bucket + int64_t{h} * cap;
-    for (int32_t k = 0; k < cnt; ++k) rank += seg[k] < me;
-  }
-  sorted[start + rank] = make_int4(me, static_cast<int32_t>(l),
-                                   static_cast<int32_t>(hv),
-                                   __ldg(values + i));
+  for (int32_t k = start; k < end; ++k) rank += rec[k].x < r.x;
+  sorted[start + rank] = r;
 }
 
 // The 8-slot layout, then: a thread a slot p of row h.  The walkers' run
@@ -506,7 +483,7 @@ unsigned blocks_for(int64_t n, int64_t per_block) {
 // device memory (ops/table_build.scratch_bytes), 16-byte aligned; table:
 // (n_rows, 3 * slots) int32, written whole; bad: one byte, written: 1 when
 // a real key walks max_walk rows or more or wraps, else 0.  The wide pass
-// (keep_walkers 0) takes at most 32 slots a row.
+// (keep_walkers 0) takes 24 slots a row.
 extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
                                const int32_t* values, int64_t n,
                                int64_t n_rows, uint32_t salt, int32_t slots,
@@ -514,12 +491,11 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
                                void* scratch, int64_t scratch_bytes,
                                int32_t* table, uint8_t* bad, void* stream) {
   if (n < 0 || n_rows < 1 || (n_rows & (n_rows - 1)) || slots < 1 ||
-      max_walk < 1 || (!keep_walkers && slots > kMaxWideSlots) ||
+      (!keep_walkers && slots != kWideSlots) ||
       n_rows * slots + n >= (int64_t{1} << 31) ||
       reinterpret_cast<uintptr_t>(scratch) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int cap = slots * max_walk;
-  const Scratch s = carve(static_cast<char*>(scratch), n, n_rows, cap,
+  const Scratch s = carve(static_cast<char*>(scratch), n, n_rows,
                           keep_walkers != 0);
   if (scratch_bytes < s.bytes)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -534,14 +510,8 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
       reinterpret_cast<int4*>(s.cnt), n_vec, bad);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    if (keep_walkers)
-      count_kernel<false><<<blocks_for(n, kThreads), kThreads, 0, st>>>(
-          u_lo, u_hi, values, n, salt, mask, cap, s.cnt, s.arrival, s.bucket,
-          s.overflow);
-    else
-      count_kernel<true><<<blocks_for(n, kThreads), kThreads, 0, st>>>(
-          u_lo, u_hi, values, n, salt, mask, cap, s.cnt, s.arrival, s.bucket,
-          s.overflow);
+    count_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+        u_lo, u_hi, n, salt, mask, s.cnt, s.arrival);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
@@ -550,20 +520,17 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     scatter_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
-        u_lo, u_hi, values, n, salt, mask, s.pair, s.arrival, s.overflow,
-        s.rec);
+        u_lo, u_hi, values, n, salt, mask, s.pair, s.arrival, s.rec);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
   if (!keep_walkers) {
-    wide_rows_kernel<<<blocks_for(n_rows, kWarps), kThreads, 0, st>>>(
-        s.pair, static_cast<const int4*>(s.bucket), s.rec, s.overflow,
-        n_rows, slots, max_walk, cap, table, bad);
+    wide_rows_kernel<<<blocks_for(n_rows, kWarps * kRunRows), kThreads, 0,
+                       st>>>(s.pair, s.rec, n_rows, max_walk, table, bad);
   } else {
     if (n > 0) {
       rank_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
-          u_lo, u_hi, values, n, salt, mask, cap, s.pair,
-          static_cast<const int32_t*>(s.bucket), s.rec, s.overflow, s.sorted);
+          s.rec, s.pair, n_rows, salt, s.sorted);
       if ((err = cudaGetLastError()) != cudaSuccess)
         return static_cast<int>(err);
     }

@@ -15,8 +15,8 @@ walk; the 8-slot layout (the unsalted hash, ``max_walk``
 
 :func:`build_wide` and :func:`build_bucketed` launch
 ``csrc/table_build.cu`` for CUDA tensors (``kan_table_build``: row
-counts and each row's bucket of keys, a scan over rows, each row's keys
-ranked by index, the table written once) and take :func:`build_table_plain`, which follows
+counts, a scan over rows, the keys grouped by home and ranked by index,
+the table written once) and take :func:`build_table_plain`, which follows
 the reference line by line, for CPU tensors.  Tables are ``int32`` tensors of the uint32 words, as for the
 host builds (``EMPTY`` reads as -1).
 """
@@ -101,19 +101,13 @@ def _align16(n_bytes: int) -> int:
 
 def scratch_bytes(n: int, n_rows: int, layout: Layout) -> int:
     """Device scratch of one kernel build, as ``carve`` in
-    ``csrc/table_build.cu`` lays it out: row counts, the scan's flags,
-    ticket and overflow flag (zeroed); the scan's tile pairs (16 B twice a
-    tile); each row's pair (8 B); each key's arrival slot (4 B); each row's
-    bucket of ``max_walk * slots`` entries (16-byte records for the wide
-    layout, 4-byte indices for the 8-slot layout); the records grouped by
-    home after an overflow (16 B a key); for the 8-slot layout the stable
-    order (16 B a key)."""
+    ``csrc/table_build.cu`` lays it out: row counts, the scan's flags and
+    ticket (zeroed); the scan's tile pairs (16 B twice a tile); each row's
+    pair (8 B); each key's arrival slot (4 B) and record (16 B); for the
+    8-slot layout the stable order (16 B a key)."""
     tiles = -(-n_rows // SCAN_TILE)
-    cap = layout.slots * layout.max_walk
-    entry = 4 if layout.keep_walkers else 16
-    return (_align16(4 * (n_rows + tiles + 2)) + 32 * tiles
+    return (_align16(4 * (n_rows + tiles + 1)) + 32 * tiles
             + _align16(8 * n_rows) + _align16(4 * n)
-            + _align16(n_rows * cap * entry)
             + 16 * n * (2 if layout.keep_walkers else 1))
 
 
