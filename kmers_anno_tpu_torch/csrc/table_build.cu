@@ -85,11 +85,14 @@ namespace {
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 constexpr int kThreads = 256;            // threads a block, every pass
 constexpr int kWarps = kThreads / 32;    // rows a block of the wide pass
-constexpr int kScanItems = 8;            // rows a thread of the scan
+constexpr int kScanItems = 32;           // rows a thread of the scan
 // rows a tile of the scan: ops/table_build.SCAN_TILE
 constexpr int kScanTile = kThreads * kScanItems;
 constexpr int kWideSlots = 24;           // the wide layout's slots a row
 constexpr int kRunRows = 8;              // rows a warp of the wide pass
+constexpr int kRunIdx = 128;             // ... their indices in shared memory
+constexpr int kBucketSlots = 8;          // the 8-slot layout's slots a row
+constexpr int kSlotRunRows = 32;         // rows a warp of the 8-slot pass
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kAggregate = 1;            // a tile's flag: its own pair
 constexpr int kPrefix = 2;               // ... and its inclusive prefix
@@ -242,9 +245,21 @@ scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
   const int64_t row0 = static_cast<int64_t>(tile) * kScanTile +
                        static_cast<int64_t>(threadIdx.x) * kScanItems;
   int32_t c[kScanItems];
+  if (row0 + kScanItems <= n_rows) {
+    const int4* src = reinterpret_cast<const int4*>(cnt + row0);
 #pragma unroll
-  for (int k = 0; k < kScanItems; ++k)
-    c[k] = row0 + k < n_rows ? cnt[row0 + k] : 0;
+    for (int v = 0; v < kScanItems / 4; ++v) {
+      const int4 x = src[v];
+      c[4 * v] = x.x;
+      c[4 * v + 1] = x.y;
+      c[4 * v + 2] = x.z;
+      c[4 * v + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k)
+      c[k] = row0 + k < n_rows ? cnt[row0 + k] : 0;
+  }
   RowPair mine = {0, kNegInf};
 #pragma unroll
   for (int k = 0; k < kScanItems; ++k)
@@ -345,8 +360,9 @@ __device__ __forceinline__ bool row_bad(int64_t h, int32_t cnt,
 // The wide layout: a warp a run of kRunRows rows.  Only a row's own keys
 // land in it (a key that walks is dropped), at first - h * S + rank while
 // below S.  The run's records are one stretch of `rec`, read 32 at a
-// time; each is ranked by index among its row's, by shuffles.  The rows
-// are staged in shared memory and written whole, 16 bytes a lane.
+// time, their indices kept in shared memory; each is ranked by index
+// among its row's.  The rows are staged in shared memory and written
+// whole, 16 bytes a lane.
 __global__ void __launch_bounds__(kThreads)
 wide_rows_kernel(const int2* __restrict__ pair, const int4* __restrict__ rec,
                  int64_t n_rows, int max_walk, int32_t* __restrict__ table,
@@ -354,6 +370,7 @@ wide_rows_kernel(const int2* __restrict__ pair, const int4* __restrict__ rec,
   constexpr int S = kWideSlots;
   constexpr int W = 3 * kWideSlots;
   __shared__ __align__(16) int32_t buf[kWarps][kRunRows * W];
+  __shared__ int32_t idx_buf[kWarps][kRunIdx];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t h0 =
@@ -374,44 +391,43 @@ wide_rows_kernel(const int2* __restrict__ pair, const int4* __restrict__ rec,
                        max_walk);
     const int32_t seg0 = __shfl_sync(kFullMask, start, 0);
     const int32_t total = __shfl_sync(kFullMask, start, rows) - seg0;
-    int32_t* stage = buf[warp];
-    for (int w = lane; w < rows * W; w += 32)
-      stage[w] = w % W < 2 * S ? -1 : 0;
+    int4* stage4 = reinterpret_cast<int4*>(buf[warp]);
+    for (int v = lane; v < rows * (W / 4); v += 32) {
+      const int32_t word = v % (W / 4) < 2 * S / 4 ? -1 : 0;
+      stage4[v] = make_int4(word, word, word, word);
+    }
+    int32_t* idx = idx_buf[warp];
+    const bool in_smem = total <= kRunIdx;
+    if (in_smem)
+      for (int q = lane; q < total; q += 32) idx[q] = rec[seg0 + q].x;
     __syncwarp();
+    int32_t* stage = buf[warp];
     for (int32_t c0 = 0; c0 < total; c0 += 32) {
       const int32_t q = c0 + lane;           // in the run
-      const bool have = q < total;
-      const int4 r = have ? rec[seg0 + q] : make_int4(INT_MAX, 0, 0, 0);
       // its row: the last of the run's rows that starts at or before it
       int my_row = 0;
       for (int j = 1; j < rows; ++j)
         my_row += __shfl_sync(kFullMask, start, j) - seg0 <= q;
       const int32_t rs = __shfl_sync(kFullMask, start, my_row) - seg0;
       const int32_t re = __shfl_sync(kFullMask, end, my_row) - seg0;
-      int32_t rank = 0;
-      for (int32_t k0 = 0; k0 < total; k0 += 32) {
-        const int32_t other =
-            k0 == c0 ? r.x
-                     : (k0 + lane < total ? rec[seg0 + k0 + lane].x
-                                          : INT_MAX);
-        const int m = min(32, total - k0);
-        for (int t = 0; t < m; ++t) {
-          const int32_t o = __shfl_sync(kFullMask, other, t);
-          rank += k0 + t >= rs && k0 + t < re && o < r.x;
+      const int32_t slot0 = __shfl_sync(kFullMask, base, my_row);
+      if (q < total) {
+        const int4 r = rec[seg0 + q];
+        int32_t rank = 0;
+        for (int32_t t = rs; t < re; ++t)
+          rank += (in_smem ? idx[t] : rec[seg0 + t].x) < r.x;
+        const int32_t slot = slot0 + rank;
+        if (slot < S) {
+          int32_t* row = stage + my_row * W;
+          row[slot] = r.y;
+          row[S + slot] = r.z;
+          row[2 * S + slot] = r.w;
         }
-      }
-      const int32_t slot = __shfl_sync(kFullMask, base, my_row) + rank;
-      if (have && slot < S) {
-        int32_t* row = stage + my_row * W;
-        row[slot] = r.y;
-        row[S + slot] = r.z;
-        row[2 * S + slot] = r.w;
       }
     }
     __syncwarp();
-    const int4* src = reinterpret_cast<const int4*>(stage);
     int4* dst = reinterpret_cast<int4*>(table + h0 * W);
-    for (int v = lane; v < rows * W / 4; v += 32) dst[v] = src[v];
+    for (int v = lane; v < rows * (W / 4); v += 32) dst[v] = stage4[v];
   }
   if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
 }
@@ -434,40 +450,75 @@ rank_kernel(const int4* __restrict__ rec, const int2* __restrict__ pair,
   sorted[start + rank] = r;
 }
 
-// The 8-slot layout, then: a thread a slot p of row h.  The walkers' run
-// [h * S, F) holds sorted index p - C[h - 1]; the home's own run
-// [first, first + cnt) holds start + (p - first).
+// The 8-slot layout, then: a warp a run of kSlotRunRows rows, a lane a
+// slot p of row h in each of its rounds.  The walkers' run [h * S, F)
+// holds stable index p - C[h - 1]; the home's own run [first, first +
+// cnt) holds start + (p - first).  Each lane finds its rounds' indices,
+// then loads their records, then writes them.
 __global__ void __launch_bounds__(kThreads)
 slot_rows_kernel(const int2* __restrict__ pair,
-                 const int4* __restrict__ sorted, int64_t n_rows, int slots,
+                 const int4* __restrict__ sorted, int64_t n_rows,
                  int max_walk, int32_t* __restrict__ table,
                  uint8_t* __restrict__ bad) {
-  const int64_t cap = n_rows * slots;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads +
-                    threadIdx.x;
+  constexpr int S = kBucketSlots;
+  constexpr int kRounds = kSlotRunRows * S / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t h0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kSlotRunRows;
   bool is_bad = false;
-  if (p < cap) {
-    const int64_t h = p / slots;
-    const int64_t s = p - h * slots;
-    const int2 cur = pair[h];
-    const int2 prev = h > 0 ? pair[h - 1] : make_int2(0, 0);
+  if (h0 < n_rows) {
+    const int rows =
+        static_cast<int>(min(int64_t{kSlotRunRows}, n_rows - h0));
+    // lane j < rows: row h0 + j's start, count, first slot, walkers' end
+    const int64_t h = h0 + lane;
+    int2 cur = make_int2(0, 0);
+    int2 prev = make_int2(0, 0);
+    if (lane < rows) {
+      cur = pair[h];
+      if (h > 0) prev = pair[h - 1];
+    }
     const int32_t start = prev.x;
     const int32_t cnt = cur.x - start;
-    const int64_t first = start + cur.y;
-    const int64_t walkers_end = h > 0 ? int64_t{start} + prev.y : 0;
-    int64_t at = -1;
-    if (p < walkers_end)
-      at = p - prev.y;
-    else if (p >= first && p < first + cnt)
-      at = start + (p - first);
-    int4 r = make_int4(0, -1, -1, 0);
-    if (at >= 0) r = sorted[at];
-    int32_t* row = table + h * 3 * slots + s;
-    row[0] = r.y;
-    row[slots] = r.z;
-    row[2 * slots] = r.w;
-    is_bad = s == 0 && row_bad(h, cnt, static_cast<int32_t>(first), cap,
-                               slots, max_walk);
+    const int32_t first = start + cur.y;
+    const int32_t walkers_end = h > 0 ? start + prev.y : 0;
+    const int32_t c_prev = prev.y;
+    if (lane < rows)
+      is_bad = row_bad(h, cnt, first, n_rows * S, S, max_walk);
+    int32_t at[kRounds];
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const int u = k * 32 + lane;
+      const int r = u / S;
+      const int64_t p = (h0 + r) * S + (u - r * S);
+      const int32_t st = __shfl_sync(kFullMask, start, r);
+      const int32_t cn = __shfl_sync(kFullMask, cnt, r);
+      const int32_t fi = __shfl_sync(kFullMask, first, r);
+      const int32_t we = __shfl_sync(kFullMask, walkers_end, r);
+      const int32_t cp = __shfl_sync(kFullMask, c_prev, r);
+      at[k] = -1;
+      if (r < rows) {
+        if (p < we)
+          at[k] = static_cast<int32_t>(p - cp);
+        else if (p >= fi && p < fi + cn)
+          at[k] = st + static_cast<int32_t>(p - fi);
+      }
+    }
+    int4 src[kRounds];
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k)
+      src[k] = at[k] >= 0 ? sorted[at[k]] : make_int4(0, -1, -1, 0);
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const int u = k * 32 + lane;
+      const int r = u / S;
+      if (r < rows) {
+        int32_t* row = table + (h0 + r) * 3 * S + (u - r * S);
+        row[0] = src[k].y;
+        row[S] = src[k].z;
+        row[2 * S] = src[k].w;
+      }
+    }
   }
   if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
 }
@@ -482,8 +533,9 @@ unsigned blocks_for(int64_t n, int64_t per_block) {
 // power of two, n_rows * slots + n < 2^31; scratch: scratch_bytes bytes of
 // device memory (ops/table_build.scratch_bytes), 16-byte aligned; table:
 // (n_rows, 3 * slots) int32, written whole; bad: one byte, written: 1 when
-// a real key walks max_walk rows or more or wraps, else 0.  The wide pass
-// (keep_walkers 0) takes 24 slots a row.
+// a real key walks max_walk rows or more or wraps, else 0.  Slots and
+// keep_walkers are 24 and 0 (the wide layout) or 8 and 1 (the 8-slot
+// layout).
 extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
                                const int32_t* values, int64_t n,
                                int64_t n_rows, uint32_t salt, int32_t slots,
@@ -491,7 +543,7 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
                                void* scratch, int64_t scratch_bytes,
                                int32_t* table, uint8_t* bad, void* stream) {
   if (n < 0 || n_rows < 1 || (n_rows & (n_rows - 1)) || slots < 1 ||
-      (!keep_walkers && slots != kWideSlots) ||
+      slots != (keep_walkers ? kBucketSlots : kWideSlots) ||
       n_rows * slots + n >= (int64_t{1} << 31) ||
       reinterpret_cast<uintptr_t>(scratch) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -534,9 +586,9 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
       if ((err = cudaGetLastError()) != cudaSuccess)
         return static_cast<int>(err);
     }
-    slot_rows_kernel<<<blocks_for(n_rows * slots, kThreads), kThreads, 0,
-                       st>>>(s.pair, s.sorted, n_rows, slots, max_walk, table,
-                             bad);
+    slot_rows_kernel<<<blocks_for(n_rows, kWarps * kSlotRunRows), kThreads,
+                       0, st>>>(s.pair, s.sorted, n_rows, max_walk, table,
+                                bad);
   }
   return static_cast<int>(cudaGetLastError());
 }

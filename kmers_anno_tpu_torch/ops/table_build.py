@@ -33,7 +33,7 @@ from .hashtable import BUCKET, MAX_DEVICE_PROBES
 from .widetable import SLOTS
 
 EMPTY_KEY = -1          # EMPTY's int32 bits
-SCAN_TILE = 2048        # rows a block of the kernel's scan (kScanTile)
+SCAN_TILE = 8192        # rows a block of the kernel's scan (kScanTile)
 
 
 class Layout(NamedTuple):
