@@ -85,7 +85,7 @@ namespace {
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 constexpr int kThreads = 256;            // threads a block, every pass
 constexpr int kWarps = kThreads / 32;    // rows a block of the wide pass
-constexpr int kScanItems = 32;           // rows a thread of the scan
+constexpr int kScanItems = 16;           // rows a thread of the scan
 // rows a tile of the scan: ops/table_build.SCAN_TILE
 constexpr int kScanTile = kThreads * kScanItems;
 constexpr int kWideSlots = 24;           // the wide layout's slots a row
@@ -94,8 +94,10 @@ constexpr int kRunIdx = 128;             // ... their indices in shared memory
 constexpr int kBucketSlots = 8;          // the 8-slot layout's slots a row
 constexpr int kSlotRunRows = 32;         // rows a warp of the 8-slot pass
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr int kAggregate = 1;            // a tile's flag: its own pair
-constexpr int kPrefix = 2;               // ... and its inclusive prefix
+// a tile's status word: flag << 62 | sum << 31 | max (both in [0, 2^31))
+constexpr unsigned long long kAggregate = 1;   // its own pair
+constexpr unsigned long long kPrefix = 2;      // its inclusive prefix
+constexpr unsigned long long kField = 0x7FFFFFFFull;
 constexpr long long kNegInf = LLONG_MIN / 4;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -129,17 +131,15 @@ __device__ __forceinline__ RowPair shfl_up(RowPair v, int d) {
 // The scratch the wrapper allocates (ops/table_build.scratch_bytes), in
 // order, each part from a 16-byte boundary.
 struct Scratch {
-  int32_t* cnt;          // rows: real keys a home       } zeroed
-  int32_t* flag;         // tiles: the scan's flags      } by the
-  int32_t* ticket;       // 1: the scan's next tile      } zero pass
-  longlong2* agg;        // tiles: each tile's own pair
-  longlong2* incl;       // tiles: each tile's inclusive prefix
-  int2* pair;            // rows: (start[h + 1], C[h])
-  int32_t* arrival;      // n: each real key's arrival slot
-  int4* rec;             // n: (index, lo, hi, payload) grouped by home
-  int4* sorted;          // n, 8-slot layout only: the stable order
-  int64_t zero_bytes;    // the zeroed span from cnt
-  int64_t bytes;         // the whole
+  int32_t* cnt;                // rows: real keys a home   } zeroed
+  unsigned long long* status;  // tiles: the scan's words  } by the
+  int32_t* ticket;             // 1: the scan's next tile  } zero pass
+  int2* pair;                  // rows: (start[h + 1], C[h])
+  int32_t* arrival;            // n: each real key's arrival slot
+  int4* rec;                   // n: (index, lo, hi, payload) by home
+  int4* sorted;                // n, 8-slot layout only: the stable order
+  int64_t zero_bytes;          // the zeroed span from cnt
+  int64_t bytes;               // the whole
 };
 
 __host__ __device__ inline int64_t align16(int64_t b) {
@@ -149,15 +149,12 @@ __host__ __device__ inline int64_t align16(int64_t b) {
 Scratch carve(char* base, int64_t n, int64_t n_rows, bool keep_walkers) {
   const int64_t tiles = (n_rows + kScanTile - 1) / kScanTile;
   Scratch s;
-  int64_t at = 0;
   s.cnt = reinterpret_cast<int32_t*>(base);
-  s.flag = s.cnt + n_rows;
-  s.ticket = s.flag + tiles;
-  at = s.zero_bytes = align16(4 * (n_rows + tiles + 1));
-  s.agg = reinterpret_cast<longlong2*>(base + at);
-  at += 16 * tiles;
-  s.incl = reinterpret_cast<longlong2*>(base + at);
-  at += 16 * tiles;
+  int64_t at = align16(4 * n_rows);
+  s.status = reinterpret_cast<unsigned long long*>(base + at);
+  at += 8 * tiles;
+  s.ticket = reinterpret_cast<int32_t*>(base + at);
+  at = s.zero_bytes = align16(at + 4);
   s.pair = reinterpret_cast<int2*>(base + at);
   at += align16(8 * n_rows);
   s.arrival = reinterpret_cast<int32_t*>(base + at);
@@ -191,27 +188,32 @@ count_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
   arrival[i] = atomicAdd(cnt + home_of(l, __ldg(hi + i), salt, mask), 1);
 }
 
-// The pairs of the 32 tiles tile - 32 * step - 1 - lane before a tile,
-// combined in tile order up to the nearest one whose inclusive prefix is
-// out (kPrefix); lane 0 gets the result, and `done` says whether a prefix
-// was reached.  A lane spins until its tile has published.
-__device__ __forceinline__ RowPair look_back(int tile_top, int lane,
-                                             const int32_t* flag,
-                                             const longlong2* agg,
-                                             const longlong2* incl,
+__device__ __forceinline__ void publish(unsigned long long* status,
+                                        unsigned long long flag,
+                                        RowPair v) {
+  *reinterpret_cast<volatile unsigned long long*>(status) =
+      flag << 62 | static_cast<unsigned long long>(v.sum) << 31 |
+      static_cast<unsigned long long>(v.max);
+}
+
+// The pairs of the 32 tiles top - lane before a tile, combined in tile
+// order up to the nearest one whose inclusive prefix is out (kPrefix);
+// lane 0 gets the result, and `done` says whether a prefix was reached.
+// A lane spins until its tile has published; flag and pair come in one
+// 64-bit word, so no fence is needed.
+__device__ __forceinline__ RowPair look_back(int top, int lane,
+                                             const unsigned long long* status,
                                              bool* done) {
-  const int j = tile_top - lane;
-  int f = kPrefix;                  // before tile 0: the identity
-  RowPair v = {0, kNegInf};
+  const int j = top - lane;
+  unsigned long long w = kPrefix << 62;   // before tile 0: never reached
   if (j >= 0) {
     do {
-      f = *reinterpret_cast<const volatile int32_t*>(flag + j);
-    } while (f == 0);
-    __threadfence();
-    const longlong2 w = __ldcg(f == kPrefix ? incl + j : agg + j);
-    v = {w.x, w.y};
+      w = *reinterpret_cast<const volatile unsigned long long*>(status + j);
+    } while ((w >> 62) == 0);
   }
-  const unsigned prefixed = __ballot_sync(kFullMask, f == kPrefix);
+  RowPair v = {static_cast<long long>(w >> 31 & kField),
+               static_cast<long long>(w & kField)};
+  const unsigned prefixed = __ballot_sync(kFullMask, (w >> 62) == kPrefix);
   *done = prefixed != 0;
   // lanes past the nearest prefixed tile add nothing
   if (prefixed && lane > __ffs(prefixed) - 1) v = {0, kNegInf};
@@ -228,11 +230,13 @@ __device__ __forceinline__ RowPair look_back(int tile_top, int lane,
 // Each row's inclusive pair (start[h + 1], C[h]).  Tiles are taken in the
 // order blocks start (a ticket), so a block waits only on tiles that
 // running or finished blocks hold; its first warp looks back 32 tiles at
-// a time.
+// a time.  A tile's counts come in, and its pairs go out, through shared
+// memory, so that both are coalesced.
 __global__ void __launch_bounds__(kThreads)
 scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
-            int32_t* flag, int32_t* ticket, longlong2* agg, longlong2* incl,
+            unsigned long long* status, int32_t* ticket,
             int2* __restrict__ pair) {
+  __shared__ __align__(16) int2 stage[kScanTile];
   __shared__ int tile_sh;
   __shared__ RowPair warp_tot[kWarps];
   __shared__ RowPair tile_total;
@@ -242,24 +246,16 @@ scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
   if (threadIdx.x == 0) tile_sh = atomicAdd(ticket, 1);
   __syncthreads();
   const int tile = tile_sh;
-  const int64_t row0 = static_cast<int64_t>(tile) * kScanTile +
-                       static_cast<int64_t>(threadIdx.x) * kScanItems;
+  const int64_t tile_row = static_cast<int64_t>(tile) * kScanTile;
+  int32_t* stage_c = reinterpret_cast<int32_t*>(stage);
+  for (int k = threadIdx.x; k < kScanTile; k += kThreads)
+    stage_c[k] = tile_row + k < n_rows ? cnt[tile_row + k] : 0;
+  __syncthreads();
+  const int r0 = threadIdx.x * kScanItems;
+  const int64_t row0 = tile_row + r0;
   int32_t c[kScanItems];
-  if (row0 + kScanItems <= n_rows) {
-    const int4* src = reinterpret_cast<const int4*>(cnt + row0);
 #pragma unroll
-    for (int v = 0; v < kScanItems / 4; ++v) {
-      const int4 x = src[v];
-      c[4 * v] = x.x;
-      c[4 * v + 1] = x.y;
-      c[4 * v + 2] = x.z;
-      c[4 * v + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k)
-      c[k] = row0 + k < n_rows ? cnt[row0 + k] : 0;
-  }
+  for (int k = 0; k < kScanItems; ++k) c[k] = stage_c[r0 + k];
   RowPair mine = {0, kNegInf};
 #pragma unroll
   for (int k = 0; k < kScanItems; ++k)
@@ -285,13 +281,7 @@ scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
       total = combine(total, t);
     }
     tile_total = total;
-    if (tile == 0) {
-      incl[0] = make_longlong2(total.sum, total.max);
-    } else {
-      agg[tile] = make_longlong2(total.sum, total.max);
-    }
-    __threadfence();
-    atomicExch(flag + tile, tile == 0 ? kPrefix : kAggregate);
+    publish(status + tile, tile == 0 ? kPrefix : kAggregate, total);
   }
   __syncthreads();
   if (warp == 0) {
@@ -299,18 +289,14 @@ scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
     RowPair prior = {0, kNegInf};
     bool done = tile == 0;
     for (int top = tile - 1; !done; top -= 32) {
-      const RowPair window = look_back(top, lane, flag, agg, incl, &done);
+      const RowPair window = look_back(top, lane, status, &done);
       const RowPair w0 = {__shfl_sync(kFullMask, window.sum, 0),
                           __shfl_sync(kFullMask, window.max, 0)};
       prior = combine(w0, prior);
     }
     if (lane == 0) {
-      if (tile > 0) {
-        const RowPair with = combine(prior, tile_total);
-        incl[tile] = make_longlong2(with.sum, with.max);
-        __threadfence();
-        atomicExch(flag + tile, kPrefix);
-      }
+      if (tile > 0) publish(status + tile, kPrefix,
+                            combine(prior, tile_total));
       tile_before = prior;
     }
   }
@@ -318,12 +304,13 @@ scan_kernel(const int32_t* __restrict__ cnt, int64_t n_rows, int slots,
   RowPair run = combine(combine(tile_before, warp_tot[warp]), before);
 #pragma unroll
   for (int k = 0; k < kScanItems; ++k) {
-    if (row0 + k < n_rows) {
-      run = combine(run, {c[k], (row0 + k) * slots});
-      pair[row0 + k] = make_int2(static_cast<int32_t>(run.sum),
-                                 static_cast<int32_t>(run.max));
-    }
+    run = combine(run, {c[k], (row0 + k) * slots});
+    stage[r0 + k] = make_int2(static_cast<int32_t>(run.sum),
+                              static_cast<int32_t>(run.max));
   }
+  __syncthreads();
+  for (int k = threadIdx.x; k < kScanTile; k += kThreads)
+    if (tile_row + k < n_rows) pair[tile_row + k] = stage[k];
 }
 
 __device__ __forceinline__ int32_t start_of(const int2* __restrict__ pair,
@@ -568,7 +555,7 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
       return static_cast<int>(err);
   }
   scan_kernel<<<blocks_for(n_rows, kScanTile), kThreads, 0, st>>>(
-      s.cnt, n_rows, slots, s.flag, s.ticket, s.agg, s.incl, s.pair);
+      s.cnt, n_rows, slots, s.status, s.ticket, s.pair);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     scatter_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(

@@ -33,7 +33,7 @@ from .hashtable import BUCKET, MAX_DEVICE_PROBES
 from .widetable import SLOTS
 
 EMPTY_KEY = -1          # EMPTY's int32 bits
-SCAN_TILE = 8192        # rows a block of the kernel's scan (kScanTile)
+SCAN_TILE = 4096        # rows a block of the kernel's scan (kScanTile)
 
 
 class Layout(NamedTuple):
@@ -101,12 +101,12 @@ def _align16(n_bytes: int) -> int:
 
 def scratch_bytes(n: int, n_rows: int, layout: Layout) -> int:
     """Device scratch of one kernel build, as ``carve`` in
-    ``csrc/table_build.cu`` lays it out: row counts, the scan's flags and
-    ticket (zeroed); the scan's tile pairs (16 B twice a tile); each row's
-    pair (8 B); each key's arrival slot (4 B) and record (16 B); for the
-    8-slot layout the stable order (16 B a key)."""
+    ``csrc/table_build.cu`` lays it out: row counts, the scan's status
+    words (8 B a tile) and ticket (zeroed); each row's pair (8 B); each
+    key's arrival slot (4 B) and record (16 B); for the 8-slot layout the
+    stable order (16 B a key)."""
     tiles = -(-n_rows // SCAN_TILE)
-    return (_align16(4 * (n_rows + tiles + 1)) + 32 * tiles
+    return (_align16(_align16(4 * n_rows) + 8 * tiles + 4)
             + _align16(8 * n_rows) + _align16(4 * n)
             + 16 * n * (2 if layout.keep_walkers else 1))
 
