@@ -1457,13 +1457,17 @@ launch_table_build.reps = 4
 
 def table_build_args(layout, keys, n_rows, salt) -> tuple:
     """``launch_table_build``'s arguments for one key set: its layout, the
-    scratch (room for either tree's build) and the outputs."""
+    scratch and the outputs.  The scratch has room for the builds of PR
+    16's earlier designs too (a 16-byte bucket entry for each slot of a
+    row's ``max_walk``, and 64 bytes a key), so that ``--compare`` can
+    time them."""
     from kmers_anno_tpu_torch.ops.table_build import scratch_bytes
 
     _, lay = table_build_of(layout)
     n = keys[0].numel()
     dev = keys[0].device
-    room = max(scratch_bytes(n, n_rows, lay), 8 * (-(-n // 1024)) + 16 + 4 * n)
+    room = max(scratch_bytes(n, n_rows, lay),
+               16 * n_rows * lay.slots * lay.max_walk + 64 * n + (4 << 20))
     return (*keys, n_rows, lay, salt,
             torch.empty(room, dtype=torch.uint8, device=dev),
             torch.empty((n_rows, 3 * lay.slots), dtype=torch.int32,
@@ -1488,6 +1492,33 @@ def check_repeats(layout, args, want) -> int:
                 and bool(got[1]) == bool(want[1]),
                 f"a repeated {layout} build wrote another table")
     return 5
+
+
+def table_build_passes(args) -> dict:
+    """Each pass of the build's device time, mean ms a build, from a
+    ``torch.profiler`` trace (device activity only) of two passes of
+    ``launch_table_build`` over ``args``; empty when the trace holds no
+    device time."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmers_anno_tpu_torch import kernels
+
+    lib = kernels.lib()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            for a in args:
+                launch_table_build(lib, *a)
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(")[0].split("::")[-1]
+            by_name[name] += e.time_range.elapsed_us() / 1e3 / (2 * len(args))
+    return dict(by_name)
 
 
 def table_build_bound(keys, table, ms) -> dict:
@@ -1538,12 +1569,13 @@ def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
                 f"launch_table_build's {layout} tables differ from the "
                 f"wrapper's")
         repeats = check_repeats(layout, args[0], (got[0][4], got[0][3]))
+        passes = table_build_passes(args)
         ms = statistics.median(g[0] for g in got)
         row = with_launch(dict(
             ms=ms, plain_ms=statistics.median(g[1] for g in got),
             max_abs_err=max(g[2] for g in got),
             keys=statistics.median(len(s[0]) for s in singles),
-            padded_keys=n_pad, rows=rows[layout],
+            padded_keys=n_pad, rows=rows[layout], passes_ms=passes,
             **table_build_bound(sets[0], got[0][4], ms)), alone)
         measured[names[layout]] = row
         cases[f"the realistic singleton sets, {layout}"] = (
@@ -1560,8 +1592,10 @@ def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
               f"{row['bound_bytes']} bytes: keys read once, the table "
               f"written once; PR 15's bound with a sort's pass "
               f"{row['pr15_bound_ms']:.4f} ms), share "
-              f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}",
-              flush=True)
+              f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}; "
+              f"device ms a build by pass (torch.profiler): " + (", ".join(
+                  f"{k} {v:.4f}" for k, v in passes.items())
+                  or "not measured"), flush=True)
     for name in TABLE_BUILD_EDGES:
         layout, _, arrays, n_rows, salt, want_bad = edge_keys(name)
         check_table_build(name, layout, int32_tensors(arrays, dev), n_rows,

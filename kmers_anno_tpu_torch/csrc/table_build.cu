@@ -38,43 +38,46 @@
 //
 // One entry point, kan_table_build, five passes (six for the 8-slot
 // layout), no library call:
-//   zero   the row counts, the scan's tile flags and ticket, and `bad`;
+//   zero   the row counts, the scan's status words and ticket, `bad`;
 //   count  a thread a key: its home, atomicAdd(&cnt[home], 1), the old
 //          value kept as the key's arrival slot;
-//   scan   a block a tile of 2,048 rows, one pass with a decoupled
+//   scan   a block a tile of 4,096 rows, one pass with a decoupled
 //          look-back over the pair (sum, max) under
 //          (s1, m1) . (s2, m2) = (s1 + s2, max(m1, m2 - s1)), each row's
 //          element (cnt[h], h * S): each row's inclusive (start[h + 1],
-//          C[h]) as an int2;
+//          C[h]) as an int2.  A tile publishes its flag and pair in one
+//          64-bit word, so the look-back (32 tiles a step, a lane a tile)
+//          needs no fence; counts come in and pairs go out through shared
+//          memory, coalesced;
 //   scatter a thread a key: the record (index, lo, hi, payload) at
 //          start[home] + arrival, one 16-byte store;
-//   wide   a warp a row: its records ranked by index with shuffles (a
-//          register sort in one round for up to 32 keys, a loop of rounds
-//          past that), the row staged in shared memory with EMPTY and 0
-//          where no key lands and written whole, 72 words, once;
+//   wide   a warp a run of 8 rows: the run's records are one stretch,
+//          read 32 at a time, each ranked by index among its row's (the
+//          indices in shared memory), the rows staged in shared memory
+//          with EMPTY and 0 where no key lands and written whole, once;
 //   8-slot rank (a thread a record: its rank by index among its home's
 //          records, the record stored at start + rank, the stable order)
-//          then rows (a thread a slot: the key of the walkers' run or of
-//          the home's own run read from the stable order, EMPTY and 0 past
-//          them; a warp writes four whole rows).
+//          then rows (a warp a run of 32 rows, a lane a slot in each of 8
+//          rounds: the key of the walkers' run or of the home's own run
+//          read from the stable order, EMPTY and 0 past them).
 // Atomics arrive in any order; the rank by index makes every launch write
 // the same table.  A block with a bad row stores 1 into `bad`, read once a
-// build.  A segment of L keys in one row costs O(L^2) compares (L / 32
-// warp rounds of L shuffles, or L loads a thread in the 8-slot rank): the
-// realistic sets hold 7 keys a wide row on average, and only forced bad
-// cases reach a few hundred.
+// build.  A row of L keys costs O(L^2) compares: the realistic sets hold
+// 7 keys a wide row on average, and only forced bad cases reach a few
+// hundred.
 //
 // What bounds it on this card: bytes.  A build of n keys into a table of
 // B bytes must read each key's 12 bytes once and write B: on the
 // projection's close tables (914,109 keys padded to 1,048,576; 131,072
 // rows of 288 bytes) 50.3 MB, 0.0150 ms at 3.35 TB/s; the 8-slot table
-// (1,048,576 rows of 96 bytes) 113.2 MB, 0.0338 ms.  The passes move more:
-// keys read twice, the arrival slots (4 B a key) and records (16 B a key)
-// written and read, the rows' counts and pairs (L2-resident at 131,072
-// rows), and for the 8-slot layout the stable order (16 B a key) once
-// more.  The parent design (PR 15) sorted the homes with torch.sort, filled
-// the table with torch.full before placing keys, and read each key's words
-// through the sort's order; its numbers and this design's are in PERF.md.
+// (1,048,576 rows of 96 bytes) 113.2 MB, 0.0338 ms.  The passes move
+// more, and three of their accesses a key land at random: the count's
+// atomic, the scatter's read of its row's start and its record's store
+// (the counts, pairs and records stay in the 50 MB L2 at these sizes).
+// Those two passes take 0.06 of the wide build's 0.10 ms (PERF.md,
+// Findings, with the designs that lost: PR 15's torch.sort, fill and
+// place; groups of rows built in shared memory; a bucket a row filled by
+// the count pass).
 
 #include <cstdint>
 #include <climits>
