@@ -215,7 +215,8 @@ its cases alone, and prints the ``dna_probe`` row in place of the result
 lines.  ``--tables-only`` does the same for the table build: the
 realistic projection workload, one fused annotation of it, the
 ``table_build`` phase and ``--compare`` on its cases (each tree's whole
-device build on the realistic singleton sets).  ``--keys-only`` does the same for the key lookup: its checks, the
+device build on the realistic singleton sets).  ``--keys-only`` does the
+same for the key lookup: its checks, the
 big-table cell's table as 2x2 shards, ``measure_probe_keys`` on the
 first two mesh genomes and ``--compare`` on its cases.
 
@@ -1305,9 +1306,9 @@ TABLE_BUILD_EDGES = {
     "bucket_odd_count": ("bucketed", 512, {3: 9}, 1000, False, "none"),
 }
 KEY_BYTES = 12          # a key's lo, hi and payload words
-# the bound before PR 16 also counted a sort's pass (a 4-byte home read,
-# the sorted home and its int64 index written): printed beside the bound
-PR15_SORT_PASS_BYTES = 16
+# the sort-based build's bound also counted a sort's pass (a 4-byte home
+# read, the sorted home and its int64 index written): printed beside
+SORT_PASS_BYTES = 16
 TABLE_LIBRARY_NOTE = "none: no single PyTorch call builds a hash table"
 ROTATING_GENOMES = 4
 POOL_EXTRA = 4          # the pool: the 10 close genomes and 4 copies
@@ -1413,10 +1414,10 @@ def launch_table_build(lib, lo, hi, val, n_rows, lay, salt, scratch, table,
                        bad):
     """A whole table build through a kernel library (uncounted): this
     tree's ``kan_table_build`` into ``table`` and ``bad`` (a 0-dim bool);
-    on a build without it (PR 15's), that build's whole device work as its
-    wrapper ran it: the table filled with EMPTY keys and 0 payloads,
-    ``kan_table_homes``, the stable ``torch.sort`` of the homes,
-    ``kan_table_place``.  ``scratch`` holds either build's scratch.
+    on a build without it (the sort-based build), that build's whole
+    device work as its wrapper ran it: the table filled with EMPTY keys and
+    0 payloads, ``kan_table_homes``, the stable ``torch.sort`` of the
+    homes, ``kan_table_place``.  ``scratch`` holds either build's scratch.
     Returns (table, bad)."""
     stream = torch.cuda.current_stream().cuda_stream
     n = lo.numel()
@@ -1430,7 +1431,7 @@ def launch_table_build(lib, lo, hi, val, n_rows, lay, salt, scratch, table,
         return table, bad
     table.fill_(-1)
     table[:, 2 * lay.slots:] = 0
-    tiles = -(-n // 1024)                    # PR 15's place tile
+    tiles = -(-n // 1024)                    # its place pass's tile
     tile_max = scratch[: 8 * tiles].view(torch.int64)
     flag = scratch[8 * tiles: 8 * tiles + 4].view(torch.int32)
     home = scratch[8 * tiles + 16: 8 * tiles + 16 + 4 * n].view(torch.int32)
@@ -1449,18 +1450,18 @@ def launch_table_build(lib, lo, hi, val, n_rows, lay, salt, scratch, table,
 
 
 launch_table_build.entry = ("kan_table_build", "kan_table_place")
-# passes of ten builds a launch_ms: PR 15's build is some 12 launches, and
-# 20 passes would fill the card's queue of pending launches while the spin
-# holds the stream
+# passes of ten builds a launch_ms: the sort-based build is some 12
+# launches, and 20 passes would fill the card's queue of pending launches
+# while the spin holds the stream
 launch_table_build.reps = 4
 
 
 def table_build_args(layout, keys, n_rows, salt) -> tuple:
     """``launch_table_build``'s arguments for one key set: its layout, the
-    scratch and the outputs.  The scratch has room for the builds of PR
-    16's earlier designs too (a 16-byte bucket entry for each slot of a
-    row's ``max_walk``, and 64 bytes a key), so that ``--compare`` can
-    time them."""
+    scratch and the outputs.  The scratch has room for the kernel's earlier
+    designs too (a 16-byte bucket entry for each slot of a row's
+    ``max_walk``, and 64 bytes a key), so that ``--compare`` can time
+    them."""
     from kmers_anno_tpu_torch.ops.table_build import scratch_bytes
 
     _, lay = table_build_of(layout)
@@ -1516,7 +1517,8 @@ def table_build_passes(args) -> dict:
     by_name = defaultdict(float)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            name = e.name.split("(")[0].split("::")[-1]
+            name = e.name.removeprefix("void ").removeprefix(
+                "(anonymous namespace)::").split("(")[0].split("<")[0]
             by_name[name] += e.time_range.elapsed_us() / 1e3 / (2 * len(args))
     return dict(by_name)
 
@@ -1524,13 +1526,13 @@ def table_build_passes(args) -> dict:
 def table_build_bound(keys, table, ms) -> dict:
     """A build's bound: each key's 12 bytes read once and the table
     written once, whatever builds it; operations: a key's hash
-    (``HASH_KEY_OPS``).  ``pr15_bound_ms`` is the bound as PR 15 defined
-    it, with a sort's pass (``PR15_SORT_PASS_BYTES`` a key) added."""
+    (``HASH_KEY_OPS``).  ``sort_bound_ms`` is the sort-based build's bound,
+    with a sort's pass (``SORT_PASS_BYTES`` a key) added."""
     n = keys[0].numel()
     row = dict(bound(KEY_BYTES * n + nbytes(table), HASH_KEY_OPS * n, ms),
                library=TABLE_LIBRARY_NOTE)
-    row["pr15_bound_ms"] = bound(
-        KEY_BYTES * n + nbytes(table) + PR15_SORT_PASS_BYTES * n,
+    row["sort_bound_ms"] = bound(
+        KEY_BYTES * n + nbytes(table) + SORT_PASS_BYTES * n,
         HASH_KEY_OPS * n, ms)["bound_ms"]
     return row
 
@@ -1590,8 +1592,8 @@ def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
               f"back; plain {row['plain_ms']:.4f} ms; bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
               f"{row['bound_bytes']} bytes: keys read once, the table "
-              f"written once; PR 15's bound with a sort's pass "
-              f"{row['pr15_bound_ms']:.4f} ms), share "
+              f"written once; with a sort's pass, as the sort-based build "
+              f"counted it, {row['sort_bound_ms']:.4f} ms), share "
               f"{row['bound_share']:.3f}, alone {row['launch_share']:.3f}; "
               f"device ms a build by pass (torch.profiler): " + (", ".join(
                   f"{k} {v:.4f}" for k, v in passes.items())
@@ -2650,8 +2652,8 @@ def flat_filter(table):
 
 # the C signatures of earlier entry points, declared on a build that has
 # them so that --compare can time it: the flat ones (no filter; the
-# weighted one a launch a role block) and PR 15's table build (homes, then
-# the placement of the stably sorted homes)
+# weighted one a launch a role block) and the sort-based table build
+# (homes, then the placement of the stably sorted homes)
 EARLIER_ENTRIES = {
     "kan_apply_flat": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
     + [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int32,

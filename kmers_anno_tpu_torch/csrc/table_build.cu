@@ -75,9 +75,9 @@
 // atomic, the scatter's read of its row's start and its record's store
 // (the counts, pairs and records stay in the 50 MB L2 at these sizes).
 // Those two passes take 0.06 of the wide build's 0.10 ms (PERF.md,
-// Findings, with the designs that lost: PR 15's torch.sort, fill and
-// place; groups of rows built in shared memory; a bucket a row filled by
-// the count pass).
+// Findings, with the designs that lost: a torch.sort of the homes, a
+// fill and a place pass; groups of rows built in shared memory; a bucket
+// a row filled by the count pass).
 
 #include <cstdint>
 #include <climits>

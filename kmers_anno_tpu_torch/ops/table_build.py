@@ -17,8 +17,8 @@ walk; the 8-slot layout (the unsalted hash, ``max_walk``
 ``csrc/table_build.cu`` for CUDA tensors (``kan_table_build``: row
 counts, a scan over rows, the keys grouped by home and ranked by index,
 the table written once) and take :func:`build_table_plain`, which follows
-the reference line by line, for CPU tensors.  Tables are ``int32`` tensors of the uint32 words, as for the
-host builds (``EMPTY`` reads as -1).
+the reference line by line, for CPU tensors.  Tables are ``int32`` tensors
+of the uint32 words, as for the host builds (``EMPTY`` reads as -1).
 """
 
 from __future__ import annotations

@@ -1204,10 +1204,9 @@ def _table_build_on_card(cuda, layout, keys, n_rows, salt):
     return table, bool(bad)
 
 
-# (real keys, padded length): tile edges of PR 15's place pass (1,024
-# ranks) and of the key passes' blocks (4,096 keys), no pads, and tables
-# of 2^18 wide rows and 2^21 buckets (2,048 and 1,024 groups of rows,
-# each waiting on the groups before it)
+# (real keys, padded length): edges at 1,024 and 4,096 keys, no pads, and
+# tables of 2^18 wide rows and 2^21 buckets (64 and 512 scan tiles of
+# 4,096 rows, each waiting on the tiles before it)
 TABLE_SIZES = [(0, 64), (1, 8), (1_023, 1_023), (1_024, 1_024),
                (1_025, 2_048), (4_095, 4_095), (4_096, 4_096),
                (4_097, 8_192), (5_000, 8_192), (1_500_000, 2_097_152)]
