@@ -23,7 +23,9 @@ Each route's per-close-genome counts must equal the single-core C++ hot
 loop (``ProjectionBaseline``), and all three must give the same stats and
 features; each reports its seconds per genome (the fused route's median
 and range of five warm runs, the RLE route's of three; the host-index
-route, which builds its index on every call, its one cold run).  The
+route, which builds its index on every call, its one cold run), and
+one more warm fused genome runs with the port's tracer on, its spans
+printed as a tree (host milliseconds and attributes).  The
 last lines before the results give each phase's seconds.  Every kernel
 wrapper's launch count is set to 0 before each route and read after it.
 Last, each kernel is held against its plain version again on the inputs
@@ -44,7 +46,8 @@ buckets, pads between keys, one key, key counts off the kernel's block),
 and launched five times more on memory filled with junk, every table the
 same.  Its bound counts the keys read once and the table written once.
 The cold ``_close_set`` of the realistic cell (singletons cached) is timed
-with the device builds and with the engine's own host build in turns; a
+with the device builds and with the engine's own host build in turns,
+and run once more with the tracer on, its spans printed; a
 batch of 4 genomes, each the realistic genome with another ordered 10 of
 a pool of 14 close genomes (the 10 and copies of 4 under new ids), runs
 both ways in turns, every genome's stats and features equal to the warm
@@ -1052,36 +1055,25 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
             "contig_scan_strand": strand}, cases
 
 
-def fused_breakdown(dev, annot, new_path, olds, s_per_genome) -> None:
-    """Where one warm fused-route genome's time goes, stage by stage."""
-    from kmers_anno_tpu_torch.engine.projection import (StreamWindowIndex,
-                                                        _scan_genomes,
-                                                        _union_compact)
-    from kmers_anno_tpu_torch.genome.gto import Genome
+def print_spans(what: str, fn) -> None:
+    """Run ``fn`` with the port's tracer on and print the spans it
+    recorded as a tree: each span's host milliseconds and attributes."""
+    from kmers_anno_tpu_torch.utils import spans
 
-    genome = Genome.load(new_path)
-    cs = next(iter(annot._closeset_cache.values()))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index = StreamWindowIndex.build(genome, K, False, dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    u = _union_compact(cs.union_table, cs.union_salt, cs.union_mp, index)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    orf = index.orf_state()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    got = _scan_genomes(cs.tables, cs.salts, cs.mps, cs.pinfo, u, orf,
-                        annot._minev_for(index), annot.min_evidence, K)
-    t4 = time.perf_counter()
-    n_stored = sum(s[8] for _, s in got)
-    print(f"fused breakdown of {s_per_genome:.4f} s: stream index "
-          f"{t1 - t0:.4f} s; union probe + compaction ({u[0].numel()} hits)"
-          f" {t2 - t1:.4f} s; ORF scans {t3 - t2:.4f} s; {len(got)} "
-          f"per-genome scans with the pull of {n_stored} stored rows "
-          f"{t4 - t3:.4f} s; host replay, features and the rest "
-          f"{s_per_genome - (t4 - t0):.4f} s", flush=True)
+    spans.clear()
+    spans.enable()
+    try:
+        fn()
+    finally:
+        spans.disable()
+    depth = {}
+    print(f"spans of {what} (host ms, attributes):", flush=True)
+    for r in sorted(spans.records(), key=lambda r: r.start):
+        depth[r.id] = depth.get(r.parent, -1) + 1
+        attrs = " ".join(f"{k}={v}" for k, v in r.attrs.items())
+        print(f"  {'  ' * depth[r.id]}{r.name} "
+              f"{1e3 * (r.end - r.start):.3f} {attrs}", flush=True)
+    spans.clear()
 
 
 def busy_seconds(spans: list) -> float:
@@ -1224,7 +1216,9 @@ def run_main_path(dev, tmp: str, profile: bool,
     print(f"fused route, warm annotate_genome: {summary(times)}, stats "
           f"{want_stats}", flush=True)
     keep["projection"] = (new_path, olds, want_feats, want_stats)
-    fused_breakdown(dev, fused, new_path, olds, statistics.median(times))
+    genome = Genome.load(new_path)
+    print_spans("one warm fused genome", lambda: (
+        fused.annotate_genome(genome, olds.get), torch.cuda.synchronize()))
     if profile:
         profile_fused(fused, new_path, olds, statistics.median(times))
     routes = {"fused": dict(launches=fused_run.counts, times=times)}
@@ -1607,42 +1601,6 @@ def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
     return measured, cases
 
 
-def close_set_split(annot, singles) -> dict:
-    """Where a cold close set's seconds go with device builds, each step
-    timed alone as ``_close_set`` runs it: ``np.unique`` of the union's
-    keys, the union's host build, and the device builds (upload, padding
-    on the card, the builds, one read of their ``bad`` flags), with the
-    upload and padding also alone."""
-    from kmers_anno_tpu_torch.engine.projection import _bucket
-    from kmers_anno_tpu_torch.ops.widetable import (build_wide_table,
-                                                    build_wide_table_device,
-                                                    wide_rows_for)
-
-    t_unique, keys64 = host_seconds(lambda: np.unique(np.concatenate(
-        [(s[1].astype(np.uint64) << np.uint64(32)) | s[0].astype(np.uint64)
-         for s in singles])))
-    u_lo = (keys64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    u_hi = (keys64 >> np.uint64(32)).astype(np.uint32)
-    t_union, _ = host_seconds(lambda: build_wide_table(
-        u_lo, u_hi, np.zeros(len(u_lo), np.uint32)))
-    rows = max(wide_rows_for(_bucket(len(s[0]), 4096)) for s in singles)
-
-    def padded():
-        return [annot._padded_keys(lo, hi, peg, _bucket(len(lo), 4096))
-                for lo, hi, peg, _ in singles]
-
-    def builds():
-        bads = [build_wide_table_device(*keys, rows)[1] for keys in padded()]
-        require(not any(torch.stack(bads).tolist()),
-                "a realistic close table reported bad")
-
-    t_builds, _ = host_seconds(builds)
-    t_upload, _ = host_seconds(padded)
-    return dict(keys=sum(len(s[0]) for s in singles),
-                union_keys=len(keys64), unique_s=t_unique, union_s=t_union,
-                builds_s=t_builds, upload_s=t_upload)
-
-
 def declined(*_args):
     """A device table build that declines (reports ``bad``), so that the
     engine takes its own host build for every table: the host side of the
@@ -1709,14 +1667,10 @@ def run_table_build(dev, keep: dict) -> tuple[dict, dict, dict]:
           f"{', '.join(f'{s:.4f}' for s in cold['device'])} s, host "
           f"{', '.join(f'{s:.4f}' for s in cold['host'])} s; no host "
           f"build on the device turns", flush=True)
-    split = close_set_split(annot, singles)
-    print(f"split of a cold close set with device builds: np.unique of "
-          f"{split['keys']} keys ({split['union_keys']} distinct) "
-          f"{split['unique_s']:.4f} s, the union's host build "
-          f"{split['union_s']:.4f} s, {N_CLOSE} device builds with their "
-          f"padding, upload and bad read {split['builds_s']:.4f} s (the "
-          f"padding and upload alone {split['upload_s']:.4f} s)",
-          flush=True)
+    annot._closeset_cache.clear()
+    print_spans(f"a cold _close_set of the realistic cell ({N_CLOSE} close "
+                "genomes, singletons cached)",
+                lambda: annot._close_set(olds_list))
 
     # the rotating batch: each genome's close set an ordered 10 of 14
     pool = dict(olds)

@@ -42,6 +42,7 @@ from ..ops.encode import PROT_PAD, encode_protein
 from ..ops.kmers import pack_kmer_windows
 from ..ops.vote import split_packed_payload, weighted_vote_rows
 from ..ops.widetable import probe_wide
+from ..utils import spans
 from .protein_kmers import apply_drop_last
 from .signature import SignatureTable
 
@@ -72,12 +73,14 @@ class FlatBatch:
     ``apply_engine.py:131-160``): codes (PROT_PAD after the last protein),
     each token's protein (``n_seqs`` after the last), and which tokens
     start a kmer window inside their protein.  The stream and the protein
-    count are padded to powers of two."""
+    count are padded to powers of two.  ``request`` is the spans' request
+    id of the genome it was prepared for (``KmerApplyEngine.prepare``)."""
 
-    __slots__ = ("codes", "seg_ids", "valid", "n_seqs")
+    __slots__ = ("codes", "seg_ids", "valid", "n_seqs", "request")
 
     def __init__(self, proteins: list[str], k: int,
                  min_tokens: int = 16384, min_seqs: int = 256):
+        self.request = None
         n = len(proteins)
         total = sum(map(len, proteins))
         width = _bucket(total, min_tokens)
@@ -119,11 +122,13 @@ class RowBatch:
     """A (rows, width) padded batch of protein sequences (host side).
 
     ``idx`` maps local row -> caller protein index (batches are cut from
-    length-sorted slices, so results are scattered back)."""
+    length-sorted slices, so results are scattered back); ``request`` as
+    ``FlatBatch``'s."""
 
-    __slots__ = ("codes", "valid", "idx", "n")
+    __slots__ = ("codes", "valid", "idx", "n", "request")
 
     def __init__(self, proteins: list[str], k: int, idx: np.ndarray):
+        self.request = None
         self.idx = idx
         self.n = len(proteins)
         width = _bucket_width(max(map(len, proteins)))
@@ -173,6 +178,11 @@ def make_row_batches(proteins: list[str], k: int) -> list[RowBatch]:
     return batches
 
 
+def _batches(prepared: list[RowBatch] | FlatBatch) -> list:
+    """A prepared genome's batches: one FlatBatch, or its RowBatches."""
+    return [prepared] if isinstance(prepared, FlatBatch) else prepared
+
+
 class KmerApplyEngine:
     """Annotates proteins and genomes against a signature table
     (``apply_engine.py:268-381``) on one device.
@@ -210,40 +220,54 @@ class KmerApplyEngine:
             self.key_filter = signatures.device_key_filter(
                 device=self.device)
 
-    def _flat_step(self, batch: FlatBatch):
-        args = [torch.from_numpy(a).to(self.device)
-                for a in (batch.codes, batch.seg_ids, batch.valid)]
+    def _upload(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """A batch's host arrays copied to the device."""
+        with spans.span("apply.upload") as sp:
+            sp.set(bytes=sum(a.nbytes for a in arrays))
+            return [torch.from_numpy(a).to(self.device) for a in arrays]
+
+    def _flat_step(self, batch: FlatBatch) -> list[np.ndarray]:
+        """The batch's step, its (role, hits) read back to the host."""
+        args = self._upload(batch.codes, batch.seg_ids, batch.valid)
         kw = dict(k=self.k, max_probes=self.max_probes, n_seqs=batch.n_seqs,
                   key_filter=self.key_filter)
-        if self.weighted:
-            return apply_weighted_flat(self.table, *args, self.min_weight,
-                                       n_roles=len(self.role_ids), **kw)
-        return apply_flat(self.table, *args, self.min_hits, **kw)
+        with spans.span("apply.run"):
+            if self.weighted:
+                out = apply_weighted_flat(self.table, *args, self.min_weight,
+                                          n_roles=len(self.role_ids), **kw)
+            else:
+                out = apply_flat(self.table, *args, self.min_hits, **kw)
+            return [t.cpu().numpy() for t in out]
 
     def _row_step(self, batch: RowBatch):
-        codes = torch.from_numpy(batch.codes).to(self.device)
-        valid = torch.from_numpy(batch.valid).to(self.device)
-        if self.weighted:
-            return apply_rows_weighted(self.table, self.salt, codes, valid,
-                                       self.min_weight, k=self.k,
-                                       max_probes=self.max_probes)
-        return apply_rows(self.table, self.salt, codes, valid,
-                          self.min_hits, self.k, self.max_probes)
+        """The batch's step, launched; its (role, hits) on the device."""
+        codes, valid = self._upload(batch.codes, batch.valid)
+        with spans.span("apply.run"):
+            if self.weighted:
+                return apply_rows_weighted(self.table, self.salt, codes,
+                                           valid, self.min_weight, k=self.k,
+                                           max_probes=self.max_probes)
+            return apply_rows(self.table, self.salt, codes, valid,
+                              self.min_hits, self.k, self.max_probes)
 
     def _call_batches(self, n: int, prepared: list[RowBatch] | FlatBatch
                       ) -> tuple[np.ndarray, np.ndarray]:
         """Run prepared batches; returns (role, hits) in caller order."""
-        role = np.full(n, -1, np.int32)
-        hits = np.zeros(n, np.float32 if self.weighted else np.int32)
+        with spans.span("apply.run"):
+            # the result arrays: allocating them can wait on the GIL that
+            # prefetch workers hold (milliseconds a genome on the card)
+            role = np.full(n, -1, np.int32)
+            hits = np.zeros(n, np.float32 if self.weighted else np.int32)
         if isinstance(prepared, FlatBatch):
             r, h = self._flat_step(prepared)
-            role[:] = r.cpu().numpy()[:n]
-            hits[:] = h.cpu().numpy()[:n]
+            role[:] = r[:n]
+            hits[:] = h[:n]
             return role, hits
         outs = [self._row_step(b) for b in prepared]  # queue every step
-        for batch, (r, h) in zip(prepared, outs):
-            role[batch.idx] = r.cpu().numpy()[: batch.n]
-            hits[batch.idx] = h.cpu().numpy()[: batch.n]
+        with spans.span("apply.run"):
+            for batch, (r, h) in zip(prepared, outs):
+                role[batch.idx] = r.cpu().numpy()[: batch.n]
+                hits[batch.idx] = h.cpu().numpy()[: batch.n]
         return role, hits
 
     def _convert(self):
@@ -273,22 +297,32 @@ class KmerApplyEngine:
 
     def prepare(self, genome: Genome):
         """Host-side preparation (peg selection and batch encode); safe to
-        run in a prefetch worker thread."""
-        pegs = [f for f in genome.pegs if f.protein_translation]
-        if not pegs:
-            return pegs, None
-        return pegs, self._prepare_proteins(
-            [f.protein_translation for f in pegs])
+        run in a prefetch worker thread.  The batches carry the genome's
+        request id, which ``call_prepared``'s spans take up."""
+        req = spans.request()
+        with spans.span("apply.prepare", req) as sp:
+            pegs = [f for f in genome.pegs if f.protein_translation]
+            sp.set(proteins=len(pegs))
+            if not pegs:
+                return pegs, None
+            prepared = self._prepare_proteins(
+                [f.protein_translation for f in pegs])
+        for batch in _batches(prepared):
+            batch.request = req
+        return pegs, prepared
 
     def call_prepared(self, pegs: list[Feature], prepared
                       ) -> list[tuple[Feature, str, int]]:
         """Device steps and decode of a prepared genome."""
         if prepared is None:
             return []
-        role, hits = self._call_batches(len(pegs), prepared)
-        conv = self._convert()
-        return [(feat, self.role_ids[r], conv(h))
-                for feat, r, h in zip(pegs, role, hits) if r >= 0]
+        req = next((b.request for b in _batches(prepared)), None)
+        with spans.span("apply.call", req):
+            role, hits = self._call_batches(len(pegs), prepared)
+            with spans.span("apply.decode"):
+                conv = self._convert()
+                return [(feat, self.role_ids[r], conv(h))
+                        for feat, r, h in zip(pegs, role, hits) if r >= 0]
 
     def call_genome(self, genome: Genome
                     ) -> list[tuple[Feature, str, int]]:

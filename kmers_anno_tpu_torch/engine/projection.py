@@ -65,6 +65,7 @@ from ..ops.kmers import pack_kmer_windows, pack_kmers_np, window_any
 from ..ops.translate import codon_lut
 from ..ops.widetable import (build_wide_table, build_wide_table_device,
                              probe_wide, wide_rows_for)
+from ..utils import spans
 from .convert import wide_table_from_numpy
 from .proposals import PegProposalList
 
@@ -876,56 +877,65 @@ class ProjectionAnnotator:
 
         Returns the proposal statistics dict.
         """
-        k = self.k
-        log.info("Annotating proposed genome %s: %s", genome.id, genome.name)
-        real_strength = self.min_strength / 3          # Q3
-        proposals = PegProposalList(genome, real_strength,
-                                    self.min_evidence)
-        if self.engine != "host":
-            index = StreamWindowIndex.build(genome, k, self.strict,
-                                            self.device)
-            log.info("%d kmer windows found in genome.", index.n_windows)
-        else:
-            index = ContigKmerIndex.build(genome, k, self.strict,
-                                          self.device)
-            log.info("%d kmers found in genome.", index.n_unique)
-        close = genome.close_genomes
-        log.info("%d close genomes available from input.", len(close))
-        i_genome = 1
-        loaded = []
-        for cg in close:
-            if i_genome > self.max_genomes:
-                break
-            log.info("Retrieving close genome #%d %s: %s.", i_genome,
-                     cg.genome_id, cg.genome_name)
-            old_genome = close_loader(cg.genome_id)
-            if old_genome is None:
-                log.warning("Genome %s not found-- skipping.", cg.genome_id)
-                continue
-            i_genome += 1
-            loaded.append(old_genome)
-        if isinstance(index, StreamWindowIndex):
-            self._project_all_stream(loaded, index, proposals)
-        else:
-            for old_genome in loaded:
-                self._project_from(old_genome, index, proposals)
-        log.info("%d proposals made, %d merged, %d rejected, %d too weak, "
-                 "%d too little evidence, %d kept.", proposals.made,
-                 proposals.merged, proposals.rejected, proposals.weak,
-                 proposals.small, proposals.count)
-        # emit features in numbering order (Q8)
-        peg_count = 0
-        xlator = DnaTranslator(genome.genetic_code)
-        for prop in proposals:
-            peg_count += 1
-            self._make_feature(prop, genome, peg_count, xlator)
-        log.info("Processing complete. %d features in genome.", peg_count)
-        return {
-            "made": proposals.made, "merged": proposals.merged,
-            "rejected": proposals.rejected, "weak": proposals.weak,
-            "small": proposals.small, "kept": proposals.count,
-            "pegs": peg_count,
-        }
+        with spans.span("proj.annotate", spans.request()):
+            k = self.k
+            log.info("Annotating proposed genome %s: %s", genome.id,
+                     genome.name)
+            real_strength = self.min_strength / 3          # Q3
+            proposals = PegProposalList(genome, real_strength,
+                                        self.min_evidence)
+            if self.engine != "host":
+                with spans.span("proj.stream_index") as sp:
+                    index = StreamWindowIndex.build(genome, k, self.strict,
+                                                    self.device)
+                    sp.set(windows=index.n_windows)
+                log.info("%d kmer windows found in genome.",
+                         index.n_windows)
+            else:
+                index = ContigKmerIndex.build(genome, k, self.strict,
+                                              self.device)
+                log.info("%d kmers found in genome.", index.n_unique)
+            close = genome.close_genomes
+            log.info("%d close genomes available from input.", len(close))
+            i_genome = 1
+            loaded = []
+            for cg in close:
+                if i_genome > self.max_genomes:
+                    break
+                log.info("Retrieving close genome #%d %s: %s.", i_genome,
+                         cg.genome_id, cg.genome_name)
+                old_genome = close_loader(cg.genome_id)
+                if old_genome is None:
+                    log.warning("Genome %s not found-- skipping.",
+                                cg.genome_id)
+                    continue
+                i_genome += 1
+                loaded.append(old_genome)
+            if isinstance(index, StreamWindowIndex):
+                self._project_all_stream(loaded, index, proposals)
+            else:
+                for old_genome in loaded:
+                    self._project_from(old_genome, index, proposals)
+            log.info("%d proposals made, %d merged, %d rejected, %d too "
+                     "weak, %d too little evidence, %d kept.",
+                     proposals.made, proposals.merged, proposals.rejected,
+                     proposals.weak, proposals.small, proposals.count)
+            # emit features in numbering order (Q8)
+            peg_count = 0
+            with spans.span("proj.features") as sp:
+                xlator = DnaTranslator(genome.genetic_code)
+                for prop in proposals:
+                    peg_count += 1
+                    self._make_feature(prop, genome, peg_count, xlator)
+                sp.set(pegs=peg_count)
+            log.info("Processing complete. %d features in genome.",
+                     peg_count)
+            return {
+                "made": proposals.made, "merged": proposals.merged,
+                "rejected": proposals.rejected, "weak": proposals.weak,
+                "small": proposals.small, "kept": proposals.count,
+                "pegs": peg_count,
+            }
 
     # ----- close-genome singleton tables (device-resident, cached) -----
 
@@ -1020,75 +1030,91 @@ class ProjectionAnnotator:
         ordered close-genome set; None when any genome exceeds the
         packed-key field widths or the wide-table capacity (RLE
         route)."""
-        key = (tuple(og.id for og in olds), self.k)
-        cs = self._closeset_cache.get(key)
-        if cs is not None:
-            self._closeset_cache.move_to_end(key)
-            return cs
-        singles = [self._singletons(og) for og in olds]
-        n_singles = [len(s[0]) for s in singles]
-        live = [(i, s) for i, s in enumerate(singles) if len(s[0])]
-        if not live:
-            return None
-        rows_list = []
-        for _, s in live:
-            if len(s[3]) > (1 << _PEG_BITS):
+        with spans.span("proj.close_set") as sp:
+            key = (tuple(og.id for og in olds), self.k)
+            cs = self._closeset_cache.get(key)
+            sp.set(cached=cs is not None)
+            if cs is not None:
+                self._closeset_cache.move_to_end(key)
+                return cs
+            singles = [self._singletons(og) for og in olds]
+            n_singles = [len(s[0]) for s in singles]
+            live = [(i, s) for i, s in enumerate(singles) if len(s[0])]
+            if not live:
                 return None
-            r = wide_rows_for(_bucket(len(s[0]), 4096))
-            if r is None:
-                return None                     # huge singleton set
-            rows_list.append(r)
-        # union of all singleton kmers across the set
-        keys64 = np.unique(np.concatenate(
-            [(s[1].astype(np.uint64) << np.uint64(32))
-             | s[0].astype(np.uint64) for _, s in live]))
-        if wide_rows_for(len(keys64)) is None:
-            return None
-        u_lo = (keys64 & np.uint64(MASK32)).astype(np.uint32)
-        u_hi = (keys64 >> np.uint64(32)).astype(np.uint32)
-        utab, usalt, ump = build_wide_table(
-            u_lo, u_hi, np.zeros(len(u_lo), np.uint32))
-        # every genome's table at one row count, as the reference stacks
-        # them (projection.py:1245-1270): the device build at salt 0, the
-        # host salt-retry build at the same rows when it reports bad
-        rows_common = max(rows_list)
-        built = [build_wide_table_device(
-            *self._padded_keys(lo, hi, peg_idx, _bucket(len(lo), 4096)),
-            rows_common) for lo, hi, peg_idx, _ in (s for _, s in live)]
-        bads = torch.stack([bad for _, bad in built]).tolist()  # one read
-        tables, salts, mps, pinfo = [], [], [], []
-        max_delta = 0
-        for (_, s), (table, _), bad in zip(live, built, bads):
-            lo, hi, peg_idx, pegs = s
-            if bad:
-                htab, salt, mp = host_fallback(
-                    "wide", len(lo), build_wide_table, lo, hi, peg_idx,
-                    n_rows=rows_common)
-                table = wide_table_from_numpy(htab, self.device)
-            else:
-                salt, mp = 0, 1
-            tables.append(table)
-            salts.append(salt)
-            mps.append(mp)
-            plen3 = np.fromiter((p.protein_length for p in pegs),
-                                np.int64, len(pegs)) * 3
-            maxlen3 = (plen3 * self.max_fuzz + 1).astype(np.int64)
-            pinfo.append(torch.from_numpy(np.stack([
-                maxlen3, (plen3 * self.min_fuzz).astype(np.int64),
-                (plen3 * (self.min_strength / 3)).astype(np.int64)])).to(
-                    self.device))
-            if len(maxlen3):
-                max_delta = max(max_delta, int(maxlen3.max()))
-        cs = _CloseSet(
-            tables=tables, salts=salts, mps=mps, pinfo=pinfo,
-            union_table=wide_table_from_numpy(utab, self.device),
-            union_salt=usalt, union_mp=ump,
-            peg_infos=[s[3] for _, s in live], n_singles=n_singles,
-            n_union_keys=len(keys64), max_delta=max_delta)
-        self._closeset_cache[key] = cs
-        while len(self._closeset_cache) > 4:
-            self._closeset_cache.popitem(last=False)
-        return cs
+            rows_list = []
+            for _, s in live:
+                if len(s[3]) > (1 << _PEG_BITS):
+                    return None
+                r = wide_rows_for(_bucket(len(s[0]), 4096))
+                if r is None:
+                    return None                 # huge singleton set
+                rows_list.append(r)
+            # union of all singleton kmers across the set
+            with spans.span("proj.close_set.union_keys") as sub:
+                keys64 = np.concatenate(
+                    [(s[1].astype(np.uint64) << np.uint64(32))
+                     | s[0].astype(np.uint64) for _, s in live])
+                sub.set(keys_in=len(keys64))
+                keys64 = np.unique(keys64)
+                sub.set(keys_out=len(keys64))
+                if wide_rows_for(len(keys64)) is None:
+                    return None
+                u_lo = (keys64 & np.uint64(MASK32)).astype(np.uint32)
+                u_hi = (keys64 >> np.uint64(32)).astype(np.uint32)
+            with spans.span("proj.close_set.union_table"):
+                utab, usalt, ump = build_wide_table(
+                    u_lo, u_hi, np.zeros(len(u_lo), np.uint32))
+            # every genome's table at one row count, as the reference
+            # stacks them (projection.py:1245-1270): the device build at
+            # salt 0, the host salt-retry build at the same rows when it
+            # reports bad
+            with spans.span("proj.close_set.close_tables") as sub:
+                rows_common = max(rows_list)
+                built = [build_wide_table_device(
+                    *self._padded_keys(lo, hi, peg_idx,
+                                       _bucket(len(lo), 4096)),
+                    rows_common) for _, (lo, hi, peg_idx, _) in live]
+                # one read of every build's flag
+                bads = torch.stack([bad for _, bad in built]).tolist()
+                tables, salts, mps, pinfo = [], [], [], []
+                max_delta = 0
+                for (_, s), (table, _), bad in zip(live, built, bads):
+                    lo, hi, peg_idx, pegs = s
+                    if bad:
+                        htab, salt, mp = host_fallback(
+                            "wide", len(lo), build_wide_table, lo, hi,
+                            peg_idx, n_rows=rows_common)
+                        table = wide_table_from_numpy(htab, self.device)
+                    else:
+                        salt, mp = 0, 1
+                    tables.append(table)
+                    salts.append(salt)
+                    mps.append(mp)
+                    plen3 = np.fromiter((p.protein_length for p in pegs),
+                                        np.int64, len(pegs)) * 3
+                    maxlen3 = (plen3 * self.max_fuzz + 1).astype(np.int64)
+                    pinfo.append(torch.from_numpy(np.stack([
+                        maxlen3, (plen3 * self.min_fuzz).astype(np.int64),
+                        (plen3 * (self.min_strength / 3)).astype(
+                            np.int64)])).to(self.device))
+                    if len(maxlen3):
+                        max_delta = max(max_delta, int(maxlen3.max()))
+                sub.set(tables=len(tables), fallbacks=sum(bads))
+            # the union table goes up once the builds' scratch is free:
+            # uploaded before them, it would raise the device's peak
+            with spans.span("proj.close_set.union_table") as sub:
+                union_table = wide_table_from_numpy(utab, self.device)
+                sub.set(bytes=utab.nbytes)
+            cs = _CloseSet(
+                tables=tables, salts=salts, mps=mps, pinfo=pinfo,
+                union_table=union_table, union_salt=usalt, union_mp=ump,
+                peg_infos=[s[3] for _, s in live], n_singles=n_singles,
+                n_union_keys=len(keys64), max_delta=max_delta)
+            self._closeset_cache[key] = cs
+            while len(self._closeset_cache) > 4:
+                self._closeset_cache.popitem(last=False)
+            return cs
 
     def _project_all_stream(self, olds: list, index: StreamWindowIndex,
                             proposals: PegProposalList) -> None:
@@ -1104,36 +1130,46 @@ class ProjectionAnnotator:
             return self._project_all_stream_rle(olds, index, proposals)
         for og, n in zip(olds, cs.n_singles):
             log.info("%d unique peg kmers in %s.", n, og.id)
-        u = _union_compact(cs.union_table, cs.union_salt, cs.union_mp,
-                           index)
-        results = _scan_genomes(cs.tables, cs.salts, cs.mps, cs.pinfo, u,
-                                index.orf_state(), self._minev_for(index),
-                                self.min_evidence, self.k)
-        for peg_info, (rows, stats) in zip(cs.peg_infos, results):
-            (n_hits, n_groups, low_kmer, too_short, n_live,
-             n_rej, n_weak, n_small, _n_stored, _n_cand) = stats
-            log.info("%d matching kmers found.", n_hits)
-            if n_hits == 0:
-                continue
-            funcs = [p.function for p in peg_info]
-            stored = proposals.replay_stored(
-                rows, index.contig_ids, funcs, made=n_live,
-                rejected=n_rej, weak=n_weak, small=n_small)
-            if self.trace_function is not None:
-                for ci, prop in stored:
-                    if prop.function != self.trace_function:
-                        continue
-                    peg = peg_info[int(rows[ci, 5])]
-                    whole = Location(
-                        index.contig_ids[int(rows[ci, 0])],
-                        "+" if rows[ci, 1] == 0 else "-",
-                        int(rows[ci, 6]), int(rows[ci, 7]))
-                    log.info("Proposal stored using %s at location %s "
-                             "with evidence %d and strength %s.", peg.id,
-                             whole, int(rows[ci, 4]), prop.strength)
-            log.info("%d peg/frame pairs examined, %d had too few kmers, "
-                     "%d were too short, %d proposals were made.",
-                     n_groups, low_kmer, too_short, n_live)
+        with spans.span("proj.union_probe") as sp:
+            u = _union_compact(cs.union_table, cs.union_salt, cs.union_mp,
+                               index)
+            sp.set(hits=len(u[0]))
+        with spans.span("proj.orf_state"):
+            orf = index.orf_state()
+        with spans.span("proj.scan"):
+            results = _scan_genomes(cs.tables, cs.salts, cs.mps, cs.pinfo,
+                                    u, orf, self._minev_for(index),
+                                    self.min_evidence, self.k)
+        with spans.span("proj.replay") as sp:
+            n_stored = 0
+            for peg_info, (rows, stats) in zip(cs.peg_infos, results):
+                (n_hits, n_groups, low_kmer, too_short, n_live,
+                 n_rej, n_weak, n_small, _n_stored, _n_cand) = stats
+                log.info("%d matching kmers found.", n_hits)
+                if n_hits == 0:
+                    continue
+                funcs = [p.function for p in peg_info]
+                stored = proposals.replay_stored(
+                    rows, index.contig_ids, funcs, made=n_live,
+                    rejected=n_rej, weak=n_weak, small=n_small)
+                n_stored += len(stored)
+                if self.trace_function is not None:
+                    for ci, prop in stored:
+                        if prop.function != self.trace_function:
+                            continue
+                        peg = peg_info[int(rows[ci, 5])]
+                        whole = Location(
+                            index.contig_ids[int(rows[ci, 0])],
+                            "+" if rows[ci, 1] == 0 else "-",
+                            int(rows[ci, 6]), int(rows[ci, 7]))
+                        log.info("Proposal stored using %s at location %s "
+                                 "with evidence %d and strength %s.",
+                                 peg.id, whole, int(rows[ci, 4]),
+                                 prop.strength)
+                log.info("%d peg/frame pairs examined, %d had too few "
+                         "kmers, %d were too short, %d proposals were "
+                         "made.", n_groups, low_kmer, too_short, n_live)
+            sp.set(stored=n_stored)
 
     def _project_all_stream_rle(self, olds: list,
                                 index: StreamWindowIndex,
