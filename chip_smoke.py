@@ -45,9 +45,13 @@ rows of 300 keys, every key in one row, a chain of walks through five
 buckets, pads between keys, one key, key counts off the kernel's block),
 and launched five times more on memory filled with junk, every table the
 same.  Its bound counts the keys read once and the table written once.
+The close set's union (``kan_union_dedupe`` and ``kan_union_build``) is
+held to its plain version on the ten sets' raw keys, count and table,
+launched five times over junk, timed through its wrappers and alone, and
+timed in turns against the host's ``np.unique`` and ``build_wide_table``.
 The cold ``_close_set`` of the realistic cell (singletons cached) is timed
-with the device builds and with the engine's own host build in turns,
-and run once more with the tracer on, its spans printed; a
+with the device builds and with the engine's own host builds (the union's
+too) in turns, and run once more with the tracer on, its spans printed; a
 batch of 4 genomes, each the realistic genome with another ordered 10 of
 a pool of 14 close genomes (the 10 and copies of 4 under new ids), runs
 both ways in turns, every genome's stats and features equal to the warm
@@ -828,7 +832,9 @@ class _Launches:
                                                          hash_commons)
         from kmers_anno_tpu_torch.ops.probe_keys import probe_keys
         from kmers_anno_tpu_torch.ops.table_build import (build_bucketed,
-                                                          build_wide)
+                                                          build_wide,
+                                                          union_build,
+                                                          union_dedupe)
         from kmers_anno_tpu_torch.ops.widetable import probe_wide
 
         self.wrappers = {"contig_scan": scan_stream,
@@ -841,7 +847,9 @@ class _Launches:
                          "dna_probe": probe_dna,
                          "probe_keys": probe_keys,
                          "table_build_wide": build_wide,
-                         "table_build_bucketed": build_bucketed}
+                         "table_build_bucketed": build_bucketed,
+                         "union_dedupe": union_dedupe,
+                         "union_build": union_build}
         self.projection = projection
         self.counts: dict = {}
         self.fused_calls = 0
@@ -1345,6 +1353,69 @@ def padded_keys(parts, n_pad, rng):
     return out
 
 
+# the close set's union from raw keys: name -> (the table's rows at
+# wide_rows_for of its distinct keys, where it is bad: None, "dedupe" (a
+# row at the cap's 2^18 rows past 24 distinct keys) or "build" (a row of
+# the table past 24)); every key 1 to a few times, in a random order
+UNION_CASES = {
+    "heavy_duplication": (8_192, None),
+    "differ_only_in_hi": (512, None),
+    "single_key": (128, None),
+    "past_1048576": (1 << 18, None),
+    "small_fold": (1_024, None),
+    "pads_between": (256, None),
+    "empty": (128, None),
+    "table_row_of_24": (128, None),
+    "cap_row_of_25": (128, "dedupe"),
+    "table_row_of_25": (128, "build"),
+    # ten close genomes' singletons: ~1.6M distinct keys, 1-10 copies each
+    "realistic": (1 << 18, None),
+}
+
+
+def with_repeats(rng, lo, hi, most):
+    """Every key 1 to ``most`` times, in a random order."""
+    reps = rng.integers(1, most + 1, len(lo))
+    idx = rng.permutation(np.repeat(np.arange(len(lo)), reps))
+    return lo[idx], hi[idx]
+
+
+def union_keys(name):
+    """One ``UNION_CASES`` case's raw (lo, hi) uint32 keys."""
+    from kmers_anno_tpu_torch.ops.hashing import GOLDEN, mix_kmer_salted_np
+
+    rng = np.random.default_rng(len(name) + 100)
+    if name == "differ_only_in_hi":
+        lo = np.full(3_000, 12_345, np.uint32)
+        hi = rng.permutation(np.arange(3_000, dtype=np.uint32) * 7 + 1)
+        return with_repeats(rng, lo, hi, 3)
+    if name == "single_key":
+        return np.full(5, 77, np.uint32), np.full(5, 3, np.uint32)
+    if name == "empty":
+        return np.zeros(0, np.uint32), np.zeros(0, np.uint32)
+    if name.endswith(("_of_24", "_of_25")):
+        # keys homed in one row (at the cap's rows or the table's 128)
+        # among random keys homed elsewhere
+        n_rows = 1 << 18 if name.startswith("cap") else 128
+        lo, hi, _ = homed_keys(rng, int(name[-2:]), n_rows, GOLDEN, 5)
+        rlo, rhi, _ = random_keys(rng, 600)
+        far = (mix_kmer_salted_np(rlo, rhi, GOLDEN)
+               & np.uint32(n_rows - 1)) != 5
+        return with_repeats(rng, np.concatenate([lo, rlo[far]]),
+                            np.concatenate([hi, rhi[far]]), 3)
+    n, most = {"heavy_duplication": (50_000, 10),
+               "past_1048576": (1_100_000, 2), "small_fold": (5_000, 4),
+               "pads_between": (2_000, 3),
+               "realistic": (1_605_000, 10)}[name]
+    lo, hi, _ = random_keys(rng, n)
+    lo, hi = with_repeats(rng, lo, hi, most)
+    if name == "pads_between":
+        pad = rng.random(len(lo)) < 0.2
+        lo = np.where(pad, np.uint32(0xFFFFFFFF), lo)
+        hi = np.where(pad, np.uint32(0xFFFFFFFF), hi)
+    return lo, hi
+
+
 def edge_keys(name):
     """One ``TABLE_BUILD_EDGES`` case: (layout, the key parts (homed
     groups, then the random keys), padded (lo, hi, val) uint32 arrays,
@@ -1608,6 +1679,125 @@ def declined(*_args):
     return None, torch.tensor(True)
 
 
+def declined_union(*_args):
+    """A union dedupe that declines (reports ``bad``), so that the engine
+    takes its host path for the union: ``np.unique`` and the salt-retry
+    ``build_wide_table``, as the reference does."""
+    from kmers_anno_tpu_torch.ops.table_build import UnionRows
+
+    return UnionRows(0, True, None, 0, None)
+
+
+def launch_union(lib, lo, hi, scratch, totals, n_rows, table, bad):
+    """A whole union build through a kernel library (uncounted):
+    ``kan_union_dedupe`` then ``kan_union_build`` at ``n_rows``, with no
+    read of the count between.  Returns (table, bad)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    n = lo.numel()
+    err = lib.kan_union_dedupe(lo.data_ptr(), hi.data_ptr(), n,
+                               scratch.data_ptr(), scratch.numel(),
+                               totals.data_ptr(), stream)
+    require(err == 0, f"kan_union_dedupe returned CUDA error {err}")
+    err = lib.kan_union_build(scratch.data_ptr(), n, n_rows,
+                              table.data_ptr(), bad.data_ptr(), stream)
+    require(err == 0, f"kan_union_build returned CUDA error {err}")
+    return table, bad
+
+
+launch_union.entry = ("kan_union_build",)
+
+
+def check_union_build(dev, annot, singles) -> tuple[dict, dict]:
+    """The union kernels on the realistic close set's raw singleton keys:
+    count and table against the plain version's, five launches over junk
+    writing one table, the wrapper's time (median of 5) and the two entry
+    points alone (20 launches back to back); then, in turns, the engine's
+    union (upload, dedupe, count read, build) against the host's
+    ``np.unique``, ``build_wide_table`` and upload.  Returns the
+    ``kernels`` row and the ``--compare`` case."""
+    from kmers_anno_tpu_torch import kernels
+    from kmers_anno_tpu_torch.engine.convert import wide_table_from_numpy
+    from kmers_anno_tpu_torch.ops import table_build
+    from kmers_anno_tpu_torch.ops.widetable import (build_wide_table,
+                                                    wide_rows_for)
+
+    raw = [np.concatenate([s[j] for s in singles]) for j in (0, 1)]
+    cpu = [torch.from_numpy(a.view(np.int32).copy()) for a in raw]
+    lo, hi = (t.to(dev) for t in cpu)
+    t0 = time.perf_counter()
+    want_rows = table_build.union_dedupe(*cpu)
+    n_rows = wide_rows_for(want_rows.n_keys)
+    want, want_bad = table_build.union_build(want_rows, n_rows)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+
+    def device_build():
+        rows = table_build.union_dedupe(lo, hi)
+        return rows, table_build.union_build(rows, n_rows)
+
+    ms, (rows, (table, bad)) = timed(device_build)
+    require(not rows.bad and not bool(bad) and not bool(want_bad)
+            and rows.n_keys == want_rows.n_keys
+            and torch.equal(table.cpu(), want),
+            "the union build differs from its plain version on the "
+            "realistic close set")
+    args = (lo, hi, torch.empty(table_build.union_scratch_bytes(lo.numel()),
+                                dtype=torch.uint8, device=dev),
+            torch.empty(2, dtype=torch.int32, device=dev), n_rows,
+            torch.empty_like(table),
+            torch.empty((), dtype=torch.bool, device=dev))
+    for junk in (0x5A5A5A5A, -1, 0, 0x7FFFFFFF, 0x12345678):
+        args[2].view(torch.int32).fill_(junk)
+        args[5].fill_(junk)
+        got, got_bad = launch_union(kernels.lib(), *args)
+        require(torch.equal(got, table) and not bool(got_bad)
+                and args[3].tolist() == [rows.n_keys, 0],
+                "a repeated union build wrote another table")
+    alone = launch_ms(launch_union, [args])
+    words = [(s[0], s[1]) for s in singles]
+
+    def engine_union():
+        return annot._union_table(words)
+
+    def host_union():
+        keys64 = np.unique(raw[1].astype(np.uint64) << np.uint64(32)
+                           | raw[0].astype(np.uint64))
+        utab, _, _ = build_wide_table(
+            (keys64 & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (keys64 >> np.uint64(32)).astype(np.uint32),
+            np.zeros(len(keys64), np.uint32))
+        return wide_table_from_numpy(utab, dev)
+
+    turns = {"device": [], "host": []}
+    for name, fn in (("device", engine_union), ("host", host_union),
+                     ("host", host_union), ("device", engine_union)):
+        s, out = host_seconds(fn)
+        turns[name].append(s)
+        got = out[0] if name == "device" else out
+        require(torch.equal(got, table), f"the {name} union differs")
+    n = lo.numel()
+    row = with_launch(dict(
+        ms=ms, plain_ms=plain_ms, max_abs_err=0, keys=n,
+        distinct_keys=rows.n_keys, rows=n_rows,
+        **bound(8 * n + nbytes(table), HASH_KEY_OPS * n, ms)), alone)
+    row["library"] = TABLE_LIBRARY_NOTE
+    print(f"union build: {n} raw keys of {len(singles)} close genomes, "
+          f"{rows.n_keys} distinct, into {n_rows} rows, no bad, count and "
+          f"table equal to the plain version's, 5 repeated launches over "
+          f"junk identical; kernels {ms:.4f} ms through the wrappers "
+          f"(median, the count's read included), {alone:.4f} ms both entry "
+          f"points alone back to back; plain {plain_ms:.1f} ms; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+          f"{row['bound_bytes']} bytes: raw keys read once, the table "
+          f"written once), share {row['bound_share']:.3f}, alone "
+          f"{row['launch_share']:.3f}; in turns, the engine's union (upload, "
+          f"dedupe, build) {', '.join(f'{t:.4f}' for t in turns['device'])}"
+          f" s against np.unique + build_wide_table + upload "
+          f"{', '.join(f'{t:.4f}' for t in turns['host'])} s", flush=True)
+    return {"union_build": row}, {
+        "the realistic close set's union": (launch_union, [args],
+                                            row["bound_ms"])}
+
+
 def projection_workload(dev, tmp: str) -> tuple:
     """The realistic projection workload, its new genome written to
     ``tmp``, and one fused annotation of it: (new genome's path, close
@@ -1641,10 +1831,18 @@ def run_table_build(dev, keep: dict) -> tuple[dict, dict, dict]:
     olds_list = list(olds.values())
     singles = [annot._singletons(og) for og in olds_list]
     measured, cases = check_table_builds(dev, annot, singles)
+    union_row, union_case = check_union_build(dev, annot, singles)
+    measured.update(union_row)
+    cases.update(union_case)
     device_build = projection.build_wide_table_device
+    device_union = projection.union_dedupe
 
-    def with_build(build_fn, fn):
-        projection.build_wide_table_device = build_fn
+    def with_build(on_card, fn):
+        """``fn()`` with every table of a close set built on the card, or
+        every one (the union too) declined to the engine's host build."""
+        if not on_card:
+            projection.build_wide_table_device = declined
+            projection.union_dedupe = declined_union
         try:
             annot._closeset_cache.clear()
             before = host_fallback.count
@@ -1652,14 +1850,15 @@ def run_table_build(dev, keep: dict) -> tuple[dict, dict, dict]:
             return out, host_fallback.count - before
         finally:
             projection.build_wide_table_device = device_build
+            projection.union_dedupe = device_union
 
-    turns = (("device", device_build), ("host", declined),
-             ("host", declined), ("device", device_build))
+    turns = (("device", True), ("host", False), ("host", False),
+             ("device", True))
     cold = {"device": [], "host": []}
-    for name, build_fn in turns:
-        (s, _), fallbacks = with_build(build_fn, lambda: host_seconds(
+    for name, on_card in turns:
+        (s, _), fallbacks = with_build(on_card, lambda: host_seconds(
             lambda: annot._close_set(olds_list)))
-        require(fallbacks == (0 if name == "device" else N_CLOSE),
+        require(fallbacks == (0 if on_card else N_CLOSE + 1),
                 f"cold close set, {name} builds: {fallbacks} host builds")
         cold[name].append(s)
     print(f"cold _close_set of the realistic cell ({N_CLOSE} close genomes,"
@@ -1709,16 +1908,17 @@ def run_table_build(dev, keep: dict) -> tuple[dict, dict, dict]:
 
     rotating = {"device": [], "host": []}
     set_s = {"device": [], "host": []}
-    for name, build_fn in turns:
+    for name, on_card in turns:
         ((times, set_times), counts), fallbacks = with_build(
-            build_fn, rotating_batch)
-        require(fallbacks == (0 if name == "device"
-                              else ROTATING_GENOMES * N_CLOSE),
+            on_card, rotating_batch)
+        require(fallbacks == (0 if on_card
+                              else ROTATING_GENOMES * (N_CLOSE + 1)),
                 f"rotating batch, {name} builds: {fallbacks} host builds")
-        want_launches = ROTATING_GENOMES * N_CLOSE if name == "device" else 0
-        require(counts["table_build_wide"] == want_launches,
-                f"rotating batch, {name} builds: {counts['table_build_wide']}"
-                f" launches of the wide build")
+        want = (ROTATING_GENOMES * N_CLOSE, ROTATING_GENOMES,
+                ROTATING_GENOMES) if on_card else (0, 0, 0)
+        require((counts["table_build_wide"], counts["union_dedupe"],
+                 counts["union_build"]) == want,
+                f"rotating batch, {name} builds: launches {counts}")
         rotating[name].extend(times)
         set_s[name].extend(set_times)
         if name == "device":
@@ -6300,6 +6500,11 @@ def main() -> None:
         row("build_table_device", "table_build_bucketed",
             "csrc/table_build.cu", "ops/hashtable.py:129", "rle_bucketed",
             ("rle_bucketed",)),
+        # the close set's union, deduped and built from raw keys: no TPU
+        # kernel (the reference's np.unique and host build); one launch of
+        # each entry point a close set built
+        row("union_build", "union_build", "csrc/table_build.cu",
+            "engine/projection.py:1239", "fused", ("fused", "rotating")),
     ]
     for r, v in routes.items():
         if "times" in v:

@@ -7,7 +7,10 @@
 // programs on the TPU (argsort + associative max-scan + scatter), as the
 // projection engine calls them for each close genome's singleton table
 // (engine/projection.py:213 and :219, used at :1170, :1182 and :1259).
-// Plain version: ops/table_build.build_table_plain.
+// Plain version: ops/table_build.build_table_plain.  The file's second
+// function, the close set's union table from raw keys with duplicates
+// (kan_union_dedupe, kan_union_build), is set out before its entry points
+// at the end; it shares the scan and nothing else.
 //
 // The function.  A key i is real unless lo[i] == EMPTY (0xFFFFFFFF).  Its
 // home row is fmix32(lo ^ fmix32(hi ^ salt)) & (rows - 1) (salt GOLDEN for
@@ -517,6 +520,214 @@ unsigned blocks_for(int64_t n, int64_t per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
+// ---------------------------------------------------------------------------
+// The close set's union table, from its raw keys (see the note at the end).
+
+constexpr int64_t kUnionRows = int64_t{1} << 18;  // ops/widetable.MAX_WIDE_ROWS
+constexpr uint32_t kGolden = 0x9E3779B9u;         // ops/hashing.GOLDEN
+constexpr int kUnionRun = 8;                      // table rows a warp writes
+
+// The scratch kan_union_dedupe fills and kan_union_build reads
+// (ops/table_build.union_scratch_bytes), each part from a 16-byte boundary.
+struct UnionScratch {
+  int32_t* cnt;                // rows: raw keys a row, then distinct } zeroed
+  unsigned long long* status;  // tiles: the scan's words            } by the
+  int32_t* ticket;             // 1: the scan's next tile            } dedupe
+  int2* pair;                  // rows: (end of the row's run, 0)
+  int2* rec;                   // n: (lo, hi) grouped by row
+  int64_t zero_bytes;
+  int64_t bytes;
+};
+
+UnionScratch carve_union(char* base, int64_t n) {
+  UnionScratch s;
+  s.cnt = reinterpret_cast<int32_t*>(base);
+  int64_t at = align16(4 * kUnionRows);
+  s.status = reinterpret_cast<unsigned long long*>(base + at);
+  at += 8 * (kUnionRows / kScanTile);
+  s.ticket = reinterpret_cast<int32_t*>(base + at);
+  at = s.zero_bytes = align16(at + 4);
+  s.pair = reinterpret_cast<int2*>(base + at);
+  at += align16(8 * kUnionRows);
+  s.rec = reinterpret_cast<int2*>(base + at);
+  s.bytes = at + align16(8 * n);
+  return s;
+}
+
+__device__ __forceinline__ unsigned long long key64(int2 r) {
+  return static_cast<unsigned long long>(static_cast<uint32_t>(r.y)) << 32 |
+         static_cast<uint32_t>(r.x);
+}
+
+__global__ void __launch_bounds__(kThreads)
+union_zero_kernel(int4* __restrict__ words, int64_t n_vec,
+                  int32_t* __restrict__ totals) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i < n_vec) words[i] = make_int4(0, 0, 0, 0);
+  if (i < 2) totals[i] = 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+union_count_kernel(const uint32_t* __restrict__ lo,
+                   const uint32_t* __restrict__ hi, int64_t n,
+                   int32_t* __restrict__ cnt) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i >= n) return;
+  const uint32_t l = __ldg(lo + i);
+  if (l == kEmpty) return;
+  atomicAdd(cnt + home_of(l, __ldg(hi + i), kGolden, kUnionRows - 1), 1);
+}
+
+// A key goes to the end of its row's run less the row's count left: the
+// order within a run is the atomics' and nothing later depends on it.
+__global__ void __launch_bounds__(kThreads)
+union_scatter_kernel(const uint32_t* __restrict__ lo,
+                     const uint32_t* __restrict__ hi, int64_t n,
+                     const int2* __restrict__ pair, int32_t* __restrict__ cnt,
+                     int2* __restrict__ rec) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
+                    threadIdx.x;
+  if (i >= n) return;
+  const uint32_t l = __ldg(lo + i);
+  if (l == kEmpty) return;
+  const uint32_t hv = __ldg(hi + i);
+  const uint32_t h = home_of(l, hv, kGolden, kUnionRows - 1);
+  rec[pair[h].x - atomicSub(cnt + h, 1)] =
+      make_int2(static_cast<int32_t>(l), static_cast<int32_t>(hv));
+}
+
+// A warp a row: its keys read 32 at a time and inserted one by one into a
+// sorted set, lane j holding the j-th smallest (a ballot finds a key
+// present, another its place).  The set goes back over the start of the
+// row's run, its size into cnt; a row past kWideSlots distinct keys stops,
+// sets bad and counts kWideSlots + 1.  The block adds its rows' sizes to
+// the distinct count.
+__global__ void __launch_bounds__(kThreads)
+union_dedupe_kernel(const int2* __restrict__ pair, int2* __restrict__ rec,
+                    int32_t* __restrict__ cnt, int32_t* __restrict__ totals) {
+  __shared__ int32_t warp_keys[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t h = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  const int32_t start = h > 0 ? pair[h - 1].x : 0;
+  const int32_t end = pair[h].x;
+  unsigned long long mine = 0;
+  int size = 0;
+  bool over = false;
+  for (int32_t c0 = start; c0 < end && !over; c0 += 32) {
+    const unsigned long long got =
+        c0 + lane < end ? key64(rec[c0 + lane]) : 0;
+    const int m = min(32, end - c0);
+    for (int t = 0; t < m; ++t) {
+      const unsigned long long k = __shfl_sync(kFullMask, got, t);
+      const bool live = lane < size;
+      if (__ballot_sync(kFullMask, live && mine == k)) continue;
+      if (size == kWideSlots) {
+        over = true;
+        break;
+      }
+      const int at = __popc(__ballot_sync(kFullMask, live && mine < k));
+      const unsigned long long up = __shfl_up_sync(kFullMask, mine, 1);
+      if (lane == at)
+        mine = k;
+      else if (lane > at && lane <= size)
+        mine = up;
+      ++size;
+    }
+  }
+  if (!over && lane < size)
+    rec[start + lane] = make_int2(static_cast<int32_t>(mine),
+                                  static_cast<int32_t>(mine >> 32));
+  if (lane == 0) {
+    cnt[h] = over ? kWideSlots + 1 : size;
+    warp_keys[warp] = over ? 0 : size;
+  }
+  const bool any_over = __syncthreads_or(over);
+  if (threadIdx.x == 0) {
+    int32_t sum = 0;
+    for (int w = 0; w < kWarps; ++w) sum += warp_keys[w];
+    if (sum) atomicAdd(totals, sum);
+    if (any_over) totals[1] = 1;
+  }
+}
+
+// A warp a run of kUnionRun table rows.  Row r's keys are those of the
+// dedupe's rows r + f * n_rows, f < kUnionRows / n_rows (their homes agree
+// in the low bits); each such row's keys are copied into a list in shared
+// memory, then ranked by key among the list's.  Rows are staged in shared
+// memory with EMPTY and 0 where no key lands and written whole, 16 bytes a
+// lane; a row past kWideSlots keys sets bad.
+__global__ void __launch_bounds__(kThreads)
+union_rows_kernel(const int2* __restrict__ pair, const int2* __restrict__ rec,
+                  const int32_t* __restrict__ cnt, int64_t n_rows,
+                  int32_t* __restrict__ table, uint8_t* __restrict__ bad) {
+  constexpr int S = kWideSlots;
+  constexpr int W = 3 * kWideSlots;
+  __shared__ __align__(16) int32_t buf[kWarps][kUnionRun * W];
+  __shared__ unsigned long long lists[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t r0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kUnionRun;
+  bool is_bad = false;
+  if (r0 < n_rows) {
+    const int rows = static_cast<int>(min(int64_t{kUnionRun}, n_rows - r0));
+    const int64_t fold = kUnionRows / n_rows;
+    int4* stage4 = reinterpret_cast<int4*>(buf[warp]);
+    for (int v = lane; v < rows * (W / 4); v += 32) {
+      const int32_t word = v % (W / 4) < 2 * S / 4 ? -1 : 0;
+      stage4[v] = make_int4(word, word, word, word);
+    }
+    int32_t* stage = buf[warp];
+    unsigned long long* list = lists[warp];
+    for (int j = 0; j < rows; ++j) {
+      int32_t total = 0;
+      for (int64_t f0 = 0; f0 < fold; f0 += 32) {
+        const int64_t h = r0 + j + (f0 + lane) * n_rows;
+        int32_t d = 0;
+        int32_t st = 0;
+        if (f0 + lane < fold) {
+          d = cnt[h];
+          if (d) st = h > 0 ? pair[h - 1].x : 0;
+        }
+        int32_t incl = d;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int32_t v = __shfl_up_sync(kFullMask, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const int32_t off = total + incl - d;
+        for (unsigned todo = __ballot_sync(kFullMask, d > 0); todo;
+             todo &= todo - 1) {
+          const int src = __ffs(todo) - 1;
+          const int32_t s_st = __shfl_sync(kFullMask, st, src);
+          const int32_t s_d = __shfl_sync(kFullMask, d, src);
+          const int32_t s_off = __shfl_sync(kFullMask, off, src);
+          if (lane < s_d && s_off + lane < 32)
+            list[s_off + lane] = key64(rec[s_st + lane]);
+        }
+        total += __shfl_sync(kFullMask, incl, 31);
+      }
+      __syncwarp();
+      if (total > S) {
+        is_bad = true;
+      } else if (lane < total) {
+        const unsigned long long k = list[lane];
+        int rank = 0;
+        for (int t = 0; t < total; ++t) rank += list[t] < k;
+        stage[j * W + rank] = static_cast<int32_t>(k);
+        stage[j * W + S + rank] = static_cast<int32_t>(k >> 32);
+      }
+      __syncwarp();
+    }
+    int4* dst = reinterpret_cast<int4*>(table + r0 * W);
+    for (int v = lane; v < rows * (W / 4); v += 32) dst[v] = stage4[v];
+  }
+  if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
+}
+
 }  // namespace
 
 // lo / hi / values: (n,) 32-bit keys (EMPTY in pads) and payloads; n_rows a
@@ -580,5 +791,112 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
                        0, st>>>(s.pair, s.sorted, n_rows, max_walk, table,
                                 bad);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The close set's union table, from the raw keys of its close genomes.
+//
+// Replaces no TPU kernel: the reference takes np.unique of the close set's
+// concatenated singleton keys and builds the union's wide table on the host
+// (kmers_anno_tpu/engine/projection.py:1239-1250).  Plain version:
+// ops/table_build.union_dedupe and union_build on CPU tensors.
+//
+// The function.  The distinct real keys of the input (EMPTY pads skipped),
+// n_d of them, into a wide table of n_rows rows at salt GOLDEN with payload
+// 0: each key in its home row fmix32(lo ^ fmix32(hi ^ GOLDEN)) & (n_rows -
+// 1), at its rank in ascending (hi << 32 | lo) order among that row's keys,
+// EMPTY and 0 past them.  Where no row holds more than 24 keys that is the
+// table build_wide_table gives np.unique's keys at its first salt: its
+// walk limit is 1, so every key sits in its home row, in the order of the
+// stable sort by home of keys in ascending order.  A row of more than 24
+// keys sets bad (the host's overflow at GOLDEN); the caller then takes the
+// host's salt-retry build.
+//
+// Two entry points, because n_rows = wide_rows_for(n_d) waits on n_d:
+//   kan_union_dedupe  the keys grouped by home at the wide table's row cap
+//       (2^18 rows; ops/widetable.MAX_WIDE_ROWS): zero; count (a thread a
+//       key, an atomicAdd on its row); the scan above, with 0 slots (each
+//       row's run's end); scatter (a thread a key, (lo, hi) at its run's
+//       end less an atomic decrement of the row's count); dedupe (a warp a
+//       row: union_dedupe_kernel).  It writes n_d and bad into totals.  A
+//       row at the cap past 24 distinct keys is bad at any n_rows, since a
+//       table row holds every key of the cap rows congruent to it.
+//   kan_union_build  the table at n_rows (a power of two up to the cap):
+//       a warp a run of 8 rows (union_rows_kernel); at the cap each row
+//       takes one dedupe row's keys, below it kUnionRows / n_rows of them.
+// Rows are ranked by key and written whole, so the atomics' order never
+// shows and every launch writes the same table.  A dedupe row costs a few
+// warp instructions a raw key whatever its length (a row past 24 distinct
+// keys stops); a table row at most 24 compares a key.
+//
+// What bounds it on this card: bytes.  Each raw key's 8 bytes read once and
+// the table written once: the projection cell's ~9.06M raw keys and its
+// 262,144-row table (75.5 MB), 148 MB, 0.044 ms at 3.35 TB/s.  The passes
+// read the keys twice (count, scatter), move them through the record array
+// twice more (the scatter's store, the dedupe's read) and land the count's
+// and scatter's atomics at random rows; 72 MB of raw keys do not fit the
+// 50 MB L2.
+
+// lo / hi: (n,) 32-bit keys, EMPTY in pads, n < 2^31; scratch:
+// union_scratch_bytes(n) bytes of device memory, 16-byte aligned, kept for
+// kan_union_build; totals: two int32, written: the distinct keys (n_d,
+// meaningful only without bad) and bad (1 when a row at the cap holds more
+// than 24 distinct keys).
+extern "C" int kan_union_dedupe(const int32_t* lo, const int32_t* hi,
+                                int64_t n, void* scratch,
+                                int64_t scratch_bytes, int32_t* totals,
+                                void* stream) {
+  if (n < 0 || n >= (int64_t{1} << 31) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const UnionScratch s = carve_union(static_cast<char*>(scratch), n);
+  if (scratch_bytes < s.bytes) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto u_lo = reinterpret_cast<const uint32_t*>(lo);
+  const auto u_hi = reinterpret_cast<const uint32_t*>(hi);
+  cudaError_t err;
+
+  const int64_t n_vec = s.zero_bytes / 16;
+  union_zero_kernel<<<blocks_for(n_vec, kThreads), kThreads, 0, st>>>(
+      reinterpret_cast<int4*>(s.cnt), n_vec, totals);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    union_count_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+        u_lo, u_hi, n, s.cnt);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  scan_kernel<<<blocks_for(kUnionRows, kScanTile), kThreads, 0, st>>>(
+      s.cnt, kUnionRows, 0, s.status, s.ticket, s.pair);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    union_scatter_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
+        u_lo, u_hi, n, s.pair, s.cnt, s.rec);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  union_dedupe_kernel<<<blocks_for(kUnionRows, kWarps), kThreads, 0, st>>>(
+      s.pair, s.rec, s.cnt, totals);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch / n: as kan_union_dedupe left them, with no bad; n_rows a power
+// of two up to 2^18; table: (n_rows, 72) int32, written whole; bad: one
+// byte, written: 1 when a row holds more than 24 keys, else 0.
+extern "C" int kan_union_build(const void* scratch, int64_t n,
+                               int64_t n_rows, int32_t* table, uint8_t* bad,
+                               void* stream) {
+  if (n < 0 || n >= (int64_t{1} << 31) || n_rows < 1 ||
+      n_rows > kUnionRows || (n_rows & (n_rows - 1)) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const UnionScratch s =
+      carve_union(static_cast<char*>(const_cast<void*>(scratch)), n);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  zero_kernel<<<1, kThreads, 0, st>>>(nullptr, 0, bad);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  union_rows_kernel<<<blocks_for(n_rows, kWarps * kUnionRun), kThreads, 0,
+                      st>>>(s.pair, s.rec, s.cnt, n_rows, table, bad);
   return static_cast<int>(cudaGetLastError());
 }

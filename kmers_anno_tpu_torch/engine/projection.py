@@ -32,8 +32,11 @@ close-genome id across the genomes of a batch.  Each close genome's
 singleton table is built on the device from its padded keys
 (``build_wide_table_device``, or ``build_table_device`` for a singleton
 set past the wide table's capacity: ``csrc/table_build.cu``), with the
-host build only where the device build reports ``bad``; the union table
-is a host build, as in the reference.  Features are emitted in
+host build only where the device build reports ``bad``.  The union of a
+close set's singleton keys is deduped and its table built on the device
+from the raw keys (``ops.table_build.union_dedupe`` / ``union_build``),
+where the reference takes ``np.unique`` and a host build; the host's path
+only on ``bad``.  Features are emitted in
 numbering order (Q8).  Stats, features and ``--trace`` lines equal the
 reference's on every route.
 """
@@ -57,11 +60,12 @@ from ..ops.encode import (DNA_AMBIG, PROT_PAD, PROT_X, encode_dna,
                           encode_protein, reverse_complement_codes)
 from ..ops.contig_kmers import extract_contig_kmers
 from ..ops.contig_scan import scan_stream
-from ..ops.hashing import MASK32
+from ..ops.hashing import GOLDEN, MASK32
 from ..ops.hashtable import (MAX_DEVICE_PROBES, build_table,
                              build_table_device, device_table_buckets,
                              probe_table)
 from ..ops.kmers import pack_kmer_windows, pack_kmers_np, window_any
+from ..ops.table_build import union_build, union_dedupe
 from ..ops.translate import codon_lut
 from ..ops.widetable import (build_wide_table, build_wide_table_device,
                              probe_wide, wide_rows_for)
@@ -74,6 +78,7 @@ log = logging.getLogger(__name__)
 TOOL_NAME = "kmers.anno"
 
 _STREAM_BLOCK = 1 << 13     # stream lengths are whole blocks of this size
+_CLOSESET_CACHE = 4         # ordered close sets kept on the device
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -1050,21 +1055,15 @@ class ProjectionAnnotator:
                 if r is None:
                     return None                 # huge singleton set
                 rows_list.append(r)
-            # union of all singleton kmers across the set
-            with spans.span("proj.close_set.union_keys") as sub:
-                keys64 = np.concatenate(
-                    [(s[1].astype(np.uint64) << np.uint64(32))
-                     | s[0].astype(np.uint64) for _, s in live])
-                sub.set(keys_in=len(keys64))
-                keys64 = np.unique(keys64)
-                sub.set(keys_out=len(keys64))
-                if wide_rows_for(len(keys64)) is None:
-                    return None
-                u_lo = (keys64 & np.uint64(MASK32)).astype(np.uint32)
-                u_hi = (keys64 >> np.uint64(32)).astype(np.uint32)
-            with spans.span("proj.close_set.union_table"):
-                utab, usalt, ump = build_wide_table(
-                    u_lo, u_hi, np.zeros(len(u_lo), np.uint32))
+            # the cache never holds more than its sets: the oldest goes
+            # before the new set's first byte is allocated (a union past
+            # the wide table then costs a set the cache could have kept)
+            while len(self._closeset_cache) >= _CLOSESET_CACHE:
+                self._closeset_cache.popitem(last=False)
+            union = self._union_table([s for _, s in live])
+            if union is None:
+                return None
+            union_table, usalt, ump, n_union = union
             # every genome's table at one row count, as the reference
             # stacks them (projection.py:1245-1270): the device build at
             # salt 0, the host salt-retry build at the same rows when it
@@ -1101,20 +1100,69 @@ class ProjectionAnnotator:
                     if len(maxlen3):
                         max_delta = max(max_delta, int(maxlen3.max()))
                 sub.set(tables=len(tables), fallbacks=sum(bads))
-            # the union table goes up once the builds' scratch is free:
-            # uploaded before them, it would raise the device's peak
-            with spans.span("proj.close_set.union_table") as sub:
-                union_table = wide_table_from_numpy(utab, self.device)
-                sub.set(bytes=utab.nbytes)
             cs = _CloseSet(
                 tables=tables, salts=salts, mps=mps, pinfo=pinfo,
                 union_table=union_table, union_salt=usalt, union_mp=ump,
                 peg_infos=[s[3] for _, s in live], n_singles=n_singles,
-                n_union_keys=len(keys64), max_delta=max_delta)
+                n_union_keys=n_union, max_delta=max_delta)
             self._closeset_cache[key] = cs
-            while len(self._closeset_cache) > 4:
-                self._closeset_cache.popitem(last=False)
             return cs
+
+    def _union_table(self, singles: list) -> tuple | None:
+        """The union of the live close genomes' singleton keys as a wide
+        table: (table, salt, max_probes, distinct keys), or None when the
+        union passes the wide table's capacity (the RLE route).
+
+        The raw keys go up once and the device dedupes them and counts the
+        distinct ones (one read), then writes the table at
+        ``wide_rows_for`` of that count, salt ``GOLDEN``: the reference's
+        ``np.unique`` and host ``build_wide_table``
+        (``projection.py:1239-1250``), byte for byte wherever ``GOLDEN``
+        gives no row past 24 keys.  Where a row is past 24 (``bad``), the
+        host's own path: ``np.unique`` and the salt-retrying build, counted
+        by ``host_fallback``."""
+        with spans.span("proj.close_set.union_keys") as sub:
+            n_raw = sum(len(lo) for lo, *_ in singles)
+            words = torch.empty((2, n_raw), dtype=torch.int32,
+                                device=self.device)
+            at = 0
+            for lo, hi, *_ in singles:
+                for row, w in zip(words, (lo, hi)):
+                    row[at: at + len(lo)].copy_(
+                        torch.from_numpy(np.asarray(w).view(np.int32)))
+                at += len(lo)
+            sub.set(keys_in=n_raw)
+            rows = union_dedupe(*words)
+            del words
+            n_rows = None
+            if not rows.bad:
+                sub.set(keys_out=rows.n_keys)
+                n_rows = wide_rows_for(rows.n_keys)
+                if n_rows is None:
+                    return None
+        with spans.span("proj.close_set.union_table") as sub:
+            bad = rows.bad
+            if not bad:
+                table, bad_t = union_build(rows, n_rows)
+                bad = bool(bad_t)
+            sub.set(fallbacks=int(bad))
+            if not bad:
+                sub.set(bytes=table.nbytes)
+                return table, GOLDEN, 1, rows.n_keys
+            rows = table = None             # the device's scratch goes
+            keys64 = np.unique(np.concatenate(
+                [(hi.astype(np.uint64) << np.uint64(32))
+                 | lo.astype(np.uint64) for lo, hi, *_ in singles]))
+            if wide_rows_for(len(keys64)) is None:
+                return None
+            u_lo = (keys64 & np.uint64(MASK32)).astype(np.uint32)
+            u_hi = (keys64 >> np.uint64(32)).astype(np.uint32)
+            utab, usalt, ump = host_fallback(
+                "union", len(keys64), build_wide_table, u_lo, u_hi,
+                np.zeros(len(u_lo), np.uint32))
+            sub.set(bytes=utab.nbytes)
+            return (wide_table_from_numpy(utab, self.device), usalt, ump,
+                    len(keys64))
 
     def _project_all_stream(self, olds: list, index: StreamWindowIndex,
                             proposals: PegProposalList) -> None:

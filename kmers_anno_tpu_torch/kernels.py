@@ -128,6 +128,8 @@ ENTRY_POINTS = {
     "kan_probe_keys": [_P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _P, _P],
     "kan_table_build": [_P, _P, _P, _I64, _I64, ctypes.c_uint32, _I32, _I32,
                         _I32, _P, _I64, _P, _P, _P],
+    "kan_union_dedupe": [_P, _P, _I64, _P, _I64, _P, _P],
+    "kan_union_build": [_P, _I64, _I64, _P, _P, _P],
 }
 
 

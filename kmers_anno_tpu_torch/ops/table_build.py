@@ -19,18 +19,31 @@ counts, a scan over rows, the keys grouped by home and ranked by index,
 the table written once) and take :func:`build_table_plain`, which follows
 the reference line by line, for CPU tensors.  Tables are ``int32`` tensors
 of the uint32 words, as for the host builds (``EMPTY`` reads as -1).
+
+:func:`union_dedupe` and :func:`union_build` build the projection close
+set's union table from the close genomes' raw singleton keys, duplicates
+and all, where the reference takes ``np.unique`` and the host
+``build_wide_table`` (``kmers_anno_tpu/engine/projection.py:1239-1250``):
+the distinct keys grouped by home row at ``MAX_WIDE_ROWS`` and their count
+(one device read), then the table at ``wide_rows_for`` of that count, at
+salt ``GOLDEN``.  Where no row overflows it is ``build_wide_table``'s
+table of ``np.unique``'s keys byte for byte; a row that does reports
+``bad`` and the caller takes the host's salt-retry build.  CUDA tensors
+launch ``kan_union_dedupe`` and ``kan_union_build``; CPU tensors take
+``np.unique`` and :func:`union_table_plain`.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import kernels
-from .hashing import GOLDEN, MASK32, mix_kmer_salted
+from .hashing import GOLDEN, MASK32, mix_kmer_salted, mix_kmer_salted_np
 from .hashtable import BUCKET, MAX_DEVICE_PROBES
-from .widetable import SLOTS
+from .widetable import EMPTY, MAX_WIDE_ROWS, SLOTS
 
 EMPTY_KEY = -1          # EMPTY's int32 bits
 SCAN_TILE = 4096        # rows a block of the kernel's scan (kScanTile)
@@ -176,3 +189,126 @@ def build_bucketed(key_lo: torch.Tensor, key_hi: torch.Tensor,
 
 build_wide.launches = 0
 build_bucketed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the close set's union table
+# ---------------------------------------------------------------------------
+
+class UnionRows(NamedTuple):
+    """A union's distinct keys grouped by home row at ``MAX_WIDE_ROWS``,
+    from :func:`union_dedupe`, for :func:`union_build`."""
+
+    n_keys: int         # distinct real keys (a partial count where bad)
+    bad: bool           # a row at MAX_WIDE_ROWS holds more than SLOTS keys
+    scratch: torch.Tensor | None   # CUDA: the kernel's grouped keys
+    n_raw: int          # CUDA: the raw keys the scratch was carved for
+    keys: tuple | None  # CPU: the sorted distinct (lo, hi) uint32 arrays
+
+
+def union_scratch_bytes(n: int) -> int:
+    """Device scratch of ``kan_union_dedupe`` over ``n`` raw keys, as
+    ``carve_union`` in ``csrc/table_build.cu`` lays it out: row counts,
+    the scan's status words (8 B a tile) and ticket (zeroed); each row's
+    run end (8 B); each key's (lo, hi) grouped by row (8 B)."""
+    return (_align16(_align16(4 * MAX_WIDE_ROWS)
+                     + 8 * (MAX_WIDE_ROWS // SCAN_TILE) + 4)
+            + _align16(8 * MAX_WIDE_ROWS) + _align16(8 * n))
+
+
+def _homes(lo: np.ndarray, hi: np.ndarray,
+           n_rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """Each key's home row at salt ``GOLDEN`` over ``n_rows`` rows, and
+    the keys each row holds."""
+    home = (mix_kmer_salted_np(lo, hi, GOLDEN)
+            & np.uint32(n_rows - 1)).astype(np.int64)
+    return home, np.bincount(home, minlength=n_rows)
+
+
+def union_table_plain(u_lo: np.ndarray, u_hi: np.ndarray,
+                      n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's table of sorted distinct keys, in NumPy: each key in
+    its home row at ``GOLDEN``, at its rank by key among the row's, EMPTY
+    and 0 past them; a row of more than ``SLOTS`` keys is left empty and
+    sets ``bad``.  (table ``(n_rows, 72)`` int32, bad 0-dim bool)."""
+    home, cnt = _homes(u_lo, u_hi, n_rows)
+    order = np.argsort(home, kind="stable")
+    hb = home[order]
+    slot = np.arange(len(hb)) - (np.cumsum(cnt) - cnt)[hb]
+    keep = cnt[hb] <= SLOTS
+    table = np.zeros((n_rows, 3 * SLOTS), np.uint32)
+    table[:, : 2 * SLOTS] = EMPTY
+    rows, slot, at = hb[keep], slot[keep], order[keep]
+    table[rows, slot] = u_lo[at]
+    table[rows, SLOTS + slot] = u_hi[at]
+    return (torch.from_numpy(table.view(np.int32)),
+            torch.tensor(bool((cnt > SLOTS).any())))
+
+
+def union_dedupe(key_lo: torch.Tensor, key_hi: torch.Tensor) -> UnionRows:
+    """The distinct real keys of raw 1-D int32 keys (duplicates and EMPTY
+    pads allowed), grouped by home row at ``MAX_WIDE_ROWS``, with their
+    count and ``bad``: one read of the device.  ``n_keys`` decides the
+    table's rows (``wide_rows_for``); where ``bad`` no table is built."""
+    for name, t in (("key_lo", key_lo), ("key_hi", key_hi)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"union build: {name} must be 1-D int32")
+    if key_lo.shape != key_hi.shape or key_lo.device != key_hi.device:
+        raise ValueError("union build: keys must have one shape and device")
+    if not _on_card(key_lo):
+        lo = key_lo.numpy().view(np.uint32)
+        hi = key_hi.numpy().view(np.uint32)
+        real = lo != EMPTY
+        keys = np.unique(hi[real].astype(np.uint64) << np.uint64(32)
+                         | lo[real])
+        u_lo = (keys & np.uint64(MASK32)).astype(np.uint32)
+        u_hi = (keys >> np.uint64(32)).astype(np.uint32)
+        _, cnt = _homes(u_lo, u_hi, MAX_WIDE_ROWS)
+        return UnionRows(len(keys), bool((cnt > SLOTS).any()), None, 0,
+                         (u_lo, u_hi))
+    lo, hi = key_lo.contiguous(), key_hi.contiguous()
+    n = lo.numel()
+    if n >= 1 << 31:
+        raise ValueError(f"union build: {n} keys pass the kernel's int32 "
+                         f"positions")
+    dev = lo.device
+    n_scratch = union_scratch_bytes(n)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+    totals = torch.empty(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.lib().kan_union_dedupe(
+            lo.data_ptr(), hi.data_ptr(), n, scratch.data_ptr(), n_scratch,
+            totals.data_ptr(), kernels.stream_of(lo))
+    kernels.check(err, "union dedupe kernel")
+    union_dedupe.launches += 1
+    n_keys, bad = totals.tolist()
+    return UnionRows(n_keys, bool(bad), scratch, n, None)
+
+
+def union_build(rows: UnionRows,
+                n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The union's wide table (``(n_rows, 72)`` int32, payload 0, salt
+    ``GOLDEN``) and ``bad``, a 0-dim bool tensor: True when a row holds
+    more than ``SLOTS`` keys.  ``n_rows`` is a power of two up to
+    ``MAX_WIDE_ROWS``; ``rows`` must not be bad."""
+    if rows.bad:
+        raise ValueError("union build: the keys' dedupe reported bad")
+    if not 1 <= n_rows <= MAX_WIDE_ROWS or n_rows & (n_rows - 1):
+        raise ValueError(f"union build: rows must be a power of two up to "
+                         f"{MAX_WIDE_ROWS}, got {n_rows}")
+    if rows.scratch is None:
+        return union_table_plain(*rows.keys, n_rows)
+    dev = rows.scratch.device
+    table = torch.empty((n_rows, 3 * SLOTS), dtype=torch.int32, device=dev)
+    bad = torch.empty((), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.lib().kan_union_build(
+            rows.scratch.data_ptr(), rows.n_raw, n_rows, table.data_ptr(),
+            bad.data_ptr(), kernels.stream_of(table))
+    kernels.check(err, "union build kernel")
+    union_build.launches += 1
+    return table, bad
+
+
+union_dedupe.launches = 0
+union_build.launches = 0

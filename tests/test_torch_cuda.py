@@ -7,6 +7,7 @@ absent (skipping the repo's jax-forcing conftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import itertools
 import json
 import logging
 
@@ -15,7 +16,8 @@ import pytest
 import torch
 
 from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, KEYS_SHARES,
-                        TABLE_BUILD_EDGES, WEIGHTED_EDGES, carried_state,
+                        TABLE_BUILD_EDGES, UNION_CASES, WEIGHTED_EDGES,
+                        carried_state, union_keys,
                         collision_rows,
                         collision_table, dna_stream_tensors, dna_streams,
                         dna_wrap_table, edge_keys, flat_case, flat_filter,
@@ -1285,6 +1287,93 @@ def test_close_tables_on_cuda_match_cpu(cuda, layout, monkeypatch):
         assert all(torch.equal(g.cpu(), w)
                    for g, w in zip(got.tables, want.tables))
         assert (got.salts, got.mps) == (want.salts, want.mps)
+        assert torch.equal(got.union_table.cpu(), want.union_table)
+        assert (got.union_salt, got.union_mp, got.n_union_keys) == (
+            want.union_salt, want.union_mp, want.n_union_keys)
     assert projection.host_fallback.count == fallbacks
     assert counter.launches - launches == len(olds) * (
         2 if layout == "wide" else 1)
+
+
+def _union_on_card(cuda, case):
+    """The union kernels against their plain version on one
+    ``UNION_CASES`` case: n_keys and bad of the dedupe, then the table
+    and bad of the build; one launch of each.  Returns (rows, table)."""
+    lo, hi = union_keys(case)
+    keys = [torch.from_numpy(a.view(np.int32).copy()) for a in (lo, hi)]
+    before = (table_build.union_dedupe.launches,
+              table_build.union_build.launches)
+    rows = table_build.union_dedupe(*(k.to(cuda) for k in keys))
+    want_rows = table_build.union_dedupe(*keys)
+    n_rows, where = UNION_CASES[case]
+    assert rows.bad == want_rows.bad == (where == "dedupe")
+    if rows.bad:
+        return rows, None
+    assert rows.n_keys == want_rows.n_keys
+    assert wide_rows_for(rows.n_keys) == n_rows
+    table, bad = table_build.union_build(rows, n_rows)
+    want, want_bad = table_build.union_build(want_rows, n_rows)
+    torch.cuda.synchronize()
+    assert (table_build.union_dedupe.launches - before[0],
+            table_build.union_build.launches - before[1]) == (1, 1)
+    assert table.device.type == "cuda" and torch.equal(table.cpu(), want)
+    assert bool(bad) == bool(want_bad) == (where == "build")
+    return rows, table
+
+
+@pytest.mark.parametrize("case", list(UNION_CASES))
+def test_union_kernels_match_plain(cuda, case):
+    _union_on_card(cuda, case)
+
+
+def test_union_build_repeats_bit_for_bit(cuda):
+    """Atomics arrive in any order: five builds of the realistic union,
+    on memory left full of junk, give one count and one table."""
+    lo, hi = (torch.from_numpy(a.view(np.int32).copy()).to(cuda)
+              for a in union_keys("realistic"))
+    first_rows, first = _union_on_card(cuda, "realistic")
+    for _ in range(5):
+        junk = torch.full((64 << 20,), 0x5A5A5A5A, dtype=torch.int32,
+                          device=cuda)
+        del junk                    # the next build may take its memory
+        rows = table_build.union_dedupe(lo, hi)
+        table, bad = table_build.union_build(rows, first.shape[0])
+        assert (rows.n_keys, rows.bad) == (first_rows.n_keys, False)
+        assert torch.equal(table, first) and not bool(bad)
+
+
+def test_close_set_on_card_evicts_before_building(cuda, monkeypatch):
+    """A full cache drops its oldest set before the next set's union keys
+    go up: the device then holds three sets' bytes, never five, and the
+    cache never more than 4 sets."""
+    _, olds, _ = make_projection_workload(np.random.default_rng(5), 300, 3)
+    olds = list(olds.values())
+    orders = [list(o) for o in itertools.permutations(olds)][:5]
+    annot = ProjectionAnnotator(device=cuda)
+    seen = []
+    dedupe = projection.union_dedupe
+
+    def spy(*args):
+        torch.cuda.synchronize()
+        seen.append((list(annot._closeset_cache),
+                     torch.cuda.memory_allocated(cuda)))
+        return dedupe(*args)
+
+    monkeypatch.setattr(projection, "union_dedupe", spy)
+    allocated = []
+    for o in orders:
+        annot._close_set(o)
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(cuda))
+        assert len(annot._closeset_cache) <= 4
+    keys = [(tuple(og.id for og in o), annot.k) for o in orders]
+    assert [len(c) for c, _ in seen] == [0, 1, 2, 3, 3]
+    assert seen[4][0] == keys[1:4]
+    assert list(annot._closeset_cache) == keys[1:]
+    # one set's bytes: what the fourth set added; the fifth build started
+    # with three sets held, and ended with four (within a quarter set:
+    # the sets' sizes and the allocator's rounding move a little)
+    one_set = allocated[3] - allocated[2]
+    assert one_set > 0
+    assert seen[4][1] <= allocated[3] - one_set + one_set // 4
+    assert abs(allocated[4] - allocated[3]) <= one_set // 4

@@ -259,12 +259,13 @@ def test_annotate_genome_records_the_fused_tree():
     recs = spans.records()
     got = _by_name(recs)
     assert set(got) == PROJ_NAMES
-    # the union table's host build, then (after the close tables) its upload
-    build, upload = got.pop("proj.close_set.union_table")
-    assert build.end <= got["proj.close_set.close_tables"][0].start
-    assert got["proj.close_set.close_tables"][0].end <= upload.start
-    assert build.attrs == {} and upload.attrs["bytes"] > 0
     assert all(len(v) == 1 for v in got.values())
+    # the union's keys deduped, then its table written, with no host
+    # fallback, both before the close tables
+    (table,) = got["proj.close_set.union_table"]
+    assert got["proj.close_set.union_keys"][0].end <= table.start
+    assert table.end <= got["proj.close_set.close_tables"][0].start
+    assert table.attrs["fallbacks"] == 0 and table.attrs["bytes"] > 0
     one = {name: v[0] for name, v in got.items()}
     by_id = {r.id: r for r in recs}
     root = one["proj.annotate"]

@@ -13,7 +13,12 @@ engine: the port's ``_close_set`` and ``_close_table`` (both layouts)
 against the reference's, every table, salt and probe bound equal, the
 table cache's eviction by ``table_cache_bytes``, and the host fallback,
 taken when a device build reports ``bad``, giving the reference's
-features.  Tolerance 0.
+features.  The close set's union table from raw keys with duplicates
+(``union_dedupe`` / ``union_build``, the plain side of
+``kan_union_dedupe`` / ``kan_union_build``) against ``np.unique`` and the
+host ``build_wide_table`` byte for byte, its ``bad`` against the host's
+overflow at ``GOLDEN`` and the engine's salt-retry fallback on it, and the
+close-set cache's eviction before a build.  Tolerance 0.
 """
 
 import os
@@ -31,7 +36,8 @@ from kmers_anno_tpu_torch.engine import projection as port
 from kmers_anno_tpu_torch.ops import hashtable, table_build, widetable
 from kmers_anno_tpu_torch.ops.hashing import GOLDEN, mix_kmer_salted_np
 
-from chip_smoke import TABLE_BUILD_EDGES, edge_keys, padded_keys, random_keys
+from chip_smoke import (TABLE_BUILD_EDGES, UNION_CASES, edge_keys, padded_keys,
+                        random_keys, union_keys)
 from tests.fixtures import make_projection_pair
 from tests.test_fused_scan import _workload
 
@@ -399,3 +405,148 @@ def test_host_fallback_on_bad_gives_the_same_features(route, monkeypatch):
         assert tables == [None] * 3
     else:
         assert all(s == GOLDEN for s in tables)   # the host build's salt
+
+
+# ---------------------------------------------------------------------------
+# the close set's union table from raw keys
+# ---------------------------------------------------------------------------
+
+def _int32(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(
+        np.int32).copy())
+
+
+def _host_union(lo, hi):
+    """The reference's union: ``np.unique`` of the real keys, then
+    ``build_wide_table`` with payload 0 (salt retries and all)."""
+    real = lo != EMPTY
+    keys = np.unique(hi[real].astype(np.uint64) << np.uint64(32) | lo[real])
+    u_lo = (keys & np.uint64(EMPTY)).astype(np.uint32)
+    u_hi = (keys >> np.uint64(32)).astype(np.uint32)
+    table, salt, mp = widetable.build_wide_table(
+        u_lo, u_hi, np.zeros(len(keys), np.uint32))
+    return u_lo, u_hi, table, salt, mp
+
+
+# the realistic union (~9M raw keys) is the card tests'
+UNION_GOOD = [c for c, (_, bad) in UNION_CASES.items()
+              if bad is None and c != "realistic"]
+UNION_BAD = [c for c, (_, bad) in UNION_CASES.items() if bad]
+
+
+@pytest.mark.parametrize("case", UNION_GOOD)
+def test_union_build_matches_unique_and_host_build(case):
+    lo, hi = union_keys(case)
+    u_lo, u_hi, want, salt, mp = _host_union(lo, hi)
+    rows = table_build.union_dedupe(_int32(lo), _int32(hi))
+    assert (rows.n_keys, rows.bad) == (len(u_lo), False)
+    n_rows = widetable.wide_rows_for(rows.n_keys)
+    assert n_rows == UNION_CASES[case][0] == want.shape[0]
+    table, bad = table_build.union_build(rows, n_rows)
+    assert not bool(bad) and (salt, mp) == (GOLDEN, 1)
+    assert table.dtype == torch.int32 and table.shape == (n_rows, 72)
+    np.testing.assert_array_equal(table.numpy().view(np.uint32), want)
+    # the kernel's fold: every key sits in the row its home at the cap's
+    # rows is congruent to
+    cap_home = mix_kmer_salted_np(u_lo, u_hi, GOLDEN) & np.uint32(
+        widetable.MAX_WIDE_ROWS - 1)
+    row, slot = np.nonzero(want[:, :24] != EMPTY)
+    placed = (want[row, 24 + slot].astype(np.uint64) << np.uint64(32)
+              | want[row, slot])
+    order = np.argsort(placed)
+    np.testing.assert_array_equal(
+        placed[order], u_hi.astype(np.uint64) << np.uint64(32) | u_lo)
+    np.testing.assert_array_equal(row[order], cap_home % n_rows)
+    if case == "table_row_of_24":
+        assert int((want[5, :24] != EMPTY).sum()) == 24
+
+
+@pytest.mark.parametrize("case", UNION_BAD)
+def test_union_row_of_25_is_bad_and_falls_back(case):
+    """25 distinct keys in one home: at the cap's rows the dedupe reports
+    ``bad``; spread over the cap's rows but in one row of the table, the
+    table build does.  The engine then takes the host's ``np.unique`` and
+    salt-retry build, counted by ``host_fallback``."""
+    lo, hi = union_keys(case)
+    u_lo, u_hi, want, salt, mp = _host_union(lo, hi)
+    n_rows, where = UNION_CASES[case]
+    assert widetable.wide_rows_for(len(u_lo)) == n_rows
+    rows = table_build.union_dedupe(_int32(lo), _int32(hi))
+    assert rows.bad == (where == "dedupe")
+    if not rows.bad:
+        _, bad = table_build.union_build(rows, n_rows)
+        assert bool(bad)
+    else:
+        with pytest.raises(ValueError):
+            table_build.union_build(rows, n_rows)
+    assert salt != GOLDEN                 # the host retried its salt
+    annot = port.ProjectionAnnotator(k=8, device="cpu")
+    before = port.host_fallback.count
+    got = annot._union_table([(lo, hi, None, None)])
+    assert port.host_fallback.count == before + 1
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32), want)
+    assert got[1:] == (salt, mp, len(u_lo))
+
+
+def test_union_wrappers_reject_bad_arguments():
+    keys = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        table_build.union_dedupe(keys.to(torch.int64), keys)
+    with pytest.raises(ValueError):
+        table_build.union_dedupe(keys, keys[:4])
+    rows = table_build.union_dedupe(keys, keys)
+    for n_rows in (0, 96, 2 * widetable.MAX_WIDE_ROWS):
+        with pytest.raises(ValueError):
+            table_build.union_build(rows, n_rows)
+    before = (table_build.union_dedupe.launches,
+              table_build.union_build.launches)
+    table_build.union_build(rows, 128)
+    assert (table_build.union_dedupe.launches,
+            table_build.union_build.launches) == before
+
+
+def test_union_scratch_is_the_kernels():
+    """``union_scratch_bytes`` is ``carve_union``'s layout: the row cap
+    is ``MAX_WIDE_ROWS`` and the salt ``GOLDEN`` in both."""
+    path = os.path.join(os.path.dirname(table_build.__file__), "..", "csrc",
+                        "table_build.cu")
+    with open(path, encoding="utf-8") as fh:
+        src = fh.read()
+    rows_log2 = int(re.search(
+        r"constexpr int64_t kUnionRows = int64_t\{1\} << (\d+);", src)[1])
+    golden = int(re.search(r"constexpr uint32_t kGolden = (0x[0-9A-F]+)u;",
+                           src)[1], 16)
+    assert (1 << rows_log2, golden) == (widetable.MAX_WIDE_ROWS, GOLDEN)
+    rows = widetable.MAX_WIDE_ROWS
+    assert table_build.union_scratch_bytes(0) == (
+        4 * rows + 8 * rows // table_build.SCAN_TILE + 16 + 8 * rows)
+    assert (table_build.union_scratch_bytes(3)
+            - table_build.union_scratch_bytes(0)) == 32
+
+
+def test_close_set_evicts_the_oldest_before_building():
+    """On a miss with a full cache, the oldest set goes before the union's
+    keys are touched, and the cache never holds more than 4 sets."""
+    olds = _close_genomes()
+    annot = port.ProjectionAnnotator(k=8, device="cpu")
+    seen = []
+    dedupe = port.union_dedupe
+
+    def spy(*args):
+        seen.append(list(annot._closeset_cache))
+        return dedupe(*args)
+
+    port.union_dedupe = spy
+    try:
+        orders = [olds, olds[::-1], olds[1:] + olds[:1], olds[2:] + olds[:2],
+                  olds[3:] + olds[:3], olds]
+        keys = [(tuple(og.id for og in o), 8) for o in orders]
+        for o in orders:
+            annot._close_set(o)
+            assert len(annot._closeset_cache) <= 4
+    finally:
+        port.union_dedupe = dedupe
+    assert [len(s) for s in seen] == [0, 1, 2, 3, 3, 3]
+    assert seen[4] == keys[1:4]           # the first set went before
+    assert seen[5] == keys[2:5]           # ... and then the second
+    assert list(annot._closeset_cache) == keys[2:6]
