@@ -1,0 +1,9 @@
+"""``kan_hash_best``'s share of its roofline over the window's launches,
+one a prototype chunk."""
+
+SPANS = ()
+COUNTS = ("kan_hash_best",)
+
+
+def read(trace):
+    return trace.roofline_pct("kan_hash_best")

@@ -23,6 +23,15 @@ Counterpart of ``kmers_anno_tpu/engine/hashanno.py``, on one torch device:
 * A proposal improves only on strictly greater similarity at or above
   the min-score floor; within a chunk the earliest prototype wins ties,
   the reference tool's sequential first-wins order.
+
+Spans (``utils.spans``, off unless enabled; none waits for the device):
+``hash.batch`` (a request) covers ``annotate_genomes_batched``, and inside
+it ``hash.register`` (the ``add_protein`` loop and its MD5s),
+``hash.index`` (``_build``), ``hash.score`` (the chunk launches, or the
+host route's chunk loop), ``hash.pull`` (the fast route's final pull) and
+``hash.emit`` (the rows); ``hash.protos`` covers a ``PrototypeSet.chunks``
+cache miss.  ``GenomeProteinKmers.host_route`` counts the indexes scored
+on the host route.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from ..ops.encode import PROT_PAD, encode_protein
 from ..ops.hash_chunk import DENSE_CELLS, OWNER_CAP, hash_best, hash_commons
 from ..ops.hashtable import build_table
 from ..ops.kmers import pack_kmer_windows
+from ..utils import spans
 from .projection import _bucket, _min_ev_table
 from .protein_kmers import apply_drop_last
 
@@ -109,6 +119,14 @@ class PrototypeSet:
         cached = self._cache.get(key)
         if cached is not None:
             return cached
+        with spans.span("hash.protos") as sp:
+            cached = self._pack(chunk, device)
+            sp.set(chunks=len(cached),
+                   kmers=sum(int(c[4].sum()) for c in cached))
+        self._cache[key] = cached
+        return cached
+
+    def _pack(self, chunk: int, device: torch.device) -> list:
         cached = []
         for start in range(0, len(self.protos), chunk):
             sub = self.protos[start: start + chunk]
@@ -130,7 +148,6 @@ class PrototypeSet:
                            _device_i32(qproto, device),
                            torch.from_numpy(qvalid).to(device), n2, sub,
                            n_proto, _device_i32(n2, device)))
-        self._cache[key] = cached
         return cached
 
 
@@ -208,6 +225,8 @@ class GenomeProteinKmers:
     bookkeeping (GenomeProteinKmers contract,
     HashAnnotationProcessor.java:233-291), on ``device``."""
 
+    host_route = 0      # indexes scored on the host route, process-wide
+
     def __init__(self, k: int, min_score: float, *,
                  device: str | torch.device):
         self.k = k
@@ -232,6 +251,13 @@ class GenomeProteinKmers:
     # ----- index construction -----
 
     def _build(self) -> None:
+        with spans.span("hash.index") as sp:
+            self._build_index()
+            sp.set(kmers=self.kmer_count,
+                   buckets=0 if self.table is None else self.table.shape[0],
+                   heavy=len(self.heavy_owners))
+
+    def _build_index(self) -> None:
         lo, hi, owner, counts = _distinct_kmers_flat(self._proteins, self.k)
         self.protein_kmer_counts = counts
         n = len(self._proteins)
@@ -282,6 +308,7 @@ class GenomeProteinKmers:
         else:
             self.table = None
             self.kmer_count = 0
+            self.heavy_owners = np.zeros(0, np.int32)
         self._built = True
 
     @property
@@ -318,17 +345,23 @@ class GenomeProteinKmers:
         chunks = prototypes.chunks(chunk, self.device)
         if not fast:
             # heavy-owner CSR or huge proteins: host-float64 route
+            GenomeProteinKmers.host_route += 1
             matches = 0
-            for prepared in chunks:
-                matches += self._process_chunk(prepared)
-                if rate is not None:
-                    rate.add(len(prepared[5]))
+            with spans.span("hash.score") as sp:
+                sp.set(chunks=len(chunks))
+                for prepared in chunks:
+                    matches += self._process_chunk(prepared)
+                    if rate is not None:
+                        rate.add(len(prepared[5]))
             return matches
         # fast route: device-resident exact-rational best reduction, one
         # small pull at the end
-        run = self._device_run(chunks, max_len)
-        self._score_chunks(chunks, run, rate)
-        return self._pull_best(run, prototypes.protos)
+        with spans.span("hash.score") as sp:
+            sp.set(chunks=len(chunks))
+            run = self._device_run(chunks, max_len)
+            self._score_chunks(chunks, run, rate)
+        with spans.span("hash.pull"):
+            return self._pull_best(run, prototypes.protos)
 
     def _device_run(self, chunks: list, max_len: int) -> tuple:
         """The fast route's device tensors: (minc, n1, state (c, u, index,
@@ -529,33 +562,39 @@ def annotate_genomes_batched(genomes: "list[Genome]",
     stats carries the per-genome Q12 class counts and the batch-wide
     ``matches`` total.
     """
-    gk = GenomeProteinKmers(k, min_score, device=device)
-    per_counts = []
-    per_defaults: list[dict[str, str]] = []
-    for genome in genomes:
-        f_count = s_count = p_count = 0
-        defaults: dict[str, str] = {}
-        for feat in genome.features:
-            prot = feat.protein_translation
-            f_count += 1
-            if not prot or "*" in prot:
-                s_count += 1
-            else:
-                p_count += 1
-                gk.add_protein(feat.id, prot, feat.peg_function)
-                defaults.setdefault(protein_md5(prot), feat.peg_function)
-        per_counts.append((f_count, s_count, p_count))
-        per_defaults.append(defaults)
-    log.info("%d proteins (%d kmers) from %d genomes in one device "
-             "batch.", len(gk._proteins), gk.n_kmers, len(genomes))
-    matches = gk.process_proposals(prototypes, rate=rate)
-    out = []
-    for genome, (f_count, s_count, p_count), defaults in zip(
-            genomes, per_counts, per_defaults):
-        rows, changes, d_count, c_count = _emit_rows(genome, gk, defaults)
-        out.append((rows, changes,
-                    dict(features=f_count, skipped=s_count,
-                         proteins=p_count, matches=matches,
-                         defaulted=d_count, confirmed=c_count,
-                         changed=len(changes))))
+    with spans.span("hash.batch", spans.request()) as batch:
+        gk = GenomeProteinKmers(k, min_score, device=device)
+        per_counts = []
+        per_defaults: list[dict[str, str]] = []
+        with spans.span("hash.register"):
+            for genome in genomes:
+                f_count = s_count = p_count = 0
+                defaults: dict[str, str] = {}
+                for feat in genome.features:
+                    prot = feat.protein_translation
+                    f_count += 1
+                    if not prot or "*" in prot:
+                        s_count += 1
+                    else:
+                        p_count += 1
+                        gk.add_protein(feat.id, prot, feat.peg_function)
+                        defaults.setdefault(protein_md5(prot),
+                                            feat.peg_function)
+                per_counts.append((f_count, s_count, p_count))
+                per_defaults.append(defaults)
+        batch.set(genomes=len(genomes), proteins=len(gk._proteins))
+        log.info("%d proteins (%d kmers) from %d genomes in one device "
+                 "batch.", len(gk._proteins), gk.n_kmers, len(genomes))
+        matches = gk.process_proposals(prototypes, rate=rate)
+        out = []
+        with spans.span("hash.emit"):
+            for genome, (f_count, s_count, p_count), defaults in zip(
+                    genomes, per_counts, per_defaults):
+                rows, changes, d_count, c_count = _emit_rows(genome, gk,
+                                                             defaults)
+                out.append((rows, changes,
+                            dict(features=f_count, skipped=s_count,
+                                 proteins=p_count, matches=matches,
+                                 defaulted=d_count, confirmed=c_count,
+                                 changed=len(changes))))
     return out
