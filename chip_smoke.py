@@ -112,7 +112,12 @@ runs and a split of one run, and times both kernels on its first chunk
 beside their plain versions, the unfused torch scatter and one
 ``torch.bincount`` (``library_ms``), with ``hash_commons`` also on that
 chunk key-major and each order's distinct cells a kernel tile (its global
-adds).  Last, ``hashAnno --batch 4`` runs
+adds); the index's table must launch once.  Then the batch index at the
+``hashanno_batch4`` cell's shape (11,740 distinct proteins, a kmer of 4
+owners): the card's build against the host build byte for byte, both
+timed in turns, the build's device high-water mark, and the 8-slot table
+alone with its longest walk against the plain version and its byte bound
+(``--hash-index-only`` runs only this).  Last, ``hashAnno --batch 4`` runs
 twice (cold, warm) through the CLI on the four signature genomes with a
 32,832-row annotation file; every row of every ``<gid>.anno.tbl`` must
 equal the baseline's best similarity (``repr``) and winner, the engine
@@ -1463,10 +1468,10 @@ def check_table_build(what, layout, keys, n_rows, salt, want_bad=None):
     from kmers_anno_tpu_torch.ops.table_build import build_table_plain
 
     wrapper, lay = table_build_of(layout)
-    extra = (salt,) if layout == "wide" else ()
-    t_k, (table, bad) = timed(lambda: wrapper(*keys, n_rows, *extra))
-    t_p, (want, want_b) = timed(lambda: build_table_plain(*keys, n_rows, lay,
-                                                          salt))
+    extra = (salt,) if layout == "wide" else (lay,)
+    t_k, (table, bad, *_) = timed(lambda: wrapper(*keys, n_rows, *extra))
+    t_p, (want, want_b, _) = timed(lambda: build_table_plain(
+        *keys, n_rows, lay, salt))
     require(torch.equal(table, want) and bool(bad) == bool(want_b),
             f"the {layout} table build differs from its plain version on "
             f"{what}")
@@ -1482,16 +1487,19 @@ def launch_table_build(lib, lo, hi, val, n_rows, lay, salt, scratch, table,
     on a build without it (the sort-based build), that build's whole
     device work as its wrapper ran it: the table filled with EMPTY keys and
     0 payloads, ``kan_table_homes``, the stable ``torch.sort`` of the
-    homes, ``kan_table_place``.  ``scratch`` holds either build's scratch.
-    Returns (table, bad)."""
+    homes, ``kan_table_place``.  ``scratch`` holds either build's scratch,
+    and in its last 16 bytes the 8-slot build's longest walk.  Returns
+    (table, bad)."""
     stream = torch.cuda.current_stream().cuda_stream
     n = lo.numel()
     if hasattr(lib, "kan_table_build"):
+        walk = scratch[-16:].view(torch.int32)
         err = lib.kan_table_build(
             lo.data_ptr(), hi.data_ptr(), val.data_ptr(), n, n_rows,
             salt & 0xFFFFFFFF, lay.slots, lay.max_walk, int(lay.keep_walkers),
-            scratch.data_ptr(), scratch.numel(), table.data_ptr(),
-            bad.data_ptr(), stream)
+            int(lay.wraps), scratch.data_ptr(), scratch.numel() - 16,
+            table.data_ptr(), bad.data_ptr(),
+            walk.data_ptr() if lay.keep_walkers else 0, stream)
         require(err == 0, f"kan_table_build returned CUDA error {err}")
         return table, bad
     table.fill_(-1)
@@ -1526,7 +1534,7 @@ def table_build_args(layout, keys, n_rows, salt) -> tuple:
     scratch and the outputs.  The scratch has room for the kernel's earlier
     designs too (a 16-byte bucket entry for each slot of a row's
     ``max_walk``, and 64 bytes a key), so that ``--compare`` can time
-    them."""
+    them, and 16 bytes for the 8-slot build's walk."""
     from kmers_anno_tpu_torch.ops.table_build import scratch_bytes
 
     _, lay = table_build_of(layout)
@@ -1535,7 +1543,8 @@ def table_build_args(layout, keys, n_rows, salt) -> tuple:
     room = max(scratch_bytes(n, n_rows, lay),
                16 * n_rows * lay.slots * lay.max_walk + 64 * n + (4 << 20))
     return (*keys, n_rows, lay, salt,
-            torch.empty(room, dtype=torch.uint8, device=dev),
+            torch.empty(-(-room // 16) * 16 + 16, dtype=torch.uint8,
+                        device=dev),
             torch.empty((n_rows, 3 * lay.slots), dtype=torch.int32,
                         device=dev),
             torch.empty((), dtype=torch.bool, device=dev))
@@ -4038,6 +4047,9 @@ def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
     require(run.counts["hash_commons"] == run.counts["hash_best"]
             == n_chunks, f"hash bench shape: {n_chunks} chunks of {chunk} "
             f"(n_pad {gk.n_pad}), launches {run.counts}")
+    require(run.counts["table_build_bucketed"] == 1,
+            f"hash bench shape: the index's table launched "
+            f"{run.counts['table_build_bucketed']} times, not once")
     routes = {"hash_bench": dict(launches=run.counts)}
     want, base_wall, base_sum = hash_baselines(
         genomes, [p.protein for p in protos], HASH_MIN_SCORE)
@@ -4099,7 +4111,7 @@ def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
           f"of {WARM_RUNS}, range {rates[0]:.1f}-{rates[-1]:.1f}; s per run "
           f"{', '.join(f'{t:.4f}' for t in times)}); split of one more run: "
           f"host _distinct_kmers_flat of the proteins {flat_s:.4f} s, _build "
-          f"(that flat pass, owner matrix, 8-slot table, upload) "
+          f"(on the card: pack, sort, pairs, owner matrix, 8-slot table) "
           f"{build_s:.4f} s, device chunk steps {steps_ms:.4f} ms by CUDA "
           f"events ({steps_host_s:.4f} s host), final pull and _emit_rows "
           f"{pull_s:.4f} s", flush=True)
@@ -4210,6 +4222,229 @@ def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
     cases = dict(order_cases)
     cases["the bench chunk (hash_best)"] = (launch_hash_best, [best_args])
     return routes, {"hash_commons": commons, "hash_best": best}, cases
+
+
+# ---------------------------------------------------------------------------
+# hashAnno's batch index: the host build against the card's
+# ---------------------------------------------------------------------------
+
+# a species batch of 4 genomes of 4,020 pegs as kanbench's hashanno_batch4
+# cell holds it: 11,740 distinct proteins of log-normal length (median 280
+# aa, sigma 0.6, 50-5,000 aa), one 8-residue motif in a protein of each
+# genome (a kmer of 4 owners: the cell's 4-wide owner matrix)
+HASH_INDEX_PROTEINS = 11_740
+HASH_INDEX_MOTIF = 4
+HASH_INDEX_RUNS = 5
+HASH_INDEX_WRAPS = 16    # keys added in the last bucket to time a wrap
+
+
+def hash_index_batch(rng, n: int = HASH_INDEX_PROTEINS) -> list[str]:
+    """``n`` distinct random proteins at the cell's lengths, the motif in
+    ``HASH_INDEX_MOTIF`` of them."""
+    lengths = np.clip(np.rint(rng.lognormal(np.log(280), 0.6, n)), 50,
+                      5000).astype(np.int64)
+    letters = np.frombuffer(AA.encode(), np.uint8)[
+        rng.integers(0, len(AA), int(lengths.sum()))]
+    text = letters.tobytes().decode()
+    ends = np.cumsum(lengths)
+    out = [text[e - m: e] for e, m in zip(ends, lengths)]
+    motif = "".join(rng.choice(list(AA), K))
+    for i in rng.choice(n, HASH_INDEX_MOTIF, replace=False):
+        at = int(rng.integers(0, len(out[i]) - K + 1))
+        out[i] = out[i][:at] + motif + out[i][at + K:]
+    return out
+
+
+def wrapping_batch(rng) -> list[str]:
+    """Distinct proteins of ``K`` residues, one kmer each, whose index
+    table (16 buckets, ``table_size_for`` of their 64 kmers) has 12 kmers
+    homed in its last bucket and 4 in each of buckets 0-12: the last
+    bucket's 4 past its 8 slots wrap into bucket 0, a walk of 1."""
+    from kmers_anno_tpu_torch.ops.encode import encode_protein
+    from kmers_anno_tpu_torch.ops.hashing import mix_kmer_np
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+
+    left = {15: 12, **{b: 4 for b in range(13)}}
+    out: list[str] = []
+    while any(left.values()):
+        p = "".join(rng.choice(list(AA), K))
+        lo, hi = pack_kmers_np(encode_protein(p), K)
+        b = int(mix_kmer_np(lo, hi)[0]) & 15
+        if left.get(b) and p not in out:
+            left[b] -= 1
+            out.append(p)
+    return out
+
+
+def host_hash_index(proteins: list[str], dev) -> dict:
+    """The batch index as the host builds it (the engine's build before it
+    moved to the card): ``_distinct_kmers_flat``'s key-major pairs, the
+    owner matrix in NumPy, ``build_table``, both uploaded.  Returns the
+    engine's attributes under their names, the unique keys beside."""
+    from kmers_anno_tpu_torch.engine.hashanno import (OWNER_CAP, _bucket,
+                                                      _distinct_kmers_flat)
+    from kmers_anno_tpu_torch.ops.hashtable import build_table
+
+    lo, hi, owner, counts = _distinct_kmers_flat(proteins, K)
+    first = np.ones(len(lo), bool)
+    first[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+    starts = np.flatnonzero(first)
+    u = len(starts)
+    ucounts = np.diff(np.append(starts, len(lo)))
+    cap = min(int(ucounts.max(initial=1)), OWNER_CAP)
+    n_pad = _bucket(len(proteins), 256)
+    owner_mat = np.full((_bucket(u, 4096), cap), n_pad, np.int32)
+    rows = np.repeat(np.arange(u), ucounts)
+    cols = np.arange(len(rows)) - np.repeat(np.cumsum(ucounts) - ucounts,
+                                            ucounts)
+    in_cap = cols < cap
+    owner_mat[rows[in_cap], cols[in_cap]] = owner[in_cap]
+    h_ranks, h_counts = np.unique(rows[~in_cap], return_counts=True)
+    table, max_probes = build_table(lo[starts], hi[starts],
+                                    np.arange(u, dtype=np.uint32))
+    return dict(owner_mat=torch.from_numpy(owner_mat).to(dev),
+                table=torch.from_numpy(table.view(np.int32)).to(dev),
+                max_probes=max_probes, protein_kmer_counts=counts,
+                heavy_ranks=h_ranks.astype(np.int32),
+                heavy_off=np.concatenate([[0], np.cumsum(h_counts)]).astype(
+                    np.int64),
+                heavy_owners=owner[~in_cap].astype(np.int32),
+                kmer_count=u, n_pad=n_pad, keys=(lo[starts], hi[starts]))
+
+
+def index_differences(gk, want: dict) -> list[str]:
+    """The names of the engine's index attributes that differ from the
+    host build's ``want``, byte for byte."""
+    bad = []
+    for name in ("owner_mat", "table"):
+        got = getattr(gk, name)
+        if not (got.shape == want[name].shape
+                and torch.equal(got.cpu(), want[name].cpu())):
+            bad.append(name)
+    for name in ("max_probes", "kmer_count", "n_pad"):
+        if getattr(gk, name) != want[name]:
+            bad.append(name)
+    for name in ("protein_kmer_counts", "heavy_ranks", "heavy_off",
+                 "heavy_owners"):
+        got = getattr(gk, name)
+        if not (got.dtype == want[name].dtype
+                and np.array_equal(got, want[name])):
+            bad.append(name)
+    return bad
+
+
+def run_hash_index(dev) -> dict:
+    """hashAnno's batch index at the cell's shape: the card's build
+    (``GenomeProteinKmers._build``) against the host build, byte for byte,
+    both timed in turns on the host clock; the build's device high-water
+    mark over its outputs; and the 8-slot table build alone at that shape
+    (``build_bucketed`` at ``OPEN_WALK``, the walk reported) against its
+    plain version and its byte bound, then again with ``HASH_INDEX_WRAPS``
+    more keys homed in the last bucket, so that keys wrap to bucket 0,
+    against the host ``build_table``."""
+    from kmers_anno_tpu_torch.engine.hashanno import GenomeProteinKmers
+    from kmers_anno_tpu_torch.ops.hashing import GOLDEN, mix_kmer_salted
+    from kmers_anno_tpu_torch.ops.hashtable import build_table, table_size_for
+    from kmers_anno_tpu_torch.ops.table_build import (OPEN_WALK,
+                                                      build_bucketed,
+                                                      build_table_plain)
+
+    proteins = hash_index_batch(np.random.default_rng(HASH_SEED))
+    gk = GenomeProteinKmers(K, HASH_MIN_SCORE, device=dev)
+    for i, p in enumerate(proteins):
+        gk.add_protein(f"fig|1.1.peg.{i}", p, "hypothetical protein")
+    built = GenomeProteinKmers.device_index
+
+    def card():
+        gk.table = gk.owner_mat = None      # the last build's outputs go
+        gk._build()
+
+    host_s, card_s = [], []
+    for _ in range(HASH_INDEX_RUNS):
+        t, want = host_seconds(lambda: host_hash_index(proteins, dev))
+        host_s.append(t)
+        del want
+        card_s.append(host_seconds(card)[0])
+    want = host_hash_index(proteins, dev)
+    differ = index_differences(gk, want)
+    require(not differ, f"hash index: the card's build differs from the "
+            f"host's in {differ}")
+    require(GenomeProteinKmers.device_index - built == HASH_INDEX_RUNS,
+            "hash index: the card's builds were not counted once each")
+    outputs = nbytes(gk.table, gk.owner_mat)
+    gk.table = gk.owner_mat = None
+    want_table = want.pop("table")
+    want.pop("owner_mat")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gk._build()
+    torch.cuda.synchronize()
+    high = torch.cuda.max_memory_allocated(dev) - base
+    # the 8-slot table alone at the shape, the walk reported
+    lo, hi = int32_tensors(want["keys"], dev)
+    u = lo.numel()
+    val = torch.arange(u, dtype=torch.int32, device=dev)
+    n_buckets = table_size_for(u)
+    ms, (table, bad, walk) = timed(lambda: build_bucketed(
+        lo, hi, val, n_buckets, OPEN_WALK))
+    p_table, p_bad, p_walk = build_table_plain(lo, hi, val, n_buckets,
+                                               OPEN_WALK, GOLDEN)
+    require(torch.equal(table, p_table) and bool(bad) == bool(p_bad)
+            and int(walk) == int(p_walk) and torch.equal(table, want_table)
+            and int(walk) + 1 == want["max_probes"],
+            "hash index: the 8-slot build at the cell's shape differs from "
+            "its plain version or the host build")
+    # keys homed in the last bucket, their hi words past any kmer's
+    gen = torch.Generator(device=dev).manual_seed(HASH_SEED)
+    c_lo, c_hi = (torch.randint(lo_, lo_ + (1 << 30) - 1, (1 << 25,),
+                                dtype=torch.int32, device=dev, generator=gen)
+                  for lo_ in (0, 1 << 30))
+    last = torch.nonzero((mix_kmer_salted(c_lo, c_hi, GOLDEN)
+                          & (n_buckets - 1)) == n_buckets - 1).flatten()
+    last = last[:HASH_INDEX_WRAPS]
+    w_lo, w_hi = torch.cat((lo, c_lo[last])), torch.cat((hi, c_hi[last]))
+    del c_lo, c_hi
+    w_val = torch.arange(w_lo.numel(), dtype=torch.int32, device=dev)
+    w_ms, (w_table, w_bad, w_walk) = timed(lambda: build_bucketed(
+        w_lo, w_hi, w_val, n_buckets, OPEN_WALK))
+    h_table, h_probes = build_table(
+        *(t.cpu().numpy().view(np.uint32) for t in (w_lo, w_hi, w_val)),
+        n_buckets)
+    head = w_table[:8]                  # the first buckets' keys
+    wrapped = int(((mix_kmer_salted(head[:, :8], head[:, 8:16], GOLDEN)
+                    & (n_buckets - 1)) == n_buckets - 1)
+                  [head[:, :8] != -1].sum())
+    require(last.numel() == HASH_INDEX_WRAPS and not bool(w_bad)
+            and wrapped > 0
+            and np.array_equal(w_table.cpu().numpy().view(np.uint32), h_table)
+            and int(w_walk) + 1 == h_probes,
+            "hash index: the 8-slot build with keys past the last bucket "
+            "differs from the host build, or none wrapped")
+    row = dict(host_s=statistics.median(host_s),
+               card_s=statistics.median(card_s), host_runs=host_s,
+               card_runs=card_s, proteins=len(proteins), kmers=u,
+               buckets=n_buckets, cap=int(gk.owner_mat.shape[1]),
+               max_probes=gk.max_probes, outputs_bytes=outputs,
+               high_water_bytes=high, table_ms=ms, wrap_table_ms=w_ms,
+               wrap_walk=int(w_walk), wrapped_keys=wrapped,
+               **table_build_bound((lo, hi, val), table, ms))
+    print(f"hash index at the cell's shape: {len(proteins)} distinct "
+          f"proteins, {u} kmers into {n_buckets} buckets, owner cap "
+          f"{row['cap']}, max_probes {gk.max_probes}; card build equal to "
+          f"the host build byte for byte (table, owner matrix, max_probes, "
+          f"counts, heavy CSR); host {row['host_s']:.4f} s, card "
+          f"{row['card_s']:.4f} s a build (medians of {HASH_INDEX_RUNS} in "
+          f"turns: host {', '.join(f'{t:.4f}' for t in host_s)}; card "
+          f"{', '.join(f'{t:.4f}' for t in card_s)}); the build's device "
+          f"high-water mark {high} B over what it found ({outputs} B of "
+          f"outputs: table and owner matrix); the 8-slot table alone "
+          f"{ms:.4f} ms, walk {int(walk)}, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_bytes']} bytes), share {row['bound_share']:.3f}; "
+          f"with {HASH_INDEX_WRAPS} more keys in the last bucket ({wrapped} "
+          f"wrap to the first buckets, equal to the host build) "
+          f"{w_ms:.4f} ms, walk {int(w_walk)}", flush=True)
+    return {"hash_index": row}
 
 
 def make_hash_annotations(rng, genomes, path: str) -> list[str]:
@@ -6294,6 +6529,10 @@ def main() -> None:
              "annotation and the table_build phase (and --compare on its "
              "cases); prints no result line")
     parser.add_argument(
+        "--hash-index-only", action="store_true",
+        help="run only hashAnno's batch index at the cell's shape, host "
+             "against card; prints no result line")
+    parser.add_argument(
         "--keys-only", action="store_true",
         help="run only the key lookup's checks and measurements (and "
              "--compare on its cases); prints no result line")
@@ -6329,6 +6568,12 @@ def main() -> None:
         phases.append((name, time.perf_counter() - t0))
         return out
 
+    if args.hash_index_only:
+        index_measured = phase("hash index", run_hash_index, dev)
+        print("seconds by phase: " + ", ".join(f"{n} {t:.1f}"
+                                               for n, t in phases))
+        print(json.dumps(index_measured), flush=True)
+        return
     if args.keys_only:
         keys_measured, cases = phase("keys", run_keys, dev)
         if args.compare:
@@ -6402,6 +6647,7 @@ def main() -> None:
     routes.update(hash_routes)
     measured.update(hash_measured)
     cases.update(hash_cases)
+    measured.update(phase("hash index", run_hash_index, dev))
     with tempfile.TemporaryDirectory() as tmp:
         cli_routes, cli_cases = phase("hashAnno CLI", run_hash_cli, dev, tmp)
         os.makedirs(os.path.join(tmp, "commands"))

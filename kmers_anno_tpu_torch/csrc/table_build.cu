@@ -21,11 +21,17 @@
 // overflow on to the next row.  `bad` is set when a real key has
 // pos >= rows * S (it would wrap) or a walk pos / S - home of max_walk or
 // more (1 for the wide layout, whose probe reads one row; 2,
-// MAX_DEVICE_PROBES, for the 8-slot layout).  A key is written where
-// pos < rows * S and, unless keep_walkers, its walk is 0: the wide layout
-// drops the keys that walk, the 8-slot layout keeps them.  The table's rows
-// are [S lo keys | S hi keys | S payloads], EMPTY keys and 0 payloads where
-// no key lies.
+// MAX_DEVICE_PROBES, for the projection's 8-slot tables).  A key is
+// written where pos < rows * S and, unless keep_walkers, its walk is 0:
+// the wide layout drops the keys that walk, the 8-slot layout keeps them.
+// hashAnno's index (`wrap`, the 8-slot layout with a max_walk no key
+// reaches, since its probe walks as far as the longest walk) places the
+// keys past the last row as build_table's wraparound tail does: the t-th
+// of them in stable order takes the t-th free slot of the table counted
+// from row 0 (a row's keys fill it from slot 0, so its free slots are its
+// last), a walk of rows - home + its row; `bad` is then set only where no
+// free slot is left.  The table's rows are [S lo keys | S hi keys |
+// S payloads], EMPTY keys and 0 payloads where no key lies.
 //
 // The same placement by rows, with no sort.  Let cnt[h] be the real keys
 // homed in row h, start[h] its exclusive prefix sum, and
@@ -36,12 +42,15 @@
 // F[h] = start[h] + C[h - 1]; the slots [h * S, F[h]) are every one taken,
 // the one at p by the key of sorted index p - C[h - 1].  A row's bad test
 // is on its last key: first[h] + cnt[h] - 1 >= min(rows * S,
-// (h + max_walk) * S).  tests/test_torch_table_build.py holds this to the
-// plain version key by key.
+// (h + max_walk) * S), or (h + max_walk) * S with `wrap`.  The keys past
+// the last row are the last n_real + C[rows - 1] - rows * S of the stable
+// order.  tests/test_torch_table_build.py holds this to the plain version
+// key by key.
 //
 // One entry point, kan_table_build, five passes (six for the 8-slot
-// layout), no library call:
-//   zero   the row counts, the scan's status words and ticket, `bad`;
+// layout, seven with `wrap`), no library call:
+//   zero   the row counts, the scan's status words and ticket, `bad` (and
+//          for the 8-slot layout the longest walk);
 //   count  a thread a key: its home, atomicAdd(&cnt[home], 1), the old
 //          value kept as the key's arrival slot;
 //   scan   a block a tile of 4,096 rows, one pass with a decoupled
@@ -62,21 +71,30 @@
 //          records, the record stored at start + rank, the stable order)
 //          then rows (a warp a run of 32 rows, a lane a slot in each of 8
 //          rounds: the key of the walkers' run or of the home's own run
-//          read from the stable order, EMPTY and 0 past them).
+//          read from the stable order, EMPTY and 0 past them; each block
+//          adds its rows' longest walk into `walk` with one atomicMax);
+//   wrap   one block: where keys pass the last row, the rows' free slots
+//          counted from the written table 256 rows at a time, a block
+//          scan of them, each such key written into its free slot and its
+//          walk into `walk`; where none do, it reads one pair and ends.
 // Atomics arrive in any order; the rank by index makes every launch write
 // the same table.  A block with a bad row stores 1 into `bad`, read once a
-// build.  A row of L keys costs O(L^2) compares: the realistic sets hold
-// 7 keys a wide row on average, and only forced bad cases reach a few
-// hundred.
+// build, beside the 8-slot layout's longest walk: the largest
+// pos / S - home of a key written (pos < rows * S, and with `wrap` the
+// keys past the last row too), build_table's max_probes - 1.  A row of L keys costs O(L^2)
+// compares: the realistic sets hold 7 keys a wide row and under 4 an
+// 8-slot row on average, and only forced bad cases reach a few hundred.
 //
 // What bounds it on this card: bytes.  A build of n keys into a table of
 // B bytes must read each key's 12 bytes once and write B: on the
 // projection's close tables (914,109 keys padded to 1,048,576; 131,072
 // rows of 288 bytes) 50.3 MB, 0.0150 ms at 3.35 TB/s; the 8-slot table
-// (1,048,576 rows of 96 bytes) 113.2 MB, 0.0338 ms.  The passes move
-// more, and three of their accesses a key land at random: the count's
-// atomic, the scatter's read of its row's start and its record's store
-// (the counts, pairs and records stay in the 50 MB L2 at these sizes).
+// (1,048,576 rows of 96 bytes) 113.2 MB, 0.0338 ms; hashAnno's index
+// (3.85M keys into the same 1,048,576 rows) 146.9 MB, 0.0438 ms.  The
+// passes move more, and three of their accesses a key land at random: the
+// count's atomic, the scatter's read of its row's start and its record's
+// store (the counts, pairs and records stay in the 50 MB L2 at the
+// projection's sizes; hashAnno's 61.6 MB of records do not).
 // Those two passes take 0.06 of the wide build's 0.10 ms (PERF.md,
 // Findings, with the designs that lost: a torch.sort of the homes, a
 // fill and a place pass; groups of rows built in shared memory; a bucket
@@ -175,11 +193,14 @@ Scratch carve(char* base, int64_t n, int64_t n_rows, bool keep_walkers) {
 
 __global__ void __launch_bounds__(kThreads)
 zero_kernel(int4* __restrict__ words, int64_t n_vec,
-            uint8_t* __restrict__ bad) {
+            uint8_t* __restrict__ bad, int32_t* __restrict__ walk) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads +
                     threadIdx.x;
   if (i < n_vec) words[i] = make_int4(0, 0, 0, 0);
-  if (i == 0) *bad = 0;
+  if (i == 0) {
+    *bad = 0;
+    if (walk) *walk = 0;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -342,11 +363,14 @@ scatter_kernel(const uint32_t* __restrict__ lo,
                       static_cast<int32_t>(hv), __ldg(values + i));
 }
 
-// Whether row h (cnt keys from `first`) holds a bad key.
+// Whether row h (cnt keys from `first`) holds a bad key; with `wrap` a
+// key past the last row (cap) is not bad, the wrap pass places it.
 __device__ __forceinline__ bool row_bad(int64_t h, int32_t cnt,
                                         int32_t first, int64_t cap,
-                                        int slots, int max_walk) {
-  const int64_t limit = min(cap, (h + max_walk) * slots);
+                                        int slots, int max_walk,
+                                        bool wrap = false) {
+  const int64_t walk_end = (h + max_walk) * slots;
+  const int64_t limit = wrap ? walk_end : min(cap, walk_end);
   return cnt > 0 && static_cast<int64_t>(first) + cnt - 1 >= limit;
 }
 
@@ -447,19 +471,22 @@ rank_kernel(const int4* __restrict__ rec, const int2* __restrict__ pair,
 // slot p of row h in each of its rounds.  The walkers' run [h * S, F)
 // holds stable index p - C[h - 1]; the home's own run [first, first +
 // cnt) holds start + (p - first).  Each lane finds its rounds' indices,
-// then loads their records, then writes them.
+// then loads their records, then writes them.  A row's longest walk is its
+// last key written's; the block's goes into `walk` where it is not null.
 __global__ void __launch_bounds__(kThreads)
 slot_rows_kernel(const int2* __restrict__ pair,
                  const int4* __restrict__ sorted, int64_t n_rows,
-                 int max_walk, int32_t* __restrict__ table,
-                 uint8_t* __restrict__ bad) {
+                 int max_walk, bool wrap, int32_t* __restrict__ table,
+                 uint8_t* __restrict__ bad, int32_t* __restrict__ walk) {
   constexpr int S = kBucketSlots;
   constexpr int kRounds = kSlotRunRows * S / 32;
+  __shared__ int32_t warp_walk[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t h0 =
       (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kSlotRunRows;
   bool is_bad = false;
+  int32_t row_walk = 0;
   if (h0 < n_rows) {
     const int rows =
         static_cast<int>(min(int64_t{kSlotRunRows}, n_rows - h0));
@@ -476,8 +503,13 @@ slot_rows_kernel(const int2* __restrict__ pair,
     const int32_t first = start + cur.y;
     const int32_t walkers_end = h > 0 ? start + prev.y : 0;
     const int32_t c_prev = prev.y;
-    if (lane < rows)
-      is_bad = row_bad(h, cnt, first, n_rows * S, S, max_walk);
+    if (lane < rows) {
+      is_bad = row_bad(h, cnt, first, n_rows * S, S, max_walk, wrap);
+      if (cnt > 0 && first < n_rows * S)
+        row_walk = static_cast<int32_t>(
+            min(static_cast<int64_t>(first) + cnt - 1, n_rows * S - 1) / S -
+            h);
+    }
     int32_t at[kRounds];
 #pragma unroll
     for (int k = 0; k < kRounds; ++k) {
@@ -513,7 +545,87 @@ slot_rows_kernel(const int2* __restrict__ pair,
       }
     }
   }
+  const int32_t w = static_cast<int32_t>(
+      __reduce_max_sync(kFullMask, static_cast<unsigned>(row_walk)));
+  if (lane == 0) warp_walk[warp] = w;
   if (__syncthreads_or(is_bad) && threadIdx.x == 0) *bad = 1;
+  if (walk && threadIdx.x == 0) {
+    int32_t most = 0;
+    for (int k = 0; k < kWarps; ++k) most = max(most, warp_walk[k]);
+    if (most > 0) atomicMax(walk, most);
+  }
+}
+
+// The 8-slot layout with `wrap`, last: one block places the keys past the
+// last row.  They are the stable order's last n_spill = n_real +
+// C[rows - 1] - rows * S keys (pos of the last real key is n_real - 1 +
+// C[rows - 1] where any passes; empty rows after it only lower that
+// bound's max below rows * S - S).  Row r's free slots are its EMPTY lo
+// words, its last ones; key t of the tail takes the t-th free slot in row
+// order.  The block counts 256 rows' free slots a step, scans them, and
+// goes on until every key is placed; rows run out only where the table
+// holds fewer slots than real keys, which sets `bad`.
+__global__ void __launch_bounds__(kThreads)
+wrap_kernel(const int2* __restrict__ pair, const int4* __restrict__ sorted,
+            int64_t n_rows, uint32_t salt, int32_t* __restrict__ table,
+            uint8_t* __restrict__ bad, int32_t* __restrict__ walk) {
+  constexpr int S = kBucketSlots;
+  __shared__ int32_t warp_sum[kWarps];
+  __shared__ int32_t warp_most[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int2 last = pair[n_rows - 1];
+  const int64_t n_real = last.x;
+  const int64_t n_spill = n_real + last.y - n_rows * S;
+  if (n_spill <= 0) return;
+  const int64_t tail = n_real - n_spill;
+  const uint32_t mask = static_cast<uint32_t>(n_rows - 1);
+  int64_t base = 0;                    // free slots in the rows before
+  int32_t most = 0;
+  for (int64_t r0 = 0; r0 < n_rows && base < n_spill; r0 += kThreads) {
+    const int64_t r = r0 + threadIdx.x;
+    int32_t* row = table + r * 3 * S;
+    int free = 0;
+    if (r < n_rows)
+      for (int k = 0; k < S; ++k) free += row[k] == -1;
+    int incl = free;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += o;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int before = 0;
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? warp_sum[w] : 0;
+      total += warp_sum[w];
+    }
+    __syncthreads();
+    const int64_t t0 = base + before + incl - free;
+    for (int q = 0; q < free && t0 + q < n_spill; ++q) {
+      const int4 rec = sorted[tail + t0 + q];
+      const int slot = S - free + q;
+      row[slot] = rec.y;
+      row[S + slot] = rec.z;
+      row[2 * S + slot] = rec.w;
+      const int64_t home = home_of(static_cast<uint32_t>(rec.y),
+                                   static_cast<uint32_t>(rec.z), salt, mask);
+      most = max(most, static_cast<int32_t>(n_rows - home + r));
+    }
+    base += total;
+  }
+  const int32_t w = static_cast<int32_t>(
+      __reduce_max_sync(kFullMask, static_cast<unsigned>(most)));
+  if (lane == 0) warp_most[warp] = w;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int32_t m = 0;
+    for (int k = 0; k < kWarps; ++k) m = max(m, warp_most[k]);
+    if (m > 0) atomicMax(walk, m);
+    if (base < n_spill) *bad = 1;
+  }
 }
 
 unsigned blocks_for(int64_t n, int64_t per_block) {
@@ -734,17 +846,21 @@ union_rows_kernel(const int2* __restrict__ pair, const int2* __restrict__ rec,
 // power of two, n_rows * slots + n < 2^31; scratch: scratch_bytes bytes of
 // device memory (ops/table_build.scratch_bytes), 16-byte aligned; table:
 // (n_rows, 3 * slots) int32, written whole; bad: one byte, written: 1 when
-// a real key walks max_walk rows or more or wraps, else 0.  Slots and
-// keep_walkers are 24 and 0 (the wide layout) or 8 and 1 (the 8-slot
-// layout).
+// a real key walks max_walk rows or more or wraps (with `wrap`: finds no
+// free slot), else 0; walk: one int32 for the 8-slot layout (null for the
+// wide one), written: the longest walk of a key written, in rows.  Slots
+// and keep_walkers are 24 and 0 (the wide layout) or 8 and 1 (the 8-slot
+// layout); wrap is 0, or 1 with the 8-slot layout.
 extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
                                const int32_t* values, int64_t n,
                                int64_t n_rows, uint32_t salt, int32_t slots,
                                int32_t max_walk, int32_t keep_walkers,
-                               void* scratch, int64_t scratch_bytes,
-                               int32_t* table, uint8_t* bad, void* stream) {
+                               int32_t wrap, void* scratch,
+                               int64_t scratch_bytes, int32_t* table,
+                               uint8_t* bad, int32_t* walk, void* stream) {
   if (n < 0 || n_rows < 1 || (n_rows & (n_rows - 1)) || slots < 1 ||
       slots != (keep_walkers ? kBucketSlots : kWideSlots) ||
+      (keep_walkers && !walk) || (wrap && !keep_walkers) ||
       n_rows * slots + n >= (int64_t{1} << 31) ||
       reinterpret_cast<uintptr_t>(scratch) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -759,8 +875,9 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
   cudaError_t err;
 
   const int64_t n_vec = s.zero_bytes / 16;
+  if (!keep_walkers) walk = nullptr;
   zero_kernel<<<blocks_for(n_vec, kThreads), kThreads, 0, st>>>(
-      reinterpret_cast<int4*>(s.cnt), n_vec, bad);
+      reinterpret_cast<int4*>(s.cnt), n_vec, bad, walk);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     count_kernel<<<blocks_for(n, kThreads), kThreads, 0, st>>>(
@@ -788,8 +905,14 @@ extern "C" int kan_table_build(const int32_t* lo, const int32_t* hi,
         return static_cast<int>(err);
     }
     slot_rows_kernel<<<blocks_for(n_rows, kWarps * kSlotRunRows), kThreads,
-                       0, st>>>(s.pair, s.sorted, n_rows, max_walk, table,
-                                bad);
+                       0, st>>>(s.pair, s.sorted, n_rows, max_walk,
+                                wrap != 0, table, bad, walk);
+    if (wrap && n > 0) {
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+      wrap_kernel<<<1, kThreads, 0, st>>>(s.pair, s.sorted, n_rows, salt,
+                                          table, bad, walk);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -894,7 +1017,7 @@ extern "C" int kan_union_build(const void* scratch, int64_t n,
       carve_union(static_cast<char*>(const_cast<void*>(scratch)), n);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  zero_kernel<<<1, kThreads, 0, st>>>(nullptr, 0, bad);
+  zero_kernel<<<1, kThreads, 0, st>>>(nullptr, 0, bad, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   union_rows_kernel<<<blocks_for(n_rows, kWarps * kUnionRun), kThreads, 0,
                       st>>>(s.pair, s.rec, s.cnt, n_rows, table, bad);

@@ -4,9 +4,13 @@ HashAnnotationProcessor.java:63-330).
 Counterpart of ``kmers_anno_tpu/engine/hashanno.py``, on one torch device:
 
 * A genome batch's usable proteins (non-blank, no '*') are deduplicated by
-  MD5 and their DISTINCT kmers become an 8-slot probe table
-  (``ops.hashtable.build_table``, host, byte-equal to the reference's) of
-  unique kmers plus an owner matrix: each unique kmer's owner proteins.
+  MD5 and their DISTINCT kmers become an 8-slot probe table of unique
+  kmers plus an owner matrix: each unique kmer's owner proteins, built on
+  the device from one upload of the proteins' codes (:func:`_device_index`;
+  the table through ``ops.table_build.build_bucketed`` in its
+  ``OPEN_WALK`` layout, which places a wrapping key as the host
+  ``ops.hashtable.build_table`` does), byte-equal to the reference's host
+  build.
 * Every protein starts with the **default proposal**: its old annotation
   at similarity 0.0 (Q12, HashAnnotationProcessor.java:297).
 * Prototypes are scored in chunks on the device (``ops.hash_chunk``): per
@@ -31,7 +35,7 @@ it ``hash.register`` (the ``add_protein`` loop and its MD5s),
 host route's chunk loop), ``hash.pull`` (the fast route's final pull) and
 ``hash.emit`` (the rows); ``hash.protos`` covers a ``PrototypeSet.chunks``
 cache miss.  ``GenomeProteinKmers.host_route`` counts the indexes scored
-on the host route.
+on the host route, ``device_index`` the indexes built on the device.
 """
 
 from __future__ import annotations
@@ -48,9 +52,11 @@ from ..device import resolve_device
 from ..genome.gto import Genome, protein_md5
 from ..ops.encode import PROT_PAD, encode_protein
 from ..ops.hash_chunk import DENSE_CELLS, OWNER_CAP, hash_best, hash_commons
-from ..ops.hashtable import build_table
+from ..ops.hashtable import table_size_for
 from ..ops.kmers import pack_kmer_windows
+from ..ops.table_build import OPEN_WALK, build_bucketed
 from ..utils import spans
+from . import protein_kmers
 from .projection import _bucket, _min_ev_table
 from .protein_kmers import apply_drop_last
 
@@ -220,12 +226,57 @@ def _distinct_kmers_flat(proteins: list[str], k: int):
     return lo_u, hi_u, own_u.astype(np.int32), counts
 
 
+_NO_KEY = torch.iinfo(torch.int64).max   # an invalid window's key: last
+
+
+def _stream_codes(proteins: list[str]) -> np.ndarray:
+    """The proteins' residue codes end to end, by the C++ encoder where it
+    is built."""
+    joined = "".join(proteins)
+    codes = native.encode_protein(joined)
+    return encode_protein(joined) if codes is None else codes
+
+
+def _sorted_windows(proteins: list[str], k: int,
+                    device: torch.device) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Every kmer window of the proteins, packed on ``device`` from one
+    upload of their codes and lengths, in key-major order: (keys (T,)
+    int64, ``hi << 32 | lo``, an invalid window's ``_NO_KEY`` and so
+    last; owners (T,) int32).  A window counts where it lies inside its
+    protein (the external ProteinKmers contract), through the drop-last
+    fence of ``apply_drop_last``.  The stream is in owner order and the
+    sort is stable, so equal keys keep their owners ascending: the
+    reference's ``lexsort((owner, key))``.  Keys are below 2^62, so their
+    int64 order is their uint64 order."""
+    lengths = torch.from_numpy(np.fromiter(map(len, proteins), np.int64,
+                                           len(proteins))).to(device)
+    codes = torch.from_numpy(_stream_codes(proteins)).to(device)
+    total = codes.numel()
+    owner = torch.repeat_interleave(
+        torch.arange(len(proteins), dtype=torch.int32, device=device),
+        lengths, output_size=total)
+    ends = torch.repeat_interleave(torch.cumsum(lengths, 0), lengths,
+                                   output_size=total)
+    valid = torch.arange(k, total + k, device=device) <= ends
+    del ends
+    if protein_kmers.DROP_LAST_WINDOW:
+        valid &= torch.cat([valid[1:], valid.new_zeros(1)])
+    lo, hi = pack_kmer_windows(codes, k)
+    del codes
+    keys = torch.where(valid, (hi.to(torch.int64) << 32) | lo, _NO_KEY)
+    del lo, hi, valid
+    keys, order = torch.sort(keys, stable=True)
+    return keys, owner[order]
+
+
 class GenomeProteinKmers:
     """Per-genome (or genome-batch) kmer hash with best-proposal
     bookkeeping (GenomeProteinKmers contract,
     HashAnnotationProcessor.java:233-291), on ``device``."""
 
     host_route = 0      # indexes scored on the host route, process-wide
+    device_index = 0    # indexes built on the device, process-wide
 
     def __init__(self, k: int, min_score: float, *,
                  device: str | torch.device):
@@ -258,58 +309,99 @@ class GenomeProteinKmers:
                    heavy=len(self.heavy_owners))
 
     def _build_index(self) -> None:
-        lo, hi, owner, counts = _distinct_kmers_flat(self._proteins, self.k)
-        self.protein_kmer_counts = counts
+        """The index on ``self.device``."""
         n = len(self._proteins)
         # defaults: old annotation at similarity 0.0
         self.best_sim = np.zeros(n, np.float64)
         self.best_anno = list(self._annotations)
-        if len(lo):
-            # key-major: unique keys fall out of one adjacent-diff pass
-            first = np.ones(len(lo), bool)
-            first[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
-            starts = np.flatnonzero(first)
-            u = len(starts)
-            ucounts = np.diff(np.append(starts, len(lo))).astype(np.int64)
-            # fixed-width owner matrix: rank → its owner proteins, padded
-            # with the (bucketed) protein count; rows and the protein count
-            # are bucketed as in the reference
-            cap = min(int(ucounts.max(initial=1)), OWNER_CAP)
-            self.n_pad = _bucket(n, 256)
-            u_pad = _bucket(u, 4096)
-            owner_mat = np.full((u_pad, cap), self.n_pad, np.int32)
-            rows = np.repeat(np.arange(u), ucounts)
-            cols = np.arange(len(rows)) - np.repeat(
-                np.cumsum(ucounts) - ucounts, ucounts)
-            in_cap = cols < cap
-            owner_mat[rows[in_cap], cols[in_cap]] = owner[: len(rows)][in_cap]
-            self.owner_mat = torch.from_numpy(owner_mat).to(self.device)
-            # host CSR of the overflow owners (ranks sorted; usually empty)
-            over = ~in_cap
-            if over.any():
-                h_ranks, h_counts = np.unique(rows[over],
-                                              return_counts=True)
-                self.heavy_ranks = h_ranks.astype(np.int32)
-                self.heavy_off = np.concatenate(
-                    [[0], np.cumsum(h_counts)]).astype(np.int64)
-                self.heavy_owners = owner[: len(rows)][over].astype(np.int32)
-                log.info("%d kmers exceed the owner cap %d (%d overflow "
-                         "owner entries on the host CSR path).",
-                         len(h_ranks), cap, len(self.heavy_owners))
-            else:
-                self.heavy_ranks = np.zeros(0, np.int32)
-                self.heavy_off = np.zeros(1, np.int64)
-                self.heavy_owners = np.zeros(0, np.int32)
-            table, self.max_probes = build_table(
-                lo[starts], hi[starts], np.arange(u, dtype=np.uint32))
-            self.table = torch.from_numpy(table.view(np.int32)).to(
-                self.device)
-            self.kmer_count = u
-        else:
-            self.table = None
-            self.kmer_count = 0
-            self.heavy_owners = np.zeros(0, np.int32)
+        self.protein_kmer_counts = np.zeros(n, np.int64)
+        self.table = None
+        self.kmer_count = 0
+        self.heavy_owners = np.zeros(0, np.int32)
+        if any(self._proteins):
+            self._device_index()
         self._built = True
+
+    def _device_index(self) -> None:
+        """Pack, sort and dedup the (kmer, protein) pairs on the device,
+        then the owner matrix and the 8-slot table there: one read of the
+        sizes and the proteins' kmer counts, one of the table build's
+        ``bad`` and longest walk, and the overflow owners only where there
+        are any."""
+        dev = self.device
+        n = len(self._proteins)
+        keys, owner = _sorted_windows(self._proteins, self.k, dev)
+        total = keys.numel()
+        real = keys != _NO_KEY
+        step = torch.ones(total, dtype=torch.bool, device=dev)
+        step[1:] = keys[1:] != keys[:-1]
+        first = real & step             # a kmer's first pair
+        step[1:] |= owner[1:] != owner[:-1]
+        pair = real & step              # a distinct (kmer, owner) pair
+        del real, step
+        rank = torch.cumsum(first, 0) - 1       # each window's kmer rank
+        at = torch.cumsum(pair, 0) - 1          # ... and pair index
+        # a pair's column in the owner matrix: its index less its kmer's
+        # first pair's
+        start = torch.zeros(total + 1, dtype=torch.int64, device=dev)
+        start[torch.where(first, rank, total)] = at
+        col = at - start[rank.clamp(min=0)]
+        del start, at
+        counts = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+            0, owner, pair.to(torch.int64))
+        most = torch.where(pair, col, -1).max() + 1
+        got = torch.cat((torch.stack((rank[-1] + 1, most)),
+                         counts)).cpu().numpy()
+        u, most = int(got[0]), int(got[1])
+        self.protein_kmer_counts = got[2:]
+        if not u:
+            return 0
+        # fixed-width owner matrix: rank → its owner proteins, padded
+        # with the (bucketed) protein count; rows and the protein count
+        # are bucketed as in the reference
+        cap = min(most, OWNER_CAP)
+        self.n_pad = _bucket(n, 256)
+        u_pad = _bucket(u, 4096)
+        self.owner_mat = torch.full((u_pad, cap), self.n_pad,
+                                    dtype=torch.int32, device=dev)
+        # the other windows write slot 0, which the first window (rank
+        # 0's first owner) then takes back: no slot past the matrix
+        flat = self.owner_mat.view(-1)
+        flat[torch.where(pair & (col < cap), rank * cap + col, 0)] = owner
+        flat[0] = owner[0]
+        # host CSR of the overflow owners (ranks sorted; usually empty)
+        if most > cap:
+            over = pair & (col >= cap)
+            h_ranks, h_counts = np.unique(rank[over].cpu().numpy(),
+                                          return_counts=True)
+            self.heavy_ranks = h_ranks.astype(np.int32)
+            self.heavy_off = np.concatenate(
+                [[0], np.cumsum(h_counts)]).astype(np.int64)
+            self.heavy_owners = owner[over].cpu().numpy()
+            log.info("%d kmers exceed the owner cap %d (%d overflow "
+                     "owner entries on the host CSR path).",
+                     len(h_ranks), cap, len(self.heavy_owners))
+        else:
+            self.heavy_ranks = np.zeros(0, np.int32)
+            self.heavy_off = np.zeros(1, np.int64)
+        # the unique keys in rank order, payload = rank
+        ukeys = torch.empty(u + 1, dtype=torch.int64, device=dev)
+        ukeys[torch.where(first, rank, u)] = keys
+        del keys, owner, first, pair, rank, col
+        lo = (ukeys[:u] & 0xFFFFFFFF).to(torch.int32)
+        hi = (ukeys[:u] >> 32).to(torch.int32)
+        del ukeys
+        n_buckets = table_size_for(u)
+        table, bad, walk = build_bucketed(
+            lo, hi, torch.arange(u, dtype=torch.int32, device=dev),
+            n_buckets, OPEN_WALK)
+        bad, walk = torch.stack((bad.to(torch.int32), walk)).tolist()
+        if bad:     # table_size_for leaves at least twice the slots
+            raise RuntimeError(f"index table of {u} kmers is over-full at "
+                               f"{n_buckets} buckets")
+        GenomeProteinKmers.device_index += 1
+        self.kmer_count = u
+        self.table, self.max_probes = table, walk + 1
 
     @property
     def n_kmers(self) -> int:

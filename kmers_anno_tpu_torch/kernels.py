@@ -127,7 +127,7 @@ ENTRY_POINTS = {
                                _P, _P],
     "kan_probe_keys": [_P, _I64, _I32, _P, _I64, _P, _P, _P, _I64, _P, _P],
     "kan_table_build": [_P, _P, _P, _I64, _I64, ctypes.c_uint32, _I32, _I32,
-                        _I32, _P, _I64, _P, _P, _P],
+                        _I32, _I32, _P, _I64, _P, _P, _P, _P],
     "kan_union_dedupe": [_P, _P, _I64, _P, _I64, _P, _P],
     "kan_union_build": [_P, _I64, _I64, _P, _P, _P],
 }

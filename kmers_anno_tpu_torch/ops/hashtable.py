@@ -135,9 +135,9 @@ def build_table_device(key_lo, key_hi, values, n_buckets: int):
     ``csrc/table_build.cu`` for CUDA tensors and takes the plain version
     for CPU tensors.
     """
-    from .table_build import build_bucketed
+    from .table_build import BUCKETED, build_bucketed
 
-    return build_bucketed(key_lo, key_hi, values, n_buckets)
+    return build_bucketed(key_lo, key_hi, values, n_buckets, BUCKETED)[:2]
 
 
 def probe_table(table: torch.Tensor, key_lo: torch.Tensor,

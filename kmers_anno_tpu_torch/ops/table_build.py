@@ -10,15 +10,23 @@ overflow walking on to the next row.  A real key that would walk
 ``max_walk`` rows or more, or wrap past the last row, sets ``bad``, and
 the caller then builds the table on the host instead.  The wide layout
 (24 slots a row, the given salt, ``max_walk`` 1) drops the keys that
-walk; the 8-slot layout (the unsalted hash, ``max_walk``
-``MAX_DEVICE_PROBES``) keeps them.
+walk; the 8-slot layouts (the unsalted hash) keep them: ``BUCKETED``
+(``max_walk`` ``MAX_DEVICE_PROBES``, the projection's tables) and
+``OPEN_WALK`` (hashAnno's index, whose probe walks as far as the table's
+longest walk: a ``max_walk`` no key reaches, and the keys past the last
+row placed from row 0 as the host ``build_table`` places them, so that
+the table is ``build_table``'s byte for byte and nothing is bad).  The
+8-slot build also reports that longest walk, ``build_table``'s
+``max_probes`` less one wherever no key is left out.
 
 :func:`build_wide` and :func:`build_bucketed` launch
 ``csrc/table_build.cu`` for CUDA tensors (``kan_table_build``: row
 counts, a scan over rows, the keys grouped by home and ranked by index,
-the table written once) and take :func:`build_table_plain`, which follows
-the reference line by line, for CPU tensors.  Tables are ``int32`` tensors
-of the uint32 words, as for the host builds (``EMPTY`` reads as -1).
+the table written once, and for ``OPEN_WALK`` the keys past the last row
+placed by one block) and take :func:`build_table_plain`, which follows
+the reference line by line, for CPU tensors.  Tables are ``int32``
+tensors of the uint32 words, as for the host builds (``EMPTY`` reads as
+-1).
 
 :func:`union_dedupe` and :func:`union_build` build the projection close
 set's union table from the close genomes' raw singleton keys, duplicates
@@ -47,6 +55,7 @@ from .widetable import EMPTY, MAX_WIDE_ROWS, SLOTS
 
 EMPTY_KEY = -1          # EMPTY's int32 bits
 SCAN_TILE = 4096        # rows a block of the kernel's scan (kScanTile)
+NO_WALK_BOUND = 1 << 30     # more rows than a table of int32 slots holds
 
 
 class Layout(NamedTuple):
@@ -55,10 +64,12 @@ class Layout(NamedTuple):
     slots: int          # slots a row
     max_walk: int       # a real key walking this many rows is bad
     keep_walkers: bool  # whether keys that walk are written
+    wraps: bool         # whether keys past the last row go on from row 0
 
 
-WIDE = Layout(SLOTS, 1, False)
-BUCKETED = Layout(BUCKET, MAX_DEVICE_PROBES, True)
+WIDE = Layout(SLOTS, 1, False, False)
+BUCKETED = Layout(BUCKET, MAX_DEVICE_PROBES, True, False)
+OPEN_WALK = Layout(BUCKET, NO_WALK_BOUND, True, True)
 
 
 def _check(key_lo, key_hi, values, n_rows: int) -> None:
@@ -78,9 +89,15 @@ def _check(key_lo, key_hi, values, n_rows: int) -> None:
 
 def build_table_plain(key_lo: torch.Tensor, key_hi: torch.Tensor,
                       values: torch.Tensor, n_rows: int, layout: Layout,
-                      salt: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      salt: int) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
     """Plain-PyTorch build, on any device: (table (n_rows, 3 * slots)
-    int32, bad 0-dim bool tensor)."""
+    int32, bad 0-dim bool tensor, the longest walk: the largest
+    ``pos // slots - home`` of a real key written, a 0-dim int32 tensor, 0
+    with no key).  Where ``layout.wraps``, the keys past the last row take
+    the table's free slots from row 0 in order, a walk of ``n_rows - home``
+    plus the row, as ``build_table``'s wraparound tail; its
+    ``max_probes - 1`` is then the walk."""
     _check(key_lo, key_hi, values, n_rows)
     s = layout.slots
     n = key_lo.numel()
@@ -97,7 +114,21 @@ def build_table_plain(key_lo: torch.Tensor, key_hi: torch.Tensor,
         pos = ar
     ok = pos < cap
     walk = torch.where(ok, pos // s - hb, 0)
-    bad = (real[order] & (~ok | (walk >= layout.max_walk))).any()
+    past = real[order] & ~ok            # the stable order's last keys
+    if layout.wraps and n:
+        # a row's keys fill it from slot 0: its free slots are its last
+        used = torch.bincount(pos[ok] // s, minlength=n_rows)
+        free = torch.nonzero(torch.arange(cap, device=dev) % s
+                             >= used.repeat_interleave(s)).flatten()
+        idx = torch.nonzero(past).flatten()[: free.numel()]
+        to = free[: idx.numel()]
+        pos[idx] = to
+        walk[idx] = n_rows - hb[idx] + to // s
+        ok[idx] = True
+        past[idx] = False                # what is left finds no slot
+    bad = (past | (real[order] & ok & (walk >= layout.max_walk))).any()
+    longest = walk.max() if n else torch.zeros((), dtype=torch.int64,
+                                                device=dev)
     keep = ok if layout.keep_walkers else ok & (walk < 1)
     drop = torch.where(keep, pos, cap)
     flat = torch.full((3, cap + 1), EMPTY_KEY, dtype=torch.int32, device=dev)
@@ -105,7 +136,7 @@ def build_table_plain(key_lo: torch.Tensor, key_hi: torch.Tensor,
     for plane, src in zip(flat, (key_lo, key_hi, values)):
         plane[drop] = src[order]
     table = torch.cat([plane[:cap].reshape(n_rows, s) for plane in flat], 1)
-    return table, bad
+    return table, bad, longest.to(torch.int32)
 
 
 def _align16(n_bytes: int) -> int:
@@ -125,9 +156,11 @@ def scratch_bytes(n: int, n_rows: int, layout: Layout) -> int:
 
 
 def _launch(key_lo, key_hi, values, n_rows: int, layout: Layout,
-            salt: int) -> tuple[torch.Tensor, torch.Tensor]:
+            salt: int) -> tuple[torch.Tensor, torch.Tensor,
+                                torch.Tensor | None]:
     """The kernel's build on CUDA tensors: one entry point writes the
-    whole table and ``bad``."""
+    whole table, ``bad`` and, for the 8-slot layouts, the longest walk
+    (0-dim int32; None for the wide layout)."""
     s = layout.slots
     dev = key_lo.device
     lo, hi, val = (t.contiguous() for t in (key_lo, key_hi, values))
@@ -137,16 +170,20 @@ def _launch(key_lo, key_hi, values, n_rows: int, layout: Layout,
                          f"slots pass the kernel's int32 positions")
     table = torch.empty((n_rows, 3 * s), dtype=torch.int32, device=dev)
     bad = torch.empty((), dtype=torch.bool, device=dev)
+    walk = (torch.empty((), dtype=torch.int32, device=dev)
+            if layout.keep_walkers else None)
     n_scratch = scratch_bytes(n, n_rows, layout)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = kernels.lib().kan_table_build(
             lo.data_ptr(), hi.data_ptr(), val.data_ptr(), n, n_rows,
             int(salt) & MASK32, s, layout.max_walk,
-            int(layout.keep_walkers), scratch.data_ptr(), n_scratch,
-            table.data_ptr(), bad.data_ptr(), kernels.stream_of(lo))
+            int(layout.keep_walkers), int(layout.wraps), scratch.data_ptr(),
+            n_scratch,
+            table.data_ptr(), bad.data_ptr(),
+            0 if walk is None else walk.data_ptr(), kernels.stream_of(lo))
     kernels.check(err, "table build kernel")
-    return table, bad
+    return table, bad, walk
 
 
 def _on_card(key_lo) -> bool:
@@ -166,23 +203,32 @@ def build_wide(key_lo: torch.Tensor, key_hi: torch.Tensor,
     uint32 bits; payloads keep bit 31 clear)."""
     _check(key_lo, key_hi, values, n_rows)
     if not _on_card(key_lo):
-        return build_table_plain(key_lo, key_hi, values, n_rows, WIDE, salt)
-    out = _launch(key_lo, key_hi, values, n_rows, WIDE, salt)
+        return build_table_plain(key_lo, key_hi, values, n_rows, WIDE,
+                                 salt)[:2]
+    table, bad, _ = _launch(key_lo, key_hi, values, n_rows, WIDE, salt)
     build_wide.launches += 1
-    return out
+    return table, bad
 
 
 def build_bucketed(key_lo: torch.Tensor, key_hi: torch.Tensor,
-                   values: torch.Tensor,
-                   n_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+                   values: torch.Tensor, n_buckets: int,
+                   layout: Layout) -> tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
     """8-slot table (``(n_buckets, 24)`` int32) of EMPTY-padded unique keys
-    under the unsalted hash, and ``bad``: True when a real key would walk
-    ``MAX_DEVICE_PROBES`` buckets or more, or wrap past the last one."""
+    under the unsalted hash in an 8-slot ``layout``, ``bad`` and the
+    longest walk (0-dim int32).  ``BUCKETED`` (the projection's tables):
+    ``bad`` when a real key would walk ``MAX_DEVICE_PROBES`` buckets or
+    more, or wrap past the last one.  ``OPEN_WALK`` (hashAnno's index):
+    ``build_table``'s table, and ``bad`` only where the keys outnumber
+    the slots."""
     _check(key_lo, key_hi, values, n_buckets)
+    if not layout.keep_walkers:
+        raise ValueError("table build: build_bucketed takes an 8-slot "
+                         "layout")
     if not _on_card(key_lo):
-        return build_table_plain(key_lo, key_hi, values, n_buckets,
-                                 BUCKETED, GOLDEN)
-    out = _launch(key_lo, key_hi, values, n_buckets, BUCKETED, GOLDEN)
+        return build_table_plain(key_lo, key_hi, values, n_buckets, layout,
+                                 GOLDEN)
+    out = _launch(key_lo, key_hi, values, n_buckets, layout, GOLDEN)
     build_bucketed.launches += 1
     return out
 

@@ -17,7 +17,8 @@ import torch
 
 from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, KEYS_SHARES,
                         TABLE_BUILD_EDGES, UNION_CASES, WEIGHTED_EDGES,
-                        carried_state, union_keys,
+                        carried_state, union_keys, hash_index_batch,
+                        host_hash_index, index_differences, wrapping_batch,
                         collision_rows,
                         collision_table, dna_stream_tensors, dna_streams,
                         dna_wrap_table, edge_keys, flat_case, flat_filter,
@@ -29,6 +30,7 @@ from chip_smoke import (CHUNK_ORDERS, FLAT_EDGES, KEYS_SHARES,
                         make_signature_genomes, reorder_chunk, tally_bits,
                         tile_cells, weighted_edge)
 from kmers_anno_tpu_torch.engine import hashanno, projection
+from kmers_anno_tpu_torch.engine import protein_kmers
 from kmers_anno_tpu_torch.engine import signature as signature_mod
 from kmers_anno_tpu_torch.engine.apply_engine import KmerApplyEngine
 from kmers_anno_tpu_torch.engine.signature import (StreamingTableBuilder,
@@ -913,6 +915,95 @@ def test_hash_engine_on_cuda_matches_cpu(cuda, route, monkeypatch):
     assert sum(s > 0 for s in outs["cpu"][1]) > 100
 
 
+@pytest.mark.parametrize("drop_last", [False, True])
+def test_hash_index_on_cuda_is_the_host_build(cuda, drop_last):
+    """The batch index built on the card from a generated species batch
+    (11,740 distinct proteins at the hashAnno cell's lengths, a kmer of 4
+    owners) equals the host build byte for byte: table, ``max_probes``,
+    owner matrix, kmer counts, heavy CSR; one table launch, counted in
+    ``device_index``."""
+    proteins = hash_index_batch(np.random.default_rng(23))
+    protein_kmers.set_drop_last(drop_last)
+    try:
+        gk = hashanno.GenomeProteinKmers(8, 0.0125, device=cuda)
+        for i, p in enumerate(proteins):
+            gk.add_protein(f"fig|5.5.peg.{i}", p, "hypothetical protein")
+        counts = (hashanno.GenomeProteinKmers.device_index,
+                  table_build.build_bucketed.launches)
+        gk._build()
+        torch.cuda.synchronize()
+        want = host_hash_index(proteins, cuda)
+    finally:
+        protein_kmers.set_drop_last(False)
+    assert gk.table.device.type == gk.owner_mat.device.type == "cuda"
+    assert index_differences(gk, want) == []
+    assert gk.owner_mat.shape[1] == 4 and gk.kmer_count > 3_000_000
+    assert (hashanno.GenomeProteinKmers.device_index,
+            table_build.build_bucketed.launches) == (counts[0] + 1,
+                                                     counts[1] + 1)
+
+
+def test_hash_index_wrap_on_cuda(cuda):
+    """An index whose keys wrap past the last bucket: the card places
+    them from bucket 0 as the host ``build_table`` does, the same index
+    byte for byte, with their walk in ``max_probes``."""
+    proteins = wrapping_batch(np.random.default_rng(29))
+    gk = hashanno.GenomeProteinKmers(8, 0.0125, device=cuda)
+    for i, p in enumerate(proteins):
+        gk.add_protein(f"fig|6.6.peg.{i}", p, "hypothetical protein")
+    gk._build()
+    assert gk.table.device.type == "cuda"
+    assert index_differences(gk, host_hash_index(proteins, cuda)) == []
+    assert gk.max_probes == 2 and int((gk.table[0, :8] != -1).sum()) == 8
+
+
+# the 8-slot build's walk cases: the bucketed forced placements (walks of
+# 1, 2 and 37 buckets, every key in one bucket, a wrap), hashAnno's
+# shape (3.85M keys into 2^20 buckets), a table 99% full whose keys past
+# the last bucket find their free slots across many blocks of 256 rows of
+# the wrap pass, and more keys than slots
+WALK_EDGES = [c for c, v in TABLE_BUILD_EDGES.items() if v[0] == "bucketed"]
+WALK_SHAPES = {"hashanno_shape": (3_850_000, 1 << 20),
+               "crowded_wrap": (16_220, 2_048), "over_full": (20, 2)}
+
+
+@pytest.mark.parametrize("layout", ["bucketed", "open_walk"])
+@pytest.mark.parametrize("case", WALK_EDGES + list(WALK_SHAPES))
+def test_table_build_walk_matches_plain(cuda, layout, case):
+    """kan_table_build's 8-slot layouts with the longest walk reported
+    (and for ``OPEN_WALK`` the keys past the last bucket placed), against
+    the plain version: table, ``bad`` and walk equal, one launch counted;
+    repeated over junk, the same table and walk."""
+    lay = (table_build.BUCKETED if layout == "bucketed"
+           else table_build.OPEN_WALK)
+    if case in WALK_SHAPES:
+        n, n_rows = WALK_SHAPES[case]
+        rng = np.random.default_rng(41)
+        keys = int32_tensors(random_keys(rng, n), cuda)
+        keys[2] = torch.arange(n, dtype=torch.int32, device=cuda)
+    else:
+        _, _, arrays, n_rows, _, _ = edge_keys(case)
+        keys = int32_tensors(arrays, cuda)
+    before = table_build.build_bucketed.launches
+    table, bad, walk = table_build.build_bucketed(*keys, n_rows, lay)
+    torch.cuda.synchronize()
+    assert table_build.build_bucketed.launches == before + 1
+    want = table_build.build_table_plain(*keys, n_rows, lay, GOLDEN)
+    assert torch.equal(table, want[0])
+    assert (bool(bad), int(walk)) == (bool(want[1]), int(want[2]))
+    for _ in range(3):
+        junk = torch.full((64 << 20,), 0x5A5A5A5A, dtype=torch.int32,
+                          device=cuda)
+        del junk                    # the next build may take its memory
+        again = table_build.build_bucketed(*keys, n_rows, lay)
+        assert torch.equal(again[0], table)
+        assert (bool(again[1]), int(again[2])) == (bool(bad), int(walk))
+    if case == "hashanno_shape":
+        assert 1 <= int(walk) < 8
+        assert bool(bad) == (layout == "bucketed"
+                             and int(walk) >= table_build.BUCKETED.max_walk)
+
+
 # ---------------------------------------------------------------------------
 # DNA mode: the window probe
 # ---------------------------------------------------------------------------
@@ -1195,12 +1286,13 @@ def _table_build_on_card(cuda, layout, keys, n_rows, salt):
     wrapper, lay = ((table_build.build_wide, table_build.WIDE)
                     if layout == "wide"
                     else (table_build.build_bucketed, table_build.BUCKETED))
-    extra = (salt,) if layout == "wide" else ()
+    extra = (salt,) if layout == "wide" else (lay,)
     before = wrapper.launches
-    table, bad = wrapper(*keys, n_rows, *extra)
+    table, bad = wrapper(*keys, n_rows, *extra)[:2]
     torch.cuda.synchronize()
     assert wrapper.launches - before == 1
-    want, want_bad = table_build.build_table_plain(*keys, n_rows, lay, salt)
+    want, want_bad, _ = table_build.build_table_plain(*keys, n_rows, lay,
+                                                      salt)
     assert table.device.type == "cuda" and torch.equal(table, want)
     assert bool(bad) == bool(want_bad)
     return table, bool(bad)
@@ -1244,16 +1336,17 @@ def test_table_build_repeats_bit_for_bit(cuda, layout):
     rng = np.random.default_rng(11)
     keys = int32_tensors(padded_keys([random_keys(rng, 200_000)], 262_144,
                                      rng), cuda)
-    wrapper = (table_build.build_wide if layout == "wide"
-               else table_build.build_bucketed)
+    wrapper, extra = ((table_build.build_wide, ()) if layout == "wide"
+                      else (table_build.build_bucketed,
+                            (table_build.BUCKETED,)))
     n_rows = (wide_rows_for(262_144) if layout == "wide"
               else device_table_buckets(262_144))
-    first, first_bad = wrapper(*keys, n_rows)
+    first, first_bad = wrapper(*keys, n_rows, *extra)[:2]
     for _ in range(10):
         junk = torch.full((4 << 20,), 0x5A5A5A5A, dtype=torch.int32,
                           device=cuda)
         del junk                    # the next build may take its memory
-        table, bad = wrapper(*keys, n_rows)
+        table, bad = wrapper(*keys, n_rows, *extra)[:2]
         assert torch.equal(table, first) and bool(bad) == bool(first_bad)
 
 

@@ -3,7 +3,11 @@
 The chunk step's plain versions (``hash_commons_plain``,
 ``hash_best_plain``, the plain versions of ``csrc/hash_chunk.cu``) against
 the reference's ``_chunk_commons`` and ``_chunk_best`` at odd sizes; the
-engine's index build array for array; ``GenomeProteinKmers`` on the cases
+engine's index build array for array, its tensor code on CPU tensors
+(the table's plain version underneath) against the reference and the
+host build, on walks of several buckets, a wrap past the last bucket,
+owners past the cap, no kmers and both drop-last settings;
+``GenomeProteinKmers`` on the cases
 of ``tests/test_hashanno.py`` (best similarity float64 ``==``, the same
 annotation, the same improvement count) on both routes; and the
 ``hashAnno`` CLI's files byte for byte.  Exact throughout.
@@ -18,20 +22,38 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import carried_state, made_up_chunk, reorder_chunk, tile_cells
+from chip_smoke import (carried_state, host_hash_index, index_differences,
+                        made_up_chunk, reorder_chunk, tile_cells)
 from kmers_anno_tpu.commands.app import main as ref_main
 from kmers_anno_tpu.engine import hashanno as ref_ha
+from kmers_anno_tpu.engine import protein_kmers as ref_pk
 from kmers_anno_tpu.engine.projection import _min_ev_table as ref_minev
 from kmers_anno_tpu.genome.gto import protein_md5
 from kmers_anno_tpu.ops.hashtable import probe_table as ref_probe
 from kmers_anno_tpu_torch.commands.app import main as port_main
 from kmers_anno_tpu_torch.engine import hashanno as port_ha
+from kmers_anno_tpu_torch.engine import protein_kmers as port_pk
 from kmers_anno_tpu_torch.ops import hash_chunk
+from kmers_anno_tpu_torch.ops.encode import encode_protein
+from kmers_anno_tpu_torch.ops.hashing import mix_kmer_np
+from kmers_anno_tpu_torch.ops.hashtable import table_size_for
+from kmers_anno_tpu_torch.ops.kmers import pack_kmers_np
+from kmers_anno_tpu_torch.utils import spans
 from tests.fixtures import make_genome, random_protein
 
 K = 8
 MIN_SCORE = 0.0125
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this module's tests run (the suite runs
+    in several worker processes; see test_torch_mesh.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(t):
@@ -325,6 +347,102 @@ def test_build_matches_reference(genome):
         np.testing.assert_array_equal(getattr(port, name), getattr(ref, name))
     assert port.best_anno == ref.best_anno
     assert port._md5_of == ref._md5_of
+
+
+def _homed_proteins(seed: int, homes: dict) -> list[str]:
+    """Distinct proteins of K residues, one kmer each, ``homes[b]`` of
+    them homed in bucket ``b`` of the index's table (``table_size_for``
+    of their count)."""
+    rng = random.Random(seed)
+    n_buckets = table_size_for(sum(homes.values()))
+    left, out = dict(homes), []
+    while any(left.values()):
+        p = random_protein(rng, K)
+        lo, hi = pack_kmers_np(encode_protein(p), K)
+        b = int(mix_kmer_np(lo, hi)[0]) & (n_buckets - 1)
+        if left.get(b) and p not in out:
+            left[b] -= 1
+            out.append(p)
+    return out
+
+
+def _index_proteins(case, genome, monkeypatch) -> list:
+    """A build case's (fid, protein, old) triples."""
+    if case == "fixture":
+        return _oracle_case(genome)[0]
+    if case == "owners_past_cap":
+        monkeypatch.setattr(ref_ha, "OWNER_CAP", 2)
+        monkeypatch.setattr(port_ha, "OWNER_CAP", 2)
+        return _family_case()[0]
+    prots = {
+        # 26 keys from bucket 2 walk 3 buckets, 18 from bucket 9 walk 2
+        "walks_2_and_3": lambda: _homed_proteins(
+            31, {2: 26, 9: 18, 0: 4, 1: 4, 7: 4, 13: 4, 14: 4}),
+        # 12 keys in the last of 16 buckets: 4 wrap to bucket 0
+        "wrap": lambda: _homed_proteins(
+            32, {15: 12, **{b: 4 for b in range(13)}}),
+        "shorter_than_k": lambda: ["MKV", "ACDEFGH", "W"],
+        "no_protein": lambda: [],
+    }[case]()
+    return [(f"fig|9.9.peg.{i}", p, f"old {i}") for i, p in enumerate(prots)]
+
+
+INDEX_CASES = ["fixture", "walks_2_and_3", "wrap", "owners_past_cap",
+               "shorter_than_k", "no_protein"]
+
+
+@pytest.mark.parametrize("drop_last", [False, True])
+@pytest.mark.parametrize("case", INDEX_CASES)
+def test_device_index_is_the_host_build(case, drop_last, genome,
+                                        monkeypatch):
+    """The index's tensor code on CPU tensors (``build_table_plain``
+    under the table) against the reference's host build and the port's
+    host build (``host_hash_index``), byte for byte: table,
+    ``max_probes``, owner matrix, kmer counts, heavy CSR, a key that wraps
+    past the last bucket included; counted in ``device_index``."""
+    proteins = _index_proteins(case, genome, monkeypatch)
+    ref_pk.set_drop_last(drop_last)
+    port_pk.set_drop_last(drop_last)
+    try:
+        ref, port, _ = _both(proteins)
+        built = port_ha.GenomeProteinKmers.device_index
+        ref._build()
+        spans.enable()
+        port._build()
+        (rec,) = [r for r in spans.records() if r.name == "hash.index"]
+        want = host_hash_index(port._proteins, CPU) if port.kmer_count \
+            else None
+    finally:
+        spans.disable()
+        spans.clear()
+        ref_pk.set_drop_last(False)
+        port_pk.set_drop_last(False)
+    assert port.kmer_count == ref.kmer_count
+    np.testing.assert_array_equal(port.protein_kmer_counts,
+                                  ref.protein_kmer_counts)
+    assert port.protein_kmer_counts.dtype == np.int64
+    assert set(rec.attrs) == {"kmers", "buckets", "heavy"}
+    if not port.kmer_count:
+        assert port.table is None and ref.table is None
+        assert port_ha.GenomeProteinKmers.device_index == built
+        return
+    assert index_differences(port, want) == []
+    np.testing.assert_array_equal(port.owner_mat.numpy(),
+                                  _np(ref.owner_mat))
+    np.testing.assert_array_equal(port.table.numpy().view(np.uint32),
+                                  _np(ref.table))
+    assert (port.max_probes, port.n_pad) == (ref.max_probes, ref.n_pad)
+    for name in ("heavy_ranks", "heavy_off", "heavy_owners"):
+        np.testing.assert_array_equal(getattr(port, name), getattr(ref, name))
+    assert port_ha.GenomeProteinKmers.device_index == built + 1
+    if case == "walks_2_and_3" and not drop_last:
+        assert port.max_probes == 4
+    if case == "wrap" and not drop_last:
+        # bucket 15's last 4 keys in bucket 0: a walk of 1
+        assert port.max_probes == 2
+        assert int((port.table[0, :8] != -1).sum()) == 8
+    if case == "owners_past_cap":
+        assert len(port.heavy_owners) > 0
 
 
 @pytest.mark.parametrize("chunk", [5, 7, 4096])

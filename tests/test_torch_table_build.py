@@ -8,7 +8,12 @@ for bit on EMPTY-padded random keys and on forced overflows, walks and
 wraps.  The kernel's placement by rows (row counts, their exclusive
 sums, a max-scan over rows, each key's rank among its home's keys by input
 index, each row written from the runs that reach it), written out in
-numpy here, against the plain version key by key.  Then the projection
+numpy here, against the plain version key by key.  The 8-slot build's
+longest walk (``build_table_plain``) against the host ``build_table``'s
+``max_probes - 1`` and the kernel's row-by-row walk, and hashAnno's
+layout (``OPEN_WALK``: no walk bound, the keys past the last row placed
+from row 0, written out in numpy as the kernel's wrap pass places them)
+against the host build byte for byte, wraps included.  Then the projection
 engine: the port's ``_close_set`` and ``_close_table`` (both layouts)
 against the reference's, every table, salt and probe bound equal, the
 table cache's eviction by ``table_cache_bytes``, and the host fallback,
@@ -115,7 +120,8 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(ValueError):
         table_build.build_wide(keys, keys, keys, 6)
     with pytest.raises(ValueError):
-        table_build.build_bucketed(keys, keys[:4], keys, 8)
+        table_build.build_bucketed(keys, keys[:4], keys, 8,
+                                   table_build.BUCKETED)
     with pytest.raises(ValueError):
         table_build.build_wide(keys.to(torch.int64), keys, keys, 8)
 
@@ -129,7 +135,7 @@ def test_plain_builds_launch_nothing():
     lo, hi, val = (torch.from_numpy(a.view(np.int32).copy())
                    for a in random_keys(rng, 100))
     table_build.build_wide(lo, hi, val, 128)
-    table_build.build_bucketed(lo, hi, val, 128)
+    table_build.build_bucketed(lo, hi, val, 128, table_build.BUCKETED)
     assert (table_build.build_wide.launches,
             table_build.build_bucketed.launches) == before
 
@@ -143,7 +149,9 @@ def row_placement(lo, hi, n_rows, layout, salt):
     exclusive sums ``start``, the row max-scan ``C[h] = max over h' <= h
     of (h' * S - start[h'])`` and each key's rank among its home's keys by
     input index; ``pos = start + C + rank``.  ``bad`` is a test on each
-    row's last key.  Returns (pos, -1 for pads; home; start; C; bad)."""
+    row's last key (past the last row is not bad where the layout wraps:
+    :func:`wrap_rows` places it).  Returns (pos, -1 for pads; home; start;
+    C; bad)."""
     s = layout.slots
     real = lo != EMPTY
     home = (mix_kmer_salted_np(lo, hi, salt)
@@ -159,8 +167,10 @@ def row_placement(lo, hi, n_rows, layout, salt):
         seen[home[i]] += 1
     pos = np.where(real, start[home] + c[home] + rank, -1)
     last = start + c + cnt - 1
-    bad = bool(((cnt > 0) & (last >= np.minimum(
-        n_rows * s, (rows + layout.max_walk) * s))).any())
+    limit = (rows + layout.max_walk) * s
+    if not layout.wraps:
+        limit = np.minimum(n_rows * s, limit)
+    bad = bool(((cnt > 0) & (last >= limit)).any())
     return pos, home, start, c, bad
 
 
@@ -201,7 +211,7 @@ def _hold_rows_to_plain(layout_name, lo, hi, val, n_rows, salt):
     layout = (table_build.WIDE if layout_name == "wide"
               else table_build.BUCKETED)
     s = layout.slots
-    want, want_bad = table_build.build_table_plain(
+    want, want_bad, _ = table_build.build_table_plain(
         *(torch.from_numpy(a.view(np.int32).copy()) for a in (lo, hi, val)),
         n_rows, layout, salt)
     want = want.numpy().view(np.uint32)
@@ -280,6 +290,185 @@ def test_scan_tile_is_the_kernels():
     items = int(re.search(r"constexpr int kScanItems = (\d+);", src)[1])
     assert "constexpr int kScanTile = kThreads * kScanItems;" in src
     assert threads * items == table_build.SCAN_TILE
+
+
+# ---------------------------------------------------------------------------
+# the 8-slot build's longest walk; hashAnno's layout with no walk bound
+# ---------------------------------------------------------------------------
+
+BUCKET_EDGES = [c for c, v in TABLE_BUILD_EDGES.items() if v[0] == "bucketed"]
+# (real keys, buckets): hashAnno's load (table_size_for: under half the
+# slots), half full, nearly full, two keys in two buckets, and more keys
+# than slots
+WALK_RANDOM = {"index_load": (3_850, 1_024), "half": (2_048, 512),
+               "nearly_full": (3_990, 512), "two_keys": (2, 2),
+               "over_full": (20, 2)}
+
+
+def _walk_keys(case):
+    """A walk case's (lo, hi, val) uint32 arrays and bucket count: a
+    bucketed ``TABLE_BUILD_EDGES`` case, a ``WALK_RANDOM`` one or (with
+    pads) a ``RANDOM_CASES`` one."""
+    if case in WALK_RANDOM:
+        n, n_rows = WALK_RANDOM[case]
+        rng = np.random.default_rng(n + n_rows)
+        return (*random_keys(rng, n), n_rows)
+    if case in RANDOM_CASES:
+        n, n_pad, n_rows, _ = RANDOM_CASES[case]
+        rng = np.random.default_rng(n + n_pad)
+        return (*padded_keys([random_keys(rng, n)], n_pad, rng), n_rows)
+    _, _, keys, n_rows, _, _ = edge_keys(case)
+    return (*keys, n_rows)
+
+
+def _plain(lo, hi, val, n_rows, layout):
+    """``build_table_plain`` on the uint32 arrays: (table as uint32, bad,
+    longest walk)."""
+    table, bad, walk = table_build.build_table_plain(
+        *(torch.from_numpy(a.view(np.int32).copy()) for a in (lo, hi, val)),
+        n_rows, layout, GOLDEN)
+    assert walk.dtype == torch.int32 and walk.dim() == 0
+    return table.numpy().view(np.uint32), bool(bad), int(walk)
+
+
+def _row_walk(lo, hi, n_rows, layout):
+    """The longest walk as the kernel's row pass finds it: each row's last
+    key written, ``min(first + cnt - 1, rows * S - 1) // S - h`` where the
+    row holds keys and ``first`` is below ``rows * S``."""
+    s = layout.slots
+    pos, home, start, c, _ = row_placement(lo, hi, n_rows, layout, GOLDEN)
+    cnt = np.bincount(home[pos >= 0], minlength=n_rows)
+    first = start + c
+    rows = np.arange(n_rows)
+    live = (cnt > 0) & (first < n_rows * s)
+    last = np.minimum(first + cnt - 1, n_rows * s - 1)
+    return int(np.max(last[live] // s - rows[live], initial=0))
+
+
+def wrap_rows(table, lo, hi, val, n_rows):
+    """The kernel's wrap pass on the rows written (``OPEN_WALK``): the
+    stable order's last ``n_real + C[rows - 1] - rows * S`` keys, the t-th
+    into the t-th free slot (an EMPTY lo word) in row order.  Returns the
+    longest walk of those keys, ``rows - home + row``, and whether every
+    one found a slot; ``table`` is written in place."""
+    s = hashtable.BUCKET
+    pos, home, _, c, _ = row_placement(lo, hi, n_rows,
+                                       table_build.OPEN_WALK, GOLDEN)
+    real = pos >= 0
+    n_real = int(real.sum())
+    n_spill = n_real + int(c[-1]) - n_rows * s
+    stable = np.zeros(n_real, np.int64)
+    stable[(pos - c[home])[real]] = np.flatnonzero(real)
+    most, t = 0, 0
+    for r in range(n_rows):
+        free = int((table[r, :s] == EMPTY).sum())
+        for q in range(free):
+            if t >= n_spill:
+                break
+            i = stable[n_real - n_spill + t]
+            slot = s - free + q
+            table[r, [slot, s + slot, 2 * s + slot]] = lo[i], hi[i], val[i]
+            most = max(most, n_rows - int(home[i]) + r)
+            t += 1
+    return most, t >= n_spill
+
+
+WALK_CASES = BUCKET_EDGES + list(WALK_RANDOM)
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_open_walk_is_the_host_build(case):
+    """``OPEN_WALK`` is the host ``build_table``'s table byte for byte and
+    its longest walk ``max_probes - 1``, however far keys walk and where
+    they wrap past the last bucket; ``bad`` only where the keys outnumber
+    the slots, as ``build_table`` refuses them.  ``BUCKETED`` reports the
+    same walk of the keys it writes, and bad from a walk of
+    ``MAX_DEVICE_PROBES`` on or a wrap."""
+    lo, hi, val, n_rows = _walk_keys(case)
+    table, bad, walk = _plain(lo, hi, val, n_rows, table_build.OPEN_WALK)
+    real = lo != EMPTY
+    pos = row_placement(lo, hi, n_rows, table_build.OPEN_WALK, GOLDEN)[0]
+    wraps = bool((pos >= n_rows * hashtable.BUCKET).any())
+    if real.sum() > n_rows * hashtable.BUCKET:
+        assert bad
+        with pytest.raises(ValueError):
+            hashtable.build_table(lo[real], hi[real], val[real], n_rows)
+        return
+    assert not bad
+    host, max_probes = hashtable.build_table(lo[real], hi[real], val[real],
+                                             n_rows)
+    np.testing.assert_array_equal(table, host)
+    assert walk == max_probes - 1
+    _, b_bad, b_walk = _plain(lo, hi, val, n_rows, table_build.BUCKETED)
+    if not wraps:
+        assert b_walk == walk
+    assert b_bad == (wraps or b_walk >= hashtable.MAX_DEVICE_PROBES)
+
+
+def test_walk_cases_reach_far():
+    """The walk cases hold walks of 0, 1, 2 and past 30 buckets with no
+    wrap, a wrap placed from bucket 0, and more keys than slots."""
+    walks, wrapped, over = set(), False, False
+    for case in WALK_CASES:
+        lo, hi, val, n_rows = _walk_keys(case)
+        _, bad, walk = _plain(lo, hi, val, n_rows, table_build.OPEN_WALK)
+        pos = row_placement(lo, hi, n_rows, table_build.OPEN_WALK, GOLDEN)[0]
+        wraps = bool((pos >= n_rows * hashtable.BUCKET).any())
+        wrapped |= wraps and not bad
+        over |= bad
+        if not wraps:
+            walks.add(walk)
+    assert {0, 1, 2} <= walks and max(walks) > 30 and wrapped and over
+
+
+@pytest.mark.parametrize("layout", ["bucketed", "open_walk"])
+@pytest.mark.parametrize("case", WALK_CASES + list(RANDOM_CASES))
+def test_kernel_row_walk_is_the_plain_walk(layout, case):
+    """The kernel's passes written out in numpy (the rows, then for
+    ``OPEN_WALK`` the wrap pass) against the plain version: table, bad and
+    longest walk, in both 8-slot layouts."""
+    lay = (table_build.BUCKETED if layout == "bucketed"
+           else table_build.OPEN_WALK)
+    lo, hi, val, n_rows = _walk_keys(case)
+    want, want_bad, want_walk = _plain(lo, hi, val, n_rows, lay)
+    table = rows_written(lo, hi, val, n_rows, lay, GOLDEN)
+    walk = _row_walk(lo, hi, n_rows, lay)
+    bad = row_placement(lo, hi, n_rows, lay, GOLDEN)[4]
+    if lay.wraps:
+        most, placed = wrap_rows(table, lo, hi, val, n_rows)
+        walk, bad = max(walk, most), bad or not placed
+    np.testing.assert_array_equal(table, want)
+    assert (bad, walk) == (want_bad, want_walk)
+
+
+def test_walk_wrapper_on_cpu_tensors():
+    """``build_bucketed`` takes the plain version on CPU tensors (no launch
+    counted), in either 8-slot layout, and refuses the wide one."""
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(a.view(np.int32).copy())
+            for a in random_keys(rng, 700)]
+    before = table_build.build_bucketed.launches
+    for lay in (table_build.OPEN_WALK, table_build.BUCKETED):
+        got = table_build.build_bucketed(*args, 256, lay)
+        want = table_build.build_table_plain(*args, 256, lay, GOLDEN)
+        assert torch.equal(got[0], want[0])
+        assert (bool(got[1]), int(got[2])) == (bool(want[1]), int(want[2]))
+    assert table_build.build_bucketed.launches == before
+    with pytest.raises(ValueError):
+        table_build.build_bucketed(*args, 256, table_build.WIDE)
+    with pytest.raises(ValueError):
+        table_build.build_bucketed(*args, 255, table_build.OPEN_WALK)
+
+
+def test_no_walk_bound_is_past_any_table():
+    """``OPEN_WALK``'s bound is past the rows of any table the kernel's
+    int32 slot positions can address; it alone wraps."""
+    assert (table_build.NO_WALK_BOUND * hashtable.BUCKET >= 1 << 31
+            and table_build.OPEN_WALK.keep_walkers
+            and table_build.OPEN_WALK.slots == hashtable.BUCKET)
+    assert [lay.wraps for lay in (table_build.WIDE, table_build.BUCKETED,
+                                  table_build.OPEN_WALK)] == [False, False,
+                                                              True]
 
 
 # ---------------------------------------------------------------------------
