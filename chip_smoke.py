@@ -7,31 +7,32 @@ holds each against its plain-PyTorch version on made-up inputs at full
 size (k = 8 and 12, many hits; the scanner also on a slice that starts
 off a 16-byte boundary, with an odd length), and both lookup kernels on
 tables built to hold several keys of one lo word in a row and to walk
-from the last row to row 0 (query counts and row widths off multiples of 32, all-invalid
-queries, rows with no valid window).  Then drives the projection engine's three routes, one
-after another, on a 2.94 Mb genome with 3500 planted genes and 10 close
-genomes (the "realistic" projection workload of bench.py, seed 0):
+from the last row to row 0 (query counts and row widths off multiples of
+32, all-invalid queries, rows with no valid window).  Then drives the
+projection engine's two routes, one after the other, on a 2.94 Mb genome
+with 3500 planted genes and 10 close genomes (the "realistic" projection
+workload of bench.py, seed 0):
 
 1. ``kmers`` through the CLI, which must take the fused route (union
    probe + per-genome device window scan);
 2. the RLE route, forced as the reference's tests force it
-   (``_close_set`` gives None);
-3. the host contig index route (``engine="host"``), whose per-strand
-   extraction runs the contig scanner once per strand.
+   (``_close_set`` gives None).
 
 Each route's per-close-genome counts must equal the single-core C++ hot
-loop (``ProjectionBaseline``), and all three must give the same stats and
+loop (``ProjectionBaseline``), and both must give the same stats and
 features; each reports its seconds per genome (the fused route's median
-and range of five warm runs, the RLE route's of three; the host-index
-route, which builds its index on every call, its one cold run), and
+and range of five warm runs, the RLE route's of three), and
 one more warm fused genome runs with the port's tracer on, its spans
 printed as a tree (host milliseconds and attributes).  The
 last lines before the results give each phase's seconds.  Every kernel
 wrapper's launch count is set to 0 before each route and read after it.
 Last, each kernel is held against its plain version again on the inputs
-those routes give it: the genome's padded window stream and its two
-strands (contig scanner), the union table and the ten close-genome tables
-of both stream routes (probe).  Both stream routes build every close
+those routes give it: the genome's padded window stream (contig scanner),
+the union table and the ten close-genome tables of both stream routes
+(probe); and the scanner on the genome's two strands, as the per-strand
+extraction ``ops.contig_kmers.extract_contig_kmers`` feeds it, that
+extraction timed over the draft's contigs (no route of the engine calls
+it).  Both stream routes build every close
 genome's table on the card (``csrc/table_build.cu``), ten launches a
 close set, with no host build.
 
@@ -910,10 +911,13 @@ def summary(times: list) -> str:
             f"{', '.join(f'{t:.4f}' for t in times)})")
 
 
-def check_strand_scan(dev, genome) -> tuple[dict, list]:
-    """The per-strand route's scanner against its plain version on the
-    genome's two strands, as ``extract_contig_kmers`` feeds it.  Returns
-    the row and the two strands' ``launch_scan`` arguments."""
+def check_strand_scan(dev, genome) -> tuple[dict, list, dict]:
+    """The scanner against its plain version on the genome's two strands,
+    as ``extract_contig_kmers`` feeds it, and that extraction timed over
+    every contig of the genome (two launches a contig).  Returns the row,
+    the two strands' ``launch_scan`` arguments and the extraction's
+    launch counts."""
+    from kmers_anno_tpu_torch.ops.contig_kmers import extract_contig_kmers
     from kmers_anno_tpu_torch.ops.encode import encode_dna
     from kmers_anno_tpu_torch.ops.contig_scan import (scan_stream,
                                                       scan_stream_plain)
@@ -942,6 +946,15 @@ def check_strand_scan(dev, genome) -> tuple[dict, list]:
     require(all(torch.equal(g, w) for a, want in zip(args, outs)
                 for g, w in zip(a[3], want)),
             "launch_scan's outputs differ from the wrapper's on a strand")
+    with _Launches() as run:
+        extract_s, kmers = host_seconds(lambda: [
+            extract_contig_kmers(c.sequence, K, genome.genetic_code, dev)
+            for c in genome.contigs])
+    out["extract_ms"] = 1e3 * extract_s
+    require(run.counts["contig_scan"] == 2 * len(genome.contigs),
+            f"extract_contig_kmers: not one scanner launch a strand: "
+            f"{run.counts}")
+    n_kmers = sum(len(got["lo"]) for got in kmers)
     print(f"main path contig_scan per strand k={K}: {len(codes)} bases x 2 "
           f"strands, exact, max_abs_err {out['max_abs_err']}, kernel "
           f"{ms[0]:.4f} + {ms[1]:.4f} ms through the wrapper, "
@@ -949,17 +962,21 @@ def check_strand_scan(dev, genome) -> tuple[dict, list]:
           f"{plain_ms[0]:.4f} + {plain_ms[1]:.4f} ms; bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}, "
           f"{out['bound_bytes']} bytes), share {out['bound_share']:.3f}, "
-          f"back to back {out['launch_share']:.3f}", flush=True)
-    return out, args
+          f"back to back {out['launch_share']:.3f}; extract_contig_kmers "
+          f"over the {len(genome.contigs)} contigs {out['extract_ms']:.4f} "
+          f"ms, {n_kmers} kmers", flush=True)
+    return out, args, run.counts
 
 
-def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
+def check_kernels_on_main_path(dev, genome, fused,
+                               rle) -> tuple[dict, dict, dict]:
     """Each kernel against its plain version on the inputs the main path
     gives it: the contig scanner on the genome's padded window stream and
     on its two strands; the probe on that stream against the union table
     and every RLE close-genome table, and on the compacted union hits
     against every fused close-genome table.  Exact equality over every
-    output; CUDA-event times."""
+    output; CUDA-event times.  Returns the rows, the ``--compare`` cases
+    and the per-strand extraction's launch counts."""
     from kmers_anno_tpu_torch.engine.projection import (StreamWindowIndex,
                                                         _union_compact)
     from kmers_anno_tpu_torch.ops.encode import encode_dna
@@ -1055,7 +1072,7 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
           f"{probe['rle_plain_ms']:.4f}; bound median "
           f"{probe['rle_bound_ms']:.4f} ms; max_abs_err over every probe "
           f"{probe['max_abs_err']}", flush=True)
-    strand, strand_args = check_strand_scan(dev, genome)
+    strand, strand_args, strand_launches = check_strand_scan(dev, genome)
     cases = {
         "the padded window stream": (launch_scan, scan_args),
         "the two strands": (launch_scan, strand_args),
@@ -1064,8 +1081,8 @@ def check_kernels_on_main_path(dev, genome, fused, rle) -> dict:
         "the fused close tables": (launch_probe, [
             (t, lo_c, hi_c, ones, salt, mp)
             for t, salt, mp in zip(cs.tables, cs.salts, cs.mps)])}
-    return {"contig_scan": scan, "probe_wide": probe,
-            "contig_scan_strand": strand}, cases
+    return ({"contig_scan": scan, "probe_wide": probe,
+             "contig_scan_strand": strand}, cases, strand_launches)
 
 
 def print_spans(what: str, fn) -> None:
@@ -1239,47 +1256,30 @@ def run_main_path(dev, tmp: str, profile: bool,
     # -- route 2, RLE, forced as the reference's tests force it --
     rle = ProjectionAnnotator(device=dev)
     rle._close_set = lambda olds_: None
-    # -- route 3, the host contig index --
-    host = ProjectionAnnotator(device=dev, engine="host")
-    for name, annot in (("rle", rle), ("host", host)):
-        genome = Genome.load(new_path)
-        t0 = time.perf_counter()
-        with _Launches() as run:
-            stats = annot.annotate_genome(genome, olds.get)
-        cold_s = time.perf_counter() - t0
-        require(run.fused_calls == 0, f"{name} took the fused route")
-        if name == "host":
-            # no stream index: every scanner launch is a per-strand one
-            require(run.counts["contig_scan"] == 2 * len(genome.contigs)
-                    and run.counts["probe_wide"] == 0,
-                    f"host: not one scanner launch per strand: "
-                    f"{run.counts}")
-        else:
-            require(run.counts["contig_scan"] > 0
-                    and run.counts["probe_wide"] > 0
-                    and run.counts["table_build_wide"] == N_CLOSE,
-                    f"{name}: a kernel of the route never launched: "
-                    f"{run.counts}")
-        require(stats == want_stats, f"{name} stats {stats} != fused "
-                f"{want_stats}")
-        require(features_of(genome) == want_feats,
-                f"{name} features differ from the fused route's")
-        print(f"{name} route (cold, tables built): {cold_s:.2f} s, stats "
-              f"and {n_pegs} features equal to the fused route's, launches "
-              f"{run.counts}", flush=True)
-        check_counts(name, run)
-        if name == "host":
-            # the host route builds its contig index and close tables on
-            # every call (~8 s), so its cold run is its only run
-            times = [cold_s]
-        else:
-            times, stats = warm_runs(annot, new_path, olds, RLE_WARM_RUNS)
-            require(stats == want_stats, f"{name} warm stats differ")
-            print(f"{name} route, warm annotate_genome: {summary(times)}",
-                  flush=True)
-        routes[name] = dict(launches=run.counts, times=times)
-    return routes, check_kernels_on_main_path(dev, Genome.load(new_path),
-                                              fused, rle)
+    genome = Genome.load(new_path)
+    t0 = time.perf_counter()
+    with _Launches() as run:
+        stats = rle.annotate_genome(genome, olds.get)
+    cold_s = time.perf_counter() - t0
+    require(run.fused_calls == 0, "rle took the fused route")
+    require(run.counts["contig_scan"] > 0 and run.counts["probe_wide"] > 0
+            and run.counts["table_build_wide"] == N_CLOSE,
+            f"rle: a kernel of the route never launched: {run.counts}")
+    require(stats == want_stats, f"rle stats {stats} != fused {want_stats}")
+    require(features_of(genome) == want_feats,
+            "rle features differ from the fused route's")
+    print(f"rle route (cold, tables built): {cold_s:.2f} s, stats and "
+          f"{n_pegs} features equal to the fused route's, launches "
+          f"{run.counts}", flush=True)
+    check_counts("rle", run)
+    times, stats = warm_runs(rle, new_path, olds, RLE_WARM_RUNS)
+    require(stats == want_stats, "rle warm stats differ")
+    print(f"rle route, warm annotate_genome: {summary(times)}", flush=True)
+    routes["rle"] = dict(launches=run.counts, times=times)
+    measured, cases, strands = check_kernels_on_main_path(
+        dev, Genome.load(new_path), fused, rle)
+    routes["strands"] = dict(launches=strands)
+    return routes, (measured, cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1619,12 +1619,13 @@ def check_table_builds(dev, annot, singles) -> tuple[dict, dict]:
     cases.  The realistic sets are padded by the engine's own
     ``_padded_keys``.  Returns the two ``kernels`` rows and the
     ``--compare`` cases."""
-    from kmers_anno_tpu_torch.engine.projection import _bucket
+    from kmers_anno_tpu_torch.device import pow2_bucket
     from kmers_anno_tpu_torch.ops.hashing import GOLDEN
     from kmers_anno_tpu_torch.ops.hashtable import device_table_buckets
     from kmers_anno_tpu_torch.ops.widetable import wide_rows_for
 
-    sets = [list(annot._padded_keys(lo, hi, peg, _bucket(len(lo), 4096)))
+    sets = [list(annot._padded_keys(lo, hi, peg,
+                                    pow2_bucket(len(lo), 4096)))
             for lo, hi, peg, _ in singles]
     n_pad = max(k[0].numel() for k in sets)
     rows = {"wide": max(wide_rows_for(k[0].numel()) for k in sets),
@@ -1843,14 +1844,14 @@ def run_table_build(dev, keep: dict) -> tuple[dict, dict, dict]:
     union_row, union_case = check_union_build(dev, annot, singles)
     measured.update(union_row)
     cases.update(union_case)
-    device_build = projection.build_wide_table_device
+    device_build = projection.build_wide
     device_union = projection.union_dedupe
 
     def with_build(on_card, fn):
         """``fn()`` with every table of a close set built on the card, or
         every one (the union too) declined to the engine's host build."""
         if not on_card:
-            projection.build_wide_table_device = declined
+            projection.build_wide = declined
             projection.union_dedupe = declined_union
         try:
             annot._closeset_cache.clear()
@@ -1858,7 +1859,7 @@ def run_table_build(dev, keep: dict) -> tuple[dict, dict, dict]:
             out = fn()
             return out, host_fallback.count - before
         finally:
-            projection.build_wide_table_device = device_build
+            projection.build_wide = device_build
             projection.union_dedupe = device_union
 
     turns = (("device", True), ("host", False), ("host", False),
@@ -3635,7 +3636,7 @@ def made_up_chunk(rng, k, n_prot, n_rows, plen=90, family=1, squeeze=False,
     n1, n2, minc."""
     from kmers_anno_tpu_torch.engine.hashanno import (GenomeProteinKmers,
                                                       Prototype, PrototypeSet)
-    from kmers_anno_tpu_torch.engine.projection import _min_ev_table
+    from kmers_anno_tpu_torch.device import min_ev_table
     from kmers_anno_tpu_torch.ops.hashtable import BUCKET, EMPTY, build_table
 
     aa = np.frombuffer(AA.encode(), np.uint8)
@@ -3669,7 +3670,7 @@ def made_up_chunk(rng, k, n_prot, n_rows, plen=90, family=1, squeeze=False,
         max_probes=max_probes, owner_mat=gk.owner_mat, lo=lo, hi=hi,
         proto=proto, valid=valid, n_rows=n_rows, n_pad=n_pad,
         n1=torch.from_numpy(n1), n2=n2,
-        minc=torch.from_numpy(_min_ev_table(min_score, 4 * plen + 1024)))
+        minc=torch.from_numpy(min_ev_table(min_score, 4 * plen + 1024)))
 
 
 def carried_state(rng, n_pad, device="cpu"):
@@ -4014,7 +4015,6 @@ def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
     torch scatter and one ``torch.bincount``."""
     from kmers_anno_tpu_torch.engine.hashanno import (GenomeProteinKmers,
                                                       PrototypeSet,
-                                                      _distinct_kmers_flat,
                                                       _emit_rows)
     from kmers_anno_tpu_torch.genome.gto import Genome, protein_md5
     from kmers_anno_tpu_torch.ops.hash_chunk import (hash_best,
@@ -4082,7 +4082,6 @@ def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
     rates = sorted(pairs / t for t in times)
     # the split of one more run
     gk = index()
-    flat_s, _ = host_seconds(lambda: _distinct_kmers_flat(gk._proteins, K))
     build_s, _ = host_seconds(gk._build)
     chunks = pset.chunks(chunk, dev)
     max_len = max(max(map(len, gk._proteins)),
@@ -4110,7 +4109,7 @@ def run_hash_bench_shape(dev) -> tuple[dict, dict, dict]:
           f"{statistics.median(rates):.1f} prototype-genome pairs/s (median "
           f"of {WARM_RUNS}, range {rates[0]:.1f}-{rates[-1]:.1f}; s per run "
           f"{', '.join(f'{t:.4f}' for t in times)}); split of one more run: "
-          f"host _distinct_kmers_flat of the proteins {flat_s:.4f} s, _build "
+          f"_build "
           f"(on the card: pack, sort, pairs, owner matrix, 8-slot table) "
           f"{build_s:.4f} s, device chunk steps {steps_ms:.4f} ms by CUDA "
           f"events ({steps_host_s:.4f} s host), final pull and _emit_rows "
@@ -4276,24 +4275,60 @@ def wrapping_batch(rng) -> list[str]:
     return out
 
 
+def host_distinct_pairs(proteins: list[str], k: int = K) -> tuple:
+    """Each protein's distinct kmers found on the host, as the engine
+    found them before its pair dedup moved to the device: (lo, hi, owner)
+    of the distinct (kmer, protein) pairs, key-major (equal kmers
+    adjacent, then by owner), and each protein's distinct-kmer count.
+    Every length-k window inside its protein counts (the external
+    ProteinKmers contract), through ``apply_drop_last``."""
+    from kmers_anno_tpu_torch.engine.protein_kmers import apply_drop_last
+    from kmers_anno_tpu_torch.ops.encode import encode_protein
+    from kmers_anno_tpu_torch.ops.kmers import pack_kmer_windows
+
+    lengths = np.fromiter(map(len, proteins), np.int64, len(proteins))
+    codes = encode_protein("".join(proteins))
+    owner = np.repeat(np.arange(len(proteins), dtype=np.int32), lengths)
+    valid = np.zeros(len(codes), bool)
+    for start, ln in zip((np.cumsum(lengths) - lengths).tolist(),
+                         lengths.tolist()):
+        valid[start: start + max(ln - k + 1, 0)] = True
+    valid = apply_drop_last(valid)
+    t_lo, t_hi = pack_kmer_windows(torch.from_numpy(codes), k)
+    lo = t_lo.numpy().view(np.uint32)[valid]
+    hi = t_hi.numpy().view(np.uint32)[valid]
+    own = owner[valid]
+    # the stream is in owner order, so a stable sort by key alone is the
+    # reference's lexsort((own, key))
+    key = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    order = np.argsort(key, kind="stable")
+    k_s, o_s = key[order], own[order]
+    keep = np.ones(len(order), bool)
+    keep[1:] = (k_s[1:] != k_s[:-1]) | (o_s[1:] != o_s[:-1])
+    k_u, own_u = k_s[keep], o_s[keep]
+    return ((k_u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            (k_u >> np.uint64(32)).astype(np.uint32), own_u,
+            np.bincount(own_u, minlength=len(proteins)).astype(np.int64))
+
+
 def host_hash_index(proteins: list[str], dev) -> dict:
     """The batch index as the host builds it (the engine's build before it
-    moved to the card): ``_distinct_kmers_flat``'s key-major pairs, the
-    owner matrix in NumPy, ``build_table``, both uploaded.  Returns the
-    engine's attributes under their names, the unique keys beside."""
-    from kmers_anno_tpu_torch.engine.hashanno import (OWNER_CAP, _bucket,
-                                                      _distinct_kmers_flat)
+    moved to the card): ``host_distinct_pairs``, the owner matrix in
+    NumPy, ``build_table``, both uploaded.  Returns the engine's
+    attributes under their names, the unique keys beside."""
+    from kmers_anno_tpu_torch.device import pow2_bucket
+    from kmers_anno_tpu_torch.engine.hashanno import OWNER_CAP
     from kmers_anno_tpu_torch.ops.hashtable import build_table
 
-    lo, hi, owner, counts = _distinct_kmers_flat(proteins, K)
+    lo, hi, owner, counts = host_distinct_pairs(proteins)
     first = np.ones(len(lo), bool)
     first[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
     starts = np.flatnonzero(first)
     u = len(starts)
     ucounts = np.diff(np.append(starts, len(lo)))
     cap = min(int(ucounts.max(initial=1)), OWNER_CAP)
-    n_pad = _bucket(len(proteins), 256)
-    owner_mat = np.full((_bucket(u, 4096), cap), n_pad, np.int32)
+    n_pad = pow2_bucket(len(proteins), 256)
+    owner_mat = np.full((pow2_bucket(u, 4096), cap), n_pad, np.int32)
     rows = np.repeat(np.arange(u), ucounts)
     cols = np.arange(len(rows)) - np.repeat(np.cumsum(ucounts) - ucounts,
                                             ucounts)
@@ -6691,11 +6726,11 @@ def main() -> None:
             "ops/pallas_contig.py:103", "fused", ("fused", "rle")),
         row("probe_wide", "probe_wide", "csrc/probe_wide.cu",
             "ops/widetable.py:199", "fused",
-            ("fused", "rle", "host", "weighted_apply")),
-        # the host route builds no stream index: its scanner launches are
-        # the per-strand ones
+            ("fused", "rle", "weighted_apply")),
+        # the per-strand extraction over the draft's contigs, which no
+        # route of the engine calls: one launch a strand
         row("contig_scan_strand", "contig_scan", "csrc/contig_scan.cu",
-            "ops/pallas_contig.py:161", "host", ("host",)),
+            "ops/pallas_contig.py:161", "strands", ("strands",)),
         # the apply path: CLI apply in both formats, the bench shape and
         # the weighted path (which launches the probe, not apply_rows)
         row("apply_rows", "apply_rows", "csrc/apply_rows.cu",
@@ -6754,7 +6789,7 @@ def main() -> None:
     ]
     for r, v in routes.items():
         if "times" in v:
-            kind = {"host": "cold", "rotating": "close set built, device "
+            kind = {"rotating": "close set built, device "
                     "builds"}.get(r, "warm")
             print(f"{kind} s/genome, {r} route: {summary(v['times'])}",
                   flush=True)

@@ -9,8 +9,8 @@ keeps a plain-PyTorch version beside it, which a wrapper takes only for a
 tensor on the CPU.
 
 Ported so far: the ORF-projection engine (``kmers`` / ``batch``) with its
-three routes (the fused union probe + device window scan, the default; the
-per-close-genome RLE probe; the host contig index, ``engine="host"``), and
+two routes, which the input picks (the fused union probe + device window
+scan; the per-close-genome RLE probe where the input does not fit it), and
 ``build`` / ``apply`` for protein signature tables.  The host side keeps
 its own copies of the reference's host modules, in the reference's layout:
 ``genome/`` (GTO model, locations, DNA translation, roles, sources),

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import resolve_device
+from ..device import pow2_bucket, resolve_device
 from ..genome.gto import Feature, Genome
 from ..ops.apply_flat import apply_flat, apply_weighted_flat
 from ..ops.apply_rows import apply_rows   # the unweighted apply step
@@ -61,13 +61,6 @@ def _bucket_width(n: int) -> int:
     return -(-n // 2048) * 2048
 
 
-def _bucket(n: int, minimum: int) -> int:
-    """Round up to the next power of two, at least ``minimum``
-    (``apply_engine.py:55-58``)."""
-    n = max(n, minimum)
-    return 1 << (n - 1).bit_length()
-
-
 class FlatBatch:
     """A flat token-stream batch of protein sequences (host side,
     ``apply_engine.py:131-160``): codes (PROT_PAD after the last protein),
@@ -83,8 +76,8 @@ class FlatBatch:
         self.request = None
         n = len(proteins)
         total = sum(map(len, proteins))
-        width = _bucket(total, min_tokens)
-        self.n_seqs = _bucket(n, min_seqs)
+        width = pow2_bucket(total, min_tokens)
+        self.n_seqs = pow2_bucket(n, min_seqs)
         got = native.flat_batch(proteins, k, width, self.n_seqs)
         if got is not None:  # C++ data loader (kan_host.cpp)
             self.codes, self.seg_ids, self.valid = got

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import pow2_bucket, resolve_device
 from ..genome.gto import Feature, Genome
 from ..ops.dna_kmers import dna_valid_np
 # the reference's name for the window probe: the kernel on a CUDA table,
@@ -37,11 +37,6 @@ from ..ops.dna_kmers import dna_valid_np
 from ..ops.dna_probe import probe_dna as probe_dna_flat
 from ..ops.encode import DNA_PAD, encode_dna, reverse_complement_codes
 from .signature import SignatureTable
-
-
-def _bucket(n: int, minimum: int) -> int:
-    n = max(n, minimum)
-    return 1 << (n - 1).bit_length()
 
 
 class DnaContigBatch:
@@ -74,7 +69,7 @@ class DnaContigBatch:
                 parts.append(codes)
                 valids.append(v)
                 pos += n
-        width = _bucket(pos, min_tokens)
+        width = pow2_bucket(pos, min_tokens)
         self.codes = np.full(width, DNA_PAD, np.uint8)
         self.valid = np.zeros(width, bool)
         if parts:

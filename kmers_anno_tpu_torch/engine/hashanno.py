@@ -48,17 +48,15 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import resolve_device
+from ..device import min_ev_table, pow2_bucket, resolve_device
 from ..genome.gto import Genome, protein_md5
-from ..ops.encode import PROT_PAD, encode_protein
+from ..ops.encode import encode_protein
 from ..ops.hash_chunk import DENSE_CELLS, OWNER_CAP, hash_best, hash_commons
 from ..ops.hashtable import table_size_for
 from ..ops.kmers import pack_kmer_windows
 from ..ops.table_build import OPEN_WALK, build_bucketed
 from ..utils import spans
 from . import protein_kmers
-from .projection import _bucket, _min_ev_table
-from .protein_kmers import apply_drop_last
 
 log = logging.getLogger(__name__)
 
@@ -136,12 +134,12 @@ class PrototypeSet:
         cached = []
         for start in range(0, len(self.protos), chunk):
             sub = self.protos[start: start + chunk]
-            lo, hi, proto_of, n2 = _distinct_kmers_flat(
-                [p.protein for p in sub], self.k)
+            lo, hi, proto_of, n2 = _read_pairs([p.protein for p in sub],
+                                               self.k, device)
             order = _similar_prototypes_adjacent(proto_of, len(sub))
             lo, hi, proto_of = lo[order], hi[order], proto_of[order]
-            n_proto = _bucket(len(sub), 64)
-            h = _bucket(len(lo), 4096)
+            n_proto = pow2_bucket(len(sub), 64)
+            h = pow2_bucket(len(lo), 4096)
             qlo = np.zeros(h, np.int32)
             qhi = np.zeros(h, np.int32)
             qproto = np.full(h, n_proto, np.int32)
@@ -159,7 +157,7 @@ class PrototypeSet:
 
 def _similar_prototypes_adjacent(proto_of: np.ndarray, n: int) -> np.ndarray:
     """The order in which a chunk's distinct (kmer, prototype) pairs are
-    packed, from the key-major order of :func:`_distinct_kmers_flat`:
+    packed, from the key-major order of :func:`_distinct_pairs`:
     prototype by prototype, each prototype's kmers in key order, the ``n``
     prototypes sorted by their smallest kmer (their first pair in key
     order).  Prototypes that share many kmers mostly share their smallest,
@@ -173,57 +171,6 @@ def _similar_prototypes_adjacent(proto_of: np.ndarray, n: int) -> np.ndarray:
     place[torch.sort(first, stable=True).indices] = torch.arange(
         n, dtype=torch.int32)
     return torch.sort(place[own], stable=True).indices.numpy()
-
-
-def _distinct_kmers_flat(proteins: list[str], k: int):
-    """Distinct kmers per protein over a flat stream (``hashanno.py:232``).
-
-    returns (lo, hi, owner) arrays (each protein's kmer set, deduplicated
-    within the protein, key-major: equal kmers adjacent, then by owner)
-    plus per-protein distinct-kmer counts.  Every length-k window counts
-    (the external ProteinKmers contract), through the drop-last fence.
-    """
-    n = len(proteins)
-    if n == 0:
-        z = np.zeros(0, np.uint32)
-        return z, z, np.zeros(0, np.int32), np.zeros(0, np.int64)
-    lengths = np.array([len(p) for p in proteins], np.int64)
-    total = int(lengths.sum())
-    width = _bucket(total, 4096)
-    got = native.flat_batch(proteins, k, width, -1)
-    if got is not None:  # C++ data loader (kan_host.cpp)
-        codes, owner, valid = got
-    else:
-        codes = np.full(width, PROT_PAD, np.uint8)
-        owner = np.full(width, -1, np.int32)
-        valid = np.zeros(width, bool)
-        pos = 0
-        for i, p in enumerate(proteins):
-            ln = len(p)
-            codes[pos: pos + ln] = encode_protein(p)
-            owner[pos: pos + ln] = i
-            if ln >= k:
-                valid[pos: pos + ln - k + 1] = True
-            pos += ln
-    valid = apply_drop_last(valid)
-    t_lo, t_hi = pack_kmer_windows(torch.from_numpy(codes), k)
-    lo = t_lo.numpy().view(np.uint32)[valid]
-    hi = t_hi.numpy().view(np.uint32)[valid]
-    own = owner[valid]
-    # dedup (kmer, owner) pairs, key-major.  The stream is in owner order,
-    # so a stable sort by key alone is the reference's lexsort((own, key));
-    # keys are below 2^62, so their int64 order is their uint64 order.
-    key = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-    order = torch.sort(torch.from_numpy(key.view(np.int64)),
-                       stable=True).indices.numpy()
-    k_s, o_s = key[order], own[order]
-    keep = np.ones(len(order), bool)
-    keep[1:] = (k_s[1:] != k_s[:-1]) | (o_s[1:] != o_s[:-1])
-    k_u, own_u = k_s[keep], o_s[keep]
-    lo_u = (k_u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    hi_u = (k_u >> np.uint64(32)).astype(np.uint32)
-    counts = np.bincount(own_u, minlength=n).astype(np.int64)
-    return lo_u, hi_u, own_u.astype(np.int32), counts
 
 
 _NO_KEY = torch.iinfo(torch.int64).max   # an invalid window's key: last
@@ -268,6 +215,42 @@ def _sorted_windows(proteins: list[str], k: int,
     del lo, hi, valid
     keys, order = torch.sort(keys, stable=True)
     return keys, owner[order]
+
+
+def _distinct_pairs(proteins: list[str], k: int,
+                    device: torch.device) -> tuple:
+    """The proteins' distinct (kmer, protein) pairs on ``device``:
+    :func:`_sorted_windows`' (keys, owners), and over them the masks
+    ``first`` (a kmer's first pair) and ``pair`` (a distinct (kmer,
+    owner) pair), both False on invalid windows, and each protein's
+    distinct-kmer count ((n,) int64).  ``keys[pair]`` and
+    ``owner[pair]`` are the pairs key-major, each kmer's owners
+    ascending."""
+    keys, owner = _sorted_windows(proteins, k, device)
+    real = keys != _NO_KEY
+    step = torch.ones(keys.numel(), dtype=torch.bool, device=device)
+    step[1:] = keys[1:] != keys[:-1]
+    first = real & step             # a kmer's first pair
+    step[1:] |= owner[1:] != owner[:-1]
+    pair = real & step              # a distinct (kmer, owner) pair
+    counts = torch.zeros(len(proteins), dtype=torch.int64,
+                         device=device).index_add_(0, owner,
+                                                   pair.to(torch.int64))
+    return keys, owner, first, pair, counts
+
+
+def _read_pairs(proteins: list[str], k: int, device: torch.device):
+    """:func:`_distinct_pairs` read back to the host in one read: (lo, hi,
+    owner) int32 arrays of the pairs, key-major, and the (n,) int64
+    distinct-kmer counts.  The device's arrays are freed on return."""
+    keys, owner, _, pair, counts = _distinct_pairs(proteins, k, device)
+    got = torch.cat((keys[pair], owner[pair].to(torch.int64),
+                     counts)).cpu().numpy()
+    n = (len(got) - len(proteins)) // 2
+    key = got[:n]
+    return ((key & 0xFFFFFFFF).astype(np.int32),
+            (key >> 32).astype(np.int32), got[n: 2 * n].astype(np.int32),
+            got[2 * n:])
 
 
 class GenomeProteinKmers:
@@ -330,15 +313,9 @@ class GenomeProteinKmers:
         are any."""
         dev = self.device
         n = len(self._proteins)
-        keys, owner = _sorted_windows(self._proteins, self.k, dev)
+        keys, owner, first, pair, counts = _distinct_pairs(self._proteins,
+                                                           self.k, dev)
         total = keys.numel()
-        real = keys != _NO_KEY
-        step = torch.ones(total, dtype=torch.bool, device=dev)
-        step[1:] = keys[1:] != keys[:-1]
-        first = real & step             # a kmer's first pair
-        step[1:] |= owner[1:] != owner[:-1]
-        pair = real & step              # a distinct (kmer, owner) pair
-        del real, step
         rank = torch.cumsum(first, 0) - 1       # each window's kmer rank
         at = torch.cumsum(pair, 0) - 1          # ... and pair index
         # a pair's column in the owner matrix: its index less its kmer's
@@ -347,8 +324,6 @@ class GenomeProteinKmers:
         start[torch.where(first, rank, total)] = at
         col = at - start[rank.clamp(min=0)]
         del start, at
-        counts = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
-            0, owner, pair.to(torch.int64))
         most = torch.where(pair, col, -1).max() + 1
         got = torch.cat((torch.stack((rank[-1] + 1, most)),
                          counts)).cpu().numpy()
@@ -360,8 +335,8 @@ class GenomeProteinKmers:
         # with the (bucketed) protein count; rows and the protein count
         # are bucketed as in the reference
         cap = min(most, OWNER_CAP)
-        self.n_pad = _bucket(n, 256)
-        u_pad = _bucket(u, 4096)
+        self.n_pad = pow2_bucket(n, 256)
+        u_pad = pow2_bucket(u, 4096)
         self.owner_mat = torch.full((u_pad, cap), self.n_pad,
                                     dtype=torch.int32, device=dev)
         # the other windows write slot 0, which the first window (rank
@@ -426,7 +401,7 @@ class GenomeProteinKmers:
             prototypes = PrototypeSet(prototypes, self.k)
         # bound the dense (chunk x proteins) pair matrix
         n_pad = getattr(self, "n_pad",
-                        _bucket(max(len(self._proteins), 1), 256))
+                        pow2_bucket(max(len(self._proteins), 1), 256))
         chunk = max(1, min(chunk, DENSE_CELLS // (n_pad + 1) - 1))
         max_len = max((len(p) for p in self._proteins), default=0)
         max_len = max(max_len,
@@ -466,7 +441,7 @@ class GenomeProteinKmers:
                  torch.full((self.n_pad,), -1, dtype=torch.int32, device=dev),
                  torch.zeros(1, dtype=torch.int32, device=dev))
         rows = max((len(c[5]) for c in chunks), default=0)
-        return (self._minc_table(_bucket(2 * max_len + 4, 1024)),
+        return (self._minc_table(pow2_bucket(2 * max_len + 4, 1024)),
                 _device_i32(np.pad(self.protein_kmer_counts,
                                    (0, self.n_pad - n)), dev),
                 state,
@@ -515,7 +490,7 @@ class GenomeProteinKmers:
             cache = self._minc_cache = {}
         got = cache.get(size)
         if got is None:
-            got = _device_i32(_min_ev_table(self.min_score, size),
+            got = _device_i32(min_ev_table(self.min_score, size),
                               self.device)
             cache[size] = got
         return got

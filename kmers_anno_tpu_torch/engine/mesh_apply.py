@@ -37,6 +37,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..device import pow2_bucket
 from ..genome.gto import Feature, Genome
 from ..ops.encode import DNA_PAD, PROT_PAD
 from ..ops.hashtable import build_table
@@ -45,7 +46,7 @@ from ..parallel.mesh import (MemberTables, make_mesh, replicated_apply_step,
                              replicated_probe_step, routed_apply_step,
                              shard_signature_table, sharded_apply_step,
                              sharded_probe_step, split_tokens_for_table_axis)
-from .apply_engine import FlatBatch, _bucket
+from .apply_engine import FlatBatch
 from .dna_apply import DnaContigBatch, cluster_calls
 from .signature import SignatureTable
 
@@ -181,9 +182,9 @@ class MeshApplyEngine(_MeshPlumbing):
         shapes its rows alike."""
         prots = [[f.protein_translation for f in pegs]
                  for _, pegs in chunk]
-        width = _bucket(max((sum(map(len, p)) for p in prots), default=1),
-                        16384)
-        n_seqs = _bucket(max((len(p) for p in prots), default=1), 256)
+        width = pow2_bucket(
+            max((sum(map(len, p)) for p in prots), default=1), 16384)
+        n_seqs = pow2_bucket(max((len(p) for p in prots), default=1), 256)
         n_local = len(self.rows_mine)
         codes = np.full((n_local, width), PROT_PAD, np.uint8)
         seg_ids = np.full((n_local, width), n_seqs, np.int32)
@@ -300,8 +301,8 @@ class DnaMeshApplyEngine(_MeshPlumbing):
     def encode_chunk(self, chunk: list[tuple[Genome, DnaContigBatch]]):
         """This process's rows of a chunk as (codes, valid) (rows, width)
         arrays, the width bucketed over the whole chunk."""
-        width = _bucket(max((len(b.codes) for _, b in chunk), default=1),
-                        1 << 16)
+        width = pow2_bucket(
+            max((len(b.codes) for _, b in chunk), default=1), 1 << 16)
         n_local = len(self.rows_mine)
         codes = np.full((n_local, width), DNA_PAD, np.uint8)
         valid = np.zeros((n_local, width), bool)

@@ -1,36 +1,31 @@
 """ORF-projection annotation engine (the ``kmers``/``batch`` path,
 KmerProcessor.annotateGenome — KmerProcessor.java:166-287), in PyTorch.
 
-Counterpart of ``kmers_anno_tpu/engine/projection.py``, with its three
-routes:
+Counterpart of ``kmers_anno_tpu/engine/projection.py``'s stream routes.
+The input picks the route:
 
-* **Fused stream route** (``engine="auto"`` or ``"device"``, the default):
-  both strands of every contig go into one DNA code stream on the device
-  and the contig scanner kernel (``ops.contig_scan``) packs a kmer at every
-  base (hot loop #1).  The stream is probed ONCE against the union of all
-  close genomes' singleton kmers (the ``probe_wide`` kernel) and the hits
-  are compacted (``_union_compact``); then per close genome, in order,
-  ``_scan_genome`` probes the compacted keys against that genome's table,
-  runs the Q6 window scan, the ORF extension, the exact weak/small filters
-  and the Q7 dedup on the device against incumbents carried from genome to
-  genome, and returns only the stored events, which the host replays
+* **Fused stream route** (the default): both strands of every contig go
+  into one DNA code stream on the device and the contig scanner kernel
+  (``ops.contig_scan``) packs a kmer at every base (hot loop #1).  The
+  stream is probed ONCE against the union of all close genomes' singleton
+  kmers (the ``probe_wide`` kernel) and the hits are compacted
+  (``_union_compact``); then per close genome, in order, ``_scan_genome``
+  probes the compacted keys against that genome's table, runs the Q6
+  window scan, the ORF extension, the exact weak/small filters and the Q7
+  dedup on the device against incumbents carried from genome to genome,
+  and returns only the stored events, which the host replays
   (``PegProposalList.replay_stored``).
 * **RLE stream route** (``_project_all_stream_rle``), the reference's
   fallback when a close-genome set exceeds the fused route's packed-key
   field widths or the wide-table capacity: the stream is probed against
   each close genome's table (wide-bucket, or 8-slot for a huge singleton
   set) and the hits go through the host window scan and ``propose_batch``.
-* **Host index route** (``engine="host"``): ``ContigKmerIndex`` extracts
-  each contig's kmers strand by strand through the same scanner
-  (``ops.contig_kmers``), groups them on the host into an 8-slot table
-  over a location CSR, and each close genome's singletons are probed into
-  it (``_match_host_index``) before the same host window scan.
 
 Peg singleton kmers (hot loop #2) are a host NumPy pack plus the C++
 group-by (a torch sort when the native library is absent), cached by
 close-genome id across the genomes of a batch.  Each close genome's
 singleton table is built on the device from its padded keys
-(``build_wide_table_device``, or ``build_table_device`` for a singleton
+(``ops.table_build.build_wide``, or ``build_bucketed`` for a singleton
 set past the wide table's capacity: ``csrc/table_build.cu``), with the
 host build only where the device build reports ``bad``.  The union of a
 close set's singleton keys is deduped and its table built on the device
@@ -38,7 +33,7 @@ from the raw keys (``ops.table_build.union_dedupe`` / ``union_build``),
 where the reference takes ``np.unique`` and a host build; the host's path
 only on ``bad``.  Features are emitted in
 numbering order (Q8).  Stats, features and ``--trace`` lines equal the
-reference's on every route.
+reference's on both routes.
 """
 
 from __future__ import annotations
@@ -52,23 +47,21 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import resolve_device
+from ..device import min_ev_table, pow2_bucket, resolve_device
 from ..genome.dna import DnaTranslator, GeneticCode
 from ..genome.gto import Feature, Genome
 from ..genome.locations import Location
 from ..ops.encode import (DNA_AMBIG, PROT_PAD, PROT_X, encode_dna,
                           encode_protein, reverse_complement_codes)
-from ..ops.contig_kmers import extract_contig_kmers
 from ..ops.contig_scan import scan_stream
 from ..ops.hashing import GOLDEN, MASK32
 from ..ops.hashtable import (MAX_DEVICE_PROBES, build_table,
-                             build_table_device, device_table_buckets,
-                             probe_table)
+                             device_table_buckets, probe_table)
 from ..ops.kmers import pack_kmer_windows, pack_kmers_np, window_any
-from ..ops.table_build import union_build, union_dedupe
+from ..ops.table_build import (BUCKETED, build_bucketed, build_wide,
+                               union_build, union_dedupe)
 from ..ops.translate import codon_lut
-from ..ops.widetable import (build_wide_table, build_wide_table_device,
-                             probe_wide, wide_rows_for)
+from ..ops.widetable import build_wide_table, probe_wide, wide_rows_for
 from ..utils import spans
 from .convert import wide_table_from_numpy
 from .proposals import PegProposalList
@@ -81,12 +74,6 @@ _STREAM_BLOCK = 1 << 13     # stream lengths are whole blocks of this size
 _CLOSESET_CACHE = 4         # ordered close sets kept on the device
 
 
-def _bucket(n: int, minimum: int) -> int:
-    """Round up to the next power of two (>= minimum)."""
-    n = max(n, minimum)
-    return 1 << (n - 1).bit_length()
-
-
 def _bucket_blocks(n: int) -> int:
     """Round a block count up to {2^m, 3·2^(m-1)}, so that the stream
     tensors of successive genomes repeat a few sizes and the caching
@@ -96,93 +83,6 @@ def _bucket_blocks(n: int) -> int:
     if p * 3 // 4 >= n:
         return p * 3 // 4
     return p
-
-
-def _host_u32(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host uint32 key words (< 2^31) → an int32 tensor on ``device``."""
-    return torch.from_numpy(np.asarray(x).astype(np.int32)).to(device)
-
-
-# ---------------------------------------------------------------------------
-# the host contig kmer index (engine="host")
-# ---------------------------------------------------------------------------
-
-@dataclass
-class ContigKmerIndex:
-    """Probed kmer → location-list index over a genome's contigs.
-
-    CSR layout: unique keys (in the 8-slot probe table, value = rank) own
-    the location range locs[starts[rank] : starts[rank] + counts[rank]].
-    """
-
-    k: int
-    table: torch.Tensor         # (B, 24) int32 probe table (key → rank)
-    max_probes: int
-    ukey_lo: np.ndarray         # (U,) uint32 — unique packed keys
-    ukey_hi: np.ndarray         # (U,) uint32
-    starts: np.ndarray          # (U,) int64
-    counts: np.ndarray          # (U,) int32
-    loc_contig: np.ndarray      # (N,) int32  — contig index
-    loc_strand: np.ndarray      # (N,) int8   — 0='+', 1='-'
-    loc_left: np.ndarray        # (N,) int32  — 1-based left edge
-    contig_ids: list            # contig index → id
-    n_unique: int
-
-    @classmethod
-    def build(cls, genome: Genome, k: int, strict: bool,
-              device: torch.device) -> "ContigKmerIndex":
-        parts = []
-        contig_ids = []
-        for ci, contig in enumerate(genome.contigs):
-            got = extract_contig_kmers(contig.sequence, k,
-                                       genome.genetic_code, device)
-            got["contig"] = np.full(len(got["lo"]), ci, np.int32)
-            parts.append(got)
-            contig_ids.append(contig.id)
-        n = sum(len(p["lo"]) for p in parts)
-        if n == 0:
-            raise ValueError("genome has no contig kmers")
-        lo = np.concatenate([p["lo"] for p in parts])
-        hi = np.concatenate([p["hi"] for p in parts])
-        left = np.concatenate([p["left"] for p in parts])
-        strand = np.concatenate([p["strand"] for p in parts])
-        contig = np.concatenate([p["contig"] for p in parts])
-
-        got = native.groupby(lo, hi)
-        if got is not None:
-            # host C++ group-by (kan_groupby): one stable sort
-            sidx, ustarts = got
-            starts_all = ustarts
-            ukey_lo = lo[sidx[ustarts]]
-            ukey_hi = hi[sidx[ustarts]]
-            ucounts = np.diff(np.append(ustarts, n)).astype(np.int32)
-        else:
-            # one stable sort of the packed key (hi << 32 | lo) on the
-            # device; the permutation is the payload (original row index)
-            key = torch.from_numpy((hi.astype(np.int64) << 32)
-                                   | lo.astype(np.int64)).to(device)
-            skey, perm = torch.sort(key, stable=True)
-            ukey, counts = torch.unique_consecutive(skey, return_counts=True)
-            sidx = perm.cpu().numpy()
-            ucounts = counts.cpu().numpy().astype(np.int32)
-            starts_all = np.cumsum(ucounts, dtype=np.int64) - ucounts
-            ukey = ukey.cpu().numpy()
-            ukey_lo = (ukey & MASK32).astype(np.uint32)
-            ukey_hi = (ukey >> 32).astype(np.uint32)
-        if strict:
-            keep = ucounts == 1                      # STRICT: unique only
-            ukey_lo, ukey_hi = ukey_lo[keep], ukey_hi[keep]
-            starts_all, ucounts = starts_all[keep], ucounts[keep]
-        table, max_probes = build_table(
-            ukey_lo, ukey_hi, np.arange(len(ukey_lo), dtype=np.uint32))
-        return cls(
-            k=k, table=wide_table_from_numpy(table, device),
-            max_probes=max_probes, ukey_lo=ukey_lo, ukey_hi=ukey_hi,
-            starts=starts_all.astype(np.int64),
-            counts=ucounts.astype(np.int32),
-            loc_contig=contig[sidx], loc_strand=strand[sidx],
-            loc_left=left[sidx], contig_ids=contig_ids,
-            n_unique=len(ukey_lo))
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +232,7 @@ class StreamWindowIndex:
             parts.append(codes)
             parts.append(np.full(_ORF_GAP, _ORF_SEP, np.uint8))
             pos += len(codes) + _ORF_GAP
-        want = _bucket(pos + 4, 4096)
+        want = pow2_bucket(pos + 4, 4096)
         want += (2 - want % 3) % 3          # ≡ 2 mod 3: phases slice even
         parts.append(np.full(want - pos, _ORF_SEP, np.uint8))
         stream = np.concatenate(parts)
@@ -460,24 +360,6 @@ _PEG_SHIFT = _CONTIG_BITS - 4               # peg sits above contig_hi
 _FRAME_SHIFT = _PEG_BITS + _PEG_SHIFT
 
 
-def _min_ev_table(min_strength: float, max_len: int) -> np.ndarray:
-    """minev[L] = smallest integer ev with NOT (ev / L < min_strength),
-    under float64 division — so the device's integer compare reproduces
-    propose_batch's `evidence / length < min_strength` bit-exactly."""
-    L = np.arange(max_len + 1, dtype=np.int64)
-    L[0] = 1
-    ev = np.ceil(min_strength * L).astype(np.int64)
-    ev = np.maximum(ev, 0)
-    ev = np.where((ev - 1) >= 0, np.where((ev - 1) / L >= min_strength,
-                                          ev - 1, ev), ev)
-    ev = np.where(ev / L < min_strength, ev + 1, ev)
-    bad = (ev / L < min_strength) | ((ev - 1) / L >= min_strength)
-    bad &= ev - 1 >= 0
-    if bad.any():  # pragma: no cover - construction is provably 1 step
-        raise AssertionError("min_ev_table failed to converge")
-    return ev.astype(np.int32)
-
-
 def _union_compact(table: torch.Tensor, salt: int, max_probes: int,
                    index: StreamWindowIndex) -> tuple:
     """Probe the stream against the union table and compact the hits in
@@ -530,7 +412,7 @@ def _scan_genome(table: torch.Tensor, salt: int, max_probes: int,
             rounding (so the fuzz thresholds match NumPy bit-for-bit)
     u:      _union_compact's output
     orf:    StreamWindowIndex.orf_state()
-    minev:  (Lmax+1,) int64 — _min_ev_table(min_strength)
+    minev:  (Lmax+1,) int64 — min_ev_table(min_strength)
     inc:    (2 * ospan,) int64 incumbent scores per ORF address, updated
             in place: the carry from genome to genome, in the role of the
             reference's lax.scan carry.  A score packs the lexicographic
@@ -730,7 +612,7 @@ def peg_singleton_kmers(genome: Genome, k: int, device: torch.device):
                 np.zeros(0, np.int32), pegs)
     proteins = [f.protein_translation for f in pegs]
     lengths = np.array([len(p) for p in proteins], np.int64)
-    width = _bucket(int(lengths.sum()), 4096)
+    width = pow2_bucket(int(lengths.sum()), 4096)
     got = native.flat_peg_batch(proteins, width, -1)
     if got is not None:  # C++ data loader (kan_host.cpp)
         codes, peg_of, pos_in_seq, len_bcast = got
@@ -827,21 +709,15 @@ class _CloseSet:
 
 
 class ProjectionAnnotator:
-    """Annotates genomes by projecting close-genome proteins onto ORFs.
-
-    engine: "auto" or "device" take the stream routes (fused, else RLE);
-    "host" takes the host contig index route.
-    """
+    """Annotates genomes by projecting close-genome proteins onto ORFs."""
 
     def __init__(self, min_strength: float = 0.50, max_fuzz: float = 1.5,
                  min_fuzz: float = 0.8, max_genomes: int = 10,
                  min_evidence: int = 10, k: int = 8,
                  algorithm: str = "AGGRESSIVE",
-                 trace_function: str | None = None, engine: str = "auto",
+                 trace_function: str | None = None,
                  table_cache_bytes: int = 4 << 30, *,
                  device: str | torch.device):
-        if engine not in ("auto", "device", "host"):
-            raise ValueError(f"unknown projection engine {engine!r}")
         if min_strength >= 1.0:
             raise ValueError("Minimum strength must be less than 1.")
         if max_fuzz <= 1.0:
@@ -857,7 +733,6 @@ class ProjectionAnnotator:
         self.k = k
         self.strict = algorithm.upper() == "STRICT"
         self.trace_function = trace_function
-        self.engine = engine
         self.device = resolve_device(device)
         self.table_cache_bytes = table_cache_bytes
         self._table_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -867,11 +742,11 @@ class ProjectionAnnotator:
 
     def _minev_for(self, index: StreamWindowIndex) -> torch.Tensor:
         """Device weak-filter threshold table covering this genome's
-        longest possible extended ORF (float64-exact — _min_ev_table)."""
-        size = _bucket(int(index.seg_len.max(initial=1)) + 2, 1 << 16)
+        longest possible extended ORF (float64-exact — min_ev_table)."""
+        size = pow2_bucket(int(index.seg_len.max(initial=1)) + 2, 1 << 16)
         got = self._minev_cache.get(size)
         if got is None:
-            got = torch.from_numpy(_min_ev_table(
+            got = torch.from_numpy(min_ev_table(
                 self.min_strength / 3, size).astype(np.int64)).to(
                     self.device)
             self._minev_cache[size] = got
@@ -889,17 +764,11 @@ class ProjectionAnnotator:
             real_strength = self.min_strength / 3          # Q3
             proposals = PegProposalList(genome, real_strength,
                                         self.min_evidence)
-            if self.engine != "host":
-                with spans.span("proj.stream_index") as sp:
-                    index = StreamWindowIndex.build(genome, k, self.strict,
-                                                    self.device)
-                    sp.set(windows=index.n_windows)
-                log.info("%d kmer windows found in genome.",
-                         index.n_windows)
-            else:
-                index = ContigKmerIndex.build(genome, k, self.strict,
-                                              self.device)
-                log.info("%d kmers found in genome.", index.n_unique)
+            with spans.span("proj.stream_index") as sp:
+                index = StreamWindowIndex.build(genome, k, self.strict,
+                                                self.device)
+                sp.set(windows=index.n_windows)
+            log.info("%d kmer windows found in genome.", index.n_windows)
             close = genome.close_genomes
             log.info("%d close genomes available from input.", len(close))
             i_genome = 1
@@ -916,11 +785,7 @@ class ProjectionAnnotator:
                     continue
                 i_genome += 1
                 loaded.append(old_genome)
-            if isinstance(index, StreamWindowIndex):
-                self._project_all_stream(loaded, index, proposals)
-            else:
-                for old_genome in loaded:
-                    self._project_from(old_genome, index, proposals)
+            self._project_all_stream(loaded, index, proposals)
             log.info("%d proposals made, %d merged, %d rejected, %d too "
                      "weak, %d too little evidence, %d kept.",
                      proposals.made, proposals.merged, proposals.rejected,
@@ -967,12 +832,12 @@ class ProjectionAnnotator:
         if n == 0:
             got = (None, 0, None, 0, peg_info)
         else:
-            n_pad = _bucket(n, 4096)
+            n_pad = pow2_bucket(n, 4096)
             d_args = self._padded_keys(lo, hi, peg_idx, n_pad)
             n_rows = wide_rows_for(n_pad)
             if n_rows is not None:
                 # wide-bucket layout: every stream lookup reads one row
-                table, bad = build_wide_table_device(*d_args, n_rows)
+                table, bad = build_wide(*d_args, n_rows)
                 if bool(bad):
                     htab, hsalt, hmp = host_fallback(
                         "wide", n, build_wide_table, lo, hi, peg_idx)
@@ -982,8 +847,8 @@ class ProjectionAnnotator:
                     got = (table, 1, 0, n, peg_info)
             else:
                 # huge singleton set: the 8-slot bucketed layout
-                table, bad = build_table_device(
-                    *d_args, device_table_buckets(n_pad))
+                table, bad = build_bucketed(
+                    *d_args, device_table_buckets(n_pad), BUCKETED)[:2]
                 if bool(bad):
                     htab, mp = host_fallback("8-slot", n, build_table, lo,
                                              hi, peg_idx)
@@ -1051,7 +916,7 @@ class ProjectionAnnotator:
             for _, s in live:
                 if len(s[3]) > (1 << _PEG_BITS):
                     return None
-                r = wide_rows_for(_bucket(len(s[0]), 4096))
+                r = wide_rows_for(pow2_bucket(len(s[0]), 4096))
                 if r is None:
                     return None                 # huge singleton set
                 rows_list.append(r)
@@ -1070,9 +935,9 @@ class ProjectionAnnotator:
             # reports bad
             with spans.span("proj.close_set.close_tables") as sub:
                 rows_common = max(rows_list)
-                built = [build_wide_table_device(
+                built = [build_wide(
                     *self._padded_keys(lo, hi, peg_idx,
-                                       _bucket(len(lo), 4096)),
+                                       pow2_bucket(len(lo), 4096)),
                     rows_common) for _, (lo, hi, peg_idx, _) in live]
                 # one read of every build's flag
                 bads = torch.stack([bad for _, bad in built]).tolist()
@@ -1239,44 +1104,6 @@ class ProjectionAnnotator:
             l_contig, l_strand, l_left = index.locate(pos)
             self._scan_and_propose(l_contig, l_strand, l_left, pair_peg,
                                    peg_info, index.contig_ids, proposals)
-
-    def _project_from(self, old_genome: Genome, index: ContigKmerIndex,
-                      proposals: PegProposalList) -> None:
-        lo, hi, peg_idx, pegs = peg_singleton_kmers(old_genome, self.k,
-                                                    self.device)
-        log.info("%d unique peg kmers in %s.", len(lo), old_genome.id)
-        if not len(lo):
-            return
-        got = self._match_host_index(index, lo, hi, peg_idx)
-        if got is None:
-            return
-        l_contig, l_strand, l_left, pair_peg = got
-        log.info("%d matching kmers found.", len(l_left))
-        self._scan_and_propose(l_contig, l_strand, l_left, pair_peg,
-                               pegs, index.contig_ids, proposals)
-
-    def _match_host_index(self, index: ContigKmerIndex, lo, hi, peg_idx):
-        """Probe singletons into the host contig index + CSR expansion."""
-        dev = index.table.device
-        ranks = probe_table(
-            index.table, _host_u32(lo, dev), _host_u32(hi, dev),
-            torch.ones(len(lo), dtype=torch.bool, device=dev),
-            index.max_probes).cpu().numpy()
-        hit = ranks >= 0
-        ranks = ranks[hit]
-        peg_hit = peg_idx[hit]
-        if not len(ranks):
-            return None
-        # CSR expansion: each (peg, rank) pair fans out to counts[rank] locs
-        counts = index.counts[ranks]
-        starts = index.starts[ranks]
-        total = int(counts.sum())
-        offs = np.arange(total) - np.repeat(np.cumsum(counts) - counts,
-                                            counts)
-        loc_idx = np.repeat(starts, counts) + offs
-        pair_peg = np.repeat(peg_hit, counts)
-        return (index.loc_contig[loc_idx], index.loc_strand[loc_idx],
-                index.loc_left[loc_idx], pair_peg)
 
     def _scan_and_propose(self, l_contig, l_strand, l_left, pair_peg,
                           pegs, contig_ids, proposals) -> None:

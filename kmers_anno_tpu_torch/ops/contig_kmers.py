@@ -7,7 +7,9 @@ Pallas kernel, ``strand_kmers_pallas`` (``ops/pallas_contig.py``): each
 strand's codes go through the contig scanner (``ops.contig_scan``: the
 CUDA kernel ``csrc/contig_scan.cu`` for a CUDA device, its plain version
 for the CPU), and the base-granularity result comes back to the host,
-where the Q1 mask and the KmerPosition left edges are applied.
+where the Q1 mask and the KmerPosition left edges are applied.  No route
+of the projection engine calls it: the engine scans every contig's both
+strands as one window stream (``engine.projection.StreamWindowIndex``).
 
 Semantics, as the reference's:
 

@@ -9,8 +9,9 @@ stops at the first bucket that is not full.
 
 ``table_size_for``, ``build_table``, ``MAX_DEVICE_PROBES`` and
 ``device_table_buckets`` are NumPy copies of the reference (the reference
-module imports jax) and give byte-equal tables; ``build_table_device`` is
-the reference's device build (``ops.table_build``).  ``probe_table`` is the
+module imports jax) and give byte-equal tables; the reference's
+``build_table_device`` is ``ops.table_build.build_bucketed`` at
+``BUCKETED``.  ``probe_table`` is the
 reference's XLA probe as plain torch, on whatever device the table lies:
 on the device it is tensor code, not a kernel of this package.  The hash
 runs in the int64 emulation of ``ops.hashing`` (uint32 bits held in
@@ -120,24 +121,6 @@ def device_table_buckets(n_keys: int) -> int:
     """Bucket count for device builds: load factor 0.125 (mean 1
     key/bucket) makes a walk >= MAX_DEVICE_PROBES astronomically rare."""
     return max(2, 1 << (max(n_keys, 2) - 1).bit_length())
-
-
-def build_table_device(key_lo, key_hi, values, n_buckets: int):
-    """Device build of the 8-slot table (``hashtable.py:129``): (table
-    ``(n_buckets, 24)`` int32, ``bad``).
-
-    key_lo/key_hi/values: (N,) int32 (the uint32 bits), EMPTY-padded
-    unique keys and their payloads.  The greedy sorted placement of
-    :func:`build_table` under the unsalted hash; ``bad`` (a 0-dim bool
-    tensor) is True when a real key would walk ``MAX_DEVICE_PROBES``
-    buckets or more, or wrap past the last one, and callers then take
-    the host build.  ``ops.table_build.build_bucketed`` launches
-    ``csrc/table_build.cu`` for CUDA tensors and takes the plain version
-    for CPU tensors.
-    """
-    from .table_build import BUCKETED, build_bucketed
-
-    return build_bucketed(key_lo, key_hi, values, n_buckets, BUCKETED)[:2]
 
 
 def probe_table(table: torch.Tensor, key_lo: torch.Tensor,

@@ -11,10 +11,10 @@ payload ever depends on the sign.
 
 ``build_wide_table`` and ``wide_rows_for`` are NumPy copies of the
 reference (the reference module imports jax) and give byte-equal tables
-and the same salt; ``build_wide_table_device`` is the reference's
-one-salt device build (``ops.table_build``).  ``probe_wide`` launches
-``csrc/probe_wide.cu`` for CUDA tensors and takes :func:`probe_wide_plain`
-for CPU tensors.
+and the same salt; the reference's one-salt device build
+``build_wide_table_device`` is ``ops.table_build.build_wide``.
+``probe_wide`` launches ``csrc/probe_wide.cu`` for CUDA tensors and takes
+:func:`probe_wide_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -133,24 +133,6 @@ def build_wide_table(key_lo, key_hi, values, n_rows: int | None = None,
                             flat[1].reshape(n_rows, SLOTS),
                             flat[2].reshape(n_rows, SLOTS)], axis=1)
     return table, salt, max_probes
-
-
-def build_wide_table_device(key_lo, key_hi, values, n_rows: int,
-                            salt: int = 0):
-    """Device build of the wide-bucket table at one salt
-    (``widetable.py:153``): (table ``(n_rows, 72)`` int32, ``bad``).
-
-    key_lo/key_hi/values: (N,) int32 (the uint32 bits), EMPTY-padded
-    unique keys and their payloads.  The greedy sorted placement of
-    :func:`build_wide_table`, tried at ``salt`` only; ``bad`` (a 0-dim
-    bool tensor) is True when a real key would walk or wrap, and callers
-    then take the salt-retrying host build.  ``ops.table_build.build_wide``
-    launches ``csrc/table_build.cu`` for CUDA tensors and takes the plain
-    version for CPU tensors.
-    """
-    from .table_build import build_wide
-
-    return build_wide(key_lo, key_hi, values, n_rows, salt)
 
 
 def check_table(what: str, width: int, table, max_probes) -> None:

@@ -307,14 +307,14 @@ ANNOTATOR_CASES = {
 LOGGER = "kmers_anno_tpu_torch.engine.projection"
 
 
-ROUTES = ("fused", "rle", "host")
+ROUTES = ("fused", "rle")
 
 
 def _annotate(make, params, route, dev, caplog):
     new_g, olds = make()
     annot = ProjectionAnnotator(
         k=8, device=dev, trace_function="Projected role number 3",
-        engine="host" if route == "host" else "auto", **params)
+        **params)
     if route == "rle":
         annot._close_set = lambda olds_: None
     with caplog.at_level(logging.INFO, logger=LOGGER):
@@ -334,7 +334,7 @@ def test_annotator_on_cuda_matches_cpu(cuda, case, route, caplog,
                                        monkeypatch):
     """Stats, features and log and --trace lines on the card equal the
     CPU's (which the CPU tests hold equal to the JAX reference), on each
-    of the three projection routes."""
+    of the two projection routes."""
     make, params = ANNOTATOR_CASES[case]
     fused_calls = []
     orig = projection._scan_genomes
@@ -343,10 +343,7 @@ def test_annotator_on_cuda_matches_cpu(cuda, case, route, caplog,
     before = (scan_stream.launches, probe_wide.launches)
     got = _annotate(make, params, route, cuda, caplog)
     assert scan_stream.launches > before[0]
-    if route == "host":
-        assert probe_wide.launches == before[1]
-    else:
-        assert probe_wide.launches > before[1]
+    assert probe_wide.launches > before[1]
     assert bool(fused_calls) == (route == "fused")
     want = _annotate(make, params, route, "cpu", caplog)
     assert got == want

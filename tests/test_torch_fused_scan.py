@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from kmers_anno_tpu.engine import projection as ref
+from kmers_anno_tpu_torch.device import min_ev_table
 from kmers_anno_tpu_torch.engine import projection as port
 from kmers_anno_tpu_torch.engine.convert import stream_index_from_jax
 from tests.test_fused_scan import _multi_contig_workload, _workload
@@ -37,7 +38,7 @@ CASES = {
 
 @pytest.mark.parametrize("strength", [0.5 / 3, 0.9 / 3, 0.1, 1 / 7, 0.33])
 def test_min_ev_table_matches_jax(strength):
-    got = port._min_ev_table(strength, 5000)
+    got = min_ev_table(strength, 5000)
     np.testing.assert_array_equal(got, ref._min_ev_table(strength, 5000))
     assert got.dtype == np.int32
 

@@ -22,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (carried_state, host_hash_index, index_differences,
-                        made_up_chunk, reorder_chunk, tile_cells)
+from chip_smoke import (carried_state, host_distinct_pairs, host_hash_index,
+                        index_differences, made_up_chunk, reorder_chunk,
+                        tile_cells)
 from kmers_anno_tpu.commands.app import main as ref_main
 from kmers_anno_tpu.engine import hashanno as ref_ha
 from kmers_anno_tpu.engine import protein_kmers as ref_pk
@@ -185,15 +186,56 @@ def test_hash_commons_plain_is_order_free(case, order):
         assert int(cells[0]) == int((want != 0).sum())
 
 
-@pytest.mark.parametrize("chunk", [4096, 7])
-def test_prototype_chunks_hold_the_reference_pairs(genome, chunk):
+@pytest.fixture
+def drop_last_both(request):
+    """Both packages' drop-last flag at ``request.param``; both restored
+    to off whatever happens."""
+    ref_pk.set_drop_last(request.param)
+    port_pk.set_drop_last(request.param)
+    try:
+        yield request.param
+    finally:
+        ref_pk.set_drop_last(False)
+        port_pk.set_drop_last(False)
+
+
+def _short_prototypes(genome):
+    """Oracle prototypes with prototypes shorter than K among them, and a
+    chunk of 5 whose every prototype is shorter."""
+    protos = _oracle_case(genome)[1][:7]
+    short = ["MKV", "ACDEFGH", "W", "", "KLMNPQR"]
+    return (protos[:5] + [(p, f"short anno {i}") for i, p in
+                          enumerate(short)] + [("ACDEFGHI", "just K")]
+            + protos[5:])
+
+
+# case: (chunk size, prototypes, the drop-last flag)
+PROTO_CASES = {
+    "4096": (4096, "oracle", False),
+    "7": (7, "oracle", False),
+    "4096-drop_last": (4096, "oracle", True),
+    "7-drop_last": (7, "oracle", True),
+    "short": (5, "short", False),
+    "short-drop_last": (5, "short", True),
+}
+
+
+@pytest.mark.parametrize("drop_last_both,case",
+                         [(v[2], c) for c, v in PROTO_CASES.items()],
+                         ids=list(PROTO_CASES), indirect=["drop_last_both"])
+def test_prototype_chunks_hold_the_reference_pairs(genome, drop_last_both,
+                                                   case):
     """PrototypeSet.chunks packs each chunk prototype by prototype, each
     prototype's kmers in key order, the prototypes ordered by their
     smallest kmer (then by row): the reference's distinct (kmer,
     prototype) pairs as a multiset, with the same n2, row count and
-    padding; the whole prototype list in one chunk, and split in chunks
-    of 7."""
-    _, prototypes = _oracle_case(genome)
+    padding, and byte for byte the host's key-major pairs
+    (``host_distinct_pairs``) in that order; the whole prototype list in
+    one chunk, and split in chunks of 7, with the drop-last fence off and
+    on; and prototypes shorter than K in chunks of 5."""
+    chunk, which, _ = PROTO_CASES[case]
+    prototypes = (_oracle_case(genome)[1] if which == "oracle"
+                  else _short_prototypes(genome))
     ref = ref_ha.PrototypeSet([ref_ha.Prototype(*p) for p in prototypes], K)
     port = port_ha.PrototypeSet([port_ha.Prototype(*p) for p in prototypes],
                                 K)
@@ -214,19 +256,30 @@ def test_prototype_chunks_hold_the_reference_pairs(genome, chunk):
                                _np(w[2])]).astype(np.int64)
         assert (sorted(map(tuple, pairs.T))
                 == sorted(map(tuple, want_pairs.T)))
+        h_lo, h_hi, h_own, h_n2 = host_distinct_pairs(
+            [x.protein for x in sub])
+        order = port_ha._similar_prototypes_adjacent(h_own, len(sub))
         v = valid.numpy()
+        for got_col, host_col in zip(cols, (h_lo, h_hi, h_own)):
+            np.testing.assert_array_equal(got_col[v], host_col[order])
+        np.testing.assert_array_equal(n2[: len(sub)], h_n2)
         p = proto.numpy()
         assert (p[~v] == n_proto).all() and not v[v.sum():].any()
         p = p[v]
         key = ((cols[1][v].astype(np.uint64) << np.uint64(32))
                | cols[0][v])
-        starts = np.flatnonzero(np.r_[True, p[1:] != p[:-1]])
-        assert len(starts) == len(set(p.tolist())) > (1 if chunk == 7
-                                                       else 10)
+        starts = np.flatnonzero(np.r_[True, p[1:] != p[:-1]][: len(p)])
+        assert len(starts) == len(set(p.tolist()))
+        if which == "oracle":
+            assert len(starts) > (1 if chunk == 7 else 10)
         same = p[1:] == p[:-1]
         assert (key[1:][same] > key[:-1][same]).all()
         first = list(zip(key[starts].tolist(), p[starts].tolist()))
         assert first == sorted(first)
+    if which == "short":
+        # the second chunk's prototypes are all shorter than K
+        assert not got[1][3].any() and not got[1][4].any()
+        assert got[0][3].any() and got[2][3].any()
 
 
 def test_hash_commons_rejects_too_many_cells():

@@ -1,11 +1,12 @@
-"""The port's host-index route and its 8-slot table against the JAX
-reference on the CPU.
+"""The port's per-strand contig kmers, its 8-slot table and its RLE
+route against the JAX reference on the CPU.
 
 The per-strand contig kmer extraction against both of the reference's
 routes (its XLA ``extract_contig_kmers`` and the Pallas scanner's
 ``extract_contig_kmers_fused`` in interpret mode), the 8-slot table's
-build (byte-equal) and probe, ``ContigKmerIndex`` with and without
-STRICT, and the whole annotator with ``engine="host"``.  Also the close
+build (byte-equal) and probe, and the whole annotator on the RLE route,
+both packages forced onto it as the reference's tests force it
+(``_close_set`` gives None), with and without STRICT.  Also the close
 genome whose singleton set is too large for one wide table: the RLE route
 then probes an 8-slot table, as in the reference.  Every comparison is
 exact.
@@ -188,7 +189,7 @@ def test_probe_table_rejects_bad_arguments():
 
 
 # ---------------------------------------------------------------------------
-# the contig index
+# the whole annotator on the RLE route
 # ---------------------------------------------------------------------------
 
 def _doubled_contig_genome():
@@ -201,49 +202,6 @@ def _doubled_contig_genome():
                        dict(other.raw["contigs"][0], id="other")]
     return Genome(raw), olds
 
-
-INDEX_FIELDS = ("ukey_lo", "ukey_hi", "starts", "counts", "loc_contig",
-                "loc_strand", "loc_left")
-
-
-@pytest.mark.parametrize("strict", [False, True])
-def test_contig_index_matches_jax(monkeypatch, strict):
-    """With the reference on its Pallas route (interpret mode), both
-    indexes see the kmers in one order: every array is equal."""
-    monkeypatch.setenv("KAN_PALLAS", "1")
-    genome, _ = _doubled_contig_genome()
-    want = ref.ContigKmerIndex.build(genome, 8, strict=strict)
-    got = port.ContigKmerIndex.build(genome, 8, strict, CPU)
-    for name in INDEX_FIELDS:
-        np.testing.assert_array_equal(getattr(got, name),
-                                      getattr(want, name), err_msg=name)
-    assert got.contig_ids == want.contig_ids
-    assert (got.n_unique, got.max_probes, got.k) == (
-        want.n_unique, want.max_probes, want.k)
-    np.testing.assert_array_equal(got.table.numpy().view(np.uint32),
-                                  np.asarray(want.table))
-    if strict:
-        assert (got.counts == 1).all()
-        assert got.n_unique < port.ContigKmerIndex.build(
-            genome, 8, False, CPU).n_unique
-
-
-@pytest.mark.parametrize("strict", [False, True])
-def test_contig_index_without_native_groupby(monkeypatch, strict):
-    """The torch stable-sort group-by gives the C++ group-by's index."""
-    genome, _ = _doubled_contig_genome()
-    want = port.ContigKmerIndex.build(genome, 8, strict, CPU)
-    monkeypatch.setattr(port.native, "groupby", lambda lo, hi: None)
-    got = port.ContigKmerIndex.build(genome, 8, strict, CPU)
-    for name in INDEX_FIELDS:
-        np.testing.assert_array_equal(getattr(got, name),
-                                      getattr(want, name), err_msg=name)
-    assert torch.equal(got.table, want.table)
-
-
-# ---------------------------------------------------------------------------
-# the whole annotator, engine="host"
-# ---------------------------------------------------------------------------
 
 def _with_missing_close_genome():
     new_g, olds = _workload()
@@ -284,40 +242,35 @@ def _run(make, annotator, logger, caplog):
     return stats, feats, lines
 
 
+def _rle(annotator):
+    """The annotator forced onto its RLE route."""
+    annotator._close_set = lambda olds_: None
+    return annotator
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_host_annotator_matches_jax(case, caplog):
+def test_rle_annotator_matches_jax(case, caplog):
+    """Both packages on their RLE route, each close genome's wide table
+    probed on its own: stats, features, log and --trace lines equal."""
     make, params = CASES[case]
-    want = _run(make, ref.ProjectionAnnotator(
-        k=8, engine="host", trace_function=TRACE, **params),
+    want = _run(make, _rle(ref.ProjectionAnnotator(
+        k=8, engine="device", trace_function=TRACE, **params)),
         REF_LOGGER, caplog)
+    pann = _rle(port.ProjectionAnnotator(
+        k=8, device=CPU, trace_function=TRACE, **params))
     before = scan_stream.launches
-    got = _run(make, port.ProjectionAnnotator(
-        k=8, engine="host", device=CPU, trace_function=TRACE, **params),
-        LOGGER, caplog)
+    got = _run(make, pann, LOGGER, caplog)
     assert scan_stream.launches == before              # CPU: no launch
     assert got == want
-    assert any("kmers found in genome" in line for line in got[2])
+    assert pann._table_cache and not pann._closeset_cache
+    # STRICT drops every kmer of the twinned contig, the close genomes'
+    # only source of hits
+    assert any(line.endswith("matching kmers found.")
+               and not line.startswith("0 ")
+               for line in got[2]) == (case != "strict_doubled_contig")
     if case in ("merges", "missing_close_genome"):
         assert got[0]["pegs"] > 0 and got[0]["merged"] > 0
         assert any("Proposal stored" in line for line in got[2])
-
-
-def test_host_route_matches_stream_route():
-    new_g, olds = _workload()
-    host = port.ProjectionAnnotator(k=8, engine="host", device=CPU)
-    want = host.annotate_genome(new_g, olds.get)
-    new_g2, _ = _workload()
-    got = port.ProjectionAnnotator(k=8, engine="device",
-                                   device=CPU).annotate_genome(
-        new_g2, olds.get)
-    assert got == want and want["pegs"] > 0
-    assert [f.location.left for f in new_g.features] == [
-        f.location.left for f in new_g2.features]
-
-
-def test_engine_must_be_known():
-    with pytest.raises(ValueError):
-        port.ProjectionAnnotator(engine="gpu", device=CPU)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The device table builds against the JAX reference, on the CPU.
 
-The port's plain versions of ``build_wide_table_device`` and
-``build_table_device`` (``ops/table_build.py``, the plain side of
+The port's plain versions of the reference's ``build_wide_table_device``
+and ``build_table_device`` (``ops/table_build.py``'s ``build_wide`` and
+``build_bucketed`` at ``BUCKETED``, the plain side of
 ``csrc/table_build.cu``) against the reference's (``ops/widetable.py:153``,
 ``ops/hashtable.py:129``, run under JAX on the CPU): table and ``bad`` bit
 for bit on EMPTY-padded random keys and on forced overflows, walks and
@@ -65,10 +66,11 @@ def _both(layout, lo, hi, val, n_rows, salt=0):
     mine = [torch.from_numpy(a.view(np.int32).copy()) for a in (lo, hi, val)]
     if layout == "wide":
         rt, rb = ref_widetable.build_wide_table_device(*args, n_rows, salt)
-        pt, pb = widetable.build_wide_table_device(*mine, n_rows, salt)
+        pt, pb = table_build.build_wide(*mine, n_rows, salt)
     else:
         rt, rb = ref_hashtable.build_table_device(*args, n_rows)
-        pt, pb = hashtable.build_table_device(*mine, n_rows)
+        pt, pb = table_build.build_bucketed(*mine, n_rows,
+                                            table_build.BUCKETED)[:2]
     assert pt.dtype == torch.int32 and pb.dtype == torch.bool
     return np.asarray(rt), bool(rb), pt.numpy().view(np.uint32), bool(pb)
 
@@ -572,14 +574,11 @@ def test_host_fallback_on_bad_gives_the_same_features(route, monkeypatch):
 
     def bad(build):
         def forced(*args):
-            table, _ = build(*args)
-            return table, torch.tensor(True)
+            return build(*args)[0], torch.tensor(True)
         return forced
 
-    monkeypatch.setattr(port, "build_wide_table_device",
-                        bad(port.build_wide_table_device))
-    monkeypatch.setattr(port, "build_table_device",
-                        bad(port.build_table_device))
+    monkeypatch.setattr(port, "build_wide", bad(port.build_wide))
+    monkeypatch.setattr(port, "build_bucketed", bad(port.build_bucketed))
     annot = port.ProjectionAnnotator(k=8, device="cpu")
     if route != "fused":
         annot._close_set = lambda olds_: None
