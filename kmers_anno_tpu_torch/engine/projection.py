@@ -48,7 +48,8 @@ import torch
 
 from .. import native
 from ..device import min_ev_table, pow2_bucket, resolve_device
-from ..genome.dna import DnaTranslator, GeneticCode
+from ..genome.dna import (DnaTranslator, GeneticCode, codon_mask,
+                          translate_pegs)
 from ..genome.gto import Feature, Genome
 from ..genome.locations import Location
 from ..ops.encode import (DNA_AMBIG, PROT_PAD, PROT_X, encode_dna,
@@ -237,16 +238,10 @@ class StreamWindowIndex:
         parts.append(np.full(want - pos, _ORF_SEP, np.uint8))
         stream = np.concatenate(parts)
         code = GeneticCode.get(self.gc)
-        order = {"t": 0, "c": 1, "a": 2, "g": 3}
-
-        def lut65(codons):
-            out = np.zeros(65, bool)
-            for c in codons:
-                out[order[c[0]] * 16 + order[c[1]] * 4 + order[c[2]]] = 1
-            return torch.from_numpy(out).to(dev)
-
-        scans = _build_orf_scans(torch.from_numpy(stream).to(dev),
-                                 lut65(code.starts), lut65(code.stops))
+        scans = _build_orf_scans(
+            torch.from_numpy(stream).to(dev),
+            torch.from_numpy(codon_mask(code.starts)).to(dev),
+            torch.from_numpy(codon_mask(code.stops)).to(dev))
         self._orf = (scans,
                      torch.tensor(offs, dtype=torch.int64, device=dev),
                      torch.tensor([len(c) for c in self.contig_codes],
@@ -708,8 +703,49 @@ class _CloseSet:
     max_delta: int               # max maxlen3 across genomes
 
 
+def peg_proteins(locs: list, genome: Genome,
+                 contig_codes: list) -> tuple[list, int]:
+    """The protein of each location, as ``peg_translate`` gives it for
+    ``genome.get_dna(loc)`` (KmerProcessor.java:304-305), and the number
+    of locations that took the per-peg path.
+
+    contig_codes: the stream index's codes of ``genome.contigs``.  One
+    batched pass (``translate_pegs``) over those codes translates every
+    location it can; the per-peg path takes a location on a contig the
+    genome lacks, one outside its contig, and one on a contig whose text
+    holds ``u`` or a non-ASCII character, which the codes cannot tell
+    apart from ``t`` or align with the text.
+    """
+    first: dict = {}
+    for i, c in enumerate(genome.contigs):
+        seq = c.sequence
+        first.setdefault(c.id, i if seq.isascii() and "u" not in seq
+                         and "U" not in seq else -1)
+    prots = translate_pegs(
+        contig_codes, genome.genetic_code,
+        np.array([first.get(loc.contig_id, -1) for loc in locs], np.int64),
+        np.array([loc.strand == "-" for loc in locs], bool),
+        np.array([loc.left for loc in locs], np.int64),
+        np.array([loc.right for loc in locs], np.int64))
+    fallbacks = 0
+    xlator = None
+    for i, prot in enumerate(prots):
+        if prot is None:
+            xlator = xlator or DnaTranslator(genome.genetic_code)
+            dna = genome.get_dna(locs[i])
+            prots[i] = xlator.peg_translate(dna, 1, len(dna) - 3)
+            fallbacks += 1
+    return prots, fallbacks
+
+
 class ProjectionAnnotator:
-    """Annotates genomes by projecting close-genome proteins onto ORFs."""
+    """Annotates genomes by projecting close-genome proteins onto ORFs.
+
+    ``batch_translated`` counts, process-wide, the pegs whose proteins
+    came from the batched pass of ``peg_proteins``.
+    """
+
+    batch_translated = 0
 
     def __init__(self, min_strength: float = 0.50, max_fuzz: float = 1.5,
                  min_fuzz: float = 0.8, max_genomes: int = 10,
@@ -791,13 +827,15 @@ class ProjectionAnnotator:
                      proposals.made, proposals.merged, proposals.rejected,
                      proposals.weak, proposals.small, proposals.count)
             # emit features in numbering order (Q8)
-            peg_count = 0
             with spans.span("proj.features") as sp:
-                xlator = DnaTranslator(genome.genetic_code)
-                for prop in proposals:
-                    peg_count += 1
-                    self._make_feature(prop, genome, peg_count, xlator)
-                sp.set(pegs=peg_count)
+                props = list(proposals)
+                prots, fallbacks = peg_proteins(
+                    [p.loc for p in props], genome, index.contig_codes)
+                ProjectionAnnotator.batch_translated += len(props) - fallbacks
+                for i, prop in enumerate(props):
+                    self._make_feature(prop, genome, i + 1, prots[i])
+                peg_count = len(props)
+                sp.set(pegs=peg_count, fallbacks=fallbacks)
             log.info("Processing complete. %d features in genome.",
                      peg_count)
             return {
@@ -1209,13 +1247,11 @@ class ProjectionAnnotator:
 
     @staticmethod
     def _make_feature(proposal, genome: Genome, peg_num: int,
-                      xlator: DnaTranslator) -> None:
+                      prot: str) -> None:
         fid = f"fig|{genome.id}.peg.{peg_num}"
         loc = proposal.loc
         feat = Feature.create(fid, proposal.function, loc.contig_id,
                               loc.strand, loc.left, loc.right)
-        dna = genome.get_dna(loc)
-        prot = xlator.peg_translate(dna, 1, len(dna) - 3)
         feat.protein_translation = prot
         feat.add_annotation(
             "Annotated with evidence %d and strength %2.4f"

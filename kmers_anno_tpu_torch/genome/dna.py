@@ -42,6 +42,15 @@ def _codon_index(codon: str) -> int:
             + BASE_INDEX[codon[2]])
 
 
+def codon_mask(codons) -> np.ndarray:
+    """65-entry bool mask of the given codons, indexed as ``aa_lut``
+    (b0*16+b1*4+b2; index 64, the ambiguous codon, never set)."""
+    mask = np.zeros(65, bool)
+    for codon in codons:
+        mask[_codon_index(codon)] = True
+    return mask
+
+
 def _table_with(base: str, **overrides: str) -> str:
     aas = list(base)
     for codon, aa in overrides.items():
@@ -171,3 +180,56 @@ class DnaTranslator:
             if first in self.code.starts:
                 prot = "M" + prot[1:]
         return prot
+
+
+def translate_pegs(contig_codes: list, gc: int, contig: np.ndarray,
+                   minus: np.ndarray, left: np.ndarray,
+                   right: np.ndarray) -> list:
+    """Proteins of many pegs in one pass over already encoded contigs.
+
+    contig_codes: per contig its uint8 codes (``ops.encode.encode_dna``:
+    t, c, a, g = 0..3, ambiguity 4).  One entry a peg in ``contig`` (an
+    index into contig_codes), ``minus`` (bool), ``left`` and ``right``
+    (1-based, inclusive).  Each protein is what
+    ``DnaTranslator(gc).peg_translate(dna, 1, len(dna) - 3)`` gives for
+    the peg's region ``dna`` read in its direction: ``(len - 3) // 3``
+    codons, the minus strand read from the complement (``code ^ 2``)
+    right to left, ``X`` for a codon with an ambiguous base, ``M`` for a
+    start codon in front.  A peg whose contig index is negative, or
+    whose bounds are not ``1 <= left <= right <= len(contig)``, gets
+    None.  Codes cannot tell ``u`` from ``t``, which ``peg_translate``
+    treats apart: a contig whose text holds ``u`` is the caller's to
+    leave out.
+    """
+    code = GeneticCode.get(gc)
+    contig = np.asarray(contig, np.int64)
+    minus = np.asarray(minus, bool)
+    left = np.asarray(left, np.int64)
+    right = np.asarray(right, np.int64)
+    lens = np.array([len(c) for c in contig_codes] or [0], np.int64)
+    known = (contig >= 0) & (contig < len(contig_codes))
+    ci = np.where(known, contig, 0)
+    ok = known & (left >= 1) & (left <= right) & (right <= lens[ci])
+    n_cod = np.where(ok, np.maximum((right - left - 2) // 3, 0), 0)
+    # each peg's bases in reading order: a view of its contig's codes
+    parts = [np.zeros(0, np.uint8)]
+    for c, m, lo, hi, n in zip(ci.tolist(), minus.tolist(), left.tolist(),
+                               right.tolist(), n_cod.tolist()):
+        if n:
+            codes = contig_codes[c]
+            parts.append(codes[hi - 3 * n: hi][::-1] if m
+                         else codes[lo - 1: lo - 1 + 3 * n])
+    bases = np.concatenate(parts).reshape(-1, 3)
+    flip = np.repeat(minus.astype(np.uint8) * 2, n_cod)  # complement: ^ 2
+    b0, b1, b2 = bases[:, 0], bases[:, 1], bases[:, 2]
+    ids = np.where((b0 | b1 | b2) < 4,
+                   ((b0 ^ flip) << 4) | ((b1 ^ flip) << 2) | (b2 ^ flip),
+                   64)
+    aas = code.aa_lut()[ids]
+    starts = np.cumsum(n_cod) - n_cod
+    heads = starts[n_cod > 0]
+    aas[heads[codon_mask(code.starts)[ids[heads]]]] = ord("M")
+    text = aas.tobytes().decode("ascii")
+    return [text[s: s + n] if good else None
+            for s, n, good in zip(starts.tolist(), n_cod.tolist(),
+                                  ok.tolist())]

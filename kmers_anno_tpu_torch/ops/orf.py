@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..genome.dna import GeneticCode
+from ..genome.dna import GeneticCode, codon_mask
 from .encode import encode_dna
 
 _BIG = np.int64(1) << 60
@@ -72,16 +72,8 @@ class ContigOrfScan:
         ok = (c0 < 4) & (c1 < 4) & (c2 < 4)
         plus_id = np.where(ok, c0 * 16 + c1 * 4 + c2, 64)
         minus_id = np.where(ok, (c2 ^ 2) * 16 + (c1 ^ 2) * 4 + (c0 ^ 2), 64)
-
-        def codon_ids(codons: set[str]) -> np.ndarray:
-            lut = np.zeros(65, bool)
-            order = {"t": 0, "c": 1, "a": 2, "g": 3}
-            for c in codons:
-                lut[order[c[0]] * 16 + order[c[1]] * 4 + order[c[2]]] = True
-            return lut
-
-        start_lut = codon_ids(code.starts)
-        stop_lut = codon_ids(code.stops)
+        start_lut = codon_mask(code.starts)
+        stop_lut = codon_mask(code.stops)
         self.plus_start = start_lut[plus_id]
         plus_stop = stop_lut[plus_id]
         self.minus_start = start_lut[minus_id]

@@ -288,7 +288,8 @@ def test_annotate_genome_records_the_fused_tree():
     assert a["proj.stream_index"]["windows"] > 0
     assert a["proj.union_probe"]["hits"] > 0
     assert a["proj.replay"]["stored"] > 0
-    assert a["proj.features"] == {"pegs": stats["pegs"]} and stats["pegs"]
+    assert (a["proj.features"] == {"pegs": stats["pegs"], "fallbacks": 0}
+            and stats["pegs"])
     # the same set again: found cached, its steps not run
     spans.clear()
     cell.annot.annotate_genome(cell.request(ids), cell.pool.get)
